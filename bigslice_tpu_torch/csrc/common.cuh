@@ -80,12 +80,17 @@ __device__ __forceinline__ uint32_t key_bits(const ColSet& c, int j,
 }
 
 // The combine_hashes chain of fmix32(bits(key) ^ seed32) over the key
-// columns in order (Frame.hash_keys).
+// columns in order (Frame.hash_keys). The loop is unrolled over the most
+// columns so that every column index is a constant: indexing the
+// descriptor with a variable would copy it into each thread's local
+// memory.
 __device__ __forceinline__ uint32_t hash_row(const ColSet& keys,
                                              long long i, uint32_t seed32) {
   uint32_t h = fmix32(key_bits(keys, 0, i) ^ seed32);
-  for (int j = 1; j < keys.n; ++j)
-    h = combine_hashes(h, fmix32(key_bits(keys, j, i) ^ seed32));
+#pragma unroll
+  for (int j = 1; j < BS_MAX_COLS; ++j)
+    if (j < keys.n)
+      h = combine_hashes(h, fmix32(key_bits(keys, j, i) ^ seed32));
   return h;
 }
 

@@ -8,7 +8,10 @@ interface and loaded with ``ctypes``:
   ``combine_hashes(fmix32(bits(key) ^ seed32)...) % nparts`` with the
   drop lane for invalid rows, plus the routable-row histogram.
 - ``hash_aggregate`` (csrc/hash_aggregate.cu): open-addressed
-  aggregation of rows into a destination-contiguous table.
+  aggregation of rows into a destination-contiguous table, in three
+  passes (bucket the rows by home slot range, aggregate each bucket in
+  shared memory, place the rows a bucket could not hold); the wrapper
+  plans the buckets (``aggregate_plan``) and allocates the scratch.
 - ``probe_add1`` (csrc/probe.cu): the build probe behind
   ``kernels_available()``.
 
@@ -17,7 +20,8 @@ then; for CUDA tensors it launches its kernel or raises. Each launch
 runs on ``torch.cuda.current_stream()``, the kernel allocates nothing
 (the wrapper allocates with torch), the C function returns
 ``cudaGetLastError()`` and the wrapper raises when it is not 0, and the
-wrapper adds one to ``LAUNCHES[name]`` per launch and nowhere else.
+wrapper adds one to ``LAUNCHES[name]`` per launch and nowhere else (one
+per ``hash_aggregate`` call, whose C function runs its three passes).
 
 The library is built at first use, keyed by a hash of the sources and
 flags, into ``bigslice_tpu_torch/_build/`` (one ``nvcc -c`` per source,
@@ -27,6 +31,7 @@ all started together, then one link).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,9 +39,13 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from bigslice_tpu_torch.frame.ops import _seed32
+from bigslice_tpu_torch.parallel.dense import identity_table
+from bigslice_tpu_torch.parallel.hashagg import SLOT_SEED_XOR
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
@@ -136,6 +145,8 @@ def build():
     Raises when ``nvcc`` is missing or fails, or the library does not
     load."""
     global _LIB, BUILD_SECONDS
+    if _LIB is not None:
+        return _LIB
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
@@ -155,8 +166,8 @@ def build():
         lib.bs_hash_partition.argtypes = [
             vp, vp, ci, vp, vp, vp, cll, ci, cu, vp]
         lib.bs_hash_aggregate.argtypes = [
-            vp, vp, ci, vp, vp, vp, ci, vp, vp, vp, vp, cll, ci, cll, cu,
-            vp]
+            vp, vp, ci, vp, vp, ci, vp, vp, cll, ci, cll, cu, ci, ci, vp,
+            vp, vp, vp, vp, vp, vp, ci, vp]
         for fn in (lib.bs_probe_add1, lib.bs_hash_partition,
                    lib.bs_hash_aggregate):
             fn.restype = ci
@@ -171,15 +182,33 @@ def _check(rc: int, name: str) -> None:
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream on ``device``."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+_PtrArray = ctypes.c_void_p * MAX_COLS
+_IntArray = ctypes.c_int * MAX_COLS
 
 
 def _ptrs(tensors: Sequence[torch.Tensor]):
-    return (ctypes.c_void_p * MAX_COLS)(*[t.data_ptr() for t in tensors])
+    return _PtrArray(*[t.data_ptr() for t in tensors])
 
 
-def _codes(codes: Sequence[int]):
-    return (ctypes.c_int * MAX_COLS)(*codes)
+@functools.lru_cache(maxsize=256)
+def _codes(codes: Tuple[int, ...]):
+    """A C int array of ``codes`` (cached: the kernels only read it)."""
+    return _IntArray(*codes)
+
+
+@functools.lru_cache(maxsize=256)
+def _key_codes(dtypes: Tuple[torch.dtype, ...]):
+    return _codes(tuple(_KEY_CODES[d] for d in dtypes))
+
+
+_seed32_cached = functools.lru_cache(maxsize=256)(_seed32)
 
 
 def probe() -> bool:
@@ -265,13 +294,12 @@ def hash_partition(keys: Sequence[torch.Tensor], nparts: int, seed: int = 0,
 def partition_args(keys, nparts, seed, valid, ids, counts) -> tuple:
     """``bs_hash_partition``'s arguments over checked tensors (also what
     a bare-kernel timing passes)."""
-    from bigslice_tpu_torch.frame.ops import _seed32
-
     return (
-        _ptrs(keys), _codes([_KEY_CODES[k.dtype] for k in keys]),
+        _ptrs(keys), _key_codes(tuple(k.dtype for k in keys)),
         len(keys), valid.data_ptr() if valid is not None else None,
         ids.data_ptr(), counts.data_ptr() if counts is not None else None,
-        keys[0].shape[0], nparts, _seed32(seed), _stream(keys[0].device),
+        keys[0].shape[0], nparts, _seed32_cached(seed),
+        _stream(keys[0].device),
     )
 
 
@@ -299,13 +327,80 @@ def hash_partition_plain(keys: Sequence[torch.Tensor], nparts: int,
 # -- K2: hash_aggregate ----------------------------------------------------
 
 
+#: Shared memory a pass-B block of ``hash_aggregate`` gives its bucket's
+#: sub-table: two such blocks fit one H100 SM's 227 KiB.
+AGG_SMEM_BUDGET = 96 * 1024
+
+
+class AggregatePlan(NamedTuple):
+    """How ``hash_aggregate`` cuts its table, and its scratch sizes."""
+
+    bucket_log2: int    # log2 of B, the consecutive slots of one bucket
+    nbuckets: int       # T / B
+    smem_bytes: int     # pass B's sub-table: B * (1 + nkeys + nvals) words
+    payload_words: int  # pass A's bucketed rows: (nkeys + nvals) * n
+    spill_words: int    # pass B's spill list: 2 * n
+    meta_words: int     # counts, starts, cursors and three counters
+
+
+def aggregate_plan(nkeys: int, nvals: int, nparts: int, R: int,
+                   n: int) -> AggregatePlan:
+    """The bucket size for ``nkeys`` key and ``nvals`` value lanes: the
+    largest power of two B <= R whose sub-table (a claim word, the key
+    lanes and the value lanes, 4 bytes each per slot) fits
+    ``AGG_SMEM_BUDGET``."""
+    lanes = 1 + nkeys + nvals
+    fit = AGG_SMEM_BUDGET // (4 * lanes)
+    B = min(R, 1 << (fit.bit_length() - 1))
+    nbuckets = nparts * R // B
+    return AggregatePlan(
+        bucket_log2=B.bit_length() - 1, nbuckets=nbuckets,
+        smem_bytes=4 * lanes * B, payload_words=(nkeys + nvals) * n,
+        spill_words=2 * n, meta_words=3 * nbuckets + 3)
+
+
+class AggregateBuffers(NamedTuple):
+    """``hash_aggregate``'s outputs and scratch, all ``torch.empty``:
+    the kernel writes every slot of the outputs and resets what it
+    counts in."""
+
+    present: torch.Tensor
+    out_keys: List[torch.Tensor]
+    tables: List[torch.Tensor]
+    pay: torch.Tensor
+    spill: torch.Tensor
+    claim: torch.Tensor
+    meta: torch.Tensor
+
+    @property
+    def overflow(self) -> torch.Tensor:
+        return self.meta[-1]
+
+
+def aggregate_buffers(plan: AggregatePlan, key_cols, val_cols, T: int,
+                      device) -> AggregateBuffers:
+    def empty(size, dtype):
+        return torch.empty(size, dtype=dtype, device=device)
+
+    return AggregateBuffers(
+        present=empty(T, torch.bool),
+        out_keys=[empty(T, k.dtype) for k in key_cols],
+        tables=[empty(T, v.dtype) for v in val_cols],
+        pay=empty(plan.payload_words, torch.int32),
+        spill=empty(plan.spill_words, torch.int32),
+        claim=empty(T, torch.int32),
+        meta=empty(plan.meta_words, torch.int32),
+    )
+
+
 def aggregate_supported(key_dtypes: Sequence, val_dtypes: Sequence,
                         nparts: int, R: int, n: int = 0) -> bool:
     """Can the ``hash_aggregate`` kernel build this table? Regions are
     powers of two; keys are integer or bool columns (float keys never
     reach a hash lowering, parallel/keyutil.py); values are int32,
     uint32 or float32; the table lives in device memory, so its size is
-    bounded only by int32 row ids and 64-bit slot arithmetic."""
+    bounded by int32 row ids and bucket counts and 64-bit slot
+    arithmetic."""
     if R < 1 or R & (R - 1):
         return False
     if not (1 <= len(key_dtypes) <= MAX_COLS
@@ -315,7 +410,10 @@ def aggregate_supported(key_dtypes: Sequence, val_dtypes: Sequence,
         return False
     if any(d not in _VAL_DTYPE_CODES for d in val_dtypes):
         return False
-    return n < 2**31 and nparts * R < 2**40
+    if not (n < 2**31 and nparts * R < 2**40):
+        return False
+    plan = aggregate_plan(len(key_dtypes), len(val_dtypes), nparts, R, n)
+    return plan.meta_words < 2**31
 
 
 def hash_aggregate(valid: torch.Tensor, key_cols: Sequence[torch.Tensor],
@@ -327,7 +425,7 @@ def hash_aggregate(valid: torch.Tensor, key_cols: Sequence[torch.Tensor],
     int32 0-d)``; keys of empty slots repeat the last row's key, and
     value tables hold the op's identity there.
 
-    The kernel's slot assignment (first claimer wins an atomic CAS)
+    The kernel's slot assignment (first claimer in a bucket wins)
     differs from the plain version's batched cascade: compare occupied
     rows, not slots. float32 ``add`` through atomics depends on the
     order of arrival.
@@ -351,47 +449,48 @@ def hash_aggregate(valid: torch.Tensor, key_cols: Sequence[torch.Tensor],
             f"hash_aggregate: unsupported table (keys "
             f"{[k.dtype for k in key_cols]}, values "
             f"{[v.dtype for v in val_cols]}, nparts {nparts}, R {R})")
-    from bigslice_tpu_torch.parallel.dense import identity_table
-    from bigslice_tpu_torch.parallel.segment import take
-
     T = nparts * R
-    owner = torch.full((T,), -1, dtype=torch.int32, device=device)
-    overflow = torch.zeros((), dtype=torch.int32, device=device)
-    tables = [identity_table(op, v.dtype, T, device)
-              for v, op in zip(val_cols, ops)]
-    if n:
-        lib = build()
-        rc = lib.bs_hash_aggregate(*aggregate_args(
-            valid, key_cols, val_cols, ops, part, nparts, R, seed, owner,
-            tables, overflow))
-        _check(rc, "hash_aggregate")
-        _count("hash_aggregate")
-    present = owner >= 0
-    src = torch.where(present, owner, max(n - 1, 0)).to(torch.int64)
-    out_keys = ([take(k, src) for k in key_cols] if n else
-                [torch.zeros(T, dtype=k.dtype, device=device)
-                 for k in key_cols])
-    return present, out_keys, tables, overflow
+    if n == 0:
+        return _empty_table(key_cols, val_cols, ops, T, device)
+    plan = aggregate_plan(len(key_cols), len(val_cols), nparts, R, n)
+    buf = aggregate_buffers(plan, key_cols, val_cols, T, device)
+    rc = build().bs_hash_aggregate(*aggregate_args(
+        valid, key_cols, val_cols, ops, part, nparts, R, seed, plan, buf))
+    _check(rc, "hash_aggregate")
+    _count("hash_aggregate")
+    return buf.present, buf.out_keys, buf.tables, buf.overflow
 
 
 def aggregate_args(valid, key_cols, val_cols, ops, part, nparts, R, seed,
-                   owner, tables, overflow) -> tuple:
-    """``bs_hash_aggregate``'s arguments over checked tensors, with the
-    owner array (all -1), the value tables (the ops' identities) and
-    the overflow counter (0) allocated by the caller (also what a
-    bare-kernel timing passes)."""
-    from bigslice_tpu_torch.frame.ops import _seed32
-    from bigslice_tpu_torch.parallel.hashagg import SLOT_SEED_XOR
-
-    kinds = [_VAL_DTYPE_CODES[v.dtype] * 3 + _OP_CODES[op]
-             for v, op in zip(val_cols, ops)]
+                   plan: AggregatePlan, buf: AggregateBuffers,
+                   passes: int = 7) -> tuple:
+    """``bs_hash_aggregate``'s arguments over checked tensors and the
+    buffers of ``aggregate_buffers`` (also what a bare-kernel timing
+    passes). ``passes`` picks the kernel's passes (bit 0: bucket, bit 1:
+    aggregate, bit 2: spill); the wrapper runs all three."""
+    kinds = tuple(_VAL_DTYPE_CODES[v.dtype] * 3 + _OP_CODES[op]
+                  for v, op in zip(val_cols, ops))
     return (
-        _ptrs(key_cols), _codes([_KEY_CODES[k.dtype] for k in key_cols]),
-        len(key_cols), _ptrs(val_cols), _ptrs(tables), _codes(kinds),
-        len(val_cols), valid.data_ptr(), part.data_ptr(), owner.data_ptr(),
-        overflow.data_ptr(), key_cols[0].shape[0], nparts, R,
-        _seed32(seed ^ SLOT_SEED_XOR), _stream(valid.device),
+        _ptrs(key_cols), _key_codes(tuple(k.dtype for k in key_cols)),
+        len(key_cols), _ptrs(val_cols), _codes(kinds), len(val_cols),
+        valid.data_ptr(), part.data_ptr(), key_cols[0].shape[0], nparts, R,
+        _seed32_cached(seed ^ SLOT_SEED_XOR), plan.bucket_log2,
+        plan.nbuckets, buf.pay.data_ptr(), buf.spill.data_ptr(),
+        buf.claim.data_ptr(), buf.meta.data_ptr(), buf.present.data_ptr(),
+        _ptrs(buf.out_keys), _ptrs(buf.tables), passes,
+        _stream(valid.device),
     )
+
+
+def _empty_table(key_cols, val_cols, ops, T: int, device):
+    """The table of no rows: nothing present, zero keys, identities."""
+    present = torch.zeros(T, dtype=torch.bool, device=device)
+    out_keys = [torch.zeros(T, dtype=k.dtype, device=device)
+                for k in key_cols]
+    out_vals = [identity_table(op, v.dtype, T, device)
+                for v, op in zip(val_cols, ops)]
+    return present, out_keys, out_vals, torch.zeros(
+        (), dtype=torch.int32, device=device)
 
 
 def hash_aggregate_plain(valid, key_cols, val_cols, ops, part,
@@ -399,10 +498,7 @@ def hash_aggregate_plain(valid, key_cols, val_cols, ops, part,
     """The plain version of ``hash_aggregate``: ``hashagg.claim_cascade``
     plus the identity-initialized scatter-accumulate — the JAX
     package's XLA lowering, slot for slot."""
-    from bigslice_tpu_torch.parallel.dense import (
-        _scatter_tables,
-        identity_table,
-    )
+    from bigslice_tpu_torch.parallel.dense import _scatter_tables
     from bigslice_tpu_torch.parallel.hashagg import claim_cascade
     from bigslice_tpu_torch.parallel.segment import take
 
@@ -412,13 +508,7 @@ def hash_aggregate_plain(valid, key_cols, val_cols, ops, part,
     device = key_cols[0].device
     T = nparts * R
     if n == 0:
-        present = torch.zeros(T, dtype=torch.bool, device=device)
-        out_keys = [torch.zeros(T, dtype=k.dtype, device=device)
-                    for k in key_cols]
-        out_vals = [identity_table(op, v.dtype, T, device)
-                    for v, op in zip(val_cols, ops)]
-        return present, out_keys, out_vals, torch.zeros(
-            (), dtype=torch.int32, device=device)
+        return _empty_table(key_cols, val_cols, ops, T, device)
     winner, placed, ov = claim_cascade(valid, key_cols, part, nparts, R,
                                        seed)
     idx = torch.where(placed >= 0, placed, T)

@@ -6,15 +6,19 @@ Phase 0 prints the card (name and power limit, as nvidia-smi reports
 them) and the torch and CUDA versions. Phase 1 builds the CUDA kernels
 from bigslice_tpu_torch/csrc/ and runs the probe kernel. Phase 2 holds
 each kernel against its plain PyTorch version on the card at the main
-path's shapes and times both (median of CUDA-event-timed runs after a
+path's shapes (for K2 also a bucket that spills and a table at load
+factor 1/4) and times both (median of CUDA-event-timed runs after a
 warm-up; the bare kernel between CUDA events, its buffers reset
-outside them) beside the kernel's bound. Phase 3 runs the keyed Reduce
-at the shape of the JAX package's ``reduce-wave`` scenario (2**25 rows,
-keys uniform over 2**20, S = 4 shards: 4 waves on one card) and a
-max/min Reduce at 2**24 rows, checks both against numpy, and checks
-that the kernels' launch counters rose during the runs. The counted
-run of the main path is the process's first: its executor runs the
-probe kernel, which is cached per process after that.
+outside them, with the GPU idle at the start event, and again queued
+behind a busy-wait, which leaves out the host's launch latency) beside
+the kernel's bound; K1 also with the L2 flushed, K2 also pass by pass.
+Phase 3 runs the keyed Reduce at the shape of the JAX package's
+``reduce-wave`` scenario (2**25 rows, keys uniform over 2**20, S = 4
+shards: 4 waves on one card) and a max/min Reduce at 2**24 rows, each
+five times warm (the median wall is reported), checks them against
+numpy, and checks that the kernels' launch counters rose during the
+runs. The counted run of the main path is the process's first: its
+executor runs the probe kernel, which is cached per process after that.
 
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
@@ -26,6 +30,7 @@ JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -38,6 +43,8 @@ import torch
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), for byte bounds.
 HBM_BYTES_PER_S = 3.35e12
+#: Warm runs of each phase-3 Reduce; the wall reported is their median.
+WARM_RUNS = 5
 
 REPLACES = {
     "hash_partition": "bigslice_tpu/parallel/pallas_kernels.py:176",
@@ -67,13 +74,24 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return time_bare_ms(lambda: None, fn, reps, warmup)
 
 
-def time_bare_ms(setup, launch, reps: int = 10, warmup: int = 2) -> float:
+#: GPU cycles of the busy-wait queued before a start event (about 50 us),
+#: so that the host has enqueued the launch before the GPU reaches it.
+QUEUE_CYCLES = 100_000
+
+
+def time_bare_ms(setup, launch, reps: int = 10, warmup: int = 2,
+                 queued: bool = False) -> float:
     """Median milliseconds of the bare kernel ``launch()`` between CUDA
     events, with ``setup()`` (resetting its buffers) run before the
-    start event."""
+    start event. By default the GPU is idle at the start event, so the
+    time includes the host's launch latency (the headline ``ms`` of
+    each kernel); ``queued`` puts a busy-wait before it, which leaves
+    the device's time alone."""
     times = []
     for i in range(warmup + reps):
         setup()
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -93,8 +111,13 @@ def _launcher(fn, args, name):
     return launch
 
 
-def bare_partition_ms(keys, nparts, seed, valid, with_counts) -> float:
-    """K1 alone: ``bs_hash_partition`` into buffers allocated once."""
+def bare_partition_ms(keys, nparts, seed, valid, with_counts,
+                      flush=None):
+    """K1 alone: ``bs_hash_partition`` into buffers allocated once, timed
+    with the GPU idle and queued (``time_bare_ms``): ``(ms, queued_ms)``.
+    With ``flush`` (a buffer larger than the 50 MB L2), setup writes it
+    before each start event, so the kernel finds its input in device
+    memory."""
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
 
     n, device = keys[0].shape[0], keys[0].device
@@ -102,43 +125,52 @@ def bare_partition_ms(keys, nparts, seed, valid, with_counts) -> float:
     counts = (torch.zeros(nparts, dtype=torch.int32, device=device)
               if with_counts else None)
     args = ck.partition_args(keys, nparts, seed, valid, ids, counts)
-    return time_bare_ms(
-        (lambda: counts.zero_()) if with_counts else (lambda: None),
-        _launcher(ck.build().bs_hash_partition, args, "hash_partition"))
+
+    def setup():
+        if with_counts:
+            counts.zero_()
+        if flush is not None:
+            flush.zero_()
+
+    launch = _launcher(ck.build().bs_hash_partition, args, "hash_partition")
+    return (time_bare_ms(setup, launch),
+            time_bare_ms(setup, launch, queued=True))
 
 
 def bare_aggregate_ms(valid, keys, vals, ops, part, nparts, R,
-                      want_keys: int) -> float:
-    """K2 alone: ``bs_hash_aggregate`` into an owner array, value tables
-    and overflow counter allocated once and reset before each start
-    event; the wrapper's fills, ``present`` and key gather are not in
-    the time. Checks that each timed launch placed ``want_keys`` keys
-    with no overflow."""
+                      want_keys: int, by_pass: bool = False):
+    """K2 alone: ``bs_hash_aggregate`` (all three passes) into outputs and
+    scratch allocated once; the wrapper's allocation is not in the time.
+    Checks that the timed launches placed ``want_keys`` keys with no
+    overflow. With ``by_pass`` also returns the queued time of all three
+    and of each pass, the earlier passes run before its start event:
+    ``(ms, {"queued": .., "A": .., "B": .., "C": ..})``."""
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
-    from bigslice_tpu_torch.parallel.dense import identity_table
 
-    T, device = nparts * R, valid.device
-    owner = torch.empty(T, dtype=torch.int32, device=device)
-    overflow = torch.empty((), dtype=torch.int32, device=device)
-    idents = [identity_table(op, v.dtype, T, device)
-              for v, op in zip(vals, ops)]
-    tables = [torch.empty_like(t) for t in idents]
+    n, T, device = valid.shape[0], nparts * R, valid.device
+    plan = ck.aggregate_plan(len(keys), len(vals), nparts, R, n)
+    buf = ck.aggregate_buffers(plan, keys, vals, T, device)
+    lib = ck.build()
 
-    def setup():
-        owner.fill_(-1)
-        overflow.zero_()
-        for t, i in zip(tables, idents):
-            t.copy_(i)
+    def run(passes):
+        args = ck.aggregate_args(valid, keys, vals, ops, part, nparts, R,
+                                 0, plan, buf, passes)
+        return _launcher(lib.bs_hash_aggregate, args, "hash_aggregate")
 
-    args = ck.aggregate_args(valid, keys, vals, ops, part, nparts, R, 0,
-                             owner, tables, overflow)
-    ms = time_bare_ms(setup, _launcher(ck.build().bs_hash_aggregate, args,
-                                       "hash_aggregate"))
-    placed = int((owner >= 0).sum())
-    if int(overflow) != 0 or placed != want_keys:
+    ms = time_bare_ms(lambda: None, run(7))
+    queued = time_bare_ms(lambda: None, run(7), queued=True)
+    placed = int(buf.present.sum())
+    if int(buf.overflow) != 0 or placed != want_keys:
         raise AssertionError(f"bare hash_aggregate placed {placed} keys "
-                             f"(want {want_keys}), overflow {int(overflow)}")
-    return ms
+                             f"(want {want_keys}), overflow "
+                             f"{int(buf.overflow)}")
+    if not by_pass:
+        return ms
+    passes = {"queued": queued,
+              "A": time_bare_ms(lambda: None, run(1), queued=True),
+              "B": time_bare_ms(run(1), run(2), queued=True),
+              "C": time_bare_ms(run(3), run(4), queued=True)}
+    return ms, passes
 
 
 def nbytes(*tensors) -> int:
@@ -211,16 +243,25 @@ def phase2_kernels(device) -> dict:
     if not torch.equal(ids, pids):
         raise AssertionError("hash_partition != plain at the path shape")
     err = int((ids.to(torch.int64) - pids).abs().max())
-    ms = bare_partition_ms([key], 4, 0, valid, with_counts=False)
+    ms, queued = bare_partition_ms([key], 4, 0, valid, with_counts=False)
+    # The map wave's 42 MB of K1 input fits the 50 MB L2: the time with
+    # the L2 flushed first is the one to hold against the HBM bound.
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    flushed, flushed_queued = bare_partition_ms(
+        [key], 4, 0, valid, with_counts=False, flush=flush)
+    del flush
     wrapper = time_ms(route)
     plain = time_ms(route_plain, reps=5)
     bound = nbytes(key, valid, ids) / HBM_BYTES_PER_S * 1e3
     log(f"phase 2: hash_partition n={n} keys=1 nparts=4 masked, no "
-        f"counts (map wave): kernel {ms:.4f} ms, wrapper {wrapper:.4f} ms "
-        f"(plain {plain:.4f} ms, bound {bound:.4f} ms), bit-equal")
+        f"counts (map wave): kernel {ms:.4f} ms (queued {queued:.4f}), L2 "
+        f"flushed {flushed:.4f} ms (queued {flushed_queued:.4f}), wrapper "
+        f"{wrapper:.4f} ms (plain {plain:.4f} ms, bound {bound:.4f} ms), "
+        f"bit-equal")
     results["hash_partition"] = dict(
-        max_abs_err=err, ms=ms, wrapper_ms=wrapper, plain_ms=plain,
-        bound_ms=bound, bound_by="bytes", library_ms=None,
+        max_abs_err=err, ms=ms, queued_ms=queued, flushed_ms=flushed,
+        flushed_queued_ms=flushed_queued, wrapper_ms=wrapper,
+        plain_ms=plain, bound_ms=bound, bound_by="bytes", library_ms=None,
         shape="n=2**23, 1 int32 key, valid mask, nparts=4, no counts",
     )
 
@@ -234,14 +275,15 @@ def phase2_kernels(device) -> dict:
     if not (torch.equal(ids, pids) and torch.equal(counts, pcounts)):
         raise AssertionError("hash_partition != plain at n=2**25")
     err = max(err, int((ids.to(torch.int64) - pids).abs().max()))
-    ms25 = bare_partition_ms([key], 4, 0, None, with_counts=True)
+    ms25, queued25 = bare_partition_ms([key], 4, 0, None, with_counts=True)
     plain25 = time_ms(lambda: ck.hash_partition_plain([key], 4, 0), reps=5)
     bound25 = nbytes(key, ids, counts) / HBM_BYTES_PER_S * 1e3
     log(f"phase 2: hash_partition n={n} keys=1 nparts=4 counts: kernel "
-        f"{ms25:.4f} ms (plain {plain25:.4f} ms, bound {bound25:.4f} ms), "
-        f"bit-equal")
+        f"{ms25:.4f} ms (queued {queued25:.4f}; plain {plain25:.4f} ms, "
+        f"bound {bound25:.4f} ms), bit-equal")
     results["hash_partition"].update(
-        ms_n25_counts=ms25, plain_ms_n25_counts=plain25,
+        ms_n25_counts=ms25, queued_ms_n25_counts=queued25,
+        plain_ms_n25_counts=plain25,
         bound_ms_n25_counts=bound25)
 
     # Mixed int32/uint32/float32 keys with +-0.0 and NaN, a mask, 1000
@@ -264,9 +306,9 @@ def phase2_kernels(device) -> dict:
         raise AssertionError("hash_partition != plain on mixed keys")
     results["hash_partition"]["max_abs_err"] = max(
         err, int((ids.to(torch.int64) - pids).abs().max()))
-    ms2 = bare_partition_ms(keys, 1000, 7, valid, with_counts=True)
+    ms2, queued2 = bare_partition_ms(keys, 1000, 7, valid, with_counts=True)
     log(f"phase 2: hash_partition n={n} keys=3 nparts=1000 masked: kernel "
-        f"{ms2:.4f} ms, bit-equal")
+        f"{ms2:.4f} ms (queued {queued2:.4f}), bit-equal")
 
     # -- K2 at the map side's shape (n = 2**23, 4 parts, R = 2**21, keys
     # uniform over 2**20, int32 add).
@@ -289,8 +331,8 @@ def phase2_kernels(device) -> dict:
     got, want = agg(), agg_plain()
     err2 = _check_tables(got, want, nparts, R, "map-side shape")
     nkeys = int(got[0].sum())
-    ms = bare_aggregate_ms(valid, [key], [one], ["add"], part, nparts, R,
-                           nkeys)
+    ms, passes = bare_aggregate_ms(valid, [key], [one], ["add"], part,
+                                   nparts, R, nkeys, by_pass=True)
     wrapper = time_ms(agg)
     plain = time_ms(agg_plain, reps=3, warmup=1)
     bound = nbytes(valid, key, one, part, got[0], *got[1], *got[2]) \
@@ -300,7 +342,7 @@ def phase2_kernels(device) -> dict:
         f"ms, bound {bound:.4f} ms), {nkeys} keys, rows equal")
     results["hash_aggregate"] = dict(
         ms=ms, wrapper_ms=wrapper, plain_ms=plain, bound_ms=bound,
-        bound_by="bytes", library_ms=None,
+        bound_by="bytes", library_ms=None, pass_ms=passes,
         shape="n=2**23, nparts=4, R=2**21, keys over 2**20, int32 add",
     )
 
@@ -314,8 +356,8 @@ def phase2_kernels(device) -> dict:
                                    1, R)
     err2 = max(err2, _check_tables(got, want, 1, R, "reduce-side shape"))
     rkeys = int(got[0].sum())
-    rms = bare_aggregate_ms(rvalid, [rkey], [rval], ["add"], rpart, 1, R,
-                            rkeys)
+    rms, rpasses = bare_aggregate_ms(rvalid, [rkey], [rval], ["add"], rpart,
+                                     1, R, rkeys, by_pass=True)
     rbound = nbytes(rvalid, rkey, rval, rpart, got[0], *got[1], *got[2]) \
         / HBM_BYTES_PER_S * 1e3
     log(f"phase 2: hash_aggregate n={R} ({rn} valid) nparts=1 R={R} "
@@ -323,6 +365,7 @@ def phase2_kernels(device) -> dict:
         f"{rkeys} keys, rows equal")
     results["hash_aggregate"].update(
         reduce_side_ms=rms, reduce_side_bound_ms=rbound,
+        reduce_side_pass_ms=rpasses,
         reduce_side_shape=f"n={R} ({rn} valid), nparts=1, R={R}, "
                           f"{rkeys} keys, int32 add")
 
@@ -346,10 +389,77 @@ def phase2_kernels(device) -> dict:
                             int(got[0].sum()))
     log(f"phase 2: hash_aggregate n={n} keys=2 vals=add/max/min: kernel "
         f"{ms2:.4f} ms, rows equal")
-    results["hash_aggregate"]["max_abs_err"] = err2
+
+    # More distinct keys than one bucket holds, all homed in one bucket of
+    # region 1 (the region under a fifth full): the spill pass places the
+    # rows the bucket cannot.
+    nparts, R = 4, 1 << 16
+    skey = _spill_keys(nparts, R)
+    rng = np.random.RandomState(7)
+    skeys = torch.from_numpy(rng.permutation(np.repeat(skey, 3))).to(device)
+    sval = torch.from_numpy(
+        rng.randint(-100, 100, skeys.shape[0]).astype(np.int32)).to(device)
+    svalid = torch.ones(skeys.shape[0], dtype=torch.bool, device=device)
+    spart, _ = ck.hash_partition([skeys], nparts, 0, with_counts=False)
+    got = ck.hash_aggregate(svalid, [skeys], [sval], ["add"], spart, nparts,
+                            R)
+    want = ck.hash_aggregate_plain(svalid, [skeys], [sval], ["add"], spart,
+                                   nparts, R)
+    err2 = max(err2, _check_tables(got, want, nparts, R, "spill"))
+    sms, spasses = bare_aggregate_ms(svalid, [skeys], [sval], ["add"],
+                                     spart, nparts, R, len(skey),
+                                     by_pass=True)
+    log(f"phase 2: hash_aggregate spill case, {len(skey)} keys in one "
+        f"bucket's home range, nparts={nparts} R={R}: kernel {sms:.4f} ms, "
+        f"rows equal")
+
+    # Load factor 1/4: 2**19 distinct keys in one 2**21-slot region.
+    rng = np.random.RandomState(8)
+    qkey = torch.from_numpy(rng.permutation(np.repeat(
+        rng.choice(1 << 30, 1 << 19, replace=False).astype(np.int32),
+        2))).to(device)
+    qval = torch.from_numpy(
+        rng.randint(0, 50, qkey.shape[0]).astype(np.int32)).to(device)
+    qvalid = torch.ones(qkey.shape[0], dtype=torch.bool, device=device)
+    qpart = torch.zeros(qkey.shape[0], dtype=torch.int32, device=device)
+    got = ck.hash_aggregate(qvalid, [qkey], [qval], ["max"], qpart, 1,
+                            1 << 21)
+    want = ck.hash_aggregate_plain(qvalid, [qkey], [qval], ["max"], qpart,
+                                   1, 1 << 21)
+    err2 = max(err2, _check_tables(got, want, 1, 1 << 21, "load 1/4"))
+    qms = bare_aggregate_ms(qvalid, [qkey], [qval], ["max"], qpart, 1,
+                            1 << 21, 1 << 19)
+    log(f"phase 2: hash_aggregate load 1/4, 2**19 keys in 2**21 slots: "
+        f"kernel {qms:.4f} ms, rows equal")
+    log("phase 2: hash_aggregate queued, all passes and each (A bucket, "
+        "B aggregate, C spill), ms: " + "; ".join(
+            f"{what} " + ", ".join(f"{k} {v:.4f}" for k, v in p.items())
+            for what, p in (("map side", passes), ("reduce side", rpasses),
+                            ("spill case", spasses))))
+    results["hash_aggregate"].update(
+        max_abs_err=err2, spill_case_ms=sms, spill_case_pass_ms=spasses,
+        load_quarter_ms=qms)
 
     results["probe_add1"] = _probe_timing(device)
     return results
+
+
+def _spill_keys(nparts, R) -> np.ndarray:
+    """Half as many keys again as one bucket of a one-key, one-value
+    table has slots, all of partition 1 with their home slots in bucket 3
+    of its region."""
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.parallel import hashagg
+
+    plan = ck.aggregate_plan(1, 1, nparts, R, 0)
+    B = 1 << plan.bucket_log2
+    cand = torch.arange(1 << 22, dtype=torch.int32)
+    part, _ = ck.hash_partition_plain([cand], nparts, 0, with_counts=False)
+    home = (hashagg._slot_hash([cand], 0) & (R - 1)) >> plan.bucket_log2
+    keys = cand[(part == 1) & (home == 3)][:B + B // 2].numpy()
+    if len(keys) != B + B // 2 or len(keys) >= R // 4:
+        raise AssertionError("spill case: too few candidate keys")
+    return keys
 
 
 def _reduce_side_input(device):
@@ -480,23 +590,33 @@ def phase3_slice(card: str) -> dict:
     for name in PATH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the main path")
-    # The timed run: warm (combine classification and the allocator's
-    # growth done), the probe not run again.
+    # The timed runs: warm (combine classification and the allocator's
+    # growth done), the probe not run again; the wall is their median,
+    # since the host's staging copies spread from run to run.
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ck.reset_launches()
-    t0 = time.perf_counter()
-    res = run_count()
-    wall = time.perf_counter() - t0
-    warm = dict(ck.LAUNCHES)
-    if warm != dict(launches, probe_add1=0):
-        raise AssertionError(f"warm run launched {warm}, the first run "
-                             f"{launches}")
-    nkeys = check_counts(res)
+    walls = []
+    for _ in range(WARM_RUNS):
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        res = run_count()
+        walls.append(time.perf_counter() - t0)
+        warm = dict(ck.LAUNCHES)
+        if warm != dict(launches, probe_add1=0):
+            raise AssertionError(f"warm run launched {warm}, the first run "
+                                 f"{launches}")
+        nkeys = check_counts(res)
+        # Free this run's result (and the session's reference cycles)
+        # first: the next run's allocations then come from the
+        # allocator's cache, as in the first warm run.
+        del res
+        gc.collect()
+    wall = statistics.median(walls)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"phase 3: reduce-wave {n} rows, S={S}: warm wall {wall:.4f} s, "
+    log(f"phase 3: reduce-wave {n} rows, S={S}: warm wall {wall:.4f} s "
+        f"(median of {WARM_RUNS}: {', '.join(f'{w:.4f}' for w in walls)}), "
         f"{n / wall:.1f} rows/s, {nkeys} keys, launches {launches} "
-        f"(first run; warm run {warm}), "
+        f"(first run; each warm run {warm}), "
         f"peak device memory {peak:.3f} GiB, on {card}")
 
     # A second Reduce: float32 max and int32 min per key.
@@ -516,10 +636,16 @@ def phase3_slice(card: str) -> dict:
         return res
 
     run_maxmin()
-    ck.reset_launches()
-    t0 = time.perf_counter()
-    res2 = run_maxmin()
-    wall2 = time.perf_counter() - t0
+    walls2 = []
+    res2 = None
+    for _ in range(WARM_RUNS):
+        res2 = None
+        gc.collect()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        res2 = run_maxmin()
+        walls2.append(time.perf_counter() - t0)
+    wall2 = statistics.median(walls2)
     launches2 = dict(ck.LAUNCHES)
     shards2 = bs.result_shard_rows(res2)
     if any(launches2[name] <= 0 for name in ("hash_partition",
@@ -540,11 +666,13 @@ def phase3_slice(card: str) -> dict:
             and np.array_equal(gi[order], imin[seen])):
         raise AssertionError("max/min Reduce differs from numpy group-by")
     _shard_keys_routed(shards2, S)
-    log(f"phase 3: max/min Reduce {n2} rows: warm wall {wall2:.4f} s, "
-        f"{n2 / wall2:.1f} rows/s, launches {launches2}, on {card}")
-    return dict(launches=launches, wall_s=wall, rows=n,
+    log(f"phase 3: max/min Reduce {n2} rows: warm wall {wall2:.4f} s "
+        f"(median of {WARM_RUNS}: {', '.join(f'{w:.4f}' for w in walls2)}), "
+        f"{n2 / wall2:.1f} rows/s, launches {launches2} (the last run), on "
+        f"{card}")
+    return dict(launches=launches, wall_s=wall, walls_s=walls, rows=n,
                 rows_per_s=n / wall, maxmin_wall_s=wall2,
-                maxmin_rows=n2, peak_gib=peak)
+                maxmin_walls_s=walls2, maxmin_rows=n2, peak_gib=peak)
 
 
 def main() -> int:

@@ -158,3 +158,132 @@ def test_slice_on_the_card_matches_the_cpu(dev):
     for g, w in zip(got, want):
         for gc, wc in zip(g, w):
             np.testing.assert_array_equal(gc, wc)
+
+
+@pytest.mark.parametrize("nparts", [1, 4, 31, 32, 33, 1000, 20000])
+@pytest.mark.parametrize("layout", ["aligned", "ragged", "view"])
+def test_hash_partition_one_key_layouts(dev, nparts, layout):
+    """One 4-byte key column: 16-byte aligned columns take the 4-rows-
+    a-thread path (its ragged edge when n % 4 != 0), views that start
+    one row in take the scalar path; ids and counts stay bit-equal."""
+    rng = np.random.RandomState(nparts)
+    n = {"aligned": 1 << 16, "ragged": (1 << 16) + 3,
+         "view": (1 << 16) + 1}[layout]
+    key = torch.from_numpy(
+        rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.rand(n) < 0.9).to(dev)
+    if layout == "view":
+        key, valid = key[1:], valid[1:]
+    for k in (key, key.view(torch.float32)):
+        ids, counts = cuda_kernels.hash_partition([k], nparts, 5,
+                                                  valid=valid)
+        want_ids, want_counts = cuda_kernels.hash_partition_plain(
+            [k], nparts, 5, valid=valid)
+        assert torch.equal(ids, want_ids)
+        assert torch.equal(counts, want_counts)
+        ids, none = cuda_kernels.hash_partition([k], nparts, 5,
+                                                with_counts=False)
+        assert none is None
+        assert torch.equal(ids, cuda_kernels.hash_partition_plain(
+            [k], nparts, 5, with_counts=False)[0])
+
+
+def _check_aggregate(dev, keys, vals, ops, valid, nparts, R):
+    """The kernel's table against the plain version's: overflow 0 in
+    both, the same occupied rows, each key in one slot only, and every
+    occupied slot in its key's region."""
+    tk = [torch.from_numpy(k).to(dev) for k in keys]
+    tv = [torch.from_numpy(v).to(dev) for v in vals]
+    valid = torch.from_numpy(valid).to(dev)
+    part, _ = cuda_kernels.hash_partition(tk, nparts, 0, with_counts=False)
+    got = cuda_kernels.hash_aggregate(valid, tk, tv, ops, part, nparts, R)
+    want = cuda_kernels.hash_aggregate_plain(valid, tk, tv, ops, part,
+                                             nparts, R)
+    torch.cuda.synchronize()
+    assert int(got[3]) == int(want[3]) == 0
+    rows = _rows(*got[:3])
+    assert rows == _rows(*want[:3])
+    assert len({r[:len(keys)] for r in rows}) == len(rows)
+    slots = torch.nonzero(got[0]).squeeze(1)
+    occupied = [(k.view(torch.int32)[got[0]].view(torch.uint32)
+                 if k.dtype == torch.uint32 else k[got[0]]) for k in got[1]]
+    rp, _ = cuda_kernels.hash_partition(occupied, nparts, 0,
+                                        with_counts=False)
+    assert torch.equal((slots // R).to(torch.int32), rp)
+    return got
+
+
+def test_hash_aggregate_spill(dev):
+    """More distinct keys than one bucket holds, all homed in one bucket
+    of region 1, the region under a fifth full: the bucket overflows
+    into the spill pass, which places every row."""
+    from bigslice_tpu_torch.parallel import hashagg
+
+    nparts, R = 4, 1 << 16
+    plan = cuda_kernels.aggregate_plan(1, 1, nparts, R, 0)
+    B = 1 << plan.bucket_log2
+    cand = torch.arange(1 << 22, dtype=torch.int32)
+    part, _ = cuda_kernels.hash_partition_plain([cand], nparts, 0,
+                                                with_counts=False)
+    home = (hashagg._slot_hash([cand], 0) & (R - 1)) >> plan.bucket_log2
+    chosen = cand[(part == 1) & (home == 3)][:B + B // 2].numpy()
+    assert len(chosen) == B + B // 2 and len(chosen) < R // 4
+    rng = np.random.RandomState(11)
+    keys = rng.permutation(np.repeat(chosen, 3))
+    vals = rng.randint(-100, 100, len(keys)).astype(np.int32)
+    got = _check_aggregate(dev, [keys], [vals], ["add"],
+                           np.ones(len(keys), bool), nparts, R)
+    assert int(got[0].sum()) == len(chosen)
+
+
+def test_hash_aggregate_load_quarter(dev):
+    """2**19 distinct keys in one 2**21-slot region."""
+    rng = np.random.RandomState(12)
+    keys = rng.permutation(np.repeat(
+        rng.choice(1 << 30, 1 << 19, replace=False).astype(np.int32), 2))
+    vals = rng.randint(0, 50, len(keys)).astype(np.int32)
+    valid = rng.rand(len(keys)) < 0.95
+    _check_aggregate(dev, [keys], [vals], ["max"], valid, 1, 1 << 21)
+
+
+@pytest.mark.parametrize("lanes", ["keys8", "vals8", "both8"])
+def test_hash_aggregate_eight_lanes(dev, lanes):
+    """Eight key columns of every key type, eight value columns of every
+    dtype and op, or both: the smallest buckets."""
+    rng = np.random.RandomState(13)
+    n, nparts, R = 1 << 18, 4, 1 << 16
+    k = rng.randint(0, 1 << 15, n).astype(np.int32)
+    keys = [k]
+    if lanes != "vals8":
+        keys = [k, (k % 3).astype(np.uint32), (k % 5).astype(np.int16) - 2,
+                (k % 7).astype(np.int16), (k % 11).astype(np.int8) - 5,
+                (k % 13).astype(np.uint8), (k % 2).astype(bool),
+                (k // 2).astype(np.int32)]
+    vals = [rng.randint(-100, 100, n).astype(np.int32)]
+    ops = ["add"]
+    if lanes != "keys8":
+        f = rng.randn(n).astype(np.float32)
+        f[::37] = -0.0
+        u = rng.randint(0, 2**32, n, dtype=np.int64).astype(np.uint32)
+        i = rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32)
+        vals = [vals[0], i, i, u, u, u, f, f]
+        ops = ["add", "max", "min", "add", "max", "min", "max", "min"]
+    valid = rng.rand(n) < 0.9
+    plan = cuda_kernels.aggregate_plan(len(keys), len(vals), nparts, R, n)
+    assert plan.smem_bytes <= cuda_kernels.AGG_SMEM_BUDGET
+    _check_aggregate(dev, keys, vals, ops, valid, nparts, R)
+
+
+@pytest.mark.parametrize("nparts,R", [(5000, 64), (20000, 8)])
+def test_hash_aggregate_many_buckets(dev, nparts, R):
+    """More buckets than a scatter block can sort a tile by (rows
+    scattered one cursor atomic each), and past the count pass's shared
+    bins (global counts) in the second case."""
+    plan = cuda_kernels.aggregate_plan(1, 1, nparts, R, 0)
+    assert plan.nbuckets == nparts
+    rng = np.random.RandomState(nparts)
+    n = 1 << 17
+    keys = rng.randint(0, nparts * R // 8, n).astype(np.int32)
+    vals = rng.randint(-100, 100, n).astype(np.int32)
+    _check_aggregate(dev, [keys], [vals], ["add"], rng.rand(n) < 0.9,
+                     nparts, R)

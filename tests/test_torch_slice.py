@@ -120,6 +120,33 @@ def test_reduce_max_min_matches_reference(ref_session, port_session):
     )
 
 
+def test_reduce_eight_value_columns_matches_reference(ref_session,
+                                                     port_session):
+    """The widest value side a combine can have (eight columns, every
+    op, int32 and float32), the shape that sizes the kernel's buckets
+    smallest, through the plain versions against the JAX package."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(17)
+    n = 4000
+    keys = _keys(n, 17, span=700)
+    i = [rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32)
+         for _ in range(5)]
+    f = [(rng.randn(n) * 9).astype(np.float32) for _ in range(3)]
+    f[0][::31] = -0.0
+    cols = [i[0], i[1], i[2], f[0], f[1], i[3], i[4], f[2]]
+
+    def fn(mod):
+        return lambda a, b: (
+            a[0] + b[0], mod.maximum(a[1], b[1]), mod.minimum(a[2], b[2]),
+            mod.maximum(a[3], b[3]), mod.minimum(a[4], b[4]), a[5] + b[5],
+            mod.minimum(a[6], b[6]), mod.maximum(a[7], b[7]))
+
+    _compare(ref_session, port_session,
+             ref_bs.Reduce(ref_bs.Const(4, keys, *cols), fn(jnp)),
+             bst.Reduce(bst.Const(4, keys, *cols), fn(torch)))
+
+
 def test_reduce_float_add_within_tolerance(ref_session, port_session):
     rng = np.random.RandomState(13)
     n = 6000

@@ -10,7 +10,9 @@ the JAX package's reduce-wave scenario (2**25 rows, keys uniform over
    upload, wave programs, cross-wave merge, subid split, result
    readback), each closed by torch.cuda.synchronize();
 2. one run under torch.profiler: device time by kernel, total device
-   busy time and the device's idle share of the run's wall time.
+   busy time and the device's idle share of the run's wall time, and
+   the device time of each hand-written kernel's wrapper (K2's passes
+   summed).
 
 Prints both, with the card's name and power limit, and writes the
 profiler table to DIR/profile.txt (default profile_out). Needs a GPU.
@@ -22,6 +24,7 @@ import argparse
 import collections
 import functools
 import os
+import re
 import subprocess
 import sys
 import time
@@ -123,6 +126,15 @@ def main() -> int:
     for e in top:
         print(f"  {getattr(e, attr) / 1e3:10.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+    # The hand-written kernels by wrapper: K2 runs several device kernels
+    # (its passes, all named agg_*) per wrapper call.
+    for label, pattern in (("hash_aggregate (all passes)", r"\bagg_\w+"),
+                           ("hash_partition", r"\bhash_partition_kernel")):
+        mine = [e for e in events if re.search(pattern, e.key)]
+        print(f"  {label}: {sum(getattr(e, attr) for e in mine) / 1e3:.3f} "
+              f"ms device time, "
+              + ", ".join(f"{e.key.split('(')[0]} {e.count}x "
+                          f"{getattr(e, attr) / 1e3:.3f} ms" for e in mine))
     print(f"card: {card}")
     return 0
 
