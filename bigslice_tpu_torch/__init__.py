@@ -6,11 +6,15 @@ path's kernels written by hand in CUDA C++ for Hopper
 (``csrc/``). This package imports neither JAX nor ``bigslice_tpu``; its
 tests hold it against both.
 
-What it runs today: a keyed ``Reduce`` over a ``Const`` through the
-device executor, on ``cuda`` by default::
+What it runs today, through the device executor (on ``cuda`` by
+default): ``Const`` sources, the device tier of ``Map``, ``Filter``,
+``Flatmap`` (fixed fanout) and ``Head``, ``Reduce`` with any
+device-traceable combine fn and int or float keys, and ``Reshuffle`` /
+``Repartition``::
 
     import bigslice_tpu_torch as bs
-    res = bs.Session().run(bs.Reduce(bs.Const(4, keys, vals), lambda a, b: a + b))
+    s = bs.Map(bs.Const(4, keys, vals), lambda k, v: (k & 0xFFFF, v))
+    res = bs.Session().run(bs.Reduce(s, lambda a, b: a + b))
     rows = res.rows()
 """
 
@@ -19,16 +23,24 @@ from bigslice_tpu_torch.exec.session import Result, Session
 from bigslice_tpu_torch.frame.frame import Frame, result_shard_rows
 from bigslice_tpu_torch.ops.base import Dep, Slice
 from bigslice_tpu_torch.ops.const import Const
+from bigslice_tpu_torch.ops.mapops import Filter, Flatmap, Head, Map
 from bigslice_tpu_torch.ops.reduce import Reduce
+from bigslice_tpu_torch.ops.reshuffle import Repartition, Reshuffle
 from bigslice_tpu_torch.slicetype import ColType, Schema
 
 __all__ = [
     "ColType",
     "Const",
     "Dep",
+    "Filter",
+    "Flatmap",
     "Frame",
+    "Head",
+    "Map",
     "MeshExecutor",
     "Reduce",
+    "Repartition",
+    "Reshuffle",
     "Result",
     "Schema",
     "Session",

@@ -6,27 +6,35 @@ package drives one device slot (``nmesh == 1``), so a group of S shards
 runs as S waves of one shard each — the JAX package's S > N wave
 streaming with N = 1.
 
-For the keyed Reduce path the programs are:
+A wave program runs the chain's stages over the staged columns, with
+row validity carried as a bool mask and one compaction at the end:
 
-- map side (a Const chain whose output feeds a Reduce): the fused hash
-  combine + shuffle (``hashagg.make_hash_combine_shuffle``) — routing
-  by the ``hash_partition`` kernel, aggregation into a
-  destination-contiguous table by the ``hash_aggregate`` kernel, and the
-  exchange of table regions through the ``shuffle.all_to_all`` seam;
-  the S partitions ride one device as W = S subids of a leading int32
-  column, and the waves' outputs merge into one device-resident output;
-- reduce side: each wave reads its own subid's rows (split once per
-  output, ``_subid_wave_view``) and re-combines them with the same
-  aggregation (``hashagg.make_hash_combine``).
+- ``map``, ``flatmap``, ``filter``, ``head``: the row-wise combinators,
+  their functions under ``torch.func.vmap``;
+- ``combine`` (a Reduce's reduce side): hash aggregation
+  (``hashagg.make_hash_combine``, the ``hash_aggregate`` kernel) for
+  combine fns that classify as add/max/min over non-float keys, else
+  the sort + segmented scan (``segment.make_segmented_reduce_masked``);
+- ``shuffle`` (the output partitioner): with a combiner, the fused hash
+  combine + shuffle (``hashagg.make_hash_combine_shuffle``) or the fused
+  sort combine + shuffle (``shuffle.make_combine_shuffle_fn``); without
+  one (Reshuffle, Repartition), the sort shuffle
+  (``shuffle.make_shuffle_fn``). Every hash-routed row goes through the
+  ``hash_partition`` kernel. The S partitions ride one device as W = S
+  subids of a leading int32 column, and the waves' outputs merge into
+  one device-resident output; each consumer wave reads its own subid's
+  rows (split once per output, ``_subid_wave_view``).
 
-Outputs stay on the device; results are read back per shard through the
-store bridge (``_BridgedStore``).
+A wave whose hash table could not place every row is rerun on the sort
+path, and its op stays there (``hash_off``); a shuffle whose buckets
+overflowed is rerun with four times the slack, up to the slack that
+cannot overflow. Outputs stay on the device; results are read back per
+shard through the store bridge (``_BridgedStore``).
 
-What the JAX package sends elsewhere raises here, naming the op: combine
-fns that do not classify as add/max/min, float keys and other operators
-(``LoweringNotPorted`` — its sort lowering and host tier are not
-ported), and a hash table that overflows (``HashAggregateOverflow`` —
-its sort-path retry is not ported). No partial result is returned.
+What the JAX package runs elsewhere raises here, naming the op
+(``LoweringNotPorted``): host-tier functions and columns, vector
+columns, and operators that are not ported. No partial result is
+returned.
 """
 
 from __future__ import annotations
@@ -40,20 +48,27 @@ from bigslice_tpu_torch.exec import store as store_mod
 from bigslice_tpu_torch.exec.task import Task, TaskName, TaskState
 from bigslice_tpu_torch.frame.frame import Frame
 from bigslice_tpu_torch.ops.const import Const
+from bigslice_tpu_torch.ops.mapops import (Filter, Flatmap, Head, Map,
+                                           extra_tensors)
 from bigslice_tpu_torch.ops.reduce import LoweringNotPorted, Reduce
-from bigslice_tpu_torch.parallel import hashagg
+from bigslice_tpu_torch.ops.reshuffle import Reshuffle, RowPartitioner
+from bigslice_tpu_torch.parallel import hashagg, segment
 from bigslice_tpu_torch.parallel import shuffle as shuffle_mod
-from bigslice_tpu_torch.parallel.hashagg import HashAggregateOverflow
 from bigslice_tpu_torch.parallel.jitutil import bucket_size
 from bigslice_tpu_torch.parallel.segment import compact_by_mask, take
 from bigslice_tpu_torch.slicetype import torch_dtype
 
-__all__ = ["DeviceGroupOutput", "HashAggregateOverflow",
-           "LoweringNotPorted", "MeshExecutor"]
+__all__ = ["DeviceGroupOutput", "LoweringNotPorted", "MeshExecutor"]
+
+#: The operators a task chain may hold on this executor.
+_DEVICE_OPS = (Const, Map, Filter, Flatmap, Head, Reduce, Reshuffle)
 
 
 def _op_base(op: str) -> str:
-    return op.split("@", 1)[0]
+    """Strip the compiler's #N repeated-invocation suffix: the sort-path
+    fallback and slack adaptation describe the pipeline SITE (file:line
+    op), which iterative programs re-invoke under suffixed names."""
+    return op.split("#", 1)[0]
 
 
 class DepLost(Exception):
@@ -183,6 +198,11 @@ class MeshExecutor:
         self._members: Dict[Tuple, List[Task]] = {}
         self._outputs: Dict[Tuple, object] = {}
         self._task_index: Dict[TaskName, Tuple[Tuple, Task]] = {}
+        # Ops whose hash table overflowed: back on the sort path for good,
+        # which handles any key distribution.
+        self._hash_off: set = set()
+        # Per-op shuffle slack adapted by the overflow ladder.
+        self._slack_memo: Dict[str, float] = {}
 
     # -- submission -------------------------------------------------------
 
@@ -226,30 +246,36 @@ class MeshExecutor:
 
     def _check_lowering(self, task: Task) -> None:
         """Raise ``LoweringNotPorted`` naming the op when this package
-        cannot run ``task`` on the device."""
+        cannot run ``task`` on the device: an operator that is not
+        ported, a host-tier function, or host or vector columns."""
         op = task.name.op
         if task.chain is None:
             raise LoweringNotPorted(f"{op}: task has no slice chain")
         for s in task.chain:
-            if not isinstance(s, (Const, Reduce)):
+            name = type(s).__name__
+            if not isinstance(s, _DEVICE_OPS):
                 raise LoweringNotPorted(
-                    f"{op}: operator {type(s).__name__} is not ported")
-        if not all(ct.is_device and ct.shape == () for ct in task.schema):
-            raise LoweringNotPorted(
-                f"{op}: host-tier or vector columns: the host tier is not "
-                f"ported")
-        for s in task.chain:
-            if isinstance(s, Reduce):
-                s.frame_combiner.hash_ops(op)
+                    f"{op}: operator {name} is not ported")
+            if getattr(s, "mode", "device") != "device" or (
+                    isinstance(s, Reduce) and not s.frame_combiner.device):
+                raise LoweringNotPorted(
+                    f"{op}: {name} runs a host-tier function: the host "
+                    f"tier is not ported")
+            if not all(ct.is_device and ct.shape == () for ct in s.schema):
+                raise LoweringNotPorted(
+                    f"{op}: host-tier or vector columns: the host tier is "
+                    f"not ported")
         if task.num_partition > 1:
             part = task.partitioner
-            fc = part.combiner
-            if part.partition_fn is not None or fc is None \
-                    or fc.nkeys != task.schema.prefix:
+            pf = part.partition_fn
+            if pf is not None and not isinstance(pf, RowPartitioner):
                 raise LoweringNotPorted(
-                    f"{op}: a shuffle without a keyed combiner needs the "
-                    f"sort lowering, which is not ported")
-            fc.hash_ops(op)
+                    f"{op}: a host-tier partitioner: the host tier is not "
+                    f"ported")
+            if part.combiner is not None and not part.combiner.device:
+                raise LoweringNotPorted(
+                    f"{op}: a host-tier combine fn: the host tier is not "
+                    f"ported")
 
     # -- group orchestration ----------------------------------------------
 
@@ -309,12 +335,37 @@ class MeshExecutor:
     def _execute_wave_on(self, tasks: List[Task], wave: int,
                          inputs) -> DeviceGroupOutput:
         task0 = tasks[0]
+        opbase = _op_base(task0.name.op)
         stages = self._stages_for(task0)
-        out_counts, hashov, out_cols = self._program(task0, stages)(
-            wave, inputs)
-        if int(hashov) > 0:
-            raise HashAggregateOverflow(task0.name.op, int(hashov))
         has_shuffle = any(kind == "shuffle" for kind, _ in stages)
+        while True:
+            slack = self._wave_slack(task0)
+            out_counts, overflow, badrange, hashov, out_cols = \
+                self._program(task0, stages, slack)(wave, inputs)
+            overflow, badrange, hashov = torch.stack(
+                [overflow, badrange, hashov]).tolist()
+            if badrange > 0:
+                # A user error, not skew: no slack retry.
+                raise ValueError(
+                    f"partitioner returned ids outside "
+                    f"[0, {task0.num_partition}) in group {task0.name.op}")
+            if hashov > 0:
+                # The hash table could not place every row: discard the
+                # result and rerun the wave with this op on the sort path
+                # for good.
+                with self._lock:
+                    self._hash_off.add(opbase)
+                continue
+            if not has_shuffle or overflow == 0:
+                break
+            # slack == ndest makes overflow impossible: a source sends at
+            # most its capacity to one destination lane.
+            full_slack = float(max(2, min(task0.num_partition, self.nmesh)))
+            if slack >= full_slack:
+                raise RuntimeError(
+                    f"shuffle overflow in group {task0.name.op} even at "
+                    f"full slack")
+            self._slack_memo[opbase] = min(slack * 4, full_slack)
         return DeviceGroupOutput(
             list(out_cols), out_counts,
             int(out_cols[0].shape[0]) // self.nmesh, task0.schema,
@@ -323,27 +374,60 @@ class MeshExecutor:
             nmesh=self.nmesh,
         )
 
+    @property
+    def hash_off(self) -> frozenset:
+        """The op sites (``op@file:line``) whose hash table overflowed:
+        they run on the sort path for the rest of this executor's life."""
+        with self._lock:
+            return frozenset(self._hash_off)
+
+    def _wave_slack(self, task0: Task) -> float:
+        """The shuffle's bucket slack for this op: the adapted value, or
+        1.0 with a map-side combiner (combining bounds each destination's
+        rows by the shard's distinct keys) and 2.0 without."""
+        has_combiner = (task0.num_partition > 1
+                        and task0.partitioner.combiner is not None)
+        return self._slack_memo.get(_op_base(task0.name.op),
+                                    1.0 if has_combiner else 2.0)
+
+    def _hash_combine_ops(self, opbase: str, fc):
+        """The classified ops when the hash lowering serves this combiner,
+        None for the sort lowering: the combiner's own verdict
+        (``FrameCombiner.hash_ops``) unless the op's table overflowed
+        before."""
+        if opbase in self._hash_off:
+            return None
+        return fc.hash_ops()
+
     # -- the per-wave device program --------------------------------------
 
     @staticmethod
     def _stages_for(task: Task) -> List[tuple]:
         """Flatten the chain (innermost→outermost) + output partitioner
         into device stages (kind, slice or task). A Const contributes
-        no stage: its shards are the staged input."""
-        stages: List[tuple] = [("combine", s) for s in reversed(task.chain)
-                               if isinstance(s, Reduce)]
+        no stage (its shards are the staged input), nor does a Reshuffle
+        (it reads its shuffled input as it is)."""
+        kinds = ((Map, "map"), (Flatmap, "flatmap"), (Filter, "filter"),
+                 (Head, "head"), (Reduce, "combine"))
+        stages: List[tuple] = []
+        for s in reversed(task.chain):
+            for cls, kind in kinds:
+                if isinstance(s, cls):
+                    stages.append((kind, s))
         if task.num_partition > 1:
             stages.append(("shuffle", task))
         return stages
 
-    def _program(self, task: Task, stages: List[tuple]):
+    def _program(self, task: Task, stages: List[tuple], slack: float):
         """The wave program: ``stepped(wave, inputs) -> (out_counts,
-        hashov, cols)``. Validity rides as a bool mask between
-        stages; one final compaction establishes the front-packed output
-        contract. Subid-carrying inputs keep only this wave's rows."""
+        overflow, badrange, hashov, cols)``. Validity rides as a bool
+        mask between stages; one final compaction establishes the
+        front-packed output contract. Subid-carrying inputs keep only
+        this wave's rows."""
         opbase = _op_base(task.name.op)
         nmesh = self.nmesh
         device = self.device
+        vmap = torch.func.vmap
 
         def stepped(wave: int, inputs):
             masks, col_sets = [], []
@@ -357,31 +441,88 @@ class MeshExecutor:
                 masks.append(m)
                 col_sets.append(cols)
             mask, cols = masks[0], col_sets[0]
-            hashov = torch.zeros((), dtype=torch.int32, device=device)
+            zero = torch.zeros((), dtype=torch.int32, device=device)
+            overflow = badrange = hashov = zero
             for kind, s in stages:
-                if kind == "combine":
+                if kind == "map":
+                    extras = extra_tensors(s.args, device)
+                    out = vmap(s.fn, in_dims=(0,) * len(cols)
+                               + (None,) * len(extras))(*cols, *extras)
+                    cols = list(out) if isinstance(out, (tuple, list)) \
+                        else [out]
+                elif kind == "flatmap":
+                    # Fixed fanout k: [n, k] planes (mask first) flatten
+                    # row-major, each row's outputs contiguous.
+                    outs = vmap(s.fn)(*cols)
+                    mask = (mask[:, None] & outs[0]).reshape(-1)
+                    cols = [o.reshape(-1).to(torch_dtype(ct.dtype))
+                            for o, ct in zip(outs[1:], s.schema)]
+                elif kind == "filter":
+                    mask = mask & vmap(s.pred)(*cols)
+                elif kind == "head":
+                    # The first n valid rows of the shard, by running
+                    # count.
+                    rank = torch.cumsum(mask.to(torch.int32), 0,
+                                        dtype=torch.int32)
+                    mask = mask & (rank <= s.n)
+                elif kind == "combine":
                     fc = s.frame_combiner
-                    core = hashagg.make_hash_combine(
-                        fc.nkeys, fc.nvals, fc.hash_ops(opbase))
-                    mask, keys, vals, hov = core(
-                        mask, tuple(cols[: fc.nkeys]),
-                        tuple(cols[fc.nkeys :]))
-                    hashov = hashov + hov
+                    keys, vals = cols[: fc.nkeys], cols[fc.nkeys :]
+                    hops = self._hash_combine_ops(opbase, fc)
+                    if hops is not None:
+                        core = hashagg.make_hash_combine(
+                            fc.nkeys, fc.nvals, hops)
+                        mask, keys, vals, hov = core(mask, tuple(keys),
+                                                     tuple(vals))
+                        hashov = hashov + hov
+                    else:
+                        core = segment.make_segmented_reduce_masked(
+                            fc.nkeys, fc.nvals,
+                            segment.canonical_combine(fc.fn, fc.nvals))
+                        mask, keys, vals = core(mask, tuple(keys),
+                                                tuple(vals))
                     cols = list(keys) + list(vals)
-                else:  # shuffle: fused hash combine + region exchange
-                    fc = s.partitioner.combiner
-                    body = hashagg.make_hash_combine_shuffle(
-                        nmesh, fc.nkeys, fc.nvals, fc.hash_ops(opbase),
-                        nparts=s.num_partition,
-                    )
-                    mask, h_ov, cols = body(mask, *cols)
-                    hashov = hashov + h_ov
+                else:  # shuffle
+                    part = s.partitioner
+                    fc = part.combiner
+                    pf = part.partition_fn
+                    pfn = (pf.device_fn(s.num_partition)
+                           if pf is not None else None)
+                    hops = (self._hash_combine_ops(opbase, fc)
+                            if fc is not None and pf is None else None)
+                    if hops is not None:
+                        # Fused hash combine + exchange of table regions.
+                        body = hashagg.make_hash_combine_shuffle(
+                            nmesh, fc.nkeys, fc.nvals, hops,
+                            nparts=s.num_partition,
+                        )
+                        mask, hov, cols = body(mask, *cols)
+                        hashov = hashov + hov
+                    else:
+                        if fc is not None:
+                            # One sort serves the combine and the routing.
+                            body = shuffle_mod.make_combine_shuffle_fn(
+                                nmesh, fc.nkeys, fc.nvals,
+                                segment.canonical_combine(fc.fn, fc.nvals),
+                                slack=slack, nparts=s.num_partition,
+                                partition_fn=pfn,
+                            )
+                        else:
+                            body = shuffle_mod.make_shuffle_fn(
+                                nmesh, s.schema.prefix, cols[0].shape[0],
+                                slack=slack, nparts=s.num_partition,
+                                partition_fn=pfn,
+                            )
+                        mask, ov, nb, cols = body(mask, *cols)
+                        overflow = overflow + ov
+                        badrange = badrange + nb
                     cols = list(cols)
-            if not stages and not any(i[2] for i in inputs):
-                # Pass-through chain: counts carry over unchanged.
-                return inputs[0][1], hashov, tuple(cols)
+            if all(kind == "map" for kind, _ in stages) and not any(
+                    i[2] for i in inputs):
+                # Map-only chain: the mask is untouched, counts carry over.
+                return inputs[0][1], overflow, badrange, hashov, tuple(cols)
             out_n, cols = compact_by_mask(mask, cols)
-            return out_n.reshape(1), hashov, cols
+            return out_n.reshape(1), overflow, badrange, hashov, cols
 
         return stepped
 

@@ -190,8 +190,20 @@ class Frame:
         for ct in self.schema.key:
             if not frame_ops.can_hash(ct):
                 raise TypeError(f"column type {ct} is not hashable")
-        part, _ = partition_ids(self.key_cols(), nparts, seed)
+        part, _, _ = partition_ids(self.key_cols(), nparts, seed)
         return part
+
+    def sorted_by_key(self) -> "Frame":
+        """Stable sort by the key prefix on the frame's device
+        (``parallel/sortkernel.py``). Frames with host or vector columns
+        need the host sort, which is not ported."""
+        from bigslice_tpu_torch.parallel import sortkernel
+
+        if not sortkernel.device_sortable(self):
+            raise NotImplementedError(
+                "sorted_by_key: host or vector columns need the host sort, "
+                "which is not ported")
+        return sortkernel.device_sorted_by_key(self)
 
     # -- row access -------------------------------------------------------
 

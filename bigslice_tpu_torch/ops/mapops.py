@@ -1,0 +1,258 @@
+"""Row-wise combinators: Map, Filter, Flatmap, Head.
+
+Each combinator classifies its user function by tier, as the JAX
+package does:
+
+- **device**: the function is a tensor function of one row's columns —
+  it runs under ``torch.func.vmap`` over whole device columns, as a
+  stage of the executor's wave program;
+- **host**: arbitrary Python, run per row on the host tier.
+
+The verdict is a trace over meta tensors (shapes and dtypes, no data):
+a function that the trace cannot run — data-dependent Python control
+flow, ``.item()``, host objects, tensors made without the inputs'
+device (``torch.tensor(..., device=x.device)`` is device tier) — is host
+tier. The host tier is not ported: the executor refuses a host-tier
+stage by name (``LoweringNotPorted``).
+
+Outputs follow the 32-bit-first rule: a device function returning int64
+or float64 columns is cast down to int32 or float32.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from bigslice_tpu_torch import typecheck
+from bigslice_tpu_torch.frame.frame import _DOWNCAST, _coerce
+from bigslice_tpu_torch.ops.base import Dep, Slice, make_name
+from bigslice_tpu_torch.slicetype import (ColType, Schema, numpy_dtype,
+                                          torch_dtype)
+
+
+def _as_schema(out, default_prefix: int = 1) -> Schema:
+    if isinstance(out, Schema):
+        return out
+    cols = list(out)
+    return Schema(cols, prefix=min(default_prefix, len(cols)))
+
+
+def extra_tensors(args: Sequence, device=None) -> list:
+    """A Map's extra arguments as tensors on ``device``, cast down to 32
+    bits as frame columns are."""
+    return [_coerce(a if isinstance(a, torch.Tensor) else
+                    torch.as_tensor(a), device) for a in args]
+
+
+def _meta(t_shape, dtype) -> torch.Tensor:
+    return torch.empty(t_shape, dtype=dtype, device="meta")
+
+
+def meta_outputs(fn: Callable, in_types: Sequence[ColType],
+                 extra: Sequence[torch.Tensor] = ()):
+    """``fn`` called on one row of meta tensors (plus the unbatched
+    ``extra`` arguments as meta tensors): its outputs as a tuple of meta
+    tensors, or None when the call raises or returns anything but
+    tensors."""
+    try:
+        out = fn(*[_meta(ct.shape, torch_dtype(ct.dtype)) for ct in in_types],
+                 *[_meta(e.shape, e.dtype) for e in extra])
+    except Exception:  # noqa: BLE001 — any failure means "not device tier"
+        return None
+    if not isinstance(out, (tuple, list)):
+        out = (out,)
+    if not all(isinstance(o, torch.Tensor) for o in out):
+        return None
+    return tuple(out)
+
+
+def _try_trace(fn: Callable, in_schema: Schema, extra: Sequence = ()):
+    """``(schema, dtypes)``: the output Schema of ``fn`` over one row of
+    ``in_schema`` (plus the unbatched ``extra`` arguments) and the torch
+    dtypes ``fn`` itself returns; None when it must run host tier."""
+    if not all(ct.is_device for ct in in_schema):
+        return None
+    out = meta_outputs(fn, in_schema, extra_tensors(extra))
+    if out is None:
+        return None
+    try:
+        cols = [ColType(numpy_dtype(_DOWNCAST.get(o.dtype, o.dtype)),
+                        shape=tuple(o.shape)) for o in out]
+    except KeyError:  # a dtype the device tier does not hold
+        return None
+    return Schema(cols, prefix=min(1, len(cols))), [o.dtype for o in out]
+
+
+def _cast_wrapper(fn: Callable, dtypes: Sequence[torch.dtype]) -> Callable:
+    """``fn`` with its outputs cast to ``dtypes``."""
+
+    def wrapper(*args):
+        o = fn(*args)
+        if not isinstance(o, (tuple, list)):
+            o = (o,)
+        return tuple(v.to(dt) for v, dt in zip(o, dtypes))
+
+    return wrapper
+
+
+class _Pipelined(Slice):
+    """Base for single-dep, non-shuffle (fusable) slices."""
+
+    def __init__(self, dep_slice: Slice, schema: Schema, name):
+        super().__init__(schema, dep_slice.num_shards, name)
+        self.dep_slice = dep_slice
+
+    def deps(self):
+        return (Dep(self.dep_slice),)
+
+
+class Map(_Pipelined):
+    """Per-record transform: ``fn(*row, *args) -> value | tuple``.
+
+    A device-tier fn runs vmapped over whole columns; a host fn needs
+    ``out=`` (a Schema or list of column types). ``args`` are passed
+    unbatched as trailing arguments. ``mode`` is "auto" (trace to
+    decide), "device" or "host".
+    """
+
+    def __init__(self, slice_: Slice, fn: Callable, out=None, mode="auto",
+                 args: tuple = ()):
+        name = make_name("map")
+        self.fn = fn
+        self.args = tuple(args)
+        traced = None
+        if mode in ("auto", "device"):
+            traced = _try_trace(fn, slice_.schema, self.args)
+        if traced is not None:
+            traced, dtypes = traced
+            self.mode = "device"
+            schema = traced if out is None else _as_schema(out)
+            if len(schema) != len(traced):
+                raise typecheck.errorf(
+                    "map: out= declares %d columns but function returns %d",
+                    len(schema), len(traced),
+                )
+            if not all(ct.is_device for ct in schema):
+                raise typecheck.errorf(
+                    "map: a device function cannot produce host columns; "
+                    "declare mode='host'"
+                )
+            # Declared out= types are shape-agnostic; the traced trailing
+            # shapes are authoritative.
+            schema = Schema([ColType(d.dtype, d.tag, t.shape)
+                             for d, t in zip(schema, traced)],
+                            schema.prefix)
+            want = [torch_dtype(ct.dtype) for ct in schema]
+            if dtypes != want:
+                # The cast wrapper IS the op's function from here on: the
+                # executor vmaps self.fn and must see the schema's dtypes.
+                self.fn = _cast_wrapper(fn, want)
+        else:
+            if mode == "device":
+                raise typecheck.errorf(
+                    "map: function is not a device function over %s",
+                    slice_.schema,
+                )
+            if out is None:
+                raise typecheck.errorf(
+                    "map: host-mode function requires out= column types")
+            self.mode = "host"
+            schema = _as_schema(out)
+        super().__init__(slice_, schema, name)
+
+
+class Filter(_Pipelined):
+    """Predicate filter: keeps the rows where ``pred(*row)`` is true."""
+
+    def __init__(self, slice_: Slice, pred: Callable, mode="auto"):
+        name = make_name("filter")
+        self.pred = pred
+        traced = None
+        if mode in ("auto", "device"):
+            traced = _try_trace(pred, slice_.schema)
+        if traced is not None:
+            traced = traced[0]
+            if (len(traced) != 1 or traced[0].dtype.kind != "b"
+                    or traced[0].shape != ()):
+                raise typecheck.errorf(
+                    "filter: predicate must return a scalar bool, got %s",
+                    traced,
+                )
+            self.mode = "device"
+        else:
+            if mode == "device":
+                raise typecheck.errorf(
+                    "filter: predicate is not a device function")
+            self.mode = "host"
+        super().__init__(slice_, slice_.schema, name)
+
+
+class Flatmap(_Pipelined):
+    """1→N transform.
+
+    - **host** (no ``fanout``): ``fn(*row)`` yields output rows — the
+      host tier;
+    - **device** (``fanout=k``): ``fn(*row) -> (mask, col0, col1, ...)``
+      where ``mask`` is bool[k] selecting valid outputs and each column
+      is [k]-shaped; vmapped, the fn yields [n, k] planes that flatten
+      row-major.
+    """
+
+    def __init__(self, slice_: Slice, fn: Callable, out,
+                 fanout: Optional[int] = None):
+        name = make_name("flatmap")
+        self.fn = fn
+        self.fanout = fanout
+        schema = _as_schema(out)
+        if fanout is not None:
+            typecheck.check(fanout >= 1, "flatmap: fanout must be >= 1")
+            typecheck.check(
+                all(ct.is_device for ct in schema),
+                "flatmap: fixed-fanout mode requires device column types",
+            )
+            if not all(ct.is_device for ct in slice_.schema):
+                raise typecheck.errorf(
+                    "flatmap: fixed-fanout mode requires device inputs")
+            self._check_fixed_trace(slice_, fn, schema, fanout)
+            self.mode = "device"
+        else:
+            self.mode = "host"
+        super().__init__(slice_, schema, name)
+
+    @staticmethod
+    def _check_fixed_trace(slice_, fn, schema, fanout):
+        """Construction-time shape check: clear errors at the call site,
+        not mid-run."""
+        out = meta_outputs(fn, [ColType(ct.dtype) for ct in slice_.schema])
+        if out is None:
+            raise typecheck.errorf(
+                "flatmap: fixed-fanout function is not a device function "
+                "over %s", slice_.schema,
+            )
+        if len(out) != 1 + len(schema):
+            raise typecheck.errorf(
+                "flatmap: fixed-fanout function must return (mask, %d "
+                "columns), got %d outputs", len(schema), len(out),
+            )
+        for i, o in enumerate(out):
+            if tuple(o.shape) != (fanout,):
+                raise typecheck.errorf(
+                    "flatmap: output %d has shape %s, want (%d,) — every "
+                    "output (including the mask) must be fanout-wide",
+                    i, tuple(o.shape), fanout,
+                )
+        if out[0].dtype != torch.bool:
+            raise typecheck.errorf(
+                "flatmap: first output must be a bool mask, got %s",
+                out[0].dtype,
+            )
+
+
+class Head(_Pipelined):
+    """The first n rows of each shard."""
+
+    def __init__(self, slice_: Slice, n: int):
+        super().__init__(slice_, slice_.schema, make_name("head"))
+        self.n = n

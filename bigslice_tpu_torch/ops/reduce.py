@@ -7,15 +7,17 @@ shuffle — the executor applies the consumer's combiner there) and
 ``expand=True`` so partition streams merge rather than concatenate.
 
 Device lowering: a combine fn that classifies per value column as
-add/max/min (parallel/dense.py) runs as open-addressed hash aggregation
-(parallel/hashagg.py) on the device. Other combine fns need the sort +
-segmented-scan lowering, which this package does not have yet: the
-executor refuses them by name.
+add/max/min, over non-float scalar keys, runs as open-addressed hash
+aggregation (parallel/hashagg.py); every other device-traceable combine
+fn, float keys, and ops whose hash table overflowed run on the sort +
+segmented-scan lowering (parallel/segment.py). A combine fn that is not
+a tensor function of the values belongs to the host tier, which this
+package does not have: the executor refuses it by name.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -26,8 +28,9 @@ from bigslice_tpu_torch.parallel import segment
 from bigslice_tpu_torch.slicetype import Schema, torch_dtype
 
 class LoweringNotPorted(NotImplementedError):
-    """A Reduce needs a lowering this package does not have yet (the
-    sort + segmented-scan combine, or the host tier)."""
+    """A slice needs a lowering this package does not have yet: the host
+    tier (functions that are not tensor functions of their columns, host
+    columns) or an operator that is not ported."""
 
 
 _TRACE_CACHE: dict = {}
@@ -98,36 +101,24 @@ class FrameCombiner:
                         "reduce: slice must have at least one value column")
         self.device = _vals_traceable(fn, schema)
 
-    def hash_ops(self, op: str = "reduce") -> Tuple[str, ...]:
+    def hash_ops(self) -> Optional[Tuple[str, ...]]:
         """The per-column add/max/min ops the hash-aggregate lowering
-        runs this combiner with. Raises ``LoweringNotPorted`` naming
-        ``op`` when the lowering cannot serve it — float or non-scalar
-        keys, or a combine fn that does not classify — the cases the
-        JAX package sends to its sort lowering."""
+        runs this combiner with, or None where the JAX package sends it
+        to the sort lowering: float or non-scalar keys, or a combine fn
+        that does not classify. (The executor also sends an op whose
+        table overflowed there.)"""
         from bigslice_tpu_torch.parallel import dense, keyutil
 
-        why = keyutil.hash_key_ineligible_reason(self.schema.key)
-        ops = None
-        if why is None:
-            if not self.device:
-                why = "combine fn is not a tensor function of the values"
-            else:
-                try:
-                    ops = dense.classified_ops_cached(
-                        self.fn, self.nvals,
-                        tuple(ct.dtype for ct in self.schema.values),
-                    )
-                except TypeError:  # unhashable fn: lru_cache key fails
-                    ops = None
-                if ops is None:
-                    why = ("combine fn does not classify as per-column "
-                           "add/max/min")
-        if why is not None:
-            raise LoweringNotPorted(
-                f"{op}: {why}; the sort lowering that serves it is not "
-                f"ported"
+        if not self.device or not keyutil.hash_keys_eligible(
+                self.schema.key):
+            return None
+        try:
+            return dense.classified_ops_cached(
+                self.fn, self.nvals,
+                tuple(ct.dtype for ct in self.schema.values),
             )
-        return ops
+        except TypeError:  # unhashable fn: lru_cache key fails
+            return None
 
 
 class Reduce(Slice):

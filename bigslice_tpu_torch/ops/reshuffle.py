@@ -1,0 +1,90 @@
+"""Reshuffle and Repartition — explicit data movement.
+
+On the device executor both lower to the sort shuffle without a
+combiner (parallel/shuffle.py ``make_shuffle_fn``): rows route by the
+hash of their key prefix, or by a custom per-row partitioner run
+vmapped inside the shuffle. (Reshard is not ported.)
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from bigslice_tpu_torch import typecheck
+from bigslice_tpu_torch.frame import ops as frame_ops
+from bigslice_tpu_torch.ops.base import Dep, Slice, make_name
+from bigslice_tpu_torch.ops.mapops import meta_outputs
+
+
+class RowPartitioner:
+    """A per-row device partitioner: ``fn(*key_values, nparts) -> int32
+    partition id``, lowered into the shuffle (``device_fn``) so that
+    Repartition runs on the device."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+
+    def device_fn(self, nparts: int) -> Callable:
+        """The vectorized form the shuffle consumes: ``fn(*key_cols) ->
+        ids`` with ``nparts`` bound (an int32 scalar, unbatched)."""
+
+        def part(*key_cols):
+            n = torch.tensor(nparts, dtype=torch.int32,
+                             device=key_cols[0].device)
+            return torch.func.vmap(
+                self.fn, in_dims=(0,) * len(key_cols) + (None,)
+            )(*key_cols, n)
+
+        return part
+
+
+class Reshuffle(Slice):
+    """Shuffle records among shards by key prefix."""
+
+    def __init__(self, slice_: Slice, partitioner: Optional[Callable] = None):
+        if partitioner is None:
+            for ct in slice_.schema.key:
+                typecheck.check(
+                    frame_ops.can_hash(ct),
+                    "reshuffle: key column type %s is not partitionable", ct,
+                )
+        super().__init__(slice_.schema, slice_.num_shards,
+                         make_name("reshuffle"))
+        self.dep_slice = slice_
+        self.partitioner = partitioner
+
+    def deps(self):
+        return (Dep(self.dep_slice, shuffle=True,
+                    partitioner=self.partitioner),)
+
+
+def Repartition(slice_: Slice, partition: Callable,
+                mode: str = "auto") -> Slice:
+    """Reshuffle with a custom partitioner. A per-row device fn
+    ``fn(*key_values, nparts) -> int`` (decided by a meta trace, or
+    ``mode="device"``) runs on the device; anything else is a
+    frame-level host partitioner ``fn(frame, nparts) -> int32[n]``,
+    whose host tier is not ported."""
+    if mode in ("auto", "device"):
+        traceable = _partitioner_traceable(partition, slice_)
+        if mode == "device" and not traceable:
+            raise typecheck.errorf(
+                "repartition: partitioner is not a device function over %s",
+                slice_.schema.key,
+            )
+        if traceable:
+            return Reshuffle(slice_, partitioner=RowPartitioner(partition))
+    return Reshuffle(slice_, partitioner=partition)
+
+
+def _partitioner_traceable(fn: Callable, slice_: Slice) -> bool:
+    key = slice_.schema.key
+    if not all(ct.is_device and ct.shape == () for ct in key):
+        return False
+    nparts = torch.empty((), dtype=torch.int32, device="meta")
+    out = meta_outputs(fn, key, extra=(nparts,))
+    return (out is not None and len(out) == 1 and out[0].shape == ()
+            and not out[0].dtype.is_floating_point
+            and out[0].dtype != torch.bool)

@@ -19,9 +19,8 @@ JAX package's XLA lowering, slot for slot) plus the identity-initialized
 scatter-accumulate of ``dense._scatter_tables``.
 
 A table that cannot place every row (load factor near 1, adversarial
-collisions) raises ``HashAggregateOverflow`` in the executor: the JAX
-package retries such groups on its sort lowering, which this package
-does not have yet. No partial result is ever returned.
+collisions) reports it as ``overflow``: the executor discards the
+result and reruns the wave on the sort lowering (parallel/segment.py).
 """
 
 from __future__ import annotations
@@ -45,19 +44,6 @@ CASCADE_MAX_ROUNDS = 48
 SLOT_SEED_XOR = 0x51ED2770
 
 _BIG = 2**31 - 1
-
-
-class HashAggregateOverflow(RuntimeError):
-    """A hash-aggregate table could not place every row of ``op``."""
-
-    def __init__(self, op: str, rows: int):
-        self.op = op
-        self.rows = rows
-        super().__init__(
-            f"hash aggregate overflow in {op}: {rows} row(s) found no "
-            f"table slot; the sort lowering that would retry this group "
-            f"is not ported"
-        )
 
 
 def _slot_hash(key_cols, seed: int) -> torch.Tensor:
@@ -235,7 +221,7 @@ def make_hash_combine_shuffle(nmesh: int, nkeys: int, nvals: int,
         size = cols[0].shape[0]
         keys = cols[:nkeys]
         vals = cols[nkeys:]
-        part, _ = shuffle_mod.partition_ids(keys, nparts, seed,
+        part, _, _ = shuffle_mod.partition_ids(keys, nparts, seed,
                                             valid=valid)
         R = combine_region_size(size, nparts)
         present, ok, ovs, ov = hash_aggregate(

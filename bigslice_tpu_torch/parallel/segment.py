@@ -1,10 +1,28 @@
-"""Combine-function normalization. (The sort + segmented-scan lowering
-of arbitrary combine functions is not part of this package yet; only
-the canonical calling convention is.)"""
+"""Device-tier keyed reduction: sort + segmented associative scan.
+
+Rows are stably sorted by key (``sort_with_payload``), segment
+boundaries are found by adjacent-key comparison (``sort_and_segment``)
+and an arbitrary *associative* combine fn is applied per segment by a
+segmented associative scan (``segmented_combine``). This is the
+lowering of every combine fn the hash aggregation cannot serve: fns
+that do not classify as add/max/min, float keys, and tables that
+overflowed.
+
+The JAX package writes this with ``lax.sort`` and
+``lax.associative_scan``; here both are torch ops, with the same
+results bit for bit:
+
+- the sort orders keys as ``lax.sort`` does: -0.0 and +0.0 equal,
+  every NaN last, ties in input order;
+- the scan is JAX's own recursion (pairs combined in the same order,
+  and the interleave's addition that turns every -0.0 into +0.0).
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
+
+import torch
 
 
 def canonical_combine(fn: Callable, nvals: int) -> Callable:
@@ -25,11 +43,125 @@ def canonical_combine(fn: Callable, nvals: int) -> Callable:
 def take(col, idx):
     """``col[idx]`` for any device column dtype (uint32 gathers through
     its int32 bits: PyTorch has no uint32 gather kernels)."""
-    import torch
-
     if col.dtype == torch.uint32:
         return col.view(torch.int32)[idx].view(torch.uint32)
     return col[idx]
+
+
+_SIGNED_VIEW = {torch.uint32: torch.int32, torch.uint16: torch.int16}
+
+
+def eq_lanes(col):
+    """``col`` viewed so that ``==``/``!=`` run on it: unsigned 16/32-bit
+    columns compare through their signed bits (no CPU kernels for
+    them); floats stay floats (NaN != NaN, -0.0 == +0.0)."""
+    view = _SIGNED_VIEW.get(col.dtype)
+    return col if view is None else col.view(view)
+
+
+def _order_key(k, bits: Optional[int]):
+    """(non-negative int64 ``u``, width ``w``): ``u`` orders as
+    ``lax.sort`` orders ``k`` and fits in ``w`` bits. ``bits`` declares
+    ``k`` a non-negative integer below ``2**bits``."""
+    if bits is not None:
+        return k.to(torch.int64), bits
+    dt = k.dtype
+    if dt == torch.bool:
+        return k.to(torch.int64), 1
+    if dt.is_floating_point:
+        w = 8 * k.element_size()
+        # lax.sort's canonical floats: -0.0 onto +0.0, every NaN onto one
+        # positive NaN (which orders after +inf).
+        k = torch.where(k == 0, torch.zeros_like(k), k)
+        k = torch.where(torch.isnan(k), torch.full_like(k, float("nan")), k)
+        mask = (1 << w) - 1
+        sign = 1 << (w - 1)
+        b = k.view(torch.int32 if w == 32 else torch.int16)
+        b = b.to(torch.int64) & mask
+        # Negative floats order by inverted bits, others above them.
+        return torch.where((b & sign) != 0, b ^ mask, b | sign), w
+    w = 8 * k.element_size()
+    if dt in _SIGNED_VIEW:
+        return k.view(_SIGNED_VIEW[dt]).to(torch.int64) & ((1 << w) - 1), w
+    if dt == torch.uint8:
+        return k.to(torch.int64), w
+    return k.to(torch.int64) + (1 << (w - 1)), w
+
+
+def sort_permutation(sort_keys, bits=None):
+    """The stable lexicographic sort permutation of rows keyed by
+    ``sort_keys`` (first most significant), int64[n].
+
+    Torch has no multi-operand sort: each key becomes an
+    order-preserving non-negative integer (``_order_key``); consecutive
+    keys pack into one int64 while their widths fit 63 bits (one int32
+    when they fit 31), and the groups sort least significant first with
+    stable sorts, carrying the permutation."""
+    if bits is None:
+        bits = (None,) * len(sort_keys)
+    groups, cur, cur_w = [], None, 0
+    for k, b in zip(sort_keys, bits):
+        u, w = _order_key(k, b)
+        if cur is not None and cur_w + w <= 63:
+            cur, cur_w = (cur << w) | u, cur_w + w
+        else:
+            if cur is not None:
+                groups.append((cur, cur_w))
+            cur, cur_w = u, w
+    groups.append((cur, cur_w))
+    perm = None
+    for g, w in reversed(groups):
+        if w <= 31:
+            g = g.to(torch.int32)
+        if perm is not None:
+            g = g[perm]
+        _, idx = torch.sort(g, stable=True)
+        perm = idx if perm is None else perm[idx]
+    return perm
+
+
+def sort_with_payload(sort_keys, num_keys: int, payload, bits=None):
+    """Stable-sort rows by ``sort_keys`` (scalar int/float columns)
+    carrying ``payload`` columns along — the shared idiom of every keyed
+    kernel. ``bits`` optionally declares, per key, that it is a
+    non-negative integer below ``2**bits`` (None: the dtype's full
+    width), which lets more keys share one sort pass. Payload columns,
+    vector ones included, move with one gather each. Returns
+    (sorted_key_tuple, sorted_payload_tuple)."""
+    sort_keys = tuple(sort_keys)[:num_keys]
+    perm = sort_permutation(sort_keys, bits)
+    return (tuple(take(k, perm) for k in sort_keys),
+            tuple(take(c, perm) for c in payload))
+
+
+def sort_and_segment(nkeys: int, valid_mask, key_cols, payload):
+    """Shared prelude for keyed kernels: stable-sort rows by (validity,
+    keys) with payload columns riding along, and mark segment starts
+    (row 0, any key change, validity change; invalid rows isolate into
+    their own segments). Returns (s_invalid, s_keys, s_payload, diff)."""
+    size = key_cols[0].shape[0]
+    invalid = (~valid_mask).to(torch.int32)
+    sorted_keys, s_payload = sort_with_payload(
+        (invalid,) + tuple(key_cols), 1 + nkeys, payload,
+        bits=(1,) + (None,) * nkeys,
+    )
+    s_invalid = sorted_keys[0]
+    s_keys = sorted_keys[1:]
+    return s_invalid, s_keys, s_payload, segment_starts(
+        (s_invalid,) + tuple(s_keys), s_invalid == 1, size)
+
+
+def segment_starts(sorted_keys, isolate, size: int):
+    """bool[size]: row 0, every row whose key differs from the row
+    before (``!=``, so every NaN starts a segment of its own), and every
+    ``isolate`` row."""
+    diff = torch.zeros(size, dtype=torch.bool, device=isolate.device)
+    if size:
+        diff[0] = True
+    for k in sorted_keys:
+        k = eq_lanes(k)
+        diff[1:] |= k[1:] != k[:-1]
+    return diff | isolate
 
 
 def compact_by_mask(mask, cols):
@@ -37,8 +169,6 @@ def compact_by_mask(mask, cols):
     Returns (count int32 0-d tensor, cols) with every column at its
     input length: survivors first, zeros after (callers read ``count``
     rows)."""
-    import torch
-
     cols = tuple(cols)
     idx = torch.nonzero(mask).squeeze(1)
     k = idx.shape[0]
@@ -48,3 +178,95 @@ def compact_by_mask(mask, cols):
         buf[:k] = take(c, idx)
         out.append(buf)
     return torch.tensor(k, dtype=torch.int32, device=mask.device), tuple(out)
+
+
+def _interleave(a, b):
+    """JAX's ``_interleave``: ``a`` at even rows, ``b`` at odd rows. JAX
+    pads both with zeros and adds them (ors for bool), so a float -0.0
+    leaves as +0.0; integer adds of 0 change nothing."""
+    out = torch.empty((a.shape[0] + b.shape[0],) + tuple(a.shape[1:]),
+                      dtype=a.dtype, device=a.device)
+    out[0::2] = a
+    out[1::2] = b
+    if out.is_floating_point():
+        out = out + 0
+    return out
+
+
+def associative_scan(combine, elems):
+    """Inclusive scan of the list of columns ``elems`` along rows with
+    ``combine(a_list, b_list) -> list``: JAX's ``associative_scan``
+    recursion (jax/_src/lax/control_flow/loops.py ``_scan``), which
+    combines the same pairs in the same order as the JAX package."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    reduced = combine([e[0:-1:2] for e in elems], [e[1::2] for e in elems])
+    odd = associative_scan(combine, reduced)
+    if n % 2 == 0:
+        even = combine([e[:-1] for e in odd], [e[2::2] for e in elems])
+    else:
+        even = combine(odd, [e[2::2] for e in elems])
+    even = [torch.cat([e[:1], r]) for e, r in zip(elems, even)]
+    return [_interleave(a, b) for a, b in zip(even, odd)]
+
+
+def segmented_combine(diff, s_vals, cfn):
+    """Apply an associative combine within each segment of sorted rows.
+
+    ``diff`` marks segment starts; returns ``(is_last, reduced)`` where
+    ``is_last`` marks each segment's final row (which holds the full
+    segment reduction in ``reduced``). Shared by the standalone reduce
+    core and the fused combine+shuffle (parallel/shuffle.py).
+    """
+    size = diff.shape[0]
+
+    def scan_op(x, y):
+        fx, vx = x[0], x[1:]
+        fy, vy = y[0], y[1:]
+        merged = cfn(tuple(vx), tuple(vy))
+        # Broadcast the boundary flag over any trailing (vector) dims.
+        return [fx | fy] + [
+            torch.where(fy.reshape(fy.shape + (1,) * (b.dim() - 1)), b, m)
+            for b, m in zip(vy, merged)
+        ]
+
+    red = associative_scan(scan_op, [diff] + list(s_vals))[1:]
+    is_last = torch.ones(size, dtype=torch.bool, device=diff.device)
+    is_last[:-1] = diff[1:]
+    return is_last, tuple(red)
+
+
+def make_segmented_reduce_masked(nkeys: int, nvals: int, cfn):
+    """Mask-based segmented reduce core.
+
+    ``core(valid_mask, key_cols, val_cols) -> (keep_mask, keys, vals)``
+    reduces the rows selected by ``valid_mask`` (bool[size]) and returns
+    them *in sorted position* with a survivor mask (chained stages
+    accept masks).
+    """
+
+    def core(valid_mask, key_cols, val_cols):
+        s_invalid, s_keys, s_vals, diff = sort_and_segment(
+            nkeys, valid_mask, key_cols, val_cols
+        )
+        is_last, red = segmented_combine(diff, s_vals, cfn)
+        return is_last & (s_invalid == 0), s_keys, tuple(red)
+
+    return core
+
+
+def make_segmented_reduce(nkeys: int, nvals: int, cfn):
+    """Count-based wrapper over the masked core: ``core(n, key_cols,
+    val_cols) -> (count, keys, vals)`` with survivors front-compacted
+    (sorted by key)."""
+    masked = make_segmented_reduce_masked(nkeys, nvals, cfn)
+
+    def core(n, key_cols, val_cols):
+        size = key_cols[0].shape[0]
+        mask = torch.arange(size, device=key_cols[0].device) < n
+        keep, keys, vals = masked(mask, key_cols, val_cols)
+        count, packed = compact_by_mask(keep, tuple(keys) + tuple(vals))
+        return count, packed[:nkeys], packed[nkeys:]
+
+    return core

@@ -6,8 +6,9 @@ Phase 0 prints the card (name and power limit, as nvidia-smi reports
 them) and the torch and CUDA versions. Phase 1 builds the CUDA kernels
 from bigslice_tpu_torch/csrc/ and runs the probe kernel. Phase 2 holds
 each kernel against its plain PyTorch version on the card at the main
-path's shapes (for K2 also a bucket that spills and a table at load
-factor 1/4) and times both (median of CUDA-event-timed runs after a
+path's shapes (for K2 also a bucket that spills, a table at load
+factor 1/4, and the two tables of phase 6 that overflow; for K1 also
+float keys and the map waves of phases 6 and 7) and times both (median of CUDA-event-timed runs after a
 warm-up; the bare kernel between CUDA events, its buffers reset
 outside them, with the GPU idle at the start event, and again queued
 behind a busy-wait, which leaves out the host's launch latency) beside
@@ -19,6 +20,17 @@ five times warm (the median wall is reported), checks them against
 numpy, and checks that the kernels' launch counters rose during the
 runs. The counted run of the main path is the process's first: its
 executor runs the probe kernel, which is cached per process after that.
+
+Phases 4-7 drive the sort lowering and the map stages, each at full
+width, each once counted and five times warm, every output row checked
+against numpy: 4, ``lww-wave``, Const -> Map -> Filter -> a Reduce
+keeping the latest record per key (a combine fn that does not classify)
+at 2**25 rows; 5, ``float-key``, a counting Reduce over float32 keys
+with +-0.0 and NaN at 2**24 rows; 6, ``overflow-fallback``, near-distinct
+keys all routed to one partition, whose hash table overflows and whose
+waves rerun on the sort path, at about 2**22 rows; 7, ``sortshuffle``,
+Reshuffle of 2**24 keys, each partition read back and sorted on the
+card. Each prints its warm wall, rows/s and peak device memory.
 
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
@@ -219,6 +231,7 @@ def phase2_kernels(device) -> dict:
     wrapper's (allocation, launch and, for K2, its fills and key
     gather)."""
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.parallel import hashagg
 
     results = {}
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -309,6 +322,47 @@ def phase2_kernels(device) -> dict:
     ms2, queued2 = bare_partition_ms(keys, 1000, 7, valid, with_counts=True)
     log(f"phase 2: hash_partition n={n} keys=3 nparts=1000 masked: kernel "
         f"{ms2:.4f} ms (queued {queued2:.4f}), bit-equal")
+
+    # One float32 key column with +-0.0 and NaN at the float-key path's
+    # map wave (phase 5: 2**22 rows, valid mask, 4 partitions).
+    n = 1 << 22
+    rng = np.random.RandomState(12)
+    fk = rng.randn(n).astype(np.float32)
+    for i, v in enumerate([0.0, -0.0, np.nan, -np.nan]):
+        fk[i::97] = v
+    key = torch.from_numpy(fk).to(device)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    ids, _ = ck.hash_partition([key], 4, 0, with_counts=False, valid=valid)
+    pids, _ = ck.hash_partition_plain([key], 4, 0, with_counts=False,
+                                      valid=valid)
+    if not torch.equal(ids, pids):
+        raise AssertionError("hash_partition != plain on float keys")
+    msf, queuedf = bare_partition_ms([key], 4, 0, valid, with_counts=False)
+    boundf = nbytes(key, valid, ids) / HBM_BYTES_PER_S * 1e3
+    log(f"phase 2: hash_partition n={n} float32 key with +-0.0 and NaN "
+        f"nparts=4 masked (float-key map wave): kernel {msf:.4f} ms (queued "
+        f"{queuedf:.4f}; bound {boundf:.4f} ms), bit-equal")
+    results["hash_partition"].update(float_key_ms=msf,
+                                     float_key_queued_ms=queuedf,
+                                     float_key_bound_ms=boundf)
+
+    # int32 keys at the map waves of phase 6 (wave 0: 2**20 rows, every
+    # key in partition 0) and phase 7 (wave 0: 2**22 keys uniform over
+    # 2**30), 4 partitions, all rows valid, no histogram.
+    okeys = _overflow_keys()
+    for what, k in (("overflow-fallback", okeys[:1 << 20]),
+                    ("sortshuffle", _sortshuffle_keys()[:1 << 22])):
+        key = torch.from_numpy(k).to(device)
+        valid = torch.ones(len(k), dtype=torch.bool, device=device)
+        ids, _ = ck.hash_partition([key], 4, 0, with_counts=False,
+                                   valid=valid)
+        pids, _ = ck.hash_partition_plain([key], 4, 0, with_counts=False,
+                                          valid=valid)
+        if not torch.equal(ids, pids):
+            raise AssertionError(f"hash_partition != plain at the {what} "
+                                 f"map wave")
+        log(f"phase 2: hash_partition n={len(k)} int32 key nparts=4 masked "
+            f"({what} map wave 0): bit-equal")
 
     # -- K2 at the map side's shape (n = 2**23, 4 parts, R = 2**21, keys
     # uniform over 2**20, int32 add).
@@ -431,6 +485,36 @@ def phase2_kernels(device) -> dict:
                             1 << 21, 1 << 19)
     log(f"phase 2: hash_aggregate load 1/4, 2**19 keys in 2**21 slots: "
         f"kernel {qms:.4f} ms, rows equal")
+    # The two tables of phase 6 that overflow on the first attempt: its
+    # map wave 0 (2**20 near-distinct keys, all of partition 0, into
+    # regions of R = 2**18) and its reduce wave 0 (partition 0's rows of
+    # the four map waves, from the sort path the overflow sent them to,
+    # nparts = 1). Only the overflow count steers the path here.
+    okey = torch.from_numpy(okeys[:1 << 20]).to(device)
+    oone = torch.ones_like(okey)
+    ovalid = torch.ones(okey.shape[0], dtype=torch.bool, device=device)
+    opart, _ = ck.hash_partition_plain([okey], 4, 0, with_counts=False)
+    oR = hashagg.combine_region_size(okey.shape[0], 4)
+    overflows = {"map_wave": _check_overflowed(
+        ck.hash_aggregate(ovalid, [okey], [oone], ["add"], opart, 4, oR),
+        ck.hash_aggregate_plain(ovalid, [okey], [oone], ["add"], opart, 4,
+                                oR),
+        ovalid, okey, oone, 4, oR, "phase 6 map wave 0")}
+    rvalid, rkey, rval, rn = _overflow_reduce_input(okeys, device)
+    oR = rkey.shape[0]
+    rpart = torch.zeros(oR, dtype=torch.int32, device=device)
+    overflows["reduce_wave"] = _check_overflowed(
+        ck.hash_aggregate(rvalid, [rkey], [rval], ["add"], rpart, 1, oR),
+        ck.hash_aggregate_plain(rvalid, [rkey], [rval], ["add"], rpart, 1,
+                                oR),
+        rvalid, rkey, rval, 1, oR, "phase 6 reduce wave 0")
+    log(f"phase 2: hash_aggregate where phase 6 overflows, map wave 0 "
+        f"(n=2**20, nparts=4, R=2**18) and reduce wave 0 (n={oR}, {rn} "
+        f"valid, nparts=1): overflow (kernel, plain) "
+        + "; ".join(f"{k} {v['kernel']}, {v['plain']}"
+                    for k, v in overflows.items())
+        + ", both tables consistent with their counts")
+    results["hash_aggregate"]["overflow_cases"] = overflows
     log("phase 2: hash_aggregate queued, all passes and each (A bucket, "
         "B aggregate, C spill), ms: " + "; ".join(
             f"{what} " + ", ".join(f"{k} {v:.4f}" for k, v in p.items())
@@ -470,19 +554,52 @@ def _reduce_side_input(device):
     ``bucket_size`` of the largest partition's rows
     (``_build_wave_views``). Returns ``(valid, key, val, rows)``."""
     from bigslice_tpu_torch.parallel import hashagg
-    from bigslice_tpu_torch.parallel.jitutil import bucket_size
 
     S, n = 4, 1 << 25
     keys = np.random.RandomState(42).randint(0, 1 << 20, n).astype(np.int32)
     body = hashagg.make_hash_combine_shuffle(1, 1, 1, ["add"], nparts=S)
-    per = torch.zeros(S, dtype=torch.int64, device=device)
-    rows_k, rows_v = [], []
+    outs = []
     for chunk in np.split(keys, S):
         k = torch.from_numpy(chunk).to(device)
-        mask, overflow, (subid, out_k, out_v) = body(
-            torch.ones_like(k, dtype=torch.bool), k, torch.ones_like(k))
+        mask, overflow, cols = body(torch.ones_like(k, dtype=torch.bool), k,
+                                    torch.ones_like(k))
         if int(overflow) != 0:
             raise AssertionError("map-side table overflowed")
+        outs.append((mask, *cols))
+    return _wave0_input(outs, S, device)
+
+
+def _overflow_reduce_input(keys, device):
+    """Reduce wave 0's input in phase 6: its four map waves on the sort
+    path (fused sort combine + shuffle at the slack a combiner starts
+    with), packed as ``_reduce_side_input`` packs them."""
+    from bigslice_tpu_torch.parallel import segment, shuffle
+
+    S = 4
+    body = shuffle.make_combine_shuffle_fn(
+        1, 1, 1, segment.canonical_combine(lambda a, b: a + b, 1),
+        slack=1.0, nparts=S)
+    outs = []
+    for chunk in np.split(keys, S):
+        k = torch.from_numpy(chunk).to(device)
+        mask, overflow, bad, cols = body(
+            torch.ones_like(k, dtype=torch.bool), k, torch.ones_like(k))
+        if int(overflow) != 0 or int(bad) != 0:
+            raise AssertionError("phase 6's sort shuffle overflowed")
+        outs.append((mask, *cols))
+    return _wave0_input(outs, S, device)
+
+
+def _wave0_input(outs, S, device):
+    """Partition 0's rows of the map waves' outputs ``[(mask, subid, key,
+    val)]``, in wave order and slot order, front-packed into a buffer
+    of ``bucket_size`` of the largest partition's rows. Returns
+    ``(valid, key, val, rows)``."""
+    from bigslice_tpu_torch.parallel.jitutil import bucket_size
+
+    per = torch.zeros(S, dtype=torch.int64, device=device)
+    rows_k, rows_v = [], []
+    for mask, subid, out_k, out_v in outs:
         per += torch.bincount(subid[mask].to(torch.int64), minlength=S)
         sel = torch.nonzero(mask & (subid == 0)).squeeze(1)
         rows_k.append(out_k[sel])
@@ -495,6 +612,28 @@ def _reduce_side_input(device):
     key[:rn], val[:rn] = rk, rv
     valid = torch.arange(cap, device=device) < rn
     return valid, key, val, rn
+
+
+def _overflow_keys() -> np.ndarray:
+    """Phase 6's keys: 2**22 - 2**18 distinct int32 keys that all route
+    to partition 0 of 4, the first 2**18 of them twice, shuffled."""
+    from bigslice_tpu_torch.parallel.cuda_kernels import hash_partition_plain
+
+    ndistinct = (1 << 22) - (1 << 18)
+    cand = torch.arange(1 << 24, dtype=torch.int32)
+    part, _ = hash_partition_plain([cand], 4, 0, with_counts=False)
+    distinct = cand[part == 0][:ndistinct].numpy()
+    if len(distinct) != ndistinct:
+        raise AssertionError("overflow-fallback: too few candidate keys")
+    rng = np.random.RandomState(6)
+    return rng.permutation(np.concatenate([distinct,
+                                           distinct[:1 << 18]]))
+
+
+def _sortshuffle_keys() -> np.ndarray:
+    """Phase 7's keys: 2**24 int32 keys uniform over 2**30."""
+    return np.random.RandomState(11).randint(0, 1 << 30,
+                                             1 << 24).astype(np.int32)
 
 
 def _probe_timing(device) -> dict:
@@ -535,6 +674,55 @@ def _check_tables(got, want, nparts, R, what) -> float:
     if not torch.equal((slots // R).to(torch.int32), rp):
         raise AssertionError(f"hash_aggregate region invariant ({what})")
     return float(np.abs(a - b).max()) if a.size else 0.0
+
+
+def _check_overflowed(got, want, valid, key, val, nparts, R, what
+                      ) -> dict:
+    """Kernel and plain table where the rows cannot all be placed: both
+    must report overflow, and each table must agree with its count —
+    distinct keys, each of the input, in its partition's region and
+    holding at most its key's total (the values are positive), and the
+    overflow as many rows as the totals left out of the table need:
+    every row of a key the table lacks, and for a key held short at
+    least one of its rows and not all."""
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    k_in, v_in = key[valid], val[valid].to(torch.int64)
+    uk, inv = torch.unique(k_in, return_inverse=True)
+    total = torch.zeros(uk.shape[0], dtype=torch.int64,
+                        device=k_in.device).index_add_(0, inv, v_in)
+    nrows = torch.bincount(inv, minlength=uk.shape[0])
+    counts = {}
+    for name, (present, ok, ovs, ov) in (("kernel", got), ("plain", want)):
+        ov = int(ov)
+        counts[name] = ov
+        if ov <= 0:
+            raise AssertionError(f"hash_aggregate ({name}) reports no "
+                                 f"overflow ({what})")
+        slots = torch.nonzero(present).squeeze(1)
+        tk, tv = ok[0][slots], ovs[0][slots].to(torch.int64)
+        pos = torch.searchsorted(uk, tk).clamp(max=uk.shape[0] - 1)
+        if torch.unique(tk).shape[0] != tk.shape[0] or not bool(
+                (uk[pos] == tk).all()):
+            raise AssertionError(f"hash_aggregate ({name}) table keys are "
+                                 f"repeated or not of the input ({what})")
+        if not bool(((tv > 0) & (tv <= total[pos])).all()):
+            raise AssertionError(f"hash_aggregate ({name}) values exceed "
+                                 f"their keys' totals ({what})")
+        rp, _ = ck.hash_partition_plain([tk], nparts, 0, with_counts=False)
+        if not torch.equal((slots // R).to(torch.int32), rp):
+            raise AssertionError(f"hash_aggregate ({name}) region "
+                                 f"invariant ({what})")
+        held = torch.zeros_like(total)
+        held[pos] = tv
+        lacks, short = held == 0, (held > 0) & (held < total)
+        lo = int(nrows[lacks].sum()) + int(short.sum())
+        hi = int(nrows[lacks].sum()) + int((nrows[short] - 1).sum())
+        if not lo <= ov <= hi:
+            raise AssertionError(
+                f"hash_aggregate ({name}) overflow {ov} is not the "
+                f"{lo}..{hi} rows left out of the table ({what})")
+    return counts
 
 
 def _shard_keys_routed(shards, S) -> None:
@@ -675,6 +863,224 @@ def phase3_slice(card: str) -> dict:
                 maxmin_walls_s=walls2, maxmin_rows=n2, peak_gib=peak)
 
 
+def drive(phase: str, label: str, make_slice, check, need, rows: int,
+          card: str) -> dict:
+    """One path through ``Session().run``: a counted first run (launch
+    counts set to 0 just before, read just after; every kernel in
+    ``need`` must have launched), then ``WARM_RUNS`` warm runs whose
+    median wall is reported. A run is session construction, the run and
+    reading every shard back to the host; ``check(session, result)``
+    holds each run's output against numpy and raises on a mismatch. Peak
+    device memory is the largest over the warm runs, checks excluded."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    def run():
+        sess = bs.Session()
+        res = sess.run(make_slice())
+        for shard in range(res.num_shards):
+            list(res.reader(shard, ()))
+        return sess, res
+
+    ck.reset_launches()
+    sess, res = run()
+    launches = dict(ck.LAUNCHES)
+    for name in need:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: {name} was not launched")
+    note = check(sess, res)
+    del sess, res
+    walls, peaks = [], []
+    for _ in range(WARM_RUNS):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sess, res = run()
+        walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        check(sess, res)
+        del sess, res
+    gc.collect()
+    wall = statistics.median(walls)
+    log(f"phase {phase}: {label}, {rows} rows: warm wall {wall:.4f} s "
+        f"(median of {WARM_RUNS}: {', '.join(f'{w:.4f}' for w in walls)}), "
+        f"{rows / wall:.1f} rows/s, peak device memory {max(peaks):.3f} GiB, "
+        f"launches {launches} (first run){note or ''}, on {card}")
+    return dict(launches=launches, wall_s=wall, walls_s=walls, rows=rows,
+                rows_per_s=rows / wall, peak_gib=max(peaks))
+
+
+def _lww_fn(a, b):
+    """Keep the latest record per key: max timestamp, its value."""
+    return (torch.maximum(a[0], b[0]), torch.where(a[0] >= b[0], a[1], b[1]))
+
+
+def phase4_lww(card: str) -> dict:
+    """lww-wave: Const -> Map (fold keys to 2**20) -> Filter (timestamp
+    watermark) -> Reduce keeping the latest record per key, at the
+    reduce-wave shape (2**25 rows, S = 4). The combine fn does not
+    classify, so the map side is the fused sort combine + shuffle routed
+    by K1 and the reduce side the segmented reduce."""
+    import bigslice_tpu_torch as bs
+
+    S, n, mark = 4, 1 << 25, 1 << 22
+    rng = np.random.RandomState(42)
+    keys = rng.randint(0, 1 << 24, n).astype(np.int32)
+    ts = rng.permutation(n).astype(np.int32)
+    vals = rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32)
+    # numpy: one sort of (folded key, ts); each key's last row is its
+    # latest record (ts values are distinct).
+    sel = ts >= mark
+    comb = ((keys[sel] & 0xFFFFF).astype(np.int64) << 25) | ts[sel]
+    comb.sort()
+    kk = comb >> 25
+    last = np.r_[kk[1:] != kk[:-1], True]
+    want_k = kk[last].astype(np.int32)
+    want_t = (comb[last] & ((1 << 25) - 1)).astype(np.int32)
+    row_of_ts = np.empty(n, np.int64)
+    row_of_ts[ts] = np.arange(n)
+    want_v = vals[row_of_ts[want_t]]
+    del comb, kk, row_of_ts
+
+    def make():
+        s = bs.Map(bs.Const(S, keys, ts, vals),
+                   lambda k, t, v: (k & 0xFFFFF, t, v))
+        s = bs.Filter(s, lambda k, t, v: t >= mark)
+        return bs.Reduce(s, _lww_fn)
+
+    def check(sess, res):
+        shards = bs.result_shard_rows(res)
+        got = [np.concatenate([sh[j] for sh in shards]) for j in range(3)]
+        order = np.argsort(got[0])
+        if not (np.array_equal(got[0][order], want_k)
+                and np.array_equal(got[1][order], want_t)
+                and np.array_equal(got[2][order], want_v)):
+            raise AssertionError("lww-wave rows differ from numpy")
+        _shard_keys_routed(shards, S)
+        return f", {len(want_k)} keys"
+
+    return drive("4", "lww-wave (Map, Filter, last-writer-wins Reduce)",
+                 make, check, ("hash_partition",), n, card)
+
+
+def phase5_float_key(card: str) -> dict:
+    """float-key: a counting Reduce over float32 keys (2**16 distinct
+    normal draws with 0.0, -0.0 and NaN rows) on the sort lowering; K1
+    hashes the float keys."""
+    import bigslice_tpu_torch as bs
+
+    S, n = 4, 1 << 24
+    rng = np.random.RandomState(5)
+    pool = rng.randn(1 << 16).astype(np.float32)
+    keys = pool[rng.randint(0, 1 << 16, n)]
+    pos = rng.permutation(n)
+    keys[pos[:1 << 12]] = 0.0
+    keys[pos[1 << 12:1 << 13]] = -0.0
+    keys[pos[1 << 13:(1 << 13) + (1 << 10)]] = np.nan
+    ones = np.ones(n, np.int32)
+    nan_in = np.isnan(keys)
+    want_k, want_c = np.unique(np.where(keys == 0, np.float32(0),
+                                        keys)[~nan_in], return_counts=True)
+    zeros = int((keys == 0).sum())
+
+    def check(sess, res):
+        shards = bs.result_shard_rows(res)
+        k = np.concatenate([sh[0] for sh in shards])
+        c = np.concatenate([sh[1] for sh in shards])
+        nan = np.isnan(k)
+        if nan.sum() != nan_in.sum() or not (c[nan] == 1).all():
+            raise AssertionError("float-key: NaN rows did not come back "
+                                 "alone")
+        if (k == 0).sum() != 1 or int(c[k == 0][0]) != zeros:
+            raise AssertionError("float-key: +-0.0 are not one key")
+        k, c = k[~nan], c[~nan]
+        order = np.argsort(k)
+        if not (np.array_equal(np.where(k == 0, np.float32(0), k)[order],
+                               want_k)
+                and np.array_equal(c[order], want_c)):
+            raise AssertionError("float-key counts differ from numpy")
+        _shard_keys_routed(shards, S)
+        return None
+
+    return drive("5", "float-key (Reduce over float32 keys)",
+                 lambda: bs.Reduce(bs.Const(S, keys, ones),
+                                   lambda a, b: a + b),
+                 check, ("hash_partition",), n, card)
+
+
+def phase6_overflow(card: str) -> dict:
+    """overflow-fallback: near-distinct keys that all route to
+    partition 0 overflow the map side's hash table on the first attempt;
+    the executor reruns the wave on the sort path and keeps the op there
+    (``MeshExecutor.hash_off``)."""
+    import bigslice_tpu_torch as bs
+
+    S = 4
+    keys = _overflow_keys()
+    ones = np.ones(len(keys), np.int32)
+    want_k, want_c = np.unique(keys, return_counts=True)
+
+    def check(sess, res):
+        off = sorted(sess.executor.hash_off)
+        if not any(op.startswith("const") for op in off):
+            raise AssertionError("overflow-fallback: the map side did not "
+                                 "go to the sort path")
+        shards = bs.result_shard_rows(res)
+        k = np.concatenate([sh[0] for sh in shards])
+        c = np.concatenate([sh[1] for sh in shards])
+        order = np.argsort(k)
+        if not (np.array_equal(k[order], want_k)
+                and np.array_equal(c[order], want_c)):
+            raise AssertionError("overflow-fallback counts differ from "
+                                 "numpy")
+        _shard_keys_routed(shards, S)
+        return f", on the sort path after overflow: {off}"
+
+    return drive("6", "overflow-fallback (hash table overflow, sort retry)",
+                 lambda: bs.Reduce(bs.Const(S, keys, ones),
+                                   lambda a, b: a + b),
+                 check, ("hash_partition", "hash_aggregate"), len(keys),
+                 card)
+
+
+def phase7_sortshuffle(card: str) -> dict:
+    """sortshuffle: Reshuffle(Const(4, keys)), 2**24 keys uniform over
+    2**30; each partition read back and sorted on the card with
+    ``Frame.sorted_by_key``."""
+    import bigslice_tpu_torch as bs
+
+    S = 4
+    keys = _sortshuffle_keys()
+    want = np.sort(keys)
+
+    def check(sess, res):
+        parts = []
+        for shard in range(S):
+            frames = list(res.reader(shard, ()))
+            k = np.zeros(0, np.int32)
+            if frames:
+                f = bs.Frame.concat(frames)
+                f = bs.Frame([c.to("cuda") for c in f.cols],
+                             f.schema).sorted_by_key()
+                dk = f.cols[0]
+                if not bool((dk[1:] >= dk[:-1]).all()):
+                    raise AssertionError(f"sortshuffle: partition {shard} "
+                                         f"is not sorted")
+                k = dk.cpu().numpy()
+            parts.append((k,))
+        # Routing against the plain version, not the kernel that routed.
+        _shard_keys_routed(parts, S)
+        if not np.array_equal(np.sort(np.concatenate(
+                [p[0] for p in parts])), want):
+            raise AssertionError("sortshuffle rows differ from the input")
+        return None
+
+    return drive("7", "sortshuffle (Reshuffle, partitions sorted on the "
+                 "card)", lambda: bs.Reshuffle(bs.Const(S, keys)), check,
+                 ("hash_partition",), len(keys), card)
+
+
 def main() -> int:
     import argparse
 
@@ -690,16 +1096,24 @@ def main() -> int:
     phase1_build()
     kern = phase2_kernels(device)
     slice_ = phase3_slice(card)
+    paths = {"reduce-wave": slice_,
+             "lww-wave": phase4_lww(card),
+             "float-key": phase5_float_key(card),
+             "overflow-fallback": phase6_overflow(card),
+             "sortshuffle": phase7_sortshuffle(card)}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
-            json.dump({"card": card, "kernels": kern, "slice": slice_}, fh,
+            json.dump({"card": card, "kernels": kern, "paths": paths}, fh,
                       indent=1)
+    # Launches: the counted runs of every path, summed, and by path.
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name],
              replaces=REPLACES[name],
-             launches=slice_["launches"][name], match=True,
-             **{k: kern[name][k] for k in LINE_KEYS})
+             launches=sum(p["launches"][name] for p in paths.values()),
+             launches_by_path={k: p["launches"][name]
+                               for k, p in paths.items()},
+             match=True, **{k: kern[name][k] for k in LINE_KEYS})
         for name in PATH_KERNELS
     ]}
     log(f"card: {card}")

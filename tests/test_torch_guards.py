@@ -23,6 +23,16 @@ def test_slice_runs_without_jax_or_the_jax_package():
         res = sess.run(bs.Reduce(bs.Const(4, keys, np.ones(1000, np.int32)),
                                  lambda a, b: a + b))
         assert len(res.rows()) == 37
+        # The sort lowering with map stages: the lww-wave chain.
+        import torch
+        rng = np.random.RandomState(42)
+        k = rng.randint(0, 1 << 24, 4096).astype(np.int32)
+        t = rng.permutation(4096).astype(np.int32)
+        s = bs.Map(bs.Const(4, k, t, t), lambda k, t, v: (k & 0xFFFFF, t, v))
+        s = bs.Filter(s, lambda k, t, v: t >= 512)
+        res = sess.run(bs.Reduce(s, lambda a, b: (
+            torch.maximum(a[0], b[0]), torch.where(a[0] >= b[0], a[1], b[1]))))
+        assert len(res.rows()) == len(np.unique((k & 0xFFFFF)[t >= 512]))
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))

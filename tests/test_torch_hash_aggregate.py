@@ -2,7 +2,7 @@
 the JAX package's table builds: slot for slot against
 hashagg.hash_aggregate(backend="xla"), and by occupied rows plus the
 region invariant against the Pallas kernel in interpret mode. Also the
-executor's refusal of what this package cannot lower."""
+executor's sort-path fallback for a table that overflows."""
 
 import numpy as np
 import pytest
@@ -13,9 +13,7 @@ from bigslice_tpu.frame import ops as ref_ops  # noqa: E402
 from bigslice_tpu.parallel import hashagg as ref_hashagg  # noqa: E402
 from bigslice_tpu.parallel import pallas_kernels as pk  # noqa: E402
 import bigslice_tpu_torch as bst  # noqa: E402
-from bigslice_tpu_torch.exec.task import TaskError  # noqa: E402
 from bigslice_tpu_torch.parallel import cuda_kernels  # noqa: E402
-from bigslice_tpu_torch.parallel import hashagg  # noqa: E402
 
 CASES = ["int1k", "uint", "f32vals", "multikey", "maxmin"]
 
@@ -168,34 +166,87 @@ def _cpu_session():
     return bst.Session(executor=bst.MeshExecutor(device="cpu"))
 
 
-def test_executor_raises_on_hash_overflow():
-    """Distinct keys all routed to one partition overflow its region:
-    the run raises HashAggregateOverflow naming the op, and returns no
-    result."""
+@pytest.fixture(scope="module")
+def ref_session():
+    import jax
+    from jax.sharding import Mesh
+
+    from bigslice_tpu.exec.meshexec import MeshExecutor
+    from bigslice_tpu.exec.session import Session
+
+    mesh = Mesh(np.array(jax.devices()[:8]), ("shards",))
+    return Session(executor=MeshExecutor(mesh, auto_dense=False,
+                                         hash_aggregate=True))
+
+
+def _same_rows(port_res, ref_res):
+    got = bst.result_shard_rows(port_res)
+    want = bst.result_shard_rows(ref_res)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for gc, wc in zip(g, w):
+            np.testing.assert_array_equal(gc, wc)
+
+
+def test_executor_raises_on_hash_overflow(ref_session):
+    """Distinct keys all routed to one partition overflow its region.
+    The run no longer raises: the wave reruns on the sort path, the op
+    stays there (``hash_off``), and the rows equal the JAX package's,
+    which falls back the same way."""
+    import bigslice_tpu as ref_bs
+
     cand = np.arange(200000, dtype=np.int32)
     keys = cand[_part([cand], 2) == 0][:4096]
-    sl = bst.Reduce(bst.Const(2, keys, np.ones(len(keys), np.int32)),
-                    lambda a, b: a + b)
-    with pytest.raises(TaskError) as ei:
-        _cpu_session().run(sl)
-    assert isinstance(ei.value.cause, hashagg.HashAggregateOverflow)
-    assert "const" in str(ei.value.cause)
+    ones = np.ones(len(keys), np.int32)
+    sess = _cpu_session()
+    res = sess.run(bst.Reduce(bst.Const(2, keys, ones), lambda a, b: a + b))
+    ref = ref_session.run(ref_bs.Reduce(ref_bs.Const(2, keys, ones),
+                                        lambda a, b: a + b))
+    _same_rows(res, ref)
+    assert any(op.startswith("const") for op in sess.executor.hash_off)
+    assert len(res.rows()) == len(keys)
 
 
 @pytest.mark.parametrize("what", ["fn", "float_key"])
-def test_executor_refuses_unported_lowerings(what):
-    from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
+def test_executor_refuses_unported_lowerings(what, ref_session):
+    """A combine fn that does not classify as add/max/min, and float
+    keys, were refused before the sort lowering was ported. Both run on
+    it now, with the JAX package's rows (the fn is not associative, so
+    this also pins the order in which the two combine)."""
+    import bigslice_tpu as ref_bs
 
     keys = np.arange(64, dtype=np.int32) % 5
-    if what == "fn":
-        sl = bst.Reduce(bst.Const(2, keys, np.ones(64, np.int32)),
-                        lambda a, b: a * b + 1)
-    else:
-        sl = bst.Reduce(bst.Const(2, keys.astype(np.float32),
-                                  np.ones(64, np.int32)),
-                        lambda a, b: a + b)
-    with pytest.raises(TaskError) as ei:
-        _cpu_session().run(sl)
-    assert isinstance(ei.value.cause, LoweringNotPorted)
-    assert isinstance(ei.value.cause, NotImplementedError)
-    assert str(ei.value.cause).startswith("const@")
+    if what == "float_key":
+        keys = keys.astype(np.float32)
+    fn = (lambda a, b: a * b + 1) if what == "fn" else (lambda a, b: a + b)
+    ones = np.ones(64, np.int32)
+    res = _cpu_session().run(bst.Reduce(bst.Const(2, keys, ones), fn))
+    ref = ref_session.run(ref_bs.Reduce(ref_bs.Const(2, keys, ones), fn))
+    _same_rows(res, ref)
+
+
+def test_hash_fallback_is_per_site():
+    """The sort-path fallback is remembered per pipeline site
+    (file:line op), as in the JAX package: another Reduce site on the
+    same executor keeps the hash lowering, and a re-run of the
+    overflowing site (a new #N invocation) goes straight to the sort
+    path."""
+    cand = np.arange(200000, dtype=np.int32)
+    keys = cand[_part([cand], 2) == 0][:4096]
+    ones = np.ones(len(keys), np.int32)
+    sess = _cpu_session()
+    ex = sess.executor
+
+    def overflowing():
+        return bst.Reduce(bst.Const(2, keys, ones), lambda a, b: a + b)
+
+    sess.run(overflowing())
+    off = ex.hash_off
+    assert isinstance(off, frozenset)
+    assert off and all("@test_torch_hash_aggregate.py:" in op for op in off)
+    few = np.arange(60, dtype=np.int32) % 7
+    small = bst.Reduce(bst.Const(2, few, ones[:60]), lambda a, b: a + b)
+    assert len(sess.run(small).rows()) == 7
+    assert ex.hash_off == off
+    res = sess.run(overflowing())
+    assert ex.hash_off == off and len(res.rows()) == len(keys)

@@ -73,9 +73,10 @@ def test_partition_ids_matches_xla_path(nparts):
     valid = np.random.RandomState(nparts).rand(n) < 0.9
     want, _, _ = ref_shuffle.partition_ids(keys, nparts, 5, valid=valid,
                                            use_pallas=False)
-    got, counts = port_shuffle.partition_ids(
+    got, bad, counts = port_shuffle.partition_ids(
         [torch.from_numpy(k) for k in keys], nparts, 5,
         valid=torch.from_numpy(valid), with_counts=True)
+    assert bad is None
     np.testing.assert_array_equal(
         counts.numpy(), np.bincount(np.asarray(want)[valid],
                                     minlength=nparts)[:nparts])

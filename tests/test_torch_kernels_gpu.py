@@ -287,3 +287,76 @@ def test_hash_aggregate_many_buckets(dev, nparts, R):
     vals = rng.randint(-100, 100, n).astype(np.int32)
     _check_aggregate(dev, [keys], [vals], ["add"], rng.rand(n) < 0.9,
                      nparts, R)
+
+
+def _lww_slice(bs, n):
+    rng = np.random.RandomState(42)
+    keys = rng.randint(0, 1 << 24, n).astype(np.int32)
+    ts = rng.permutation(n).astype(np.int32)
+    vals = rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32)
+    s = bs.Map(bs.Const(4, keys, ts, vals),
+               lambda k, t, v: (k & 0xFFFFF, t, v))
+    s = bs.Filter(s, lambda k, t, v: t >= n // 8)
+    return bs.Reduce(s, lambda a, b: (torch.maximum(a[0], b[0]),
+                                      torch.where(a[0] >= b[0], a[1], b[1])))
+
+
+def test_sort_lowering_on_the_card_matches_the_cpu(dev):
+    """The lww chain (Map, Filter, a combine fn that does not classify):
+    the sort lowering on the card, routed by K1, equals the CPU run."""
+    import bigslice_tpu_torch as bs
+
+    def run(device):
+        sess = bs.Session(executor=bs.MeshExecutor(device=device))
+        return bs.result_shard_rows(sess.run(_lww_slice(bs, 1 << 18)))
+
+    cuda_kernels.reset_launches()
+    got = run("cuda")
+    assert cuda_kernels.LAUNCHES["hash_partition"] > 0
+    assert cuda_kernels.LAUNCHES["hash_aggregate"] == 0
+    want = run("cpu")
+    for g, w in zip(got, want):
+        for gc, wc in zip(g, w):
+            np.testing.assert_array_equal(gc, wc)
+
+
+@pytest.mark.parametrize("nparts", [1, 4, 33, 1000])
+def test_hash_partition_float_keys(dev, nparts):
+    """One float32 key column with +-0.0, NaNs of both signs and
+    infinities, bit-equal to the plain version."""
+    rng = np.random.RandomState(nparts)
+    n = (1 << 20) + 3
+    f = (rng.randn(n) * 1e3).astype(np.float32)
+    for i, v in enumerate([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf]):
+        f[i::101] = v
+    key = torch.from_numpy(f).to(dev)
+    valid = torch.from_numpy(rng.rand(n) < 0.9).to(dev)
+    ids, counts = cuda_kernels.hash_partition([key], nparts, 0, valid=valid)
+    want_ids, want_counts = cuda_kernels.hash_partition_plain(
+        [key], nparts, 0, valid=valid)
+    assert torch.equal(ids, want_ids)
+    assert torch.equal(counts, want_counts)
+    zero = torch.nonzero(key == 0).squeeze(1)
+    assert bool((ids[zero][valid[zero]] == ids[zero][valid[zero]][0]).all())
+
+
+def test_overflow_fallback_on_the_card(dev):
+    """Near-distinct keys all routed to one partition overflow the map
+    side's table: the wave reruns on the sort path, the op stays there,
+    and every key comes back once with its exact count."""
+    import bigslice_tpu_torch as bs
+
+    cand = torch.arange(1 << 20, dtype=torch.int32)
+    part, _ = cuda_kernels.hash_partition_plain([cand], 4, 0)
+    keys = cand[part == 0][: 1 << 17].numpy()
+    keys = np.concatenate([keys, keys[:1000]])
+    ex = bs.MeshExecutor()
+    cuda_kernels.reset_launches()
+    res = bs.Session(executor=ex).run(bs.Reduce(
+        bs.Const(4, keys, np.ones(len(keys), np.int32)),
+        lambda a, b: a + b))
+    assert cuda_kernels.LAUNCHES["hash_aggregate"] > 0
+    assert any(op.startswith("const") for op in ex.hash_off)
+    got = dict(res.rows())
+    uniq, cnt = np.unique(keys, return_counts=True)
+    assert got == dict(zip(uniq.tolist(), cnt.tolist()))

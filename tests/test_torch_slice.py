@@ -257,3 +257,207 @@ def test_concurrent_runs_share_one_executor(port_session):
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors[0]
     assert sorted(done) == list(range(24))
+
+
+# -- the sort lowering, map stages and the combinerless shuffle ------------
+
+
+def _lww(mod):
+    """Keep the latest record per key: max timestamp, its value."""
+    return lambda a, b: (mod.maximum(a[0], b[0]),
+                         mod.where(a[0] >= b[0], a[1], b[1]))
+
+
+def _lww_chain(bs, mod, n):
+    """The chip's lww-wave chain at ``n`` rows: Const -> Map (fold keys
+    to 2**20) -> Filter (a timestamp watermark) -> Reduce (latest
+    record per key)."""
+    rng = np.random.RandomState(42)
+    keys = rng.randint(0, 1 << 24, n).astype(np.int32)
+    ts = rng.permutation(n).astype(np.int32)
+    vals = rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32)
+    s = bs.Map(bs.Const(4, keys, ts, vals),
+               lambda k, t, v: (k & 0xFFFFF, t, v))
+    s = bs.Filter(s, lambda k, t, v: t >= n // 8)
+    return bs.Reduce(s, _lww(mod)), (keys, ts, vals)
+
+
+def test_lww_chain_matches_reference(ref_session, port_session):
+    import jax.numpy as jnp
+
+    n = 1 << 14
+    ref, _ = _lww_chain(ref_bs, jnp, n)
+    port, (keys, ts, vals) = _lww_chain(bst, torch, n)
+    got = _compare(ref_session, port_session, ref, port)
+    # And against numpy: the latest (k, ts, v) of each folded key.
+    k, t = (keys & 0xFFFFF), ts
+    sel = t >= n // 8
+    order = np.lexsort((t[sel], k[sel]))
+    last = np.r_[k[sel][order][1:] != k[sel][order][:-1], True]
+    want = sorted(zip(k[sel][order][last].tolist(),
+                      t[sel][order][last].tolist(),
+                      vals[sel][order][last].tolist()))
+    rows = sorted(r for g in got for r in zip(*[c.tolist() for c in g]))
+    assert rows == want
+
+
+def _float_keys(n, seed):
+    rng = np.random.RandomState(seed)
+    keys = rng.randn(n).astype(np.float32)[rng.randint(0, 300, n)]
+    keys[::13] = 0.0
+    keys[::17] = -0.0
+    keys[::29] = np.nan
+    return keys
+
+
+def test_float_key_reduce_matches_reference(ref_session, port_session):
+    """Float keys on the sort lowering: +-0.0 one key, each NaN row
+    alone; counts bit-equal, float sums within 1e-5 * sum|v| per key."""
+    def _add2(a, b):
+        return (a[0] + b[0], a[1] + b[1])
+
+    n = 6000
+    keys = _float_keys(n, 3)
+    ones = np.ones(n, np.int32)
+    vals = (np.random.RandomState(4).randn(n) * 10).astype(np.float32)
+    got = _compare(
+        ref_session, port_session,
+        ref_bs.Reduce(ref_bs.Const(4, keys, ones, vals), _add2),
+        bst.Reduce(bst.Const(4, keys, ones, vals), _add2),
+        float_add_cols=(2,),
+    )
+    want = bst.result_shard_rows(ref_session.run(
+        ref_bs.Reduce(ref_bs.Const(4, keys, ones, vals),
+                      _add2)))
+    # Sum |v| per key (+-0.0 one key; a NaN key's row is its own).
+    canon = np.where(keys == 0, np.float32(0), keys)
+    mag = {}
+    for kb, v in zip(canon.view(np.int32).tolist(), np.abs(vals).tolist()):
+        mag[kb] = mag.get(kb, 0.0) + v
+    for g, w in zip(got, want):
+        gk = np.where(g[0] == 0, np.float32(0), g[0])
+        bound = np.array([
+            abs(float(v)) if np.isnan(k) else mag[int(kb)]
+            for k, kb, v in zip(gk, gk.view(np.int32), w[2])])
+        err = np.abs(g[2].astype(np.float64) - w[2].astype(np.float64))
+        assert (err <= 1e-5 * bound).all()
+    k = np.concatenate([g[0] for g in got])
+    c = np.concatenate([g[1] for g in got])
+    nan = np.isnan(k)
+    assert nan.sum() == np.isnan(keys).sum() and (c[nan] == 1).all()
+    assert (k == 0).sum() == 1
+    assert c[k == 0][0] == (keys == 0).sum()
+
+
+def test_map_filter_reduce_matches_reference(ref_session, port_session):
+    keys = _keys(5000, 31, span=4000)
+    vals = np.random.RandomState(31).randint(0, 50, 5000).astype(np.int32)
+    _compare(
+        ref_session, port_session,
+        ref_bs.Reduce(ref_bs.Filter(
+            ref_bs.Map(ref_bs.Const(4, keys, vals),
+                       lambda k, v: (k % 97, v * 3)),
+            lambda k, v: v % 2 == 0), lambda a, b: a + b),
+        bst.Reduce(bst.Filter(
+            bst.Map(bst.Const(4, keys, vals),
+                    lambda k, v: (k % 97, v * 3)),
+            lambda k, v: v % 2 == 0), lambda a, b: a + b),
+    )
+
+
+def test_flatmap_reduce_matches_reference(ref_session, port_session):
+    import jax.numpy as jnp
+
+    def dup(mod):
+        def f(k, v):
+            if mod is jnp:
+                mask = jnp.array([True, True]) & (v >= 0)
+            else:
+                mask = torch.tensor([True, True], device=k.device) & (v >= 0)
+            return mask, mod.stack([k, k + 1]), mod.stack([v, v + 7])
+        return f
+
+    keys = _keys(3000, 33, span=300)
+    vals = np.random.RandomState(33).randint(-5, 50, 3000).astype(np.int32)
+    _compare(
+        ref_session, port_session,
+        ref_bs.Reduce(ref_bs.Flatmap(ref_bs.Const(3, keys, vals), dup(jnp),
+                                     out=[np.int32, np.int32], fanout=2),
+                      lambda a, b: jnp.maximum(a, b) - 1),
+        bst.Reduce(bst.Flatmap(bst.Const(3, keys, vals), dup(torch),
+                               out=[np.int32, np.int32], fanout=2),
+                   lambda a, b: torch.maximum(a, b) - 1),
+    )
+
+
+@pytest.mark.parametrize("n", [0, 3, 700])
+def test_head_matches_reference(ref_session, port_session, n):
+    keys = _keys(2000, 35)
+    vals = np.arange(2000, dtype=np.int32)
+    _compare(ref_session, port_session,
+             ref_bs.Head(ref_bs.Map(ref_bs.Const(4, keys, vals),
+                                    lambda k, v: (k, v + 1)), n),
+             bst.Head(bst.Map(bst.Const(4, keys, vals),
+                              lambda k, v: (k, v + 1)), n))
+
+
+@pytest.mark.parametrize("S", [1, 4, 8])
+def test_reshuffle_matches_reference(ref_session, port_session, S):
+    keys = _keys(3000, 40 + S, span=1 << 20)
+    vals = (np.random.RandomState(S).randn(3000)).astype(np.float32)
+    got = _compare(ref_session, port_session,
+                   ref_bs.Reshuffle(ref_bs.Const(S, keys, vals)),
+                   bst.Reshuffle(bst.Const(S, keys, vals)))
+    _shards_routed_by_hash(got)
+
+
+def _shards_routed_by_hash(shards):
+    from bigslice_tpu_torch.parallel.cuda_kernels import hash_partition_plain
+
+    for s, cols in enumerate(shards):
+        if len(cols[0]):
+            ids, _ = hash_partition_plain([torch.from_numpy(cols[0])],
+                                          len(shards))
+            assert bool((ids == s).all())
+
+
+def test_repartition_matches_reference(ref_session, port_session):
+    keys = _keys(3000, 50, span=1000)
+    vals = np.arange(3000, dtype=np.int32)
+    got = _compare(
+        ref_session, port_session,
+        ref_bs.Repartition(ref_bs.Const(4, keys, vals),
+                           lambda k, n: (k * 7 + 3) % n),
+        bst.Repartition(bst.Const(4, keys, vals),
+                        lambda k, n: (k * 7 + 3) % n))
+    for s, cols in enumerate(got):
+        assert ((cols[0] * 7 + 3) % 4 == s).all()
+
+
+def test_maxint_matches_reference(ref_session, port_session):
+    from bigslice_tpu.models import maxint as ref_maxint
+    from bigslice_tpu_torch.models import maxint as port_maxint
+
+    rng = np.random.RandomState(60)
+    keys = _keys(4000, 60, span=500)
+    vals = rng.randint(-(2**31), 2**31 - 1, 4000).astype(np.int32)
+    _compare(ref_session, port_session,
+             ref_maxint.int_max(ref_bs.Const(4, keys, vals)),
+             port_maxint.int_max(bst.Const(4, keys, vals)))
+
+
+def test_sorted_partitions_read_back(port_session):
+    """A Reshuffle's partitions read back and sorted on their device:
+    the same multiset of rows, each partition sorted by key."""
+    keys = _keys(5000, 70, span=1 << 30)
+    res = port_session.run(bst.Reshuffle(bst.Const(4, keys)))
+    parts = []
+    for shard in range(4):
+        frames = list(res.reader(shard, ()))
+        if frames:
+            f = bst.Frame.concat(frames).sorted_by_key()
+            k = f.cols[0].numpy()
+            assert (np.diff(k) >= 0).all()
+            parts.append(k)
+    np.testing.assert_array_equal(np.sort(np.concatenate(parts)),
+                                  np.sort(keys))

@@ -1,18 +1,24 @@
-"""Where the time goes in the PyTorch port's reduce-wave run on one GPU.
+"""Where the time goes in the PyTorch port's runs on one GPU.
 
-    python3 tools_torch_profile.py [--out DIR]
+    python3 tools_torch_profile.py [--path reduce-wave|lww-wave] [--out DIR]
 
-Runs Session().run(Reduce(Const(4, keys, ones), add)) at the shape of
-the JAX package's reduce-wave scenario (2**25 rows, keys uniform over
-2**20 from RandomState(42)), once to warm up, then:
+``reduce-wave`` (the default) runs Session().run(Reduce(Const(4, keys,
+ones), add)) at the shape of the JAX package's reduce-wave scenario
+(2**25 rows, keys uniform over 2**20 from RandomState(42)); ``lww-wave``
+runs chip_smoke.py's phase-4 chain at the same shape: Map (keys folded
+to 2**20), Filter (a timestamp watermark) and a Reduce keeping the
+latest record per key, on the sort lowering. Each runs once to warm up,
+then:
 
 1. a layer breakdown: host wall time of each executor layer (staging
    upload, wave programs, cross-wave merge, subid split, result
-   readback), each closed by torch.cuda.synchronize();
+   readback) and, inside the wave programs, of the sort lowering's
+   parts (the sort, the segmented scan, K1's wrapper), each closed by
+   torch.cuda.synchronize();
 2. one run under torch.profiler: device time by kernel, total device
    busy time and the device's idle share of the run's wall time, and
    the device time of each hand-written kernel's wrapper (K2's passes
-   summed).
+   summed) and of torch's sort kernels.
 
 Prints both, with the card's name and power limit, and writes the
 profiler table to DIR/profile.txt (default profile_out). Needs a GPU.
@@ -36,24 +42,43 @@ import torch
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--path", default="reduce-wave",
+                    choices=("reduce-wave", "lww-wave"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tools_torch_profile: needs a GPU", file=sys.stderr)
         return 2
     import bigslice_tpu_torch as bs
     from bigslice_tpu_torch.exec import meshexec
+    from bigslice_tpu_torch.parallel import cuda_kernels, segment
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     n, S = 1 << 25, 4
-    keys = np.random.RandomState(42).randint(0, 1 << 20, n).astype(np.int32)
-    ones = np.ones(n, np.int32)
+    rng = np.random.RandomState(42)
+    if args.path == "reduce-wave":
+        keys = rng.randint(0, 1 << 20, n).astype(np.int32)
+        ones = np.ones(n, np.int32)
+
+        def make():
+            return bs.Reduce(bs.Const(S, keys, ones), lambda a, b: a + b)
+    else:
+        keys = rng.randint(0, 1 << 24, n).astype(np.int32)
+        ts = rng.permutation(n).astype(np.int32)
+        vals = rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32)
+
+        def make():
+            s = bs.Map(bs.Const(S, keys, ts, vals),
+                       lambda k, t, v: (k & 0xFFFFF, t, v))
+            s = bs.Filter(s, lambda k, t, v: t >= 1 << 22)
+            return bs.Reduce(s, lambda a, b: (
+                torch.maximum(a[0], b[0]),
+                torch.where(a[0] >= b[0], a[1], b[1])))
 
     def run():
-        res = bs.Session().run(bs.Reduce(bs.Const(S, keys, ones),
-                                         lambda a, b: a + b))
+        res = bs.Session().run(make())
         for shard in range(S):
             list(res.reader(shard, ()))
 
@@ -64,39 +89,47 @@ def main() -> int:
     # synchronized host timers.
     spent = collections.defaultdict(float)
     calls = collections.Counter()
+    E = meshexec.MeshExecutor
     layers = {
-        "_group_inputs": "staging (read shards, upload)",
-        "_execute_wave_on": "wave program (route, aggregate, compact)",
-        "_merge_outputs": "cross-wave merge",
-        "_build_wave_views": "subid split for the reduce waves",
-        "_frames_by_name": "result readback to host",
+        (E, "_group_inputs"): "staging (read shards, upload)",
+        (E, "_execute_wave_on"): "wave program (route, combine, compact)",
+        (segment, "sort_permutation"): "  of it: sort (packing, torch.sort)",
+        (segment, "segmented_combine"): "  of it: segmented scan",
+        (cuda_kernels, "hash_partition"): "  of it: K1 hash_partition wrapper",
+        (cuda_kernels, "hash_aggregate"): "  of it: K2 hash_aggregate wrapper",
+        (E, "_merge_outputs"): "cross-wave merge",
+        (E, "_build_wave_views"): "subid split for the reduce waves",
+        (E, "_frames_by_name"): "result readback to host",
     }
     originals = {}
-    for name in layers:
-        orig = getattr(meshexec.MeshExecutor, name)
-        originals[name] = orig
+    for (owner, name), label in layers.items():
+        orig = getattr(owner, name)
+        originals[owner, name] = orig
 
-        def timed(self, *a, _orig=orig, _name=name, **k):
+        def timed(*a, _orig=orig, _key=label, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = _orig(self, *a, **k)
+            out = _orig(*a, **k)
             torch.cuda.synchronize()
-            spent[_name] += time.perf_counter() - t0
-            calls[_name] += 1
+            spent[_key] += time.perf_counter() - t0
+            calls[_key] += 1
             return out
 
-        setattr(meshexec.MeshExecutor, name, functools.wraps(orig)(timed))
+        setattr(owner, name, functools.wraps(orig)(timed))
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
-    for name, orig in originals.items():
-        setattr(meshexec.MeshExecutor, name, orig)
-    print(f"layer breakdown, reduce-wave {n} rows, S={S}, on {card}: "
+    for (owner, name), orig in originals.items():
+        setattr(owner, name, orig)
+    print(f"layer breakdown, {args.path} {n} rows, S={S}, on {card}: "
           f"wall {wall:.4f} s (synchronized per layer)")
-    for name, label in layers.items():
-        print(f"  {label:45s} {spent[name]:.4f} s in {calls[name]} call(s)")
+    for label in layers.values():
+        print(f"  {label:45s} {spent[label]:.4f} s in {calls[label]} "
+              f"call(s)")
+    top_level = [label for label in layers.values()
+                 if not label.startswith(" ")]
     print(f"  {'other (planning, evaluator, threads)':45s} "
-          f"{wall - sum(spent.values()):.4f} s")
+          f"{wall - sum(spent[k] for k in top_level):.4f} s")
 
     # 2. Device time by kernel under torch.profiler.
     from torch.profiler import ProfilerActivity, profile
@@ -129,7 +162,8 @@ def main() -> int:
     # The hand-written kernels by wrapper: K2 runs several device kernels
     # (its passes, all named agg_*) per wrapper call.
     for label, pattern in (("hash_aggregate (all passes)", r"\bagg_\w+"),
-                           ("hash_partition", r"\bhash_partition_kernel")):
+                           ("hash_partition", r"\bhash_partition_kernel"),
+                           ("torch sort kernels", r"(?i)radix|sort")):
         mine = [e for e in events if re.search(pattern, e.key)]
         print(f"  {label}: {sum(getattr(e, attr) for e in mine) / 1e3:.3f} "
               f"ms device time, "
