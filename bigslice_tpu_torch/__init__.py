@@ -9,13 +9,18 @@ tests hold it against both.
 What it runs today, through the device executor (on ``cuda`` by
 default): ``Const`` sources, the device tier of ``Map``, ``Filter``,
 ``Flatmap`` (fixed fanout) and ``Head``, ``Reduce`` with any
-device-traceable combine fn and int or float keys, and ``Reshuffle`` /
-``Repartition``::
+device-traceable combine fn and int or float keys, ``Reshuffle`` /
+``Repartition``, the aggregating inner join ``JoinAggregate`` and
+``GroupByKey`` (fixed-capacity groups as a vector column)::
 
     import bigslice_tpu_torch as bs
     s = bs.Map(bs.Const(4, keys, vals), lambda k, v: (k & 0xFFFF, v))
     res = bs.Session().run(bs.Reduce(s, lambda a, b: a + b))
     rows = res.rows()
+    j = bs.JoinAggregate(bs.Const(4, ak, av), bs.Const(4, bk, bv),
+                         lambda a, b: a + b, lambda a, b: a + b)
+    g = bs.Map(bs.GroupByKey(bs.Const(4, keys, vals), capacity=64),
+               lambda k, grp, cnt: (k, grp.sum(), cnt))
 """
 
 from bigslice_tpu_torch.exec.meshexec import MeshExecutor
@@ -23,6 +28,8 @@ from bigslice_tpu_torch.exec.session import Result, Session
 from bigslice_tpu_torch.frame.frame import Frame, result_shard_rows
 from bigslice_tpu_torch.ops.base import Dep, Slice
 from bigslice_tpu_torch.ops.const import Const
+from bigslice_tpu_torch.ops.groupby import GroupByKey
+from bigslice_tpu_torch.ops.join import JoinAggregate
 from bigslice_tpu_torch.ops.mapops import Filter, Flatmap, Head, Map
 from bigslice_tpu_torch.ops.reduce import Reduce
 from bigslice_tpu_torch.ops.reshuffle import Repartition, Reshuffle
@@ -35,7 +42,9 @@ __all__ = [
     "Filter",
     "Flatmap",
     "Frame",
+    "GroupByKey",
     "Head",
+    "JoinAggregate",
     "Map",
     "MeshExecutor",
     "Reduce",

@@ -131,6 +131,11 @@ class Compiler:
 
 
 def _frame_combiner(consumer: Slice, dep_index: int = 0):
+    # Consumers with per-dep combiners (JoinAggregate: each side reduces
+    # with its own fn) expose a frame_combiners tuple parallel to deps().
+    fcs = getattr(consumer, "frame_combiners", None)
+    if fcs is not None:
+        return fcs[dep_index]
     comb = consumer.combiner()
     if comb is None:
         return None

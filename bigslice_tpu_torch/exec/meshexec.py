@@ -23,18 +23,29 @@ row validity carried as a bool mask and one compaction at the end:
   ``hash_partition`` kernel. The S partitions ride one device as W = S
   subids of a leading int32 column, and the waves' outputs merge into
   one device-resident output; each consumer wave reads its own subid's
-  rows (split once per output, ``_subid_wave_view``).
+  rows (split once per output, ``_subid_wave_view``);
+- ``join`` (a JoinAggregate, the one two-input stage): each input is
+  its side's shuffled rows; the hash join
+  (``hashagg.make_hash_join_align``: one claim cascade over both sides)
+  when both sides' fns classify over non-float keys, else each side's
+  segmented reduce and the tagged-sort alignment
+  (``join.make_align``);
+- ``groupby`` (a GroupByKey): the sort, each group's [capacity] window
+  of values and its true count (``groupby.make_group_by_key_masked``).
+  Vector columns ([n, capacity]) ride every later stage, the merge, the
+  subid split and the readback like scalar ones.
 
 A wave whose hash table could not place every row is rerun on the sort
 path, and its op stays there (``hash_off``); a shuffle whose buckets
 overflowed is rerun with four times the slack, up to the slack that
-cannot overflow. Outputs stay on the device; results are read back per
-shard through the store bridge (``_BridgedStore``).
+cannot overflow; a strict GroupByKey whose group exceeds its capacity
+raises ``ValueError``. Outputs stay on the device; results are read
+back per shard through the store bridge (``_BridgedStore``).
 
 What the JAX package runs elsewhere raises here, naming the op
-(``LoweringNotPorted``): host-tier functions and columns, vector
-columns, and operators that are not ported. No partial result is
-returned.
+(``LoweringNotPorted``): host-tier functions and columns, the dense
+join (``dense_keys=``), and operators that are not ported. No partial
+result is returned.
 """
 
 from __future__ import annotations
@@ -48,11 +59,15 @@ from bigslice_tpu_torch.exec import store as store_mod
 from bigslice_tpu_torch.exec.task import Task, TaskName, TaskState
 from bigslice_tpu_torch.frame.frame import Frame
 from bigslice_tpu_torch.ops.const import Const
+from bigslice_tpu_torch.ops.groupby import GroupByKey
+from bigslice_tpu_torch.ops.join import JoinAggregate
 from bigslice_tpu_torch.ops.mapops import (Filter, Flatmap, Head, Map,
                                            extra_tensors)
 from bigslice_tpu_torch.ops.reduce import LoweringNotPorted, Reduce
 from bigslice_tpu_torch.ops.reshuffle import Reshuffle, RowPartitioner
+from bigslice_tpu_torch.parallel import groupby as groupby_mod
 from bigslice_tpu_torch.parallel import hashagg, segment
+from bigslice_tpu_torch.parallel import join as join_mod
 from bigslice_tpu_torch.parallel import shuffle as shuffle_mod
 from bigslice_tpu_torch.parallel.jitutil import bucket_size
 from bigslice_tpu_torch.parallel.segment import compact_by_mask, take
@@ -61,7 +76,8 @@ from bigslice_tpu_torch.slicetype import torch_dtype
 __all__ = ["DeviceGroupOutput", "LoweringNotPorted", "MeshExecutor"]
 
 #: The operators a task chain may hold on this executor.
-_DEVICE_OPS = (Const, Map, Filter, Flatmap, Head, Reduce, Reshuffle)
+_DEVICE_OPS = (Const, Map, Filter, Flatmap, Head, Reduce, Reshuffle,
+               JoinAggregate, GroupByKey)
 
 
 def _op_base(op: str) -> str:
@@ -247,7 +263,8 @@ class MeshExecutor:
     def _check_lowering(self, task: Task) -> None:
         """Raise ``LoweringNotPorted`` naming the op when this package
         cannot run ``task`` on the device: an operator that is not
-        ported, a host-tier function, or host or vector columns."""
+        ported, a host-tier function, host columns, or a join that
+        declares ``dense_keys=``."""
         op = task.name.op
         if task.chain is None:
             raise LoweringNotPorted(f"{op}: task has no slice chain")
@@ -256,15 +273,22 @@ class MeshExecutor:
             if not isinstance(s, _DEVICE_OPS):
                 raise LoweringNotPorted(
                     f"{op}: operator {name} is not ported")
-            if getattr(s, "mode", "device") != "device" or (
-                    isinstance(s, Reduce) and not s.frame_combiner.device):
+            fcs = ((s.frame_combiner,) if isinstance(s, Reduce)
+                   else s.frame_combiners if isinstance(s, JoinAggregate)
+                   else ())
+            if getattr(s, "mode", "device") != "device" or not all(
+                    fc.device for fc in fcs):
                 raise LoweringNotPorted(
                     f"{op}: {name} runs a host-tier function: the host "
                     f"tier is not ported")
-            if not all(ct.is_device and ct.shape == () for ct in s.schema):
+            if isinstance(s, JoinAggregate) and s.dense_keys is not None:
                 raise LoweringNotPorted(
-                    f"{op}: host-tier or vector columns: the host tier is "
-                    f"not ported")
+                    f"{op}: JoinAggregate declares dense_keys=: the dense "
+                    f"join is not ported")
+            if not all(ct.is_device for ct in s.schema):
+                raise LoweringNotPorted(
+                    f"{op}: host-tier columns: the host tier is not "
+                    f"ported")
         if task.num_partition > 1:
             part = task.partitioner
             pf = part.partition_fn
@@ -340,10 +364,18 @@ class MeshExecutor:
         has_shuffle = any(kind == "shuffle" for kind, _ in stages)
         while True:
             slack = self._wave_slack(task0)
-            out_counts, overflow, badrange, hashov, out_cols = \
+            out_counts, overflow, badrange, hashov, gbover, out_cols = \
                 self._program(task0, stages, slack)(wave, inputs)
-            overflow, badrange, hashov = torch.stack(
-                [overflow, badrange, hashov]).tolist()
+            overflow, badrange, hashov, gbover = torch.stack(
+                [overflow, badrange, hashov, gbover]).tolist()
+            if gbover > 0:
+                # A strict GroupByKey's capacity overflow: a user error
+                # on its own channel, never a slack or hash retry.
+                raise ValueError(
+                    f"groupbykey: group(s) exceed the declared capacity by "
+                    f"up to {gbover} rows in group {task0.name.op} "
+                    f"(on_overflow='error'); raise capacity or use Cogroup "
+                    f"for discovered capacities")
             if badrange > 0:
                 # A user error, not skew: no slack retry.
                 raise ValueError(
@@ -399,6 +431,18 @@ class MeshExecutor:
             return None
         return fc.hash_ops()
 
+    def _hash_join_ops(self, opbase: str, s: JoinAggregate):
+        """(ops_a, ops_b) when the sortless hash join serves this join
+        stage, None for the sort path: one gate per side, the SAME gate
+        as the combine and shuffle stages, so float keys and fns that do
+        not classify take the sort path, as does a join whose claim
+        cascade overflowed before."""
+        ops_a = self._hash_combine_ops(opbase, s.frame_combiners[0])
+        ops_b = self._hash_combine_ops(opbase, s.frame_combiners[1])
+        if ops_a is None or ops_b is None:
+            return None
+        return ops_a, ops_b
+
     # -- the per-wave device program --------------------------------------
 
     @staticmethod
@@ -406,9 +450,11 @@ class MeshExecutor:
         """Flatten the chain (innermost→outermost) + output partitioner
         into device stages (kind, slice or task). A Const contributes
         no stage (its shards are the staged input), nor does a Reshuffle
-        (it reads its shuffled input as it is)."""
+        (it reads its shuffled input as it is). A JoinAggregate, the
+        innermost slice of its chain, is the first stage."""
         kinds = ((Map, "map"), (Flatmap, "flatmap"), (Filter, "filter"),
-                 (Head, "head"), (Reduce, "combine"))
+                 (Head, "head"), (Reduce, "combine"),
+                 (JoinAggregate, "join"), (GroupByKey, "groupby"))
         stages: List[tuple] = []
         for s in reversed(task.chain):
             for cls, kind in kinds:
@@ -418,12 +464,40 @@ class MeshExecutor:
             stages.append(("shuffle", task))
         return stages
 
+    def _join_prelude(self, opbase: str, s: JoinAggregate, masks,
+                      col_sets):
+        """The two-input join stage: finish each side's keyed reduction
+        (this wave holds every row of its keys, since both producers
+        routed by the same hash) and keep the keys present in both.
+        Classified fns over non-float keys take one shared claim cascade
+        (``hashagg.make_hash_join_align``); others two segmented reduces
+        and the tagged-sort alignment (``join.make_align``). Returns
+        (mask, cols, hash overflow)."""
+        fc_a, fc_b = s.frame_combiners
+        nk = s.prefix
+        cols_a, cols_b = col_sets
+        jops = self._hash_join_ops(opbase, s)
+        if jops is not None:
+            align = hashagg.make_hash_join_align(nk, jops[0], jops[1])
+            mask, cols, hov = align(masks[0], cols_a, masks[1], cols_b)
+            return mask, cols, hov
+        sides = []
+        for fc, m, cols in ((fc_a, masks[0], cols_a),
+                            (fc_b, masks[1], cols_b)):
+            core = segment.make_segmented_reduce_masked(
+                nk, fc.nvals, segment.canonical_combine(fc.fn, fc.nvals))
+            sides.extend(core(m, tuple(cols[:nk]), tuple(cols[nk:])))
+        mask, cols = join_mod.make_align(nk, fc_a.nvals, fc_b.nvals)(*sides)
+        return mask, cols, torch.zeros((), dtype=torch.int32,
+                                       device=self.device)
+
     def _program(self, task: Task, stages: List[tuple], slack: float):
         """The wave program: ``stepped(wave, inputs) -> (out_counts,
-        overflow, badrange, hashov, cols)``. Validity rides as a bool
-        mask between stages; one final compaction establishes the
+        overflow, badrange, hashov, gbover, cols)``. Validity rides as a
+        bool mask between stages; one final compaction establishes the
         front-packed output contract. Subid-carrying inputs keep only
-        this wave's rows."""
+        this wave's rows; a join reads two inputs, every other chain
+        one."""
         opbase = _op_base(task.name.op)
         nmesh = self.nmesh
         device = self.device
@@ -440,10 +514,18 @@ class MeshExecutor:
                     cols = cols[1:]  # strip the subid column
                 masks.append(m)
                 col_sets.append(cols)
-            mask, cols = masks[0], col_sets[0]
             zero = torch.zeros((), dtype=torch.int32, device=device)
-            overflow = badrange = hashov = zero
-            for kind, s in stages:
+            # A strict GroupByKey's overflow rides a channel of its own
+            # (gbover), as does the hash lowerings' (hashov).
+            overflow = badrange = hashov = gbover = zero
+            run_stages = stages
+            if stages and stages[0][0] == "join":
+                mask, cols, hashov = self._join_prelude(
+                    opbase, stages[0][1], masks, col_sets)
+                run_stages = stages[1:]
+            else:
+                mask, cols = masks[0], col_sets[0]
+            for kind, s in run_stages:
                 if kind == "map":
                     extras = extra_tensors(s.args, device)
                     out = vmap(s.fn, in_dims=(0,) * len(cols)
@@ -482,6 +564,16 @@ class MeshExecutor:
                         mask, keys, vals = core(mask, tuple(keys),
                                                 tuple(vals))
                     cols = list(keys) + list(vals)
+                elif kind == "groupby":
+                    core = groupby_mod.make_group_by_key_masked(
+                        s.prefix, s.capacity)
+                    mask, keys, groups, counts = core(
+                        mask, tuple(cols[: s.prefix]), cols[s.prefix])
+                    if s.on_overflow == "error":
+                        gbover = gbover + torch.where(
+                            mask, torch.clamp(counts - s.capacity, min=0),
+                            0).sum().to(torch.int32)
+                    cols = list(keys) + [groups, counts]
                 else:  # shuffle
                     part = s.partitioner
                     fc = part.combiner
@@ -520,9 +612,10 @@ class MeshExecutor:
             if all(kind == "map" for kind, _ in stages) and not any(
                     i[2] for i in inputs):
                 # Map-only chain: the mask is untouched, counts carry over.
-                return inputs[0][1], overflow, badrange, hashov, tuple(cols)
+                return (inputs[0][1], overflow, badrange, hashov, gbover,
+                        tuple(cols))
             out_n, cols = compact_by_mask(mask, cols)
-            return out_n.reshape(1), overflow, badrange, hashov, cols
+            return out_n.reshape(1), overflow, badrange, hashov, gbover, cols
 
         return stepped
 
@@ -577,7 +670,8 @@ class MeshExecutor:
             k = idx.shape[0]
             cols_w = []
             for c in out.cols[1:]:
-                buf = torch.zeros(capr, dtype=c.dtype, device=self.device)
+                buf = torch.zeros((capr,) + tuple(c.shape[1:]),
+                                  dtype=c.dtype, device=self.device)
                 buf[:k] = take(c, idx)
                 cols_w.append(buf)
             views.append(DeviceGroupOutput(
@@ -650,7 +744,7 @@ class MeshExecutor:
         capacity = bucket_size(max(counts + [1]))
         cols = []
         for j, ct in enumerate(schema):
-            buf = torch.zeros(self.nmesh * capacity,
+            buf = torch.zeros((self.nmesh * capacity,) + ct.shape,
                               dtype=torch_dtype(ct.dtype), device=self.device)
             for d, f in enumerate(frames):
                 if f is not None:

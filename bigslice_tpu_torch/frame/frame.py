@@ -223,12 +223,16 @@ class Frame:
 
 def sorted_rows(cols: Sequence[np.ndarray]) -> List[np.ndarray]:
     """Columns reordered lexicographically by all columns (first column
-    most significant); floats compare by their bit patterns' numeric
-    order with NaN last, as ``np.lexsort`` orders them."""
+    most significant; a vector column's cells by their elements in
+    order); floats compare by their numeric order with NaN last, as
+    ``np.lexsort`` orders them."""
     cols = [np.asarray(c) for c in cols]
     if not cols or not len(cols[0]):
         return cols
-    order = np.lexsort(tuple(reversed(cols)))
+    keys = []
+    for c in cols:
+        keys.extend(c.reshape(len(c), -1).T if c.ndim > 1 else [c])
+    order = np.lexsort(tuple(reversed(keys)))
     return [c[order] for c in cols]
 
 
@@ -246,6 +250,7 @@ def result_shard_rows(result) -> List[List[np.ndarray]]:
                 for j in range(ncols)
             ]
         else:
-            cols = [np.empty(0, ct.dtype) for ct in result.schema]
+            cols = [np.empty((0,) + ct.shape, ct.dtype)
+                    for ct in result.schema]
         out.append(sorted_rows(cols))
     return out

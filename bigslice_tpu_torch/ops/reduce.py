@@ -105,12 +105,15 @@ class FrameCombiner:
         """The per-column add/max/min ops the hash-aggregate lowering
         runs this combiner with, or None where the JAX package sends it
         to the sort lowering: float or non-scalar keys, or a combine fn
-        that does not classify. (The executor also sends an op whose
-        table overflowed there.)"""
+        that does not classify. Vector value columns go there too: the
+        JAX package aggregates them in its hash tables, which this
+        package's table kernel does not hold. (The executor also sends
+        an op whose table overflowed there.)"""
         from bigslice_tpu_torch.parallel import dense, keyutil
 
         if not self.device or not keyutil.hash_keys_eligible(
-                self.schema.key):
+                self.schema.key) or any(ct.shape != ()
+                                        for ct in self.schema.values):
             return None
         try:
             return dense.classified_ops_cached(

@@ -45,6 +45,11 @@ SLOT_SEED_XOR = 0x51ED2770
 
 _BIG = 2**31 - 1
 
+#: Rows that claim no slot in a round scatter the no-op value into one
+#: of this many lanes past the table, spread by row index: aimed at one
+#: drop slot, a million rows serialize on its atomic (on the card).
+DROP_LANES = 1024
+
 
 def _slot_hash(key_cols, seed: int) -> torch.Tensor:
     """Within-region slot hash (uint32 lanes carried in int64)."""
@@ -91,7 +96,11 @@ def claim_cascade(valid, key_cols, part, nparts: int, R: int,
     pending = valid & in_range
     iota = torch.arange(n, device=dev)
     big = torch.full((), _BIG, dtype=torch.int64, device=dev)
-    winner = torch.full((T + 1,), _BIG, dtype=torch.int64, device=dev)
+    # Slots [T, T + DROP_LANES) take the rows that claim nothing; only
+    # the first T + 1 are returned (slot T is never claimed).
+    winner = torch.full((T + DROP_LANES,), _BIG, dtype=torch.int64,
+                        device=dev)
+    drop = T + (iota & (DROP_LANES - 1))
     placed = torch.full((n,), -1, dtype=torch.int64, device=dev)
 
     for _ in range(FULL_ROUNDS):
@@ -101,7 +110,7 @@ def claim_cascade(valid, key_cols, part, nparts: int, R: int,
         # re-probe.
         slot_c = slot.clamp(max=T - 1)
         empty = winner[slot_c] == _BIG
-        cand = torch.where(pending & empty, slot, T)
+        cand = torch.where(pending & empty, slot, drop)
         winner = winner.scatter_reduce(
             0, cand, torch.where(pending, iota, big), "amin")
         win = winner[slot_c]
@@ -130,13 +139,14 @@ def claim_cascade(valid, key_cols, part, nparts: int, R: int,
     offc = gat(off, 0)
     basec = gat(base, T)
     stridec = gat(stride, 1)
+    dropc = T + (torch.arange(C, device=dev) & (DROP_LANES - 1))
     rounds = 0
     while rounds < CASCADE_MAX_ROUNDS and bool((ridx < n).any()):
         act = ridx < n
         slot = (basec + offc).clamp(max=T)
         slot_c = slot.clamp(max=T - 1)
         empty = winner[slot_c] == _BIG
-        cand = torch.where(act & empty, slot, T)
+        cand = torch.where(act & empty, slot, dropc)
         winner = winner.scatter_reduce(
             0, cand, torch.where(act, ridx, big), "amin")
         win = winner[slot_c]
@@ -151,7 +161,7 @@ def claim_cascade(valid, key_cols, part, nparts: int, R: int,
         offc = torch.where(act & ~matched, (offc + stridec) & mask_R, offc)
         rounds += 1
     overflow = overflow + (ridx < n).sum()
-    return winner, placed, overflow.to(torch.int32)
+    return winner[:T + 1], placed, overflow.to(torch.int32)
 
 
 def hash_aggregate(valid, key_cols, val_cols, ops: Sequence[str],
@@ -246,3 +256,47 @@ def make_hash_combine_shuffle(nmesh: int, nkeys: int, nvals: int,
         return recv_mask, ov, tuple(out_cols)
 
     return masked
+
+
+def make_hash_join_align(nkeys: int, ops_a: Sequence[str],
+                         ops_b: Sequence[str], seed: int = 0):
+    """Sortless aggregating inner join: ONE claim cascade over the union
+    of both sides' rows gives every distinct key a slot, each side
+    scatter-accumulates into its own value tables, and the match is an
+    elementwise AND of the two presence planes — in place of the two
+    segmented reduces and the tagged alignment sort of the sort path
+    (``parallel/join.make_align``).
+
+    ``align(mask_a, cols_a, mask_b, cols_b) -> (mask, cols, overflow)``
+    with cols = (keys..., vals_a..., vals_b...) of bucket_size(nA+nB)
+    slot-resident rows. These are torch ops on the card as on the CPU:
+    the JAX package runs this step as XLA, not as a Pallas kernel.
+    """
+    from bigslice_tpu_torch.parallel.dense import _scatter_tables
+    from bigslice_tpu_torch.parallel.segment import take
+
+    def align(mask_a, cols_a, mask_b, cols_b):
+        ka, va = cols_a[:nkeys], cols_a[nkeys:]
+        kb, vb = cols_b[:nkeys], cols_b[nkeys:]
+        na = ka[0].shape[0]
+        n = na + kb[0].shape[0]
+        keys = tuple(torch.cat([a, b]) for a, b in zip(ka, kb))
+        valid = torch.cat([mask_a, mask_b])
+        R = bucket_size(n)
+        part = torch.zeros(n, dtype=torch.int32, device=valid.device)
+        winner, placed, ov = claim_cascade(valid, keys, part, 1, R, seed)
+
+        def side(placed_side, vals, ops):
+            # Unplaced rows land in the drop slot R.
+            idx = torch.where(placed_side >= 0, placed_side, R)
+            present, tables = _scatter_tables(idx, list(vals), list(ops),
+                                              R + 1)
+            return present[:R], [t[:R] for t in tables]
+
+        pa, ta = side(placed[:na], va, ops_a)
+        pb, tb = side(placed[na:], vb, ops_b)
+        winc = torch.clamp(winner[:R], max=n - 1)
+        out_keys = [take(kc, winc) for kc in keys]
+        return pa & pb, out_keys + ta + tb, ov
+
+    return align

@@ -7,8 +7,9 @@ them) and the torch and CUDA versions. Phase 1 builds the CUDA kernels
 from bigslice_tpu_torch/csrc/ and runs the probe kernel. Phase 2 holds
 each kernel against its plain PyTorch version on the card at the main
 path's shapes (for K2 also a bucket that spills, a table at load
-factor 1/4, and the two tables of phase 6 that overflow; for K1 also
-float keys and the map waves of phases 6 and 7) and times both (median of CUDA-event-timed runs after a
+factor 1/4, the two tables of phase 6 that overflow and the join paths'
+map waves; for K1 also float keys and the map waves of phases 6, 7, 8,
+9 and 10) and times both (median of CUDA-event-timed runs after a
 warm-up; the bare kernel between CUDA events, its buffers reset
 outside them, with the GPU idle at the start event, and again queued
 behind a busy-wait, which leaves out the host's launch latency) beside
@@ -31,6 +32,17 @@ keys all routed to one partition, whose hash table overflows and whose
 waves rerun on the sort path, at about 2**22 rows; 7, ``sortshuffle``,
 Reshuffle of 2**24 keys, each partition read back and sorted on the
 card. Each prints its warm wall, rows/s and peak device memory.
+
+Phases 8-10 drive the join family the same way: 8, ``join``, the JAX
+package's ``bench.py join`` scenario (JoinAggregate of two Consts of
+2**23 int32 keys uniform over 2**19, counting both sides: K2 on both
+sides' map waves, the hash join); 9, ``join-sort``, the same keys with
+int32 values, side A adding and side B xoring (the tagged-sort
+alignment); 10, ``groupby``, a Map over GroupByKey(capacity=64) of
+2**22 rows. Each checks every output row against numpy, each row's
+shard with the plain K1, the op sites on the sort path
+(``MeshExecutor.hash_off``, empty on all three) and the exact launch
+counts of K1 and K2.
 
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
@@ -351,7 +363,8 @@ def phase2_kernels(device) -> dict:
     # 2**30), 4 partitions, all rows valid, no histogram.
     okeys = _overflow_keys()
     for what, k in (("overflow-fallback", okeys[:1 << 20]),
-                    ("sortshuffle", _sortshuffle_keys()[:1 << 22])):
+                    ("sortshuffle", _sortshuffle_keys()[:1 << 22]),
+                    ("groupby", _groupby_input()[0][:1 << 20])):
         key = torch.from_numpy(k).to(device)
         valid = torch.ones(len(k), dtype=torch.bool, device=device)
         ids, _ = ck.hash_partition([key], 4, 0, with_counts=False,
@@ -524,6 +537,38 @@ def phase2_kernels(device) -> dict:
         max_abs_err=err2, spill_case_ms=sms, spill_case_pass_ms=spasses,
         load_quarter_ms=qms)
 
+    # -- K1 and K2 at the join paths' map waves (phases 8 and 9): wave 0
+    # of each side routes and combines 2**21 rows of keys uniform over
+    # 2**19 into 4 regions of R = 2**19 (side B of join-sort only
+    # routes).
+    jms = {}
+    for side, k in zip("ab", _join_keys()):
+        key = torch.from_numpy(k[:1 << 21]).to(device)
+        one = torch.ones_like(key)
+        valid = torch.ones(key.shape[0], dtype=torch.bool, device=device)
+        jpart, _ = ck.hash_partition([key], 4, 0, with_counts=False,
+                                     valid=valid)
+        ppart, _ = ck.hash_partition_plain([key], 4, 0, with_counts=False,
+                                           valid=valid)
+        if not torch.equal(jpart, ppart):
+            raise AssertionError(f"hash_partition != plain at the join's "
+                                 f"side {side} map wave 0")
+        jR = hashagg.combine_region_size(key.shape[0], 4)
+        got = ck.hash_aggregate(valid, [key], [one], ["add"], jpart, 4, jR)
+        want = ck.hash_aggregate_plain(valid, [key], [one], ["add"], jpart,
+                                       4, jR)
+        results["hash_aggregate"]["max_abs_err"] = max(
+            results["hash_aggregate"]["max_abs_err"],
+            _check_tables(got, want, 4, jR, f"join side {side} map wave"))
+        jkeys = int(got[0].sum())
+        jms[side] = bare_aggregate_ms(valid, [key], [one], ["add"], jpart, 4,
+                                      jR, jkeys)
+        log(f"phase 2: join side {side} map wave 0 (n=2**21, keys over "
+            f"2**19, nparts=4, R={jR}): hash_partition bit-equal; "
+            f"hash_aggregate kernel {jms[side]:.4f} ms, {jkeys} keys, rows "
+            f"equal")
+    results["hash_aggregate"]["join_map_wave_ms"] = jms
+
     results["probe_add1"] = _probe_timing(device)
     return results
 
@@ -634,6 +679,33 @@ def _sortshuffle_keys() -> np.ndarray:
     """Phase 7's keys: 2**24 int32 keys uniform over 2**30."""
     return np.random.RandomState(11).randint(0, 1 << 30,
                                              1 << 24).astype(np.int32)
+
+
+def _join_keys():
+    """The join paths' keys (the JAX package's ``bench.py join``
+    scenario): 2**23 int32 keys a side, uniform over 2**19, side A from
+    RandomState(1) and side B from RandomState(2)."""
+    n = 1 << 23
+    return tuple(np.random.RandomState(seed).randint(0, n // 16, n).astype(
+        np.int32) for seed in (1, 2))
+
+
+def _join_sort_values():
+    """Phase 9's int32 values, side A's then side B's, from
+    RandomState(3)."""
+    rng = np.random.RandomState(3)
+    n = 1 << 23
+    return tuple(rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32)
+                 for _ in "ab")
+
+
+def _groupby_input():
+    """Phase 10's rows: 2**22 int32 keys uniform over 2**17 (mean group
+    32) and int32 values in [1, 100), from RandomState(19)."""
+    rng = np.random.RandomState(19)
+    n = 1 << 22
+    return (rng.randint(0, 1 << 17, n).astype(np.int32),
+            rng.randint(1, 100, n).astype(np.int32))
 
 
 def _probe_timing(device) -> dict:
@@ -864,10 +936,11 @@ def phase3_slice(card: str) -> dict:
 
 
 def drive(phase: str, label: str, make_slice, check, need, rows: int,
-          card: str) -> dict:
+          card: str, expect=None) -> dict:
     """One path through ``Session().run``: a counted first run (launch
     counts set to 0 just before, read just after; every kernel in
-    ``need`` must have launched), then ``WARM_RUNS`` warm runs whose
+    ``need`` must have launched, and each kernel in ``expect`` exactly
+    that many times), then ``WARM_RUNS`` warm runs whose
     median wall is reported. A run is session construction, the run and
     reading every shard back to the host; ``check(session, result)``
     holds each run's output against numpy and raises on a mismatch. Peak
@@ -888,6 +961,10 @@ def drive(phase: str, label: str, make_slice, check, need, rows: int,
     for name in need:
         if launches[name] <= 0:
             raise AssertionError(f"{label}: {name} was not launched")
+    for name, want in (expect or {}).items():
+        if launches[name] != want:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times, not {want}")
     note = check(sess, res)
     del sess, res
     walls, peaks = [], []
@@ -1081,6 +1158,142 @@ def phase7_sortshuffle(card: str) -> dict:
                  ("hash_partition",), len(keys), card)
 
 
+def _group_sums(keys, vals, fn):
+    """Per distinct key (ascending): the key, its row count and ``fn``
+    (a numpy ufunc) reduced over its int32 values, wrapping as int32
+    arithmetic does."""
+    order = np.argsort(keys, kind="stable")
+    sk, sv = keys[order], vals[order]
+    starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+    return (sk[starts], np.diff(np.r_[starts, len(sk)]),
+            fn.reduceat(sv, starts).astype(np.int32))
+
+
+def _join_check(ak, av, bk, bv, fa, fb, label):
+    """``check`` of a join path: every output row against numpy (keys
+    present in both sides, each side's values reduced by its fn), each
+    row in the shard the plain K1 names, and no op site on the sort path
+    after an overflow."""
+    import bigslice_tpu_torch as bs
+
+    ka, _, ra = _group_sums(ak, av, fa)
+    kb, _, rb = _group_sums(bk, bv, fb)
+    both, ia, ib = np.intersect1d(ka, kb, assume_unique=True,
+                                  return_indices=True)
+    want_a, want_b = ra[ia], rb[ib]
+
+    def check(sess, res):
+        if sess.executor.hash_off:
+            raise AssertionError(f"{label}: sites on the sort path after "
+                                 f"an overflow: {sorted(sess.executor.hash_off)}")
+        shards = bs.result_shard_rows(res)
+        k, a, b = (np.concatenate([sh[j] for sh in shards])
+                   for j in range(3))
+        order = np.argsort(k)
+        if not (np.array_equal(k[order], both)
+                and np.array_equal(a[order], want_a)
+                and np.array_equal(b[order], want_b)):
+            raise AssertionError(f"{label} rows differ from numpy")
+        _shard_keys_routed(shards, 4)
+        return f", {len(both)} matched keys, hash_off empty"
+
+    return check
+
+
+def phase8_join(card: str) -> dict:
+    """join: the JAX package's ``bench.py join`` scenario, not cut —
+    JoinAggregate(Const(4, ak, ones), Const(4, bk, ones), add, add) over
+    2**23 keys a side. Both sides' map waves combine through K2 and
+    route through K1; the join group takes the hash join (one claim
+    cascade over both sides' rows)."""
+    import bigslice_tpu_torch as bs
+
+    S = 4
+    ak, bk = _join_keys()
+    ones = np.ones(len(ak), np.int32)
+
+    def make():
+        return bs.JoinAggregate(bs.Const(S, ak, ones), bs.Const(S, bk, ones),
+                                lambda x, y: x + y, lambda x, y: x + y)
+
+    return drive("8", "join (JoinAggregate, hash join)", make,
+                 _join_check(ak, ones, bk, ones, np.add, np.add, "join"),
+                 ("hash_partition", "hash_aggregate"), 2 * len(ak), card,
+                 expect={"hash_partition": 2 * S, "hash_aggregate": 2 * S})
+
+
+def phase9_join_sort(card: str) -> dict:
+    """join-sort: the same keys with int32 values from RandomState(3);
+    side A adds (K2 on its map waves), side B xors, which does not
+    classify (the sort combine on its map waves), so the join group runs
+    two segmented reduces and the tagged-sort alignment."""
+    import bigslice_tpu_torch as bs
+
+    S = 4
+    ak, bk = _join_keys()
+    av, bv = _join_sort_values()
+
+    def make():
+        return bs.JoinAggregate(bs.Const(S, ak, av), bs.Const(S, bk, bv),
+                                lambda x, y: x + y, lambda x, y: x ^ y)
+
+    return drive("9", "join-sort (JoinAggregate, add and xor: tagged-sort "
+                 "alignment)", make,
+                 _join_check(ak, av, bk, bv, np.add, np.bitwise_xor,
+                             "join-sort"),
+                 ("hash_partition", "hash_aggregate"), 2 * len(ak), card,
+                 expect={"hash_partition": 2 * S, "hash_aggregate": S})
+
+
+def phase10_groupby(card: str) -> dict:
+    """groupby: Map(GroupByKey(Const(4, keys, vals), capacity=64),
+    lambda k, g, c: (k, g.sum(), c)) over 2**22 rows, keys uniform over
+    2**17 (mean group 32). Counts are checked exactly for every key;
+    sums exactly where count <= 64; a group with count > 64 must keep
+    exactly 64 of its values: the first 64 in arrival order, which on
+    one card is input order (shards are contiguous ranges of the input,
+    waves arrive in shard order, the shuffle and the sort are stable)."""
+    import bigslice_tpu_torch as bs
+
+    S, G = 4, 64
+    keys, vals = _groupby_input()
+    order = np.argsort(keys, kind="stable")
+    sk, sv = keys[order], vals[order].astype(np.int64)
+    starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+    want_k = sk[starts]
+    want_c = np.diff(np.r_[starts, len(sk)])
+    csum = np.r_[0, np.cumsum(sv)]
+    want_s = csum[starts + np.minimum(want_c, G)] - csum[starts]
+    ntrunc = int((want_c > G).sum())
+
+    def make():
+        g = bs.GroupByKey(bs.Const(S, keys, vals), capacity=G)
+        return bs.Map(g, lambda k, grp, cnt: (k, grp.sum(), cnt))
+
+    def check(sess, res):
+        if sess.executor.hash_off:
+            raise AssertionError("groupby: a site went to the sort path")
+        shards = bs.result_shard_rows(res)
+        k, sm, c = (np.concatenate([sh[j] for sh in shards])
+                    for j in range(3))
+        o = np.argsort(k)
+        k, sm, c = k[o], sm[o], c[o]
+        if not (np.array_equal(k, want_k) and np.array_equal(c, want_c)):
+            raise AssertionError("groupby keys or counts differ from numpy")
+        if not np.array_equal(sm, want_s):
+            raise AssertionError("groupby sums differ from numpy (the full "
+                                 "sum where count <= 64, the first 64 "
+                                 "values' where truncated)")
+        _shard_keys_routed(shards, S)
+        return (f", {len(want_k)} groups, {ntrunc} truncated at {G}, "
+                f"hash_off empty")
+
+    return drive("10", "groupby (GroupByKey capacity 64, Map over the "
+                 "[64] vectors)", make, check, ("hash_partition",),
+                 len(keys), card,
+                 expect={"hash_partition": S, "hash_aggregate": 0})
+
+
 def main() -> int:
     import argparse
 
@@ -1100,7 +1313,10 @@ def main() -> int:
              "lww-wave": phase4_lww(card),
              "float-key": phase5_float_key(card),
              "overflow-fallback": phase6_overflow(card),
-             "sortshuffle": phase7_sortshuffle(card)}
+             "sortshuffle": phase7_sortshuffle(card),
+             "join": phase8_join(card),
+             "join-sort": phase9_join_sort(card),
+             "groupby": phase10_groupby(card)}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

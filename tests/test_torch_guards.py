@@ -33,6 +33,18 @@ def test_slice_runs_without_jax_or_the_jax_package():
         res = sess.run(bs.Reduce(s, lambda a, b: (
             torch.maximum(a[0], b[0]), torch.where(a[0] >= b[0], a[1], b[1]))))
         assert len(res.rows()) == len(np.unique((k & 0xFFFFF)[t >= 512]))
+        # A hash join, a join on the sort path and a GroupByKey with a Map
+        # over its vector column.
+        ak, bk = k % 300, t % 200
+        for fb in (lambda a, b: a + b, lambda a, b: a ^ b):
+            res = sess.run(bs.JoinAggregate(bs.Const(4, ak, t),
+                                            bs.Const(4, bk, t),
+                                            lambda a, b: a + b, fb))
+            assert len(res.rows()) == len(np.intersect1d(ak, bk))
+        g = bs.GroupByKey(bs.Const(4, bk, t), capacity=8)
+        res = sess.run(bs.Map(g, lambda k, grp, c: (k, grp.sum(), c)))
+        assert sorted(c for _, _, c in res.rows()) == sorted(
+            np.bincount(bk).tolist())
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))

@@ -188,7 +188,7 @@ def _same_rows(port_res, ref_res):
             np.testing.assert_array_equal(gc, wc)
 
 
-def test_executor_raises_on_hash_overflow(ref_session):
+def test_executor_falls_back_on_hash_overflow(ref_session):
     """Distinct keys all routed to one partition overflow its region.
     The run no longer raises: the wave reruns on the sort path, the op
     stays there (``hash_off``), and the rows equal the JAX package's,
@@ -208,7 +208,7 @@ def test_executor_raises_on_hash_overflow(ref_session):
 
 
 @pytest.mark.parametrize("what", ["fn", "float_key"])
-def test_executor_refuses_unported_lowerings(what, ref_session):
+def test_executor_runs_sort_lowering_cases(what, ref_session):
     """A combine fn that does not classify as add/max/min, and float
     keys, were refused before the sort lowering was ported. Both run on
     it now, with the JAX package's rows (the fn is not associative, so

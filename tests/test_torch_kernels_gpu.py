@@ -360,3 +360,56 @@ def test_overflow_fallback_on_the_card(dev):
     got = dict(res.rows())
     uniq, cnt = np.unique(keys, return_counts=True)
     assert got == dict(zip(uniq.tolist(), cnt.tolist()))
+
+
+def test_join_and_groupby_on_the_card_match_numpy(dev):
+    """A small hash join (K1 and K2 on both sides' map waves), the xor
+    join on the sort path, and a GroupByKey with a Map over its [G]
+    vectors, on the card, against numpy."""
+    import bigslice_tpu_torch as bs
+
+    rng = np.random.RandomState(1)
+    n = 1 << 16
+    ak = rng.randint(0, n // 16, n).astype(np.int32)
+    bk = rng.randint(0, n // 16, n).astype(np.int32)
+    av = rng.randint(-1000, 1000, n).astype(np.int32)
+    bv = rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32)
+    span = n // 16
+    a_sum = np.zeros(span, np.int64)
+    np.add.at(a_sum, ak, av)
+    b_xor = np.zeros(span, np.int32)
+    np.bitwise_xor.at(b_xor, bk, bv)
+    b_cnt = np.bincount(bk, minlength=span)
+    both = np.intersect1d(ak, bk)
+
+    sess = bs.Session()
+    cuda_kernels.reset_launches()
+    rows = sess.run(bs.JoinAggregate(
+        bs.Const(4, ak, av), bs.Const(4, bk, np.ones(n, np.int32)),
+        lambda x, y: x + y, lambda x, y: x + y)).rows()
+    assert cuda_kernels.LAUNCHES["hash_partition"] >= 8
+    assert cuda_kernels.LAUNCHES["hash_aggregate"] >= 8
+    got = {k: (a, b) for k, a, b in rows}
+    assert got == {int(k): (int(a_sum[k]), int(b_cnt[k])) for k in both}
+
+    rows = sess.run(bs.JoinAggregate(
+        bs.Const(4, ak, av), bs.Const(4, bk, bv),
+        lambda x, y: x + y, lambda x, y: x ^ y)).rows()
+    got = {k: (a, b) for k, a, b in rows}
+    assert got == {int(k): (int(a_sum[k]), int(b_xor[k])) for k in both}
+    assert sess.executor.hash_off == frozenset()
+
+    keys = rng.randint(0, n // 32, n).astype(np.int32)
+    vals = rng.randint(1, 100, n).astype(np.int32)
+    rows = sess.run(bs.Map(bs.GroupByKey(bs.Const(4, keys, vals), capacity=64),
+                           lambda k, g, c: (k, g.sum(), c))).rows()
+    cnt = np.bincount(keys, minlength=n // 32)
+    tot = np.zeros(n // 32, np.int64)
+    np.add.at(tot, keys, vals)
+    assert len(rows) == len(np.unique(keys))
+    for k, s, c in rows:
+        assert c == cnt[k]
+        if c <= 64:
+            assert s == tot[k]
+        else:
+            assert s < tot[k]

@@ -1,20 +1,28 @@
 """Where the time goes in the PyTorch port's runs on one GPU.
 
-    python3 tools_torch_profile.py [--path reduce-wave|lww-wave] [--out DIR]
+    python3 tools_torch_profile.py
+        [--path reduce-wave|lww-wave|join|join-sort|groupby] [--out DIR]
 
 ``reduce-wave`` (the default) runs Session().run(Reduce(Const(4, keys,
 ones), add)) at the shape of the JAX package's reduce-wave scenario
 (2**25 rows, keys uniform over 2**20 from RandomState(42)); ``lww-wave``
 runs chip_smoke.py's phase-4 chain at the same shape: Map (keys folded
 to 2**20), Filter (a timestamp watermark) and a Reduce keeping the
-latest record per key, on the sort lowering. Each runs once to warm up,
+latest record per key, on the sort lowering; ``join``, ``join-sort``
+and ``groupby`` run chip_smoke.py's phases 8-10 on their inputs (the
+JAX package's ``bench.py join`` scenario, two sides of 2**23 keys, on
+the hash join and on the tagged-sort alignment; a Map over
+GroupByKey(capacity=64) of 2**22 rows). Each runs once to warm up,
 then:
 
 1. a layer breakdown: host wall time of each executor layer (staging
    upload, wave programs, cross-wave merge, subid split, result
-   readback) and, inside the wave programs, of the sort lowering's
-   parts (the sort, the segmented scan, K1's wrapper), each closed by
-   torch.cuda.synchronize();
+   readback) and, inside them, of the sort lowering's parts (the sort,
+   the segmented scan), the kernels' wrappers, the join stage (its
+   claim cascade inside it) and the subid split (inside staging), each
+   closed by torch.cuda.synchronize(). The two sides of a join stage
+   their producer groups on two threads, so there the layers overlap
+   and their sum exceeds the wall;
 2. one run under torch.profiler: device time by kernel, total device
    busy time and the device's idle share of the run's wall time, and
    the device time of each hand-written kernel's wrapper (K2's passes
@@ -43,14 +51,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--path", default="reduce-wave",
-                    choices=("reduce-wave", "lww-wave"))
+                    choices=("reduce-wave", "lww-wave", "join",
+                             "join-sort", "groupby"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tools_torch_profile: needs a GPU", file=sys.stderr)
         return 2
     import bigslice_tpu_torch as bs
     from bigslice_tpu_torch.exec import meshexec
-    from bigslice_tpu_torch.parallel import cuda_kernels, segment
+    from bigslice_tpu_torch.parallel import cuda_kernels, hashagg, segment
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -64,6 +73,29 @@ def main() -> int:
 
         def make():
             return bs.Reduce(bs.Const(S, keys, ones), lambda a, b: a + b)
+    elif args.path in ("join", "join-sort"):
+        import chip_smoke
+
+        ak, bk = chip_smoke._join_keys()
+        av = bv = np.ones(len(ak), np.int32)
+        fb = lambda a, b: a + b  # noqa: E731
+        if args.path == "join-sort":
+            av, bv = chip_smoke._join_sort_values()
+            fb = lambda a, b: a ^ b  # noqa: E731
+        n = 2 * len(ak)
+
+        def make():
+            return bs.JoinAggregate(bs.Const(S, ak, av), bs.Const(S, bk, bv),
+                                    lambda a, b: a + b, fb)
+    elif args.path == "groupby":
+        import chip_smoke
+
+        keys, vals = chip_smoke._groupby_input()
+        n = len(keys)
+
+        def make():
+            g = bs.GroupByKey(bs.Const(S, keys, vals), capacity=64)
+            return bs.Map(g, lambda k, grp, cnt: (k, grp.sum(), cnt))
     else:
         keys = rng.randint(0, 1 << 24, n).astype(np.int32)
         ts = rng.permutation(n).astype(np.int32)
@@ -97,8 +129,10 @@ def main() -> int:
         (segment, "segmented_combine"): "  of it: segmented scan",
         (cuda_kernels, "hash_partition"): "  of it: K1 hash_partition wrapper",
         (cuda_kernels, "hash_aggregate"): "  of it: K2 hash_aggregate wrapper",
+        (E, "_join_prelude"): "  of it: join stage (align)",
+        (hashagg, "claim_cascade"): "  of it: claim cascade (hash join)",
+        (E, "_build_wave_views"): "  of staging: subid split for consumers",
         (E, "_merge_outputs"): "cross-wave merge",
-        (E, "_build_wave_views"): "subid split for the reduce waves",
         (E, "_frames_by_name"): "result readback to host",
     }
     originals = {}
@@ -128,8 +162,10 @@ def main() -> int:
               f"call(s)")
     top_level = [label for label in layers.values()
                  if not label.startswith(" ")]
+    other = wall - sum(spent[k] for k in top_level)
     print(f"  {'other (planning, evaluator, threads)':45s} "
-          f"{wall - sum(spent[k] for k in top_level):.4f} s")
+          + (f"{other:.4f} s" if other >= 0 else
+             "not measured (concurrent groups' layers overlap)"))
 
     # 2. Device time by kernel under torch.profiler.
     from torch.profiler import ProfilerActivity, profile
