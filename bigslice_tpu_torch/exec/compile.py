@@ -46,8 +46,15 @@ _compiler_serial = itertools.count(1)
 
 
 class Compiler:
-    def __init__(self, inv_index: int):
+    def __init__(self, inv_index: int, shuffle_mode: Optional[str] = None):
         self.inv_index = inv_index
+        # The shuffle-plan knob (exec/shuffleplan.py), frozen per
+        # compilation: the session resolves BIGSLICE_SHUFFLE once per run
+        # and stamps it on every task, so one run's boundaries never
+        # straddle a change of the environment. "" is the frozen-unset
+        # stamp (planner disengaged); None means no stamping compiler,
+        # and the executor reads the environment itself.
+        self.shuffle_mode = shuffle_mode
         # Monotonic serial (not id(self): ids recycle after GC and could
         # merge op groups from different compilations).
         self.serial = next(_compiler_serial)
@@ -124,6 +131,11 @@ class Compiler:
             # Structural metadata for the executor, which runs all shards
             # of a fused chain as one op group.
             task.chain = chain
+            # Shuffle-plan stamps: the frozen knob, and why this
+            # boundary can never spill (None: the port has no machine
+            # combiner, the one ineligible case).
+            task.shuffle_mode = self.shuffle_mode
+            task.spill_ineligible = None
             task.group_key = (self.inv_index, op_name, self.serial, key)
             tasks.append(task)
         self._memo[key] = tasks

@@ -42,6 +42,22 @@ cannot overflow; a strict GroupByKey whose group exceeds its capacity
 raises ``ValueError``. Outputs stay on the device; results are read
 back per shard through the store bridge (``_BridgedStore``).
 
+Waves stream through a pipeline (``_execute_waves``): wave 0 stages on
+the group's thread; a prefetcher thread stages waves 1..n-1
+(``prefetch_depth`` ahead) while earlier waves compute, and on ``cuda``
+up to ``prefetch_depth`` dispatched waves stay in flight before their
+signals are read back (``_dispatch_wave``/``_settle_wave``). Staging
+assembles each column once into a host buffer from the arena
+(``exec/staging.py``: pinned and recycled on ``cuda``) and copies it to
+the card with ``non_blocking`` copies on the executor's copy stream; the
+wave program's stream waits on the event recorded behind them. A wave
+whose estimated working set exceeds ``device_budget_bytes`` runs as K
+exact row slices (``_try_execute_wave_split``). Under
+``BIGSLICE_SHUFFLE=spill`` (or ``auto`` over the spill budget) a shuffle
+boundary's map waves write their partitions through a ``FileStore``
+instead of merging on the device (``exec/shuffleplan.py``), and
+consumers stream them back through the arena.
+
 What the JAX package runs elsewhere raises here, naming the op
 (``LoweringNotPorted``): host-tier functions and columns, the dense
 join (``dense_keys=``), and operators that are not ported. No partial
@@ -50,11 +66,19 @@ result is returned.
 
 from __future__ import annotations
 
+import os
+import queue as queue_mod
+import shutil
+import tempfile
 import threading
-from typing import Dict, List, Optional, Tuple
+import time
+from collections import deque
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from bigslice_tpu_torch.exec import shuffleplan
+from bigslice_tpu_torch.exec import staging
 from bigslice_tpu_torch.exec import store as store_mod
 from bigslice_tpu_torch.exec.task import Task, TaskName, TaskState
 from bigslice_tpu_torch.frame.frame import Frame
@@ -85,6 +109,28 @@ def _op_base(op: str) -> str:
     fallback and slack adaptation describe the pipeline SITE (file:line
     op), which iterative programs re-invoke under suffixed names."""
     return op.split("#", 1)[0]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _donate(inputs, out: "DeviceGroupOutput") -> None:
+    """Torch's counterpart of buffer donation: free the storage of every
+    tensor a settled wave owned (staged for it alone), so that the
+    caching allocator hands the blocks to the next wave's staging at
+    once, whatever Python references remain. A storage the output still
+    uses (a map-only chain passes its input counts through) is kept; a
+    producer output chained zero-copy is never owned, so never freed."""
+    keep = {t.untyped_storage().data_ptr()
+            for t in list(out.cols) + [out.counts]}
+    for i in inputs:
+        if not i.owned:
+            continue
+        for t in list(i.cols) + [i.counts]:
+            st = t.untyped_storage()
+            if st.data_ptr() not in keep:
+                st.resize_(0)
 
 
 class DepLost(Exception):
@@ -136,6 +182,55 @@ class DeviceGroupOutput:
                 ]
             return self._chunks
 
+    def drop_device(self) -> None:
+        """Keep the rows on the host only: materialize the host chunks,
+        then drop the device tensors (the spill plan's result plane)."""
+        self.host_chunks()
+        self.cols = None
+        self.counts = None
+        with self._views_lock:
+            self._wave_views = None
+
+    def release(self) -> None:
+        """Forget the rows on the device AND the host (a spilled wave:
+        they live in the spill store alone)."""
+        self.cols = None
+        self.counts = None
+        with self._chunks_lock:
+            self._chunks = None
+        with self._views_lock:
+            self._wave_views = None
+
+
+class StagedInput(NamedTuple):
+    """One dep's input to a wave program. ``owned``: staged by this
+    executor for this wave alone (donated at settle), as opposed to a
+    producer output chained zero-copy, which is never owned. ``ready``:
+    the CUDA event behind its copies on the copy stream, which the wave
+    program's stream waits on (None when nothing is in flight)."""
+
+    cols: List[torch.Tensor]
+    counts: torch.Tensor
+    capacity: int
+    has_subid: bool
+    owned: bool
+    ready: Optional[object]
+
+
+class _WaveEntry:
+    """A dispatched wave awaiting settle: its inputs (kept alive until
+    settle, for a rerun) and the program's unsynced results, or the
+    output of a wave settled at dispatch (a budget split)."""
+
+    __slots__ = ("tasks", "wave", "inputs", "first", "done")
+
+    def __init__(self, tasks, wave, inputs, first=None, done=None):
+        self.tasks = tasks
+        self.wave = wave
+        self.inputs = inputs
+        self.first = first
+        self.done = done
+
 
 class WavedGroupOutput:
     """Per-wave outputs of an unpartitioned group with more shards than
@@ -177,19 +272,44 @@ class _GroupState:
 class MeshExecutor:
     """Runs op groups on one device. ``device`` defaults to ``cuda``:
     construction raises when there is no GPU, and otherwise builds the
-    kernel library and runs its probe kernel (once per process).
-    ``device="cpu"`` runs the same programs through the kernels' plain
-    versions."""
+    kernel library, runs its probe kernel (once per process) and creates
+    the copy stream staging uses. ``device="cpu"`` runs the same
+    programs through the kernels' plain versions.
+
+    The wave pipeline's knobs are the JAX package's, each with its
+    environment name:
+
+    - ``prefetch_depth`` (``BIGSLICE_PREFETCH_DEPTH``, default 1): waves
+      staged ahead by the prefetcher thread, and on ``cuda`` waves left
+      in flight before their signals are read; 0 is the serial loop.
+    - ``donate_buffers`` (``BIGSLICE_DONATE_BUFFERS``, default on): the
+      storage of a wave's owned staged inputs is freed at its settle
+      (``_donate``), so that the caching allocator reuses the blocks for
+      the next wave; off leaves them to Python's references.
+    - ``device_budget_bytes`` (``BIGSLICE_DEVICE_BUDGET_BYTES``, default
+      none): a wave whose estimated working set exceeds it runs as K row
+      slices, the prefetch depth shrinks so that (1 + depth) waves fit
+      it, and the subid split declines when its views would not.
+    - ``staging_arena`` (``BIGSLICE_STAGING_ARENA``, default on): the
+      host arena and one assembled copy per column; off is the
+      per-shard upload.
+
+    None of them chooses between a kernel and its plain version: the
+    device alone does that."""
 
     name = "mesh"
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, prefetch_depth: Optional[int] = None,
+                 donate_buffers: Optional[bool] = None,
+                 device_budget_bytes: Optional[int] = None,
+                 staging_arena: Optional[bool] = None):
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "MeshExecutor: no CUDA device is available; pass "
                 "device='cpu' to run on the CPU"
             )
+        self._copy_stream = None
         if device.type == "cuda":
             # Fail at construction, not mid-run: the kernel library must
             # build for this card and its probe kernel run right (once
@@ -202,12 +322,32 @@ class MeshExecutor:
                     "(nvcc not found, or the probe kernel returned wrong "
                     "values)"
                 )
+            # Host-to-device staging copies run here, beside the wave
+            # programs on the compute stream (no fallback: a failure
+            # raises).
+            self._copy_stream = torch.cuda.Stream(device)
         self.device = device
         # One device slot: a group of S shards streams as S waves.
         self.nmesh = 1
+        if prefetch_depth is None:
+            env = os.environ.get("BIGSLICE_PREFETCH_DEPTH")
+            prefetch_depth = int(env) if env else 1
+        self.prefetch_depth = max(0, int(prefetch_depth))
+        if donate_buffers is None:
+            env = os.environ.get("BIGSLICE_DONATE_BUFFERS")
+            donate_buffers = (env not in ("0", "false", "off")) if env \
+                else True
+        self.donate_buffers = bool(donate_buffers)
+        if device_budget_bytes is None:
+            env = os.environ.get("BIGSLICE_DEVICE_BUDGET_BYTES")
+            device_budget_bytes = int(env) if env else None
+        self.device_budget_bytes = device_budget_bytes
+        self.staging_arena = staging.StagingArena(
+            enabled=staging_arena, mode=staging.staging_mode(device))
+        self.stage_threads = staging.stage_threads_default()
         self.store = _BridgedStore(self)
         self._lock = threading.Lock()
-        # One wave program on the device at a time.
+        # One wave program's dispatch or settle at a time.
         self._wave_mutex = threading.RLock()
         self._groups: Dict[Tuple, _GroupState] = {}
         # Every group that has launched, by key: all its shards' tasks.
@@ -219,6 +359,18 @@ class MeshExecutor:
         self._hash_off: set = set()
         # Per-op shuffle slack adapted by the overflow ladder.
         self._slack_memo: Dict[str, float] = {}
+        # op base -> K of its last budget-split wave; op base -> the
+        # last shuffle plan (BIGSLICE_SHUFFLE set).
+        self.split_runs: Dict[str, int] = {}
+        self.shuffle_plans: Dict[str, shuffleplan.ShufflePlan] = {}
+        # Staging seconds: all of it, and the part a group thread waited
+        # for (the rest the pipeline hid behind compute).
+        self._stage_clock = {"staged_s": 0.0, "exposed_s": 0.0, "waves": 0}
+        # The spill exchange's FileStore, made at the first spilled
+        # boundary (BIGSLICE_SPILL_DIR, else a private temp directory
+        # that close() removes).
+        self._spill: Optional[store_mod.FileStore] = None
+        self._spill_tmp: Optional[str] = None
 
     # -- submission -------------------------------------------------------
 
@@ -256,9 +408,50 @@ class MeshExecutor:
 
     def discard(self, task: Task) -> None:
         with self._lock:
-            self._outputs.pop(task.group_key, None)
+            out = self._outputs.pop(task.group_key, None)
             self._task_index.pop(task.name, None)
+        if isinstance(out, shuffleplan.SpilledGroupOutput):
+            out.discard()  # retire the group's spill entries
         self.store.discard(task.name)
+
+    def close(self) -> None:
+        """Remove the private spill directory (a ``BIGSLICE_SPILL_DIR``
+        named by the caller is theirs to keep)."""
+        with self._lock:
+            tmp, self._spill_tmp = self._spill_tmp, None
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def _spill_store(self) -> store_mod.FileStore:
+        with self._lock:
+            if self._spill is None:
+                base = os.environ.get("BIGSLICE_SPILL_DIR")
+                if not base:
+                    base = tempfile.mkdtemp(prefix="bigslice-spill-")
+                    self._spill_tmp = base
+                self._spill = store_mod.FileStore(base)
+            return self._spill
+
+    def staging_seconds(self) -> dict:
+        """Staging time summed over every staged wave since construction
+        (or ``reset_staging_seconds``): ``staged_s`` all of it,
+        ``exposed_s`` the part a group thread waited for, ``hidden_s``
+        the rest (overlapped with compute), and ``waves``."""
+        with self._lock:
+            out = dict(self._stage_clock)
+        out["hidden_s"] = max(0.0, out["staged_s"] - out["exposed_s"])
+        return out
+
+    def reset_staging_seconds(self) -> None:
+        with self._lock:
+            self._stage_clock.update(staged_s=0.0, exposed_s=0.0, waves=0)
+
+    def _note_staging(self, staged_s: float, exposed_s: float) -> None:
+        with self._lock:
+            c = self._stage_clock
+            c["staged_s"] += staged_s
+            c["exposed_s"] += exposed_s
+            c["waves"] += 1
 
     def _check_lowering(self, task: Task) -> None:
         """Raise ``LoweringNotPorted`` naming the op when this package
@@ -326,78 +519,409 @@ class MeshExecutor:
                 t.set_state(TaskState.ERR, e)
 
     def _execute_group(self, key, tasks: List[Task]) -> None:
+        out = self._execute_group_waves(tasks)
+        with self._lock:
+            self._outputs[key] = out
+
+    def _execute_group_waves(self, tasks: List[Task]):
         task0 = tasks[0]
         N = self.nmesh
         wave_tasks = [tasks[w * N : (w + 1) * N]
                       for w in range((len(tasks) + N - 1) // N)]
-        if len(tasks) > N:
-            # Wave streaming: ceil(S/N) waves of N shards. Partitioned
-            # outputs merge across waves (wave contributions are just
-            # more producers); unpartitioned ones keep per-wave shard
-            # identity.
-            outs = self._execute_waves(wave_tasks)
-            if task0.num_partition > 1:
-                out = self._merge_outputs(outs, task0)
-            else:
-                out = WavedGroupOutput(outs, N)
-        else:
-            out = self._execute_wave(tasks, 0)
-        with self._lock:
-            self._outputs[key] = out
+        # The shuffle-plan seam: None (BIGSLICE_SHUFFLE unset) leaves the
+        # in-program path untouched.
+        plan = inputs0 = None
+        if task0.num_partition > 1 or len(tasks) > N:
+            plan, inputs0 = self._shuffle_plan(task0, wave_tasks)
+            if plan is not None:
+                with self._lock:
+                    self.shuffle_plans[_op_base(task0.name.op)] = plan
+        spill = plan is not None and plan.kind == "spill"
+        if task0.num_partition > 1 and spill:
+            return self._execute_group_spill(task0, wave_tasks, plan, inputs0)
+        if len(tasks) <= N:
+            return self._execute_wave(tasks, 0, inputs0)
+        # Wave streaming: ceil(S/N) waves of N shards. Partitioned outputs
+        # merge across waves (wave contributions are just more
+        # producers); unpartitioned ones keep per-wave shard identity.
+        sink = None
+        offloaded: List[DeviceGroupOutput] = []
+        if task0.num_partition <= 1 and spill:
+            # The spill plan's result plane: a waved unpartitioned group
+            # (the reduce side's own output) keeps each settled wave on
+            # the host only, so its outputs never accumulate on the
+            # device either. Readers go through host chunks already.
+            def sink(w: int, wout: DeviceGroupOutput) -> None:
+                wout.drop_device()
+                offloaded.append(wout)
+        outs = self._execute_waves(task0, wave_tasks, inputs0=inputs0,
+                                   sink=sink)
+        if sink is not None:
+            outs = offloaded
+        if task0.num_partition > 1:
+            return self._merge_outputs(outs, task0)
+        return WavedGroupOutput(outs, N)
 
-    def _execute_waves(self, wave_tasks: List[List[Task]]
-                       ) -> List[DeviceGroupOutput]:
-        """Run a waved group serially, one wave after another."""
-        return [self._execute_wave(wt, w) for w, wt in enumerate(wave_tasks)]
+    # -- the shuffle-plan seam (the out-of-core spill exchange) -----------
 
-    def _execute_wave(self, tasks: List[Task], wave: int
-                      ) -> DeviceGroupOutput:
+    def _shuffle_plan(self, task0: Task, wave_tasks):
+        """This boundary's exchange (``exec/shuffleplan.py``):
+        ``(plan, staged wave-0 inputs or None)``. ``auto`` stages wave 0
+        to price the boundary — its staged bytes times the wave count,
+        held against the spill budget — and hands the inputs on, so that
+        wave 0 never stages twice. ``(None, None)`` when the knob is
+        unset."""
+        mode = getattr(task0, "shuffle_mode", None)
+        if mode is None:  # no stamping compiler: read the environment
+            mode = shuffleplan.plan_mode()
+        if not mode:
+            return None, None
+        ineligible = shuffleplan.spill_ineligible(task0)
+        budget = shuffleplan.spill_budget_bytes(self.device_budget_bytes,
+                                                self.nmesh)
+        est = inputs0 = None
+        if mode == "auto" and ineligible is None and budget is not None:
+            inputs0 = self._stage_exposed(wave_tasks[0], 0)
+            est = len(wave_tasks) * sum(
+                _nbytes(c) for i in inputs0 for c in list(i.cols) + [i.counts])
+        return shuffleplan.choose(mode, est, budget, ineligible), inputs0
+
+    def _execute_group_spill(self, task0: Task, wave_tasks, plan, inputs0):
+        """The out-of-core exchange: each map wave runs the fused
+        combine + route program as before; then its partitions are
+        pulled to the host and written through the spill store (one BSF4
+        entry per (wave, partition), the writes fanned out on the staging
+        pool) and the wave's tensors released, so that the device holds
+        one wave's working set, never the merged output. Consumers read
+        the partitions back through the store bridge in their own wave
+        loop and re-combine them, as they re-combine a merged output's
+        wave contributions: the same rows in the same wave-major
+        order."""
+        nparts = task0.num_partition
+        schema = task0.schema
+        exchange = shuffleplan.SpillExchange(
+            self._spill_store(), task0.name, len(wave_tasks), nparts)
+
+        def spill_sink(w: int, wout: DeviceGroupOutput) -> None:
+            parts = shuffle_mod.partition_chunks(
+                wout.host_chunks(), nparts, wout.nmesh, wout.subid)
+            staging.map_shards(
+                lambda p: exchange.put_partition(w, p, parts[p], schema),
+                range(nparts), self.stage_threads)
+            wout.release()
+
+        self._execute_waves(task0, wave_tasks, inputs0=inputs0,
+                            sink=spill_sink)
+        return shuffleplan.SpilledGroupOutput(
+            exchange, schema, nparts, self.nmesh, plan,
+            map_waves=len(wave_tasks))
+
+    # -- the wave pipeline ------------------------------------------------
+
+    def _stage_exposed(self, tasks: List[Task], wave: int
+                       ) -> List[StagedInput]:
+        """Stage a wave on this thread: all of its time is exposed."""
+        t0 = time.perf_counter()
         inputs = self._group_inputs(tasks, wave)
+        dt = time.perf_counter() - t0
+        self._note_staging(dt, dt)
+        return inputs
+
+    def _wave_budget(self) -> Optional[int]:
+        """The per-device wave working-set budget the split, the
+        prefetch clip and the subid split hold estimates against: the
+        static ``device_budget_bytes`` (the adaptive, measured budget is
+        not ported)."""
+        return self.device_budget_bytes or None
+
+    def _effective_prefetch_depth(self, task0: Task, inputs,
+                                  nwaves: int) -> int:
+        """The depth this group runs at: the knob, clipped so that
+        (1 + depth) wave working sets fit the wave budget — prefetch must
+        not bust the budget the wave split enforces."""
+        depth = min(self.prefetch_depth, nwaves - 1)
+        budget = self._wave_budget()
+        if depth > 0 and budget:
+            est = self._wave_bytes_estimate(task0, inputs)
+            while depth > 0 and (1 + depth) * est > budget:
+                depth -= 1
+        return max(depth, 0)
+
+    def _execute_waves(self, task0: Task, wave_tasks: List[List[Task]],
+                       inputs0=None, sink=None) -> List[DeviceGroupOutput]:
+        """Run a waved group, serially (depth 0) or through the pipeline.
+        Wave 0 stages on this thread either way (the depth decision needs
+        its size), unless the shuffle planner staged it already
+        (``inputs0``). ``sink``, when given, receives each settled wave's
+        output in wave order instead of the returned list (then [])."""
+        if inputs0 is None:
+            inputs0 = self._stage_exposed(wave_tasks[0], 0)
+        depth = self._effective_prefetch_depth(task0, inputs0,
+                                               len(wave_tasks))
+        if depth > 0:
+            return self._execute_waves_pipelined(task0, wave_tasks, inputs0,
+                                                 depth, sink)
+        outs: List[DeviceGroupOutput] = []
+        for w in range(len(wave_tasks)):
+            out = self._execute_wave(wave_tasks[w], w,
+                                     inputs0 if w == 0 else None)
+            if sink is not None:
+                sink(w, out)
+            else:
+                outs.append(out)
+        return outs
+
+    def _execute_waves_pipelined(self, task0: Task,
+                                 wave_tasks: List[List[Task]], inputs0,
+                                 depth: int, sink=None
+                                 ) -> List[DeviceGroupOutput]:
+        """The pipelined loop: a prefetcher thread stages waves
+        1..n-1 (``depth`` ahead, through a bounded queue) while earlier
+        waves compute, and on ``cuda`` up to ``depth`` dispatched waves
+        stay in flight before their signals are read back. Every
+        dispatch and settle stays on this thread, in wave order. A
+        staging error re-raises here in wave order, never as a switch to
+        the serial loop. On ``cpu`` the window is 0: each wave settles
+        right after its dispatch (the program runs eagerly), and staging
+        overlaps the next wave's compute."""
+        nwaves = len(wave_tasks)
+        staged: "queue_mod.Queue" = queue_mod.Queue(maxsize=depth)
+        stop = threading.Event()
+
+        def stage():
+            for w in range(1, nwaves):
+                if stop.is_set():
+                    return
+                try:
+                    t0 = time.perf_counter()
+                    # Read-ahead hints stay just ahead of staging (the
+                    # store's warm cache is small).
+                    self._hint_store_prefetch(wave_tasks, w + 1,
+                                              w + 1 + depth)
+                    item = (self._group_inputs(wave_tasks[w], w), None,
+                            time.perf_counter() - t0)
+                except BaseException as e:  # noqa: BLE001 — re-raised in
+                    item = (None, e, 0.0)   # wave order on the group thread
+                while not stop.is_set():
+                    try:
+                        staged.put(item, timeout=0.1)
+                        break
+                    except queue_mod.Full:
+                        continue
+                if item[1] is not None:
+                    return
+
+        stager = threading.Thread(target=stage, daemon=True,
+                                  name="meshwave-prefetch")
+        stager.start()
+        window = depth if self.device.type == "cuda" else 0
+        outs: List[DeviceGroupOutput] = []
+        inflight: deque = deque()
+
+        def deliver(w: int, out: DeviceGroupOutput) -> None:
+            # Outside the wave mutex: a sink's host work (the spill
+            # writes) must not hold the wave slot.
+            if sink is not None:
+                sink(w, out)
+            else:
+                outs.append(out)
+
+        try:
+            inputs = inputs0
+            for w in range(nwaves):
+                if w:
+                    t0 = time.perf_counter()
+                    inputs, err, staged_s = staged.get()
+                    if err is not None:
+                        raise err
+                    # Exposed: what this thread sat waiting for of the
+                    # stager's work; the rest was hidden behind compute.
+                    self._note_staging(
+                        staged_s, min(time.perf_counter() - t0, staged_s))
+                settled = []
+                with self._wave_mutex:
+                    inflight.append(self._dispatch_wave(wave_tasks[w], w,
+                                                        inputs))
+                    inputs = None
+                    while len(inflight) > window:
+                        e = inflight.popleft()
+                        settled.append((e.wave, self._settle_wave(e)))
+                for s in settled:
+                    deliver(*s)
+                del settled
+            while inflight:
+                with self._wave_mutex:
+                    e = inflight.popleft()
+                    s = (e.wave, self._settle_wave(e))
+                deliver(*s)
+            return outs
+        finally:
+            stop.set()
+            while True:  # drain, so that a parked put() never wedges
+                try:
+                    staged.get_nowait()
+                except queue_mod.Empty:
+                    break
+            stager.join()
+
+    def _hint_store_prefetch(self, wave_tasks: List[List[Task]],
+                             lo: int, hi: int) -> None:
+        """Advisory read-ahead for waves [lo, hi)'s store-resident dep
+        partitions: a spilled boundary's partitions warm in the spill
+        store's cache while earlier waves compute; other store tiers
+        here hold frames in memory and ignore the hint."""
+        for wt in wave_tasks[lo:hi]:
+            for t in wt:
+                for dep in t.deps:
+                    for p in dep.tasks:
+                        spilled = self._spilled_output_for(p.name)
+                        if spilled is not None:
+                            if p.name.shard == 0:
+                                spilled.exchange.prefetch(dep.partition)
+                        elif not self._has_device_output(p.name):
+                            self.store.prefetch(p.name, dep.partition)
+
+    def _spilled_output_for(self, name: TaskName):
+        """The SpilledGroupOutput serving ``name``'s group, or None."""
+        with self._lock:
+            entry = self._task_index.get(name)
+            out = self._outputs.get(entry[0]) if entry is not None else None
+        return out if isinstance(out, shuffleplan.SpilledGroupOutput) \
+            else None
+
+    def _execute_wave(self, tasks: List[Task], wave: int,
+                      inputs=None) -> DeviceGroupOutput:
+        """One wave, dispatched and settled at once (the serial path)."""
+        if inputs is None:
+            inputs = self._stage_exposed(tasks, wave)
         with self._wave_mutex:
-            return self._execute_wave_on(tasks, wave, inputs)
+            return self._settle_wave(self._dispatch_wave(tasks, wave, inputs))
+
+    def _await_inputs(self, inputs) -> None:
+        """Order the wave program after its inputs' copies: the current
+        (compute) stream waits on each staged input's event, and each
+        tensor the copy stream allocated records the compute stream, so
+        that the caching allocator does not hand its block to a later
+        copy while this wave may still read it."""
+        if self.device.type != "cuda":
+            return
+        compute = torch.cuda.current_stream(self.device)
+        for i in inputs:
+            if i.ready is not None:
+                compute.wait_event(i.ready)
+                for t in list(i.cols) + [i.counts]:
+                    t.record_stream(compute)
+
+    def _dispatch_wave(self, tasks: List[Task], wave: int,
+                       inputs) -> _WaveEntry:
+        """Launch the wave's program without reading its signals; a wave
+        over the budget runs its row slices here, settled (each slice is
+        a wave of its own). Returns the entry ``_settle_wave`` takes."""
+        task0 = tasks[0]
+        self._await_inputs(inputs)
+        budget = self._wave_budget()
+        if (budget and task0.num_partition > 1
+                and len(inputs) == 1 and not inputs[0].has_subid
+                and self._splittable_chain(task0)
+                and self._wave_bytes_estimate(task0, inputs) > budget):
+            split = self._try_execute_wave_split(tasks, wave, inputs, budget)
+            if split is not None:
+                return _WaveEntry(tasks, wave, None, done=split)
+        stages = self._stages_for(task0)
+        slack = self._wave_slack(task0)
+        result = self._program(task0, stages, slack)(wave, inputs)
+        first = (result, slack, self._issue_signals(result))
+        return _WaveEntry(tasks, wave, inputs, first=first)
+
+    def _issue_signals(self, result):
+        """Start reading a program's four signals (overflow, badrange,
+        hash overflow, groupby overflow) back to the host; returns a
+        callable that gives them as ints. On ``cuda`` the copy lands in
+        pinned memory behind an event, so that reading one wave's
+        signals waits for that wave's work, not for a later wave already
+        queued behind it."""
+        sig = torch.stack([x.to(torch.int64) for x in result[1:5]])
+        if self.device.type != "cuda":
+            return sig.tolist
+        host = torch.empty(4, dtype=torch.int64, pin_memory=True)
+        host.copy_(sig, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+
+        def read():
+            done.synchronize()
+            return host.tolist()
+
+        return read
+
+    def _settle_wave(self, entry: _WaveEntry) -> DeviceGroupOutput:
+        """Read the dispatched wave's signals and run the ladder (a rerun
+        reuses the inputs the entry kept alive), then donate the wave's
+        owned inputs."""
+        if entry.done is not None:
+            return entry.done
+        try:
+            out = self._execute_wave_on(entry.tasks, entry.wave,
+                                        entry.inputs, first=entry.first)
+            if self.donate_buffers:
+                _donate(entry.inputs, out)
+            return out
+        finally:
+            entry.inputs = entry.first = None
 
     def _execute_wave_on(self, tasks: List[Task], wave: int,
-                         inputs) -> DeviceGroupOutput:
+                         inputs, first=None) -> DeviceGroupOutput:
         task0 = tasks[0]
         opbase = _op_base(task0.name.op)
         stages = self._stages_for(task0)
         has_shuffle = any(kind == "shuffle" for kind, _ in stages)
-        while True:
-            slack = self._wave_slack(task0)
-            out_counts, overflow, badrange, hashov, gbover, out_cols = \
-                self._program(task0, stages, slack)(wave, inputs)
-            overflow, badrange, hashov, gbover = torch.stack(
-                [overflow, badrange, hashov, gbover]).tolist()
-            if gbover > 0:
-                # A strict GroupByKey's capacity overflow: a user error
-                # on its own channel, never a slack or hash retry.
-                raise ValueError(
-                    f"groupbykey: group(s) exceed the declared capacity by "
-                    f"up to {gbover} rows in group {task0.name.op} "
-                    f"(on_overflow='error'); raise capacity or use Cogroup "
-                    f"for discovered capacities")
-            if badrange > 0:
-                # A user error, not skew: no slack retry.
-                raise ValueError(
-                    f"partitioner returned ids outside "
-                    f"[0, {task0.num_partition}) in group {task0.name.op}")
-            if hashov > 0:
-                # The hash table could not place every row: discard the
-                # result and rerun the wave with this op on the sort path
-                # for good.
-                with self._lock:
-                    self._hash_off.add(opbase)
-                continue
-            if not has_shuffle or overflow == 0:
-                break
-            # slack == ndest makes overflow impossible: a source sends at
-            # most its capacity to one destination lane.
-            full_slack = float(max(2, min(task0.num_partition, self.nmesh)))
-            if slack >= full_slack:
-                raise RuntimeError(
-                    f"shuffle overflow in group {task0.name.op} even at "
-                    f"full slack")
-            self._slack_memo[opbase] = min(slack * 4, full_slack)
+        with self._wave_mutex:
+            while True:
+                if first is not None:
+                    # A dispatched attempt: read ITS signals; the loop
+                    # reruns only on the ladder's retries.
+                    result, slack, signals = first
+                    first = None
+                else:
+                    slack = self._wave_slack(task0)
+                    result = self._program(task0, stages, slack)(wave,
+                                                                 inputs)
+                    signals = self._issue_signals(result)
+                out_counts, out_cols = result[0], result[5]
+                overflow, badrange, hashov, gbover = signals()
+                if gbover > 0:
+                    # A strict GroupByKey's capacity overflow: a user
+                    # error on its own channel, never a slack or hash
+                    # retry.
+                    raise ValueError(
+                        f"groupbykey: group(s) exceed the declared capacity "
+                        f"by up to {gbover} rows in group {task0.name.op} "
+                        f"(on_overflow='error'); raise capacity or use "
+                        f"Cogroup for discovered capacities")
+                if badrange > 0:
+                    # A user error, not skew: no slack retry.
+                    raise ValueError(
+                        f"partitioner returned ids outside "
+                        f"[0, {task0.num_partition}) in group "
+                        f"{task0.name.op}")
+                if hashov > 0:
+                    # The hash table could not place every row: discard
+                    # the result and rerun the wave with this op on the
+                    # sort path for good.
+                    with self._lock:
+                        self._hash_off.add(opbase)
+                    continue
+                if not has_shuffle or overflow == 0:
+                    break
+                # slack == ndest makes overflow impossible: a source
+                # sends at most its capacity to one destination lane.
+                full_slack = float(max(2, min(task0.num_partition,
+                                              self.nmesh)))
+                if slack >= full_slack:
+                    raise RuntimeError(
+                        f"shuffle overflow in group {task0.name.op} even at "
+                        f"full slack")
+                self._slack_memo[opbase] = min(slack * 4, full_slack)
         return DeviceGroupOutput(
             list(out_cols), out_counts,
             int(out_cols[0].shape[0]) // self.nmesh, task0.schema,
@@ -405,6 +929,75 @@ class MeshExecutor:
             subid=has_shuffle and task0.num_partition > self.nmesh,
             nmesh=self.nmesh,
         )
+
+    # -- the device-budget wave split ---------------------------------------
+
+    def _splittable_chain(self, task0: Task) -> bool:
+        """Row-slicing a shard is sound only for chains whose stages are
+        row-local up to the final shuffle: map/filter/flatmap transform
+        rows one by one, and the shuffle's map-side combiner may emit
+        per-slice partials because its consumer re-combines
+        contributions. Head, a mid-chain Reduce, a join or a group-by
+        would compute per-slice answers no consumer reconciles."""
+        stages = self._stages_for(task0)
+        if not stages or stages[-1][0] != "shuffle":
+            return False
+        return all(k in ("map", "filter", "flatmap") for k, _ in stages[:-1])
+
+    def _wave_bytes_estimate(self, task0: Task, inputs) -> int:
+        """Coarse working-set model of one wave: input rows x row bytes x
+        (sort operands + scratch + the slack-scaled receive buffer). It
+        only picks WHEN to split and into how many slices."""
+        rows = sum(i.capacity for i in inputs)
+        rowbytes = sum(c[:1].numel() * c.element_size()
+                       for i in inputs for c in i.cols) or 4
+        slack = self._slack_memo.get(_op_base(task0.name.op), 2.0)
+        fanout = 1
+        for kind, s in self._stages_for(task0):
+            if kind == "flatmap":
+                fanout *= s.fanout
+        return int(rows * fanout * rowbytes * (3 + slack))
+
+    def _try_execute_wave_split(self, tasks: List[Task], wave: int,
+                                inputs, budget: int):
+        """Run the wave as K row slices of its single dep, each under
+        the budget. None when the capacity does not split exactly."""
+        cap = inputs[0].capacity
+        est = self._wave_bytes_estimate(tasks[0], inputs)
+        want = (est + budget - 1) // budget
+        K = 1
+        while K < want:
+            K <<= 1
+        K = min(K, cap)
+        while K > 1 and cap % K:
+            K >>= 1  # only exact row slices keep the prefix contract
+        if K <= 1:
+            return None
+        return self._execute_wave_sliced(tasks, wave, inputs, K)
+
+    def _execute_wave_sliced(self, tasks: List[Task], wave: int, inputs,
+                             K: int) -> DeviceGroupOutput:
+        """Run one wave as K exact row slices of its single dep (K divides
+        the capacity) and merge the partitioned sub-outputs as more
+        producer contributions: the consumer's re-combine makes the
+        result the unsplit wave's."""
+        task0 = tasks[0]
+        B = inputs[0].capacity // K
+        outs = [self._execute_wave_on(
+                    tasks, wave, [self._slice_wave_program(inputs[0], b, B)])
+                for b in range(K)]
+        with self._lock:
+            self.split_runs[_op_base(task0.name.op)] = K
+        return self._merge_outputs(outs, task0)
+
+    @staticmethod
+    def _slice_wave_program(inp: StagedInput, b: int, B: int) -> StagedInput:
+        """Slice b of a staged input: rows [b*B, (b+1)*B) as views, with
+        the valid-prefix count clipped into the slice."""
+        start = b * B
+        counts = torch.clamp(inp.counts - start, 0, B).to(torch.int32)
+        return StagedInput([c[start : start + B] for c in inp.cols], counts,
+                           B, False, False, None)
 
     @property
     def hash_off(self) -> frozenset:
@@ -505,11 +1098,11 @@ class MeshExecutor:
 
         def stepped(wave: int, inputs):
             masks, col_sets = [], []
-            for cols, counts, has_subid in inputs:
-                cols = list(cols)
+            for inp in inputs:
+                cols = list(inp.cols)
                 size = cols[0].shape[0]
-                m = torch.arange(size, device=device) < counts[0]
-                if has_subid:
+                m = torch.arange(size, device=device) < inp.counts[0]
+                if inp.has_subid:
                     m = m & (cols[0] == wave)
                     cols = cols[1:]  # strip the subid column
                 masks.append(m)
@@ -610,10 +1203,10 @@ class MeshExecutor:
                         badrange = badrange + nb
                     cols = list(cols)
             if all(kind == "map" for kind, _ in stages) and not any(
-                    i[2] for i in inputs):
+                    i.has_subid for i in inputs):
                 # Map-only chain: the mask is untouched, counts carry over.
-                return (inputs[0][1], overflow, badrange, hashov, gbover,
-                        tuple(cols))
+                return (inputs[0].counts, overflow, badrange, hashov,
+                        gbover, tuple(cols))
             out_n, cols = compact_by_mask(mask, cols)
             return out_n.reshape(1), overflow, badrange, hashov, gbover, cols
 
@@ -646,7 +1239,9 @@ class MeshExecutor:
                          wave: int) -> Optional[DeviceGroupOutput]:
         """Consumer wave ``wave``'s compacted view of a wave-partitioned
         output, built once per output for all W waves, so wave w
-        processes only its own partition's rows."""
+        processes only its own partition's rows. None when the split
+        declined (under the wave budget), and the wave then filters the
+        full output by subid."""
         W = (task0.name.num_shard + self.nmesh - 1) // self.nmesh
         if W <= 1 or out.cols is None:
             return None
@@ -654,16 +1249,28 @@ class MeshExecutor:
             if out._wave_views is None or out._wave_views[0] != W:
                 out._wave_views = (W, self._build_wave_views(out, W))
             views = out._wave_views[1]
-        return views[wave] if wave < len(views) else None
+        if views is None or wave >= len(views):
+            return None
+        return views[wave]
 
     def _build_wave_views(self, out: DeviceGroupOutput,
-                          W: int) -> List[DeviceGroupOutput]:
+                          W: int) -> Optional[List[DeviceGroupOutput]]:
         valid = torch.arange(out.capacity, device=self.device) < out.counts[0]
         subid = out.cols[0]
         # The views' capacity is the observed largest subid: the counts
         # ARE the data, so no overflow ladder is needed.
         per = torch.bincount(subid[valid].to(torch.int64), minlength=W)
         capr = bucket_size(int(per.max()) if per.numel() else 1)
+        budget = self._wave_budget()
+        if budget:
+            # Skewed subids push capr toward the whole output, so W views
+            # (and the split's scratch) could double W-fold the device
+            # residency: under a budget that does not hold them,
+            # decline (cached) and let the waves filter by subid.
+            rowbytes = sum(c[:1].numel() * c.element_size()
+                           for c in out.cols[1:]) or 4
+            if 2 * W * capr * rowbytes > budget:
+                return None
         views = []
         for w in range(W):
             idx = torch.nonzero(valid & (subid == w)).squeeze(1)
@@ -684,32 +1291,41 @@ class MeshExecutor:
 
     # -- staging ------------------------------------------------------------
 
-    def _group_inputs(self, tasks: List[Task], wave: int = 0):
-        """[(cols, counts, has_subid)] — one entry per dep, or one upload
-        of the innermost source's shards."""
+    def _group_inputs(self, tasks: List[Task], wave: int = 0
+                      ) -> List[StagedInput]:
+        """One ``StagedInput`` per dep, or one upload of the innermost
+        source's shards. Called from the prefetcher thread as well as the
+        group thread: it reads executor state and issues copies, nothing
+        else."""
         task0 = tasks[0]
         if not task0.deps:
             shard_lists = [
                 [f for f in t.chain[-1].reader(t.name.shard, []) if len(f)]
                 for t in tasks
             ]
-            return [self._upload(shard_lists, task0.chain[-1].schema)]
+            return [self._stage_upload(shard_lists, task0.chain[-1].schema)]
         return [self._dep_input(tasks, i, wave)
                 for i in range(len(task0.deps))]
 
-    def _dep_input(self, tasks: List[Task], dep_idx: int, wave: int = 0):
+    def _dep_input(self, tasks: List[Task], dep_idx: int,
+                   wave: int = 0) -> StagedInput:
         """One dep's staged input: a device-resident producer output is
-        chained zero-copy; a store-resident one is read and uploaded."""
+        chained zero-copy (never owned); a store-resident one (a spilled
+        boundary's partitions, a result plane kept on the host) is read
+        shard by shard and staged through the arena."""
         task0 = tasks[0]
         dep0 = task0.deps[dep_idx]
         with self._lock:
             out = self._outputs.get(dep0.tasks[0].group_key)
+        if isinstance(out, shuffleplan.SpilledGroupOutput):
+            out = None  # nothing on the device: read through the bridge
         if isinstance(out, WavedGroupOutput):
-            if len(dep0.tasks) == 1:
+            wout = out.waves[wave] if len(dep0.tasks) == 1 else None
+            if wout is not None and wout.cols is not None:
                 # Aligned dep on a waved producer: consumer wave w
                 # aligns with producer wave w.
-                wout = out.waves[wave]
-                return wout.cols, wout.counts, False
+                return StagedInput(wout.cols, wout.counts, wout.capacity,
+                                   False, False, None)
             out = None
         if out is not None and out.partitioned:
             # Device-resident shuffle output: partition p on device
@@ -717,26 +1333,71 @@ class MeshExecutor:
             if out.subid and task0.name.num_shard > self.nmesh:
                 view = self._subid_wave_view(out, task0, wave)
                 if view is not None:
-                    return view.cols, view.counts, False
-            return out.cols, out.counts, out.subid
+                    return StagedInput(view.cols, view.counts,
+                                       view.capacity, False, False, None)
+            return StagedInput(out.cols, out.counts, out.capacity,
+                               out.subid, False, None)
         if out is not None and len(dep0.tasks) == 1:
-            return out.cols, out.counts, False
-        # Store-resident dep: read each shard's frames and upload.
-        per_shard = []
-        for t in tasks:
+            return StagedInput(out.cols, out.counts, out.capacity, False,
+                               False, None)
+
+        # Store-resident dep: each shard's frames, the shards' reads
+        # fanned out on the staging pool.
+        def read_shard(t: Task) -> List[Frame]:
             dep = t.deps[dep_idx]
-            frames = []
+            frames: List[Frame] = []
             for p in dep.tasks:
                 try:
                     frames.extend(self.store.read(p.name, dep.partition))
                 except store_mod.Missing as e:
+                    if getattr(e, "spilled_group", False):
+                        # A spilled partition holds every producer
+                        # shard's rows: the whole group re-runs.
+                        raise DepLost(*dep.tasks) from e
                     raise DepLost(p) from e
-            per_shard.append(frames)
-        return self._upload(per_shard, dep0.tasks[0].schema)
+            return frames
 
-    def _upload(self, shard_lists, schema):
-        """Stage per-shard frame lists onto the device: (cols, counts,
-        False), each shard padded to a power-of-two capacity."""
+        per_shard = staging.map_shards(read_shard, tasks, self.stage_threads)
+        return self._stage_upload(per_shard, dep0.tasks[0].schema)
+
+    def _stage_upload(self, shard_lists, schema) -> StagedInput:
+        """Stage per-shard frame lists: assembled once per column into an
+        arena buffer, then on ``cuda`` copied with ``non_blocking`` copies
+        on the copy stream, behind which an event is recorded (the arena
+        recycles the pinned buffers once it completes, and the wave
+        program waits on it). On ``cpu`` the assembled buffers are the
+        program's inputs. Object columns or dtype drift, and
+        ``staging_arena=False``, take ``_upload``."""
+        arena = self.staging_arena
+        if arena.enabled:
+            try:
+                host_cols, counts, capacity, bufs = staging.assemble(
+                    shard_lists, schema, self.nmesh, arena)
+            except staging.StagingFallback:
+                pass
+            else:
+                host_counts = arena.acquire(torch.int32, (self.nmesh,))
+                host_counts.copy_(torch.tensor(counts, dtype=torch.int32))
+                if self.device.type != "cuda":
+                    return StagedInput(host_cols, host_counts, capacity,
+                                       False, True, None)
+                with torch.cuda.stream(self._copy_stream):
+                    dev = [torch.empty(h.shape, dtype=h.dtype,
+                                       device=self.device)
+                           for h in host_cols + [host_counts]]
+                    for d, h in zip(dev, host_cols + [host_counts]):
+                        d.copy_(h, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(self._copy_stream)
+                arena.release(bufs + [host_counts], ready)
+                return StagedInput(dev[:-1], dev[-1], capacity, False, True,
+                                   ready)
+        return self._upload(shard_lists, schema)
+
+    def _upload(self, shard_lists, schema) -> StagedInput:
+        """Stage per-shard frame lists shard by shard: each shard
+        concatenated, padded to a power-of-two capacity and copied to
+        the device (pageable copies on the current stream)."""
         frames = [Frame.concat(fl) if fl else None for fl in shard_lists]
         while len(frames) < self.nmesh:
             frames.append(None)
@@ -752,7 +1413,7 @@ class MeshExecutor:
                     buf[start : start + counts[d]] = f.cols[j].to(self.device)
             cols.append(buf)
         counts_t = torch.tensor(counts, dtype=torch.int32, device=self.device)
-        return cols, counts_t, False
+        return StagedInput(cols, counts_t, capacity, False, True, None)
 
     # -- frame materialization for result reads ------------------------------
 
@@ -771,6 +1432,18 @@ class MeshExecutor:
         if out is None:
             return None
         shard = task.name.shard
+        if isinstance(out, shuffleplan.SpilledGroupOutput):
+            # The partitions live in the spill store, attributed to
+            # producer shard 0 like a merged output's. A loss is tagged
+            # spilled_group: a spilled partition holds every shard's
+            # rows, so the whole producer group must re-run.
+            if shard != 0 or partition >= out.nparts:
+                return []
+            try:
+                return out.frames_for(partition)
+            except store_mod.Missing as e:
+                e.spilled_group = True
+                raise
         if isinstance(out, WavedGroupOutput):
             if partition != 0:
                 return []

@@ -12,6 +12,7 @@ from typing import Any, List, Sequence, Tuple
 
 from bigslice_tpu_torch import sliceio, typecheck
 from bigslice_tpu_torch.exec import compile as compile_mod
+from bigslice_tpu_torch.exec import shuffleplan
 from bigslice_tpu_torch.exec.evaluate import MAX_CONSECUTIVE_LOST, evaluate
 from bigslice_tpu_torch.exec.store import Missing
 from bigslice_tpu_torch.exec.task import Task, TaskState
@@ -80,6 +81,13 @@ class Session:
             executor = MeshExecutor()
         self.executor = executor
 
+    def shutdown(self) -> None:
+        """Release the executor's resources (its private spill
+        directory)."""
+        close = getattr(self.executor, "close", None)
+        if close is not None:
+            close()
+
     def run(self, func: Any, *args) -> Result:
         """Compile and evaluate ``func(*args)``: ``func`` is a Slice, or
         a callable returning one."""
@@ -99,6 +107,8 @@ class Session:
                 type(func).__name__,
             )
         inv_index = next(_invocation_counter)
-        tasks = compile_mod.Compiler(inv_index).compile(slice_)
+        tasks = compile_mod.Compiler(
+            inv_index, shuffle_mode=shuffleplan.plan_mode() or "",
+        ).compile(slice_)
         evaluate(self.executor, tasks)
         return Result(self, slice_, tasks)

@@ -335,3 +335,10 @@ def partition_cols(chunks: Sequence[Sequence[torch.Tensor]],
         return dev_cols
     sel = torch.nonzero(dev_cols[0] == (partition // nmesh)).squeeze(1)
     return [segment.take(c, sel) for c in dev_cols[1:]]
+
+
+def partition_chunks(chunks: Sequence[Sequence[torch.Tensor]], nparts: int,
+                     nmesh: int, subid: bool) -> List[List[torch.Tensor]]:
+    """Every partition's valid rows (``partition_cols``), in partition
+    order: the spill exchange's map-side split."""
+    return [partition_cols(chunks, p, nmesh, subid) for p in range(nparts)]

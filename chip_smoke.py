@@ -720,12 +720,15 @@ def _probe_timing(device) -> dict:
                      "probe_add1")
     ms3 = time_ms(add1)
     plain3 = time_ms(lambda: x + 1)
+    # The floor of any launch: one kernel that does nothing (torch's
+    # busy-wait for 0 cycles), timed the same way.
+    empty = time_ms(lambda: torch.cuda._sleep(0))
     log(f"phase 2: probe_add1: kernel {ms3:.4f} ms (x + 1: {plain3:.4f} "
-        f"ms)")
+        f"ms; one empty kernel launch: {empty:.4f} ms)")
     return dict(
         max_abs_err=0, ms=ms3, plain_ms=plain3,
         bound_ms=2 * nbytes(x) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=plain3, shape="(8, 128) int32",
+        library_ms=plain3, empty_launch_ms=empty, shape="(8, 128) int32",
     )
 
 
@@ -1090,7 +1093,18 @@ def phase6_overflow(card: str) -> dict:
     """overflow-fallback: near-distinct keys that all route to
     partition 0 overflow the map side's hash table on the first attempt;
     the executor reruns the wave on the sort path and keeps the op there
-    (``MeshExecutor.hash_off``)."""
+    (``MeshExecutor.hash_off``).
+
+    Launches under the default pipeline (prefetch depth 1, one wave in
+    flight): map wave 1 is dispatched on the hash path before wave 0's
+    overflow is read, so both overflow and rerun on the sort path —
+    K1: w0 and w1 on the hash path, their two reruns, w2 and w3 on the
+    sort path, 6; K2: the two map attempts. The reduce side likewise:
+    its wave 1 (empty partition 1, in a buffer of partition 0's
+    capacity) is dispatched on the hash path before wave 0 overflows,
+    so K2 launches twice there: 4 in all. The serial loop counted 5 and
+    2. Both sites end in ``hash_off``: the map side's and the reduce
+    side's."""
     import bigslice_tpu_torch as bs
 
     S = 4
@@ -1100,9 +1114,10 @@ def phase6_overflow(card: str) -> dict:
 
     def check(sess, res):
         off = sorted(sess.executor.hash_off)
-        if not any(op.startswith("const") for op in off):
-            raise AssertionError("overflow-fallback: the map side did not "
-                                 "go to the sort path")
+        if sorted(op.split("@")[0] for op in off) != ["const", "reduce"]:
+            raise AssertionError(f"overflow-fallback: the sites on the "
+                                 f"sort path are {off}, not the map side's "
+                                 f"and the reduce side's")
         shards = bs.result_shard_rows(res)
         k = np.concatenate([sh[0] for sh in shards])
         c = np.concatenate([sh[1] for sh in shards])
@@ -1118,7 +1133,7 @@ def phase6_overflow(card: str) -> dict:
                  lambda: bs.Reduce(bs.Const(S, keys, ones),
                                    lambda a, b: a + b),
                  check, ("hash_partition", "hash_aggregate"), len(keys),
-                 card)
+                 card, expect={"hash_partition": 6, "hash_aggregate": 4})
 
 
 def phase7_sortshuffle(card: str) -> dict:
@@ -1182,11 +1197,7 @@ def _join_check(ak, av, bk, bv, fa, fb, label):
                                   return_indices=True)
     want_a, want_b = ra[ia], rb[ib]
 
-    def check(sess, res):
-        if sess.executor.hash_off:
-            raise AssertionError(f"{label}: sites on the sort path after "
-                                 f"an overflow: {sorted(sess.executor.hash_off)}")
-        shards = bs.result_shard_rows(res)
+    def check_rows(shards):
         k, a, b = (np.concatenate([sh[j] for sh in shards])
                    for j in range(3))
         order = np.argsort(k)
@@ -1195,8 +1206,15 @@ def _join_check(ak, av, bk, bv, fa, fb, label):
                 and np.array_equal(b[order], want_b)):
             raise AssertionError(f"{label} rows differ from numpy")
         _shard_keys_routed(shards, 4)
+
+    def check(sess, res):
+        if sess.executor.hash_off:
+            raise AssertionError(f"{label}: sites on the sort path after "
+                                 f"an overflow: {sorted(sess.executor.hash_off)}")
+        check_rows(bs.result_shard_rows(res))
         return f", {len(both)} matched keys, hash_off empty"
 
+    check.rows = check_rows
     return check
 
 
@@ -1294,6 +1312,304 @@ def phase10_groupby(card: str) -> dict:
                  expect={"hash_partition": S, "hash_aggregate": 0})
 
 
+def _reduce_wave_input():
+    """Phase 3's reduce-wave rows: 2**25 int32 keys uniform over 2**20
+    from RandomState(42), each counted once."""
+    n = 1 << 25
+    keys = np.random.RandomState(42).randint(0, 1 << 20, n).astype(np.int32)
+    return keys, np.ones(n, np.int32)
+
+
+def _same_rows(got, want, what) -> None:
+    """Bit-equality of two ``result_shard_rows``."""
+    if len(got) != len(want) or any(
+            g.dtype != w.dtype or g.tobytes() != w.tobytes()
+            for gs, ws in zip(got, want) for g, w in zip(gs, ws)):
+        raise AssertionError(f"{what}: rows differ")
+
+
+def _count_check(keys):
+    """Rows of a counting Reduce against np.bincount, and each row in the
+    shard the plain K1 names."""
+    bc = np.bincount(keys, minlength=1 << 20)
+    present = np.nonzero(bc)[0]
+
+    def check(shards, S):
+        k = np.concatenate([s[0] for s in shards])
+        v = np.concatenate([s[1] for s in shards])
+        o = np.argsort(k)
+        if not (np.array_equal(k[o], present)
+                and np.array_equal(v[o], bc[present])):
+            raise AssertionError("counts differ from np.bincount")
+        _shard_keys_routed(shards, S)
+
+    return check
+
+
+def _run_setting(make, ex_kwargs, runs, env=None, inspect=None):
+    """One executor (its arena kept across runs, as a long-lived session
+    keeps it): a counted first run, then ``runs`` warm runs, each a new
+    Session on it, the run and reading every shard back, after which
+    every task of the run is discarded (its outputs leave the device).
+    Returns the first run's launches, rows and ``inspect(executor)``
+    (taken before its discard), the warm walls, the peak device memory
+    of the warm runs, the staging seconds per warm run, the arena's
+    counts before and after the warm runs, whether its buffers are
+    pinned, and the executor."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.task import iter_tasks
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        ex = bs.MeshExecutor(**ex_kwargs)
+
+        def run():
+            sess = bs.Session(executor=ex)
+            res = sess.run(make())
+            for shard in range(res.num_shards):
+                list(res.reader(shard, ()))
+            return sess, res
+
+        def discard(res):
+            for t in iter_tasks(res.tasks):
+                ex.discard(t)
+
+        ck.reset_launches()
+        sess, res = run()
+        launches = dict(ck.LAUNCHES)
+        rows = bs.result_shard_rows(res)
+        info = inspect(ex) if inspect is not None else None
+        discard(res)
+        del sess, res
+        arena0 = ex.staging_arena.stats()
+        ex.reset_staging_seconds()
+        walls, peaks = [], []
+        for _ in range(runs):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sess, res = run()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            last = bs.result_shard_rows(res)
+            discard(res)
+            del sess, res
+        _same_rows(last, rows, "a warm run against the first")
+        stage = {k: v / runs if k.endswith("_s") else v
+                 for k, v in ex.staging_seconds().items()}
+        arena = ex.staging_arena.stats()
+        return dict(launches=launches, rows=rows, info=info, walls_s=walls,
+                    wall_s=statistics.median(walls), peak_gib=max(peaks),
+                    staging_per_run=stage, arena_first=arena0, arena=arena,
+                    pinned=arena["pinned"] is True, executor=ex)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+#: Phase 11's settings: (label, MeshExecutor arguments).
+PIPELINE_SETTINGS = (
+    ("depth 0, arena off", dict(prefetch_depth=0, staging_arena=False)),
+    ("depth 0, arena on", dict(prefetch_depth=0)),
+    ("depth 1", dict(prefetch_depth=1)),
+    ("depth 2", dict(prefetch_depth=2)),
+)
+
+
+def _report(phase, label, rows, r, card) -> dict:
+    st, ar = r["staging_per_run"], r["arena"]
+    log(f"phase {phase}: {label}: warm wall {r['wall_s']:.4f} s (median of "
+        f"{len(r['walls_s'])}: {', '.join(f'{w:.4f}' for w in r['walls_s'])})"
+        f", {rows / r['wall_s']:.1f} rows/s, peak device memory "
+        f"{r['peak_gib']:.3f} GiB; staging per run {st['staged_s']:.4f} s "
+        f"(exposed {st['exposed_s']:.4f}, hidden {st['hidden_s']:.4f}, "
+        f"{st['waves'] // max(1, len(r['walls_s']))} waves); arena hits "
+        f"{ar['hits']} misses {ar['misses']} recycled {ar['recycled']} "
+        f"(after the first run: {r['arena_first']['hits']} / "
+        f"{r['arena_first']['misses']} / {r['arena_first']['recycled']}), "
+        f"pinned {r['pinned']}; launches {r['launches']} (first run), on "
+        f"{card}")
+    return {k: v for k, v in r.items()
+            if k not in ("rows", "executor", "info")}
+
+
+def phase11_pipeline(card: str) -> dict:
+    """pipeline: phase 3's reduce-wave at S = 4 and S = 16 under each of
+    ``PIPELINE_SETTINGS`` (the serial loop with the per-shard pageable
+    upload; the serial loop through the arena; prefetch depth 1 and 2),
+    five warm runs each on one executor. Rows bit-equal across settings
+    and exact against numpy; depth 1 must hide some staging and every
+    arena setting must reuse buffers after the first run. Then phase 8's
+    join at depth 0 and 1 (its two producer groups staged by two
+    prefetchers)."""
+    import bigslice_tpu_torch as bs
+
+    keys, ones = _reduce_wave_input()
+    check = _count_check(keys)
+    out = {"launches": {}}
+    want = None
+    for S in (4, 16):
+        for label, kw in PIPELINE_SETTINGS:
+            r = _run_setting(lambda: bs.Reduce(bs.Const(S, keys, ones),
+                                               lambda a, b: a + b),
+                             kw, WARM_RUNS)
+            check(r["rows"], S)
+            if S == 4:
+                if want is None:
+                    want = r["rows"]
+                _same_rows(r["rows"], want, f"pipeline S=4 {label}")
+            elif label == PIPELINE_SETTINGS[0][0]:
+                want16 = r["rows"]
+            else:
+                _same_rows(r["rows"], want16, f"pipeline S=16 {label}")
+            for name in ("hash_partition", "hash_aggregate"):
+                if r["launches"][name] <= 0:
+                    raise AssertionError(f"pipeline {label}: {name} was not "
+                                         f"launched")
+            if kw.get("staging_arena", True):
+                if r["arena"]["hits"] <= r["arena_first"]["hits"]:
+                    raise AssertionError(f"pipeline S={S} {label}: the arena "
+                                         f"reused no buffer after the first "
+                                         f"run")
+                if not r["pinned"]:
+                    raise AssertionError(f"pipeline S={S} {label}: arena "
+                                         f"buffers are not pinned")
+            if kw["prefetch_depth"] == 1 and \
+                    r["staging_per_run"]["hidden_s"] <= 0:
+                raise AssertionError(f"pipeline S={S}: depth 1 hid no "
+                                     f"staging")
+            out[f"S={S}, {label}"] = _report("11", f"reduce-wave 2**25 rows "
+                                            f"S={S}, {label}", len(keys), r,
+                                            card)
+            out["launches"] = {k: out["launches"].get(k, 0) + v
+                               for k, v in r["launches"].items()}
+    ak, bk = _join_keys()
+    jones = np.ones(len(ak), np.int32)
+    jcheck = _join_check(ak, jones, bk, jones, np.add, np.add, "join")
+    jrows = None
+    for depth in (0, 1):
+        r = _run_setting(lambda: bs.JoinAggregate(
+            bs.Const(4, ak, jones), bs.Const(4, bk, jones),
+            lambda x, y: x + y, lambda x, y: x + y),
+            dict(prefetch_depth=depth), WARM_RUNS)
+        if jrows is None:
+            jrows = r["rows"]
+        _same_rows(r["rows"], jrows, f"pipeline join depth {depth}")
+        jcheck.rows(r["rows"])
+        if r["executor"].hash_off:
+            raise AssertionError("pipeline join: a site went to the sort "
+                                 "path")
+        out[f"join, depth {depth}"] = _report(
+            "11", f"join 2 x 2**23 rows, depth {depth}", 2 * len(ak), r, card)
+        out["launches"] = {k: out["launches"].get(k, 0) + v
+                           for k, v in r["launches"].items()}
+    return out
+
+
+def phase12_budget_split(card: str, phase3_peak: float) -> dict:
+    """budget-split: phase 3's reduce-wave at S = 4 with a device budget
+    of a quarter of a map wave's estimated working set, so that each map
+    wave runs as K = 4 row slices; rows bit-equal to the unsplit run."""
+    import bigslice_tpu_torch as bs
+
+    from bigslice_tpu_torch.parallel.jitutil import bucket_size
+
+    keys, ones = _reduce_wave_input()
+    # _wave_bytes_estimate of a map wave: its capacity (2**23 rows) x 8
+    # bytes a row x (3 + slack 2).
+    budget = bucket_size(len(keys) // 4) * 8 * 5 // 4
+    make = lambda: bs.Reduce(bs.Const(4, keys, ones),  # noqa: E731
+                             lambda a, b: a + b)
+    plain = _run_setting(make, {}, 1)
+    r = _run_setting(make, dict(device_budget_bytes=budget), WARM_RUNS)
+    _same_rows(r["rows"], plain["rows"], "budget-split against unsplit")
+    _count_check(keys)(r["rows"], 4)
+    K = sorted(set(r["executor"].split_runs.values()))
+    if K != [4]:
+        raise AssertionError(f"budget-split: waves split into {K}, not 4")
+    out = _report("12", f"budget-split reduce-wave S=4, budget {budget} "
+                  f"bytes, K={K[0]} (phase 3 peak {phase3_peak:.3f} GiB)",
+                  len(keys), r, card)
+    out["K"] = K[0]
+    return out
+
+
+def phase13_spill(card: str) -> dict:
+    """spill: phase 3's reduce-wave at S = 4 and phase 8's join, each with
+    ``BIGSLICE_SHUFFLE=spill`` and with ``auto`` under a spill budget of
+    a quarter of one side's staged bytes (which must spill); rows
+    bit-equal to the in-program run, and the private spill directory
+    gone after ``Session.shutdown()``."""
+    import bigslice_tpu_torch as bs
+
+    keys, ones = _reduce_wave_input()
+    ak, bk = _join_keys()
+    jones = np.ones(len(ak), np.int32)
+    paths = {
+        "reduce-wave": (lambda: bs.Reduce(bs.Const(4, keys, ones),
+                                          lambda a, b: a + b),
+                        len(keys), nbytes_of(keys, ones)),
+        "join": (lambda: bs.JoinAggregate(
+            bs.Const(4, ak, jones), bs.Const(4, bk, jones),
+            lambda x, y: x + y, lambda x, y: x + y),
+            2 * len(ak), nbytes_of(ak, jones)),
+    }
+    out = {"launches": {}}
+    for what, (make, rows, staged) in paths.items():
+        want = _run_setting(make, {}, 1)["rows"]
+        for mode, env in (("spill", {"BIGSLICE_SHUFFLE": "spill"}),
+                          ("auto", {"BIGSLICE_SHUFFLE": "auto",
+                                    "BIGSLICE_SPILL_BUDGET_BYTES":
+                                        str(staged // 4)})):
+            r = _run_setting(make, {}, 3, env=env, inspect=_spill_stats)
+            _same_rows(r["rows"], want, f"spill {what} {mode}")
+            sp = r["info"]
+            if sp["boundaries"] != (2 if what == "join" else 1):
+                raise AssertionError(f"spill {what} {mode}: "
+                                     f"{sp['boundaries']} boundaries spilled")
+            ex = r["executor"]
+            tmp = ex._spill_tmp
+            bs.Session(executor=ex).shutdown()
+            if tmp is None or os.path.exists(tmp):
+                raise AssertionError(f"spill {what} {mode}: the spill "
+                                     f"directory {tmp} was not removed")
+            rep = _report("13", f"{what} {mode} (spilled {sp['bytes']} "
+                          f"bytes, {sp['rows']} rows, {sp['partitions']} "
+                          f"partitions; plans {sp['plans']}; spill dir "
+                          f"removed)", rows, r, card)
+            rep["spill"] = sp
+            out[f"{what}, {mode}"] = rep
+            out["launches"] = {k: out["launches"].get(k, 0) + v
+                               for k, v in r["launches"].items()}
+    return out
+
+
+def _spill_stats(ex) -> dict:
+    """What the first run spilled: boundaries, bytes, rows and
+    partitions written, and the plans chosen."""
+    from bigslice_tpu_torch.exec import shuffleplan
+
+    spilled = [o for o in ex._outputs.values()
+               if isinstance(o, shuffleplan.SpilledGroupOutput)]
+    return dict(boundaries=len(spilled),
+                bytes=sum(o.exchange.spill_bytes for o in spilled),
+                rows=sum(o.exchange.spill_rows for o in spilled),
+                partitions=sum(o.exchange.partitions_written()
+                               for o in spilled),
+                plans=sorted({f"{p.kind}/{p.reason}"
+                              for p in ex.shuffle_plans.values()}))
+
+
+def nbytes_of(*arrays) -> int:
+    return int(sum(a.nbytes for a in arrays))
+
+
 def main() -> int:
     import argparse
 
@@ -1317,6 +1633,9 @@ def main() -> int:
              "join": phase8_join(card),
              "join-sort": phase9_join_sort(card),
              "groupby": phase10_groupby(card)}
+    paths["pipeline"] = phase11_pipeline(card)
+    paths["budget-split"] = phase12_budget_split(card, slice_["peak_gib"])
+    paths["spill"] = phase13_spill(card)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

@@ -45,6 +45,23 @@ def test_slice_runs_without_jax_or_the_jax_package():
         res = sess.run(bs.Map(g, lambda k, grp, c: (k, grp.sum(), c)))
         assert sorted(c for _, _, c in res.rows()) == sorted(
             np.bincount(bk).tolist())
+        # The wave pipeline's modules, a pipelined, budget-split run and
+        # a spilled run through the FileStore and the BSF4 codec.
+        import os
+        from bigslice_tpu_torch.exec import shuffleplan, staging, store
+        from bigslice_tpu_torch.frame import codec
+        from bigslice_tpu_torch.utils import fileio
+        ex = bs.MeshExecutor(device="cpu", prefetch_depth=2,
+                             device_budget_bytes=4096)
+        res = bs.Session(executor=ex).run(bs.Reduce(
+            bs.Const(8, keys, np.ones(1000, np.int32)), lambda a, b: a + b))
+        assert len(res.rows()) == 37 and ex.split_runs
+        os.environ["BIGSLICE_SHUFFLE"] = "spill"
+        sp = bs.Session(executor=bs.MeshExecutor(device="cpu"))
+        res = sp.run(bs.Reduce(bs.Const(8, keys, np.ones(1000, np.int32)),
+                               lambda a, b: a + b))
+        assert len(res.rows()) == 37 and sp.executor._spill is not None
+        sp.shutdown()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))

@@ -413,3 +413,112 @@ def test_join_and_groupby_on_the_card_match_numpy(dev):
             assert s == tot[k]
         else:
             assert s < tot[k]
+
+
+def _delayed_programs(ex, cycles):
+    """Queue a busy-wait on the compute stream before each wave program,
+    so that the copy stream's staging runs far ahead of the programs."""
+    orig = ex._program
+
+    def program(task, stages, slack):
+        stepped = orig(task, stages, slack)
+
+        def delayed(wave, inputs):
+            torch.cuda._sleep(cycles)
+            return stepped(wave, inputs)
+
+        return delayed
+
+    ex._program = program
+
+
+def test_pipeline_race_with_a_delayed_compute_stream(dev):
+    """Pipelined S = 16 Reduce with each program queued behind a
+    busy-wait: inputs copied on the copy stream, their blocks recycled
+    through the caching allocator and their pinned buffers through the
+    arena while earlier waves still compute. Every run's rows must equal
+    the serial run's."""
+    import bigslice_tpu_torch as bs
+
+    rng = np.random.RandomState(17)
+    n = 1 << 22
+    keys = rng.randint(0, 1 << 16, n).astype(np.int32)
+    vals = rng.randint(-1000, 1000, n).astype(np.int32)
+
+    def run(depth, delay):
+        ex = bs.MeshExecutor(device="cuda", prefetch_depth=depth)
+        if delay:
+            _delayed_programs(ex, 2_000_000)
+        res = bs.Session(executor=ex).run(
+            bs.Reduce(bs.Const(16, keys, vals), lambda a, b: a + b))
+        return bs.result_shard_rows(res), ex
+
+    want, _ = run(0, False)
+    for depth in (1, 2, 2):
+        got, ex = run(depth, True)
+        for g, w in zip(got, want):
+            for gc, wc in zip(g, w):
+                np.testing.assert_array_equal(gc, wc)
+        st = ex.staging_arena.stats()
+        assert st["mode"] == "recycle" and st["hits"] > 0
+        assert st["pinned"] is True
+        assert ex.staging_seconds()["waves"] == 32
+
+
+def test_kernels_launch_on_the_current_side_stream(dev):
+    """K1 and K2 launched under a side stream's context run on that
+    stream, behind its busy-wait, with no host sync: the side stream's
+    event is still pending when the wrappers return, the default stream
+    stays idle, and the results are right once the event completes."""
+    n = 1 << 20
+    rng = np.random.RandomState(5)
+    key = torch.from_numpy(rng.randint(0, 1 << 18, n).astype(np.int32)).to(dev)
+    one = torch.ones_like(key)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)  # about 0.1 s
+        part, _ = cuda_kernels.hash_partition([key], 4, 0, with_counts=False,
+                                              valid=valid)
+        got = cuda_kernels.hash_aggregate(valid, [key], [one], ["add"], part,
+                                          4, 1 << 17)
+        done = torch.cuda.Event()
+        done.record(side)
+    assert not done.query()
+    assert torch.cuda.default_stream(dev).query()
+    done.synchronize()
+    want_part, _ = cuda_kernels.hash_partition_plain([key], 4, 0,
+                                                     with_counts=False,
+                                                     valid=valid)
+    assert torch.equal(part, want_part)
+    want = cuda_kernels.hash_aggregate_plain(valid, [key], [one], ["add"],
+                                             want_part, 4, 1 << 17)
+    assert int(got[3]) == 0 and int(want[3]) == 0
+    assert np.array_equal(_rows(*got[:3]), _rows(*want[:3]))
+
+
+def test_split_and_spill_on_the_card_match_the_cpu(dev, monkeypatch):
+    import bigslice_tpu_torch as bs
+
+    rng = np.random.RandomState(8)
+    keys = rng.randint(0, 1 << 12, 1 << 16).astype(np.int32)
+    vals = rng.randint(0, 100, 1 << 16).astype(np.int32)
+
+    def run(device, **kw):
+        ex = bs.MeshExecutor(device=device, **kw)
+        sess = bs.Session(executor=ex)
+        rows = bs.result_shard_rows(sess.run(
+            bs.Reduce(bs.Const(8, keys, vals), lambda a, b: a + b)))
+        sess.shutdown()
+        return rows, ex
+
+    want, _ = run("cpu")
+    got, ex = run("cuda", device_budget_bytes=(1 << 13) * 8 * 5 // 4)
+    assert list(ex.split_runs.values()) == [4]
+    monkeypatch.setenv("BIGSLICE_SHUFFLE", "spill")
+    spilled, _ = run("cuda", prefetch_depth=2)
+    for rows in (got, spilled):
+        for g, w in zip(rows, want):
+            for gc, wc in zip(g, w):
+                np.testing.assert_array_equal(gc, wc)

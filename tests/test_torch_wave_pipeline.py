@@ -1,0 +1,329 @@
+"""The port's wave pipeline (``MeshExecutor`` on the CPU): the
+prefetcher thread, the dispatch/settle split, donation, the device
+budget's wave split and prefetch clip, and the subid split's decline.
+
+Mirrors the JAX package's ``tests/test_wave_pipeline.py``: results at
+prefetch depths 0, 1 and 2 equal each other and the JAX package's
+(8 virtual CPU devices), per output shard and exactly (int sums; float
+min is bit-equal); a waved GroupByKey and a waved join are held the
+same way. Donation frees every owned staged input and never a chained
+producer output.
+"""
+
+import sys
+import threading
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import bigslice_tpu as ref_bs  # noqa: E402
+import bigslice_tpu_torch as bst  # noqa: E402
+from bigslice_tpu_torch.exec.meshexec import StagedInput  # noqa: E402
+from bigslice_tpu_torch.exec.task import TaskError  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def ref_session():
+    import jax
+    from jax.sharding import Mesh
+
+    from bigslice_tpu.exec.meshexec import MeshExecutor
+    from bigslice_tpu.exec.session import Session
+
+    mesh = Mesh(np.array(jax.devices()[:8]), ("shards",))
+    return Session(executor=MeshExecutor(mesh, auto_dense=False,
+                                         hash_aggregate=True))
+
+
+def _ex(**kw):
+    return bst.MeshExecutor(device="cpu", **kw)
+
+
+def _rows(sess, s):
+    return bst.result_shard_rows(sess.run(s))
+
+
+def _assert_shards_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for gc, wc in zip(g, w):
+            assert gc.dtype == wc.dtype and gc.shape == wc.shape
+            assert gc.tobytes() == wc.tobytes()
+
+
+def _keyed(seed, n, span):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, span, n).astype(np.int32),
+            rng.randint(1, 9, n).astype(np.int32))
+
+
+def test_prefetch_parity_waved_reduce(ref_session):
+    keys, vals = _keyed(23, 16 * 64, 97)
+    want = _rows(ref_session, ref_bs.Reduce(ref_bs.Const(16, keys, vals),
+                                            lambda a, b: a + b))
+    for depth in (0, 1, 2):
+        ex = _ex(prefetch_depth=depth)
+        got = _rows(bst.Session(executor=ex), bst.Reduce(
+            bst.Const(16, keys, vals), lambda a, b: a + b))
+        _assert_shards_equal(got, want)
+        clock = ex.staging_seconds()
+        # 16 map waves and 16 consumer waves staged; exposed <= staged.
+        assert clock["waves"] == 32
+        assert clock["exposed_s"] <= clock["staged_s"] + 1e-9
+
+
+def test_prefetch_parity_float_min(ref_session):
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(11)
+    keys = rng.randint(0, 60, 16 * 50).astype(np.int32)
+    vals = rng.rand(16 * 50).astype(np.float32)
+    want = _rows(ref_session, ref_bs.Reduce(
+        ref_bs.Const(16, keys, vals), lambda a, b: jnp.minimum(a, b)))
+    for depth in (0, 1, 2):
+        got = _rows(bst.Session(executor=_ex(prefetch_depth=depth)),
+                    bst.Reduce(bst.Const(16, keys, vals),
+                               lambda a, b: torch.minimum(a, b)))
+        _assert_shards_equal(got, want)
+
+
+@pytest.mark.parametrize("fb", ["add", "xor"])
+def test_prefetch_parity_waved_join(ref_session, fb):
+    ak, av = _keyed(5, 16 * 40, 300)
+    bk, bv = _keyed(6, 16 * 40, 200)
+    fns = {"add": lambda a, b: a + b, "xor": lambda a, b: a ^ b}
+    want = _rows(ref_session, ref_bs.JoinAggregate(
+        ref_bs.Const(16, ak, av), ref_bs.Const(16, bk, bv),
+        lambda a, b: a + b, fns[fb]))
+    for depth in (0, 1, 2):
+        got = _rows(bst.Session(executor=_ex(prefetch_depth=depth)),
+                    bst.JoinAggregate(bst.Const(16, ak, av),
+                                      bst.Const(16, bk, bv),
+                                      lambda a, b: a + b, fns[fb]))
+        _assert_shards_equal(got, want)
+
+
+def test_prefetch_parity_groupby(ref_session):
+    keys, vals = _keyed(19, 8 * 100, 40)
+    want = _rows(ref_session, ref_bs.GroupByKey(ref_bs.Const(8, keys, vals),
+                                                capacity=64))
+    for depth in (0, 1, 2):
+        got = _rows(bst.Session(executor=_ex(prefetch_depth=depth)),
+                    bst.GroupByKey(bst.Const(8, keys, vals), capacity=64))
+        _assert_shards_equal(got, want)
+    # 16 waves: the depths agree with each other.
+    runs = [_rows(bst.Session(executor=_ex(prefetch_depth=d)),
+                  bst.GroupByKey(bst.Const(16, keys, vals), capacity=64))
+            for d in (0, 1, 2)]
+    _assert_shards_equal(runs[1], runs[0])
+    _assert_shards_equal(runs[2], runs[0])
+
+
+def _spy_staging(ex):
+    """Record every StagedInput the executor builds, by origin."""
+    staged, chained = [], []
+    orig_stage, orig_dep = ex._stage_upload, ex._dep_input
+
+    def stage(*a):
+        out = orig_stage(*a)
+        staged.append(out)
+        return out
+
+    def dep(*a):
+        out = orig_dep(*a)
+        if not out.owned:
+            chained.append(out)
+        return out
+
+    ex._stage_upload, ex._dep_input = stage, dep
+    return staged, chained
+
+
+def _freed(inp):
+    return all(t.untyped_storage().nbytes() == 0
+               for t in list(inp.cols) + [inp.counts])
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_donation_frees_owned_inputs_never_chained_outputs(depth):
+    keys, vals = _keyed(7, 16 * 200, 24)
+    oracle = {}
+    for k, v in zip(keys.tolist(), vals.tolist()):
+        oracle[k] = oracle.get(k, 0) + v
+    ex = _ex(prefetch_depth=depth, donate_buffers=True)
+    staged, chained = _spy_staging(ex)
+    res = bst.Session(executor=ex).run(bst.Reduce(
+        bst.Const(16, keys, vals), lambda a, b: a + b))
+    assert dict(res.rows()) == oracle
+    assert len(staged) == 16 and all(i.owned for i in staged)
+    assert all(_freed(i) for i in staged)
+    # The consumer waves chained the map side's merged output (its subid
+    # views) zero-copy: never owned, never freed, and the result reads
+    # again.
+    assert len(chained) == 16
+    assert not any(_freed(i) for i in chained)
+    assert dict(res.rows()) == oracle
+
+
+def test_donation_off_keeps_staged_inputs():
+    keys = np.arange(16 * 16, dtype=np.int32) % 19
+    ex = _ex(prefetch_depth=1, donate_buffers=False)
+    staged, _ = _spy_staging(ex)
+    res = bst.Session(executor=ex).run(bst.Reduce(
+        bst.Const(16, keys, np.ones(len(keys), np.int32)),
+        lambda a, b: a + b))
+    assert len(dict(res.rows())) == 19
+    assert staged and not any(_freed(i) for i in staged)
+
+
+def test_map_only_chain_keeps_the_counts_it_passes_through():
+    """A map-only chain's output carries its input's counts: donation
+    keeps that storage."""
+    keys = np.arange(16 * 8, dtype=np.int32)
+    res = bst.Session(executor=_ex(prefetch_depth=1)).run(
+        bst.Map(bst.Const(16, keys), lambda k: k * 2))
+    assert sorted(r[0] for r in res.rows()) == sorted((keys * 2).tolist())
+
+
+def test_prefetch_depth_env_default(monkeypatch):
+    monkeypatch.setenv("BIGSLICE_PREFETCH_DEPTH", "3")
+    assert _ex().prefetch_depth == 3
+    monkeypatch.setenv("BIGSLICE_PREFETCH_DEPTH", "0")
+    assert _ex().prefetch_depth == 0
+    monkeypatch.setenv("BIGSLICE_DONATE_BUFFERS", "0")
+    monkeypatch.setenv("BIGSLICE_DEVICE_BUDGET_BYTES", "1234")
+    ex = _ex()
+    assert ex.donate_buffers is False and ex.device_budget_bytes == 1234
+
+
+def _first_task(ex):
+    with ex._lock:
+        return next(iter(ex._task_index.values()))[1]
+
+
+def test_budget_clamps_prefetch_depth():
+    keys, vals = _keyed(3, 16 * 64, 29)
+    oracle = {}
+    for k in keys.tolist():
+        oracle[k] = oracle.get(k, 0) + 1
+    ex = _ex(prefetch_depth=2, device_budget_bytes=2_000)
+    res = bst.Session(executor=ex).run(bst.Reduce(
+        bst.Const(16, keys, np.ones(len(keys), np.int32)),
+        lambda a, b: a + b))
+    assert dict(res.rows()) == oracle
+    assert ex.prefetch_depth == 2  # the knob stays; the group's depth clips
+    t0 = _first_task(ex)
+    fake = [StagedInput([torch.zeros(512, dtype=torch.int32)],
+                        torch.zeros(1, dtype=torch.int32), 512, False, True,
+                        None)]
+    assert ex._effective_prefetch_depth(t0, fake, 4) == 0
+    roomy = _ex(prefetch_depth=2, device_budget_bytes=1 << 30)
+    assert roomy._effective_prefetch_depth(t0, fake, 4) == 2
+    assert roomy._effective_prefetch_depth(t0, fake, 2) == 1
+
+
+@pytest.mark.parametrize("K", [2, 4, 8])
+def test_budget_split_k_and_parity(ref_session, K):
+    keys, vals = _keyed(41, 4 * 512, 300)
+    want = _rows(ref_session, ref_bs.Reduce(ref_bs.Const(4, keys, vals),
+                                            lambda a, b: a + b))
+    ex = _ex(prefetch_depth=1)
+    plain = _rows(bst.Session(executor=ex), bst.Reduce(
+        bst.Const(4, keys, vals), lambda a, b: a + b))
+    assert ex.split_runs == {}
+    # Each map wave: capacity 512, 8 bytes a row, slack 2 -> 20480 bytes
+    # estimated; a budget of est / K splits it into K slices.
+    ex = _ex(prefetch_depth=1, device_budget_bytes=512 * 8 * 5 // K)
+    got = _rows(bst.Session(executor=ex), bst.Reduce(
+        bst.Const(4, keys, vals), lambda a, b: a + b))
+    (k,) = ex.split_runs.values()
+    assert k == K
+    _assert_shards_equal(got, plain)
+    _assert_shards_equal(got, want)
+
+
+def test_split_declines_for_rank_sensitive_chains():
+    keys = np.arange(4 * 64, dtype=np.int32) % 50
+    ex = _ex(device_budget_bytes=64)
+    res = bst.Session(executor=ex).run(bst.Reduce(
+        bst.Head(bst.Const(4, keys, np.ones(len(keys), np.int32)), 10),
+        lambda a, b: a + b))
+    assert ex.split_runs == {}
+    assert sum(v for _, v in res.rows()) == 40
+
+
+def test_subid_split_declines_under_budget():
+    keys, _ = _keyed(9, 16 * 64, 300)
+    oracle = {}
+    for k in keys.tolist():
+        oracle[k] = oracle.get(k, 0) + 1
+    for budget, declined in ((1_000, True), (None, False)):
+        ex = _ex(prefetch_depth=0, device_budget_bytes=budget)
+        res = bst.Session(executor=ex).run(bst.Reduce(
+            bst.Const(16, keys, np.ones(len(keys), np.int32)),
+            lambda a, b: a + b))
+        assert dict(res.rows()) == oracle
+        views = [getattr(o, "_wave_views", None)
+                 for o in ex._outputs.values()]
+        built = [v for v in views if v is not None]
+        assert built, "no consumer asked for a subid split"
+        assert all((v[1] is None) is declined for v in built)
+
+
+def test_staging_error_reraises_in_wave_order():
+    keys = np.arange(16 * 8, dtype=np.int32)
+    ex = _ex(prefetch_depth=2)
+    dispatched = []
+    orig_group, orig_dispatch = ex._group_inputs, ex._dispatch_wave
+
+    def group_inputs(tasks, wave=0):
+        if wave == 5:
+            raise OSError("staging failed at wave 5")
+        return orig_group(tasks, wave)
+
+    def dispatch(tasks, wave, inputs):
+        dispatched.append(wave)
+        return orig_dispatch(tasks, wave, inputs)
+
+    ex._group_inputs, ex._dispatch_wave = group_inputs, dispatch
+    with pytest.raises(TaskError, match="staging failed at wave 5"):
+        bst.Session(executor=ex).run(bst.Reduce(
+            bst.Const(16, keys, keys), lambda a, b: a + b))
+    assert dispatched == [0, 1, 2, 3, 4]
+
+
+def test_concurrent_pipelined_runs_on_one_executor():
+    """Several runs share one executor (its arena, wave mutex and staging
+    clock) from threads, with a short switch interval: every result is
+    right."""
+    ex = _ex(prefetch_depth=2)
+    errors, results = [], {}
+
+    def run(i):
+        try:
+            keys, vals = _keyed(100 + i, 16 * 32, 50)
+            res = bst.Session(executor=ex).run(bst.Reduce(
+                bst.Const(16, keys, vals), lambda a, b: a + b))
+            oracle = {}
+            for k, v in zip(keys.tolist(), vals.tolist()):
+                oracle[k] = oracle.get(k, 0) + v
+            results[i] = dict(res.rows()) == oracle
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors, errors
+    assert results == {i: True for i in range(6)}

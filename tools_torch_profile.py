@@ -1,7 +1,8 @@
 """Where the time goes in the PyTorch port's runs on one GPU.
 
     python3 tools_torch_profile.py
-        [--path reduce-wave|lww-wave|join|join-sort|groupby] [--out DIR]
+        [--path reduce-wave|lww-wave|join|join-sort|groupby]
+        [--prefetch-depth N] [--spill] [--out DIR]
 
 ``reduce-wave`` (the default) runs Session().run(Reduce(Const(4, keys,
 ones), add)) at the shape of the JAX package's reduce-wave scenario
@@ -12,23 +13,31 @@ latest record per key, on the sort lowering; ``join``, ``join-sort``
 and ``groupby`` run chip_smoke.py's phases 8-10 on their inputs (the
 JAX package's ``bench.py join`` scenario, two sides of 2**23 keys, on
 the hash join and on the tagged-sort alignment; a Map over
-GroupByKey(capacity=64) of 2**22 rows). Each runs once to warm up,
-then:
+GroupByKey(capacity=64) of 2**22 rows). The executor runs the wave
+pipeline at ``--prefetch-depth`` (default 1, the executor's default;
+0 is the serial loop), and with ``--spill`` every shuffle boundary
+takes the spill exchange (``BIGSLICE_SHUFFLE=spill``). Each path runs
+once to warm up, then:
 
-1. a layer breakdown: host wall time of each executor layer (staging
-   upload, wave programs, cross-wave merge, subid split, result
-   readback) and, inside them, of the sort lowering's parts (the sort,
-   the segmented scan), the kernels' wrappers, the join stage (its
-   claim cascade inside it) and the subid split (inside staging), each
-   closed by torch.cuda.synchronize(). The two sides of a join stage
-   their producer groups on two threads, so there the layers overlap
-   and their sum exceeds the wall;
-2. one run under torch.profiler: device time by kernel, total device
+1. a layer breakdown: host wall time of each executor layer closed by
+   torch.cuda.synchronize() on the group thread (wave dispatch, settle,
+   cross-wave merge, subid split, result readback) and, inside them,
+   of the sort lowering's parts (the sort, the segmented scan), the
+   kernels' wrappers, the join stage (its claim cascade inside it).
+   Staging is read from the executor's own clock, never synchronized
+   (its prefetcher thread overlaps the programs): all of it, the part
+   the group threads waited for (exposed) and the rest (hidden). The
+   two sides of a join run their producer groups on two threads, so
+   there the layers overlap and their sum exceeds the wall;
+2. the host syncs of one run, counted by torch's sync debug mode (each
+   operation that waits for the device: a nonzero, an item, a copy to
+   the host), by message;
+3. one run under torch.profiler: device time by kernel, total device
    busy time and the device's idle share of the run's wall time, and
    the device time of each hand-written kernel's wrapper (K2's passes
    summed) and of torch's sort kernels.
 
-Prints both, with the card's name and power limit, and writes the
+Prints all three, with the card's name and power limit, and writes the
 profiler table to DIR/profile.txt (default profile_out). Needs a GPU.
 """
 
@@ -42,6 +51,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -53,6 +63,10 @@ def main() -> int:
     ap.add_argument("--path", default="reduce-wave",
                     choices=("reduce-wave", "lww-wave", "join",
                              "join-sort", "groupby"))
+    ap.add_argument("--prefetch-depth", type=int, default=1)
+    ap.add_argument("--spill", action="store_true",
+                    help="run every shuffle boundary through the spill "
+                         "exchange (BIGSLICE_SHUFFLE=spill)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tools_torch_profile: needs a GPU", file=sys.stderr)
@@ -109,13 +123,23 @@ def main() -> int:
                 torch.maximum(a[0], b[0]),
                 torch.where(a[0] >= b[0], a[1], b[1])))
 
+    if args.spill:
+        os.environ["BIGSLICE_SHUFFLE"] = "spill"
+    executors = []
+
     def run():
-        res = bs.Session().run(make())
+        ex = bs.MeshExecutor(prefetch_depth=args.prefetch_depth)
+        executors.append(ex)
+        sess = bs.Session(executor=ex)
+        res = sess.run(make())
         for shard in range(S):
             list(res.reader(shard, ()))
+        sess.shutdown()
 
     run()
     torch.cuda.synchronize()
+    setting = (f"prefetch depth {args.prefetch_depth}"
+               + (", spill exchange" if args.spill else ""))
 
     # 1. Layer breakdown: wrap the executor's layer methods with
     # synchronized host timers.
@@ -123,8 +147,8 @@ def main() -> int:
     calls = collections.Counter()
     E = meshexec.MeshExecutor
     layers = {
-        (E, "_group_inputs"): "staging (read shards, upload)",
-        (E, "_execute_wave_on"): "wave program (route, combine, compact)",
+        (E, "_dispatch_wave"): "wave program (route, combine, compact)",
+        (E, "_settle_wave"): "settle (signals, ladder reruns)",
         (segment, "sort_permutation"): "  of it: sort (packing, torch.sort)",
         (segment, "segmented_combine"): "  of it: segmented scan",
         (cuda_kernels, "hash_partition"): "  of it: K1 hash_partition wrapper",
@@ -155,19 +179,41 @@ def main() -> int:
     wall = time.perf_counter() - t0
     for (owner, name), orig in originals.items():
         setattr(owner, name, orig)
-    print(f"layer breakdown, {args.path} {n} rows, S={S}, on {card}: "
-          f"wall {wall:.4f} s (synchronized per layer)")
+    clock = executors[-1].staging_seconds()
+    print(f"layer breakdown, {args.path} {n} rows, S={S}, {setting}, on "
+          f"{card}: wall {wall:.4f} s (synchronized per layer)")
+    print(f"  {'staging (read shards, assemble, copy)':45s} "
+          f"{clock['staged_s']:.4f} s in {clock['waves']} wave(s): exposed "
+          f"{clock['exposed_s']:.4f} s, hidden {clock['hidden_s']:.4f} s")
     for label in layers.values():
         print(f"  {label:45s} {spent[label]:.4f} s in {calls[label]} "
               f"call(s)")
     top_level = [label for label in layers.values()
                  if not label.startswith(" ")]
-    other = wall - sum(spent[k] for k in top_level)
+    other = wall - clock["exposed_s"] - sum(spent[k] for k in top_level)
     print(f"  {'other (planning, evaluator, threads)':45s} "
           + (f"{other:.4f} s" if other >= 0 else
              "not measured (concurrent groups' layers overlap)"))
 
-    # 2. Device time by kernel under torch.profiler.
+    # 2. Host syncs: every operation that waits for the device warns
+    # under the sync debug mode.
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # Each by the line of Python that waited (the warning's frame).
+    syncs = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    print(f"host syncs in one run ({setting}): {sum(syncs.values())}")
+    for where, count in syncs.most_common(12):
+        print(f"  {count:6d}x  {where}")
+
+    # 3. Device time by kernel under torch.profiler.
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
