@@ -10,8 +10,9 @@ What it runs today, through the device executor (on ``cuda`` by
 default): ``Const`` sources, the device tier of ``Map``, ``Filter``,
 ``Flatmap`` (fixed fanout) and ``Head``, ``Reduce`` with any
 device-traceable combine fn and int or float keys, ``Reshuffle`` /
-``Repartition``, the aggregating inner join ``JoinAggregate`` and
-``GroupByKey`` (fixed-capacity groups as a vector column)::
+``Repartition``, the aggregating inner join ``JoinAggregate``,
+``GroupByKey`` (fixed-capacity groups as a vector column) and the
+general ``Cogroup`` (per key, one list per input value column)::
 
     import bigslice_tpu_torch as bs
     s = bs.Map(bs.Const(4, keys, vals), lambda k, v: (k & 0xFFFF, v))
@@ -21,12 +22,14 @@ device-traceable combine fn and int or float keys, ``Reshuffle`` /
                          lambda a, b: a + b, lambda a, b: a + b)
     g = bs.Map(bs.GroupByKey(bs.Const(4, keys, vals), capacity=64),
                lambda k, grp, cnt: (k, grp.sum(), cnt))
+    cg = bs.Cogroup(bs.Const(4, ak, av), bs.Const(4, bk, bv))
 """
 
 from bigslice_tpu_torch.exec.meshexec import MeshExecutor
 from bigslice_tpu_torch.exec.session import Result, Session
 from bigslice_tpu_torch.frame.frame import Frame, result_shard_rows
 from bigslice_tpu_torch.ops.base import Dep, Slice
+from bigslice_tpu_torch.ops.cogroup import Cogroup
 from bigslice_tpu_torch.ops.const import Const
 from bigslice_tpu_torch.ops.groupby import GroupByKey
 from bigslice_tpu_torch.ops.join import JoinAggregate
@@ -37,6 +40,7 @@ from bigslice_tpu_torch.slicetype import ColType, Schema
 
 __all__ = [
     "ColType",
+    "Cogroup",
     "Const",
     "Dep",
     "Filter",

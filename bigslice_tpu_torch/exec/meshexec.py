@@ -33,14 +33,25 @@ row validity carried as a bool mask and one compaction at the end:
 - ``groupby`` (a GroupByKey): the sort, each group's [capacity] window
   of values and its true count (``groupby.make_group_by_key_masked``).
   Vector columns ([n, capacity]) ride every later stage, the merge, the
-  subid split and the readback like scalar ones.
+  subid split and the readback like scalar ones;
+- ``cogroup`` (a Cogroup, the only stage of its chain): one tagged sort
+  over the union of its N inputs' shuffled rows and a rank-scatter into
+  per-input [keys, G] matrices with exact counts
+  (``cogroup.make_cogroup_align``); the readback decodes them into the
+  contract's object lists (``cogroup.ragged_from_padded``).
+
+A wave's output is front-packed into ``bucket_size`` of its surviving
+rows, never the size of the table or buffer they came from.
 
 A wave whose hash table could not place every row is rerun on the sort
 path, and its op stays there (``hash_off``); a shuffle whose buckets
 overflowed is rerun with four times the slack, up to the slack that
 cannot overflow; a strict GroupByKey whose group exceeds its capacity
-raises ``ValueError``. Outputs stay on the device; results are read
-back per shard through the store bridge (``_BridgedStore``).
+raises ``ValueError``. A Cogroup needs no retry: each wave scatters at
+``bucket_size`` of its own largest group, counted first, and its op
+records the widest (``cogroup_caps``). Outputs stay on the device;
+results are read back per shard through the store bridge
+(``_BridgedStore``).
 
 Waves stream through a pipeline (``_execute_waves``): wave 0 stages on
 the group's thread; a prefetcher thread stages waves 1..n-1
@@ -52,7 +63,9 @@ assembles each column once into a host buffer from the arena
 the card with ``non_blocking`` copies on the executor's copy stream; the
 wave program's stream waits on the event recorded behind them. A wave
 whose estimated working set exceeds ``device_budget_bytes`` runs as K
-exact row slices (``_try_execute_wave_split``). Under
+exact row slices (``_try_execute_wave_split``); with a map-side
+combiner the wave's running merge joins each next slice's rows ahead
+of its combine, so it holds one row a key. Under
 ``BIGSLICE_SHUFFLE=spill`` (or ``auto`` over the spill budget) a shuffle
 boundary's map waves write their partitions through a ``FileStore``
 instead of merging on the device (``exec/shuffleplan.py``), and
@@ -60,8 +73,9 @@ consumers stream them back through the arena.
 
 What the JAX package runs elsewhere raises here, naming the op
 (``LoweringNotPorted``): host-tier functions and columns, the dense
-join (``dense_keys=``), and operators that are not ported. No partial
-result is returned.
+join (``dense_keys=``), a Cogroup fused with other stages, feeding a
+shuffle or over host or vector inputs, and operators that are not
+ported. No partial result is returned.
 """
 
 from __future__ import annotations
@@ -82,6 +96,7 @@ from bigslice_tpu_torch.exec import staging
 from bigslice_tpu_torch.exec import store as store_mod
 from bigslice_tpu_torch.exec.task import Task, TaskName, TaskState
 from bigslice_tpu_torch.frame.frame import Frame
+from bigslice_tpu_torch.ops.cogroup import Cogroup
 from bigslice_tpu_torch.ops.const import Const
 from bigslice_tpu_torch.ops.groupby import GroupByKey
 from bigslice_tpu_torch.ops.join import JoinAggregate
@@ -89,19 +104,25 @@ from bigslice_tpu_torch.ops.mapops import (Filter, Flatmap, Head, Map,
                                            extra_tensors)
 from bigslice_tpu_torch.ops.reduce import LoweringNotPorted, Reduce
 from bigslice_tpu_torch.ops.reshuffle import Reshuffle, RowPartitioner
+from bigslice_tpu_torch.parallel import cogroup as cogroup_mod
 from bigslice_tpu_torch.parallel import groupby as groupby_mod
 from bigslice_tpu_torch.parallel import hashagg, segment
 from bigslice_tpu_torch.parallel import join as join_mod
 from bigslice_tpu_torch.parallel import shuffle as shuffle_mod
 from bigslice_tpu_torch.parallel.jitutil import bucket_size
-from bigslice_tpu_torch.parallel.segment import compact_by_mask, take
+from bigslice_tpu_torch.parallel.segment import compact_to_bucket, take
 from bigslice_tpu_torch.slicetype import torch_dtype
 
-__all__ = ["DeviceGroupOutput", "LoweringNotPorted", "MeshExecutor"]
+__all__ = ["COGROUP_DEFAULT_CAP", "DeviceGroupOutput", "LoweringNotPorted",
+           "MeshExecutor"]
 
 #: The operators a task chain may hold on this executor.
 _DEVICE_OPS = (Const, Map, Filter, Flatmap, Head, Reduce, Reshuffle,
-               JoinAggregate, GroupByKey)
+               JoinAggregate, GroupByKey, Cogroup)
+
+#: The least group capacity a Cogroup op records (the JAX package's
+#: starting capacity, which its ladder grows).
+COGROUP_DEFAULT_CAP = 8
 
 
 def _op_base(op: str) -> str:
@@ -212,7 +233,6 @@ class StagedInput(NamedTuple):
     cols: List[torch.Tensor]
     counts: torch.Tensor
     capacity: int
-    has_subid: bool
     owned: bool
     ready: Optional[object]
 
@@ -289,7 +309,8 @@ class MeshExecutor:
     - ``device_budget_bytes`` (``BIGSLICE_DEVICE_BUDGET_BYTES``, default
       none): a wave whose estimated working set exceeds it runs as K row
       slices, the prefetch depth shrinks so that (1 + depth) waves fit
-      it, and the subid split declines when its views would not.
+      it, and the subid split builds one consumer wave's view at a time
+      when all W views would not fit it.
     - ``staging_arena`` (``BIGSLICE_STAGING_ARENA``, default on): the
       host arena and one assembled copy per column; off is the
       per-shard upload.
@@ -359,6 +380,8 @@ class MeshExecutor:
         self._hash_off: set = set()
         # Per-op shuffle slack adapted by the overflow ladder.
         self._slack_memo: Dict[str, float] = {}
+        # Per-op Cogroup group capacities: the widest its waves built.
+        self._cogroup_caps: Dict[str, int] = {}
         # op base -> K of its last budget-split wave; op base -> the
         # last shuffle plan (BIGSLICE_SHUFFLE set).
         self.split_runs: Dict[str, int] = {}
@@ -461,6 +484,9 @@ class MeshExecutor:
         op = task.name.op
         if task.chain is None:
             raise LoweringNotPorted(f"{op}: task has no slice chain")
+        if any(isinstance(s, Cogroup) for s in task.chain):
+            self._check_cogroup(task)
+            return
         for s in task.chain:
             name = type(s).__name__
             if not isinstance(s, _DEVICE_OPS):
@@ -493,6 +519,30 @@ class MeshExecutor:
                 raise LoweringNotPorted(
                     f"{op}: a host-tier combine fn: the host tier is not "
                     f"ported")
+
+    @staticmethod
+    def _check_cogroup(task: Task) -> None:
+        """A Cogroup lowers alone: the only slice of its chain and one
+        output partition (its output is object lists, decoded on the
+        host at readback, so no device stage or shuffle can take it),
+        and every input column a device scalar. Its own schema is not
+        held against it: the lists are the readback's decode of device
+        columns."""
+        op = task.name.op
+        cg = task.chain[-1]
+        if len(task.chain) != 1 or not isinstance(cg, Cogroup):
+            raise LoweringNotPorted(
+                f"{op}: a Cogroup fused with other stages: its list "
+                f"columns need the host tier, which is not ported")
+        if task.num_partition > 1:
+            raise LoweringNotPorted(
+                f"{op}: a Cogroup feeding a shuffle: its list columns "
+                f"need the host tier, which is not ported")
+        for sl in cg.slices:
+            if not all(ct.is_device and ct.shape == () for ct in sl.schema):
+                raise LoweringNotPorted(
+                    f"{op}: Cogroup input {sl.name} has host or vector "
+                    f"columns: only device scalar columns lower")
 
     # -- group orchestration ----------------------------------------------
 
@@ -663,8 +713,10 @@ class MeshExecutor:
                                                  depth, sink)
         outs: List[DeviceGroupOutput] = []
         for w in range(len(wave_tasks)):
-            out = self._execute_wave(wave_tasks[w], w,
-                                     inputs0 if w == 0 else None)
+            # Wave 0's inputs are handed on, not held across the loop.
+            inputs, inputs0 = inputs0, None
+            out = self._execute_wave(wave_tasks[w], w, inputs)
+            del inputs
             if sink is not None:
                 sink(w, out)
             else:
@@ -820,8 +872,7 @@ class MeshExecutor:
         task0 = tasks[0]
         self._await_inputs(inputs)
         budget = self._wave_budget()
-        if (budget and task0.num_partition > 1
-                and len(inputs) == 1 and not inputs[0].has_subid
+        if (budget and task0.num_partition > 1 and len(inputs) == 1
                 and self._splittable_chain(task0)
                 and self._wave_bytes_estimate(task0, inputs) > budget):
             split = self._try_execute_wave_split(tasks, wave, inputs, budget)
@@ -870,7 +921,7 @@ class MeshExecutor:
             entry.inputs = entry.first = None
 
     def _execute_wave_on(self, tasks: List[Task], wave: int,
-                         inputs, first=None) -> DeviceGroupOutput:
+                         inputs, first=None, carry=None) -> DeviceGroupOutput:
         task0 = tasks[0]
         opbase = _op_base(task0.name.op)
         stages = self._stages_for(task0)
@@ -884,8 +935,8 @@ class MeshExecutor:
                     first = None
                 else:
                     slack = self._wave_slack(task0)
-                    result = self._program(task0, stages, slack)(wave,
-                                                                 inputs)
+                    result = self._program(task0, stages, slack)(
+                        wave, inputs, carry)
                     signals = self._issue_signals(result)
                 out_counts, out_cols = result[0], result[5]
                 overflow, badrange, hashov, gbover = signals()
@@ -945,18 +996,49 @@ class MeshExecutor:
         return all(k in ("map", "filter", "flatmap") for k, _ in stages[:-1])
 
     def _wave_bytes_estimate(self, task0: Task, inputs) -> int:
-        """Coarse working-set model of one wave: input rows x row bytes x
-        (sort operands + scratch + the slack-scaled receive buffer). It
-        only picks WHEN to split and into how many slices."""
+        """Coarse working-set model of one wave (``wave_bytes_model``)
+        from its staged inputs and stages. It only picks WHEN to split
+        and into how many slices."""
         rows = sum(i.capacity for i in inputs)
         rowbytes = sum(c[:1].numel() * c.element_size()
                        for i in inputs for c in i.cols) or 4
-        slack = self._slack_memo.get(_op_base(task0.name.op), 2.0)
         fanout = 1
+        hash_table = False
         for kind, s in self._stages_for(task0):
             if kind == "flatmap":
                 fanout *= s.fanout
-        return int(rows * fanout * rowbytes * (3 + slack))
+            elif kind == "shuffle":
+                fc = s.partitioner.combiner
+                hash_table = (fc is not None
+                              and s.partitioner.partition_fn is None
+                              and self._hash_combine_ops(
+                                  _op_base(task0.name.op), fc) is not None)
+        return self.wave_bytes_model(rows, rowbytes, fanout, hash_table,
+                                     self._wave_slack(task0))
+
+    @staticmethod
+    def wave_bytes_model(rows: int, rowbytes: int, fanout: int = 1,
+                         hash_table: bool = False,
+                         slack: float = 2.0) -> int:
+        """Bytes one wave of ``rows`` staged rows of ``rowbytes`` holds on
+        the device: the staged rows; the combine + route working set of
+        its ``rows * fanout`` rows and, in a split wave, of the running
+        merge that rides into its combine (taken as no larger) — with
+        the hash combine (``hash_table``), the partition ids and a table
+        of one slot a row holding the keys and values, a presence byte
+        and a claim word, plus the kernel's bucketed copy of the rows
+        and its spill list; else the sort's operands and scratch and the
+        ``slack``-scaled receive buffer; the rows concatenated with the
+        running merge; and the output, at most one row a row, with its
+        subid and the compaction's row ids."""
+        n = rows * fanout
+        m = 2 * n  # the rows and the running merge
+        if hash_table:
+            work = m * (4 + 1 + rowbytes + 4 + rowbytes + 8)
+        else:
+            work = int(m * rowbytes * (2 + slack))
+        out = n * (rowbytes + 4 + 8)
+        return int(rows * rowbytes + work + m * rowbytes + out)
 
     def _try_execute_wave_split(self, tasks: List[Task], wave: int,
                                 inputs, budget: int):
@@ -978,17 +1060,41 @@ class MeshExecutor:
     def _execute_wave_sliced(self, tasks: List[Task], wave: int, inputs,
                              K: int) -> DeviceGroupOutput:
         """Run one wave as K exact row slices of its single dep (K divides
-        the capacity) and merge the partitioned sub-outputs as more
-        producer contributions: the consumer's re-combine makes the
-        result the unsplit wave's."""
+        the capacity), each slice folded into the running merge as it
+        runs (``_run_slice``): the consumer's re-combine makes the result
+        the unsplit wave's. No slice's output outlives its fold; the
+        wave's staged inputs are donated after the last slice."""
         task0 = tasks[0]
         B = inputs[0].capacity // K
-        outs = [self._execute_wave_on(
-                    tasks, wave, [self._slice_wave_program(inputs[0], b, B)])
-                for b in range(K)]
+        merged = None
+        for b in range(K):
+            merged = self._run_slice(tasks, wave, self._slice_wave_program(
+                inputs[0], b, B), merged)
         with self._lock:
             self.split_runs[_op_base(task0.name.op)] = K
-        return self._merge_outputs(outs, task0)
+        if self.donate_buffers:
+            _donate(inputs, merged)
+        return merged
+
+    def _run_slice(self, tasks: List[Task], wave: int, inp: StagedInput,
+                   merged: Optional[DeviceGroupOutput]) -> DeviceGroupOutput:
+        """One row slice of a split wave, folded into the running merge
+        ``merged`` (None before the first); returns the new running
+        merge. With a map-side combiner the running merge's rows (one a
+        key) join the slice's rows before its combine, so the slice's
+        output IS the new running merge, one row a key as the unsplit
+        wave's output, however little the slice combines on its own;
+        without one, the slice's rows are appended."""
+        task0 = tasks[0]
+        if merged is None:
+            return self._execute_wave_on(tasks, wave, [inp])
+        if task0.partitioner.combiner is None:
+            sub = self._execute_wave_on(tasks, wave, [inp])
+            return self._merge_outputs([merged, sub], task0)
+        valid = (torch.arange(merged.capacity, device=self.device)
+                 < merged.counts[0])
+        carry = (valid, merged.cols[int(merged.subid):])
+        return self._execute_wave_on(tasks, wave, [inp], carry=carry)
 
     @staticmethod
     def _slice_wave_program(inp: StagedInput, b: int, B: int) -> StagedInput:
@@ -997,7 +1103,7 @@ class MeshExecutor:
         start = b * B
         counts = torch.clamp(inp.counts - start, 0, B).to(torch.int32)
         return StagedInput([c[start : start + B] for c in inp.cols], counts,
-                           B, False, False, None)
+                           B, False, None)
 
     @property
     def hash_off(self) -> frozenset:
@@ -1014,6 +1120,21 @@ class MeshExecutor:
                         and task0.partitioner.combiner is not None)
         return self._slack_memo.get(_op_base(task0.name.op),
                                     1.0 if has_combiner else 2.0)
+
+    def _note_cogroup_width(self, opbase: str, G: int) -> None:
+        """Record a Cogroup wave's matrix width: the op's capacity is the
+        widest, at least ``COGROUP_DEFAULT_CAP`` — the capacity the JAX
+        package's ladder reaches, ``bucket_size`` of the largest group
+        once that group outgrows the starting one."""
+        with self._lock:
+            self._cogroup_caps[opbase] = max(
+                self._cogroup_caps.get(opbase, COGROUP_DEFAULT_CAP), G)
+
+    @property
+    def cogroup_caps(self) -> Dict[str, int]:
+        """Op site -> the group capacity its Cogroup's waves needed."""
+        with self._lock:
+            return dict(self._cogroup_caps)
 
     def _hash_combine_ops(self, opbase: str, fc):
         """The classified ops when the hash lowering serves this combiner,
@@ -1044,10 +1165,12 @@ class MeshExecutor:
         into device stages (kind, slice or task). A Const contributes
         no stage (its shards are the staged input), nor does a Reshuffle
         (it reads its shuffled input as it is). A JoinAggregate, the
-        innermost slice of its chain, is the first stage."""
+        innermost slice of its chain, is the first stage; a Cogroup is
+        the only one."""
         kinds = ((Map, "map"), (Flatmap, "flatmap"), (Filter, "filter"),
                  (Head, "head"), (Reduce, "combine"),
-                 (JoinAggregate, "join"), (GroupByKey, "groupby"))
+                 (JoinAggregate, "join"), (GroupByKey, "groupby"),
+                 (Cogroup, "cogroup"))
         stages: List[tuple] = []
         for s in reversed(task.chain):
             for cls, kind in kinds:
@@ -1085,33 +1208,44 @@ class MeshExecutor:
                                        device=self.device)
 
     def _program(self, task: Task, stages: List[tuple], slack: float):
-        """The wave program: ``stepped(wave, inputs) -> (out_counts,
+        """The wave program: ``stepped(wave, inputs, carry=None) ->
+        (out_counts,
         overflow, badrange, hashov, gbover, cols)``. Validity rides as a
         bool mask between stages; one final compaction establishes the
-        front-packed output contract. Subid-carrying inputs keep only
-        this wave's rows; a join reads two inputs, every other chain
-        one."""
+        front-packed output contract, in ``bucket_size`` of the surviving
+        rows. Each input holds this wave's rows only (a subid output
+        reaches a consumer as its wave's view); a join reads two inputs,
+        a Cogroup one per input, every other chain one. ``carry``, a
+        split wave's running merge (mask, keys and values), joins the
+        rows ahead of the shuffle's combine (``_run_slice``)."""
         opbase = _op_base(task.name.op)
         nmesh = self.nmesh
         device = self.device
         vmap = torch.func.vmap
 
-        def stepped(wave: int, inputs):
+        def stepped(wave: int, inputs, carry=None):
             masks, col_sets = [], []
             for inp in inputs:
                 cols = list(inp.cols)
                 size = cols[0].shape[0]
-                m = torch.arange(size, device=device) < inp.counts[0]
-                if inp.has_subid:
-                    m = m & (cols[0] == wave)
-                    cols = cols[1:]  # strip the subid column
-                masks.append(m)
+                masks.append(torch.arange(size, device=device)
+                             < inp.counts[0])
                 col_sets.append(cols)
             zero = torch.zeros((), dtype=torch.int32, device=device)
             # A strict GroupByKey's overflow rides a channel of its own
             # (gbover), as does the hash lowerings' (hashov).
             overflow = badrange = hashov = gbover = zero
             run_stages = stages
+            if stages and stages[0][0] == "cogroup":
+                # The Cogroup is the chain's only stage: its aligner
+                # returns the distinct keys' rows already front-packed,
+                # at the width its largest group needs (no deficit).
+                s = stages[0][1]
+                n, cols, _, G = cogroup_mod.make_cogroup_align(
+                    s.prefix, s.nvals)(masks, col_sets)
+                self._note_cogroup_width(opbase, G)
+                return (n.reshape(1), overflow, badrange, hashov, gbover,
+                        tuple(cols))
             if stages and stages[0][0] == "join":
                 mask, cols, hashov = self._join_prelude(
                     opbase, stages[0][1], masks, col_sets)
@@ -1168,6 +1302,11 @@ class MeshExecutor:
                             0).sum().to(torch.int32)
                     cols = list(keys) + [groups, counts]
                 else:  # shuffle
+                    if carry is not None:
+                        cmask, ccols = carry
+                        mask = torch.cat([cmask, mask])
+                        cols = [torch.cat([cc, c]) for cc, c in
+                                zip(ccols, cols)]
                     part = s.partitioner
                     fc = part.combiner
                     pf = part.partition_fn
@@ -1202,12 +1341,11 @@ class MeshExecutor:
                         overflow = overflow + ov
                         badrange = badrange + nb
                     cols = list(cols)
-            if all(kind == "map" for kind, _ in stages) and not any(
-                    i.has_subid for i in inputs):
+            if all(kind == "map" for kind, _ in stages):
                 # Map-only chain: the mask is untouched, counts carry over.
                 return (inputs[0].counts, overflow, badrange, hashov,
                         gbover, tuple(cols))
-            out_n, cols = compact_by_mask(mask, cols)
+            out_n, cols = compact_to_bucket(mask, cols)
             return out_n.reshape(1), overflow, badrange, hashov, gbover, cols
 
         return stepped
@@ -1216,41 +1354,50 @@ class MeshExecutor:
 
     def _merge_outputs(self, outs: List[DeviceGroupOutput],
                        task0: Task) -> DeviceGroupOutput:
-        """Merge all waves' partitioned outputs into one (concat +
-        recompact); consumers treat the merged rows as multiple producer
+        """Merge partitioned outputs (the waves', or a split wave's
+        slices') into one: each device's valid rows of every output in
+        order, front-packed into ``bucket_size`` of the largest device's
+        total; consumers treat the merged rows as multiple producer
         contributions and re-combine them."""
         if len(outs) == 1:
             return outs[0]
-        ncols = len(outs[0].cols)
-        mask = torch.cat([
-            torch.arange(o.capacity, device=self.device) < o.counts[0]
-            for o in outs
-        ])
-        merged = [torch.cat([o.cols[j] for o in outs])
-                  for j in range(ncols)]
-        n, packed = compact_by_mask(mask, merged)
+        N = self.nmesh
+        counts = [o.counts.tolist() for o in outs]
+        totals = [sum(c[d] for c in counts) for d in range(N)]
+        cap = bucket_size(max(totals))
+        packed = []
+        for j in range(len(outs[0].cols)):
+            c0 = outs[0].cols[j]
+            buf = c0.new_zeros((N * cap,) + tuple(c0.shape[1:]))
+            for d in range(N):
+                pos = d * cap
+                for o, c in zip(outs, counts):
+                    start = d * o.capacity
+                    buf[pos : pos + c[d]] = o.cols[j][start : start + c[d]]
+                    pos += c[d]
+            packed.append(buf)
         return DeviceGroupOutput(
-            list(packed), n.reshape(1), sum(o.capacity for o in outs),
-            task0.schema, partitioned=True, subid=outs[0].subid,
-            nmesh=self.nmesh,
+            packed, torch.tensor(totals, dtype=torch.int32,
+                                 device=self.device),
+            cap, task0.schema, partitioned=True, subid=outs[0].subid,
+            nmesh=N,
         )
 
     def _subid_wave_view(self, out: DeviceGroupOutput, task0: Task,
-                         wave: int) -> Optional[DeviceGroupOutput]:
+                         wave: int) -> DeviceGroupOutput:
         """Consumer wave ``wave``'s compacted view of a wave-partitioned
-        output, built once per output for all W waves, so wave w
-        processes only its own partition's rows. None when the split
-        declined (under the wave budget), and the wave then filters the
-        full output by subid."""
+        output, so that wave w processes only its own partition's rows.
+        The views are built once per output for all W waves; when that
+        split declines (its W views over the wave budget), each wave's
+        view is built alone as it stages, so the device holds one view
+        at a time and the wave's program runs over its own rows only."""
         W = (task0.name.num_shard + self.nmesh - 1) // self.nmesh
-        if W <= 1 or out.cols is None:
-            return None
         with out._views_lock:
             if out._wave_views is None or out._wave_views[0] != W:
                 out._wave_views = (W, self._build_wave_views(out, W))
             views = out._wave_views[1]
-        if views is None or wave >= len(views):
-            return None
+        if views is None:
+            return self._wave_view(out, wave)
         return views[wave]
 
     def _build_wave_views(self, out: DeviceGroupOutput,
@@ -1266,28 +1413,32 @@ class MeshExecutor:
             # Skewed subids push capr toward the whole output, so W views
             # (and the split's scratch) could double W-fold the device
             # residency: under a budget that does not hold them,
-            # decline (cached) and let the waves filter by subid.
+            # decline (cached).
             rowbytes = sum(c[:1].numel() * c.element_size()
                            for c in out.cols[1:]) or 4
             if 2 * W * capr * rowbytes > budget:
                 return None
-        views = []
-        for w in range(W):
-            idx = torch.nonzero(valid & (subid == w)).squeeze(1)
-            k = idx.shape[0]
-            cols_w = []
-            for c in out.cols[1:]:
-                buf = torch.zeros((capr,) + tuple(c.shape[1:]),
-                                  dtype=c.dtype, device=self.device)
-                buf[:k] = take(c, idx)
-                cols_w.append(buf)
-            views.append(DeviceGroupOutput(
-                cols_w,
-                torch.tensor([k], dtype=torch.int32, device=self.device),
-                capr, out.schema, partitioned=True, subid=False,
-                nmesh=self.nmesh,
-            ))
-        return views
+        return [self._wave_view(out, w, capr) for w in range(W)]
+
+    def _wave_view(self, out: DeviceGroupOutput, w: int,
+                   capr: Optional[int] = None) -> DeviceGroupOutput:
+        """Partition ``w``'s rows of a subid output, front-packed into
+        ``capr`` rows (default: ``bucket_size`` of their count)."""
+        valid = torch.arange(out.capacity, device=self.device) < out.counts[0]
+        idx = torch.nonzero(valid & (out.cols[0] == w)).squeeze(1)
+        k = idx.shape[0]
+        if capr is None:
+            capr = bucket_size(k)
+        cols_w = []
+        for c in out.cols[1:]:
+            buf = c.new_zeros((capr,) + tuple(c.shape[1:]))
+            buf[:k] = take(c, idx)
+            cols_w.append(buf)
+        return DeviceGroupOutput(
+            cols_w, torch.full((1,), k, dtype=torch.int32, device=self.device),
+            capr, out.schema, partitioned=True, subid=False,
+            nmesh=self.nmesh,
+        )
 
     # -- staging ------------------------------------------------------------
 
@@ -1325,21 +1476,19 @@ class MeshExecutor:
                 # Aligned dep on a waved producer: consumer wave w
                 # aligns with producer wave w.
                 return StagedInput(wout.cols, wout.counts, wout.capacity,
-                                   False, False, None)
+                                   False, None)
             out = None
         if out is not None and out.partitioned:
             # Device-resident shuffle output: partition p on device
-            # p % nmesh. A waved consumer reads its subid's view.
-            if out.subid and task0.name.num_shard > self.nmesh:
-                view = self._subid_wave_view(out, task0, wave)
-                if view is not None:
-                    return StagedInput(view.cols, view.counts,
-                                       view.capacity, False, False, None)
-            return StagedInput(out.cols, out.counts, out.capacity,
-                               out.subid, False, None)
+            # p % nmesh. A subid output (more partitions than devices)
+            # reaches each consumer wave as its partition's view.
+            if out.subid:
+                out = self._subid_wave_view(out, task0, wave)
+            return StagedInput(out.cols, out.counts, out.capacity, False,
+                               None)
         if out is not None and len(dep0.tasks) == 1:
             return StagedInput(out.cols, out.counts, out.capacity, False,
-                               False, None)
+                               None)
 
         # Store-resident dep: each shard's frames, the shards' reads
         # fanned out on the staging pool.
@@ -1380,7 +1529,7 @@ class MeshExecutor:
                 host_counts.copy_(torch.tensor(counts, dtype=torch.int32))
                 if self.device.type != "cuda":
                     return StagedInput(host_cols, host_counts, capacity,
-                                       False, True, None)
+                                       True, None)
                 with torch.cuda.stream(self._copy_stream):
                     dev = [torch.empty(h.shape, dtype=h.dtype,
                                        device=self.device)
@@ -1390,8 +1539,7 @@ class MeshExecutor:
                     ready = torch.cuda.Event()
                     ready.record(self._copy_stream)
                 arena.release(bufs + [host_counts], ready)
-                return StagedInput(dev[:-1], dev[-1], capacity, False, True,
-                                   ready)
+                return StagedInput(dev[:-1], dev[-1], capacity, True, ready)
         return self._upload(shard_lists, schema)
 
     def _upload(self, shard_lists, schema) -> StagedInput:
@@ -1413,7 +1561,7 @@ class MeshExecutor:
                     buf[start : start + counts[d]] = f.cols[j].to(self.device)
             cols.append(buf)
         counts_t = torch.tensor(counts, dtype=torch.int32, device=self.device)
-        return StagedInput(cols, counts_t, capacity, False, True, None)
+        return StagedInput(cols, counts_t, capacity, True, None)
 
     # -- frame materialization for result reads ------------------------------
 
@@ -1464,4 +1612,9 @@ class MeshExecutor:
                 cols = [c[shard] for c in chunks]
         if not len(cols[0]):
             return []
+        cg = task.chain[-1] if task.chain else None
+        if isinstance(cg, Cogroup):
+            # The padded device encoding, decoded into the Cogroup
+            # contract's object lists.
+            cols = cogroup_mod.ragged_from_padded(cg.prefix, cg.nvals, cols)
         return [Frame(cols, task.schema)]

@@ -31,9 +31,12 @@ _DOWNCAST = {
 
 
 def obj_col(vals) -> np.ndarray:
-    """A host (object) column from a list of Python values."""
+    """A host (object) column from a list of Python values, list and
+    tuple cells included (``np.asarray`` would make equal-length lists
+    a 2-D array)."""
     col = np.empty(len(vals), dtype=object)
-    col[:] = vals
+    for i, v in enumerate(vals):
+        col[i] = v
     return col
 
 
@@ -48,6 +51,8 @@ def to_numpy(col) -> np.ndarray:
 def _coerce(c, device):
     if isinstance(c, torch.Tensor):
         t = c
+    elif isinstance(c, np.ndarray) and c.dtype == np.dtype(object):
+        return c  # a host column, its cells as they are
     else:
         a = c if isinstance(c, np.ndarray) else np.asarray(c)
         if a.dtype == np.dtype(object) or a.dtype.kind in ("U", "S"):
@@ -172,7 +177,7 @@ class Frame:
             raise ValueError("hash_keys on frame with prefix=0")
         h = None
         for c, ct in zip(self.key_cols(), self.schema.key):
-            if not frame_ops.can_hash(ct):
+            if not frame_ops.device_key(ct):
                 raise TypeError(f"column type {ct} is not hashable")
             ch = frame_ops.hash_device_column(c, seed)
             h = ch if h is None else frame_ops.combine_hashes(h, ch)
@@ -188,7 +193,7 @@ class Frame:
         if self.prefix == 0:
             raise ValueError("partition_ids on frame with prefix=0")
         for ct in self.schema.key:
-            if not frame_ops.can_hash(ct):
+            if not frame_ops.device_key(ct):
                 raise TypeError(f"column type {ct} is not hashable")
         part, _, _ = partition_ids(self.key_cols(), nparts, seed)
         return part
@@ -222,16 +227,22 @@ class Frame:
 
 
 def sorted_rows(cols: Sequence[np.ndarray]) -> List[np.ndarray]:
-    """Columns reordered lexicographically by all columns (first column
-    most significant; a vector column's cells by their elements in
-    order); floats compare by their numeric order with NaN last, as
-    ``np.lexsort`` orders them."""
+    """Columns reordered lexicographically by their numeric columns
+    (first column most significant; a vector column's cells by their
+    elements in order); floats compare by their numeric order with NaN
+    last, as ``np.lexsort`` orders them. Host (object) columns, whose
+    cells may be lists with no order, ride along with their rows: a
+    Cogroup's rows sort by their keys, one row per key."""
     cols = [np.asarray(c) for c in cols]
     if not cols or not len(cols[0]):
         return cols
     keys = []
     for c in cols:
+        if c.dtype == np.dtype(object):
+            continue
         keys.extend(c.reshape(len(c), -1).T if c.ndim > 1 else [c])
+    if not keys:
+        return cols
     order = np.lexsort(tuple(reversed(keys)))
     return [c[order] for c in cols]
 

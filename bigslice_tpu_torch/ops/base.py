@@ -85,6 +85,9 @@ class Combiner:
 class Slice:
     """Base class for all slice operators."""
 
+    #: Execution hints carried to the tasks (none are interpreted yet).
+    pragmas: tuple = ()
+
     def __init__(self, schema: Schema, num_shards: int, name: Name):
         self.schema = schema
         self.num_shards = num_shards

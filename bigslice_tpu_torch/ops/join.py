@@ -66,7 +66,7 @@ class JoinAggregate(Slice):
         # exactly its comparable ones.
         for ct in a.schema.key:
             typecheck.check(
-                frame_ops.can_hash(ct),
+                frame_ops.device_key(ct),
                 "join: key column type %s is not joinable", ct,
             )
         schema = Schema(

@@ -135,7 +135,7 @@ class Reduce(Slice):
         )
         for ct in slice_.schema.key:
             typecheck.check(
-                frame_ops.can_hash(ct),
+                frame_ops.device_key(ct),
                 "reduce: key column type %s is not partitionable", ct,
             )
         super().__init__(slice_.schema, slice_.num_shards,

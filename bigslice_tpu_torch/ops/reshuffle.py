@@ -47,7 +47,7 @@ class Reshuffle(Slice):
         if partitioner is None:
             for ct in slice_.schema.key:
                 typecheck.check(
-                    frame_ops.can_hash(ct),
+                    frame_ops.device_key(ct),
                     "reshuffle: key column type %s is not partitionable", ct,
                 )
         super().__init__(slice_.schema, slice_.num_shards,

@@ -24,6 +24,8 @@ from typing import Callable, Optional
 
 import torch
 
+from bigslice_tpu_torch.parallel.jitutil import bucket_size
+
 
 def canonical_combine(fn: Callable, nvals: int) -> Callable:
     """Normalize a user combine fn to ``cfn(a_tuple, b_tuple) -> tuple``.
@@ -178,6 +180,21 @@ def compact_by_mask(mask, cols):
         buf[:k] = take(c, idx)
         out.append(buf)
     return torch.tensor(k, dtype=torch.int32, device=mask.device), tuple(out)
+
+
+def compact_to_bucket(mask, cols):
+    """``compact_by_mask`` into buffers of ``bucket_size(count)`` rows
+    (at least 8) instead of the input's length: an output whose size
+    follows its valid rows, not the table or buffer it came from."""
+    idx = torch.nonzero(mask).squeeze(1)
+    k = idx.shape[0]
+    cap = bucket_size(k)
+    out = []
+    for c in cols:
+        buf = c.new_zeros((cap,) + tuple(c.shape[1:]))
+        buf[:k] = take(c, idx)
+        out.append(buf)
+    return torch.full((), k, dtype=torch.int32, device=mask.device), tuple(out)
 
 
 def _interleave(a, b):

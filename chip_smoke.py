@@ -44,6 +44,19 @@ shard with the plain K1, the op sites on the sort path
 (``MeshExecutor.hash_off``, empty on all three) and the exact launch
 counts of K1 and K2.
 
+Phases 11-13 drive the wave pipeline: 11, ``pipeline``, reduce-wave
+at S = 4 and 16 under four prefetch and arena settings and the join at
+depth 0 and 1; 12, ``budget-split``, reduce-wave with a budget of a
+quarter of a map wave's estimate (K = 4 row slices), whose peak device
+memory must not exceed phase 3's unsplit peak, nor any slice's working
+set the budget; 13, ``spill``,
+reduce-wave and the join through the spill exchange. Phases 14-15 drive
+the general Cogroup: 14, ``cogroup-join``, two inputs of 2**22 rows (a
+full outer join of lists; capacity 64); 15, ``cogroup-hotkey``, one
+input of 2**20 rows with a 4096-row group (capacity 4096).
+Each checks every list against numpy, in input order, and prints the
+decode seconds beside the wall.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -1515,15 +1528,19 @@ def phase11_pipeline(card: str) -> dict:
 def phase12_budget_split(card: str, phase3_peak: float) -> dict:
     """budget-split: phase 3's reduce-wave at S = 4 with a device budget
     of a quarter of a map wave's estimated working set, so that each map
-    wave runs as K = 4 row slices; rows bit-equal to the unsplit run."""
+    wave runs as K = 4 row slices; rows bit-equal to the unsplit run,
+    the peak device memory no higher than phase 3's unsplit peak, and
+    each slice's working set within the budget."""
     import bigslice_tpu_torch as bs
 
     from bigslice_tpu_torch.parallel.jitutil import bucket_size
 
     keys, ones = _reduce_wave_input()
-    # _wave_bytes_estimate of a map wave: its capacity (2**23 rows) x 8
-    # bytes a row x (3 + slack 2).
-    budget = bucket_size(len(keys) // 4) * 8 * 5 // 4
+    # The executor's estimate of a map wave: its capacity (2**23 rows) of
+    # 8 bytes through the hash combine's table.
+    est = bs.MeshExecutor.wave_bytes_model(bucket_size(len(keys) // 4), 8,
+                                           hash_table=True)
+    budget = -(-est // 4)
     make = lambda: bs.Reduce(bs.Const(4, keys, ones),  # noqa: E731
                              lambda a, b: a + b)
     plain = _run_setting(make, {}, 1)
@@ -1536,8 +1553,52 @@ def phase12_budget_split(card: str, phase3_peak: float) -> dict:
     out = _report("12", f"budget-split reduce-wave S=4, budget {budget} "
                   f"bytes, K={K[0]} (phase 3 peak {phase3_peak:.3f} GiB)",
                   len(keys), r, card)
+    log(f"phase 12: peak device memory under the split "
+        f"{r['peak_gib']:.3f} GiB, phase 3's unsplit peak "
+        f"{phase3_peak:.3f} GiB")
+    if r["peak_gib"] > phase3_peak:
+        raise AssertionError(f"budget-split: peak {r['peak_gib']:.3f} GiB "
+                             f"exceeds the unsplit {phase3_peak:.3f} GiB")
+    work = _slice_working_sets(r["executor"], make)
+    log(f"phase 12: each slice's working set (its program and its fold, "
+        f"beyond what the card held before it): largest {max(work)} bytes "
+        f"of {len(work)} slices, budget {budget} bytes")
+    if len(work) != 16 or max(work) > budget:
+        raise AssertionError(f"budget-split: slices' working sets {work} "
+                             f"against the budget {budget}")
     out["K"] = K[0]
+    out["phase3_peak_gib"] = phase3_peak
+    out["slice_work_bytes"] = work
     return out
+
+
+def _slice_working_sets(ex, make) -> list:
+    """One more run on ``ex``: the bytes each budget-split slice (its
+    program and its fold into the running merge) allocated beyond what
+    the card held when it started."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.task import iter_tasks
+
+    work = []
+    run_slice = ex._run_slice
+
+    def measured(*args):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = run_slice(*args)
+        torch.cuda.synchronize()
+        work.append(torch.cuda.max_memory_allocated() - held)
+        return out
+
+    ex._run_slice = measured
+    try:
+        res = bs.Session(executor=ex).run(make())
+        for t in iter_tasks(res.tasks):
+            ex.discard(t)
+    finally:
+        del ex._run_slice
+    return work
 
 
 def phase13_spill(card: str) -> dict:
@@ -1590,6 +1651,164 @@ def phase13_spill(card: str) -> dict:
     return out
 
 
+def _flat(col, dtype) -> np.ndarray:
+    """The cells of an object column of lists, concatenated."""
+    import itertools
+
+    return np.fromiter(itertools.chain.from_iterable(col), dtype=dtype,
+                       count=sum(len(c) for c in col))
+
+
+def _cogroup_check(inputs, label, decode):
+    """``check(session, result)`` for a Cogroup of ``inputs`` (a list of
+    (keys, values)) against numpy: every key of the union exactly once;
+    each input's list under a key its values of that key in input order
+    (one card: shards are contiguous ranges of the input, waves arrive
+    in shard order, the shuffle and the sort are stable), so equal to
+    its numpy group as a multiset and in order; the list lengths summing
+    to the input's rows; each row in the shard the routing hash names.
+    ``decode`` collects each run's decode seconds (the store bridge's
+    ``ragged_from_padded``), read here before this check's own reads."""
+    import bigslice_tpu_torch as bs
+
+    union = np.unique(np.concatenate([k for k, _ in inputs]))
+    wants = []
+    for k, v in inputs:
+        order = np.argsort(k, kind="stable")
+        wants.append((np.bincount(np.searchsorted(union, k),
+                                  minlength=len(union)), v[order]))
+
+    def check(sess, res):
+        decode["runs"].append(decode["s"])
+        shards = bs.result_shard_rows(res)
+        keys = np.concatenate([sh[0] for sh in shards])
+        o = np.argsort(keys, kind="stable")
+        if not np.array_equal(keys[o], union):
+            raise AssertionError(f"{label}: keys differ from the union of "
+                                 f"the inputs' keys")
+        for j, (cnt, vals) in enumerate(wants):
+            col = np.concatenate([sh[1 + j] for sh in shards])[o]
+            lens = np.fromiter((len(c) for c in col), np.int64, len(col))
+            if not np.array_equal(lens, cnt) or lens.sum() != len(vals):
+                raise AssertionError(f"{label}: input {j}'s list lengths "
+                                     f"differ from numpy's group sizes")
+            got = _flat(col, vals.dtype)
+            if got.tobytes() != vals.tobytes():
+                raise AssertionError(f"{label}: input {j}'s lists differ "
+                                     f"from numpy's groups")
+        _shard_keys_routed(shards, len(shards))
+        ex = sess.executor
+        decode["s"] = 0.0
+        return f", {len(union)} keys, caps {ex.cogroup_caps}"
+
+    return check
+
+
+def _timed_decode(decode):
+    """Wrap the store bridge's decode so each call adds its seconds to
+    ``decode["s"]``; returns the function to restore."""
+    from bigslice_tpu_torch.parallel import cogroup as cogroup_mod
+
+    orig = cogroup_mod.ragged_from_padded
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = orig(*args)
+        decode["s"] += time.perf_counter() - t0
+        return out
+
+    cogroup_mod.ragged_from_padded = timed
+    return lambda: setattr(cogroup_mod, "ragged_from_padded", orig)
+
+
+def _drive_cogroup(phase, label, make, inputs, rows, card, want_cap,
+                   S=4):
+    """One Cogroup path through ``drive``: K1 routes each producer wave
+    once (S a side) and K2 never runs; the op's capacity (its widest
+    wave's ``bucket_size`` of its largest group) must be ``want_cap``. Prints the warm runs' decode seconds beside the
+    wall."""
+    decode = {"s": 0.0, "runs": []}
+    check = _cogroup_check(inputs, label, decode)
+    seen = {}
+
+    def check_caps(sess, res):
+        note = check(sess, res)
+        seen["caps"] = sorted(sess.executor.cogroup_caps.values())
+        return note
+
+    restore = _timed_decode(decode)
+    try:
+        out = drive(phase, label, make, check_caps, ("hash_partition",),
+                    rows, card, expect={"hash_partition": S * len(inputs),
+                                        "hash_aggregate": 0})
+    finally:
+        restore()
+    if seen["caps"] != [want_cap]:
+        raise AssertionError(f"{label}: the capacity reached {seen['caps']}, "
+                             f"not [{want_cap}]")
+    warm = decode["runs"][1:]
+    dec = statistics.median(warm)
+    log(f"phase {phase}: {label}: decode (device encoding to object lists) "
+        f"{dec:.4f} s a run (median of {len(warm)}: "
+        f"{', '.join(f'{d:.4f}' for d in warm)}), {dec / out['wall_s']:.3f} "
+        f"of the warm wall; cap {want_cap}, on {card}")
+    out.update(cap=want_cap, decode_s=dec,
+               decode_runs_s=warm)
+    return out
+
+
+def _cogroup_join_inputs():
+    """Phase 14's two inputs, 2**22 rows each from RandomState(14): A's
+    int32 keys uniform over [0, 2**18) with int32 values, B's uniform
+    over [2**17, 3 * 2**17) with float32 values."""
+    n = 1 << 22
+    rng = np.random.RandomState(14)
+    ak = rng.randint(0, 1 << 18, n).astype(np.int32)
+    av = rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32)
+    bk = rng.randint(1 << 17, 3 << 17, n).astype(np.int32)
+    bv = rng.randn(n).astype(np.float32)
+    return [(ak, av), (bk, bv)]
+
+
+def _cogroup_hotkey_input():
+    """Phase 15's rows from RandomState(15): 2**20 int32 keys, uniform
+    over [1, 2**16) plus key 0 4096 times, in random order, with int32
+    values."""
+    n, hot = 1 << 20, 4096
+    rng = np.random.RandomState(15)
+    keys = np.concatenate([np.zeros(hot, np.int32),
+                           rng.randint(1, 1 << 16, n - hot).astype(np.int32)])
+    keys = keys[rng.permutation(n)]
+    vals = rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32)
+    return keys, vals
+
+
+def phase14_cogroup_join(card: str) -> dict:
+    """cogroup-join: Cogroup(Const(4, ak, av), Const(4, bk, bv)) over
+    ``_cogroup_join_inputs``: a quarter of the keys on A only, a quarter
+    on B only, half on both. Groups average 16 a side with a largest
+    near 40, so the capacity is 64."""
+    import bigslice_tpu_torch as bs
+
+    (ak, av), (bk, bv) = inputs = _cogroup_join_inputs()
+    return _drive_cogroup(
+        "14", "cogroup-join (two inputs, full outer join of lists)",
+        lambda: bs.Cogroup(bs.Const(4, ak, av), bs.Const(4, bk, bv)),
+        inputs, len(ak) + len(bk), card, 64)
+
+
+def phase15_cogroup_hotkey(card: str) -> dict:
+    """cogroup-hotkey: Cogroup(Const(4, keys, vals)) over
+    ``_cogroup_hotkey_input``: the capacity must reach 4096."""
+    import bigslice_tpu_torch as bs
+
+    keys, vals = _cogroup_hotkey_input()
+    return _drive_cogroup(
+        "15", "cogroup-hotkey (one input, a 4096-row group)",
+        lambda: bs.Cogroup(bs.Const(4, keys, vals)), [(keys, vals)],
+        len(keys), card, 4096)
+
+
 def _spill_stats(ex) -> dict:
     """What the first run spilled: boundaries, bytes, rows and
     partitions written, and the plans chosen."""
@@ -1636,6 +1855,8 @@ def main() -> int:
     paths["pipeline"] = phase11_pipeline(card)
     paths["budget-split"] = phase12_budget_split(card, slice_["peak_gib"])
     paths["spill"] = phase13_spill(card)
+    paths["cogroup-join"] = phase14_cogroup_join(card)
+    paths["cogroup-hotkey"] = phase15_cogroup_hotkey(card)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

@@ -62,6 +62,15 @@ def test_slice_runs_without_jax_or_the_jax_package():
                                lambda a, b: a + b))
         assert len(res.rows()) == 37 and sp.executor._spill is not None
         sp.shutdown()
+        del os.environ["BIGSLICE_SHUFFLE"]
+        # The general Cogroup: the tagged-sort alignment, the scatter at
+        # the largest group's width and the decode into object lists.
+        hot = np.concatenate([np.zeros(40, np.int32), bk[:200]])
+        res = sess.run(bs.Cogroup(bs.Const(4, ak, t), bs.Const(2, hot, hot)))
+        rows = res.rows()
+        assert len(rows) == len(np.union1d(ak, hot))
+        assert sum(len(a) for _, a, _ in rows) == len(ak)
+        assert sess.executor.cogroup_caps
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
@@ -120,3 +129,61 @@ def test_pad_cols_and_bucket_size():
     assert p.tolist() == [1, 2, 3, 3, 3]
     (z,) = pad_cols([a[:0]], 0, 2)
     assert z.tolist() == [0, 0]
+
+
+# -- what the Cogroup path refuses by name ---------------------------------
+
+
+def _cogroup_refusal(slice_):
+    from bigslice_tpu_torch.exec.task import TaskError
+    from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
+
+    sess = bst.Session(executor=bst.MeshExecutor(device="cpu"))
+    with pytest.raises(TaskError) as ei:
+        sess.run(slice_)
+    assert isinstance(ei.value.cause, LoweringNotPorted)
+    return str(ei.value.cause)
+
+
+def _keyed_const(n=32):
+    import numpy as np
+
+    k = np.arange(n, dtype=np.int32) % 7
+    return bst.Const(2, k, k)
+
+
+def test_cogroup_over_object_keys_is_refused():
+    """Host keys typecheck (they hash and compare on the host tier) but
+    their producers cannot lower: refused by name, never a fallback."""
+    import numpy as np
+
+    host = bst.Const(2, np.array(list("abcdabcd"), dtype=object),
+                     np.ones(8, np.int32))
+    msg = _cogroup_refusal(bst.Cogroup(host))
+    assert msg.startswith("const@") and "host-tier columns" in msg
+
+
+def test_map_fused_after_a_cogroup_is_refused():
+    cg = bst.Cogroup(_keyed_const())
+    m = bst.Map(cg, lambda k, v: (k, len(v)), out=[int, int])
+    msg = _cogroup_refusal(m)
+    assert msg.startswith("cogroup_map@")
+    assert "Cogroup fused with other stages" in msg
+
+
+@pytest.mark.parametrize("consumer", ["reshuffle", "reduce"])
+def test_cogroup_feeding_a_shuffle_is_refused(consumer):
+    cg = bst.Cogroup(_keyed_const(), _keyed_const())
+    s = (bst.Reshuffle(cg) if consumer == "reshuffle"
+         else bst.Reduce(cg, lambda a, b: a))
+    msg = _cogroup_refusal(s)
+    assert msg.startswith("cogroup@") and "feeding a shuffle" in msg
+
+
+def test_cogroup_over_vector_inputs_is_refused():
+    import numpy as np
+
+    k = np.arange(16, dtype=np.int32) % 5
+    vec = bst.Const(2, k, np.zeros((16, 3), np.int32))
+    msg = _cogroup_refusal(bst.Cogroup(vec))
+    assert msg.startswith("cogroup@") and "host or vector columns" in msg

@@ -423,9 +423,9 @@ def _delayed_programs(ex, cycles):
     def program(task, stages, slack):
         stepped = orig(task, stages, slack)
 
-        def delayed(wave, inputs):
+        def delayed(wave, inputs, *carry):
             torch.cuda._sleep(cycles)
-            return stepped(wave, inputs)
+            return stepped(wave, inputs, *carry)
 
         return delayed
 
@@ -514,7 +514,8 @@ def test_split_and_spill_on_the_card_match_the_cpu(dev, monkeypatch):
         return rows, ex
 
     want, _ = run("cpu")
-    got, ex = run("cuda", device_budget_bytes=(1 << 13) * 8 * 5 // 4)
+    est = bs.MeshExecutor.wave_bytes_model(1 << 13, 8, hash_table=True)
+    got, ex = run("cuda", device_budget_bytes=-(-est // 4))
     assert list(ex.split_runs.values()) == [4]
     monkeypatch.setenv("BIGSLICE_SHUFFLE", "spill")
     spilled, _ = run("cuda", prefetch_depth=2)
@@ -522,3 +523,97 @@ def test_split_and_spill_on_the_card_match_the_cpu(dev, monkeypatch):
         for g, w in zip(rows, want):
             for gc, wc in zip(g, w):
                 np.testing.assert_array_equal(gc, wc)
+
+
+def test_budget_split_bounds_peak_memory(dev):
+    """A Reduce whose map waves split into K = 4 slices peaks no higher
+    on the card than the same Reduce unsplit, with equal rows, and each
+    slice (its program and its fold into the running merge) allocates
+    no more than the budget beyond what was held before it. The keys
+    repeat about 4 times a map wave, so a slice of about one row a key
+    combines little on its own: the fold's re-combine keeps the running
+    merge at one row a key."""
+    import gc
+
+    import bigslice_tpu_torch as bs
+
+    rng = np.random.RandomState(9)
+    n = 1 << 22
+    keys = rng.randint(0, 1 << 18, n).astype(np.int32)
+    vals = np.ones(n, np.int32)
+
+    def run(per_slice=None, **kw):
+        # Each run's peak is counted from what the card held before it:
+        # the executor of an earlier run is gone, with its outputs.
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ex = bs.MeshExecutor(device="cuda", prefetch_depth=0, **kw)
+        if per_slice is not None:
+            run_slice = ex._run_slice
+
+            def measured(*a):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = run_slice(*a)
+                torch.cuda.synchronize()
+                per_slice.append(torch.cuda.max_memory_allocated() - before)
+                return out
+
+            ex._run_slice = measured
+        rows = bs.result_shard_rows(bs.Session(executor=ex).run(
+            bs.Reduce(bs.Const(4, keys, vals), lambda a, b: a + b)))
+        torch.cuda.synchronize()
+        return (rows, torch.cuda.max_memory_allocated() - held,
+                list(ex.split_runs.values()))
+
+    plain, plain_peak, _ = run()
+    est = bs.MeshExecutor.wave_bytes_model(n // 4, 8, hash_table=True)
+    budget = -(-est // 4)
+    split, split_peak, splits = run(device_budget_bytes=budget)
+    assert splits == [4]
+    for g, w in zip(split, plain):
+        for gc_, wc in zip(g, w):
+            np.testing.assert_array_equal(gc_, wc)
+    assert split_peak <= plain_peak, (split_peak, plain_peak)
+    per_slice = []
+    run(per_slice, device_budget_bytes=budget)
+    assert len(per_slice) == 4 * 4
+    assert max(per_slice) <= budget, (per_slice, budget)
+
+
+def test_cogroup_on_the_card_matches_the_cpu(dev):
+    """A two-input Cogroup with a hot key (its wave scatters 4096 wide
+    on the card) equals the same Cogroup on the CPU, list for list, and
+    routes its producers through K1."""
+    import bigslice_tpu_torch as bs
+
+    rng = np.random.RandomState(10)
+    ak = np.concatenate([np.zeros(3000, np.int32),
+                         rng.randint(0, 1 << 12, 1 << 16).astype(np.int32)])
+    av = rng.randint(-999, 999, len(ak)).astype(np.int32)
+    bk = rng.randint(1 << 11, 3 << 11, 1 << 15).astype(np.int32)
+    bv = rng.randn(len(bk)).astype(np.float32)
+
+    def run(device):
+        ex = bs.MeshExecutor(device=device)
+        res = bs.Session(executor=ex).run(
+            bs.Cogroup(bs.Const(4, ak, av), bs.Const(4, bk, bv)))
+        return bs.result_shard_rows(res), ex
+
+    cuda_kernels.reset_launches()
+    got, ex = run("cuda")
+    assert cuda_kernels.LAUNCHES["hash_partition"] == 8
+    assert list(ex.cogroup_caps.values()) == [4096]
+    want, cpu = run("cpu")
+    assert cpu.cogroup_caps == ex.cogroup_caps
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0], w[0])
+        for gc, wc in zip(g[1:], w[1:]):
+            assert len(gc) == len(wc)
+            for gl, wl in zip(gc, wc):
+                np.testing.assert_array_equal(
+                    np.asarray(gl).view(np.int32),
+                    np.asarray(wl).view(np.int32))

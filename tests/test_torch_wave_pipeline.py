@@ -217,8 +217,7 @@ def test_budget_clamps_prefetch_depth():
     assert ex.prefetch_depth == 2  # the knob stays; the group's depth clips
     t0 = _first_task(ex)
     fake = [StagedInput([torch.zeros(512, dtype=torch.int32)],
-                        torch.zeros(1, dtype=torch.int32), 512, False, True,
-                        None)]
+                        torch.zeros(1, dtype=torch.int32), 512, True, None)]
     assert ex._effective_prefetch_depth(t0, fake, 4) == 0
     roomy = _ex(prefetch_depth=2, device_budget_bytes=1 << 30)
     assert roomy._effective_prefetch_depth(t0, fake, 4) == 2
@@ -234,15 +233,90 @@ def test_budget_split_k_and_parity(ref_session, K):
     plain = _rows(bst.Session(executor=ex), bst.Reduce(
         bst.Const(4, keys, vals), lambda a, b: a + b))
     assert ex.split_runs == {}
-    # Each map wave: capacity 512, 8 bytes a row, slack 2 -> 20480 bytes
-    # estimated; a budget of est / K splits it into K slices.
-    ex = _ex(prefetch_depth=1, device_budget_bytes=512 * 8 * 5 // K)
+    # Each map wave: capacity 512, 8 bytes a row, the hash combine's
+    # table; a budget of est / K splits it into K slices.
+    est = bst.MeshExecutor.wave_bytes_model(512, 8, hash_table=True)
+    ex = _ex(prefetch_depth=1, device_budget_bytes=-(-est // K))
     got = _rows(bst.Session(executor=ex), bst.Reduce(
         bst.Const(4, keys, vals), lambda a, b: a + b))
     (k,) = ex.split_runs.values()
     assert k == K
     _assert_shards_equal(got, plain)
     _assert_shards_equal(got, want)
+
+
+def test_split_wave_holds_one_unmerged_slice_output():
+    """Each slice is folded into the running merge as it runs: when a
+    slice starts, at most one earlier slice output is alive (the last,
+    which IS the running merge), none after the wave; rows equal the
+    unsplit run's."""
+    import weakref
+
+    keys, vals = _keyed(43, 4 * 512, 300)
+    plain = _rows(bst.Session(executor=_ex(prefetch_depth=0)), bst.Reduce(
+        bst.Const(4, keys, vals), lambda a, b: a + b))
+    est = bst.MeshExecutor.wave_bytes_model(512, 8, hash_table=True)
+    ex = _ex(prefetch_depth=0, device_budget_bytes=-(-est // 8))
+    subs, alive_at_start, alive_after = None, [], []
+    run_slice, run_sliced = ex._execute_wave_on, ex._execute_wave_sliced
+
+    def execute_wave_on(tasks, wave, inputs, **kw):
+        if subs is None:  # not a slice
+            return run_slice(tasks, wave, inputs, **kw)
+        alive_at_start.append(sum(r() is not None for r in subs))
+        out = run_slice(tasks, wave, inputs, **kw)
+        subs.append(weakref.ref(out))
+        return out
+
+    def execute_wave_sliced(tasks, wave, inputs, K):
+        nonlocal subs
+        subs = []
+        try:
+            out = run_sliced(tasks, wave, inputs, K)
+            alive_after.append(sum(r() is not None and r() is not out
+                                   for r in subs))
+        finally:
+            subs = None
+        return out
+
+    ex._execute_wave_on = execute_wave_on
+    ex._execute_wave_sliced = execute_wave_sliced
+    got = _rows(bst.Session(executor=ex), bst.Reduce(
+        bst.Const(4, keys, vals), lambda a, b: a + b))
+    assert list(ex.split_runs.values()) == [8]
+    assert len(alive_after) == 4 and alive_after == [0] * 4
+    assert len(alive_at_start) == 4 * 8 and max(alive_at_start) == 1
+    _assert_shards_equal(got, plain)
+
+
+@pytest.mark.parametrize("lowering", ["hash", "sort"])
+def test_split_fold_holds_one_row_a_key(lowering):
+    """Slices that combine nothing on their own (each key once a slice):
+    the fold re-combines the running merge, so a split wave's output
+    holds one row a key, as many as the unsplit wave's, by either
+    lowering of the combine; rows equal the unsplit run's."""
+    from bigslice_tpu_torch.exec.meshexec import DeviceGroupOutput
+
+    keys = np.tile(np.arange(128, dtype=np.int32), 16)
+    vals = np.arange(len(keys), dtype=np.int32) % 7
+
+    def run(budget):
+        ex = _ex(prefetch_depth=0, device_budget_bytes=budget)
+        if lowering == "sort":
+            ex._hash_combine_ops = lambda opbase, fc: None
+        rows = _rows(bst.Session(executor=ex), bst.Reduce(
+            bst.Const(4, keys, vals), lambda a, b: a + b))
+        (out,) = [o for o in ex._outputs.values()
+                  if isinstance(o, DeviceGroupOutput) and o.partitioned]
+        return rows, int(out.counts.sum()), ex
+
+    plain, n_plain, _ = run(None)
+    est = bst.MeshExecutor.wave_bytes_model(
+        512, 8, hash_table=lowering == "hash", slack=1.0)
+    got, n_split, ex = run(-(-est // 4))
+    assert list(ex.split_runs.values()) == [4]
+    assert n_split == n_plain == 4 * 128
+    _assert_shards_equal(got, plain)
 
 
 def test_split_declines_for_rank_sensitive_chains():

@@ -1,7 +1,8 @@
 """Where the time goes in the PyTorch port's runs on one GPU.
 
     python3 tools_torch_profile.py
-        [--path reduce-wave|lww-wave|join|join-sort|groupby]
+        [--path reduce-wave|lww-wave|join|join-sort|groupby|
+                cogroup-join|cogroup-hotkey]
         [--prefetch-depth N] [--spill] [--out DIR]
 
 ``reduce-wave`` (the default) runs Session().run(Reduce(Const(4, keys,
@@ -13,7 +14,10 @@ latest record per key, on the sort lowering; ``join``, ``join-sort``
 and ``groupby`` run chip_smoke.py's phases 8-10 on their inputs (the
 JAX package's ``bench.py join`` scenario, two sides of 2**23 keys, on
 the hash join and on the tagged-sort alignment; a Map over
-GroupByKey(capacity=64) of 2**22 rows). The executor runs the wave
+GroupByKey(capacity=64) of 2**22 rows); ``cogroup-join`` and
+``cogroup-hotkey`` run chip_smoke.py's phases 14-15 (a two-input
+Cogroup of 2 x 2**22 rows; a one-input Cogroup of 2**20 rows with a
+4096-row group). The executor runs the wave
 pipeline at ``--prefetch-depth`` (default 1, the executor's default;
 0 is the serial loop), and with ``--spill`` every shuffle boundary
 takes the spill exchange (``BIGSLICE_SHUFFLE=spill``). Each path runs
@@ -23,7 +27,9 @@ once to warm up, then:
    torch.cuda.synchronize() on the group thread (wave dispatch, settle,
    cross-wave merge, subid split, result readback) and, inside them,
    of the sort lowering's parts (the sort, the segmented scan), the
-   kernels' wrappers, the join stage (its claim cascade inside it).
+   kernels' wrappers, the join stage (its claim cascade inside it), the
+   Cogroup's aligner (its sort inside it) and decode, and the Cogroup
+   capacities.
    Staging is read from the executor's own clock, never synchronized
    (its prefetcher thread overlaps the programs): all of it, the part
    the group threads waited for (exposed) and the rest (hidden). The
@@ -62,7 +68,8 @@ def main() -> int:
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--path", default="reduce-wave",
                     choices=("reduce-wave", "lww-wave", "join",
-                             "join-sort", "groupby"))
+                             "join-sort", "groupby", "cogroup-join",
+                             "cogroup-hotkey"))
     ap.add_argument("--prefetch-depth", type=int, default=1)
     ap.add_argument("--spill", action="store_true",
                     help="run every shuffle boundary through the spill "
@@ -73,6 +80,7 @@ def main() -> int:
         return 2
     import bigslice_tpu_torch as bs
     from bigslice_tpu_torch.exec import meshexec
+    from bigslice_tpu_torch.parallel import cogroup as cogroup_mod
     from bigslice_tpu_torch.parallel import cuda_kernels, hashagg, segment
 
     card = subprocess.run(
@@ -110,6 +118,22 @@ def main() -> int:
         def make():
             g = bs.GroupByKey(bs.Const(S, keys, vals), capacity=64)
             return bs.Map(g, lambda k, grp, cnt: (k, grp.sum(), cnt))
+    elif args.path == "cogroup-join":
+        import chip_smoke
+
+        (ak, av), (bk, bv) = chip_smoke._cogroup_join_inputs()
+        n = len(ak) + len(bk)
+
+        def make():
+            return bs.Cogroup(bs.Const(S, ak, av), bs.Const(S, bk, bv))
+    elif args.path == "cogroup-hotkey":
+        import chip_smoke
+
+        keys, vals = chip_smoke._cogroup_hotkey_input()
+        n = len(keys)
+
+        def make():
+            return bs.Cogroup(bs.Const(S, keys, vals))
     else:
         keys = rng.randint(0, 1 << 24, n).astype(np.int32)
         ts = rng.permutation(n).astype(np.int32)
@@ -148,17 +172,22 @@ def main() -> int:
     E = meshexec.MeshExecutor
     layers = {
         (E, "_dispatch_wave"): "wave program (route, combine, compact)",
-        (E, "_settle_wave"): "settle (signals, ladder reruns)",
+        (E, "_settle_wave"): "settle (signals, slack/hash reruns)",
         (segment, "sort_permutation"): "  of it: sort (packing, torch.sort)",
         (segment, "segmented_combine"): "  of it: segmented scan",
         (cuda_kernels, "hash_partition"): "  of it: K1 hash_partition wrapper",
         (cuda_kernels, "hash_aggregate"): "  of it: K2 hash_aggregate wrapper",
         (E, "_join_prelude"): "  of it: join stage (align)",
         (hashagg, "claim_cascade"): "  of it: claim cascade (hash join)",
+        (cogroup_mod, "make_cogroup_align"):
+            "  of it: cogroup align (sort, ranks, scatter)",
         (E, "_build_wave_views"): "  of staging: subid split for consumers",
         (E, "_merge_outputs"): "cross-wave merge",
         (E, "_frames_by_name"): "result readback to host",
+        (cogroup_mod, "ragged_from_padded"): "  of it: decode to lists",
     }
+    # Factories whose returned function is the layer.
+    factories = {(cogroup_mod, "make_cogroup_align")}
     originals = {}
     for (owner, name), label in layers.items():
         orig = getattr(owner, name)
@@ -173,7 +202,11 @@ def main() -> int:
             calls[_key] += 1
             return out
 
-        setattr(owner, name, functools.wraps(orig)(timed))
+        def factory(*a, _orig=orig, _timed=timed, **k):
+            return functools.partial(_timed, _orig=_orig(*a, **k))
+
+        wrap = factory if (owner, name) in factories else timed
+        setattr(owner, name, functools.wraps(orig)(wrap))
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
@@ -194,6 +227,8 @@ def main() -> int:
     print(f"  {'other (planning, evaluator, threads)':45s} "
           + (f"{other:.4f} s" if other >= 0 else
              "not measured (concurrent groups' layers overlap)"))
+    if executors[-1].cogroup_caps:
+        print(f"  cogroup caps: {executors[-1].cogroup_caps}")
 
     # 2. Host syncs: every operation that waits for the device warns
     # under the sync debug mode.
