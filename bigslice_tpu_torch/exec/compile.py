@@ -4,12 +4,15 @@
   a single task per shard (``pipeline``).
 - *Memoization*: compilation is memoized per (slice, partitioning), so
   diamond-shaped DAGs share tasks.
+- *Result reuse*: a ``Result`` of a prior run reuses its computed
+  tasks; a consumer that needs them partitioned gets ``_shuffle``
+  adapter tasks (``_compile_result``).
 - *Combiner plumbing*: a consumer's combiner is wired into its
-  *producer* tasks' partitioners for map-side combining.
+  *producer* tasks' partitioners for map-side combining; with machine
+  combiners, the producers of one shuffle share a ``combine_key``.
 
 The task graph for a pipeline equals the JAX package's, name for name
-(``graph_string``). Reuse of a prior run's ``Result`` as an input is
-not part of this package yet.
+(``graph_string``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from bigslice_tpu_torch import sliceio
 from bigslice_tpu_torch.exec.task import (
     Partitioner,
     Task,
@@ -30,9 +34,12 @@ from bigslice_tpu_torch.ops.base import Slice
 
 
 def pipeline(slice_: Slice) -> List[Slice]:
-    """The fusable chain starting at slice_ (outermost first)."""
+    """The fusable chain starting at slice_ (outermost first); it stops
+    at a ``Result``, whose tasks are reused."""
     out: List[Slice] = []
     while True:
+        if _is_result(slice_):
+            return out
         out.append(slice_)
         deps = slice_.deps()
         if len(deps) != 1:
@@ -42,12 +49,23 @@ def pipeline(slice_: Slice) -> List[Slice]:
         slice_ = deps[0].slice
 
 
+def _is_result(slice_: Slice) -> bool:
+    from bigslice_tpu_torch.exec.session import Result
+
+    return isinstance(slice_, Result)
+
+
 _compiler_serial = itertools.count(1)
 
 
 class Compiler:
-    def __init__(self, inv_index: int, shuffle_mode: Optional[str] = None):
+    def __init__(self, inv_index: int, shuffle_mode: Optional[str] = None,
+                 machine_combiners: bool = False):
         self.inv_index = inv_index
+        # Machine combiners: the producer tasks of one combining shuffle
+        # share one combiner buffer (the local executor's
+        # ``_machine_combine``), keyed by the stamped ``combine_key``.
+        self.machine_combiners = machine_combiners
         # The shuffle-plan knob (exec/shuffleplan.py), frozen per
         # compilation: the session resolves BIGSLICE_SHUFFLE once per run
         # and stamps it on every task, so one run's boundaries never
@@ -73,6 +91,7 @@ class Compiler:
         key = (
             id(slice_),
             part.num_partition,
+            part.combine_key,
             id(part.partition_fn) if part.partition_fn is not None else None,
             id(comb.fn) if comb is not None else None,
         )
@@ -80,23 +99,38 @@ class Compiler:
             return self._memo[key]
 
         chain = pipeline(slice_)
+        if not chain:
+            tasks = self._compile_result(slice_, part)
+            self._memo[key] = tasks
+            return tasks
         innermost = chain[-1]
         num_tasks = slice_.num_shards
 
         # A shuffle dep's producer tasks partition their output into
         # num_tasks partitions and take the consumer's combiner
         # (map-side combining).
-        dep_task_lists: List[Tuple[List[Task], object]] = []
+        dep_task_lists: List[Tuple[List[Task], object, Partitioner]] = []
         for dep_index, dep in enumerate(innermost.deps()):
             if dep.shuffle:
+                dcomb = _frame_combiner(innermost, dep_index)
+                combine_key = ""
+                if self.machine_combiners and dcomb is not None:
+                    # Deterministic per (dep slice, partitioning, fn):
+                    # equivalent consumers share producers and buffer.
+                    combine_key = (
+                        f"mc-{self.inv_index}-{self.serial}-"
+                        f"{id(dep.slice)}-{num_tasks}-{id(dcomb.fn)}"
+                    )
                 dep_part = Partitioner(
                     num_partition=num_tasks,
                     partition_fn=dep.partitioner,
-                    combiner=_frame_combiner(innermost, dep_index),
+                    combiner=dcomb,
+                    combine_key=combine_key,
                 )
             else:
                 dep_part = Partitioner(num_partition=1)
-            dep_task_lists.append((self.compile(dep.slice, dep_part), dep))
+            dep_task_lists.append(
+                (self.compile(dep.slice, dep_part), dep, dep_part))
 
         op_name = "_".join(s.name.op for s in reversed(chain))
         loc = chain[0].name
@@ -111,19 +145,21 @@ class Compiler:
         if seen:
             op_name = f"{op_name}~{seen}"
 
+        place_out = _device_output(part, slice_.schema)
         tasks: List[Task] = []
         for shard in range(num_tasks):
             deps: List[TaskDep] = []
-            for dep_tasks, dep in dep_task_lists:
+            for dep_tasks, dep, dep_part in dep_task_lists:
                 if dep.shuffle:
                     deps.append(TaskDep(tuple(dep_tasks), shard,
-                                        expand=dep.expand))
+                                        expand=dep.expand,
+                                        combine_key=dep_part.combine_key))
                 else:
                     # Aligned read: shard i reads dep shard i's partition 0.
                     deps.append(TaskDep((dep_tasks[shard],), 0))
             task = Task(
                 name=TaskName(self.inv_index, op_name, shard, num_tasks),
-                do=_make_do(chain, shard),
+                do=_make_do(chain, shard, place_out),
                 deps=deps,
                 partitioner=part,
                 schema=slice_.schema,
@@ -132,14 +168,39 @@ class Compiler:
             # of a fused chain as one op group.
             task.chain = chain
             # Shuffle-plan stamps: the frozen knob, and why this
-            # boundary can never spill (None: the port has no machine
-            # combiner, the one ineligible case).
+            # boundary can never spill (a machine-combined one re-combines
+            # to one row a key, which spilled partials cannot honour).
             task.shuffle_mode = self.shuffle_mode
-            task.spill_ineligible = None
+            task.spill_ineligible = (
+                "machine-combiner buffer" if part.combine_key else None)
             task.group_key = (self.inv_index, op_name, self.serial, key)
             tasks.append(task)
         self._memo[key] = tasks
         return tasks
+
+    def _compile_result(self, result, part: Partitioner) -> List[Task]:
+        """Reuse a prior run's tasks; insert ``_shuffle`` adapter tasks
+        when the consumer needs them partitioned or combined."""
+        prior = list(result.tasks)
+        if part.num_partition == 1 and part.combiner is None:
+            return prior
+        base_op = f"{prior[0].name.op}_shuffle" if prior else "_shuffle"
+        seen = self._op_names.setdefault(base_op, 0)
+        self._op_names[base_op] = seen + 1
+        if seen:
+            base_op = f"{base_op}~{seen}"
+        place_out = _device_output(part, result.schema)
+
+        def identity_do(dep_factories, place=None):
+            reader = dep_factories[0]()
+            return _placed(reader, place) if place_out else reader
+
+        return [
+            Task(name=TaskName(self.inv_index, base_op, shard, len(prior)),
+                 do=identity_do, deps=[TaskDep((ptask,), 0)],
+                 partitioner=part, schema=result.schema)
+            for shard, ptask in enumerate(prior)
+        ]
 
 
 def _frame_combiner(consumer: Slice, dep_index: int = 0):
@@ -159,17 +220,97 @@ def _frame_combiner(consumer: Slice, dep_index: int = 0):
     return FrameCombiner(comb.fn, consumer.deps()[dep_index].slice.schema)
 
 
-def _make_do(chain: Sequence[Slice], shard: int):
-    """Compose the chain's readers into one task body. Re-entrant: each
-    call builds fresh readers, so lost-task reruns are safe."""
-    stages = list(reversed(chain))  # innermost first
+def _is_device_stage(s: Slice) -> bool:
+    from bigslice_tpu_torch.ops.mapops import Filter, Flatmap, Map
 
-    def do(dep_factories):
+    return (isinstance(s, (Map, Filter, Flatmap))
+            and getattr(s, "mode", "") == "device")
+
+
+def _device_input(s: Slice, dep_index: int = 0) -> bool:
+    """Does stage ``s`` consume its input ``dep_index`` on the device: a
+    device Map/Filter/Flatmap, a device combine (Reduce, either side of
+    a JoinAggregate) or the device group (GroupByKey)? Every other
+    reader is a host consumer (Cogroup, host functions) or passes its
+    frames through (Reshuffle, Repartition, Head)."""
+    from bigslice_tpu_torch.ops.groupby import GroupByKey
+    from bigslice_tpu_torch.ops.join import JoinAggregate
+    from bigslice_tpu_torch.ops.reduce import Reduce
+
+    if isinstance(s, Reduce):
+        return s.frame_combiner.device
+    if isinstance(s, JoinAggregate):
+        return s.frame_combiners[dep_index].device
+    return isinstance(s, GroupByKey) or _is_device_stage(s)
+
+
+def _device_output(part: Partitioner, schema) -> bool:
+    """Does a task's output go through a device router (the routing
+    hash over device keys, or a per-row device partitioner) or a device
+    map-side combiner?"""
+    from bigslice_tpu_torch.frame import ops as frame_ops
+    from bigslice_tpu_torch.ops.reshuffle import RowPartitioner
+
+    if part.combiner is not None and part.combiner.device:
+        return True
+    if part.num_partition <= 1 and part.combiner is None:
+        return False  # streamed: no routing
+    fn = part.partition_fn
+    if fn is None:
+        return all(frame_ops.device_key(ct) for ct in schema.key)
+    return isinstance(fn, RowPartitioner)
+
+
+def _placed(reader, place):
+    for f in reader:
+        yield place(f)
+
+
+def _make_do(chain: Sequence[Slice], shard: int, place_out: bool = False):
+    """Compose the chain's readers into one task body
+    ``do(dep_factories, place=None) -> Reader``. Re-entrant: each call
+    builds fresh readers, so lost-task reruns are safe.
+
+    ``place`` (the local executor's ``Frame.to`` of its device) is the
+    placement rule, applied here and nowhere else: a frame moves to the
+    device only where a device consumer reads it (``_device_input``:
+    a dependency's frames, or a stage's output feeding the next stage)
+    and at the task's output when ``place_out`` (a device router or
+    combiner follows, ``_device_output``). A host chain's frames stay
+    on the host, so a host stage's numeric columns never make a round
+    trip through the card. At the first device stage (from the
+    innermost) the stream is re-chunked to ``sliceio.DEVICE_BATCH_ROWS``,
+    once per chain; chains with a Head skip it."""
+    from bigslice_tpu_torch.ops.mapops import Head
+
+    stages = list(reversed(chain))  # innermost first
+    bounded = any(isinstance(s, Head) for s in chain)
+
+    def boundary(r):
+        return sliceio.rebatch(r, sliceio.DEVICE_BATCH_ROWS)
+
+    def do(dep_factories, place=None):
+        def placed(reader, on):
+            return _placed(reader, place) if on and place else reader
+
+        dep_factories = [
+            lambda f=f, i=i: placed(f(), _device_input(stages[0], i))
+            for i, f in enumerate(dep_factories)]
+        inserted = bounded
+        if not inserted and _is_device_stage(stages[0]) and dep_factories:
+            base = dep_factories[0]
+            dep_factories = [lambda b=base: boundary(b())] + list(
+                dep_factories[1:])
+            inserted = True
         reader = stages[0].reader(shard, dep_factories)
         for s in stages[1:]:
+            reader = placed(reader, _device_input(s))
+            if not inserted and _is_device_stage(s):
+                reader = boundary(reader)
+                inserted = True
             r_prev = reader
             reader = s.reader(shard, [lambda r=r_prev: r])
-        return reader
+        return placed(reader, place_out)
 
     return do
 

@@ -38,17 +38,20 @@ SWEEP_SECS = 5.0
 _RESUBMITTABLE = (TaskState.INIT, TaskState.LOST)
 
 
-def evaluate(executor, roots: Sequence[Task]) -> None:
+def evaluate(executor, roots: Sequence[Task], monitor=None) -> None:
     """Evaluate the graph rooted at ``roots`` to completion.
 
     ``executor`` implements ``submit(task)`` (async: eventually moves the
-    task from WAITING to a terminal state)."""
-    _Evaluation(executor, roots).run()
+    task from WAITING to a terminal state). ``monitor``, if given, hears
+    ``monitor(task, state)`` on every transition of a task of the graph;
+    an exception it raises is swallowed."""
+    _Evaluation(executor, roots, monitor).run()
 
 
 class _Evaluation:
-    def __init__(self, executor, roots):
+    def __init__(self, executor, roots, monitor=None):
         self.executor = executor
+        self.monitor = monitor
         self.roots = list(roots)
         self.tasks = iter_tasks(roots)
         self.cond = threading.Condition()
@@ -60,6 +63,13 @@ class _Evaluation:
         self.ok_seen: set = set()  # dep ids currently credited as OK
 
     def _wake(self, task: Task, state: TaskState) -> None:
+        if self.monitor is not None:
+            # It runs inside the transition, on the thread that made it:
+            # a raising monitor must not fail the task or lose the wake.
+            try:
+                self.monitor(task, state)
+            except Exception:  # noqa: BLE001
+                pass
         with self.cond:
             self.events.append((task, state))
             self.cond.notify_all()

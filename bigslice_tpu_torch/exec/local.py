@@ -1,0 +1,346 @@
+"""The local executor: in-process task execution, one task a shard.
+
+Tasks run on a bounded pool of at most ``procs`` worker threads, one
+task a worker; outputs land in a partitioned store (``MemoryStore``
+by default); map-side combiners run as each producer frame is routed
+and drain at task end.
+
+Each task body is its chain's readers (``exec/compile._make_do``), run
+with this executor's placement rule: a frame's device columns move to
+the executor's device (``Frame.to``) where a device consumer reads
+them (a device stage, a device combine or group, a device router),
+and nowhere else; host columns stay on the host. So on ``cuda`` a
+device stage's functions, the routing of every frame with device keys
+(``Frame.partition_ids``: the ``hash_partition`` kernel), the stable
+split into partitions (``partition_frame``) and the device combine (the
+sort and segmented scan, ``segment.cached_reduce_kernel``) run on the
+card; host functions, host keys and the host combine run on the host,
+and a host chain's frames never visit the card.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from typing import List, Optional
+
+import torch
+
+from bigslice_tpu_torch import sliceio, sortio
+from bigslice_tpu_torch.exec import store as store_mod
+from bigslice_tpu_torch.exec.task import Task, TaskState
+from bigslice_tpu_torch.frame.frame import Frame
+
+# Rows a partition buffer holds before an incremental pre-combine
+# collapses it (associativity lets the combine run early, bounding the
+# working set of high-cardinality streams).
+COMBINE_FLUSH_ROWS = 1 << 20
+
+# Rows a combiner-less partition buffer holds before it spills to disk,
+# when the store streams (a pure shuffle cannot collapse in place).
+SHUFFLE_SPILL_ROWS = 1 << 21
+
+
+class DepLost(Exception):
+    """A dependency's stored output is gone; carries the producer
+    task(s) to mark LOST for re-evaluation. A machine-combined dep loses
+    its whole producer group (contributions are freed at commit, so
+    recovery needs every shard to contribute again)."""
+
+    def __init__(self, producer, all_producers=None):
+        self.producer = producer
+        self.producers = tuple(all_producers) if all_producers else (
+            producer,)
+        super().__init__(f"lost output of {producer.name}")
+
+
+def partition_frame(frame: Frame, ids, nparts: int) -> List[Frame]:
+    """Split a frame into per-partition frames by partition id: one
+    stable sort of the ids and a boundary search on the ids' device,
+    the bounds read back once, so each partition keeps its rows' input
+    order."""
+    ids = torch.as_tensor(ids)
+    n = int(ids.shape[0])
+    sorted_ids, order = torch.sort(ids.to(torch.int32), stable=True)
+    probes = torch.arange(nparts + 1, dtype=torch.int32,
+                          device=ids.device)
+    bounds = torch.searchsorted(sorted_ids, probes).tolist()
+    if n and (bounds[0] != 0 or bounds[nparts] != n):
+        raise ValueError(
+            f"partitioner returned id outside [0, {nparts}): "
+            f"[{int(ids.min())}, {int(ids.max())}]")
+    sorted_frame = frame.take(order)
+    return [sorted_frame.slice(bounds[p], bounds[p + 1])
+            for p in range(nparts)]
+
+
+class LocalExecutor:
+    """Runs tasks on worker threads of this process. ``device`` defaults
+    to ``cuda``: construction raises when there is no GPU, and otherwise
+    builds the kernel library and runs its probe kernel (once per
+    process). ``device="cpu"`` runs the same readers through the
+    kernels' plain versions. ``procs`` bounds the tasks running at once
+    (default: the CPU count); ``store`` holds the outputs (default a
+    ``MemoryStore``; a ``FileStore`` streams them to disk)."""
+
+    name = "local"
+
+    # Workers exit after this long idle: bursty sessions reuse threads,
+    # quiet executors shed them.
+    WORKER_IDLE_SECS = 10.0
+
+    def __init__(self, procs: Optional[int] = None,
+                 store: Optional[store_mod.Store] = None, device=None):
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "LocalExecutor: no CUDA device is available; pass "
+                    "device='cpu' to run on the CPU")
+            from bigslice_tpu_torch.parallel import cuda_kernels
+
+            if not cuda_kernels.kernels_available():
+                raise RuntimeError(
+                    "LocalExecutor: the CUDA kernels are not available "
+                    "(nvcc not found, or the probe kernel returned wrong "
+                    "values)")
+        self.device = device
+        self.procs = procs or os.cpu_count() or 4
+        self.store = store or store_mod.MemoryStore()
+        # The bounded worker pool: at most ``procs`` workers, made on
+        # demand, reaped when idle. A task body must not evaluate other
+        # slices synchronously.
+        self._queue: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._pool_lock = threading.Lock()
+        self._workers = 0
+        self._idle = 0
+        # Machine combiners: per combine key, each producer shard's
+        # partitioned contributions; combined once when the last shard
+        # lands, then committed per partition.
+        self._mc_lock = threading.Lock()
+        self._mc_contrib: dict = {}        # ck -> {shard: [parts]}
+        self._mc_committed: dict = {}      # (ck, p) -> Frame
+        self._mc_keys_committed: set = set()
+
+    def _place(self, frame: Frame) -> Frame:
+        return frame.to(self.device)
+
+    # -- the executor interface (submit, reader, discard) -------------------
+
+    def submit(self, task: Task) -> None:
+        self._queue.put(task)
+        with self._pool_lock:
+            if self._idle == 0 and self._workers < self.procs:
+                self._workers += 1
+                threading.Thread(target=self._worker_loop,
+                                 daemon=True).start()
+
+    def _worker_loop(self) -> None:
+        while True:
+            with self._pool_lock:
+                self._idle += 1
+            try:
+                task = self._queue.get(timeout=self.WORKER_IDLE_SECS)
+            except queue.Empty:
+                # A task queued after the timeout fired, while this
+                # worker still counted as idle (so submit made no new
+                # one), must not strand: look again under the lock.
+                with self._pool_lock:
+                    self._idle -= 1
+                    try:
+                        task = self._queue.get_nowait()
+                    except queue.Empty:
+                        self._workers -= 1
+                        return
+                self._run(task)
+                continue
+            with self._pool_lock:
+                self._idle -= 1
+            self._run(task)
+
+    def reader(self, task: Task, partition: int) -> sliceio.Reader:
+        return self.store.read(task.name, partition)
+
+    def discard(self, task: Task) -> None:
+        self.store.discard(task.name)
+        # Free the machine-combiner buffers this task consumed.
+        with self._mc_lock:
+            for dep in task.deps:
+                if dep.combine_key:
+                    self._mc_contrib.pop(dep.combine_key, None)
+                    self._mc_keys_committed.discard(dep.combine_key)
+                    for p in range(len(dep.tasks)):
+                        self._mc_committed.pop((dep.combine_key, p), None)
+        task.set_state(TaskState.LOST, RuntimeError("task discarded"))
+
+    # -- task execution -----------------------------------------------------
+
+    def _dep_factory(self, dep):
+        if dep.combine_key:
+            # One shared, already-combined buffer a partition. No commit
+            # means the producer group's buffers are gone: a lost dep,
+            # never a silently empty input.
+            def mc_factory():
+                with self._mc_lock:
+                    committed = dep.combine_key in self._mc_keys_committed
+                    frame = self._mc_committed.get(
+                        (dep.combine_key, dep.partition))
+                if not committed:
+                    raise DepLost(dep.tasks[0], all_producers=dep.tasks)
+                if frame is None or not len(frame):
+                    return sliceio.empty_reader()
+                return iter([frame])
+
+            return mc_factory
+
+        def lost(t, e):
+            # A spilled shuffle partition holds every producer shard's
+            # rows: the whole group reruns.
+            if getattr(e, "spilled_group", False):
+                return DepLost(t, dep.tasks)
+            return DepLost(t)
+
+        def factory():
+            def gen():
+                for t in dep.tasks:
+                    # Missing may surface mid-stream too (a FileStore
+                    # read that meets a corrupt frame): the producer is
+                    # lost either way, not the consumer failed.
+                    try:
+                        yield from self.store.read(t.name, dep.partition)
+                    except store_mod.Missing as e:
+                        raise lost(t, e) from e
+
+            return gen()
+
+        return factory
+
+    def _run(self, task: Task) -> None:
+        if not task.transition_if(TaskState.WAITING, TaskState.RUNNING):
+            return  # another evaluation claimed it
+        try:
+            self._execute(task)
+            task.mark_ok()
+        except DepLost as e:
+            # A dependency's output vanished: this run is lost, and so
+            # are its producers; the evaluator reruns them first.
+            for p in e.producers:
+                p.mark_lost(e)
+            task.mark_lost(e)
+        except Exception as e:  # noqa: BLE001 — settles as the task's error
+            task.set_state(TaskState.ERR, e)
+
+    def _execute(self, task: Task) -> None:
+        spillers: List[Optional[object]] = []
+        try:
+            self._execute_inner(task, spillers)
+        finally:
+            # Spill directories never outlive the task.
+            for sp in spillers:
+                if sp is not None:
+                    sp.cleanup()
+
+    def _execute_inner(self, task: Task, spillers) -> None:
+        factories = [self._dep_factory(d) for d in task.deps]
+        reader = task.do(factories, place=self._place)
+        nparts = task.num_partition
+        comb = task.combiner
+        if nparts <= 1 and comb is None:
+            # Streamed: a streaming store writes batch by batch without
+            # holding the shard.
+            self.store.put(task.name, 0, (f for f in reader if len(f)))
+            return
+        parts: List[List[Frame]] = [[] for _ in range(nparts)]
+        pending_rows = [0] * nparts
+        flush_at = [COMBINE_FLUSH_ROWS] * nparts
+        spillers.extend([None] * nparts)
+        for frame in reader:
+            if not len(frame):
+                continue
+            ids = task.partitioner.partition_ids(frame, nparts)
+            for p, sub in enumerate(partition_frame(frame, ids, nparts)):
+                if not len(sub):
+                    continue
+                parts[p].append(sub)
+                pending_rows[p] += len(sub)
+                if comb is not None and pending_rows[p] >= flush_at[p]:
+                    # Incremental pre-combine; the doubling trigger keeps
+                    # it amortized when distinct keys exceed the
+                    # threshold.
+                    combined = comb.combine_frames(parts[p])
+                    parts[p] = [combined] if len(combined) else []
+                    pending_rows[p] = len(combined)
+                    flush_at[p] = max(COMBINE_FLUSH_ROWS,
+                                      2 * len(combined))
+                elif (comb is None and self.store.streaming
+                        and pending_rows[p] >= SHUFFLE_SPILL_ROWS):
+                    # A pure shuffle over a streaming store: spill the
+                    # partition buffer and stream it back at store time.
+                    # (Into a memory store a disk round trip buys
+                    # nothing.)
+                    if spillers[p] is None:
+                        spillers[p] = sortio.Spiller()
+                    spillers[p].spill(iter(parts[p]))
+                    parts[p] = []
+                    pending_rows[p] = 0
+        if comb is not None and task.partitioner.combine_key:
+            self._machine_combine(task, parts)
+            return
+        for p in range(nparts):
+            if comb is not None:
+                out = comb.combine_frames(parts[p])
+                frames = [out] if len(out) else []
+            elif spillers[p] is not None:
+                # The spilled runs, then the in-memory tail, streamed
+                # into the store; the spill files go once consumed.
+                sp, tail = spillers[p], parts[p]
+
+                def rehydrate(sp=sp, tail=tail):
+                    for r in sp.readers():
+                        yield from r
+                    yield from tail
+
+                self.store.put(task.name, p, rehydrate())
+                sp.cleanup()
+                continue
+            else:
+                frames = parts[p]
+            self.store.put(task.name, p, frames)
+
+    def _machine_combine(self, task: Task, parts: List[List[Frame]]) -> None:
+        """Contribute this shard's partitioned output to the shared
+        machine combiner; the last shard in combines and commits each
+        partition once (a rerun's contribution replaces, never
+        duplicates)."""
+        ck = task.partitioner.combine_key
+        nparts = task.num_partition
+        with self._mc_lock:
+            if ck in self._mc_keys_committed:
+                # The raw contributions were freed at commit, so a
+                # partial re-combine would be wrong: fail loudly.
+                raise RuntimeError(
+                    f"machine combiner {ck} received a contribution after "
+                    f"commit (producer rerun); rerun the whole session or "
+                    f"disable machine_combiners for lossy executors")
+            contrib = self._mc_contrib.setdefault(ck, {})
+            contrib[task.name.shard] = parts
+            complete = len(contrib) == task.name.num_shard
+            snapshot = dict(contrib) if complete else None
+        # The task's own entries stay empty: consumers read the shared
+        # committed buffers through the combine_key dep path.
+        for p in range(nparts):
+            self.store.put(task.name, p, [])
+        if not complete:
+            return
+        comb = task.combiner
+        committed = {}
+        for p in range(nparts):
+            frames: List[Frame] = []
+            for shard_parts in snapshot.values():
+                frames.extend(shard_parts[p])
+            committed[(ck, p)] = comb.combine_frames(frames)
+        with self._mc_lock:
+            self._mc_committed.update(committed)
+            self._mc_keys_committed.add(ck)
+            self._mc_contrib.pop(ck, None)

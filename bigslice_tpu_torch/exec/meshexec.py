@@ -100,8 +100,7 @@ from bigslice_tpu_torch.ops.cogroup import Cogroup
 from bigslice_tpu_torch.ops.const import Const
 from bigslice_tpu_torch.ops.groupby import GroupByKey
 from bigslice_tpu_torch.ops.join import JoinAggregate
-from bigslice_tpu_torch.ops.mapops import (Filter, Flatmap, Head, Map,
-                                           extra_tensors)
+from bigslice_tpu_torch.ops.mapops import Filter, Flatmap, Head, Map
 from bigslice_tpu_torch.ops.reduce import LoweringNotPorted, Reduce
 from bigslice_tpu_torch.ops.reshuffle import Reshuffle, RowPartitioner
 from bigslice_tpu_torch.parallel import cogroup as cogroup_mod
@@ -522,14 +521,19 @@ class MeshExecutor:
 
     @staticmethod
     def _check_cogroup(task: Task) -> None:
-        """A Cogroup lowers alone: the only slice of its chain and one
-        output partition (its output is object lists, decoded on the
+        """A Cogroup lowers alone: no machine-combined producers or
+        output, the only slice of its chain and one output partition (its output is object lists, decoded on the
         host at readback, so no device stage or shuffle can take it),
         and every input column a device scalar. Its own schema is not
         held against it: the lists are the readback's decode of device
         columns."""
         op = task.name.op
         cg = task.chain[-1]
+        if task.partitioner.combine_key or any(d.combine_key
+                                               for d in task.deps):
+            raise LoweringNotPorted(
+                f"{op}: a machine-combined Cogroup group: its shared "
+                f"combiner buffer is the local executor's")
         if len(task.chain) != 1 or not isinstance(cg, Cogroup):
             raise LoweringNotPorted(
                 f"{op}: a Cogroup fused with other stages: its list "
@@ -1221,7 +1225,6 @@ class MeshExecutor:
         opbase = _op_base(task.name.op)
         nmesh = self.nmesh
         device = self.device
-        vmap = torch.func.vmap
 
         def stepped(wave: int, inputs, carry=None):
             masks, col_sets = [], []
@@ -1254,20 +1257,14 @@ class MeshExecutor:
                 mask, cols = masks[0], col_sets[0]
             for kind, s in run_stages:
                 if kind == "map":
-                    extras = extra_tensors(s.args, device)
-                    out = vmap(s.fn, in_dims=(0,) * len(cols)
-                               + (None,) * len(extras))(*cols, *extras)
-                    cols = list(out) if isinstance(out, (tuple, list)) \
-                        else [out]
+                    cols = s.device_apply(cols)
                 elif kind == "flatmap":
                     # Fixed fanout k: [n, k] planes (mask first) flatten
                     # row-major, each row's outputs contiguous.
-                    outs = vmap(s.fn)(*cols)
-                    mask = (mask[:, None] & outs[0]).reshape(-1)
-                    cols = [o.reshape(-1).to(torch_dtype(ct.dtype))
-                            for o, ct in zip(outs[1:], s.schema)]
+                    fmask, cols = s.device_apply(cols)
+                    mask = (mask[:, None] & fmask).reshape(-1)
                 elif kind == "filter":
-                    mask = mask & vmap(s.pred)(*cols)
+                    mask = mask & s.device_mask(cols)
                 elif kind == "head":
                     # The first n valid rows of the shard, by running
                     # count.

@@ -1,14 +1,16 @@
 """Session: compile and evaluate slices, and read their results.
 
 ``Session()`` runs on the device executor over ``cuda``;
-``Session(executor=MeshExecutor(device="cpu"))`` runs the same path on
-the CPU through the kernels' plain versions, as the tests do.
+``Session(parallelism=N)`` on the local executor with N task threads,
+also over ``cuda``. ``Session(executor=MeshExecutor(device="cpu"))`` or
+``Session(executor=LocalExecutor(device="cpu"))`` runs the same paths
+on the CPU through the kernels' plain versions, as the tests do.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Any, List, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 from bigslice_tpu_torch import sliceio, typecheck
 from bigslice_tpu_torch.exec import compile as compile_mod
@@ -70,16 +72,34 @@ class Result(Slice):
 
 
 class Session:
-    """Compiles and evaluates slices on one executor. With no executor
-    it builds ``MeshExecutor()``, which runs on ``cuda`` and raises at
-    construction when there is no GPU."""
+    """Compiles and evaluates slices on one executor.
 
-    def __init__(self, executor=None):
+    - ``executor``: with none, ``MeshExecutor()``, or with
+      ``parallelism`` set, ``LocalExecutor(procs=parallelism)``; both
+      run on ``cuda`` and raise at construction when there is no GPU.
+      (The JAX package's default is the local executor.)
+    - ``parallelism``: the local executor's task threads.
+    - ``monitor``: ``monitor(task, state)`` on every task transition.
+    - ``machine_combiners``: the producer tasks of a combining shuffle
+      share one combiner buffer a partition, combined once when the
+      last lands: fewer, larger combines, at the cost of retrying the
+      whole producer group when one of its outputs is lost.
+    """
+
+    def __init__(self, executor=None, parallelism: Optional[int] = None,
+                 monitor=None, machine_combiners: bool = False):
         if executor is None:
-            from bigslice_tpu_torch.exec.meshexec import MeshExecutor
+            if parallelism is not None:
+                from bigslice_tpu_torch.exec.local import LocalExecutor
 
-            executor = MeshExecutor()
+                executor = LocalExecutor(procs=parallelism)
+            else:
+                from bigslice_tpu_torch.exec.meshexec import MeshExecutor
+
+                executor = MeshExecutor()
         self.executor = executor
+        self.monitor = monitor
+        self.machine_combiners = machine_combiners
 
     def shutdown(self) -> None:
         """Release the executor's resources (its private spill
@@ -109,6 +129,7 @@ class Session:
         inv_index = next(_invocation_counter)
         tasks = compile_mod.Compiler(
             inv_index, shuffle_mode=shuffleplan.plan_mode() or "",
+            machine_combiners=self.machine_combiners,
         ).compile(slice_)
-        evaluate(self.executor, tasks)
+        evaluate(self.executor, tasks, monitor=self.monitor)
         return Result(self, slice_, tasks)

@@ -114,12 +114,11 @@ def spill_ineligible(task) -> Optional[str]:
     """Why a shuffle-boundary task can never spill, or None: the
     compiler's stamp, or a machine-combined boundary (its merge
     re-combines to one row per key, which spilled per-wave partials
-    cannot honour; the port has no machine combiner yet, so this holds
-    only for a partitioner that carries ``combine_key``)."""
+    cannot honour)."""
     stamped = getattr(task, "spill_ineligible", None)
     if stamped:
         return stamped
-    if getattr(task.partitioner, "combine_key", None):
+    if task.partitioner.combine_key:
         return "machine-combiner buffer"
     return None
 

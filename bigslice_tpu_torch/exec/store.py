@@ -26,6 +26,11 @@ class Missing(KeyError):
 
 
 class Store:
+    #: Whether ``put`` consumes its frames as a stream, writing a batch
+    #: at a time (the local executor spills a pure shuffle's partition
+    #: buffers only into such a store).
+    streaming = False
+
     def put(self, name: TaskName, partition: int, frames) -> None:
         """Store a partition's frames (consumed eagerly, in full, before
         put returns)."""
@@ -110,6 +115,8 @@ class FileStore(Store):
     never materializes whole on read-back; a corrupt file is moved
     aside (``*.quarantine``) and its read raises ``Missing``, the
     lost-output signal that re-runs its producers."""
+
+    streaming = True
 
     def __init__(self, prefix: str):
         self.prefix = fileio.join(prefix)

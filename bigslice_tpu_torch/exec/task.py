@@ -53,22 +53,42 @@ class TaskDep:
 
     expand:      merge partition streams by key instead of concatenating
                  (Reduce semantics).
+    combine_key: nonempty when the producers share one machine-level
+                 combiner buffer (``Session(machine_combiners=True)``).
     """
 
     tasks: Tuple["Task", ...]
     partition: int
     expand: bool = False
+    combine_key: str = ""
 
 
 class Partitioner:
     """Output partition configuration for a task: how many partitions,
-    the partition function, and an optional map-side combiner."""
+    the partition function, an optional map-side combiner, and the
+    machine combiner's key."""
 
     def __init__(self, num_partition: int = 1, partition_fn=None,
-                 combiner=None):
+                 combiner=None, combine_key: str = ""):
         self.num_partition = num_partition
         self.partition_fn = partition_fn
         self.combiner = combiner  # FrameCombiner
+        self.combine_key = combine_key
+
+    def partition_ids(self, frame, nparts: int):
+        """Each row's output partition: a per-row device partitioner
+        (``RowPartitioner``) runs over the key columns on their device;
+        a frame-level host partitioner ``fn(frame, nparts) ->
+        int32[n]`` gets the frame's host copy; with none, the routing
+        hash (``Frame.partition_ids``)."""
+        from bigslice_tpu_torch.ops.reshuffle import RowPartitioner
+
+        fn = self.partition_fn
+        if fn is None:
+            return frame.partition_ids(nparts)
+        if isinstance(fn, RowPartitioner):
+            return fn(frame, nparts)
+        return fn(frame.to_host(), nparts)
 
 
 class Task:

@@ -10,6 +10,11 @@ entry, as in the JAX package (docs/design.md §2).
 arrays) across, and ``result_shard_rows`` turns a ``Result`` of either
 package back into sorted numpy rows, so the two packages can be fed and
 compared on the same data.
+
+Placement is one rule (``Frame.to``): a frame's device columns move to
+a device together, its host columns stay where they are. The host
+tier reads rows through one device-to-host copy a column
+(``numpy_cols``), never a read a cell.
 """
 
 from __future__ import annotations
@@ -118,6 +123,21 @@ class Frame:
                      prefix=prefix, device=device)
 
     @staticmethod
+    def from_rows(rows: Sequence[Tuple], schema: Schema) -> "Frame":
+        """A frame of Python rows: device columns become CPU tensors of
+        the schema's dtypes, host columns object arrays."""
+        cols = []
+        for i, ct in enumerate(schema):
+            vals = [r[i] for r in rows]
+            if ct.is_device:
+                cols.append(torch.from_numpy(
+                    np.asarray(vals, dtype=ct.dtype).reshape(
+                        (len(vals),) + ct.shape)))
+            else:
+                cols.append(obj_col(vals))
+        return Frame(cols, schema)
+
+    @staticmethod
     def empty(schema: Schema, device=None) -> "Frame":
         from bigslice_tpu_torch.slicetype import torch_dtype
 
@@ -152,6 +172,38 @@ class Frame:
         """O(1) row-range view."""
         return Frame([c[i:j] for c in self.cols], self.schema)
 
+    def take(self, idx) -> "Frame":
+        """Rows gathered by an index array (a tensor or numpy array):
+        device columns on their device, host columns on the host."""
+        from bigslice_tpu_torch.parallel.segment import take
+
+        host_idx = dev_idx = None
+        out = []
+        for c in self.cols:
+            if isinstance(c, torch.Tensor):
+                if dev_idx is None or dev_idx.device != c.device:
+                    dev_idx = torch.as_tensor(idx).to(c.device,
+                                                      torch.int64)
+                out.append(take(c, dev_idx))
+            else:
+                if host_idx is None:
+                    host_idx = to_numpy(idx)
+                out.append(c[host_idx])
+        return Frame(out, self.schema)
+
+    def to(self, device) -> "Frame":
+        """The frame with its device columns on ``device`` (itself when
+        they are there already): the one placement rule."""
+        device = torch.device(device)
+        if all(not isinstance(c, torch.Tensor) or c.device == device
+               for c in self.cols):
+            return self
+        return Frame([c.to(device) if isinstance(c, torch.Tensor) else c
+                      for c in self.cols], self.schema)
+
+    def to_host(self) -> "Frame":
+        return self.to("cpu")
+
     @staticmethod
     def concat(frames: Sequence["Frame"]) -> "Frame":
         frames = [f for f in frames if f is not None]
@@ -172,51 +224,89 @@ class Frame:
 
     def hash_keys(self, seed: int = 0) -> torch.Tensor:
         """uint32 hash of each row's key prefix (int64-carried lanes);
-        multi-column keys combine in order."""
+        multi-column keys combine in order. Device columns hash on
+        their device, host columns on the host through their ops'
+        ``hash_fn`` (the stable CRC); a mixed key combines both on the
+        device of its device key columns, a host key on the host."""
         if self.prefix == 0:
             raise ValueError("hash_keys on frame with prefix=0")
+        device = next((c.device for c in self.key_cols()
+                       if isinstance(c, torch.Tensor)), torch.device("cpu"))
         h = None
         for c, ct in zip(self.key_cols(), self.schema.key):
-            if not frame_ops.device_key(ct):
+            o = frame_ops.ops_for(ct)
+            if not o.can_hash:
                 raise TypeError(f"column type {ct} is not hashable")
-            ch = frame_ops.hash_device_column(c, seed)
+            if ct.is_device:
+                ch = frame_ops.hash_device_column(c, seed)
+            else:
+                fn = o.hash_fn or frame_ops.hash_host_column
+                ch = torch.from_numpy(
+                    np.asarray(fn(c, seed)).astype(np.int64)).to(device)
             h = ch if h is None else frame_ops.combine_hashes(h, ch)
         return h
 
     def partition_ids(self, nparts: int, seed: int = 0) -> torch.Tensor:
-        """Shuffle partition of each row: hash(key) % nparts, through
-        the routing contract's one implementation
-        (``shuffle.partition_ids``: the ``hash_partition`` kernel on the
-        card)."""
+        """Shuffle partition of each row: hash(key) % nparts, int32.
+        Device keys route through the routing contract's one
+        implementation (``shuffle.partition_ids``: the
+        ``hash_partition`` kernel on the card); host and mixed keys
+        through ``hash_keys``."""
         from bigslice_tpu_torch.parallel.shuffle import partition_ids
 
         if self.prefix == 0:
             raise ValueError("partition_ids on frame with prefix=0")
-        for ct in self.schema.key:
-            if not frame_ops.device_key(ct):
-                raise TypeError(f"column type {ct} is not hashable")
-        part, _, _ = partition_ids(self.key_cols(), nparts, seed)
-        return part
+        if all(frame_ops.device_key(ct) for ct in self.schema.key):
+            part, _, _ = partition_ids(self.key_cols(), nparts, seed)
+            return part
+        return (self.hash_keys(seed) % nparts).to(torch.int32)
+
+    def sort_indices(self) -> np.ndarray:
+        """Stable argsort of rows by the key prefix (lexicographic), on
+        the host: ``np.lexsort`` for numeric keys, Python's ordering of
+        key tuples for object keys."""
+        if self.prefix == 0:
+            raise ValueError("sort_indices on frame with prefix=0")
+        keys = [to_numpy(c) for c in self.key_cols()]
+        if any(k.dtype == np.dtype(object) for k in keys):
+            return np.asarray(
+                sorted(range(len(self)),
+                       key=lambda i: tuple(k[i] for k in keys)),
+                dtype=np.int64,
+            )
+        return np.lexsort(tuple(reversed(keys)))
 
     def sorted_by_key(self) -> "Frame":
-        """Stable sort by the key prefix on the frame's device
-        (``parallel/sortkernel.py``). Frames with host or vector columns
-        need the host sort, which is not ported."""
+        """Stable sort by the key prefix: on the frame's device for
+        scalar device columns (``parallel/sortkernel.py``), else the
+        host lexsort (host keys, vector columns)."""
         from bigslice_tpu_torch.parallel import sortkernel
 
-        if not sortkernel.device_sortable(self):
-            raise NotImplementedError(
-                "sorted_by_key: host or vector columns need the host sort, "
-                "which is not ported")
-        return sortkernel.device_sorted_by_key(self)
+        if sortkernel.device_sortable(self):
+            return sortkernel.device_sorted_by_key(self)
+        return self.take(self.sort_indices())
 
     # -- row access -------------------------------------------------------
 
     def numpy_cols(self) -> List[np.ndarray]:
         return [to_numpy(c) for c in self.cols]
 
+    def row(self, i: int) -> Tuple:
+        out = []
+        for c in self.cols:
+            v = c[i]
+            if isinstance(v, torch.Tensor):
+                out.append(v.cpu().numpy() if v.dim() else v.item())
+            else:
+                out.append(v)
+        return tuple(out)
+
     def rows(self) -> List[Tuple]:
-        cols = [c.tolist() for c in self.numpy_cols()]
+        """The rows as tuples of Python values (vector cells as numpy
+        arrays, host cells as they are): one device-to-host copy a
+        column."""
+        cols = [list(c) if c.dtype == np.dtype(object) or c.ndim > 1
+                else c.tolist() for c in self.numpy_cols()]
         return list(zip(*cols)) if cols else []
 
     def __repr__(self) -> str:

@@ -8,14 +8,17 @@ is visible.
 
 Output schema: (key..., value dtype[capacity] vector column, count
 int32), prefix = the input's. A device Map downstream receives each
-row's group as a [capacity] tensor (``torch.func.vmap``).
+row's group as a [capacity] tensor (``torch.func.vmap``). The local
+executor's reader runs the same core over the shard's rows
+(``parallel/groupby.cached_group_by_key``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from bigslice_tpu_torch import typecheck
+from bigslice_tpu_torch import sliceio, typecheck
+from bigslice_tpu_torch.frame.frame import Frame
 from bigslice_tpu_torch.ops.base import Dep, Slice, make_name
 from bigslice_tpu_torch.slicetype import ColType, Schema
 
@@ -70,3 +73,28 @@ class GroupByKey(Slice):
 
     def deps(self):
         return (Dep(self.dep_slice, shuffle=True),)
+
+    def reader(self, shard, deps):
+        def read():
+            from bigslice_tpu_torch.parallel.groupby import \
+                cached_group_by_key
+
+            frame = sliceio.read_all(deps[0](), self.dep_slice.schema)
+            if not len(frame):
+                return
+            kern = cached_group_by_key(self.prefix, self.capacity)
+            keys, groups, counts = kern(
+                list(frame.key_cols()), frame.value_cols()[0], len(frame))
+            if self.on_overflow == "error":
+                over = counts > self.capacity
+                nover = int(over.sum())
+                if nover:
+                    raise ValueError(
+                        f"groupbykey: {nover} group(s) exceed the "
+                        f"declared capacity {self.capacity} (largest "
+                        f"group: {int(counts.max())} rows); raise "
+                        f"capacity or use Cogroup for discovered "
+                        f"capacities")
+            yield Frame(list(keys) + [groups, counts], self.schema)
+
+        return read()

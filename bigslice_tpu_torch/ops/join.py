@@ -16,17 +16,23 @@
 3. output rows are (key..., a_agg..., b_agg...) for the keys present in
    BOTH sides.
 
-The host tier (combine fns that are not tensor functions of the values)
-and the dense join (``dense_keys=``) are not ported: the executor
-refuses either by name (``LoweringNotPorted``).
+On the local executor the reader runs the same contract a frame at a
+time: each side's combiner (``FrameCombiner.combine``) and the inner
+join of the two reduced frames (``_inner_join``), which runs the host
+tier's combine fns and host keys too. The device executor refuses the
+host tier and the dense join (``dense_keys=``) by name
+(``LoweringNotPorted``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List
+
+import numpy as np
 
 from bigslice_tpu_torch import typecheck
 from bigslice_tpu_torch.frame import ops as frame_ops
+from bigslice_tpu_torch.frame.frame import Frame, to_numpy
 from bigslice_tpu_torch.ops.base import Dep, Slice, make_name
 from bigslice_tpu_torch.ops.reduce import FrameCombiner
 from bigslice_tpu_torch.slicetype import Schema
@@ -62,11 +68,9 @@ class JoinAggregate(Slice):
             "join: key column types mismatch: %s vs %s",
             a.schema.key, b.schema.key,
         )
-        # The device tier's hashable keys (scalar device columns) are
-        # exactly its comparable ones.
         for ct in a.schema.key:
             typecheck.check(
-                frame_ops.device_key(ct),
+                frame_ops.can_hash(ct) and frame_ops.can_compare(ct),
                 "join: key column type %s is not joinable", ct,
             )
         schema = Schema(
@@ -87,3 +91,41 @@ class JoinAggregate(Slice):
     def deps(self):
         return (Dep(self.a, shuffle=True, expand=True),
                 Dep(self.b, shuffle=True, expand=True))
+
+    def reader(self, shard, deps):
+        def read():
+            fa = self.frame_combiners[0].combine_frames(list(deps[0]()))
+            fb = self.frame_combiners[1].combine_frames(list(deps[1]()))
+            out = _inner_join(fa, fb, self.prefix, self.schema)
+            if len(out):
+                yield out
+
+        return read()
+
+
+def _inner_join(fa: Frame, fb: Frame, nkeys: int, schema: Schema) -> Frame:
+    """Inner-join two reduced frames (unique keys a side) on their key
+    prefixes: ``np.intersect1d`` over a single numeric key, a tuple-keyed
+    dict otherwise, on the keys' host copy (one copy a column); the
+    rows are gathered where they live."""
+    if not len(fa) or not len(fb):
+        return Frame.empty(schema)
+    ka = [to_numpy(c) for c in fa.cols[:nkeys]]
+    kb = [to_numpy(c) for c in fb.cols[:nkeys]]
+    if nkeys == 1 and ka[0].dtype != object and kb[0].dtype != object:
+        _, ia, ib = np.intersect1d(
+            ka[0], kb[0], assume_unique=True, return_indices=True
+        )
+    else:
+        index = {tuple(c[i] for c in kb): i for i in range(len(fb))}
+        ia_list: List[int] = []
+        ib_list: List[int] = []
+        for i in range(len(fa)):
+            j = index.get(tuple(c[i] for c in ka))
+            if j is not None:
+                ia_list.append(i)
+                ib_list.append(j)
+        ia = np.asarray(ia_list, dtype=np.int64)
+        ib = np.asarray(ib_list, dtype=np.int64)
+    ta, tb = fa.take(ia), fb.take(ib)
+    return Frame(list(ta.cols) + list(tb.cols[nkeys:]), schema)

@@ -12,8 +12,13 @@ The verdict is a trace over meta tensors (shapes and dtypes, no data):
 a function that the trace cannot run — data-dependent Python control
 flow, ``.item()``, host objects, tensors made without the inputs'
 device (``torch.tensor(..., device=x.device)`` is device tier) — is host
-tier. The host tier is not ported: the executor refuses a host-tier
-stage by name (``LoweringNotPorted``).
+tier. The device executor refuses a host-tier stage by name
+(``LoweringNotPorted``); the local executor runs it through the
+readers here, per row over the frame's host copy.
+
+The device tier's column functions (``Map.device_apply``,
+``Filter.device_mask``, ``Flatmap.device_apply``) serve both the device
+executor's wave program and the readers.
 
 Outputs follow the 32-bit-first rule: a device function returning int64
 or float64 columns is cast down to int32 or float32.
@@ -23,10 +28,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
-from bigslice_tpu_torch import typecheck
-from bigslice_tpu_torch.frame.frame import _DOWNCAST, _coerce
+from bigslice_tpu_torch import sliceio, typecheck
+from bigslice_tpu_torch.frame.frame import _DOWNCAST, Frame, _coerce
 from bigslice_tpu_torch.ops.base import Dep, Slice, make_name
 from bigslice_tpu_torch.slicetype import (ColType, Schema, numpy_dtype,
                                           torch_dtype)
@@ -162,6 +168,30 @@ class Map(_Pipelined):
             schema = _as_schema(out)
         super().__init__(slice_, schema, name)
 
+    def device_apply(self, cols) -> list:
+        """The device fn over whole columns: vmapped over rows, the
+        extra arguments unbatched on the columns' device."""
+        extras = extra_tensors(self.args, cols[0].device)
+        out = torch.func.vmap(self.fn, in_dims=(0,) * len(cols)
+                              + (None,) * len(extras))(*cols, *extras)
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
+    def reader(self, shard, deps):
+        def read():
+            for f in deps[0]():
+                if not len(f):
+                    continue
+                if self.mode == "device":
+                    yield Frame(self.device_apply(list(f.cols)),
+                                self.schema)
+                else:
+                    rows = [self.fn(*r, *self.args) for r in f.rows()]
+                    rows = [r if isinstance(r, tuple) else (r,)
+                            for r in rows]
+                    yield Frame.from_rows(rows, self.schema)
+
+        return read()
+
 
 class Filter(_Pipelined):
     """Predicate filter: keeps the rows where ``pred(*row)`` is true."""
@@ -187,6 +217,27 @@ class Filter(_Pipelined):
                     "filter: predicate is not a device function")
             self.mode = "host"
         super().__init__(slice_, slice_.schema, name)
+
+    def device_mask(self, cols) -> torch.Tensor:
+        """The device predicate over whole columns: bool[n]."""
+        return torch.func.vmap(self.pred)(*cols)
+
+    def reader(self, shard, deps):
+        def read():
+            for f in deps[0]():
+                if not len(f):
+                    continue
+                if self.mode == "device":
+                    idx = torch.nonzero(
+                        self.device_mask(list(f.cols))).squeeze(1)
+                else:
+                    idx = np.fromiter(
+                        (i for i, r in enumerate(f.rows())
+                         if self.pred(*r)), dtype=np.int64)
+                if len(idx):
+                    yield f.take(idx)
+
+        return read()
 
 
 class Flatmap(_Pipelined):
@@ -249,6 +300,46 @@ class Flatmap(_Pipelined):
                 out[0].dtype,
             )
 
+    def device_apply(self, cols):
+        """The fixed-fanout fn over whole columns: ``(mask [n, k],
+        cols)``, each output column flattened row-major (a row's k
+        outputs contiguous) and cast to the schema's dtype."""
+        outs = torch.func.vmap(self.fn)(*cols)
+        return outs[0], [o.reshape(-1).to(torch_dtype(ct.dtype))
+                         for o, ct in zip(outs[1:], self.schema)]
+
+    def reader(self, shard, deps):
+        if self.mode == "device":
+            return self._read_fixed(deps)
+        return self._read_host(deps)
+
+    def _read_host(self, deps):
+        def read():
+            pending = []
+            for f in deps[0]():
+                for r in f.rows():
+                    for o in self.fn(*r):
+                        pending.append(o if isinstance(o, tuple) else (o,))
+                    if len(pending) >= sliceio.DEFAULT_CHUNK_ROWS:
+                        yield Frame.from_rows(pending, self.schema)
+                        pending = []
+            if pending:
+                yield Frame.from_rows(pending, self.schema)
+
+        return read()
+
+    def _read_fixed(self, deps):
+        def read():
+            for f in deps[0]():
+                if not len(f):
+                    continue
+                mask, cols = self.device_apply(list(f.cols))
+                idx = torch.nonzero(mask.reshape(-1)).squeeze(1)
+                if len(idx):
+                    yield Frame(cols, self.schema).take(idx)
+
+        return read()
+
 
 class Head(_Pipelined):
     """The first n rows of each shard."""
@@ -256,3 +347,16 @@ class Head(_Pipelined):
     def __init__(self, slice_: Slice, n: int):
         super().__init__(slice_, slice_.schema, make_name("head"))
         self.n = n
+
+    def reader(self, shard, deps):
+        def read():
+            left = self.n
+            for f in deps[0]():
+                if left <= 0:
+                    break
+                take = min(left, len(f))
+                if take:
+                    yield f.slice(0, take)
+                left -= take
+
+        return read()

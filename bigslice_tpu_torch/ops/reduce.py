@@ -10,9 +10,12 @@ Device lowering: a combine fn that classifies per value column as
 add/max/min, over non-float scalar keys, runs as open-addressed hash
 aggregation (parallel/hashagg.py); every other device-traceable combine
 fn, float keys, and ops whose hash table overflowed run on the sort +
-segmented-scan lowering (parallel/segment.py). A combine fn that is not
-a tensor function of the values belongs to the host tier, which this
-package does not have: the executor refuses it by name.
+segmented-scan lowering (parallel/segment.py). Host keys (strings) and
+a combine fn that is not a tensor function of the values belong to the
+host tier: the local executor combines them on the host
+(``segment.host_reduce_by_key``); the device executor refuses them by
+name. On the local executor a device combiner runs the sort and
+segmented scan over each frame (``segment.cached_reduce_kernel``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from bigslice_tpu_torch import typecheck
 from bigslice_tpu_torch.frame import ops as frame_ops
+from bigslice_tpu_torch.frame.frame import Frame
 from bigslice_tpu_torch.ops.base import Combiner, Dep, Slice, make_name
 from bigslice_tpu_torch.parallel import segment
 from bigslice_tpu_torch.slicetype import Schema, torch_dtype
@@ -88,9 +92,8 @@ def _vals_traceable_uncached(fn: Callable, schema: Schema) -> bool:
 class FrameCombiner:
     """A Reduce's combiner over its input schema. ``device`` is the tier
     verdict; ``hash_ops`` the per-column add/max/min classification the
-    hash-aggregate lowering runs it with. (The executor runs both the
-    map-side and the reduce-side combine; a reduce-side host reader
-    belongs to the local executor, which is not ported.)"""
+    device executor's hash-aggregate lowering runs it with; ``combine``
+    the local executor's combine of one frame."""
 
     def __init__(self, fn: Callable, schema: Schema):
         self.fn = fn
@@ -100,6 +103,30 @@ class FrameCombiner:
         typecheck.check(self.nvals >= 1,
                         "reduce: slice must have at least one value column")
         self.device = _vals_traceable(fn, schema)
+        self._kernel = (segment.cached_reduce_kernel(fn, self.nkeys,
+                                                     self.nvals)
+                        if self.device else None)
+
+    def combine(self, frame: Frame) -> Frame:
+        """Combine equal keys within one frame: on the frame's device
+        (sort and segmented scan) for a device combiner, else on the
+        host copy."""
+        if not len(frame):
+            return frame
+        if self._kernel is not None:
+            keys, vals = self._kernel(frame.key_cols(), frame.value_cols(),
+                                      len(frame))
+        else:
+            cols = frame.numpy_cols()
+            keys, vals = segment.host_reduce_by_key(
+                cols[: self.nkeys], cols[self.nkeys:], self.fn, self.nvals)
+        return Frame(list(keys) + list(vals), self.schema)
+
+    def combine_frames(self, frames) -> Frame:
+        frames = [f for f in frames if f is not None and len(f)]
+        if not frames:
+            return Frame.empty(self.schema)
+        return self.combine(Frame.concat(frames))
 
     def hash_ops(self) -> Optional[Tuple[str, ...]]:
         """The per-column add/max/min ops the hash-aggregate lowering
@@ -135,7 +162,7 @@ class Reduce(Slice):
         )
         for ct in slice_.schema.key:
             typecheck.check(
-                frame_ops.device_key(ct),
+                frame_ops.can_hash(ct),
                 "reduce: key column type %s is not partitionable", ct,
             )
         super().__init__(slice_.schema, slice_.num_shards,
@@ -153,3 +180,11 @@ class Reduce(Slice):
 
     def combiner(self):
         return self._combiner
+
+    def reader(self, shard, deps):
+        def read():
+            out = self.frame_combiner.combine_frames(list(deps[0]()))
+            if len(out):
+                yield out
+
+        return read()

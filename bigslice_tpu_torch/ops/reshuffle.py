@@ -3,7 +3,10 @@
 On the device executor both lower to the sort shuffle without a
 combiner (parallel/shuffle.py ``make_shuffle_fn``): rows route by the
 hash of their key prefix, or by a custom per-row partitioner run
-vmapped inside the shuffle. (Reshard is not ported.)
+vmapped inside the shuffle. On the local executor each producer frame
+routes through ``Partitioner.partition_ids`` (exec/task.py): the
+routing hash, a ``RowPartitioner`` over the key columns on their
+device, or a frame-level host partitioner. (Reshard is not ported.)
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ class RowPartitioner:
     def __init__(self, fn: Callable):
         self.fn = fn
 
+    def __call__(self, frame, nparts: int) -> torch.Tensor:
+        """The partitioner over a frame: int32 ids on its device."""
+        return self.device_fn(nparts)(*frame.key_cols()).to(torch.int32)
+
     def device_fn(self, nparts: int) -> Callable:
         """The vectorized form the shuffle consumes: ``fn(*key_cols) ->
         ids`` with ``nparts`` bound (an int32 scalar, unbatched)."""
@@ -47,7 +54,7 @@ class Reshuffle(Slice):
         if partitioner is None:
             for ct in slice_.schema.key:
                 typecheck.check(
-                    frame_ops.device_key(ct),
+                    frame_ops.can_hash(ct),
                     "reshuffle: key column type %s is not partitionable", ct,
                 )
         super().__init__(slice_.schema, slice_.num_shards,
@@ -59,14 +66,18 @@ class Reshuffle(Slice):
         return (Dep(self.dep_slice, shuffle=True,
                     partitioner=self.partitioner),)
 
+    def reader(self, shard, deps):
+        return deps[0]()
+
 
 def Repartition(slice_: Slice, partition: Callable,
                 mode: str = "auto") -> Slice:
     """Reshuffle with a custom partitioner. A per-row device fn
     ``fn(*key_values, nparts) -> int`` (decided by a meta trace, or
     ``mode="device"``) runs on the device; anything else is a
-    frame-level host partitioner ``fn(frame, nparts) -> int32[n]``,
-    whose host tier is not ported."""
+    frame-level host partitioner ``fn(frame, nparts) -> int32[n]``
+    (vectorized numpy over the frame's host copy), which the local
+    executor runs and the device executor refuses by name."""
     if mode in ("auto", "device"):
         traceable = _partitioner_traceable(partition, slice_)
         if mode == "device" and not traceable:

@@ -12,13 +12,20 @@ group's rows are contiguous and keep their arrival order; each group's
 head row takes the [G] window of values starting at it, masked by the
 group's true length. Overflowing rows (a group's tail past G) are
 dropped deterministically and visible through ``counts > G``.
+
+``DeviceGroupByKey`` runs the core over one frame's columns (the local
+executor's GroupByKey reader).
 """
 
 from __future__ import annotations
 
+import threading
+from typing import Sequence
+
 import torch
 
 from bigslice_tpu_torch.parallel import segment
+from bigslice_tpu_torch.parallel.jitutil import bucket_size, pad_cols
 
 
 def make_group_by_key_masked(nkeys: int, capacity: int):
@@ -58,3 +65,42 @@ def make_group_by_key_masked(nkeys: int, capacity: int):
         return is_head, list(s_keys), groups.view(s_val.dtype), counts_row
 
     return core
+
+
+class DeviceGroupByKey:
+    """Fixed-capacity grouping of one frame's device columns:
+    ``__call__(key_cols, val_col, n) -> (keys, groups [k, G], counts
+    [k])``, sorted by key, compacted (the group count read back
+    once)."""
+
+    def __init__(self, nkeys: int, capacity: int):
+        self.nkeys = nkeys
+        self.capacity = capacity
+        self._core = make_group_by_key_masked(nkeys, capacity)
+
+    def __call__(self, key_cols: Sequence, val_col, n: int):
+        size = bucket_size(n)
+        cols = pad_cols(list(key_cols) + [val_col], n, size)
+        mask = torch.arange(size, device=cols[0].device) < n
+        is_head, keys, groups, counts = self._core(
+            mask, tuple(cols[: self.nkeys]), cols[self.nkeys])
+        k, packed = segment.compact_by_mask(
+            is_head, tuple(keys) + (groups, counts))
+        k = int(k)
+        return ([c[:k] for c in packed[: self.nkeys]],
+                packed[self.nkeys][:k], packed[self.nkeys + 1][:k])
+
+
+_GROUPBY_CACHE: dict = {}
+_GROUPBY_LOCK = threading.Lock()
+
+
+def cached_group_by_key(nkeys: int, capacity: int) -> DeviceGroupByKey:
+    """One DeviceGroupByKey per (nkeys, capacity), shared across task
+    threads."""
+    key = (nkeys, capacity)
+    with _GROUPBY_LOCK:
+        kern = _GROUPBY_CACHE.get(key)
+        if kern is None:
+            kern = _GROUPBY_CACHE[key] = DeviceGroupByKey(nkeys, capacity)
+        return kern

@@ -16,15 +16,25 @@ results bit for bit:
   every NaN last, ties in input order;
 - the scan is JAX's own recursion (pairs combined in the same order,
   and the interleave's addition that turns every -0.0 into +0.0).
+
+``DeviceReduceByKey`` runs the count-based core over one frame's
+columns (the local executor's device combine). The host half,
+``host_reduce_by_key`` and ``grouped_reduceat``, combines host keys and
+combine fns that are not tensor functions: a lexsort and one
+``ufunc.reduceat`` a column when the fn classifies as add/max/min, a
+dict pass otherwise.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import threading
+import weakref
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
-from bigslice_tpu_torch.parallel.jitutil import bucket_size
+from bigslice_tpu_torch.parallel.jitutil import bucket_size, pad_cols
 
 
 def canonical_combine(fn: Callable, nvals: int) -> Callable:
@@ -287,3 +297,150 @@ def make_segmented_reduce(nkeys: int, nvals: int, cfn):
         return count, packed[:nkeys], packed[nkeys:]
 
     return core
+
+
+class DeviceReduceByKey:
+    """Keyed reduction of one frame's device columns:
+    ``__call__(key_cols, val_cols, n) -> (keys, vals)``, one row per
+    distinct key, sorted by key. The rows are padded to
+    ``bucket_size(n)`` (the last row repeated, masked off) as the JAX
+    package pads them, so the scan pairs the same rows; the surviving
+    count is read back once."""
+
+    def __init__(self, fn: Callable, nkeys: int, nvals: int):
+        self.nkeys = nkeys
+        self.nvals = nvals
+        self._core = make_segmented_reduce(
+            nkeys, nvals, canonical_combine(fn, nvals))
+
+    def __call__(self, key_cols: Sequence, val_cols: Sequence, n: int):
+        size = bucket_size(n)
+        cols = pad_cols(list(key_cols) + list(val_cols), n, size)
+        count, keys, vals = self._core(n, cols[: self.nkeys],
+                                       cols[self.nkeys:])
+        count = int(count)
+        return ([k[:count] for k in keys], [v[:count] for v in vals])
+
+
+# Keyed by id(fn) with an aliveness guard; bounded FIFO; shared by the
+# local executor's task threads, so guarded by a lock.
+_KERNEL_CACHE: dict = {}
+_KERNEL_CACHE_MAX = 128
+_KERNEL_LOCK = threading.Lock()
+
+
+def cached_reduce_kernel(fn: Callable, nkeys: int, nvals: int
+                         ) -> DeviceReduceByKey:
+    """One DeviceReduceByKey per (fn, nkeys, nvals), shared across the
+    combiners built from the same function object."""
+    key = (id(fn), nkeys, nvals)
+    with _KERNEL_LOCK:
+        entry = _KERNEL_CACHE.get(key)
+        if entry is not None:
+            ref, kern = entry
+            if ref is None or ref() is fn:
+                return kern
+        kern = DeviceReduceByKey(fn, nkeys, nvals)
+        try:
+            ref = weakref.ref(fn)
+        except TypeError:  # unweakrefable callables
+            ref = None
+        _KERNEL_CACHE[key] = (ref, kern)
+        while len(_KERNEL_CACHE) > _KERNEL_CACHE_MAX:
+            _KERNEL_CACHE.pop(next(iter(_KERNEL_CACHE)))
+        return kern
+
+
+HOST_REDUCEAT = {"add": np.add, "max": np.maximum, "min": np.minimum}
+
+
+def grouped_reduceat(key_cols, val_cols, ops):
+    """Segmented reduce of KEY-SORTED host (numpy) columns: group
+    boundaries from adjacent key change, one classified
+    ``ufunc.reduceat`` a value column (float sums follow reduceat's
+    blocking). Returns (keys_at_bounds, reduced_vals)."""
+    n = len(key_cols[0])
+    diff = np.zeros(n, dtype=bool)
+    diff[0] = True
+    for c in key_cols:
+        c = np.asarray(c)
+        diff[1:] |= c[1:] != c[:-1]
+    bounds = np.flatnonzero(diff)
+    keys_out = [np.asarray(c)[bounds] for c in key_cols]
+    vals_out = [
+        HOST_REDUCEAT[op].reduceat(np.asarray(c), bounds, axis=0)
+        for op, c in zip(ops, val_cols)
+    ]
+    return keys_out, vals_out
+
+
+def classified_host_ops(fn, nvals: int, val_cols):
+    """Per-column add/max/min classification for host (numpy) value
+    columns, or None: object or vector columns, empty input, an
+    unhashable fn, or a fn that does not classify."""
+    if not val_cols or not len(val_cols[0]):
+        return None
+    if any(np.asarray(c).dtype == np.dtype(object) or np.ndim(c) > 1
+           for c in val_cols):
+        return None
+    from bigslice_tpu_torch.parallel.dense import classified_ops_cached
+
+    try:
+        return classified_ops_cached(
+            fn, nvals, tuple(np.asarray(c).dtype for c in val_cols))
+    except TypeError:  # unhashable fn: classify is skipped, not run
+        return None
+
+
+def host_reduce_by_key(key_cols, val_cols, fn, nvals: int):
+    """Host-tier keyed reduction (object keys, or a combine fn that is
+    not a tensor function) over numpy columns.
+
+    A fn that classifies as per-column add/max/min takes a lexsort and
+    ``grouped_reduceat`` (string keys compare in C inside
+    ``np.lexsort``); incomparable keys and unclassified fns take an
+    exact dict pass. Output is key-sorted either way (the dict pass
+    sorts at emit when the keys compare)."""
+    from bigslice_tpu_torch.frame.frame import obj_col
+
+    n = len(key_cols[0])
+    ops = classified_host_ops(fn, nvals, val_cols)
+    if ops is not None:
+        try:
+            order = np.lexsort(
+                tuple(reversed([np.asarray(c) for c in key_cols])))
+        except TypeError:
+            order = None  # incomparable keys: dict pass below
+        if order is not None:
+            return grouped_reduceat(
+                [np.asarray(c)[order] for c in key_cols],
+                [np.asarray(c)[order] for c in val_cols],
+                ops,
+            )
+
+    cfn = canonical_combine(fn, nvals)
+    acc = {}
+    order = []
+    for i in range(n):
+        k = tuple(c[i] for c in key_cols)
+        v = tuple(c[i] for c in val_cols)
+        if k in acc:
+            acc[k] = cfn(acc[k], v)
+        else:
+            acc[k] = v
+            order.append(k)
+    try:
+        order.sort()
+    except TypeError:
+        pass  # incomparable key types: emit in insertion order
+
+    def column(vals, like):
+        if np.asarray(like).dtype == np.dtype(object):
+            return obj_col(vals)
+        return np.asarray(vals, dtype=np.asarray(like).dtype)
+
+    keys_out = [column([k[j] for k in order], c)
+                for j, c in enumerate(key_cols)]
+    vals_out = [column([acc[k][j] for k in order], val_cols[j])
+                for j in range(nvals)]
+    return keys_out, vals_out

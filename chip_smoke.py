@@ -57,6 +57,16 @@ input of 2**20 rows with a 4096-row group (capacity 4096).
 Each checks every list against numpy, in input order, and prints the
 decode seconds beside the wall.
 
+Phases 16-17 drive the local executor (``LocalExecutor()``, task
+threads, the host tier): 16, ``local-reduce``, phase 3's count as
+``wordcount_ids(4, keys, 2**20)``, its shards bit-equal to phase 3's,
+K1 held against its plain version at the path's frame shape and
+launched once a producer frame; 17, ``wordcount``, the JAX package's
+word count (ScanReader, host Flatmap and Map, a Reduce over str keys)
+over a generated corpus of 2**21 Zipf-like words, checked against
+collections.Counter, with the host share (the wall's part with the
+device idle, from one profiled run).
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -861,8 +871,14 @@ def phase3_slice(card: str) -> dict:
     # The counted run: the process's first run of the main path, whose
     # executor runs the probe kernel (cached per process after it).
     ck.reset_launches()
-    check_counts(run_count())
+    res = run_count()
     launches = dict(ck.LAUNCHES)
+    check_counts(res)
+    shards = bs.result_shard_rows(res)  # host copies, for phase 16
+    # Free the counted run's result (and its session's reference
+    # cycles) before the peak is reset, as each warm run's is.
+    del res
+    gc.collect()
     for name in PATH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the main path")
@@ -948,7 +964,8 @@ def phase3_slice(card: str) -> dict:
         f"{card}")
     return dict(launches=launches, wall_s=wall, walls_s=walls, rows=n,
                 rows_per_s=n / wall, maxmin_wall_s=wall2,
-                maxmin_walls_s=walls2, maxmin_rows=n2, peak_gib=peak)
+                maxmin_walls_s=walls2, maxmin_rows=n2, peak_gib=peak,
+                shards=shards)
 
 
 def drive(phase: str, label: str, make_slice, check, need, rows: int,
@@ -1809,6 +1826,194 @@ def phase15_cogroup_hotkey(card: str) -> dict:
         len(keys), card, 4096)
 
 
+def phase16_local_reduce(card: str, mesh_shards) -> dict:
+    """local-reduce: phase 3's count through the local executor,
+    ``Session(executor=LocalExecutor()).run(wordcount_ids(4, keys,
+    2**20))`` (2**25 keys uniform over 2**20): every row against
+    np.bincount and in the shard K1 names, the shards bit-equal to phase
+    3's (``mesh_shards``), K1 held against its plain version at this
+    path's frame shape (one Const shard of 2**23 rows, 4 partitions, no
+    mask) and launched once a producer frame in the counted run."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.models.wordcount import wordcount_ids
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S = 4
+    keys, _ = _reduce_wave_input()
+    check = _count_check(keys)
+    frame_keys = torch.from_numpy(keys[: len(keys) // S]).cuda()
+    got, _ = ck.hash_partition([frame_keys], S, 0, with_counts=False)
+    want, _ = ck.hash_partition_plain([frame_keys], S, 0, False, None)
+    k1_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if k1_err:
+        raise AssertionError(f"local-reduce: K1 differs from its plain "
+                             f"version at n = {len(frame_keys)}, {S} parts")
+    del frame_keys, got, want
+
+    def run():
+        res = bs.Session(executor=bs.LocalExecutor()).run(
+            wordcount_ids(S, keys, 1 << 20))
+        for shard in range(S):
+            list(res.reader(shard, ()))
+        return res
+
+    ck.reset_launches()
+    res = run()
+    launches = dict(ck.LAUNCHES)
+    if launches["hash_partition"] != S:
+        raise AssertionError(f"local-reduce: K1 launched "
+                             f"{launches['hash_partition']} times, not one "
+                             f"a producer frame ({S})")
+    shards = bs.result_shard_rows(res)
+    check(shards, S)
+    _same_rows(shards, mesh_shards, "local-reduce against phase 3")
+    del res, shards
+    walls, peaks = [], []
+    for _ in range(WARM_RUNS):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run()
+        walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        check(bs.result_shard_rows(res), S)
+        del res
+    gc.collect()
+    wall = statistics.median(walls)
+    n = len(keys)
+    log(f"phase 16: local-reduce {n} rows, S={S}, LocalExecutor: warm wall "
+        f"{wall:.4f} s (median of {WARM_RUNS}: "
+        f"{', '.join(f'{w:.4f}' for w in walls)}), {n / wall:.1f} rows/s, "
+        f"peak device memory {max(peaks):.3f} GiB, launches {launches} "
+        f"(first run), K1 at the frame shape max_abs_err {k1_err}; shards "
+        f"equal phase 3's; on {card}")
+    return dict(launches=launches, wall_s=wall, walls_s=walls, rows=n,
+                rows_per_s=n / wall, peak_gib=max(peaks), k1_err=k1_err)
+
+
+#: Phase 17's corpus: lines of words drawn from a vocabulary, Zipf-like
+#: (word i with probability proportional to 1 / (i + 1)).
+WC_LINES, WC_WORDS_A_LINE, WC_VOCAB = 1 << 18, 8, 1 << 16
+
+
+def wordcount_corpus(path: str, seed: int = 17) -> list:
+    """Write phase 17's corpus to ``path``; returns its words in order."""
+    rng = np.random.RandomState(seed)
+    vocab = np.array([f"w{i:04x}" for i in range(WC_VOCAB)], dtype=object)
+    p = 1.0 / np.arange(1, WC_VOCAB + 1)
+    ids = rng.choice(WC_VOCAB, size=WC_LINES * WC_WORDS_A_LINE,
+                     p=p / p.sum())
+    words = vocab[ids]
+    with open(path, "w") as fh:
+        for row in words.reshape(WC_LINES, WC_WORDS_A_LINE):
+            fh.write(" ".join(row) + "\n")
+    return list(words)
+
+
+def _device_busy_s(fn) -> tuple:
+    """``fn()`` once under torch.profiler (device activity only):
+    (wall s, device busy s or None when no device time was recorded).
+    A one-element fill after ``fn`` is the profiler's witness (a few
+    microseconds of busy time), so a path that leaves the device idle
+    reads as nearly all host, not as unmeasured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    if not len(events):
+        return wall, None
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    us = sum(getattr(e, attr) for e in events)
+    return wall, (us / 1e6 if us else None)
+
+
+def phase17_wordcount(card: str) -> dict:
+    """wordcount: ``models.wordcount.wordcount(4, path)`` (ScanReader,
+    host Flatmap and Map, a Reduce over str keys) through
+    ``LocalExecutor()`` over a generated corpus of 2**18 lines of 8
+    words (2**21 words over 2**16 distinct): the counts against
+    collections.Counter, each word in the shard its routing hash names;
+    one counted run, three warm runs, and one profiled run for the
+    host share (the wall's part with the device idle)."""
+    import collections
+    import tempfile
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.frame import ops as frame_ops
+    from bigslice_tpu_torch.models.wordcount import wordcount
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S, runs = 4, 3
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-wordcount-")
+    path = os.path.join(tmp, "corpus.txt")
+    try:
+        words = wordcount_corpus(path)
+        want = collections.Counter(words)
+
+        def run():
+            res = bs.Session(executor=bs.LocalExecutor()).run(
+                wordcount(S, path))
+            for shard in range(S):
+                list(res.reader(shard, ()))
+            return res
+
+        def check(res) -> None:
+            got = {}
+            for shard, cols in enumerate(bs.result_shard_rows(res)):
+                w, c = cols
+                if len(w):
+                    ids = frame_ops.hash_host_column(w) % np.uint32(S)
+                    if not bool((ids == shard).all()):
+                        raise AssertionError(f"wordcount: shard {shard} "
+                                             f"holds another's words")
+                got.update(zip(w.tolist(), c.tolist()))
+            if got != want:
+                raise AssertionError("wordcount: counts differ from "
+                                     "collections.Counter")
+
+        ck.reset_launches()
+        res = run()
+        launches = dict(ck.LAUNCHES)
+        check(res)
+        del res
+        walls = []
+        for _ in range(runs):
+            gc.collect()
+            t0 = time.perf_counter()
+            res = run()
+            walls.append(time.perf_counter() - t0)
+            check(res)
+            del res
+        pwall, busy = _device_busy_s(run)
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = statistics.median(walls)
+    n = len(words)
+    host_share = None if busy is None else 1 - busy / pwall
+    log(f"phase 17: wordcount {n} words ({len(want)} distinct), S={S}, "
+        f"LocalExecutor: warm wall {wall:.4f} s (median of {runs}: "
+        f"{', '.join(f'{w:.4f}' for w in walls)}), {n / wall:.1f} words/s; "
+        f"profiled run {pwall:.4f} s, device busy "
+        + (f"{busy:.4f} s, host share {host_share:.4f}" if busy is not None
+           else "not measured")
+        + f"; launches {launches} (first run), on {card}")
+    return dict(launches=launches, wall_s=wall, walls_s=walls, rows=n,
+                rows_per_s=n / wall, profiled_wall_s=pwall,
+                device_busy_s=busy, host_share=host_share)
+
+
 def _spill_stats(ex) -> dict:
     """What the first run spilled: boundaries, bytes, rows and
     partitions written, and the plans chosen."""
@@ -1844,6 +2049,7 @@ def main() -> int:
     phase1_build()
     kern = phase2_kernels(device)
     slice_ = phase3_slice(card)
+    mesh_shards = slice_.pop("shards")
     paths = {"reduce-wave": slice_,
              "lww-wave": phase4_lww(card),
              "float-key": phase5_float_key(card),
@@ -1857,6 +2063,9 @@ def main() -> int:
     paths["spill"] = phase13_spill(card)
     paths["cogroup-join"] = phase14_cogroup_join(card)
     paths["cogroup-hotkey"] = phase15_cogroup_hotkey(card)
+    paths["local-reduce"] = phase16_local_reduce(card, mesh_shards)
+    del mesh_shards
+    paths["wordcount"] = phase17_wordcount(card)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

@@ -71,6 +71,20 @@ def test_slice_runs_without_jax_or_the_jax_package():
         assert len(rows) == len(np.union1d(ak, hot))
         assert sum(len(a) for _, a, _ in rows) == len(ak)
         assert sess.executor.cogroup_caps
+        # The local executor and the host tier: word count end to end
+        # (ScanReader, host Flatmap and Map, a Reduce over str keys),
+        # and the device-key Reduce.
+        import tempfile
+        from bigslice_tpu_torch.models.wordcount import wordcount
+        path = os.path.join(tempfile.mkdtemp(), "corpus.txt")
+        with open(path, "w") as fh:
+            fh.write("the quick brown fox\\njumps over the lazy dog\\nthe fox\\n")
+        local = bs.Session(executor=bs.LocalExecutor(device="cpu"))
+        counts = dict(local.run(wordcount(3, path)).rows())
+        assert counts["the"] == 3 and counts["fox"] == 2 and len(counts) == 8
+        res = local.run(bs.Reduce(bs.Const(4, keys, np.ones(1000, np.int32)),
+                                  lambda a, b: a + b))
+        assert len(res.rows()) == 37
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
@@ -91,6 +105,33 @@ def test_entry_points_raise_without_a_gpu():
         bst.Session()
 
 
+def test_local_executor_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bst.LocalExecutor()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bst.Session(parallelism=2)
+
+
+def test_mesh_executor_refuses_a_str_key_reduce():
+    """Host keys typecheck for a Reduce (the local executor combines
+    them on the host); the device executor refuses them by name."""
+    import numpy as np
+
+    from bigslice_tpu_torch.exec.task import TaskError
+    from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
+
+    words = np.array(["a", "b", "a", "c"] * 8, dtype=object)
+    r = bst.Reduce(bst.Const(2, words, np.ones(32, np.int32)),
+                   lambda a, b: a + b)
+    sess = bst.Session(executor=bst.MeshExecutor(device="cpu"))
+    with pytest.raises(TaskError) as ei:
+        sess.run(r)
+    assert isinstance(ei.value.cause, LoweringNotPorted)
+    assert "host-tier columns" in str(ei.value.cause)
+
+
 def test_cuda_executor_raises_without_the_kernels(monkeypatch):
     """A card with no buildable kernels (no nvcc, or a probe that
     returns wrong values) fails at construction, not mid-run."""
@@ -102,6 +143,8 @@ def test_cuda_executor_raises_without_the_kernels(monkeypatch):
         bst.MeshExecutor()
     with pytest.raises(RuntimeError, match="kernels are not available"):
         bst.Session()
+    with pytest.raises(RuntimeError, match="kernels are not available"):
+        bst.LocalExecutor()
 
 
 def test_kernel_wrappers_take_plain_versions_only_on_cpu():
@@ -187,3 +230,18 @@ def test_cogroup_over_vector_inputs_is_refused():
     vec = bst.Const(2, k, np.zeros((16, 3), np.int32))
     msg = _cogroup_refusal(bst.Cogroup(vec))
     assert msg.startswith("cogroup@") and "host or vector columns" in msg
+
+
+def test_machine_combined_cogroup_group_is_refused():
+    """The device Cogroup refuses a machine-combined group by name (its
+    shared combiner buffer is the local executor's)."""
+    from bigslice_tpu_torch.exec.task import TaskError
+    from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
+
+    cg = bst.Cogroup(_keyed_const(), _keyed_const())
+    sess = bst.Session(executor=bst.MeshExecutor(device="cpu"),
+                       machine_combiners=True)
+    with pytest.raises(TaskError) as ei:
+        sess.run(bst.Reduce(cg, lambda a, b: a))
+    assert isinstance(ei.value.cause, LoweringNotPorted)
+    assert "machine-combined" in str(ei.value.cause)

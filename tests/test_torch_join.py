@@ -434,12 +434,23 @@ def test_join_typechecks():
     with pytest.raises(TypecheckError,
                        match="left input must have value columns"):
         bst.JoinAggregate(no_vals, a, lambda x, y: x, lambda x, y: x)
-    # Host keys hash and compare on the JAX package's host tier, which
-    # the port does not have.
+    # A vector key column neither hashes nor compares.
+    vec = bst.Const(2, np.zeros((4, 3), np.int32), np.ones(4, np.int32))
+    with pytest.raises(TypecheckError, match="is not joinable"):
+        bst.JoinAggregate(vec, vec, lambda x, y: x, lambda x, y: x)
+    # Host keys hash and compare on the host tier, as in the JAX
+    # package: the join typechecks, the local executor runs it
+    # (tests/test_torch_local.py) and the device executor refuses it by
+    # name.
+    from bigslice_tpu_torch.exec.task import TaskError
+    from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
+
     host = bst.Const(2, np.array(list("abcd"), dtype=object),
                      np.ones(4, np.int32))
-    with pytest.raises(TypecheckError, match="is not joinable"):
-        bst.JoinAggregate(host, host, lambda x, y: x, lambda x, y: x)
+    j = bst.JoinAggregate(host, host, lambda x, y: x, lambda x, y: x)
+    with pytest.raises(TaskError) as ei:
+        bst.Session(executor=bst.MeshExecutor(device="cpu")).run(j)
+    assert isinstance(ei.value.cause, LoweringNotPorted)
 
 
 def test_join_schema_and_shards():

@@ -617,3 +617,78 @@ def test_cogroup_on_the_card_matches_the_cpu(dev):
                 np.testing.assert_array_equal(
                     np.asarray(gl).view(np.int32),
                     np.asarray(wl).view(np.int32))
+
+
+def _count_input(n=1 << 20, span=1 << 16, seed=11):
+    keys = np.random.RandomState(seed).randint(0, span, n).astype(np.int32)
+    return keys, np.bincount(keys, minlength=span)
+
+
+def test_local_reduce_on_the_card_matches_numpy(dev):
+    """Phase 16's path at 2**20 rows: LocalExecutor on the card routes
+    each producer frame through K1 (once a frame) and counts exactly."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.models.wordcount import wordcount_ids
+
+    keys, bc = _count_input()
+    cuda_kernels.reset_launches()
+    ex = bs.LocalExecutor()
+    res = bs.Session(executor=ex).run(wordcount_ids(4, keys, 1 << 16))
+    shards = bs.result_shard_rows(res)
+    assert cuda_kernels.LAUNCHES["hash_partition"] == 4
+    assert cuda_kernels.LAUNCHES["hash_aggregate"] == 0
+    got = {int(k): int(v) for s in shards for k, v in zip(*s)}
+    assert got == {int(k): int(bc[k]) for k in np.nonzero(bc)[0]}
+    for shard, (k, _) in enumerate(shards):
+        ids, _ = cuda_kernels.hash_partition_plain([torch.from_numpy(k)], 4)
+        assert bool((ids == shard).all())
+    # The outputs stay on the card.
+    frames = list(ex.reader(res.tasks[0], 0))
+    assert all(c.is_cuda for f in frames for c in f.cols)
+
+
+def test_local_reduce_procs_1_and_8_agree_and_equal_the_mesh(dev):
+    """Task threads launch on the card concurrently: eight at once give
+    the rows of one at a time, and the device executor's shards."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.models.wordcount import wordcount_ids
+
+    keys, _ = _count_input(seed=12)
+    runs = [bs.result_shard_rows(bs.Session(executor=ex).run(
+        wordcount_ids(8, keys, 1 << 16)))
+        for ex in (bs.LocalExecutor(procs=1), bs.LocalExecutor(procs=8),
+                   bs.MeshExecutor())]
+    for other in runs[1:]:
+        for g, w in zip(other, runs[0]):
+            for gc, wc in zip(g, w):
+                np.testing.assert_array_equal(gc, wc)
+
+
+def test_local_host_tier_on_the_card(dev, tmp_path):
+    """Word count (host functions, str keys) and a host Map feeding a
+    device Reduce on the card equal the CPU's local executor."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.models.wordcount import wordcount
+
+    rng = np.random.RandomState(13)
+    path = tmp_path / "corpus.txt"
+    path.write_text("".join(
+        " ".join(f"w{j % 500}" for j in rng.zipf(1.3, 8)) + "\n"
+        for _ in range(4000)))
+    keys = rng.randint(0, 5000, 50000).astype(np.int32)
+
+    def slices():
+        m = bs.Map(bs.Const(4, keys, keys), lambda a, b: (int(a) % 97, 1),
+                   out=[np.int32, np.int32])
+        return [wordcount(4, str(path)),
+                bs.Reduce(m, lambda a, b: a + b)]
+
+    for device in ("cuda", "cpu"):
+        sess = bs.Session(executor=bs.LocalExecutor(device=device))
+        got = [bs.result_shard_rows(sess.run(s)) for s in slices()]
+        if device == "cuda":
+            on_card = got
+    for a, b in zip(on_card, got):
+        for g, w in zip(a, b):
+            for gc, wc in zip(g, w):
+                assert list(gc) == list(wc)

@@ -4,6 +4,8 @@
         [--path reduce-wave|lww-wave|join|join-sort|groupby|
                 cogroup-join|cogroup-hotkey]
         [--prefetch-depth N] [--spill] [--out DIR]
+    python3 tools_torch_profile.py --executor local
+        [--path reduce-wave|wordcount] [--procs N] [--out DIR]
 
 ``reduce-wave`` (the default) runs Session().run(Reduce(Const(4, keys,
 ones), add)) at the shape of the JAX package's reduce-wave scenario
@@ -43,6 +45,21 @@ once to warm up, then:
    the device time of each hand-written kernel's wrapper (K2's passes
    summed) and of torch's sort kernels.
 
+With ``--executor local`` the path runs through ``LocalExecutor()``
+(``--procs`` task threads, default its own) instead: ``reduce-wave`` is
+chip_smoke.py's phase 16 (``wordcount_ids(4, keys, 2**20)``), and
+``wordcount`` its phase 17 (the word count over the generated corpus of
+2**21 words). The layer breakdown is then the local executor's, each
+layer's own time (a layer nested in another is subtracted from it):
+placement (``Frame.to``: host-to-device copies), map-side routing
+(``Frame.partition_ids``, K1 for device keys, the host CRC for str
+keys), ``partition_frame``, the map-side pre-combine and the
+reduce-side combine (``FrameCombiner.combine`` in a producer task and in
+a consumer task), the host functions (the readers of host-tier Map and
+Flatmap), the store (``put`` and ``read``) and the readback. With
+several task threads the layers overlap and their sum exceeds the
+wall; ``--procs 1`` gives a serial breakdown.
+
 Prints all three, with the card's name and power limit, and writes the
 profiler table to DIR/profile.txt (default profile_out). Needs a GPU.
 """
@@ -69,7 +86,10 @@ def main() -> int:
     ap.add_argument("--path", default="reduce-wave",
                     choices=("reduce-wave", "lww-wave", "join",
                              "join-sort", "groupby", "cogroup-join",
-                             "cogroup-hotkey"))
+                             "cogroup-hotkey", "wordcount"))
+    ap.add_argument("--executor", default="mesh", choices=("mesh", "local"))
+    ap.add_argument("--procs", type=int, default=None,
+                    help="the local executor's task threads")
     ap.add_argument("--prefetch-depth", type=int, default=1)
     ap.add_argument("--spill", action="store_true",
                     help="run every shuffle boundary through the spill "
@@ -89,12 +109,31 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     n, S = 1 << 25, 4
     rng = np.random.RandomState(42)
+    if args.path == "wordcount" and args.executor != "local":
+        ap.error("--path wordcount needs --executor local")
+    tmp = None
     if args.path == "reduce-wave":
+        from bigslice_tpu_torch.models.wordcount import wordcount_ids
+
         keys = rng.randint(0, 1 << 20, n).astype(np.int32)
         ones = np.ones(n, np.int32)
 
         def make():
+            if args.executor == "local":
+                return wordcount_ids(S, keys, 1 << 20)
             return bs.Reduce(bs.Const(S, keys, ones), lambda a, b: a + b)
+    elif args.path == "wordcount":
+        import tempfile
+
+        import chip_smoke
+        from bigslice_tpu_torch.models.wordcount import wordcount
+
+        tmp = tempfile.mkdtemp(prefix="profile-wordcount-")
+        corpus = os.path.join(tmp, "corpus.txt")
+        n = len(chip_smoke.wordcount_corpus(corpus))
+
+        def make():
+            return wordcount(S, corpus)
     elif args.path in ("join", "join-sort"):
         import chip_smoke
 
@@ -152,7 +191,10 @@ def main() -> int:
     executors = []
 
     def run():
-        ex = bs.MeshExecutor(prefetch_depth=args.prefetch_depth)
+        if args.executor == "local":
+            ex = bs.LocalExecutor(procs=args.procs)
+        else:
+            ex = bs.MeshExecutor(prefetch_depth=args.prefetch_depth)
         executors.append(ex)
         sess = bs.Session(executor=ex)
         res = sess.run(make())
@@ -162,6 +204,17 @@ def main() -> int:
 
     run()
     torch.cuda.synchronize()
+    if args.executor == "local":
+        setting = f"LocalExecutor, procs {executors[-1].procs}"
+        try:
+            local_layers(run, args.path, n, S, setting, card)
+            syncs_and_device_time(run, setting, card, args.out)
+        finally:
+            if tmp is not None:
+                import shutil
+
+                shutil.rmtree(tmp, ignore_errors=True)
+        return 0
     setting = (f"prefetch depth {args.prefetch_depth}"
                + (", spill exchange" if args.spill else ""))
 
@@ -230,6 +283,113 @@ def main() -> int:
     if executors[-1].cogroup_caps:
         print(f"  cogroup caps: {executors[-1].cogroup_caps}")
 
+    syncs_and_device_time(run, setting, card, args.out)
+    return 0
+
+
+def local_layers(run, path, n, S, setting, card) -> None:
+    """The local executor's layer breakdown of one ``run()``: each
+    layer's own time, synchronized at its ends, with the layers nested
+    in it subtracted."""
+    import threading
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec import local, store
+    from bigslice_tpu_torch.frame.frame import Frame
+    from bigslice_tpu_torch.ops import mapops
+    from bigslice_tpu_torch.ops.reduce import FrameCombiner
+    from bigslice_tpu_torch.ops.source import ScanReader
+
+    spent = collections.defaultdict(float)
+    calls = collections.Counter()
+    tls = threading.local()
+
+    def combine_label(_args):
+        task = getattr(tls, "task", None)
+        if task is not None and task.num_partition > 1:
+            return "map-side pre-combine (producer tasks)"
+        return "reduce-side combine (consumer tasks)"
+
+    L = local.LocalExecutor
+    layers = [
+        (L, "_execute", "task bodies (every layer below)"),
+        (Frame, "to", "placement (Frame.to, host to device)"),
+        (Frame, "partition_ids", "map-side routing (K1 / host CRC)"),
+        (local, "partition_frame", "partition_frame (sort, split)"),
+        (FrameCombiner, "combine", combine_label),
+        (mapops.Map, "reader", "host Map (per row)"),
+        (mapops.Flatmap, "_read_host", "host Flatmap (per row)"),
+        (ScanReader, "reader", "source (ScanReader lines)"),
+        (store.MemoryStore, "put", "store put"),
+        (store.MemoryStore, "read", "store read"),
+        (bs.Result, "reader", "result readback"),
+    ]
+    generators = {(mapops.Map, "reader"), (mapops.Flatmap, "_read_host"),
+                  (ScanReader, "reader"), (bs.Result, "reader")}
+    originals = {}
+
+    def timed_call(fn, label, a, k):
+        if callable(label):
+            label = label(a)
+        stack = tls.__dict__.setdefault("stack", [])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stack.append(0.0)
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            nested = stack.pop()
+            spent[label] += dt - nested
+            calls[label] += 1
+            if stack:
+                stack[-1] += dt
+
+    for owner, name, label in layers:
+        orig = getattr(owner, name)
+        originals[owner, name] = orig
+        if (owner, name) in generators:
+            def wrap(*a, _orig=orig, _label=label, **k):
+                gen = _orig(*a, **k)
+
+                def stepped():
+                    while True:
+                        try:
+                            f = timed_call(next, _label, (gen,), {})
+                        except StopIteration:
+                            return
+                        yield f
+                return stepped()
+        elif name == "_execute":
+            def wrap(self, task, _orig=orig, _label=label):
+                tls.task = task
+                try:
+                    return timed_call(_orig, _label, (self, task), {})
+                finally:
+                    tls.task = None
+        else:
+            def wrap(*a, _orig=orig, _label=label, **k):
+                return timed_call(_orig, _label, a, k)
+        setattr(owner, name, functools.wraps(orig)(wrap))
+    try:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    finally:
+        for (owner, name), orig in originals.items():
+            setattr(owner, name, orig)
+    print(f"layer breakdown, {path} {n} rows, S={S}, {setting}, on {card}: "
+          f"wall {wall:.4f} s (each layer synchronized; own time, nested "
+          f"layers subtracted)")
+    for label in sorted(spent, key=lambda k: -spent[k]):
+        print(f"  {label:45s} {spent[label]:.4f} s in {calls[label]} "
+              f"call(s)")
+
+
+def syncs_and_device_time(run, setting, card, out) -> None:
+    """Host syncs of one run (torch's sync debug mode) and device time
+    by kernel of one run under torch.profiler."""
     # 2. Host syncs: every operation that waits for the device warns
     # under the sync debug mode.
     torch.cuda.synchronize()
@@ -265,8 +425,8 @@ def main() -> int:
     dev_us = sum(getattr(e, attr) for e in events)
     table = events.table(sort_by=attr,
                          row_limit=25)
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile.txt"), "w") as fh:
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "profile.txt"), "w") as fh:
         fh.write(f"{card}\n{table}\n")
     top = sorted(events, key=lambda e: -getattr(e, attr))[:12]
     print(f"profiled run: wall {pwall:.4f} s, device busy "
@@ -287,7 +447,6 @@ def main() -> int:
               + ", ".join(f"{e.key.split('(')[0]} {e.count}x "
                           f"{getattr(e, attr) / 1e3:.3f} ms" for e in mine))
     print(f"card: {card}")
-    return 0
 
 
 if __name__ == "__main__":
