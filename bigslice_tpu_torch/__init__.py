@@ -17,7 +17,18 @@ local executor (``LocalExecutor``, also on ``cuda`` by default) runs all
 of these shard by shard on task threads, and the host tier besides:
 host functions, host (string) keys and columns, frame-level
 partitioners and the sources ``ScanReader``, ``ReaderFunc`` and
-``WriterFunc``::
+``WriterFunc``.
+
+The rest of the user API: ``Fold`` (a keyed fold whose fn need not be
+associative; a device-tier one is a stage of the device executor's
+wave program, as many steps as its longest group), ``Reshard`` (a
+shuffle to another shard count), ``Prefixed`` / ``Unwrap`` (a wider key
+prefix), and on the local executor ``Scan`` (a per-shard sink) and
+``MapBatches`` (a host function over whole frames). Computations may
+be rooted in registered functions (``@func``, ``Session.run(func,
+*args)``; ``@func(exclusive=True)`` takes the session alone), and
+slices carry pragmas (``Procs``, ``Exclusive``, ``Materialize``) to
+their tasks::
 
     import bigslice_tpu_torch as bs
     s = bs.Map(bs.Const(4, keys, vals), lambda k, v: (k & 0xFFFF, v))
@@ -31,20 +42,29 @@ partitioners and the sources ``ScanReader``, ``ReaderFunc`` and
     from bigslice_tpu_torch.models.wordcount import wordcount
     res = bs.Session(executor=bs.LocalExecutor()).run(
         wordcount(4, "corpus.txt"))
+    f = bs.Fold(bs.Const(4, keys, vals), lambda acc, v: acc * 31 + v,
+                init=7)
+    from bigslice_tpu_torch.models.maxint import int_max_func
+    res = bs.Session().run(int_max_func, 4, keys, vals)
 """
 
 from bigslice_tpu_torch.exec.local import LocalExecutor
 from bigslice_tpu_torch.exec.meshexec import MeshExecutor
 from bigslice_tpu_torch.exec.session import Result, Session
 from bigslice_tpu_torch.frame.frame import Frame, result_shard_rows
-from bigslice_tpu_torch.ops.base import Dep, Slice
+from bigslice_tpu_torch.ops.base import (Dep, Exclusive, Materialize,
+                                         Pragma, Procs, Slice)
 from bigslice_tpu_torch.ops.cogroup import Cogroup
 from bigslice_tpu_torch.ops.const import Const
+from bigslice_tpu_torch.ops.fold import Fold
+from bigslice_tpu_torch.ops.func import Func, Invocation, func
 from bigslice_tpu_torch.ops.groupby import GroupByKey
 from bigslice_tpu_torch.ops.join import JoinAggregate
-from bigslice_tpu_torch.ops.mapops import Filter, Flatmap, Head, Map
+from bigslice_tpu_torch.ops.mapops import (Filter, Flatmap, Head, Map,
+                                           MapBatches, Prefixed, Scan,
+                                           Unwrap)
 from bigslice_tpu_torch.ops.reduce import Reduce
-from bigslice_tpu_torch.ops.reshuffle import Repartition, Reshuffle
+from bigslice_tpu_torch.ops.reshuffle import Repartition, Reshard, Reshuffle
 from bigslice_tpu_torch.ops.source import ReaderFunc, ScanReader, WriterFunc
 from bigslice_tpu_torch.slicetype import ColType, Schema
 
@@ -53,24 +73,37 @@ __all__ = [
     "Cogroup",
     "Const",
     "Dep",
+    "Exclusive",
     "Filter",
     "Flatmap",
+    "Fold",
     "Frame",
+    "Func",
     "GroupByKey",
     "Head",
+    "Invocation",
     "JoinAggregate",
     "LocalExecutor",
     "Map",
+    "MapBatches",
+    "Materialize",
     "MeshExecutor",
+    "Pragma",
+    "Prefixed",
+    "Procs",
     "ReaderFunc",
     "Reduce",
     "Repartition",
+    "Reshard",
     "Reshuffle",
     "Result",
+    "Scan",
     "ScanReader",
     "Schema",
     "Session",
     "Slice",
+    "Unwrap",
     "WriterFunc",
+    "func",
     "result_shard_rows",
 ]

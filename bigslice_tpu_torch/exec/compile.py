@@ -30,21 +30,22 @@ from bigslice_tpu_torch.exec.task import (
     TaskName,
     iter_tasks,
 )
-from bigslice_tpu_torch.ops.base import Slice
+from bigslice_tpu_torch.ops.base import Slice, unwrap
 
 
 def pipeline(slice_: Slice) -> List[Slice]:
     """The fusable chain starting at slice_ (outermost first); it stops
-    at a ``Result``, whose tasks are reused."""
+    at a ``Result`` (also under ``Prefixed``), whose tasks are reused,
+    and before a ``Materialize``d slice, whose output is stored."""
     out: List[Slice] = []
     while True:
-        if _is_result(slice_):
+        if _is_result(unwrap(slice_)):
             return out
         out.append(slice_)
         deps = slice_.deps()
         if len(deps) != 1:
             return out
-        if deps[0].shuffle:
+        if deps[0].shuffle or deps[0].slice.materialize:
             return out
         slice_ = deps[0].slice
 
@@ -100,7 +101,7 @@ class Compiler:
 
         chain = pipeline(slice_)
         if not chain:
-            tasks = self._compile_result(slice_, part)
+            tasks = self._compile_result(unwrap(slice_), slice_, part)
             self._memo[key] = tasks
             return tasks
         innermost = chain[-1]
@@ -163,6 +164,8 @@ class Compiler:
                 deps=deps,
                 partitioner=part,
                 schema=slice_.schema,
+                procs=slice_.procs,
+                exclusive=slice_.exclusive,
             )
             # Structural metadata for the executor, which runs all shards
             # of a fused chain as one op group.
@@ -178,9 +181,12 @@ class Compiler:
         self._memo[key] = tasks
         return tasks
 
-    def _compile_result(self, result, part: Partitioner) -> List[Task]:
+    def _compile_result(self, result, slice_: Slice,
+                        part: Partitioner) -> List[Task]:
         """Reuse a prior run's tasks; insert ``_shuffle`` adapter tasks
-        when the consumer needs them partitioned or combined."""
+        when the consumer needs them partitioned or combined. ``slice_``
+        is ``result`` or a ``Prefixed`` over it, whose schema the
+        adapters take."""
         prior = list(result.tasks)
         if part.num_partition == 1 and part.combiner is None:
             return prior
@@ -189,7 +195,7 @@ class Compiler:
         self._op_names[base_op] = seen + 1
         if seen:
             base_op = f"{base_op}~{seen}"
-        place_out = _device_output(part, result.schema)
+        place_out = _device_output(part, slice_.schema)
 
         def identity_do(dep_factories, place=None):
             reader = dep_factories[0]()
@@ -198,7 +204,7 @@ class Compiler:
         return [
             Task(name=TaskName(self.inv_index, base_op, shard, len(prior)),
                  do=identity_do, deps=[TaskDep((ptask,), 0)],
-                 partitioner=part, schema=result.schema)
+                 partitioner=part, schema=slice_.schema)
             for shard, ptask in enumerate(prior)
         ]
 
@@ -230,15 +236,19 @@ def _is_device_stage(s: Slice) -> bool:
 def _device_input(s: Slice, dep_index: int = 0) -> bool:
     """Does stage ``s`` consume its input ``dep_index`` on the device: a
     device Map/Filter/Flatmap, a device combine (Reduce, either side of
-    a JoinAggregate) or the device group (GroupByKey)? Every other
-    reader is a host consumer (Cogroup, host functions) or passes its
-    frames through (Reshuffle, Repartition, Head)."""
+    a JoinAggregate), a device Fold or the device group (GroupByKey)?
+    Every other reader is a host consumer (Cogroup, MapBatches, Scan,
+    host functions) or passes its frames through (Reshuffle, Reshard,
+    Repartition, Prefixed, Head)."""
+    from bigslice_tpu_torch.ops.fold import Fold
     from bigslice_tpu_torch.ops.groupby import GroupByKey
     from bigslice_tpu_torch.ops.join import JoinAggregate
     from bigslice_tpu_torch.ops.reduce import Reduce
 
     if isinstance(s, Reduce):
         return s.frame_combiner.device
+    if isinstance(s, Fold):
+        return s.device
     if isinstance(s, JoinAggregate):
         return s.frame_combiners[dep_index].device
     return isinstance(s, GroupByKey) or _is_device_stage(s)

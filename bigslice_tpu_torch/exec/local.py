@@ -1,9 +1,10 @@
 """The local executor: in-process task execution, one task a shard.
 
 Tasks run on a bounded pool of at most ``procs`` worker threads, one
-task a worker; outputs land in a partitioned store (``MemoryStore``
-by default); map-side combiners run as each producer frame is routed
-and drain at task end.
+task a worker, and each holds permits of ``procs`` while it runs: its
+``Procs`` pragma's count, or all of them when ``Exclusive``. Outputs
+land in a partitioned store (``MemoryStore`` by default); map-side
+combiners run as each producer frame is routed and drain at task end.
 
 Each task body is its chain's readers (``exec/compile._make_do``), run
 with this executor's placement rule: a frame's device columns move to
@@ -75,6 +76,28 @@ def partition_frame(frame: Frame, ids, nparts: int) -> List[Frame]:
             for p in range(nparts)]
 
 
+class _Limiter:
+    """Counting permits; a request for more than the capacity takes the
+    whole capacity."""
+
+    def __init__(self, n: int):
+        self.capacity = n
+        self._avail = n
+        self._cond = threading.Condition()
+
+    def acquire(self, n: int) -> None:
+        n = min(n, self.capacity)
+        with self._cond:
+            self._cond.wait_for(lambda: self._avail >= n)
+            self._avail -= n
+
+    def release(self, n: int) -> None:
+        n = min(n, self.capacity)
+        with self._cond:
+            self._avail += n
+            self._cond.notify_all()
+
+
 class LocalExecutor:
     """Runs tasks on worker threads of this process. ``device`` defaults
     to ``cuda``: construction raises when there is no GPU, and otherwise
@@ -107,6 +130,7 @@ class LocalExecutor:
                     "values)")
         self.device = device
         self.procs = procs or os.cpu_count() or 4
+        self._limiter = _Limiter(self.procs)
         self.store = store or store_mod.MemoryStore()
         # The bounded worker pool: at most ``procs`` workers, made on
         # demand, reaped when idle. A task body must not evaluate other
@@ -217,9 +241,11 @@ class LocalExecutor:
         return factory
 
     def _run(self, task: Task) -> None:
-        if not task.transition_if(TaskState.WAITING, TaskState.RUNNING):
-            return  # another evaluation claimed it
+        permits = self._limiter.capacity if task.exclusive else task.procs
+        self._limiter.acquire(permits)
         try:
+            if not task.transition_if(TaskState.WAITING, TaskState.RUNNING):
+                return  # another evaluation claimed it
             self._execute(task)
             task.mark_ok()
         except DepLost as e:
@@ -230,6 +256,8 @@ class LocalExecutor:
             task.mark_lost(e)
         except Exception as e:  # noqa: BLE001 — settles as the task's error
             task.set_state(TaskState.ERR, e)
+        finally:
+            self._limiter.release(permits)
 
     def _execute(self, task: Task) -> None:
         spillers: List[Optional[object]] = []

@@ -34,6 +34,11 @@ row validity carried as a bool mask and one compaction at the end:
   of values and its true count (``groupby.make_group_by_key_masked``).
   Vector columns ([n, capacity]) ride every later stage, the merge, the
   subid split and the readback like scalar ones;
+- ``fold`` (a device-tier Fold): the stable sort by key and the
+  sequential fold of each key's rows in arrival order, one step a rank
+  of every group at once (``segment.make_sequential_fold_masked``), so
+  as many steps as the wave's longest group; a Fold's input shuffle has
+  no map-side combine;
 - ``cogroup`` (a Cogroup, the only stage of its chain): one tagged sort
   over the union of its N inputs' shuffled rows and a rank-scatter into
   per-input [keys, G] matrices with exact counts
@@ -73,9 +78,10 @@ consumers stream them back through the arena.
 
 What the JAX package runs elsewhere raises here, naming the op
 (``LoweringNotPorted``): host-tier functions and columns, the dense
-join (``dense_keys=``), a Cogroup fused with other stages, feeding a
-shuffle or over host or vector inputs, and operators that are not
-ported. No partial result is returned.
+join and Fold (``dense_keys=``), a Cogroup fused with other stages,
+feeding a shuffle or over host or vector inputs, and operators that are
+not ported (``Scan``, ``MapBatches``, the sources): those run on the
+local executor. No partial result is returned.
 """
 
 from __future__ import annotations
@@ -98,11 +104,14 @@ from bigslice_tpu_torch.exec.task import Task, TaskName, TaskState
 from bigslice_tpu_torch.frame.frame import Frame
 from bigslice_tpu_torch.ops.cogroup import Cogroup
 from bigslice_tpu_torch.ops.const import Const
+from bigslice_tpu_torch.ops.fold import Fold
 from bigslice_tpu_torch.ops.groupby import GroupByKey
 from bigslice_tpu_torch.ops.join import JoinAggregate
-from bigslice_tpu_torch.ops.mapops import Filter, Flatmap, Head, Map
+from bigslice_tpu_torch.ops.mapops import (Filter, Flatmap, Head, Map,
+                                           _PrefixedSlice)
 from bigslice_tpu_torch.ops.reduce import LoweringNotPorted, Reduce
-from bigslice_tpu_torch.ops.reshuffle import Reshuffle, RowPartitioner
+from bigslice_tpu_torch.ops.reshuffle import (Reshard, Reshuffle,
+                                              RowPartitioner)
 from bigslice_tpu_torch.parallel import cogroup as cogroup_mod
 from bigslice_tpu_torch.parallel import groupby as groupby_mod
 from bigslice_tpu_torch.parallel import hashagg, segment
@@ -117,7 +126,8 @@ __all__ = ["COGROUP_DEFAULT_CAP", "DeviceGroupOutput", "LoweringNotPorted",
 
 #: The operators a task chain may hold on this executor.
 _DEVICE_OPS = (Const, Map, Filter, Flatmap, Head, Reduce, Reshuffle,
-               JoinAggregate, GroupByKey, Cogroup)
+               Reshard, _PrefixedSlice, Fold, JoinAggregate, GroupByKey,
+               Cogroup)
 
 #: The least group capacity a Cogroup op records (the JAX package's
 #: starting capacity, which its ladder grows).
@@ -478,8 +488,8 @@ class MeshExecutor:
     def _check_lowering(self, task: Task) -> None:
         """Raise ``LoweringNotPorted`` naming the op when this package
         cannot run ``task`` on the device: an operator that is not
-        ported, a host-tier function, host columns, or a join that
-        declares ``dense_keys=``."""
+        ported, a host-tier function (a Fold's included), host columns,
+        or a join or Fold that declares ``dense_keys=``."""
         op = task.name.op
         if task.chain is None:
             raise LoweringNotPorted(f"{op}: task has no slice chain")
@@ -494,15 +504,17 @@ class MeshExecutor:
             fcs = ((s.frame_combiner,) if isinstance(s, Reduce)
                    else s.frame_combiners if isinstance(s, JoinAggregate)
                    else ())
-            if getattr(s, "mode", "device") != "device" or not all(
-                    fc.device for fc in fcs):
+            if (getattr(s, "mode", "device") != "device"
+                    or (isinstance(s, Fold) and not s.device)
+                    or not all(fc.device for fc in fcs)):
                 raise LoweringNotPorted(
                     f"{op}: {name} runs a host-tier function: the host "
                     f"tier is not ported")
-            if isinstance(s, JoinAggregate) and s.dense_keys is not None:
+            if (isinstance(s, (JoinAggregate, Fold))
+                    and s.dense_keys is not None):
                 raise LoweringNotPorted(
-                    f"{op}: JoinAggregate declares dense_keys=: the dense "
-                    f"join is not ported")
+                    f"{op}: {name} declares dense_keys=: the dense "
+                    f"lowering is not ported")
             if not all(ct.is_device for ct in s.schema):
                 raise LoweringNotPorted(
                     f"{op}: host-tier columns: the host tier is not "
@@ -992,8 +1004,10 @@ class MeshExecutor:
         row-local up to the final shuffle: map/filter/flatmap transform
         rows one by one, and the shuffle's map-side combiner may emit
         per-slice partials because its consumer re-combines
-        contributions. Head, a mid-chain Reduce, a join or a group-by
-        would compute per-slice answers no consumer reconciles."""
+        contributions. Head, a mid-chain Reduce or Fold, a join or a
+        group-by would compute per-slice answers no consumer reconciles
+        (a fold's partials, above all: its fn need not be associative,
+        so nothing could combine them)."""
         stages = self._stages_for(task0)
         if not stages or stages[-1][0] != "shuffle":
             return False
@@ -1168,11 +1182,12 @@ class MeshExecutor:
         """Flatten the chain (innermost→outermost) + output partitioner
         into device stages (kind, slice or task). A Const contributes
         no stage (its shards are the staged input), nor does a Reshuffle
-        (it reads its shuffled input as it is). A JoinAggregate, the
+        or a Reshard (each reads its shuffled input as it is) or a
+        Prefixed (its rows are its input's). A JoinAggregate, the
         innermost slice of its chain, is the first stage; a Cogroup is
         the only one."""
         kinds = ((Map, "map"), (Flatmap, "flatmap"), (Filter, "filter"),
-                 (Head, "head"), (Reduce, "combine"),
+                 (Head, "head"), (Reduce, "combine"), (Fold, "fold"),
                  (JoinAggregate, "join"), (GroupByKey, "groupby"),
                  (Cogroup, "cogroup"))
         stages: List[tuple] = []
@@ -1288,6 +1303,16 @@ class MeshExecutor:
                         mask, keys, vals = core(mask, tuple(keys),
                                                 tuple(vals))
                     cols = list(keys) + list(vals)
+                elif kind == "fold":
+                    # This wave holds every row of its keys, in arrival
+                    # order: producer wave, then row.
+                    nk = s.prefix
+                    core = segment.make_sequential_fold_masked(
+                        nk, len(cols) - nk, s.fn, s.init,
+                        torch_dtype(s.acc_dtype))
+                    mask, keys, accs = core(mask, tuple(cols[:nk]),
+                                            tuple(cols[nk:]))
+                    cols = list(keys) + list(accs)
                 elif kind == "groupby":
                     core = groupby_mod.make_group_by_key_masked(
                         s.prefix, s.capacity)

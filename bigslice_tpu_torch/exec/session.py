@@ -9,7 +9,7 @@ on the CPU through the kernels' plain versions, as the tests do.
 
 from __future__ import annotations
 
-import itertools
+import threading
 from typing import Any, List, Optional, Sequence, Tuple
 
 from bigslice_tpu_torch import sliceio, typecheck
@@ -19,8 +19,36 @@ from bigslice_tpu_torch.exec.evaluate import MAX_CONSECUTIVE_LOST, evaluate
 from bigslice_tpu_torch.exec.store import Missing
 from bigslice_tpu_torch.exec.task import Task, TaskState
 from bigslice_tpu_torch.ops.base import Slice, make_name
+from bigslice_tpu_torch.ops.func import Func, invocation_counter
 
-_invocation_counter = itertools.count(1)
+
+class _InvocationGate:
+    """Reader-writer isolation of runs: plain runs share the session
+    (readers); an exclusive Func's run takes it alone (the writer),
+    its own shards still running in parallel."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer = False
+
+    def acquire(self, exclusive: bool) -> None:
+        with self._cond:
+            if exclusive:
+                self._cond.wait_for(
+                    lambda: not self._writer and self._readers == 0)
+                self._writer = True
+            else:
+                self._cond.wait_for(lambda: not self._writer)
+                self._readers += 1
+
+    def release(self, exclusive: bool) -> None:
+        with self._cond:
+            if exclusive:
+                self._writer = False
+            else:
+                self._readers -= 1
+            self._cond.notify_all()
 
 
 class Result(Slice):
@@ -100,6 +128,7 @@ class Session:
         self.executor = executor
         self.monitor = monitor
         self.machine_combiners = machine_combiners
+        self._gate = _InvocationGate()
 
     def shutdown(self) -> None:
         """Release the executor's resources (its private spill
@@ -109,11 +138,19 @@ class Session:
             close()
 
     def run(self, func: Any, *args) -> Result:
-        """Compile and evaluate ``func(*args)``: ``func`` is a Slice, or
-        a callable returning one."""
-        if isinstance(func, Slice):
+        """Compile and evaluate ``func(*args)``: ``func`` is a registered
+        ``Func`` (invoked; an exclusive one's run takes the session
+        alone), a Slice, or a callable returning one."""
+        exclusive = False
+        if isinstance(func, Func):
+            inv = func.invocation(*args)
+            slice_ = inv.invoke()
+            inv_index = inv.index
+            exclusive = func.exclusive
+        elif isinstance(func, Slice):
             typecheck.check(not args, "run: args given with a literal slice")
             slice_ = func
+            inv_index = next(invocation_counter)
         elif callable(func):
             slice_ = func(*args)
             typecheck.check(
@@ -121,15 +158,19 @@ class Session:
                 "run: callable returned %s, expected a Slice",
                 type(slice_).__name__,
             )
+            inv_index = next(invocation_counter)
         else:
             raise typecheck.errorf(
-                "run: expected Slice or callable, got %s",
+                "run: expected Func, Slice or callable, got %s",
                 type(func).__name__,
             )
-        inv_index = next(_invocation_counter)
         tasks = compile_mod.Compiler(
             inv_index, shuffle_mode=shuffleplan.plan_mode() or "",
             machine_combiners=self.machine_combiners,
         ).compile(slice_)
-        evaluate(self.executor, tasks, monitor=self.monitor)
+        self._gate.acquire(exclusive)
+        try:
+            evaluate(self.executor, tasks, monitor=self.monitor)
+        finally:
+            self._gate.release(exclusive)
         return Result(self, slice_, tasks)

@@ -101,12 +101,18 @@ class Task:
         deps: Sequence[TaskDep],
         partitioner: Partitioner,
         schema,
+        procs: int = 1,
+        exclusive: bool = False,
     ):
         self.name = name
         self.do = do
         self.deps = tuple(deps)
         self.partitioner = partitioner
         self.schema = schema
+        # The local executor's permits: ``procs`` of them, or all of
+        # them when ``exclusive`` (the slice's pragmas).
+        self.procs = procs
+        self.exclusive = exclusive
         # Structural metadata set by the compiler: the fused slice chain
         # (outermost first) and an op-group key shared by all shards of
         # the same compiled op (the executor runs a group as waves).

@@ -14,6 +14,7 @@ import numpy as np
 
 from bigslice_tpu_torch.ops.base import Slice
 from bigslice_tpu_torch.ops.const import Const
+from bigslice_tpu_torch.ops.func import func
 from bigslice_tpu_torch.ops.mapops import Flatmap, Map
 from bigslice_tpu_torch.ops.reduce import Reduce
 from bigslice_tpu_torch.ops.source import ScanReader
@@ -37,3 +38,10 @@ def wordcount_ids(num_shards: int, token_ids, bound: int) -> Slice:
     ones = np.ones(len(token_ids), dtype=np.int32)
     pairs = Const(num_shards, np.asarray(token_ids, np.int32), ones)
     return Reduce(pairs, lambda a, b: a + b)
+
+
+@func
+def wordcount_func(num_shards: int, path: str) -> Slice:
+    """``wordcount`` as a registered Func (host tier: run it on the
+    local executor)."""
+    return wordcount(num_shards, path)

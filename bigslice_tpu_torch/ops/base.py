@@ -82,16 +82,75 @@ class Combiner:
         return f"Combiner({self.name})"
 
 
-class Slice:
-    """Base class for all slice operators."""
+class Pragma:
+    """An execution hint carried from a slice to its tasks."""
 
-    #: Execution hints carried to the tasks (none are interpreted yet).
-    pragmas: tuple = ()
+    @property
+    def procs(self) -> int:
+        return 1
 
-    def __init__(self, schema: Schema, num_shards: int, name: Name):
+    @property
+    def exclusive(self) -> bool:
+        return False
+
+    @property
+    def materialize(self) -> bool:
+        return False
+
+
+class Procs(Pragma):
+    """The slice's tasks each take ``n`` of the local executor's
+    ``procs`` permits."""
+
+    def __init__(self, n: int):
+        self._n = max(1, n)
+
+    @property
+    def procs(self) -> int:
+        return self._n
+
+
+class Exclusive(Pragma):
+    """The slice's tasks each take all of the local executor's permits:
+    nothing else runs beside one."""
+
+    @property
+    def exclusive(self) -> bool:
+        return True
+
+
+class Materialize(Pragma):
+    """Break pipelining: the slice's output is stored, and its consumers
+    read it as a task boundary of one partition."""
+
+    @property
+    def materialize(self) -> bool:
+        return True
+
+
+class Slice(Pragma):
+    """Base class for all slice operators. ``pragmas`` aggregate: the
+    largest ``procs``, and ``exclusive``/``materialize`` when any
+    pragma sets them."""
+
+    def __init__(self, schema: Schema, num_shards: int, name: Name,
+                 pragmas: Sequence[Pragma] = ()):
         self.schema = schema
         self.num_shards = num_shards
         self.name = name
+        self.pragmas = tuple(pragmas)
+
+    @property
+    def procs(self) -> int:
+        return max([1] + [p.procs for p in self.pragmas])
+
+    @property
+    def exclusive(self) -> bool:
+        return any(p.exclusive for p in self.pragmas)
+
+    @property
+    def materialize(self) -> bool:
+        return any(p.materialize for p in self.pragmas)
 
     def deps(self) -> Tuple[Dep, ...]:
         return ()
@@ -111,3 +170,17 @@ class Slice:
     def __repr__(self) -> str:
         types = ", ".join(repr(c) for c in self.schema)
         return f"{self.name.op}<{types}>"
+
+
+def unwrap(slice_: Slice) -> Slice:
+    """Strip the type-amending wrappers (``Prefixed``) off a slice."""
+    from bigslice_tpu_torch.ops.mapops import _PrefixedSlice
+
+    while isinstance(slice_, _PrefixedSlice):
+        slice_ = slice_.dep_slice
+    return slice_
+
+
+def single_dep(slice_: Slice, shuffle: bool = False, expand: bool = False,
+               partitioner=None) -> Tuple[Dep, ...]:
+    return (Dep(slice_, shuffle, partitioner, expand),)

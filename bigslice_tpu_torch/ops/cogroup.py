@@ -67,8 +67,8 @@ class Cogroup(Slice):
                         for _ in s.schema.values)
         super().__init__(Schema(cols, prefix=len(key_types)),
                          max(s.num_shards for s in slices),
-                         make_name("cogroup"))
-        self.pragmas = tuple(p for s in slices for p in s.pragmas)
+                         make_name("cogroup"),
+                         pragmas=tuple(p for s in slices for p in s.pragmas))
         self.slices = tuple(slices)
 
     @property

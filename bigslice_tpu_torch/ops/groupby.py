@@ -66,7 +66,8 @@ class GroupByKey(Slice):
             + [ColType(val.dtype, shape=(capacity,)), ColType(np.int32)],
             prefix=slice_.prefix,
         )
-        super().__init__(schema, slice_.num_shards, make_name("groupby"))
+        super().__init__(schema, slice_.num_shards, make_name("groupby"),
+                         pragmas=slice_.pragmas)
         self.dep_slice = slice_
         self.capacity = capacity
         self.on_overflow = on_overflow

@@ -79,7 +79,8 @@ class JoinAggregate(Slice):
             prefix=a.prefix,
         )
         super().__init__(schema, max(a.num_shards, b.num_shards),
-                         make_name("join"))
+                         make_name("join"),
+                         pragmas=tuple(a.pragmas) + tuple(b.pragmas))
         self.a, self.b = a, b
         self.dense_keys = dense_keys
         # Per-dep map-side combiners, parallel to deps(): each side

@@ -1,4 +1,6 @@
-"""Row-wise combinators: Map, Filter, Flatmap, Head.
+"""Row-wise combinators: Map, Filter, Flatmap, Head; and the pipelined
+slices MapBatches (a host function over whole frames), Scan (a
+per-shard sink) and Prefixed (a wider key prefix, stripped by Unwrap).
 
 Each combinator classifies its user function by tier, as the JAX
 package does:
@@ -33,7 +35,7 @@ import torch
 
 from bigslice_tpu_torch import sliceio, typecheck
 from bigslice_tpu_torch.frame.frame import _DOWNCAST, Frame, _coerce
-from bigslice_tpu_torch.ops.base import Dep, Slice, make_name
+from bigslice_tpu_torch.ops.base import Slice, make_name, single_dep
 from bigslice_tpu_torch.slicetype import (ColType, Schema, numpy_dtype,
                                           torch_dtype)
 
@@ -104,14 +106,16 @@ def _cast_wrapper(fn: Callable, dtypes: Sequence[torch.dtype]) -> Callable:
 
 
 class _Pipelined(Slice):
-    """Base for single-dep, non-shuffle (fusable) slices."""
+    """Base for single-dep, non-shuffle (fusable) slices; each inherits
+    its input's pragmas."""
 
-    def __init__(self, dep_slice: Slice, schema: Schema, name):
-        super().__init__(schema, dep_slice.num_shards, name)
+    def __init__(self, dep_slice: Slice, schema: Schema, name, pragmas=()):
+        super().__init__(schema, dep_slice.num_shards, name,
+                         pragmas=tuple(pragmas) + tuple(dep_slice.pragmas))
         self.dep_slice = dep_slice
 
     def deps(self):
-        return (Dep(self.dep_slice),)
+        return single_dep(self.dep_slice)
 
 
 class Map(_Pipelined):
@@ -191,6 +195,50 @@ class Map(_Pipelined):
                     yield Frame.from_rows(rows, self.schema)
 
         return read()
+
+
+class MapBatches(_Pipelined):
+    """Batch-level host transform: ``fn(frame) -> Frame | tuple of
+    columns`` over whole frames, for host work that vectorizes (numpy
+    over whole columns) without per-row Python. ``fn`` receives the
+    frame with its columns on the host (device columns as CPU tensors);
+    each device column it returns becomes a tensor of the declared
+    dtype. ``out`` declares the output schema."""
+
+    def __init__(self, slice_: Slice, fn: Callable, out):
+        super().__init__(slice_, _as_schema(out), make_name("mapbatches"))
+        self.fn = fn
+
+    def reader(self, shard, deps):
+        def read():
+            for f in deps[0]():
+                if not len(f):
+                    continue
+                o = self.fn(f.to_host())
+                cols = list(o.cols) if isinstance(o, Frame) else list(o)
+                yield Frame(_conform(cols, self.schema), self.schema)
+
+        return read()
+
+
+def _conform(cols, schema: Schema) -> list:
+    """``cols`` held to ``schema``: each device column a tensor of the
+    declared dtype (the frame's schema never lies about its columns),
+    host columns as they are; a column count that differs raises."""
+    if len(cols) != len(schema):
+        raise typecheck.errorf(
+            "batch function returned %d columns but out= declares %d",
+            len(cols), len(schema),
+        )
+    out = []
+    for c, ct in zip(cols, schema):
+        if ct.is_device:
+            t = c if isinstance(c, torch.Tensor) else torch.as_tensor(
+                np.asarray(c))
+            out.append(t.to(torch_dtype(ct.dtype)))
+        else:
+            out.append(c)
+    return out
 
 
 class Filter(_Pipelined):
@@ -360,3 +408,60 @@ class Head(_Pipelined):
                 left -= take
 
         return read()
+
+
+class Scan(_Pipelined):
+    """Terminal per-shard sink: ``fn(shard, reader)`` consumes the
+    shard's stream, and the resulting slice is empty.
+
+    By default the remainder the sink did not consume is drained
+    afterwards, so upstream side effects (WriterFunc taps) observe the
+    whole shard even when the sink returns early. ``drain=False`` leaves
+    it unread: the discarded remainder is never computed."""
+
+    def __init__(self, slice_: Slice, fn: Callable, drain: bool = True):
+        super().__init__(slice_, slice_.schema, make_name("scan"))
+        self.fn = fn
+        self.drain = drain
+
+    def reader(self, shard, deps):
+        r = deps[0]()
+        self.fn(shard, r)
+        if self.drain:
+            for _ in r:
+                pass
+        return sliceio.empty_reader()
+
+
+class _PrefixedSlice(_Pipelined):
+    """The same rows with a wider key prefix."""
+
+    def __init__(self, slice_: Slice, prefix: int):
+        typecheck.check(prefix >= 1,
+                        "prefixed: prefix must include at least one column")
+        typecheck.check(
+            prefix <= len(slice_.schema),
+            "prefixed: prefix %d is greater than number of columns %d",
+            prefix, len(slice_.schema),
+        )
+        super().__init__(slice_, Schema(list(slice_.schema), prefix=prefix),
+                         make_name("prefixed"))
+
+    def reader(self, shard, deps):
+        def read():
+            for f in deps[0]():
+                yield Frame(f.cols, self.schema)
+
+        return read()
+
+
+def Prefixed(slice_: Slice, prefix: int) -> Slice:
+    """``slice_`` keyed by its first ``prefix`` columns."""
+    return _PrefixedSlice(slice_, prefix)
+
+
+def Unwrap(slice_: Slice) -> Slice:
+    """``slice_`` without its ``Prefixed`` wrappers."""
+    from bigslice_tpu_torch.ops.base import unwrap
+
+    return unwrap(slice_)

@@ -166,7 +166,7 @@ class Reduce(Slice):
                 "reduce: key column type %s is not partitionable", ct,
             )
         super().__init__(slice_.schema, slice_.num_shards,
-                         make_name("reduce"))
+                         make_name("reduce"), pragmas=slice_.pragmas)
         self.dep_slice = slice_
         self.fn = fn
         self._combiner = Combiner(fn, name="reduce")

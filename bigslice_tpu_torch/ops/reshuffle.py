@@ -1,4 +1,4 @@
-"""Reshuffle and Repartition — explicit data movement.
+"""Reshuffle, Repartition and Reshard — explicit data movement.
 
 On the device executor both lower to the sort shuffle without a
 combiner (parallel/shuffle.py ``make_shuffle_fn``): rows route by the
@@ -6,7 +6,8 @@ hash of their key prefix, or by a custom per-row partitioner run
 vmapped inside the shuffle. On the local executor each producer frame
 routes through ``Partitioner.partition_ids`` (exec/task.py): the
 routing hash, a ``RowPartitioner`` over the key columns on their
-device, or a frame-level host partitioner. (Reshard is not ported.)
+device, or a frame-level host partitioner. Reshard is a Reshuffle to
+another shard count (the identity at the same count).
 """
 
 from __future__ import annotations
@@ -58,13 +59,37 @@ class Reshuffle(Slice):
                     "reshuffle: key column type %s is not partitionable", ct,
                 )
         super().__init__(slice_.schema, slice_.num_shards,
-                         make_name("reshuffle"))
+                         make_name("reshuffle"), pragmas=slice_.pragmas)
         self.dep_slice = slice_
         self.partitioner = partitioner
 
     def deps(self):
         return (Dep(self.dep_slice, shuffle=True,
                     partitioner=self.partitioner),)
+
+    def reader(self, shard, deps):
+        return deps[0]()
+
+
+class Reshard(Slice):
+    """``slice_`` hash-shuffled into ``num_shards`` shards; ``slice_``
+    itself when it has that many already."""
+
+    def __new__(cls, slice_: Slice, num_shards: int):
+        if slice_.num_shards == num_shards:
+            return slice_
+        return object.__new__(cls)
+
+    def __init__(self, slice_: Slice, num_shards: int):
+        if self is slice_:  # the identity, returned by __new__
+            return
+        typecheck.check(num_shards >= 1, "reshard: num_shards must be >= 1")
+        super().__init__(slice_.schema, num_shards, make_name("reshard"),
+                         pragmas=slice_.pragmas)
+        self.dep_slice = slice_
+
+    def deps(self):
+        return (Dep(self.dep_slice, shuffle=True),)
 
     def reader(self, shard, deps):
         return deps[0]()

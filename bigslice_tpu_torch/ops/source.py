@@ -53,7 +53,7 @@ class WriterFunc(Slice):
     def __init__(self, slice_: Slice, fn: Callable,
                  done: Optional[Callable] = None):
         super().__init__(slice_.schema, slice_.num_shards,
-                         make_name("writer"))
+                         make_name("writer"), pragmas=slice_.pragmas)
         self.dep_slice = slice_
         self.fn = fn
         self.done = done

@@ -18,7 +18,10 @@ results bit for bit:
   and the interleave's addition that turns every -0.0 into +0.0).
 
 ``DeviceReduceByKey`` runs the count-based core over one frame's
-columns (the local executor's device combine). The host half,
+columns (the local executor's device combine). A Fold's function need
+not be associative: ``make_sequential_fold_masked`` folds each key's
+rows in order, one step a rank of every group at once
+(``DeviceSortedFold`` over one frame). The host half,
 ``host_reduce_by_key`` and ``grouped_reduceat``, combines host keys and
 combine fns that are not tensor functions: a lexsort and one
 ``ufunc.reduceat`` a column when the fn classifies as add/max/min, a
@@ -322,6 +325,100 @@ class DeviceReduceByKey:
         return ([k[:count] for k in keys], [v[:count] for v in vals])
 
 
+#: The device fold's steps (``make_sequential_fold_masked``): one a
+#: rank, each folding that rank of every segment still active. ``steps``
+#: sums them over the folds since ``reset_fold_steps``, ``longest`` is
+#: the most one fold took (its longest group), ``folds`` counts folds.
+FOLD_STEPS = {"steps": 0, "longest": 0, "folds": 0}
+_FOLD_STEPS_LOCK = threading.Lock()
+
+
+def reset_fold_steps() -> None:
+    with _FOLD_STEPS_LOCK:
+        FOLD_STEPS.update(steps=0, longest=0, folds=0)
+
+
+def _note_fold_steps(steps: int) -> None:
+    with _FOLD_STEPS_LOCK:
+        FOLD_STEPS["steps"] += steps
+        FOLD_STEPS["longest"] = max(FOLD_STEPS["longest"], steps)
+        FOLD_STEPS["folds"] += 1
+
+
+def make_sequential_fold_masked(nkeys: int, nvals: int, fold_fn: Callable,
+                                init_val, acc_dtype: torch.dtype):
+    """Device-tier keyed Fold: ``acc = fold_fn(acc, *vals)`` over each
+    key's rows in input order, from ``init_val``, cast to ``acc_dtype``
+    after every step. The fold fn need not be associative, so no scan
+    can serve it.
+
+    The rows sort stably by key (each key's rows keep their input
+    order); the segments are ordered longest first, with one readback of
+    the length histogram, so the segments still active at rank ``r`` are
+    a prefix of them; step ``r`` folds row ``start + r`` of each of those
+    at once, ``fold_fn`` vmapped over them. That is as many steps as the
+    longest group (``FOLD_STEPS``), each the same fold the JAX package's
+    one scan over every row does for that row. Invalid rows never fold.
+
+    ``core(valid_mask, key_cols, val_cols) -> (keep_mask, keys,
+    (accs,))``: rows in sorted position, each group's result at its last
+    row (the mask-chained contract of the segmented reduce)."""
+    vfn = torch.func.vmap(fold_fn)
+
+    def core(valid_mask, key_cols, val_cols):
+        size = key_cols[0].shape[0]
+        device = valid_mask.device
+        s_invalid, s_keys, s_vals, diff = sort_and_segment(
+            nkeys, valid_mask, key_cols, val_cols)
+        valid = s_invalid == 0
+        # Valid rows sort first, so their segments end where the next
+        # one starts, the last at the valid count.
+        starts = torch.nonzero(diff & valid).squeeze(1)
+        ends = torch.empty_like(starts)
+        ends[:-1] = starts[1:]
+        ends[-1:] = valid.sum()
+        lengths, order = torch.sort(ends - starts, descending=True,
+                                    stable=True)
+        starts = starts[order]
+        # active[r]: the segments longer than r, a prefix of them.
+        hist = torch.bincount(lengths).tolist()
+        active, left = [], len(starts)
+        for count in hist[:-1]:
+            left -= count
+            active.append(left)
+        acc = torch.as_tensor(init_val).to(acc_dtype).to(device).expand(
+            len(starts)).clone()
+        for r, m in enumerate(active):
+            idx = starts[:m] + r
+            acc[:m] = vfn(acc[:m], *[take(c, idx) for c in s_vals]).to(
+                acc_dtype)
+        _note_fold_steps(len(active))
+        accs = torch.zeros(size, dtype=acc_dtype, device=device)
+        accs[starts + lengths - 1] = acc
+        is_last = torch.ones(size, dtype=torch.bool, device=device)
+        is_last[:-1] = diff[1:]
+        return is_last & valid, s_keys, (accs,)
+
+    return core
+
+
+class DeviceSortedFold:
+    """The sequential fold over one frame's device columns:
+    ``__call__(key_cols, val_cols, n) -> (keys, [accs])``, one row per
+    distinct key, sorted by key."""
+
+    def __init__(self, fold_fn: Callable, nkeys: int, nvals: int, init_val,
+                 acc_dtype: torch.dtype):
+        self._core = make_sequential_fold_masked(nkeys, nvals, fold_fn,
+                                                 init_val, acc_dtype)
+
+    def __call__(self, key_cols: Sequence, val_cols: Sequence, n: int):
+        mask = torch.ones(n, dtype=torch.bool, device=key_cols[0].device)
+        keep, keys, accs = self._core(mask, tuple(key_cols), tuple(val_cols))
+        idx = torch.nonzero(keep).squeeze(1)
+        return [take(k, idx) for k in keys], [take(a, idx) for a in accs]
+
+
 # Keyed by id(fn) with an aliveness guard; bounded FIFO; shared by the
 # local executor's task threads, so guarded by a lock.
 _KERNEL_CACHE: dict = {}
@@ -329,18 +426,16 @@ _KERNEL_CACHE_MAX = 128
 _KERNEL_LOCK = threading.Lock()
 
 
-def cached_reduce_kernel(fn: Callable, nkeys: int, nvals: int
-                         ) -> DeviceReduceByKey:
-    """One DeviceReduceByKey per (fn, nkeys, nvals), shared across the
-    combiners built from the same function object."""
-    key = (id(fn), nkeys, nvals)
+def _cached(fn: Callable, key: tuple, make: Callable):
+    """The kernel cached under ``key`` while ``fn`` lives, else
+    ``make()``, cached."""
     with _KERNEL_LOCK:
         entry = _KERNEL_CACHE.get(key)
         if entry is not None:
             ref, kern = entry
             if ref is None or ref() is fn:
                 return kern
-        kern = DeviceReduceByKey(fn, nkeys, nvals)
+        kern = make()
         try:
             ref = weakref.ref(fn)
         except TypeError:  # unweakrefable callables
@@ -349,6 +444,24 @@ def cached_reduce_kernel(fn: Callable, nkeys: int, nvals: int
         while len(_KERNEL_CACHE) > _KERNEL_CACHE_MAX:
             _KERNEL_CACHE.pop(next(iter(_KERNEL_CACHE)))
         return kern
+
+
+def cached_reduce_kernel(fn: Callable, nkeys: int, nvals: int
+                         ) -> DeviceReduceByKey:
+    """One DeviceReduceByKey per (fn, nkeys, nvals), shared across the
+    combiners built from the same function object."""
+    return _cached(fn, ("reduce", id(fn), nkeys, nvals),
+                   lambda: DeviceReduceByKey(fn, nkeys, nvals))
+
+
+def cached_sorted_fold(fn: Callable, nkeys: int, nvals: int, init_val,
+                       acc_dtype: torch.dtype) -> DeviceSortedFold:
+    """One DeviceSortedFold per (fn, nkeys, nvals, init, dtype), shared
+    across the Folds built from the same function object."""
+    return _cached(fn, ("fold", id(fn), nkeys, nvals, repr(init_val),
+                        str(acc_dtype)),
+                   lambda: DeviceSortedFold(fn, nkeys, nvals, init_val,
+                                            acc_dtype))
 
 
 HOST_REDUCEAT = {"add": np.add, "max": np.maximum, "min": np.minimum}

@@ -67,6 +67,21 @@ over a generated corpus of 2**21 Zipf-like words, checked against
 collections.Counter, with the host share (the wall's part with the
 device idle, from one profiled run).
 
+Phases 18-20 drive the rest of the user API: 18, ``fold``, a
+device-tier Fold (``acc * 31 + v`` from 7: order-sensitive, wrapping,
+not associative) over phase 3's shape, 2**25 int32 keys uniform over
+2**20 from a seeded generator, and ``acc * 0.5 + v`` in float32 at
+2**24 rows, every key against a numpy fold in the rows' order (source
+shard, then row) and in its K1 shard, with K1 launched, K2 not, and
+each wave's fold steps equal to its longest group; 19,
+``fold-hotkey``, the same Fold over phase 15's rows (a 4096-row
+group), whose wave takes 4096+ steps; 20, ``func-api``,
+``Session().run(int_max_func, 4, keys, vals)`` at 2**24 rows (K2's
+map-side max) against np.maximum.at, a Reduce over ``Reshard`` to 16
+shards against np.bincount, a Reduce over a two-column ``Prefixed``
+key against numpy, and a ``Scan`` sink on ``LocalExecutor()``
+counting each shard's rows.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -96,7 +111,7 @@ WARM_RUNS = 5
 REPLACES = {
     "hash_partition": "bigslice_tpu/parallel/pallas_kernels.py:176",
     "hash_aggregate": "bigslice_tpu/parallel/pallas_kernels.py:436",
-    "probe_add1": "bigslice_tpu/parallel/pallas_kernels.py:45",
+    "probe_add1": "bigslice_tpu/parallel/pallas_kernels.py:46",
 }
 SOURCES = {
     "hash_partition": "bigslice_tpu_torch/csrc/hash_partition.cu",
@@ -977,20 +992,27 @@ def drive(phase: str, label: str, make_slice, check, need, rows: int,
     median wall is reported. A run is session construction, the run and
     reading every shard back to the host; ``check(session, result)``
     holds each run's output against numpy and raises on a mismatch. Peak
-    device memory is the largest over the warm runs, checks excluded."""
+    device memory is the largest over the warm runs, checks excluded.
+    ``make_slice()`` returns a Slice, or a tuple ``(func, *args)`` that
+    ``Session.run`` takes. The counted run's device fold steps
+    (``segment.FOLD_STEPS``) are returned beside its launches."""
     import bigslice_tpu_torch as bs
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.parallel import segment
 
     def run():
         sess = bs.Session()
-        res = sess.run(make_slice())
+        made = make_slice()
+        res = sess.run(*made) if isinstance(made, tuple) else sess.run(made)
         for shard in range(res.num_shards):
             list(res.reader(shard, ()))
         return sess, res
 
     ck.reset_launches()
+    segment.reset_fold_steps()
     sess, res = run()
     launches = dict(ck.LAUNCHES)
+    fold_steps = dict(segment.FOLD_STEPS)
     for name in need:
         if launches[name] <= 0:
             raise AssertionError(f"{label}: {name} was not launched")
@@ -1018,7 +1040,8 @@ def drive(phase: str, label: str, make_slice, check, need, rows: int,
         f"{rows / wall:.1f} rows/s, peak device memory {max(peaks):.3f} GiB, "
         f"launches {launches} (first run){note or ''}, on {card}")
     return dict(launches=launches, wall_s=wall, walls_s=walls, rows=rows,
-                rows_per_s=rows / wall, peak_gib=max(peaks))
+                rows_per_s=rows / wall, peak_gib=max(peaks),
+                fold_steps=fold_steps)
 
 
 def _lww_fn(a, b):
@@ -2014,6 +2037,233 @@ def phase17_wordcount(card: str) -> dict:
                 device_busy_s=busy, host_share=host_share)
 
 
+def numpy_fold(keys, vals, fn, init, dtype):
+    """Each key's fold ``acc = fn(acc, v)`` from ``init`` over its rows
+    in input order, in numpy: (distinct keys sorted, their folds). A
+    stable argsort keeps each key's rows in order; step r folds row r of
+    every key that has one."""
+    order = np.argsort(keys, kind="stable")
+    sk, sv = keys[order], vals[order]
+    starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+    lengths = np.diff(np.r_[starts, len(sk)])
+    acc = np.full(len(starts), init, dtype)
+    with np.errstate(over="ignore"):
+        for r in range(int(lengths.max())):
+            act = lengths > r
+            acc[act] = fn(acc[act], sv[starts[act] + r]).astype(dtype)
+    return sk[starts], acc
+
+
+def _fold_check(keys, vals, fn, init, dtype, S):
+    """A Fold's rows against ``numpy_fold`` (the rows' order is the
+    Const's: source shard, then row), int bit for bit and float within
+    rtol 1e-5, atol 1e-6; each row in the shard K1 names."""
+    import bigslice_tpu_torch as bs
+
+    want_k, want_a = numpy_fold(keys, vals, fn, init, dtype)
+
+    def check(sess, res):
+        shards = bs.result_shard_rows(res)
+        k = np.concatenate([sh[0] for sh in shards])
+        a = np.concatenate([sh[1] for sh in shards])
+        o = np.argsort(k)
+        if not np.array_equal(k[o], want_k):
+            raise AssertionError("fold: keys differ from numpy")
+        if dtype == np.float32:
+            if not np.allclose(a[o], want_a, rtol=1e-5, atol=1e-6):
+                raise AssertionError("fold: float folds differ from numpy")
+        elif not np.array_equal(a[o], want_a):
+            raise AssertionError("fold: folds differ from numpy")
+        _shard_keys_routed(shards, S)
+        return ""
+
+    return check
+
+
+def _fold_steps_check(label, keys, r, S) -> None:
+    """The counted run's fold steps: each shard's wave folds in as many
+    steps as its longest group (the shard's keys by K1's plain
+    version), the longest of them the whole input's longest group."""
+    from bigslice_tpu_torch.parallel.cuda_kernels import hash_partition_plain
+
+    bc = np.bincount(keys)
+    uk = np.nonzero(bc)[0].astype(np.int32)
+    ids, _ = hash_partition_plain([torch.from_numpy(uk)], S)
+    shard = ids.numpy()
+    per = [int(bc[uk[shard == s]].max()) for s in range(S)
+           if (shard == s).any()]
+    got = r["fold_steps"]
+    if got["steps"] != sum(per) or got["longest"] != max(per):
+        raise AssertionError(f"{label}: fold steps {got}, want {sum(per)} "
+                             f"in all and {max(per)} the longest")
+
+
+def phase18_fold(card: str) -> dict:
+    """fold: Session().run(Fold(Const(4, keys, vals), acc * 31 + v,
+    init=7)) at phase 3's shape (2**25 int32 keys uniform over 2**20,
+    from a seeded generator, int32 values), then the float32 fold
+    acc * 0.5 + v at 2**24 rows: every key against ``numpy_fold`` and
+    its K1 shard; K1 routes, K2 never runs, and each wave folds in as
+    many steps as its longest group."""
+    import bigslice_tpu_torch as bs
+
+    S = 4
+    rng = np.random.default_rng(18)
+    n = 1 << 25
+    keys = rng.integers(0, 1 << 20, n, dtype=np.int32)
+    vals = rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int32)
+    r = drive("18", "fold (acc * 31 + v, int32)",
+              lambda: bs.Fold(bs.Const(S, keys, vals),
+                              lambda acc, v: acc * 31 + v, init=7),
+              _fold_check(keys, vals, lambda acc, v: acc * 31 + v, 7,
+                          np.int32, S),
+              ("hash_partition",), n, card, expect={"hash_aggregate": 0})
+    _fold_steps_check("fold", keys, r, S)
+    n2 = 1 << 24
+    fk = rng.integers(0, 1 << 20, n2, dtype=np.int32)
+    fv = rng.standard_normal(n2, dtype=np.float32)
+    r2 = drive("18", "fold (acc * 0.5 + v, float32)",
+               lambda: bs.Fold(bs.Const(S, fk, fv),
+                               lambda acc, v: acc * 0.5 + v, init=0.0),
+               _fold_check(fk, fv, lambda acc, v: acc * np.float32(0.5) + v,
+                           0.0, np.float32, S),
+               ("hash_partition",), n2, card, expect={"hash_aggregate": 0})
+    _fold_steps_check("fold float32", fk, r2, S)
+    log(f"phase 18: fold steps (counted runs): int32 {r['fold_steps']}, "
+        f"float32 {r2['fold_steps']}; longest group "
+        f"{int(np.bincount(keys).max())} / {int(np.bincount(fk).max())}; "
+        f"on {card}")
+    return {"fold": r, "fold-f32": r2}
+
+
+def phase19_fold_hotkey(card: str) -> dict:
+    """fold-hotkey: the Fold of phase 18 over ``_cogroup_hotkey_input``
+    (2**20 rows over 2**16 keys plus key 0 4096 times): the hot key's
+    wave takes as many steps as its group."""
+    import bigslice_tpu_torch as bs
+
+    S = 4
+    keys, vals = _cogroup_hotkey_input()
+    r = drive("19", "fold-hotkey (a 4096-row group)",
+              lambda: bs.Fold(bs.Const(S, keys, vals),
+                              lambda acc, v: acc * 31 + v, init=7),
+              _fold_check(keys, vals, lambda acc, v: acc * 31 + v, 7,
+                          np.int32, S),
+              ("hash_partition",), len(keys), card,
+              expect={"hash_aggregate": 0})
+    _fold_steps_check("fold-hotkey", keys, r, S)
+    if r["fold_steps"]["longest"] < 4096:
+        raise AssertionError("fold-hotkey: the hot key's group was not "
+                             "folded in its own 4096+ steps")
+    log(f"phase 19: fold steps (counted run) {r['fold_steps']}, on {card}")
+    return r
+
+
+def phase20_func_api(card: str) -> dict:
+    """func-api: the rest of the user API on the card. A registered Func
+    (``Session().run(int_max_func, 4, keys, vals)``, 2**24 rows over
+    2**20 keys: K2's map-side max) against np.maximum.at; a Reduce over
+    a Reshard to 16 shards against np.bincount; a Reduce over a
+    two-column key (Prefixed) against numpy; and a Scan sink on
+    ``LocalExecutor()`` counting each shard's rows."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.models.maxint import int_max_func
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S = 4
+    rng = np.random.default_rng(20)
+    n = 1 << 24
+    span = 1 << 20
+    keys = rng.integers(0, span, n, dtype=np.int32)
+    vals = rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int32)
+    mx = np.full(span, np.iinfo(np.int32).min, np.int32)
+    np.maximum.at(mx, keys, vals)
+    present = np.unique(keys)
+
+    def check_max(sess, res):
+        shards = bs.result_shard_rows(res)
+        k = np.concatenate([sh[0] for sh in shards])
+        v = np.concatenate([sh[1] for sh in shards])
+        o = np.argsort(k)
+        if not (np.array_equal(k[o], present)
+                and np.array_equal(v[o], mx[present])):
+            raise AssertionError("int_max_func differs from np.maximum.at")
+        _shard_keys_routed(shards, S)
+        return ""
+
+    out = {"func-int-max": drive(
+        "20", "func-api: Session().run(int_max_func, 4, keys, vals)",
+        lambda: (int_max_func, S, keys, vals), check_max,
+        ("hash_partition", "hash_aggregate"), n, card)}
+
+    ones = np.ones(n, np.int32)
+    bc = np.bincount(keys, minlength=span)
+
+    def check_reshard(sess, res):
+        shards = bs.result_shard_rows(res)
+        if len(shards) != 16:
+            raise AssertionError(f"reshard: {len(shards)} shards, not 16")
+        k = np.concatenate([sh[0] for sh in shards])
+        v = np.concatenate([sh[1] for sh in shards])
+        o = np.argsort(k)
+        if not (np.array_equal(k[o], present)
+                and np.array_equal(v[o], bc[present])):
+            raise AssertionError("reshard: counts differ from np.bincount")
+        _shard_keys_routed(shards, 16)
+        return ""
+
+    out["reshard"] = drive(
+        "20", "func-api: Reduce(Reshard(Const(4, keys, ones), 16), add)",
+        lambda: bs.Reduce(bs.Reshard(bs.Const(S, keys, ones), 16),
+                          lambda a, b: a + b),
+        check_reshard, ("hash_partition",), n, card)
+
+    k2 = rng.integers(0, 4, n, dtype=np.int32)
+    small = rng.integers(0, 100, n, dtype=np.int32)
+    pair = keys.astype(np.int64) * 4 + k2
+    upair, inv = np.unique(pair, return_inverse=True)
+    psum = np.bincount(inv, weights=small).astype(np.int64)
+
+    def check_prefixed(sess, res):
+        shards = bs.result_shard_rows(res)
+        k = np.concatenate([sh[0] for sh in shards]).astype(np.int64)
+        kk = np.concatenate([sh[1] for sh in shards])
+        v = np.concatenate([sh[2] for sh in shards])
+        got = k * 4 + kk
+        o = np.argsort(got)
+        if not (np.array_equal(got[o], upair)
+                and np.array_equal(v[o].astype(np.int64), psum)):
+            raise AssertionError("prefixed: sums differ from numpy")
+        return (f", on the sort path after overflow: "
+                f"{sorted(sess.executor.hash_off)}")
+
+    out["prefixed"] = drive(
+        "20", "func-api: Reduce(Prefixed(Const(4, k1, k2, v), 2), add)",
+        lambda: bs.Reduce(bs.Prefixed(bs.Const(S, keys, k2, small), 2),
+                          lambda a, b: a + b),
+        check_prefixed, ("hash_partition",), n, card)
+
+    # The Scan sink runs on the local executor (the device executor
+    # refuses it by name).
+    counts = {}
+
+    def sink(shard, reader):
+        counts[shard] = sum(len(f) for f in reader)
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = bs.Session(executor=bs.LocalExecutor()).run(
+        bs.Scan(bs.Const(S, keys), sink))
+    wall = time.perf_counter() - t0
+    if res.rows() != [] or counts != {s: n // S for s in range(S)}:
+        raise AssertionError(f"scan: shard counts {counts}")
+    out["scan"] = dict(launches=dict(ck.LAUNCHES), wall_s=wall, rows=n)
+    log(f"phase 20: func-api: Scan sink on LocalExecutor(), {n} rows: wall "
+        f"{wall:.4f} s (one run), shard counts {counts}, launches "
+        f"{out['scan']['launches']}, on {card}")
+    return out
+
+
 def _spill_stats(ex) -> dict:
     """What the first run spilled: boundaries, bytes, rows and
     partitions written, and the plans chosen."""
@@ -2066,6 +2316,9 @@ def main() -> int:
     paths["local-reduce"] = phase16_local_reduce(card, mesh_shards)
     del mesh_shards
     paths["wordcount"] = phase17_wordcount(card)
+    paths.update(phase18_fold(card))
+    paths["fold-hotkey"] = phase19_fold_hotkey(card)
+    paths.update(phase20_func_api(card))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

@@ -85,6 +85,22 @@ def test_slice_runs_without_jax_or_the_jax_package():
         res = local.run(bs.Reduce(bs.Const(4, keys, np.ones(1000, np.int32)),
                                   lambda a, b: a + b))
         assert len(res.rows()) == 37
+        # The rest of the user API: a device Fold on both executors, a
+        # Reshard, a registered Func and a Scan.
+        from bigslice_tpu_torch.models.maxint import int_max_func
+        for ex in (sess, local):
+            res = ex.run(bs.Fold(bs.Const(4, keys, t[:1000]),
+                                 lambda acc, v: acc * 31 + v, init=7))
+            assert len(res.rows()) == 37
+        res = sess.run(bs.Reduce(bs.Reshard(bs.Const(4, keys, t[:1000]), 8),
+                                 lambda a, b: a + b))
+        assert res.num_shards == 8 and len(res.rows()) == 37
+        res = sess.run(int_max_func, 4, keys, t[:1000])
+        assert len(res.rows()) == 37
+        seen = []
+        local.run(bs.Scan(bs.Const(4, keys), lambda shard, r: seen.append(
+            sum(len(f) for f in r))))
+        assert sum(seen) == 1000
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))

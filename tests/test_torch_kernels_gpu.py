@@ -692,3 +692,69 @@ def test_local_host_tier_on_the_card(dev, tmp_path):
         for g, w in zip(a, b):
             for gc, wc in zip(g, w):
                 assert list(gc) == list(wc)
+
+
+def _same(got, want, float_tol=False):
+    for g, w in zip(got, want):
+        for gc, wc in zip(g, w):
+            if float_tol and gc.dtype.kind == "f":
+                np.testing.assert_allclose(gc, wc, rtol=1e-5, atol=1e-6)
+            else:
+                np.testing.assert_array_equal(gc, wc)
+
+
+@pytest.mark.parametrize("executor", ["MeshExecutor", "LocalExecutor"])
+def test_fold_on_the_card_matches_the_cpu(dev, executor):
+    """A device Fold on the card, an order-sensitive int32 fn and a
+    float32 one, over keys with a hot key: the rows equal the CPU run's
+    (int bit for bit, float within rtol 1e-5), each shard takes as many
+    steps as its longest group, K1 routes the shuffle and K2 never
+    runs."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import segment
+
+    keys, _ = _count_input(seed=14)
+    keys = np.concatenate([keys, np.zeros(3000, np.int32)])
+    rng = np.random.RandomState(15)
+    ivals = rng.randint(-(2**31), 2**31 - 1, len(keys)).astype(np.int32)
+    fvals = rng.randn(len(keys)).astype(np.float32)
+    cases = ((ivals, lambda acc, v: acc * 31 + v, 7),
+             (fvals, lambda acc, v: acc * 0.5 + v, 0.0))
+    for vals, fn, init in cases:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            ex = getattr(bs, executor)(device=device)
+            cuda_kernels.reset_launches()
+            segment.reset_fold_steps()
+            runs[device] = bs.result_shard_rows(bs.Session(executor=ex).run(
+                bs.Fold(bs.Const(4, keys, vals), fn, init=init)))
+            if device == "cuda":
+                assert cuda_kernels.LAUNCHES["hash_partition"] > 0
+                assert cuda_kernels.LAUNCHES["hash_aggregate"] == 0
+                longest = [int(np.bincount(keys[np.isin(keys, s[0])]).max())
+                           for s in runs[device]]
+                assert segment.FOLD_STEPS["steps"] == sum(longest)
+                assert segment.FOLD_STEPS["longest"] == int(
+                    np.bincount(keys).max())
+        _same(runs["cuda"], runs["cpu"], float_tol=True)
+
+
+def test_reshard_on_the_card_matches_the_cpu(dev):
+    """A Reduce over a Reshard from 4 to 16 shards on the card equals
+    the CPU run, every row routed by K1."""
+    import bigslice_tpu_torch as bs
+
+    keys, bc = _count_input(seed=16)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cuda_kernels.reset_launches()
+        runs[device] = bs.result_shard_rows(bs.Session(
+            executor=bs.MeshExecutor(device=device)).run(bs.Reduce(
+                bs.Reshard(bs.Const(4, keys, np.ones(len(keys), np.int32)),
+                           16), lambda a, b: a + b)))
+        if device == "cuda":
+            assert cuda_kernels.LAUNCHES["hash_partition"] > 0
+    assert len(runs["cuda"]) == 16
+    _same(runs["cuda"], runs["cpu"])
+    got = {int(k): int(v) for s in runs["cuda"] for k, v in zip(*s)}
+    assert got == {int(k): int(bc[k]) for k in np.nonzero(bc)[0]}
