@@ -9,15 +9,17 @@ tests hold it against both.
 What it runs today, through the device executor (on ``cuda`` by
 default): ``Const`` sources, the device tier of ``Map``, ``Filter``,
 ``Flatmap`` (fixed fanout) and ``Head``, ``Reduce`` with any
-device-traceable combine fn and int or float keys, ``Reshuffle`` /
-``Repartition``, the aggregating inner join ``JoinAggregate``,
-``GroupByKey`` (fixed-capacity groups as a vector column) and the
-general ``Cogroup`` (per key, one list per input value column). The
-local executor (``LocalExecutor``, also on ``cuda`` by default) runs all
-of these shard by shard on task threads, and the host tier besides:
-host functions, host (string) keys and columns, frame-level
-partitioners and the sources ``ScanReader``, ``ReaderFunc`` and
-``WriterFunc``.
+device-traceable combine fn and int or float keys (dense int32 keys,
+declared with ``dense_keys=`` or discovered from the data, as a table
+of accumulators), ``Reshuffle`` / ``Repartition``, the aggregating
+inner join ``JoinAggregate``, ``GroupByKey`` (fixed-capacity groups as
+a vector column) and the general ``Cogroup`` (per key, one list per
+input value column). The local executor (``LocalExecutor``, also on
+``cuda`` by default) runs all of these shard by shard on task threads,
+and the host tier besides: host functions, host (string) keys and
+columns, frame-level partitioners and the sources ``ScanReader``,
+``ReaderFunc`` and ``WriterFunc``. The device executor runs the host
+tier on an inner local executor, so ``Session()`` runs every slice.
 
 The rest of the user API: ``Fold`` (a keyed fold whose fn need not be
 associative; a device-tier one is a stage of the device executor's
@@ -46,6 +48,8 @@ their tasks::
                 init=7)
     from bigslice_tpu_torch.models.maxint import int_max_func
     res = bs.Session().run(int_max_func, 4, keys, vals)
+    res = bs.Session().run(bs.Reduce(bs.Const(1, keys, vals),
+                                     lambda a, b: a + b, dense_keys=1 << 20))
 """
 
 from bigslice_tpu_torch.exec.local import LocalExecutor

@@ -211,10 +211,29 @@ class LocalExecutor:
                     frame = self._mc_committed.get(
                         (dep.combine_key, dep.partition))
                 if not committed:
+                    # No shared buffers. Under a device executor the
+                    # producer group may have run on the device path
+                    # (machine-combined groups do, with a device
+                    # combiner): its outputs then read through the store
+                    # bridge, as its device residency confirms (a host
+                    # group's own entries are empty by design). Anything
+                    # else is a lost dep.
+                    owner = getattr(self.store, "owner", None)
+                    if owner is not None and all(
+                            owner._has_device_output(t.name)
+                            for t in dep.tasks):
+                        return bridged()
                     raise DepLost(dep.tasks[0], all_producers=dep.tasks)
                 if frame is None or not len(frame):
                     return sliceio.empty_reader()
                 return iter([frame])
+
+            def bridged():
+                for t in dep.tasks:
+                    try:
+                        yield from self.store.read(t.name, dep.partition)
+                    except store_mod.Missing as e:
+                        raise DepLost(t, all_producers=dep.tasks) from e
 
             return mc_factory
 

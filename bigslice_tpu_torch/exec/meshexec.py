@@ -11,7 +11,9 @@ row validity carried as a bool mask and one compaction at the end:
 
 - ``map``, ``flatmap``, ``filter``, ``head``: the row-wise combinators,
   their functions under ``torch.func.vmap``;
-- ``combine`` (a Reduce's reduce side): hash aggregation
+- ``combine`` (a Reduce's reduce side): with a dense bound (declared
+  ``dense_keys=``, or discovered), a [K] table of accumulators
+  (``dense.make_dense_combine``); else hash aggregation
   (``hashagg.make_hash_combine``, the ``hash_aggregate`` kernel) for
   combine fns that classify as add/max/min over non-float keys, else
   the sort + segmented scan (``segment.make_segmented_reduce_masked``);
@@ -19,17 +21,21 @@ row validity carried as a bool mask and one compaction at the end:
   combine + shuffle (``hashagg.make_hash_combine_shuffle``) or the fused
   sort combine + shuffle (``shuffle.make_combine_shuffle_fn``); without
   one (Reshuffle, Repartition), the sort shuffle
-  (``shuffle.make_shuffle_fn``). Every hash-routed row goes through the
-  ``hash_partition`` kernel. The S partitions ride one device as W = S
-  subids of a leading int32 column, and the waves' outputs merge into
-  one device-resident output; each consumer wave reads its own subid's
-  rows (split once per output, ``_subid_wave_view``);
+  (``shuffle.make_shuffle_fn``). A dense bound takes precedence over the
+  hash lowering: with one partition a device it is the fused dense
+  combine-shuffle (``dense.make_dense_combine_shuffle``), else the sort.
+  Every hash-routed row goes through the ``hash_partition`` kernel. The
+  S partitions ride one device as W = S subids of a leading int32
+  column, and the waves' outputs merge into one device-resident output;
+  each consumer wave reads its own subid's rows (split once per output,
+  ``_subid_wave_view``);
 - ``join`` (a JoinAggregate, the one two-input stage): each input is
   its side's shuffled rows; the hash join
   (``hashagg.make_hash_join_align``: one claim cascade over both sides)
   when both sides' fns classify over non-float keys, else each side's
   segmented reduce and the tagged-sort alignment
-  (``join.make_align``);
+  (``join.make_align``); a dense-declared join of one shard a device
+  takes a rank-indexed table a side (``dense.make_dense_join``);
 - ``groupby`` (a GroupByKey): the sort, each group's [capacity] window
   of values and its true count (``groupby.make_group_by_key_masked``).
   Vector columns ([n, capacity]) ride every later stage, the merge, the
@@ -37,8 +43,9 @@ row validity carried as a bool mask and one compaction at the end:
 - ``fold`` (a device-tier Fold): the stable sort by key and the
   sequential fold of each key's rows in arrival order, one step a rank
   of every group at once (``segment.make_sequential_fold_masked``), so
-  as many steps as the wave's longest group; a Fold's input shuffle has
-  no map-side combine;
+  as many steps as the wave's longest group, or with a dense bound and
+  an add/max/min fn one [K] table (``dense.make_dense_fold``); a Fold's
+  input shuffle has no map-side combine;
 - ``cogroup`` (a Cogroup, the only stage of its chain): one tagged sort
   over the union of its N inputs' shuffled rows and a rank-scatter into
   per-input [keys, G] matrices with exact counts
@@ -76,12 +83,25 @@ boundary's map waves write their partitions through a ``FileStore``
 instead of merging on the device (``exec/shuffleplan.py``), and
 consumers stream them back through the arena.
 
-What the JAX package runs elsewhere raises here, naming the op
-(``LoweringNotPorted``): host-tier functions and columns, the dense
-join and Fold (``dense_keys=``), a Cogroup fused with other stages,
-feeding a shuffle or over host or vector inputs, and operators that are
-not ported (``Scan``, ``MapBatches``, the sources): those run on the
-local executor. No partial result is returned.
+Auto-dense discovery (``auto_dense``, on by default as in the JAX
+package): a Reduce or Fold over one int32 key whose fn classifies, and
+whose first wave's keys (one ``torch.aminmax`` over the staged key
+column and one readback, ``_key_range``) are non-negative with
+``kmax + 1 <= MAX_DENSE_KEYS`` and at most twice the wave's capacity,
+is declared dense at that bound. A key outside a declared bound counts
+into the badrange signal: from a discovered bound it retracts the
+declaration, puts the site in ``auto_dense_off`` and reruns the whole
+group on the range-agnostic lowerings; from a user's bound it raises
+``ValueError``.
+
+What the device path cannot lower runs on the host tier, an inner
+``LocalExecutor`` over the same store and device (``_eligible``,
+``local``): host-tier functions (a Fold's included), host columns and
+keys, frame-level partitioners, a Cogroup fused with other stages,
+feeding a shuffle, over host or vector inputs or machine-combined, and
+the operators only the local executor runs (``Scan``, ``MapBatches``,
+the sources). Host consumers read device outputs through the store
+bridge; device consumers stage host outputs through the arena.
 """
 
 from __future__ import annotations
@@ -100,6 +120,7 @@ import torch
 from bigslice_tpu_torch.exec import shuffleplan
 from bigslice_tpu_torch.exec import staging
 from bigslice_tpu_torch.exec import store as store_mod
+from bigslice_tpu_torch.exec.local import LocalExecutor
 from bigslice_tpu_torch.exec.task import Task, TaskName, TaskState
 from bigslice_tpu_torch.frame.frame import Frame
 from bigslice_tpu_torch.ops.cogroup import Cogroup
@@ -109,10 +130,11 @@ from bigslice_tpu_torch.ops.groupby import GroupByKey
 from bigslice_tpu_torch.ops.join import JoinAggregate
 from bigslice_tpu_torch.ops.mapops import (Filter, Flatmap, Head, Map,
                                            _PrefixedSlice)
-from bigslice_tpu_torch.ops.reduce import LoweringNotPorted, Reduce
+from bigslice_tpu_torch.ops.reduce import Reduce
 from bigslice_tpu_torch.ops.reshuffle import (Reshard, Reshuffle,
                                               RowPartitioner)
 from bigslice_tpu_torch.parallel import cogroup as cogroup_mod
+from bigslice_tpu_torch.parallel import dense as dense_mod
 from bigslice_tpu_torch.parallel import groupby as groupby_mod
 from bigslice_tpu_torch.parallel import hashagg, segment
 from bigslice_tpu_torch.parallel import join as join_mod
@@ -121,13 +143,7 @@ from bigslice_tpu_torch.parallel.jitutil import bucket_size
 from bigslice_tpu_torch.parallel.segment import compact_to_bucket, take
 from bigslice_tpu_torch.slicetype import torch_dtype
 
-__all__ = ["COGROUP_DEFAULT_CAP", "DeviceGroupOutput", "LoweringNotPorted",
-           "MeshExecutor"]
-
-#: The operators a task chain may hold on this executor.
-_DEVICE_OPS = (Const, Map, Filter, Flatmap, Head, Reduce, Reshuffle,
-               Reshard, _PrefixedSlice, Fold, JoinAggregate, GroupByKey,
-               Cogroup)
+__all__ = ["COGROUP_DEFAULT_CAP", "DeviceGroupOutput", "MeshExecutor"]
 
 #: The least group capacity a Cogroup op records (the JAX package's
 #: starting capacity, which its ladder grows).
@@ -161,6 +177,12 @@ def _donate(inputs, out: "DeviceGroupOutput") -> None:
             st = t.untyped_storage()
             if st.data_ptr() not in keep:
                 st.resize_(0)
+
+
+class _AutoDenseRetry(Exception):
+    """A discovered dense-key bound was proven wrong by a later wave's
+    badrange signal: the declaration was retracted and the whole group
+    must rerun on the range-agnostic lowerings (``_execute_group``)."""
 
 
 class DepLost(Exception):
@@ -325,14 +347,22 @@ class MeshExecutor:
       per-shard upload.
 
     None of them chooses between a kernel and its plain version: the
-    device alone does that."""
+    device alone does that.
+
+    ``auto_dense`` (default on, the JAX package's default) lets a
+    group's first wave declare a dense key bound (the module's
+    docstring); off pins the hash and sort lowerings. ``fallback_procs``
+    bounds the task threads of the host tier, ``local``: a
+    ``LocalExecutor`` on this executor's store and device."""
 
     name = "mesh"
 
     def __init__(self, device=None, prefetch_depth: Optional[int] = None,
                  donate_buffers: Optional[bool] = None,
                  device_budget_bytes: Optional[int] = None,
-                 staging_arena: Optional[bool] = None):
+                 staging_arena: Optional[bool] = None,
+                 fallback_procs: Optional[int] = None,
+                 auto_dense: bool = True):
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -375,7 +405,12 @@ class MeshExecutor:
         self.staging_arena = staging.StagingArena(
             enabled=staging_arena, mode=staging.staging_mode(device))
         self.stage_threads = staging.stage_threads_default()
+        self.auto_dense = bool(auto_dense)
         self.store = _BridgedStore(self)
+        # The host tier: the same store (host outputs land in its frame
+        # tier, device outputs serve through it) and the same device.
+        self.local = LocalExecutor(procs=fallback_procs, store=self.store,
+                                   device=device)
         self._lock = threading.Lock()
         # One wave program's dispatch or settle at a time.
         self._wave_mutex = threading.RLock()
@@ -391,6 +426,9 @@ class MeshExecutor:
         self._slack_memo: Dict[str, float] = {}
         # Per-op Cogroup group capacities: the widest its waves built.
         self._cogroup_caps: Dict[str, int] = {}
+        # Op sites whose discovered dense bound a later wave proved
+        # wrong: never probed again.
+        self._auto_dense_off: set = set()
         # op base -> K of its last budget-split wave; op base -> the
         # last shuffle plan (BIGSLICE_SHUFFLE set).
         self.split_runs: Dict[str, int] = {}
@@ -407,10 +445,11 @@ class MeshExecutor:
     # -- submission -------------------------------------------------------
 
     def submit(self, task: Task) -> None:
-        try:
-            self._check_lowering(task)
-        except LoweringNotPorted as e:
-            task.set_state(TaskState.ERR, e)
+        if not self._eligible(task):
+            # The whole group shares the verdict (it is a function of
+            # the chain, deps and partitioner), so a resubmitted task
+            # returns to the tier that made its output.
+            self.local.submit(task)
             return
         key = task.group_key
         with self._lock:
@@ -444,7 +483,7 @@ class MeshExecutor:
             self._task_index.pop(task.name, None)
         if isinstance(out, shuffleplan.SpilledGroupOutput):
             out.discard()  # retire the group's spill entries
-        self.store.discard(task.name)
+        self.local.discard(task)
 
     def close(self) -> None:
         """Remove the private spill directory (a ``BIGSLICE_SPILL_DIR``
@@ -485,80 +524,71 @@ class MeshExecutor:
             c["exposed_s"] += exposed_s
             c["waves"] += 1
 
-    def _check_lowering(self, task: Task) -> None:
-        """Raise ``LoweringNotPorted`` naming the op when this package
-        cannot run ``task`` on the device: an operator that is not
-        ported, a host-tier function (a Fold's included), host columns,
-        or a join or Fold that declares ``dense_keys=``."""
-        op = task.name.op
+    @property
+    def auto_dense_off(self) -> frozenset:
+        """The op sites whose discovered dense bound was retracted."""
+        with self._lock:
+            return frozenset(self._auto_dense_off)
+
+    def _eligible(self, task: Task) -> bool:
+        """Whether the device path runs ``task``; the rest runs on the
+        host tier. The JAX package's rule (its ``_eligible``), less what
+        this package has not (SPMD, coded groups, probation,
+        ``SelfAttend``): device columns throughout, scalar keys where a
+        shuffle routes them, a per-row (device) partitioner and a device
+        combiner; device-tier Map/Filter/Flatmap, Reduce and Fold; a
+        GroupByKey or JoinAggregate (both sides' fns device, both
+        inputs device scalars) only as the chain's innermost slice; a
+        Cogroup alone in its chain, unshuffled, over device scalar
+        inputs and not machine-combined (its own output is host lists,
+        the readback's decode); and nothing else — Scan, MapBatches and
+        the sources run on the host tier."""
         if task.chain is None:
-            raise LoweringNotPorted(f"{op}: task has no slice chain")
-        if any(isinstance(s, Cogroup) for s in task.chain):
-            self._check_cogroup(task)
-            return
-        for s in task.chain:
-            name = type(s).__name__
-            if not isinstance(s, _DEVICE_OPS):
-                raise LoweringNotPorted(
-                    f"{op}: operator {name} is not ported")
-            fcs = ((s.frame_combiner,) if isinstance(s, Reduce)
-                   else s.frame_combiners if isinstance(s, JoinAggregate)
-                   else ())
-            if (getattr(s, "mode", "device") != "device"
-                    or (isinstance(s, Fold) and not s.device)
-                    or not all(fc.device for fc in fcs)):
-                raise LoweringNotPorted(
-                    f"{op}: {name} runs a host-tier function: the host "
-                    f"tier is not ported")
-            if (isinstance(s, (JoinAggregate, Fold))
-                    and s.dense_keys is not None):
-                raise LoweringNotPorted(
-                    f"{op}: {name} declares dense_keys=: the dense "
-                    f"lowering is not ported")
-            if not all(ct.is_device for ct in s.schema):
-                raise LoweringNotPorted(
-                    f"{op}: host-tier columns: the host tier is not "
-                    f"ported")
+            return False
+        last = task.chain[-1]
+        part = task.partitioner
+        if isinstance(last, Cogroup):
+            if part.combine_key or any(d.combine_key for d in task.deps):
+                return False
+            return (len(task.chain) == 1 and task.num_partition == 1
+                    and all(ct.is_device and ct.shape == ()
+                            for sl in last.slices for ct in sl.schema))
+        if not all(ct.is_device for ct in task.schema):
+            return False
         if task.num_partition > 1:
-            part = task.partitioner
+            if not all(ct.shape == () for ct in task.schema.key):
+                return False
             pf = part.partition_fn
             if pf is not None and not isinstance(pf, RowPartitioner):
-                raise LoweringNotPorted(
-                    f"{op}: a host-tier partitioner: the host tier is not "
-                    f"ported")
+                return False  # a frame-level host partitioner
             if part.combiner is not None and not part.combiner.device:
-                raise LoweringNotPorted(
-                    f"{op}: a host-tier combine fn: the host tier is not "
-                    f"ported")
-
-    @staticmethod
-    def _check_cogroup(task: Task) -> None:
-        """A Cogroup lowers alone: no machine-combined producers or
-        output, the only slice of its chain and one output partition (its output is object lists, decoded on the
-        host at readback, so no device stage or shuffle can take it),
-        and every input column a device scalar. Its own schema is not
-        held against it: the lists are the readback's decode of device
-        columns."""
-        op = task.name.op
-        cg = task.chain[-1]
-        if task.partitioner.combine_key or any(d.combine_key
-                                               for d in task.deps):
-            raise LoweringNotPorted(
-                f"{op}: a machine-combined Cogroup group: its shared "
-                f"combiner buffer is the local executor's")
-        if len(task.chain) != 1 or not isinstance(cg, Cogroup):
-            raise LoweringNotPorted(
-                f"{op}: a Cogroup fused with other stages: its list "
-                f"columns need the host tier, which is not ported")
-        if task.num_partition > 1:
-            raise LoweringNotPorted(
-                f"{op}: a Cogroup feeding a shuffle: its list columns "
-                f"need the host tier, which is not ported")
-        for sl in cg.slices:
-            if not all(ct.is_device and ct.shape == () for ct in sl.schema):
-                raise LoweringNotPorted(
-                    f"{op}: Cogroup input {sl.name} has host or vector "
-                    f"columns: only device scalar columns lower")
+                return False
+        for s in task.chain:
+            if isinstance(s, (Const, _PrefixedSlice, Reshuffle, Reshard)):
+                if not all(ct.is_device for ct in s.schema):
+                    return False
+            elif isinstance(s, (Map, Filter, Flatmap)):
+                if s.mode != "device":
+                    return False
+            elif isinstance(s, Reduce):
+                if not s.frame_combiner.device:
+                    return False
+            elif isinstance(s, Fold):
+                if not s.device:
+                    return False
+            elif isinstance(s, GroupByKey):
+                if s is not last:
+                    return False
+            elif isinstance(s, JoinAggregate):
+                if (s is not last
+                        or not all(fc.device for fc in s.frame_combiners)
+                        or not all(ct.is_device and ct.shape == ()
+                                   for d in s.deps()
+                                   for ct in d.slice.schema)):
+                    return False
+            elif not isinstance(s, Head):
+                return False
+        return True
 
     # -- group orchestration ----------------------------------------------
 
@@ -585,7 +615,15 @@ class MeshExecutor:
                 t.set_state(TaskState.ERR, e)
 
     def _execute_group(self, key, tasks: List[Task]) -> None:
-        out = self._execute_group_waves(tasks)
+        while True:
+            try:
+                out = self._execute_group_waves(tasks)
+                break
+            except _AutoDenseRetry:
+                # Nothing was committed (outputs assign only on
+                # success): the whole group reruns, re-staging every wave
+                # from its producers, with one more bound retracted.
+                continue
         with self._lock:
             self._outputs[key] = out
 
@@ -887,6 +925,7 @@ class MeshExecutor:
         a wave of its own). Returns the entry ``_settle_wave`` takes."""
         task0 = tasks[0]
         self._await_inputs(inputs)
+        self._maybe_auto_dense(task0, inputs, wave)
         budget = self._wave_budget()
         if (budget and task0.num_partition > 1 and len(inputs) == 1
                 and self._splittable_chain(task0)
@@ -966,10 +1005,24 @@ class MeshExecutor:
                         f"(on_overflow='error'); raise capacity or use "
                         f"Cogroup for discovered capacities")
                 if badrange > 0:
+                    auto = self._declared_auto(task0)
+                    if auto is not None:
+                        # The probe was wrong (a later wave holds keys
+                        # wave 0 never showed): retract, keep the site
+                        # (and the probing site) off for good, rerun the
+                        # whole group.
+                        auto.retract_dense()
+                        auto._auto_declared = False
+                        with self._lock:
+                            self._auto_dense_off.add(opbase)
+                            if auto._auto_site:
+                                self._auto_dense_off.add(auto._auto_site)
+                        raise _AutoDenseRetry()
                     # A user error, not skew: no slack retry.
                     raise ValueError(
                         f"partitioner returned ids outside "
-                        f"[0, {task0.num_partition}) in group "
+                        f"[0, {task0.num_partition}), or keys outside the "
+                        f"declared dense_keys range, in group "
                         f"{task0.name.op}")
                 if hashov > 0:
                     # The hash table could not place every row: discard
@@ -1156,12 +1209,104 @@ class MeshExecutor:
 
     def _hash_combine_ops(self, opbase: str, fc):
         """The classified ops when the hash lowering serves this combiner,
-        None for the sort lowering: the combiner's own verdict
+        None for the sort (or dense) lowering: the combiner's own verdict
         (``FrameCombiner.hash_ops``) unless the op's table overflowed
-        before."""
-        if opbase in self._hash_off:
+        before, or a dense bound is declared — the dense table, or where
+        it gates itself off the sort path that honours the range check,
+        takes precedence."""
+        if opbase in self._hash_off or fc.dense_keys is not None:
             return None
         return fc.hash_ops()
+
+    # -- auto-dense discovery ------------------------------------------------
+
+    def _dense_candidate(self, task0: Task):
+        """The declarable object (a FrameCombiner or a Fold) whose key
+        column is the staged input's column 0 and which opted into
+        discovery, or None. Only mask-level stages (filter, head) may
+        precede it: map, flatmap and join rewrite columns, so a probe of
+        the staged input would measure the wrong keys."""
+        if len(task0.deps) > 1:
+            return None
+        for kind, s in self._stages_for(task0):
+            if kind in ("filter", "head"):
+                continue
+            if kind == "shuffle":
+                part = task0.partitioner
+                fc = part.combiner
+                if (fc is not None and fc.auto_dense
+                        and fc.dense_keys is None
+                        and part.partition_fn is None
+                        and fc.dense_eligible()):
+                    return fc
+                return None
+            if kind == "combine":
+                fc = s.frame_combiner
+                if (fc.auto_dense and fc.dense_keys is None
+                        and fc.dense_eligible()):
+                    return fc
+                return None
+            if kind == "fold":
+                if (s.auto_dense and s.dense_keys is None
+                        and s.dense_eligible()):
+                    return s
+                return None
+            return None
+        return None
+
+    def _maybe_auto_dense(self, task0: Task, inputs, wave: int) -> None:
+        """Wave 0 of a candidate group probes its key range and declares
+        the bound dense when the keys are non-negative, ``kmax + 1 <=
+        MAX_DENSE_KEYS`` and at most twice the wave's capacity (a table
+        far larger than the data beats nothing). Wave 0 only: declaring
+        mid-group would mix dense and sort routing across waves; the
+        badrange signal and the group retry guard a misprobe."""
+        if wave != 0 or not self.auto_dense:
+            return
+        opb = _op_base(task0.name.op)
+        with self._lock:
+            if opb in self._auto_dense_off:
+                return
+        cand = self._dense_candidate(task0)
+        if cand is None:
+            return
+        kmin, kmax = self._key_range(inputs[0])
+        k = kmax + 1
+        if (kmin >= 0 and 0 < k <= dense_mod.MAX_DENSE_KEYS
+                and k <= 2 * inputs[0].capacity
+                and cand.try_declare_dense(k)):
+            cand._auto_declared = True
+            cand._auto_site = opb  # kept off too on a retraction
+
+    def _declared_auto(self, task0: Task):
+        """The discovered declaration governing this group's dense
+        lowering, if any (for a badrange retraction)."""
+        objs = []
+        if task0.num_partition > 1 and task0.partitioner.combiner:
+            objs.append(task0.partitioner.combiner)
+        for s in task0.chain:
+            if isinstance(s, Reduce):
+                objs.append(s.frame_combiner)
+            elif isinstance(s, Fold):
+                objs.append(s)
+        for o in objs:
+            if o._auto_declared and o.dense_keys is not None:
+                return o
+        return None
+
+    def _key_range(self, inp: StagedInput) -> Tuple[int, int]:
+        """(min, max) of the staged key column's valid rows: one
+        ``torch.aminmax`` and one readback. The rows are front-packed, so
+        row 0 stands in for the invalid tail; an empty wave reads as
+        (int32 max, int32 min), which declares nothing."""
+        key = inp.cols[0]
+        valid = torch.arange(key.shape[0], device=key.device) < inp.counts[0]
+        lo, hi = torch.aminmax(torch.where(valid, key, key[0]))
+        kmin, kmax, n = torch.stack([lo.to(torch.int64), hi.to(torch.int64),
+                                     inp.counts[0].to(torch.int64)]).tolist()
+        if n == 0:
+            return torch.iinfo(torch.int32).max, torch.iinfo(torch.int32).min
+        return kmin, kmax
 
     def _hash_join_ops(self, opbase: str, s: JoinAggregate):
         """(ops_a, ops_b) when the sortless hash join serves this join
@@ -1203,19 +1348,32 @@ class MeshExecutor:
                       col_sets):
         """The two-input join stage: finish each side's keyed reduction
         (this wave holds every row of its keys, since both producers
-        routed by the same hash) and keep the keys present in both.
-        Classified fns over non-float keys take one shared claim cascade
-        (``hashagg.make_hash_join_align``); others two segmented reduces
-        and the tagged-sort alignment (``join.make_align``). Returns
-        (mask, cols, hash overflow)."""
+        routed by the same hash) and keep the keys present in both. A
+        dense-declared join whose consumer shards are the devices, with
+        a table in the inputs' league, takes a rank-indexed table a side
+        (``dense.make_dense_join``); classified fns over non-float keys
+        one shared claim cascade (``hashagg.make_hash_join_align``);
+        others two segmented reduces and the tagged-sort alignment
+        (``join.make_align``). Returns (mask, cols, bad, hash
+        overflow)."""
         fc_a, fc_b = s.frame_combiners
         nk = s.prefix
         cols_a, cols_b = col_sets
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        dk = fc_a.dense_keys
+        if (dk is not None and dk == fc_b.dense_keys
+                and s.num_shards == self.nmesh
+                and dk <= 4 * self.nmesh * (cols_a[0].shape[0]
+                                            + cols_b[0].shape[0])):
+            djoin = dense_mod.make_dense_join(
+                dk, fc_a.dense_ops, fc_b.dense_ops, self.nmesh)
+            mask, cols, bad = djoin(masks[0], cols_a, masks[1], cols_b)
+            return mask, cols, bad, zero
         jops = self._hash_join_ops(opbase, s)
         if jops is not None:
             align = hashagg.make_hash_join_align(nk, jops[0], jops[1])
             mask, cols, hov = align(masks[0], cols_a, masks[1], cols_b)
-            return mask, cols, hov
+            return mask, cols, zero, hov
         sides = []
         for fc, m, cols in ((fc_a, masks[0], cols_a),
                             (fc_b, masks[1], cols_b)):
@@ -1223,8 +1381,23 @@ class MeshExecutor:
                 nk, fc.nvals, segment.canonical_combine(fc.fn, fc.nvals))
             sides.extend(core(m, tuple(cols[:nk]), tuple(cols[nk:])))
         mask, cols = join_mod.make_align(nk, fc_a.nvals, fc_b.nvals)(*sides)
-        return mask, cols, torch.zeros((), dtype=torch.int32,
-                                       device=self.device)
+        return mask, cols, zero, zero
+
+    @staticmethod
+    def _dense_gate(dk, key_col, mask, badrange):
+        """Declared-dense bookkeeping of the combine and fold stages:
+        keys outside the bound count into the badrange signal whenever a
+        bound is declared (the loud failure must not depend on which
+        lowering runs), while the dense table engages only when it stays
+        in the input's league (``dk <= 2 * rows``). Returns (the bound to
+        use or None, badrange)."""
+        if dk is None:
+            return None, badrange
+        badrange = badrange + (mask & ((key_col < 0) | (key_col >= dk))
+                               ).sum().to(torch.int32)
+        if dk > 2 * key_col.shape[0]:
+            return None, badrange
+        return dk, badrange
 
     def _program(self, task: Task, stages: List[tuple], slack: float):
         """The wave program: ``stepped(wave, inputs, carry=None) ->
@@ -1265,7 +1438,7 @@ class MeshExecutor:
                 return (n.reshape(1), overflow, badrange, hashov, gbover,
                         tuple(cols))
             if stages and stages[0][0] == "join":
-                mask, cols, hashov = self._join_prelude(
+                mask, cols, badrange, hashov = self._join_prelude(
                     opbase, stages[0][1], masks, col_sets)
                 run_stages = stages[1:]
             else:
@@ -1289,8 +1462,15 @@ class MeshExecutor:
                 elif kind == "combine":
                     fc = s.frame_combiner
                     keys, vals = cols[: fc.nkeys], cols[fc.nkeys :]
+                    use_dk, badrange = self._dense_gate(
+                        fc.dense_keys, cols[0], mask, badrange)
                     hops = self._hash_combine_ops(opbase, fc)
-                    if hops is not None:
+                    if use_dk is not None:
+                        core = dense_mod.make_dense_combine(
+                            use_dk, fc.dense_ops)
+                        mask, keys, vals = core(mask, tuple(keys),
+                                                tuple(vals))
+                    elif hops is not None:
                         core = hashagg.make_hash_combine(
                             fc.nkeys, fc.nvals, hops)
                         mask, keys, vals, hov = core(mask, tuple(keys),
@@ -1307,9 +1487,15 @@ class MeshExecutor:
                     # This wave holds every row of its keys, in arrival
                     # order: producer wave, then row.
                     nk = s.prefix
-                    core = segment.make_sequential_fold_masked(
-                        nk, len(cols) - nk, s.fn, s.init,
-                        torch_dtype(s.acc_dtype))
+                    use_dk, badrange = self._dense_gate(
+                        s.dense_keys, cols[0], mask, badrange)
+                    if use_dk is not None:
+                        core = dense_mod.make_dense_fold(
+                            use_dk, s.dense_op, s.acc_dtype, s.init)
+                    else:
+                        core = segment.make_sequential_fold_masked(
+                            nk, len(cols) - nk, s.fn, s.init,
+                            torch_dtype(s.acc_dtype))
                     mask, keys, accs = core(mask, tuple(cols[:nk]),
                                             tuple(cols[nk:]))
                     cols = list(keys) + list(accs)
@@ -1336,7 +1522,22 @@ class MeshExecutor:
                            if pf is not None else None)
                     hops = (self._hash_combine_ops(opbase, fc)
                             if fc is not None and pf is None else None)
-                    if hops is not None:
+                    dense_k = fc.dense_keys if fc is not None else None
+                    if (dense_k is not None and pf is None
+                            and fc.nkeys == 1
+                            and s.num_partition == nmesh):
+                        # Dense keys: the table combine and the static
+                        # routing. It needs one partition a device, so on
+                        # one device (where a group of one partition has
+                        # no shuffle stage) it waits for the multi-GPU
+                        # exchange; until then such shuffles take the
+                        # sort path below.
+                        body = dense_mod.make_dense_combine_shuffle(
+                            nmesh, dense_k, fc.dense_ops)
+                        mask, ov, nb, cols = body(mask, *cols)
+                        overflow = overflow + ov
+                        badrange = badrange + nb
+                    elif hops is not None:
                         # Fused hash combine + exchange of table regions.
                         body = hashagg.make_hash_combine_shuffle(
                             nmesh, fc.nkeys, fc.nvals, hops,
@@ -1511,6 +1712,8 @@ class MeshExecutor:
         if out is not None and len(dep0.tasks) == 1:
             return StagedInput(out.cols, out.counts, out.capacity, False,
                                None)
+        if dep0.combine_key:
+            return self._machine_buffers_input(tasks, dep_idx)
 
         # Store-resident dep: each shard's frames, the shards' reads
         # fanned out on the staging pool.
@@ -1529,6 +1732,23 @@ class MeshExecutor:
             return frames
 
         per_shard = staging.map_shards(read_shard, tasks, self.stage_threads)
+        return self._stage_upload(per_shard, dep0.tasks[0].schema)
+
+    def _machine_buffers_input(self, tasks: List[Task],
+                               dep_idx: int) -> StagedInput:
+        """A machine-combined dep whose producers ran on the host tier:
+        their own store entries are empty by design, so each consumer
+        shard stages the committed machine buffer of its partition. No
+        commit means the buffers are gone: the producer group reruns."""
+        dep0 = tasks[0].deps[dep_idx]
+        ck = dep0.combine_key
+        local = self.local
+        with local._mc_lock:
+            if ck not in local._mc_keys_committed:
+                raise DepLost(*dep0.tasks)
+            bufs = [local._mc_committed.get((ck, t.deps[dep_idx].partition))
+                    for t in tasks]
+        per_shard = [[f] if f is not None and len(f) else [] for f in bufs]
         return self._stage_upload(per_shard, dep0.tasks[0].schema)
 
     def _stage_upload(self, shard_lists, schema) -> StagedInput:

@@ -1,6 +1,7 @@
 """Session: compile and evaluate slices, and read their results.
 
-``Session()`` runs on the device executor over ``cuda``;
+``Session()`` runs on the device executor over ``cuda`` (its host tier,
+an inner local executor, runs what the device path cannot lower);
 ``Session(parallelism=N)`` on the local executor with N task threads,
 also over ``cuda``. ``Session(executor=MeshExecutor(device="cpu"))`` or
 ``Session(executor=LocalExecutor(device="cpu"))`` runs the same paths

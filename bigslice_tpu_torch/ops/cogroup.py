@@ -10,9 +10,10 @@ full outer join with grouped values.
 The device executor lowers it (``parallel/cogroup.py``): one tagged,
 stable sort over the union of the inputs' shuffled rows, a rank-scatter
 into per-input [keys, G] matrices with exact counts, a capacity G that
-the executor discovers, and a host decode into the lists; it refuses by
-name inputs with host columns, a Cogroup fused with other stages and a
-machine-combined group. The local executor runs the host reader: each
+the executor discovers, and a host decode into the lists; inputs with
+host or vector columns, a Cogroup fused with other stages or feeding a
+shuffle and a machine-combined group run on its host tier. The local
+executor runs the host reader: each
 input's partition sorted on bounded memory (``sortio.sort_reader``) and
 a sorted merge of whole groups across the inputs (``_Cursor``).
 """

@@ -13,12 +13,21 @@ Two tiers, decided at construction:
   over the frame's device columns, on the local executor, or as the
   ``fold`` stage of the device executor's wave program;
 - **host**: any other fn, a callable ``init`` (a fresh mutable zero
-  per key) or host keys: the dict loop, on the local executor.
+  per key) or host keys: the dict loop, on the local executor (the
+  device executor's included).
+
+A device Fold over one int32 key whose fn classifies as add/max/min
+(not a float add, which the sequential order decides bit for bit) may
+declare its keys dense (``dense_keys=``, or a bound the device executor
+discovers): the device executor then folds into a [K] table
+(``dense.make_dense_fold``).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
+
+import numpy as np
 
 from bigslice_tpu_torch import sliceio, typecheck
 from bigslice_tpu_torch.frame import ops as frame_ops
@@ -35,9 +44,9 @@ class Fold(Slice):
     ``fn(acc, *vals) -> acc``; ``init`` is the zero accumulator (a value
     or a zero-argument callable); ``out_value`` declares the accumulator
     column's type (default: the first value column's). ``dense_keys=``
-    declares dense int32 keys below it, which the JAX package lowers to
-    a scatter table: the local executor ignores the declaration, and the
-    device executor refuses such a Fold by name."""
+    declares dense int32 keys below it, which the device executor folds
+    into a scatter table when the fn classifies (``dense_op``); the
+    local executor ignores the declaration."""
 
     def __init__(self, slice_: Slice, fn: Callable, init: Any = 0,
                  out_value=None, dense_keys=None):
@@ -64,10 +73,47 @@ class Fold(Slice):
         self.init = init
         self.acc_dtype = schema.cols[slice_.prefix].dtype
         self.device = self._device_eligible()
-        self.dense_keys = dense_keys
-        # The JAX package's staging-time dense probe; nothing here reads
-        # it until the dense lowering is ported.
+        self.dense_keys = None
+        self.dense_op = None
+        # The device executor may discover the bound from a key-range
+        # probe (``FrameCombiner.auto_dense``'s contract).
         self.auto_dense = True
+        self._auto_declared = False
+        self._auto_site = None
+        if dense_keys is not None:
+            self.try_declare_dense(dense_keys)
+
+    def dense_eligible(self) -> bool:
+        """One scalar int32 key, one scalar value, a literal init, on
+        the device tier."""
+        cols = self.dep_slice.schema.cols
+        return (self.device and self.dep_slice.prefix == 1
+                and len(cols) == 2
+                and np.dtype(cols[0].dtype) == np.dtype(np.int32)
+                and cols[0].shape == () and cols[1].shape == ()
+                and not callable(self.init))
+
+    def try_declare_dense(self, dense_keys: int) -> bool:
+        """Declare keys dense in [0, dense_keys); True if the dense
+        fold engaged (the fn classified, the bound in range)."""
+        if not self.dense_eligible():
+            return False
+        from bigslice_tpu_torch.parallel import dense
+
+        op = None
+        if 0 < dense_keys <= dense.MAX_DENSE_KEYS:
+            op = dense.classified_fold_op_cached(
+                self.fn, np.dtype(self.acc_dtype),
+                np.dtype(self.dep_slice.schema.cols[1].dtype))
+        if op is None:
+            return False
+        self.dense_keys = int(dense_keys)
+        self.dense_op = op
+        return True
+
+    def retract_dense(self) -> None:
+        self.dense_keys = None
+        self.dense_op = None
 
     def _device_eligible(self) -> bool:
         """A literal init, scalar device columns and a fold fn that maps

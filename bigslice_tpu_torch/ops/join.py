@@ -19,9 +19,8 @@
 On the local executor the reader runs the same contract a frame at a
 time: each side's combiner (``FrameCombiner.combine``) and the inner
 join of the two reduced frames (``_inner_join``), which runs the host
-tier's combine fns and host keys too. The device executor refuses the
-host tier and the dense join (``dense_keys=``) by name
-(``LoweringNotPorted``).
+tier's combine fns and host keys too (the device executor sends such
+a join there), and ignores ``dense_keys=``.
 """
 
 from __future__ import annotations
@@ -46,8 +45,9 @@ class JoinAggregate(Slice):
     present in both sides. ``a_fn``/``b_fn`` are associative pairwise
     combine functions over each side's value columns (Reduce's form for
     single-value sides). ``dense_keys`` declares both sides' keys dense
-    codes in [0, dense_keys); its lowering is not ported, and a join
-    that declares it is refused when it runs.
+    codes in [0, dense_keys): each side's combiner takes the
+    declaration, and where both fns classify as add/max/min the device
+    executor's join runs the dense lowering; otherwise it is ignored.
     """
 
     def __init__(self, a: Slice, b: Slice, a_fn: Callable,
@@ -82,12 +82,13 @@ class JoinAggregate(Slice):
                          make_name("join"),
                          pragmas=tuple(a.pragmas) + tuple(b.pragmas))
         self.a, self.b = a, b
-        self.dense_keys = dense_keys
         # Per-dep map-side combiners, parallel to deps(): each side
         # pre-reduces with its own fn before its shuffle. Each one's
-        # ``device`` is that side's tier verdict.
-        self.frame_combiners = (FrameCombiner(a_fn, a.schema),
-                                FrameCombiner(b_fn, b.schema))
+        # ``device`` is that side's tier verdict. Join combiners never
+        # discover a dense bound (``auto_dense`` stays off).
+        self.frame_combiners = (
+            FrameCombiner(a_fn, a.schema, dense_keys=dense_keys),
+            FrameCombiner(b_fn, b.schema, dense_keys=dense_keys))
 
     def deps(self):
         return (Dep(self.a, shuffle=True, expand=True),

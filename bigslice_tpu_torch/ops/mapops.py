@@ -14,9 +14,9 @@ The verdict is a trace over meta tensors (shapes and dtypes, no data):
 a function that the trace cannot run — data-dependent Python control
 flow, ``.item()``, host objects, tensors made without the inputs'
 device (``torch.tensor(..., device=x.device)`` is device tier) — is host
-tier. The device executor refuses a host-tier stage by name
-(``LoweringNotPorted``); the local executor runs it through the
-readers here, per row over the frame's host copy.
+tier. The local executor runs a host-tier stage (on the device
+executor, its host tier) through the readers here, per row over the
+frame's host copy.
 
 The device tier's column functions (``Map.device_apply``,
 ``Filter.device_mask``, ``Flatmap.device_apply``) serve both the device

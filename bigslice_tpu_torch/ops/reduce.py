@@ -6,22 +6,27 @@ shuffle — the executor applies the consumer's combiner there) and
 *reduce-side* (in this slice's own task). The shuffle dep sets
 ``expand=True`` so partition streams merge rather than concatenate.
 
-Device lowering: a combine fn that classifies per value column as
-add/max/min, over non-float scalar keys, runs as open-addressed hash
-aggregation (parallel/hashagg.py); every other device-traceable combine
-fn, float keys, and ops whose hash table overflowed run on the sort +
-segmented-scan lowering (parallel/segment.py). Host keys (strings) and
-a combine fn that is not a tensor function of the values belong to the
-host tier: the local executor combines them on the host
-(``segment.host_reduce_by_key``); the device executor refuses them by
-name. On the local executor a device combiner runs the sort and
-segmented scan over each frame (``segment.cached_reduce_kernel``).
+Device lowering: keys declared dense (``dense_keys=K``, or a bound the
+device executor discovers from the data) with a combine fn that
+classifies per value column as add/max/min run as a [K] table of
+accumulators (parallel/dense.py); other classified fns over non-float
+scalar keys run as open-addressed hash aggregation
+(parallel/hashagg.py); every other device-traceable combine fn, float
+keys, and ops whose hash table overflowed run on the sort + segmented
+scan lowering (parallel/segment.py). Host keys (strings) and a combine
+fn that is not a tensor function of the values belong to the host tier:
+the local executor combines them on the host
+(``segment.host_reduce_by_key``), the device executor's included. On
+the local executor a device combiner runs the sort and segmented scan
+over each frame (``segment.cached_reduce_kernel``), whatever it
+declares.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from bigslice_tpu_torch import typecheck
@@ -32,9 +37,8 @@ from bigslice_tpu_torch.parallel import segment
 from bigslice_tpu_torch.slicetype import Schema, torch_dtype
 
 class LoweringNotPorted(NotImplementedError):
-    """A slice needs a lowering this package does not have yet: the host
-    tier (functions that are not tensor functions of their columns, host
-    columns) or an operator that is not ported."""
+    """A slice needs something this package does not have yet (an
+    fsspec URL prefix: ``fileio.URLNotPorted``)."""
 
 
 _TRACE_CACHE: dict = {}
@@ -92,10 +96,12 @@ def _vals_traceable_uncached(fn: Callable, schema: Schema) -> bool:
 class FrameCombiner:
     """A Reduce's combiner over its input schema. ``device`` is the tier
     verdict; ``hash_ops`` the per-column add/max/min classification the
-    device executor's hash-aggregate lowering runs it with; ``combine``
+    device executor's hash-aggregate lowering runs it with;
+    ``dense_keys``/``dense_ops`` the dense-table declaration; ``combine``
     the local executor's combine of one frame."""
 
-    def __init__(self, fn: Callable, schema: Schema):
+    def __init__(self, fn: Callable, schema: Schema,
+                 dense_keys: Optional[int] = None):
         self.fn = fn
         self.schema = schema
         self.nkeys = schema.prefix
@@ -106,6 +112,62 @@ class FrameCombiner:
         self._kernel = (segment.cached_reduce_kernel(fn, self.nkeys,
                                                      self.nvals)
                         if self.device else None)
+        # Dense-key declaration (parallel/dense.py): keys are int32
+        # codes in [0, dense_keys); dense_ops is the per-column
+        # add/max/min classification. A fn that does not classify, a
+        # key of another shape or type, or the host tier quietly keeps
+        # the other lowerings.
+        self.dense_keys = None
+        self.dense_ops = None
+        # The device executor may discover a dense bound from the data
+        # (a min/max probe of a group's first wave) when none is
+        # declared. Off by default: Reduce opts in; a JoinAggregate
+        # must not (its two sides' shuffles have to route identically,
+        # which independent per-side discovery cannot guarantee).
+        self.auto_dense = False
+        # Set by the executor that discovered the bound, and the op site
+        # whose probe did (kept off too if a later wave disproves it).
+        self._auto_declared = False
+        self._auto_site = None
+        if dense_keys is not None:
+            self.try_declare_dense(dense_keys)
+
+    def dense_eligible(self) -> bool:
+        """The structural half of the dense contract: one scalar int32
+        key on the device tier (``try_declare_dense`` checks the fn)."""
+        ct = self.schema.cols[0]
+        return (self.device and self.nkeys == 1
+                and np.dtype(ct.dtype) == np.dtype(np.int32)
+                and ct.shape == ())
+
+    def try_declare_dense(self, dense_keys: int) -> bool:
+        """Declare keys dense in [0, dense_keys); True if the dense
+        lowering engaged. A bound out of (0, ``MAX_DENSE_KEYS``] quietly
+        keeps the other lowerings: callers derive it from the data's
+        size and must not start failing when the data outgrows the
+        table. Vector value columns scatter whole rows."""
+        if not self.dense_eligible():
+            return False
+        from bigslice_tpu_torch.parallel import dense
+
+        ops = None
+        if 0 < dense_keys <= dense.MAX_DENSE_KEYS:
+            ops = dense.classified_ops_cached(
+                self.fn, self.nvals,
+                tuple(np.dtype(ct.dtype) for ct in self.schema.values),
+                tuple(tuple(ct.shape) for ct in self.schema.values))
+        if ops is None:
+            return False
+        self.dense_keys = int(dense_keys)
+        self.dense_ops = ops
+        return True
+
+    def retract_dense(self) -> None:
+        """Undo a discovered declaration (a later wave proved the probed
+        bound wrong): programs built after this take the range-agnostic
+        lowerings."""
+        self.dense_keys = None
+        self.dense_ops = None
 
     def combine(self, frame: Frame) -> Frame:
         """Combine equal keys within one frame: on the frame's device
@@ -152,7 +214,14 @@ class FrameCombiner:
 
 
 class Reduce(Slice):
-    def __init__(self, slice_: Slice, fn: Callable):
+    def __init__(self, slice_: Slice, fn: Callable,
+                 dense_keys: Optional[int] = None):
+        """``dense_keys``: optional declaration that the (single int32)
+        key column holds dense codes in ``[0, dense_keys)``. When the
+        combine fn classifies as per-column add/max/min, the device
+        executor lowers the combine to a [dense_keys] table
+        (parallel/dense.py); otherwise the declaration is ignored. Keys
+        outside the declared range fail the run."""
         typecheck.check(
             slice_.prefix >= 1, "reduce: input slice must have a key prefix"
         )
@@ -171,8 +240,11 @@ class Reduce(Slice):
         self.fn = fn
         self._combiner = Combiner(fn, name="reduce")
         # One FrameCombiner serves both the producer shuffle's map-side
-        # combine and this slice's reduce-side combine.
-        self.frame_combiner = FrameCombiner(fn, slice_.schema)
+        # combine and this slice's reduce-side combine, so a dense bound
+        # discovered at the producer wires the consumer too.
+        self.frame_combiner = FrameCombiner(fn, slice_.schema,
+                                            dense_keys=dense_keys)
+        self.frame_combiner.auto_dense = True
 
     def deps(self):
         return (Dep(self.dep_slice, shuffle=True, partitioner=None,

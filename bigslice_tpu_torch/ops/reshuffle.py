@@ -102,7 +102,7 @@ def Repartition(slice_: Slice, partition: Callable,
     ``mode="device"``) runs on the device; anything else is a
     frame-level host partitioner ``fn(frame, nparts) -> int32[n]``
     (vectorized numpy over the frame's host copy), which the local
-    executor runs and the device executor refuses by name."""
+    executor runs (the device executor's host tier included)."""
     if mode in ("auto", "device"):
         traceable = _partitioner_traceable(partition, slice_)
         if mode == "device" and not traceable:

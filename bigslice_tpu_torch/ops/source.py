@@ -1,8 +1,8 @@
 """Host-tier sources and sinks: ReaderFunc, WriterFunc, ScanReader.
 
 Arbitrary Python doing I/O a shard at a time, feeding the pipelines
-downstream; they run on the local executor (the device executor
-refuses them by name). A path names a local file: URL prefixes are not
+downstream; they run on the local executor (on the device executor,
+its host tier). A path names a local file: URL prefixes are not
 ported (``utils/fileio.URLNotPorted``).
 """
 

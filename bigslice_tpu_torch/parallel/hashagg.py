@@ -29,7 +29,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from bigslice_tpu_torch.parallel.jitutil import bucket_size
+from bigslice_tpu_torch.parallel.jitutil import bucket_size, kernel_device
 
 # Claim-cascade shape: FULL_ROUNDS full-width probe rounds, then the
 # pending stragglers compact into a size/CASCADE_DIV buffer where up to
@@ -300,3 +300,43 @@ def make_hash_join_align(nkeys: int, ops_a: Sequence[str],
         return pa & pb, out_keys + ta + tb, ov
 
     return align
+
+
+class MeshHashReduceByKey:
+    """A standalone keyed reduction with zero sorts over the device
+    slots: the fused hash combine + exchange of table regions
+    (``make_hash_combine_shuffle``: the ``hash_partition`` and
+    ``hash_aggregate`` kernels on the card), the reduce-side hash
+    re-combine (``hash_aggregate`` again), front-packed. The
+    counterpart of ``shuffle.MeshReduceByKey`` for classified ops
+    ('add'|'max'|'min' per value column). ``__call__(key_cols, val_cols,
+    counts)`` returns ``(key_cols, val_cols, out_counts, overflow)`` of
+    ``out_capacity`` rows; ``overflow`` > 0 means a table could not
+    place every row: discard the result and use the sort reduction.
+    ``device`` (default ``cuda``) replaces the JAX package's mesh."""
+
+    def __init__(self, nkeys: int, nvals: int, capacity: int,
+                 ops: Sequence[str], seed: int = 0, device=None):
+        self.device = kernel_device(device, "MeshHashReduceByKey")
+        self.nshards = 1
+        self.capacity = capacity
+        self.nkeys = nkeys
+        self.out_capacity = bucket_size(
+            self.nshards * combine_region_size(capacity, self.nshards))
+        self._fused = make_hash_combine_shuffle(self.nshards, nkeys, nvals,
+                                                tuple(ops), seed)
+        self._final = make_hash_combine(nkeys, nvals, tuple(ops), seed)
+
+    def __call__(self, key_cols: Sequence, val_cols: Sequence, counts):
+        from bigslice_tpu_torch.parallel.segment import compact_by_mask
+
+        cols = [c.to(self.device) for c in list(key_cols) + list(val_cols)]
+        counts = torch.as_tensor(counts).to(self.device)
+        valid = torch.arange(cols[0].shape[0], device=self.device) < counts[0]
+        recv, ov1, out = self._fused(valid, *cols)
+        nk = self.nkeys
+        mask, k, v, ov2 = self._final(recv, tuple(out[:nk]),
+                                      tuple(out[nk:]))
+        n, packed = compact_by_mask(mask, list(k) + list(v))
+        return (list(packed[:nk]), list(packed[nk:]), n.reshape(1),
+                ov1 + ov2)

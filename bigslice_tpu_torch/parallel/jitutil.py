@@ -30,3 +30,13 @@ def pad_cols(cols: Sequence[torch.Tensor], n: int, target: int) -> list:
             fill = c[n - 1 : n].expand((target - n,) + tuple(c.shape[1:]))
             out.append(torch.cat([c[:n], fill]))
     return out
+
+
+def kernel_device(device, who: str) -> torch.device:
+    """The device a standalone kernel class runs on: ``cuda`` unless the
+    caller passes another; raises when there is no GPU for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device is available; pass "
+                           f"device='cpu' to run on the CPU")
+    return device

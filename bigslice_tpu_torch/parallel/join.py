@@ -11,6 +11,8 @@ matches the JAX package's: ±0.0 join, a NaN key never matches.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from bigslice_tpu_torch.parallel import segment
@@ -68,3 +70,48 @@ def make_align(nkeys: int, nvals_a: int, nvals_b: int):
         return match, list(s_keys) + list(s_avals) + b_next
 
     return align
+
+
+class MeshJoinAggregate:
+    """A standalone aggregating inner join of two keyed single-value
+    sides over the device slots: each side's ``MeshReduceByKey``, then
+    the tagged-sort alignment, front-packed. ``__call__(a_cols,
+    a_counts, b_cols, b_counts)`` takes each side's (keys, vals) of
+    ``capacity`` rows and int32[1] counts and returns ``(keys, a_vals,
+    b_vals, out_counts, overflow)`` with one row a key present in both
+    sides; ``device`` (default ``cuda``) replaces the JAX package's
+    mesh."""
+
+    def __init__(self, capacity: int, a_combine: Callable,
+                 b_combine: Callable, seed: int = 0, slack: float = 2.0,
+                 device=None):
+        from bigslice_tpu_torch.parallel import shuffle as shuffle_mod
+
+        self.a_reduce = shuffle_mod.MeshReduceByKey(
+            1, 1, capacity, a_combine, seed=seed, slack=slack,
+            device=device)
+        self.b_reduce = shuffle_mod.MeshReduceByKey(
+            1, 1, capacity, b_combine, seed=seed, slack=slack,
+            device=device)
+        self.device = self.a_reduce.device
+        self.out_capacity = (self.a_reduce.out_capacity
+                             + self.b_reduce.out_capacity)
+        self._align = make_align(1, 1, 1)
+
+    def __call__(self, a_cols, a_counts, b_cols, b_counts):
+        ka, va, na, ov_a = self.a_reduce([a_cols[0]], [a_cols[1]], a_counts)
+        kb, vb, nb, ov_b = self.b_reduce([b_cols[0]], [b_cols[1]], b_counts)
+        keep_a = torch.arange(ka[0].shape[0], device=self.device) < na[0]
+        keep_b = torch.arange(kb[0].shape[0], device=self.device) < nb[0]
+        match, cols = self._align(keep_a, (ka[0],), (va[0],),
+                                  keep_b, (kb[0],), (vb[0],))
+        n, (keys, avals, bvals) = segment.compact_by_mask(match, cols)
+        return keys, avals, bvals, n.reshape(1), ov_a + ov_b
+
+
+def join_count_oracle(a_keys, b_keys) -> dict:
+    """Host oracle: keys present in both sides with (countA, countB)."""
+    from collections import Counter
+
+    ca, cb = Counter(a_keys), Counter(b_keys)
+    return {k: (ca[k], cb[k]) for k in ca.keys() & cb.keys()}

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from bigslice_tpu_torch.parallel import segment
+from bigslice_tpu_torch.parallel.jitutil import kernel_device
 
 #: Above this lane count the one-hot running count's O(n * lanes) work
 #: overtakes the routing sort it replaces.
@@ -342,3 +343,65 @@ def partition_chunks(chunks: Sequence[Sequence[torch.Tensor]], nparts: int,
     """Every partition's valid rows (``partition_cols``), in partition
     order: the spill exchange's map-side split."""
     return [partition_cols(chunks, p, nmesh, subid) for p in range(nparts)]
+
+
+class MeshShuffle:
+    """A standalone shuffle over the device slots (one here, so
+    ``nshards`` is 1): ``__call__(cols, counts)`` with columns of
+    ``capacity`` rows and ``counts`` int32[1] valid rows; returns
+    ``(out_cols, out_counts, overflow)``, the routed rows front-packed
+    into ``out_capacity`` rows. The shuffle body of the executor
+    (``make_shuffle_fn``) at kernel granularity; ``device`` (default
+    ``cuda``) replaces the JAX package's mesh."""
+
+    def __init__(self, ncols: int, nkeys: int, capacity: int, seed: int = 0,
+                 partition_fn=None, slack: float = 2.0, device=None):
+        self.device = kernel_device(device, "MeshShuffle")
+        self.nshards = 1
+        self.ncols = ncols
+        self.capacity = capacity
+        self.out_capacity = self.nshards * send_capacity(
+            capacity, self.nshards, slack)
+        self._body = make_shuffle_fn(self.nshards, nkeys, capacity, seed,
+                                     partition_fn, slack)
+
+    def __call__(self, cols: Sequence, counts):
+        cols = [c.to(self.device) for c in cols]
+        counts = torch.as_tensor(counts).to(self.device)
+        valid = torch.arange(cols[0].shape[0], device=self.device) < counts[0]
+        mask, overflow, _bad, out_cols = self._body(valid, *cols)
+        n, packed = segment.compact_by_mask(mask, out_cols)
+        return list(packed), n.reshape(1), overflow
+
+
+class MeshReduceByKey:
+    """A standalone keyed reduction over the device slots: the fused
+    sort combine + shuffle (``make_combine_shuffle_fn``), then the
+    reduce-side segmented reduce, front-packed. ``__call__(key_cols,
+    val_cols, counts)`` returns ``(key_cols, val_cols, out_counts,
+    overflow)`` of ``out_capacity`` rows; ``device`` (default ``cuda``)
+    replaces the JAX package's mesh."""
+
+    def __init__(self, nkeys: int, nvals: int, capacity: int,
+                 combine_fn: Callable, seed: int = 0, slack: float = 2.0,
+                 device=None):
+        self.device = kernel_device(device, "MeshReduceByKey")
+        self.nshards = 1
+        self.capacity = capacity
+        self.out_capacity = self.nshards * send_capacity(
+            capacity, self.nshards, slack)
+        self.nkeys = nkeys
+        cfn = segment.canonical_combine(combine_fn, nvals)
+        self._fused = make_combine_shuffle_fn(self.nshards, nkeys, nvals,
+                                              cfn, seed, slack=slack)
+        self._final = segment.make_segmented_reduce_masked(nkeys, nvals, cfn)
+
+    def __call__(self, key_cols: Sequence, val_cols: Sequence, counts):
+        cols = [c.to(self.device) for c in list(key_cols) + list(val_cols)]
+        counts = torch.as_tensor(counts).to(self.device)
+        valid = torch.arange(cols[0].shape[0], device=self.device) < counts[0]
+        recv, overflow, _bad, out = self._fused(valid, *cols)
+        nk = self.nkeys
+        mask, k, v = self._final(recv, tuple(out[:nk]), tuple(out[nk:]))
+        n, packed = segment.compact_by_mask(mask, list(k) + list(v))
+        return list(packed[:nk]), list(packed[nk:]), n.reshape(1), overflow

@@ -82,6 +82,33 @@ shards against np.bincount, a Reduce over a two-column ``Prefixed``
 key against numpy, and a ``Scan`` sink on ``LocalExecutor()``
 counting each shard's rows.
 
+Phases 3, 11-13 and phase 20's ``int_max_func`` and Reshard runs build
+``MeshExecutor(auto_dense=False)``: their int32 keys are dense enough
+for the executor's auto-dense discovery (on by default, as in the JAX
+package), and these phases keep the lowering and the exact launch
+counts they hold (K2 on both sides of reduce-wave). Phases 21-22 drive
+this slice's paths: 21, ``dense``, at the default: (a) reduce-wave's
+rows through ``Session()``, where the producer's first wave discovers
+the bound 2**20 (the map side takes the sort combine-shuffle, the
+reduce side a dense table, K2 0), then ten alternating pairs of phase
+3's lowering and this one; (b) ``Reduce(Const(1, keys, ones), add,
+dense_keys=2**20)`` (one partition: the whole combine one table, no
+kernel), and the fused dense combine-shuffle called directly at that
+shape, its routing tables built by K1 over arange(2**20) and checked
+against the CPU's; (c) a dense join, ``JoinAggregate`` of two
+``Const(1, ...)`` sides of 2**23 keys over 2**19 with
+``dense_keys=2**19`` (K1 1: its routing tables); (d) a dense ``Fold``
+(max from -7) over phase 18's keys; (e) a misprobe, the first shard's
+keys below 2**16 and the others' up to 2**21: the bound is retracted
+on the reduce side, both sites go into ``auto_dense_off`` and the
+group reruns on K2. 22, ``host-fallback``: word count through
+``Session()`` (the device executor's host tier, its inner
+``LocalExecutor``) over phase 17's corpus, equal to
+collections.Counter and to phase 17's shards; and a mixed chain, a
+host Map over ScanReader lines to int32 ids, a device Reduce, a host
+Map over its result. Each once counted and five times warm, every row
+against numpy, with its wall, rows/s, peak memory and K1/K2 launches.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -850,8 +877,11 @@ def _shard_keys_routed(shards, S) -> None:
 
 
 def phase3_slice(card: str) -> dict:
-    """The main path: Session().run(Reduce(Const(4, keys, ones), add))
-    at the reduce-wave shape, then a max/min Reduce, both checked."""
+    """The main path: Session(executor=MeshExecutor(auto_dense=False))
+    .run(Reduce(Const(4, keys, ones), add)) at the reduce-wave shape,
+    then a max/min Reduce, both checked. Discovery is off so that both
+    keep K2's lowering on both sides (at the default the map side takes
+    the sort and the reduce side a dense table: phase 21)."""
     import bigslice_tpu_torch as bs
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
 
@@ -865,8 +895,8 @@ def phase3_slice(card: str) -> dict:
     def run_count():
         """Build the session, run, and read every shard's rows back to
         the host: what a user of the system waits for."""
-        res = bs.Session().run(bs.Reduce(bs.Const(S, keys, ones),
-                                         lambda a, b: a + b))
+        res = bs.Session(executor=bs.MeshExecutor(auto_dense=False)).run(
+            bs.Reduce(bs.Const(S, keys, ones), lambda a, b: a + b))
         for shard in range(S):
             list(res.reader(shard, ()))
         return res
@@ -934,10 +964,10 @@ def phase3_slice(card: str) -> dict:
     iv = rng.randint(-(2**31), 2**31 - 1, n2).astype(np.int32)
 
     def run_maxmin():
-        res = bs.Session().run(bs.Reduce(
-            bs.Const(S, k2, fv, iv),
-            lambda a, b: (torch.maximum(a[0], b[0]),
-                          torch.minimum(a[1], b[1]))))
+        res = bs.Session(executor=bs.MeshExecutor(auto_dense=False)).run(
+            bs.Reduce(bs.Const(S, k2, fv, iv),
+                      lambda a, b: (torch.maximum(a[0], b[0]),
+                                    torch.minimum(a[1], b[1]))))
         for shard in range(S):
             list(res.reader(shard, ()))
         return res
@@ -984,7 +1014,7 @@ def phase3_slice(card: str) -> dict:
 
 
 def drive(phase: str, label: str, make_slice, check, need, rows: int,
-          card: str, expect=None) -> dict:
+          card: str, expect=None, auto_dense: bool = True) -> dict:
     """One path through ``Session().run``: a counted first run (launch
     counts set to 0 just before, read just after; every kernel in
     ``need`` must have launched, and each kernel in ``expect`` exactly
@@ -995,13 +1025,14 @@ def drive(phase: str, label: str, make_slice, check, need, rows: int,
     device memory is the largest over the warm runs, checks excluded.
     ``make_slice()`` returns a Slice, or a tuple ``(func, *args)`` that
     ``Session.run`` takes. The counted run's device fold steps
-    (``segment.FOLD_STEPS``) are returned beside its launches."""
+    (``segment.FOLD_STEPS``) are returned beside its launches. The
+    session's executor is ``MeshExecutor(auto_dense=auto_dense)``."""
     import bigslice_tpu_torch as bs
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
     from bigslice_tpu_torch.parallel import segment
 
     def run():
-        sess = bs.Session()
+        sess = bs.Session(executor=bs.MeshExecutor(auto_dense=auto_dense))
         made = make_slice()
         res = sess.run(*made) if isinstance(made, tuple) else sess.run(made)
         for shard in range(res.num_shards):
@@ -1365,11 +1396,10 @@ def phase10_groupby(card: str) -> dict:
                  expect={"hash_partition": S, "hash_aggregate": 0})
 
 
-def _reduce_wave_input():
+def _reduce_wave_input(n=1 << 25, span=1 << 20):
     """Phase 3's reduce-wave rows: 2**25 int32 keys uniform over 2**20
     from RandomState(42), each counted once."""
-    n = 1 << 25
-    keys = np.random.RandomState(42).randint(0, 1 << 20, n).astype(np.int32)
+    keys = np.random.RandomState(42).randint(0, span, n).astype(np.int32)
     return keys, np.ones(n, np.int32)
 
 
@@ -1381,10 +1411,10 @@ def _same_rows(got, want, what) -> None:
         raise AssertionError(f"{what}: rows differ")
 
 
-def _count_check(keys):
+def _count_check(keys, span=1 << 20):
     """Rows of a counting Reduce against np.bincount, and each row in the
     shard the plain K1 names."""
-    bc = np.bincount(keys, minlength=1 << 20)
+    bc = np.bincount(keys, minlength=span)
     present = np.nonzero(bc)[0]
 
     def check(shards, S):
@@ -1408,7 +1438,8 @@ def _run_setting(make, ex_kwargs, runs, env=None, inspect=None):
     (taken before its discard), the warm walls, the peak device memory
     of the warm runs, the staging seconds per warm run, the arena's
     counts before and after the warm runs, whether its buffers are
-    pinned, and the executor."""
+    pinned, and the executor. Discovery is off unless ``ex_kwargs`` says
+    otherwise: phases 11-13 measure K2's lowering of reduce-wave."""
     import bigslice_tpu_torch as bs
     from bigslice_tpu_torch.exec.task import iter_tasks
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
@@ -1416,7 +1447,7 @@ def _run_setting(make, ex_kwargs, runs, env=None, inspect=None):
     saved = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
     try:
-        ex = bs.MeshExecutor(**ex_kwargs)
+        ex = bs.MeshExecutor(**dict(dict(auto_dense=False), **ex_kwargs))
 
         def run():
             sess = bs.Session(executor=ex)
@@ -2008,6 +2039,7 @@ def phase17_wordcount(card: str) -> dict:
         res = run()
         launches = dict(ck.LAUNCHES)
         check(res)
+        shards = bs.result_shard_rows(res)  # for phase 22
         del res
         walls = []
         for _ in range(runs):
@@ -2034,7 +2066,7 @@ def phase17_wordcount(card: str) -> dict:
         + f"; launches {launches} (first run), on {card}")
     return dict(launches=launches, wall_s=wall, walls_s=walls, rows=n,
                 rows_per_s=n / wall, profiled_wall_s=pwall,
-                device_busy_s=busy, host_share=host_share)
+                device_busy_s=busy, host_share=host_share, shards=shards)
 
 
 def numpy_fold(keys, vals, fn, init, dtype):
@@ -2194,7 +2226,7 @@ def phase20_func_api(card: str) -> dict:
     out = {"func-int-max": drive(
         "20", "func-api: Session().run(int_max_func, 4, keys, vals)",
         lambda: (int_max_func, S, keys, vals), check_max,
-        ("hash_partition", "hash_aggregate"), n, card)}
+        ("hash_partition", "hash_aggregate"), n, card, auto_dense=False)}
 
     ones = np.ones(n, np.int32)
     bc = np.bincount(keys, minlength=span)
@@ -2216,7 +2248,7 @@ def phase20_func_api(card: str) -> dict:
         "20", "func-api: Reduce(Reshard(Const(4, keys, ones), 16), add)",
         lambda: bs.Reduce(bs.Reshard(bs.Const(S, keys, ones), 16),
                           lambda a, b: a + b),
-        check_reshard, ("hash_partition",), n, card)
+        check_reshard, ("hash_partition",), n, card, auto_dense=False)
 
     k2 = rng.integers(0, 4, n, dtype=np.int32)
     small = rng.integers(0, 100, n, dtype=np.int32)
@@ -2261,6 +2293,345 @@ def phase20_func_api(card: str) -> dict:
     log(f"phase 20: func-api: Scan sink on LocalExecutor(), {n} rows: wall "
         f"{wall:.4f} s (one run), shard counts {counts}, launches "
         f"{out['scan']['launches']}, on {card}")
+    return out
+
+
+#: Alternating pairs of phase 21's reduce-wave A/B (K2's lowering, then
+#: the default's).
+AB_PAIRS = 10
+#: Phases 21-22 run at their sizes shifted right by this many bits: 0 on
+#: the card; a rehearsal on the CPU (phase functions called with the
+#: executors' device patched to the CPU) sets it to shrink them.
+SHIFT = 0
+
+
+def _timed_reduce_wave(keys, ones, S, auto_dense) -> float:
+    """One reduce-wave run (session, run, every shard read back) on
+    ``MeshExecutor(auto_dense=auto_dense)``: its wall in seconds."""
+    import bigslice_tpu_torch as bs
+
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bs.Session(executor=bs.MeshExecutor(auto_dense=auto_dense)).run(
+        bs.Reduce(bs.Const(S, keys, ones), lambda a, b: a + b))
+    for shard in range(S):
+        list(res.reader(shard, ()))
+    wall = time.perf_counter() - t0
+    del res
+    return wall
+
+
+def phase21_dense(card: str, device) -> dict:
+    """dense: the dense lowerings and auto-dense discovery at the
+    default (``MeshExecutor()``, auto_dense on). (a) reduce-wave's rows
+    (2**25 int32 keys uniform over 2**20, ones, S = 4): the producer's
+    first wave discovers the bound 2**20, so the map side takes the sort
+    combine-shuffle (the fused dense one needs one partition a device)
+    and the reduce side the dense table, with K2 launched 0 times; then
+    ``AB_PAIRS`` alternating pairs of phase 3's lowering (K2 on both
+    sides, auto_dense=False) and this one. (b) ``Reduce(Const(1, keys,
+    ones), add, dense_keys=2**20)``: one partition, so no shuffle stage
+    and the whole combine in one [2**20] table; and the fused dense
+    combine-shuffle (``dense.make_dense_combine_shuffle``, which the
+    executor reaches only with one partition a device of several
+    partitions, so never on one card) driven directly at that shape,
+    its routing tables built by K1 over arange(2**20). (c) a dense join:
+    ``JoinAggregate`` of two ``Const(1, ...)`` sides of 2**23 keys over
+    2**19 with ``dense_keys=2**19``: the rank-indexed table a side, its
+    routing tables built by K1 once. (d) a dense Fold, max from -7 over
+    phase 18's keys with ``dense_keys=2**20``. (e) a misprobe: the first
+    shard's keys lie in [0, 2**16), the others' reach 2**21: the bound
+    probed on the first wave is retracted by the reduce side's badrange
+    signal, both sites go into ``auto_dense_off`` and the group reruns
+    on K2. Every row is checked against numpy."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.parallel import dense
+
+    S = 4
+    span = 1 << (20 - SHIFT)
+    keys, ones = _reduce_wave_input(1 << (25 - SHIFT), span)
+    n = len(keys)
+    count_check = _count_check(keys, span)
+    made = []
+    out = {}
+
+    def keep(r):
+        made.append(r)
+        return r
+
+    def check_a(sess, res):
+        count_check(bs.result_shard_rows(res), S)
+        fc = made[-1].frame_combiner
+        if fc.dense_keys != span or not fc._auto_declared:
+            raise AssertionError(f"dense (a): the site declared "
+                                 f"{fc.dense_keys}, not a discovered {span}")
+        if sess.executor.auto_dense_off:
+            raise AssertionError("dense (a): a site was retracted")
+        return f", discovered dense_keys={fc.dense_keys}"
+
+    out["dense-reduce-wave"] = drive(
+        "21", "dense (a): reduce-wave at the default (discovered)",
+        lambda: keep(bs.Reduce(bs.Const(S, keys, ones), lambda a, b: a + b)),
+        check_a, ("hash_partition",), n, card, expect={"hash_aggregate": 0})
+    pairs = [(_timed_reduce_wave(keys, ones, S, False),
+              _timed_reduce_wave(keys, ones, S, True))
+             for _ in range(AB_PAIRS)]
+    k2 = statistics.median(p[0] for p in pairs)
+    dn = statistics.median(p[1] for p in pairs)
+    wins = sum(p[1] < p[0] for p in pairs)
+    out["dense-reduce-wave"]["ab_pairs_s"] = pairs
+    log(f"phase 21: reduce-wave A/B, {AB_PAIRS} alternating pairs (K2 "
+        f"lowering, auto_dense=False; then the default, sort map side and "
+        f"dense reduce side): median {k2:.4f} s against {dn:.4f} s, the "
+        f"default faster in {wins} of {AB_PAIRS}; pairs "
+        + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in pairs)
+        + f"; on {card}")
+
+    def check_b(sess, res):
+        count_check(bs.result_shard_rows(res), 1)
+        if made[-1].frame_combiner.dense_keys != span:
+            raise AssertionError("dense (b): the declaration was dropped")
+        return ""
+
+    out["dense-one-partition"] = drive(
+        "21", "dense (b): Reduce(Const(1, keys, ones), add, "
+        "dense_keys=2**20)",
+        lambda: keep(bs.Reduce(bs.Const(1, keys, ones), lambda a, b: a + b,
+                               dense_keys=span)),
+        check_b, (), n, card,
+        expect={"hash_partition": 0, "hash_aggregate": 0})
+
+    # The fused dense combine-shuffle at (b)'s shape, driven directly.
+    kt = torch.from_numpy(keys).to(device)
+    vt = torch.ones_like(kt)
+    valid = torch.ones_like(kt, dtype=torch.bool)
+    body = dense.make_dense_combine_shuffle(1, span, ("add",))
+    ck.reset_launches()
+    mask, ov, bad, (slots, cnt) = body(valid, kt, vt)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    bc = np.bincount(keys, minlength=span)
+    if not (launches["hash_partition"] == 1
+            and np.array_equal(mask.cpu().numpy(), bc > 0)
+            and np.array_equal(slots.cpu().numpy(), np.arange(span))
+            and np.array_equal(cnt.cpu().numpy()[bc > 0], bc[bc > 0])
+            and int(ov) == 0 and int(bad) == 0):
+        raise AssertionError("dense combine-shuffle differs from "
+                             "np.bincount")
+    table, _ = dense.routing_tables(span, 1, 0, device)
+    if not np.array_equal(table, dense.routing_tables(span, 1, 0)[0]):
+        raise AssertionError("routing tables on the card differ from the "
+                             "CPU's")
+    ms = time_ms(lambda: body(valid, kt, vt))
+    out["dense-combine-shuffle"] = dict(launches=launches, wall_s=ms / 1e3,
+                                        rows=n)
+    log(f"phase 21: dense (b) fused combine-shuffle, {n} rows into {span} "
+        f"slots, called directly: {ms:.4f} ms (median of CUDA-event runs, "
+        f"tables cached), launches {launches} (the routing tables' K1), "
+        f"on {card}")
+    del kt, vt, valid, mask, slots, cnt
+
+    rng = np.random.RandomState(21)
+    nj, span_j = 1 << (23 - SHIFT), 1 << (19 - SHIFT)
+    ak = rng.randint(0, span_j, nj).astype(np.int32)
+    bk = rng.randint(0, span_j, nj).astype(np.int32)
+    onesj = np.ones(nj, np.int32)
+    ca = np.bincount(ak, minlength=span_j)
+    cb = np.bincount(bk, minlength=span_j)
+    both = np.nonzero((ca > 0) & (cb > 0))[0]
+
+    def check_c(sess, res):
+        shards = bs.result_shard_rows(res)
+        k, a, b = (np.concatenate([sh[i] for sh in shards]) for i in range(3))
+        o = np.argsort(k)
+        if not (np.array_equal(k[o], both) and np.array_equal(a[o], ca[both])
+                and np.array_equal(b[o], cb[both])):
+            raise AssertionError("dense join differs from numpy")
+        return ""
+
+    out["dense-join"] = drive(
+        "21", "dense (c): JoinAggregate(Const(1, ak, 1), Const(1, bk, 1), "
+        "dense_keys=2**19)",
+        lambda: bs.JoinAggregate(bs.Const(1, ak, onesj),
+                                 bs.Const(1, bk, onesj), lambda x, y: x + y,
+                                 lambda x, y: x + y, dense_keys=span_j),
+        check_c, ("hash_partition",), 2 * nj, card,
+        expect={"hash_partition": 1, "hash_aggregate": 0})
+
+    frng = np.random.default_rng(18)
+    fk = frng.integers(0, span, n, dtype=np.int32)
+    fv = frng.integers(-(2**31), 2**31 - 1, n, dtype=np.int32)
+    fmax = np.full(span, -7, np.int32)
+    np.maximum.at(fmax, fk, fv)
+    fpresent = np.unique(fk)
+
+    def check_d(sess, res):
+        shards = bs.result_shard_rows(res)
+        k = np.concatenate([sh[0] for sh in shards])
+        a = np.concatenate([sh[1] for sh in shards])
+        o = np.argsort(k)
+        if not (np.array_equal(k[o], fpresent)
+                and np.array_equal(a[o], fmax[fpresent])):
+            raise AssertionError("dense fold differs from np.maximum.at")
+        if made[-1].dense_op != "max":
+            raise AssertionError("dense (d): the fold did not classify")
+        _shard_keys_routed(shards, S)
+        return ""
+
+    out["dense-fold"] = drive(
+        "21", "dense (d): Fold(Const(4, keys, vals), max, init=-7, "
+        "dense_keys=2**20)",
+        lambda: keep(bs.Fold(bs.Const(S, fk, fv),
+                             lambda acc, v: torch.maximum(acc, v), init=-7,
+                             dense_keys=span)),
+        check_d, ("hash_partition",), n, card, expect={"hash_aggregate": 0})
+
+    ne = 1 << (24 - SHIFT)
+    mrng = np.random.RandomState(23)
+    mk = np.concatenate([mrng.randint(0, 1 << (16 - SHIFT), ne // S),
+                         mrng.randint(0, 1 << (21 - SHIFT), ne - ne // S)]
+                        ).astype(np.int32)
+    mones = np.ones(ne, np.int32)
+    mbc = np.bincount(mk)
+    mpresent = np.nonzero(mbc)[0]
+
+    def check_e(sess, res):
+        shards = bs.result_shard_rows(res)
+        k = np.concatenate([sh[0] for sh in shards])
+        v = np.concatenate([sh[1] for sh in shards])
+        o = np.argsort(k)
+        if not (np.array_equal(k[o], mpresent)
+                and np.array_equal(v[o], mbc[mpresent])):
+            raise AssertionError("misprobe: counts differ from np.bincount")
+        _shard_keys_routed(shards, S)
+        off = sorted(sess.executor.auto_dense_off)
+        if (sorted(op.split("@")[0] for op in off) != ["const", "reduce"]
+                or made[-1].frame_combiner.dense_keys is not None):
+            raise AssertionError(f"misprobe: retracted sites {off}")
+        return f", retracted: {off}"
+
+    out["dense-misprobe"] = drive(
+        "21", "dense (e): misprobe (first wave's keys below 2**16, later "
+        "ones to 2**21)",
+        lambda: keep(bs.Reduce(bs.Const(S, mk, mones), lambda a, b: a + b)),
+        check_e, ("hash_partition", "hash_aggregate"), ne, card)
+    return out
+
+
+def _same_str_shards(got, want, what) -> None:
+    """Equality of two ``result_shard_rows`` holding object columns."""
+    if len(got) != len(want) or any(
+            len(g) != len(w) or any(list(gc) != list(wc)
+                                    for gc, wc in zip(g, w))
+            for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: rows differ")
+
+
+def phase22_host_fallback(card: str, wc_shards) -> dict:
+    """host-fallback: ``Session()`` (the device executor) over slices it
+    cannot lower, which run on its host tier (an inner
+    ``LocalExecutor`` on the same store and card). Word count over
+    phase 17's corpus, equal to collections.Counter and to phase 17's
+    shards (``LocalExecutor()``), with no group on the device path; and
+    a mixed chain: a host Map over ScanReader lines to int32 ids (the
+    first word's id) and word counts (host tier, staged onto the card),
+    a device Reduce adding them, then a host Map over its result (read
+    back through the store bridge), against numpy. Each once counted
+    and five times warm."""
+    import collections
+    import shutil
+    import tempfile
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.models.wordcount import wordcount
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S = 4
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fallback-")
+    path = os.path.join(tmp, "corpus.txt")
+    out = {}
+    try:
+        words = wordcount_corpus(path)
+        want = collections.Counter(words)
+
+        def check_wc(sess, res):
+            shards = bs.result_shard_rows(res)
+            got = {}
+            for w, c in shards:
+                got.update(zip(w.tolist(), c.tolist()))
+            if got != want:
+                raise AssertionError("fallback wordcount: counts differ "
+                                     "from collections.Counter")
+            _same_str_shards(shards, wc_shards,
+                             "fallback wordcount against phase 17")
+            if sess.executor._outputs:
+                raise AssertionError("fallback wordcount: a group ran on "
+                                     "the device path")
+            return ""
+
+        out["fallback-wordcount"] = drive(
+            "22", "host-fallback: wordcount through Session()",
+            lambda: wordcount(S, path), check_wc, (), len(words), card)
+
+        first = np.array([int(line.split(" ", 1)[0][1:], 16)
+                          for line in open(path)], np.int64)
+        per_id = np.bincount(first, minlength=WC_VOCAB) * WC_WORDS_A_LINE
+        want_mixed = {f"w{k:04x}": int(per_id[k] * 2)
+                      for k in np.nonzero(per_id)[0]}
+
+        def mixed():
+            sess = bs.Session()
+            ids = bs.Map(bs.ScanReader(S, path),
+                         lambda line: (int(line.split(" ", 1)[0][1:], 16),
+                                       len(line.split())),
+                         out=[np.int32, np.int32])
+            red = sess.run(bs.Reduce(ids, lambda a, b: a + b))
+            res = sess.run(bs.Map(red, lambda k, c: (f"w{int(k):04x}",
+                                                     int(c) * 2),
+                                  out=[str, np.int32]))
+            rows = dict(res.rows())
+            return sess, rows
+
+        def check_mixed(sess, rows):
+            if rows != want_mixed:
+                raise AssertionError("mixed chain differs from numpy")
+            if len(sess.executor._outputs) != 1:
+                raise AssertionError("mixed chain: the Reduce did not run on "
+                                     "the device path")
+
+        ck.reset_launches()
+        sess, rows = mixed()
+        launches = dict(ck.LAUNCHES)
+        check_mixed(sess, rows)
+        off = sorted(sess.executor.auto_dense_off)
+        del sess, rows
+        walls, peaks = [], []
+        for _ in range(WARM_RUNS):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sess, rows = mixed()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            check_mixed(sess, rows)
+            del sess, rows
+        wall = statistics.median(walls)
+        nl = WC_LINES
+        log(f"phase 22: host-fallback: mixed chain (host Map over "
+            f"ScanReader, device Reduce, host Map over the result), {nl} "
+            f"lines: warm wall {wall:.4f} s (median of {WARM_RUNS}: "
+            f"{', '.join(f'{w:.4f}' for w in walls)}), {nl / wall:.1f} "
+            f"lines/s, peak device memory {max(peaks):.3f} GiB, launches "
+            f"{launches} (first run), retracted {off}, on {card}")
+        out["fallback-mixed"] = dict(launches=launches, wall_s=wall,
+                                     walls_s=walls, rows=nl,
+                                     rows_per_s=nl / wall,
+                                     peak_gib=max(peaks))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -2316,9 +2687,13 @@ def main() -> int:
     paths["local-reduce"] = phase16_local_reduce(card, mesh_shards)
     del mesh_shards
     paths["wordcount"] = phase17_wordcount(card)
+    wc_shards = paths["wordcount"].pop("shards")
     paths.update(phase18_fold(card))
     paths["fold-hotkey"] = phase19_fold_hotkey(card)
     paths.update(phase20_func_api(card))
+    paths.update(phase21_dense(card, device))
+    paths.update(phase22_host_fallback(card, wc_shards))
+    del wc_shards
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

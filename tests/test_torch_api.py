@@ -31,7 +31,6 @@ from bigslice_tpu_torch.exec.task import TaskError, iter_tasks  # noqa: E402
 from bigslice_tpu_torch.models import maxint as port_maxint  # noqa: E402
 from bigslice_tpu_torch.models import wordcount as port_wordcount  # noqa: E402
 from bigslice_tpu_torch.ops import func as port_func  # noqa: E402
-from bigslice_tpu_torch.ops.reduce import LoweringNotPorted  # noqa: E402
 from bigslice_tpu_torch.typecheck import TypecheckError  # noqa: E402
 
 
@@ -196,15 +195,35 @@ def test_scan_drain(ref_sessions, drain):
     assert len(seen["port"]) == (30 if drain else 0)
 
 
-def test_device_executor_refuses_scan_and_mapbatches_by_name():
-    src = bst.Const(2, np.arange(8, dtype=np.int32))
-    for s, name in ((bst.Scan(src, lambda shard, r: None), "Scan"),
-                    (bst.MapBatches(src, lambda f: f, out=[np.int32]),
-                     "MapBatches")):
-        with pytest.raises(TaskError) as ei:
-            _port_session("mesh").run(s)
-        assert isinstance(ei.value.cause, LoweringNotPorted)
-        assert f"operator {name} is not ported" in str(ei.value.cause)
+def test_device_executor_refuses_scan_and_mapbatches_by_name(ref_sessions):
+    """Scan and MapBatches, which only the local executor lowers, run on
+    the device executor's host tier (its inner LocalExecutor), as on the
+    JAX package's MeshExecutor: a MapBatches feeding a device Reduce
+    (host output staged onto the device) equals the JAX package's
+    shards, and a Scan over a device Reduce (device output read through
+    the store bridge) sees every shard's rows."""
+    keys, vals = _keys()
+    _run_both(ref_sessions, "mesh", lambda bs: bs.Reduce(bs.MapBatches(
+        bs.Const(4, keys, vals), lambda f: (f.cols[0], f.cols[1] * 2),
+        out=[np.int32, np.int32]), add))
+    seen = {"port": {}, "ref": {}}
+
+    def sink(tag):
+        def fn(shard, reader):
+            seen[tag][shard] = sorted(
+                tuple(int(x) for x in r) for f in reader for r in f.rows())
+        return fn
+
+    for tag, bs, sess in (("port", bst, _port_session("mesh")),
+                          ("ref", ref_bs, ref_sessions["mesh"])):
+        red = bs.Reduce(bs.Const(4, keys, vals), add)
+        assert sess.run(bs.Scan(red, sink(tag))).rows() == []
+    assert seen["port"] == seen["ref"]
+    sums = {}
+    for k, v in zip(keys.tolist(), vals.tolist()):
+        sums[k] = sums.get(k, 0) + v
+    assert sorted(r for rows in seen["port"].values() for r in rows) == \
+        sorted(sums.items())
 
 
 # -- MapBatches -------------------------------------------------------------

@@ -18,8 +18,6 @@ import bigslice_tpu as ref_bs  # noqa: E402
 from bigslice_tpu.parallel import segment as ref_segment  # noqa: E402
 
 import bigslice_tpu_torch as bst  # noqa: E402
-from bigslice_tpu_torch.exec.task import TaskError  # noqa: E402
-from bigslice_tpu_torch.ops.reduce import LoweringNotPorted  # noqa: E402
 from bigslice_tpu_torch.parallel import segment  # noqa: E402
 from bigslice_tpu_torch.typecheck import TypecheckError  # noqa: E402
 
@@ -277,21 +275,46 @@ def test_dense_keys_fold_runs_on_the_local_executor(ref_sessions):
         bs.Const(4, keys, vals), add, init=0, dense_keys=16))
 
 
-def _refusal(slice_):
-    with pytest.raises(TaskError) as ei:
-        _port_session("mesh").run(slice_)
-    assert isinstance(ei.value.cause, LoweringNotPorted)
-    return str(ei.value.cause)
-
-
 def test_device_executor_refuses_host_and_dense_folds_by_name():
+    """A host-tier Fold (a callable init, a list accumulator) runs on the
+    device executor's host tier; a dense Fold (``dense_keys=``, a
+    classified fn) on the device path, its table folded with the init;
+    both equal the JAX package's one-device MeshExecutor, and a fn that
+    does not classify ignores the declaration."""
+    import jax
+    from jax.sharding import Mesh
+
+    from bigslice_tpu.exec.meshexec import MeshExecutor
+    from bigslice_tpu.exec.session import Session
+
+    ref = Session(executor=MeshExecutor(
+        Mesh(np.array(jax.devices()[:1]), ("shards",))))
     keys, vals = _input(64, 8, 1)
-    src = bst.Const(2, keys, vals)
-    msg = _refusal(bst.Fold(src, lambda acc, v: acc + [int(v)], init=list,
-                            out_value=object))
-    assert msg.startswith("fold@") and "Fold runs a host-tier function" in msg
-    msg = _refusal(bst.Fold(src, add, init=0, dense_keys=8))
-    assert msg.startswith("fold@") and "Fold declares dense_keys=" in msg
+    host = bst.Fold(bst.Const(2, keys, vals),
+                    lambda acc, v: acc + [int(v)], init=list,
+                    out_value=object)
+    assert not host.device
+    got = sorted((int(k), sorted(a)) for k, a in
+                 _port_session("mesh").run(host).rows())
+    want = {}
+    for k, v in zip(keys.tolist(), vals.tolist()):
+        want.setdefault(k, []).append(v)
+    assert got == sorted((k, sorted(v)) for k, v in want.items())
+    keys, vals = _input(2000, 40, 2)
+    for shards in (1, 4):
+        def build(bs):
+            mod = torch if bs is bst else __import__("jax").numpy
+            return bs.Fold(bs.Const(shards, keys, vals),
+                           lambda acc, v: mod.maximum(acc, v), init=-3,
+                           dense_keys=40)
+
+        f = build(bst)
+        assert f.dense_keys == 40 and f.dense_op == "max"
+        assert_same_shards(
+            bst.result_shard_rows(_port_session("mesh").run(f)),
+            bst.result_shard_rows(ref.run(build(ref_bs))))
+    assert bst.Fold(bst.Const(2, keys, vals), poly, init=7,
+                    dense_keys=40).dense_keys is None
 
 
 def test_fold_typechecks_and_schema():

@@ -112,6 +112,61 @@ def test_slice_runs_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_dense_reduce_and_fallback_wordcount_run_without_jax():
+    """A dense Reduce (declared and discovered), a dense join and Fold,
+    the standalone classes and word count through the device executor's
+    host tier import neither JAX nor the JAX package."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        import numpy as np
+        import torch
+        import bigslice_tpu_torch as bs
+        from bigslice_tpu_torch.models.wordcount import wordcount
+        from bigslice_tpu_torch.parallel import dense, hashagg, join, shuffle
+
+        keys = np.arange(1000, dtype=np.int32) % 37
+        ones = np.ones(1000, np.int32)
+        sess = bs.Session(executor=bs.MeshExecutor(device="cpu"))
+        r = bs.Reduce(bs.Const(1, keys, ones), lambda a, b: a + b,
+                      dense_keys=37)
+        assert r.frame_combiner.dense_keys == 37
+        assert len(sess.run(r).rows()) == 37
+        r = bs.Reduce(bs.Const(4, keys, ones), lambda a, b: a + b)
+        assert len(sess.run(r).rows()) == 37
+        assert r.frame_combiner.dense_keys == 37
+        j = bs.JoinAggregate(bs.Const(1, keys, ones), bs.Const(1, keys, ones),
+                             lambda a, b: a + b, lambda a, b: a + b,
+                             dense_keys=37)
+        assert len(sess.run(j).rows()) == 37
+        f = bs.Fold(bs.Const(4, keys, ones), lambda acc, v: torch.maximum(
+            acc, v), init=0, dense_keys=37)
+        assert f.dense_op == "max" and len(sess.run(f).rows()) == 37
+        assert dense.routing_tables(37, 4, 0)[1] >= 1
+        k = torch.from_numpy(keys)
+        c = torch.tensor([1000], dtype=torch.int32)
+        v = torch.from_numpy(ones)
+        assert int(hashagg.MeshHashReduceByKey(1, 1, 1000, ["add"],
+                                               device="cpu")([k], [v], c)[2]) == 37
+        assert int(join.MeshJoinAggregate(1000, lambda a, b: a + b,
+                                          lambda a, b: a + b, device="cpu")(
+            [k, v], c, [k, v], c)[3]) == 37
+        assert int(shuffle.MeshShuffle(2, 1, 1000, device="cpu")([k, v], c)[1]) == 1000
+        path = os.path.join(tempfile.mkdtemp(), "corpus.txt")
+        with open(path, "w") as fh:
+            fh.write("the quick brown fox\\njumps over the lazy dog\\nthe fox\\n")
+        counts = dict(sess.run(wordcount(3, path)).rows())
+        assert counts["the"] == 3 and counts["fox"] == 2 and len(counts) == 8
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_entry_points_raise_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
@@ -131,21 +186,23 @@ def test_local_executor_raises_without_a_gpu():
 
 
 def test_mesh_executor_refuses_a_str_key_reduce():
-    """Host keys typecheck for a Reduce (the local executor combines
-    them on the host); the device executor refuses them by name."""
+    """Host keys typecheck for a Reduce; the device executor runs it on
+    its host tier (the inner local executor), with the local executor's
+    rows."""
     import numpy as np
 
-    from bigslice_tpu_torch.exec.task import TaskError
-    from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
-
     words = np.array(["a", "b", "a", "c"] * 8, dtype=object)
-    r = bst.Reduce(bst.Const(2, words, np.ones(32, np.int32)),
-                   lambda a, b: a + b)
-    sess = bst.Session(executor=bst.MeshExecutor(device="cpu"))
-    with pytest.raises(TaskError) as ei:
-        sess.run(r)
-    assert isinstance(ei.value.cause, LoweringNotPorted)
-    assert "host-tier columns" in str(ei.value.cause)
+
+    def build():
+        return bst.Reduce(bst.Const(2, words, np.ones(32, np.int32)),
+                          lambda a, b: a + b)
+
+    ex = bst.MeshExecutor(device="cpu")
+    rows = bst.Session(executor=ex).run(build()).rows()
+    assert sorted(rows) == [("a", 16), ("b", 8), ("c", 8)]
+    local = bst.Session(executor=bst.LocalExecutor(device="cpu"))
+    assert sorted(rows) == sorted(local.run(build()).rows())
+    assert not ex._outputs  # no group ran on the device path
 
 
 def test_cuda_executor_raises_without_the_kernels(monkeypatch):
@@ -190,18 +247,23 @@ def test_pad_cols_and_bucket_size():
     assert z.tolist() == [0, 0]
 
 
-# -- what the Cogroup path refuses by name ---------------------------------
+# -- what the Cogroup path sends to the host tier --------------------------
 
 
-def _cogroup_refusal(slice_):
-    from bigslice_tpu_torch.exec.task import TaskError
-    from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
+def _cogroup_fallback(build, **session_kw):
+    """``build()`` on the device executor and on the local executor, both
+    on the CPU: equal rows (each list's members sorted: their order is
+    the tier's), and no group on the device path."""
+    def norm(rows):
+        return sorted(tuple(sorted(x) if isinstance(x, list) else x
+                            for x in r) for r in rows)
 
-    sess = bst.Session(executor=bst.MeshExecutor(device="cpu"))
-    with pytest.raises(TaskError) as ei:
-        sess.run(slice_)
-    assert isinstance(ei.value.cause, LoweringNotPorted)
-    return str(ei.value.cause)
+    ex = bst.MeshExecutor(device="cpu")
+    got = bst.Session(executor=ex, **session_kw).run(build()).rows()
+    want = bst.Session(executor=bst.LocalExecutor(device="cpu"),
+                       **session_kw).run(build()).rows()
+    assert norm(got) == norm(want) and got
+    return ex, norm(got)
 
 
 def _keyed_const(n=32):
@@ -212,52 +274,65 @@ def _keyed_const(n=32):
 
 
 def test_cogroup_over_object_keys_is_refused():
-    """Host keys typecheck (they hash and compare on the host tier) but
-    their producers cannot lower: refused by name, never a fallback."""
+    """Host keys typecheck (they hash and compare on the host tier): the
+    producers and the Cogroup run on the device executor's host tier."""
     import numpy as np
 
-    host = bst.Const(2, np.array(list("abcdabcd"), dtype=object),
-                     np.ones(8, np.int32))
-    msg = _cogroup_refusal(bst.Cogroup(host))
-    assert msg.startswith("const@") and "host-tier columns" in msg
+    def build():
+        host = bst.Const(2, np.array(list("abcdabcd"), dtype=object),
+                         np.ones(8, np.int32))
+        return bst.Cogroup(host)
+
+    ex, rows = _cogroup_fallback(build)
+    assert rows == [(c, [1, 1]) for c in "abcd"]
+    assert not ex._outputs
 
 
 def test_map_fused_after_a_cogroup_is_refused():
-    cg = bst.Cogroup(_keyed_const())
-    m = bst.Map(cg, lambda k, v: (k, len(v)), out=[int, int])
-    msg = _cogroup_refusal(m)
-    assert msg.startswith("cogroup_map@")
-    assert "Cogroup fused with other stages" in msg
+    """A Map fused after a Cogroup reads object lists: the group runs on
+    the host tier, its producers on the device path."""
+    ex, rows = _cogroup_fallback(lambda: bst.Map(
+        bst.Cogroup(_keyed_const()), lambda k, v: (k, len(v)),
+        out=[int, int]))
+    assert rows == [(k, 5 if k < 4 else 4) for k in range(7)]
+    assert len(ex._outputs) == 1  # the producers' group
 
 
 @pytest.mark.parametrize("consumer", ["reshuffle", "reduce"])
 def test_cogroup_feeding_a_shuffle_is_refused(consumer):
-    cg = bst.Cogroup(_keyed_const(), _keyed_const())
-    s = (bst.Reshuffle(cg) if consumer == "reshuffle"
-         else bst.Reduce(cg, lambda a, b: a))
-    msg = _cogroup_refusal(s)
-    assert msg.startswith("cogroup@") and "feeding a shuffle" in msg
+    """A Cogroup feeding a shuffle routes object lists: it runs on the
+    host tier, and so does its host-column consumer."""
+    def build():
+        cg = bst.Cogroup(_keyed_const(), _keyed_const())
+        return (bst.Reshuffle(cg) if consumer == "reshuffle"
+                else bst.Reduce(cg, lambda a, b: a))
+
+    _, rows = _cogroup_fallback(build)
+    assert [r[0] for r in rows] == list(range(7))
 
 
 def test_cogroup_over_vector_inputs_is_refused():
+    """A Cogroup over a vector value column runs on the host tier (lists
+    of [3] rows)."""
     import numpy as np
 
     k = np.arange(16, dtype=np.int32) % 5
-    vec = bst.Const(2, k, np.zeros((16, 3), np.int32))
-    msg = _cogroup_refusal(bst.Cogroup(vec))
-    assert msg.startswith("cogroup@") and "host or vector columns" in msg
+    ex = bst.MeshExecutor(device="cpu")
+    rows = bst.Session(executor=ex).run(bst.Cogroup(bst.Const(
+        2, k, np.stack([k, k + 1, k + 2], 1)))).rows()
+    assert sorted(int(r[0]) for r in rows) == list(range(5))
+    for key, vals in rows:
+        assert len(vals) == int((k == key).sum())
+        assert all(list(np.asarray(v)) == [key, key + 1, key + 2]
+                   for v in vals)
+    assert len(ex._outputs) == 1  # the producers' group only
 
 
 def test_machine_combined_cogroup_group_is_refused():
-    """The device Cogroup refuses a machine-combined group by name (its
-    shared combiner buffer is the local executor's)."""
-    from bigslice_tpu_torch.exec.task import TaskError
-    from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
-
-    cg = bst.Cogroup(_keyed_const(), _keyed_const())
-    sess = bst.Session(executor=bst.MeshExecutor(device="cpu"),
-                       machine_combiners=True)
-    with pytest.raises(TaskError) as ei:
-        sess.run(bst.Reduce(cg, lambda a, b: a))
-    assert isinstance(ei.value.cause, LoweringNotPorted)
-    assert "machine-combined" in str(ei.value.cause)
+    """A machine-combined group whose combiner is host-tier (a Reduce
+    over a Cogroup's lists) keeps the local executor's shared combiner
+    buffer, on the device executor's host tier."""
+    _, rows = _cogroup_fallback(
+        lambda: bst.Reduce(bst.Cogroup(_keyed_const(), _keyed_const()),
+                           lambda a, b: a), machine_combiners=True)
+    assert [r[0] for r in rows] == list(range(7))

@@ -26,8 +26,6 @@ from bigslice_tpu.parallel import hashagg as ref_hashagg  # noqa: E402
 from bigslice_tpu.parallel import join as ref_join  # noqa: E402
 import bigslice_tpu_torch as bst  # noqa: E402
 from bigslice_tpu_torch.exec import compile as port_compile  # noqa: E402
-from bigslice_tpu_torch.exec.task import TaskError  # noqa: E402
-from bigslice_tpu_torch.ops.reduce import LoweringNotPorted  # noqa: E402
 from bigslice_tpu_torch.parallel import cuda_kernels  # noqa: E402
 from bigslice_tpu_torch.parallel import hashagg  # noqa: E402
 from bigslice_tpu_torch.parallel import join as port_join  # noqa: E402
@@ -386,37 +384,66 @@ def test_hash_fallback_of_one_side_leaves_the_other(ref_session):
     assert rows == set(np.intersect1d(ka, kb).tolist())
 
 
-# -- what the port refuses, and what it checks at construction ------------
-
-
-def _refusal(slice_):
-    with pytest.raises(TaskError) as ei:
-        _port_session().run(slice_)
-    assert isinstance(ei.value.cause, LoweringNotPorted)
-    return str(ei.value.cause)
+# -- what the host tier and the dense join run, and construction checks -----
 
 
 def test_dense_keys_join_is_refused_by_name():
-    """The JAX package takes its dense join for ``dense_keys=``; the port
-    has none and refuses the join by name instead of ignoring it."""
-    a = bst.Const(2, np.arange(8, dtype=np.int32), np.ones(8, np.int32))
-    b = bst.Const(2, np.arange(8, dtype=np.int32), np.ones(8, np.int32))
-    msg = _refusal(bst.JoinAggregate(a, b, add, add, dense_keys=8))
-    assert msg.startswith("join@") and "dense_keys" in msg
+    """``dense_keys=`` on a join: at one shard (one shard a device) the
+    dense join runs (a rank-indexed table a side), at two the sort join
+    does; both equal the JAX package's one-device MeshExecutor, which
+    takes the same lowerings, and both sides' combiners carry the
+    declaration."""
+    import jax
+    from jax.sharding import Mesh
+
+    from bigslice_tpu.exec.meshexec import MeshExecutor
+    from bigslice_tpu.exec.session import Session
+
+    ref = Session(executor=MeshExecutor(
+        Mesh(np.array(jax.devices()[:1]), ("shards",))))
+    rng = np.random.RandomState(5)
+    ka = rng.randint(0, 64, 500).astype(np.int32)
+    kb = rng.randint(0, 40, 300).astype(np.int32)
+    va = rng.randint(-9, 9, 500).astype(np.int32)
+    vb = rng.randint(-9, 9, 300).astype(np.int32)
+    for shards in (1, 2):
+        def build(bs):
+            return bs.JoinAggregate(bs.Const(shards, ka, va),
+                                    bs.Const(shards, kb, vb), add, xor,
+                                    dense_keys=64)
+
+        j = build(bst)
+        assert [fc.dense_keys for fc in j.frame_combiners] == [64, None]
+        _same_shards(_port_session().run(j), ref.run(build(ref_bs)))
+
+        def build_add(bs):
+            return bs.JoinAggregate(bs.Const(shards, ka, va),
+                                    bs.Const(shards, kb, vb), add, add,
+                                    dense_keys=64)
+
+        assert build_add(bst).frame_combiners[1].dense_ops == ("add",)
+        _same_shards(_port_session().run(build_add(bst)),
+                     ref.run(build_add(ref_bs)))
 
 
 @pytest.mark.parametrize("side", ["a", "b"])
-def test_host_tier_fn_on_either_side_is_refused(side):
+def test_host_tier_fn_on_either_side_is_refused(side, ref_session):
+    """A host-tier combine fn on either side sends the side's producers
+    (whose map-side combine runs it) and the join to the device
+    executor's host tier; the rows equal the JAX package's."""
     def host(x, y):
         return x if int(x.sum()) > 0 else y  # needs data: host tier
 
     k = np.arange(16, dtype=np.int32) % 5
     fa, fb = (host, add) if side == "a" else (add, host)
-    j = bst.JoinAggregate(bst.Const(2, k, k), bst.Const(2, k, k), fa, fb)
-    # The side's producers, which would run its fn as their map-side
-    # combine, are refused first.
-    msg = _refusal(j)
-    assert msg.startswith("const@") and "host-tier combine fn" in msg
+
+    def build(bs):
+        return bs.JoinAggregate(bs.Const(2, k, k), bs.Const(2, k, k),
+                                fa, fb)
+
+    assert not build(bst).frame_combiners[0 if side == "a" else 1].device
+    _same_shards(_port_session().run(build(bst)),
+                 ref_session.run(build(ref_bs)))
 
 
 def test_join_typechecks():
@@ -439,18 +466,14 @@ def test_join_typechecks():
     with pytest.raises(TypecheckError, match="is not joinable"):
         bst.JoinAggregate(vec, vec, lambda x, y: x, lambda x, y: x)
     # Host keys hash and compare on the host tier, as in the JAX
-    # package: the join typechecks, the local executor runs it
-    # (tests/test_torch_local.py) and the device executor refuses it by
-    # name.
-    from bigslice_tpu_torch.exec.task import TaskError
-    from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
-
+    # package: the join typechecks and runs on the local executor
+    # (tests/test_torch_local.py) and on the device executor's host
+    # tier.
     host = bst.Const(2, np.array(list("abcd"), dtype=object),
                      np.ones(4, np.int32))
     j = bst.JoinAggregate(host, host, lambda x, y: x, lambda x, y: x)
-    with pytest.raises(TaskError) as ei:
-        bst.Session(executor=bst.MeshExecutor(device="cpu")).run(j)
-    assert isinstance(ei.value.cause, LoweringNotPorted)
+    rows = bst.Session(executor=bst.MeshExecutor(device="cpu")).run(j).rows()
+    assert sorted(rows) == [(c, 1, 1) for c in "abcd"]
 
 
 def test_join_schema_and_shards():

@@ -146,7 +146,10 @@ def test_slice_on_the_card_matches_the_cpu(dev):
     vals = rng.randint(-1000, 1000, 1 << 18).astype(np.int32)
 
     def run(device):
-        sess = bs.Session(executor=bs.MeshExecutor(device=device))
+        # Discovery off: these dense keys would otherwise take the dense
+        # table on the reduce side and the sort on the map side.
+        sess = bs.Session(executor=bs.MeshExecutor(device=device,
+                                                   auto_dense=False))
         return bs.result_shard_rows(sess.run(
             bs.Reduce(bs.Const(4, keys, vals), lambda a, b: a + b)))
 
@@ -350,7 +353,7 @@ def test_overflow_fallback_on_the_card(dev):
     part, _ = cuda_kernels.hash_partition_plain([cand], 4, 0)
     keys = cand[part == 0][: 1 << 17].numpy()
     keys = np.concatenate([keys, keys[:1000]])
-    ex = bs.MeshExecutor()
+    ex = bs.MeshExecutor(auto_dense=False)
     cuda_kernels.reset_launches()
     res = bs.Session(executor=ex).run(bs.Reduce(
         bs.Const(4, keys, np.ones(len(keys), np.int32)),
@@ -506,7 +509,8 @@ def test_split_and_spill_on_the_card_match_the_cpu(dev, monkeypatch):
     vals = rng.randint(0, 100, 1 << 16).astype(np.int32)
 
     def run(device, **kw):
-        ex = bs.MeshExecutor(device=device, **kw)
+        # The hash lowering's split: discovery off.
+        ex = bs.MeshExecutor(device=device, auto_dense=False, **kw)
         sess = bs.Session(executor=ex)
         rows = bs.result_shard_rows(sess.run(
             bs.Reduce(bs.Const(8, keys, vals), lambda a, b: a + b)))
@@ -549,7 +553,9 @@ def test_budget_split_bounds_peak_memory(dev):
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        ex = bs.MeshExecutor(device="cuda", prefetch_depth=0, **kw)
+        # The hash lowering's split (discovery off), as the model prices.
+        ex = bs.MeshExecutor(device="cuda", prefetch_depth=0,
+                             auto_dense=False, **kw)
         if per_slice is not None:
             run_slice = ex._run_slice
 
@@ -758,3 +764,94 @@ def test_reshard_on_the_card_matches_the_cpu(dev):
     _same(runs["cuda"], runs["cpu"])
     got = {int(k): int(v) for s in runs["cuda"] for k, v in zip(*s)}
     assert got == {int(k): int(bc[k]) for k in np.nonzero(bc)[0]}
+
+
+# -- the dense lowerings and the host tier (A5, A13) --------------------------
+
+
+def test_routing_tables_on_the_card_equal_the_cpus(dev):
+    """The dense routing tables hash ``arange(K)`` with K1 on the card:
+    bit-equal to the tables the plain hash builds on the CPU."""
+    from bigslice_tpu_torch.parallel import dense
+
+    for K, nparts in ((1, 1), (200, 4), ((1 << 16) + 3, 16), (1 << 20, 4)):
+        before = cuda_kernels.LAUNCHES["hash_partition"]
+        table, maxc = dense.routing_tables(K, nparts, 5, device=dev)
+        assert cuda_kernels.LAUNCHES["hash_partition"] == before + 1
+        want, wmaxc = dense.routing_tables(K, nparts, 5, device="cpu")
+        assert maxc == wmaxc
+        np.testing.assert_array_equal(table, want)
+        pid, rank, _ = dense.rank_tables(K, nparts, 5, device=dev)
+        wpid, wrank, _ = dense.rank_tables(K, nparts, 5, device="cpu")
+        np.testing.assert_array_equal(pid, wpid)
+        np.testing.assert_array_equal(rank, wrank)
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+def test_dense_float_max_min_on_the_card(dev, op):
+    """Float max and min in the dense combine and fold on the card (int
+    order keys through atomics): NaN propagates with its bits and -0.0
+    orders below +0.0, bit-equal to the CPU's table."""
+    from bigslice_tpu_torch.parallel import dense
+
+    rng = np.random.RandomState(21)
+    n, K = 1 << 20, 1 << 12
+    key = rng.randint(0, K, n).astype(np.int32)
+    v = rng.randn(n).astype(np.float32)
+    v[rng.randint(0, n, 300)] = 0.0
+    v[rng.randint(0, n, 300)] = -0.0
+    v[rng.randint(0, n, 40)] = np.nan
+    v[rng.randint(0, n, 40)] = -np.nan
+    hot = key < 8  # a few slots of zeros of both signs only
+    v[hot] = np.where(rng.rand(int(hot.sum())) < 0.5, 0.0, -0.0)
+    valid = rng.rand(n) < 0.95
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        args = (torch.from_numpy(valid).to(d), (torch.from_numpy(key).to(d),))
+        comb = dense.make_dense_combine(K, (op,))(
+            *args, (torch.from_numpy(v).to(d),))
+        fold = dense.make_dense_fold(K, op, np.float32, -0.0)(
+            *args, (torch.from_numpy(v).to(d),))
+        outs[d.type] = [comb[0].cpu(), comb[2][0].cpu(), fold[2][0].cpu()]
+    assert torch.equal(outs["cuda"][0], outs["cpu"][0])
+    for g, w in zip(outs["cuda"][1:], outs["cpu"][1:]):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_misprobe_retraction_with_prefetch_and_donation(dev):
+    """A host-tier producer (a host Map) feeds a device Reduce whose
+    inputs are staged from the store (owned, donated at settle) at
+    prefetch depth 1: the consumer's first wave holds keys below 2**10
+    only, a later wave keys past 2**14, so the probed bound is retracted
+    and the whole group reruns from freshly staged inputs. Rows equal
+    numpy and the CPU run."""
+    import bigslice_tpu_torch as bs
+
+    S = 8
+    cand = torch.arange(1 << 14, 1 << 16, dtype=torch.int32)
+    part, _ = cuda_kernels.hash_partition_plain([cand], S, 0)
+    big = cand[part != 0][:500].numpy()
+    rng = np.random.RandomState(22)
+    keys = np.concatenate([rng.randint(0, 1 << 10, 1 << 16), big]
+                          ).astype(np.int32)
+    vals = np.ones(len(keys), np.int32)
+
+    def run(device):
+        ex = bs.MeshExecutor(device=device, prefetch_depth=1,
+                             donate_buffers=True)
+        ids = bs.Map(bs.Const(S, keys, vals),
+                     lambda k, v: (int(k), int(v)), out=[np.int32, np.int32])
+        red = bs.Reduce(ids, lambda a, b: a + b)
+        rows = bs.result_shard_rows(bs.Session(executor=ex).run(red))
+        return rows, ex, red
+
+    got, ex, red = run("cuda")
+    assert red.frame_combiner.dense_keys is None
+    assert any(op.startswith("reduce") for op in ex.auto_dense_off)
+    want, _, _ = run("cpu")
+    for g, w in zip(got, want):
+        for gc, wc in zip(g, w):
+            np.testing.assert_array_equal(gc, wc)
+    bc = np.bincount(keys)
+    assert {int(k): int(c) for s in got for k, c in zip(*s)} == {
+        int(k): int(bc[k]) for k in np.nonzero(bc)[0]}

@@ -2,7 +2,7 @@
 their tier verdicts (meta-tensor traces) against the JAX package's
 (``jax.eval_shape``), their schemas, and the task graphs the two
 planners build for them (``graph_string(locations=False)``). Also the
-executor's refusal of what stays unported: host-tier stages.
+device executor's host tier running host-tier stages.
 """
 
 import numpy as np
@@ -18,7 +18,6 @@ import bigslice_tpu_torch as bst  # noqa: E402
 from bigslice_tpu_torch import typecheck  # noqa: E402
 from bigslice_tpu_torch.exec import compile as port_compile  # noqa: E402
 from bigslice_tpu_torch.exec.task import TaskError  # noqa: E402
-from bigslice_tpu_torch.ops.reduce import LoweringNotPorted  # noqa: E402
 from bigslice_tpu_torch.ops.reshuffle import RowPartitioner  # noqa: E402
 
 KEYS = np.arange(40, dtype=np.int32) % 9
@@ -149,24 +148,38 @@ def test_map_casts_64_bit_outputs_down():
 
 @pytest.mark.parametrize("what", ["map", "filter", "flatmap", "partition"])
 def test_executor_refuses_host_tier_stages(what):
-    """The host tier is not ported: a host-tier stage raises
-    LoweringNotPorted naming the op, and no result is returned."""
-    src = bst.Const(2, KEYS, VALS)
-    sl = {
-        "map": lambda: bst.Map(src, lambda k, v: (int(k), float(v)),
-                               out=[np.int32, np.float32]),
-        "filter": lambda: bst.Filter(src, lambda k, v: bool(k > 3)),
-        "flatmap": lambda: bst.Flatmap(src, lambda k, v: [(k, v)],
-                                       out=[np.int32, np.float32]),
-        "partition": lambda: bst.Repartition(
-            src, lambda frame, n: np.zeros(len(frame), np.int32)),
-    }[what]()
+    """A host-tier stage (a host fn, a frame-level partitioner) runs on
+    the device executor's host tier, its inner LocalExecutor, as on the
+    JAX package's MeshExecutor: each shard's rows equal the JAX
+    package's, and the host fns saw plain Python scalars."""
+    import jax
+    from jax.sharding import Mesh
+
+    from bigslice_tpu.exec.meshexec import MeshExecutor as RefMesh
+
+    def build(bs):
+        src = bs.Const(2, KEYS, VALS)
+        return {
+            "map": lambda: bs.Map(src, lambda k, v: (int(k), float(v) * 2),
+                                  out=[np.int32, np.float32]),
+            "filter": lambda: bs.Filter(src, lambda k, v: bool(k > 3)),
+            "flatmap": lambda: bs.Flatmap(
+                src, lambda k, v: [(k, v), (k + 1, v)],
+                out=[np.int32, np.float32]),
+            "partition": lambda: bs.Repartition(
+                src, lambda frame, n: np.asarray(frame.cols[0]) % n),
+        }[what]()
+
+    ref = ref_bs.exec.session.Session(executor=RefMesh(
+        Mesh(np.array(jax.devices()[:1]), ("shards",))))
+    want = bst.result_shard_rows(ref.run(build(ref_bs)))
     sess = bst.Session(executor=bst.MeshExecutor(device="cpu"))
-    with pytest.raises(TaskError) as ei:
-        sess.run(sl)
-    assert isinstance(ei.value.cause, LoweringNotPorted)
-    assert "host" in str(ei.value.cause)
-    assert str(ei.value.cause).startswith("const")
+    got = bst.result_shard_rows(sess.run(build(bst)))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for gc, wc in zip(g, w):
+            np.testing.assert_array_equal(gc, wc)
+    assert sum(len(g[0]) for g in got) > 0
 
 
 def test_out_of_range_partition_ids_raise():

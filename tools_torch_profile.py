@@ -3,7 +3,7 @@
     python3 tools_torch_profile.py
         [--path reduce-wave|lww-wave|join|join-sort|groupby|
                 cogroup-join|cogroup-hotkey]
-        [--prefetch-depth N] [--spill] [--out DIR]
+        [--prefetch-depth N] [--spill] [--auto-dense on|off] [--out DIR]
     python3 tools_torch_profile.py --executor local
         [--path reduce-wave|wordcount] [--procs N] [--out DIR]
 
@@ -22,8 +22,12 @@ Cogroup of 2 x 2**22 rows; a one-input Cogroup of 2**20 rows with a
 4096-row group). The executor runs the wave
 pipeline at ``--prefetch-depth`` (default 1, the executor's default;
 0 is the serial loop), and with ``--spill`` every shuffle boundary
-takes the spill exchange (``BIGSLICE_SHUFFLE=spill``). Each path runs
-once to warm up, then:
+takes the spill exchange (``BIGSLICE_SHUFFLE=spill``). ``--auto-dense``
+(default on, the executor's default) sets the executor's auto-dense
+discovery: on, reduce-wave's producer discovers its keys dense, so its
+map side takes the sort combine-shuffle and its reduce side the dense
+table; off keeps K2 on both sides. Each path runs once to warm up,
+then:
 
 1. a layer breakdown: host wall time of each executor layer closed by
    torch.cuda.synchronize() on the group thread (wave dispatch, settle,
@@ -39,7 +43,8 @@ once to warm up, then:
    there the layers overlap and their sum exceeds the wall;
 2. the host syncs of one run, counted by torch's sync debug mode (each
    operation that waits for the device: a nonzero, an item, a copy to
-   the host), by message;
+   the host), by message; among them the auto-dense key-range probes
+   (``MeshExecutor._key_range``: one readback a group's first wave);
 3. one run under torch.profiler: device time by kernel, total device
    busy time and the device's idle share of the run's wall time, and
    the device time of each hand-written kernel's wrapper (K2's passes
@@ -94,6 +99,8 @@ def main() -> int:
     ap.add_argument("--spill", action="store_true",
                     help="run every shuffle boundary through the spill "
                          "exchange (BIGSLICE_SHUFFLE=spill)")
+    ap.add_argument("--auto-dense", default="on", choices=("on", "off"),
+                    help="the device executor's auto-dense discovery")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tools_torch_profile: needs a GPU", file=sys.stderr)
@@ -194,7 +201,8 @@ def main() -> int:
         if args.executor == "local":
             ex = bs.LocalExecutor(procs=args.procs)
         else:
-            ex = bs.MeshExecutor(prefetch_depth=args.prefetch_depth)
+            ex = bs.MeshExecutor(prefetch_depth=args.prefetch_depth,
+                                 auto_dense=args.auto_dense == "on")
         executors.append(ex)
         sess = bs.Session(executor=ex)
         res = sess.run(make())
@@ -215,7 +223,8 @@ def main() -> int:
 
                 shutil.rmtree(tmp, ignore_errors=True)
         return 0
-    setting = (f"prefetch depth {args.prefetch_depth}"
+    setting = (f"prefetch depth {args.prefetch_depth}, auto-dense "
+               f"{args.auto_dense}"
                + (", spill exchange" if args.spill else ""))
 
     # 1. Layer breakdown: wrap the executor's layer methods with
@@ -226,6 +235,7 @@ def main() -> int:
     layers = {
         (E, "_dispatch_wave"): "wave program (route, combine, compact)",
         (E, "_settle_wave"): "settle (signals, slack/hash reruns)",
+        (E, "_key_range"): "  of dispatch: auto-dense key-range probe",
         (segment, "sort_permutation"): "  of it: sort (packing, torch.sort)",
         (segment, "segmented_combine"): "  of it: segmented scan",
         (cuda_kernels, "hash_partition"): "  of it: K1 hash_partition wrapper",
@@ -391,20 +401,35 @@ def syncs_and_device_time(run, setting, card, out) -> None:
     """Host syncs of one run (torch's sync debug mode) and device time
     by kernel of one run under torch.profiler."""
     # 2. Host syncs: every operation that waits for the device warns
-    # under the sync debug mode.
+    # under the sync debug mode. The auto-dense probes are counted
+    # apart: one readback each.
+    from bigslice_tpu_torch.exec import meshexec
+
+    E = meshexec.MeshExecutor
+    key_range = E._key_range
+    probes = [0]
+
+    def counted(*a, **k):
+        probes[0] += 1
+        return key_range(*a, **k)
+
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
+        E._key_range = counted
         try:
             run()
         finally:
+            E._key_range = key_range
             torch.cuda.set_sync_debug_mode("default")
     # Each by the line of Python that waited (the warning's frame).
     syncs = collections.Counter(
         f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
         if "synchroniz" in str(w.message))
-    print(f"host syncs in one run ({setting}): {sum(syncs.values())}")
+    print(f"host syncs in one run ({setting}): {sum(syncs.values())}, of "
+          f"them {probes[0]} auto-dense key-range probe(s), one readback "
+          f"each")
     for where, count in syncs.most_common(12):
         print(f"  {count:6d}x  {where}")
 
