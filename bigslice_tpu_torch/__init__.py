@@ -50,64 +50,78 @@ their tasks::
     res = bs.Session().run(int_max_func, 4, keys, vals)
     res = bs.Session().run(bs.Reduce(bs.Const(1, keys, vals),
                                      lambda a, b: a + b, dense_keys=1 << 20))
+
+String keys at scale take dictionary encoding (``frame/dictenc.py``,
+``frame/strparse.py`` and the native host kernels of ``native/``): the
+host encodes once, the count runs on the card. A slice's per-shard
+output may be kept across sessions in files (``Cache``,
+``CachePartial``, ``ReadCache``), and a tar file is a source
+(``TarSlice``)::
+
+    from bigslice_tpu_torch.models.urls import domain_count_encoded
+    rows = domain_count_encoded(bs.Session(), 4, "urls.txt")
+    res = bs.Session().run(bs.Cache(bs.Reduce(bs.Const(4, keys, vals),
+                                              lambda a, b: a + b),
+                                    "cache/counts"))
 """
 
-from bigslice_tpu_torch.exec.local import LocalExecutor
-from bigslice_tpu_torch.exec.meshexec import MeshExecutor
-from bigslice_tpu_torch.exec.session import Result, Session
-from bigslice_tpu_torch.frame.frame import Frame, result_shard_rows
-from bigslice_tpu_torch.ops.base import (Dep, Exclusive, Materialize,
-                                         Pragma, Procs, Slice)
-from bigslice_tpu_torch.ops.cogroup import Cogroup
-from bigslice_tpu_torch.ops.const import Const
-from bigslice_tpu_torch.ops.fold import Fold
-from bigslice_tpu_torch.ops.func import Func, Invocation, func
-from bigslice_tpu_torch.ops.groupby import GroupByKey
-from bigslice_tpu_torch.ops.join import JoinAggregate
-from bigslice_tpu_torch.ops.mapops import (Filter, Flatmap, Head, Map,
-                                           MapBatches, Prefixed, Scan,
-                                           Unwrap)
-from bigslice_tpu_torch.ops.reduce import Reduce
-from bigslice_tpu_torch.ops.reshuffle import Repartition, Reshard, Reshuffle
-from bigslice_tpu_torch.ops.source import ReaderFunc, ScanReader, WriterFunc
-from bigslice_tpu_torch.slicetype import ColType, Schema
+import importlib
 
-__all__ = [
-    "ColType",
-    "Cogroup",
-    "Const",
-    "Dep",
-    "Exclusive",
-    "Filter",
-    "Flatmap",
-    "Fold",
-    "Frame",
-    "Func",
-    "GroupByKey",
-    "Head",
-    "Invocation",
-    "JoinAggregate",
-    "LocalExecutor",
-    "Map",
-    "MapBatches",
-    "Materialize",
-    "MeshExecutor",
-    "Pragma",
-    "Prefixed",
-    "Procs",
-    "ReaderFunc",
-    "Reduce",
-    "Repartition",
-    "Reshard",
-    "Reshuffle",
-    "Result",
-    "Scan",
-    "ScanReader",
-    "Schema",
-    "Session",
-    "Slice",
-    "Unwrap",
-    "WriterFunc",
-    "func",
-    "result_shard_rows",
-]
+#: Each public name and the module that defines it, imported at first
+#: use (PEP 562): ``import bigslice_tpu_torch`` alone loads neither torch
+#: nor the executors, so a process that needs one light module (a parse
+#: worker of ``frame/strparse.py``) stays light.
+_EXPORTS = {
+    "Cache": "ops.cache",
+    "CachePartial": "ops.cache",
+    "Cogroup": "ops.cogroup",
+    "ColType": "slicetype",
+    "Const": "ops.const",
+    "Dep": "ops.base",
+    "Exclusive": "ops.base",
+    "Filter": "ops.mapops",
+    "Flatmap": "ops.mapops",
+    "Fold": "ops.fold",
+    "Frame": "frame.frame",
+    "Func": "ops.func",
+    "func": "ops.func",
+    "GroupByKey": "ops.groupby",
+    "Head": "ops.mapops",
+    "Invocation": "ops.func",
+    "JoinAggregate": "ops.join",
+    "LocalExecutor": "exec.local",
+    "Map": "ops.mapops",
+    "MapBatches": "ops.mapops",
+    "Materialize": "ops.base",
+    "MeshExecutor": "exec.meshexec",
+    "Pragma": "ops.base",
+    "Prefixed": "ops.mapops",
+    "Procs": "ops.base",
+    "ReadCache": "ops.cache",
+    "ReaderFunc": "ops.source",
+    "Reduce": "ops.reduce",
+    "Repartition": "ops.reshuffle",
+    "Reshard": "ops.reshuffle",
+    "Reshuffle": "ops.reshuffle",
+    "Result": "exec.session",
+    "result_shard_rows": "frame.frame",
+    "Scan": "ops.mapops",
+    "ScanReader": "ops.source",
+    "Schema": "slicetype",
+    "Session": "exec.session",
+    "Slice": "ops.base",
+    "TarSlice": "archive",
+    "Unwrap": "ops.mapops",
+    "WriterFunc": "ops.source",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{mod}"), name)
+    globals()[name] = value
+    return value

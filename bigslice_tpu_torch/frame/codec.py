@@ -32,6 +32,11 @@ Format (little-endian), common envelope::
                 len u64, bytes (BSF3 numeric: npy container;
                 BSF4 numeric: raw C-order column bytes)
 
+A stream may sit inside a zstd container (``ZMAGIC`` and one zstd
+frame, the result cache's files): ``open_compressed_write`` writes one,
+or returns None where ``zstandard`` is not installed and the caller
+writes plain frames; ``maybe_decompressed`` sniffs either.
+
 Object columns (kind 1) are pickled lists; they decode into the port's
 host object column (``frame.obj_col``). Unpickling runs code: decode
 only streams this program wrote.
@@ -375,3 +380,50 @@ def read_stream(fp: BinaryIO) -> Iterator[Frame]:
         body = _read_exact(fp, blen)
         frame, _ = decode_frame(header + body)
         yield frame
+
+
+ZMAGIC = b"BSZ1"  # a zstd-compressed container of a BSF3/BSF4 stream
+
+
+def open_compressed_write(fp):
+    """A zstd stream writer over ``fp`` behind ``ZMAGIC``, or None when
+    ``zstandard`` is not installed (the caller then writes plain
+    frames). The caller closes the writer, which ends the zstd frame
+    and leaves ``fp`` open."""
+    try:
+        import zstandard
+    except ImportError:
+        return None
+    fp.write(ZMAGIC)
+    return zstandard.ZstdCompressor(level=3).stream_writer(
+        fp, closefd=False)
+
+
+class _PushbackReader:
+    """A file-like that replays already-sniffed header bytes."""
+
+    def __init__(self, head: bytes, fp):
+        self._head = head
+        self._fp = fp
+
+    def read(self, n: int = -1) -> bytes:
+        if self._head:
+            if n is None or n < 0 or n >= len(self._head):
+                h, self._head = self._head, b""
+                want = -1 if (n is None or n < 0) else n - len(h)
+                return h + (self._fp.read(want) if want != 0 else b"")
+            h, self._head = self._head[:n], self._head[n:]
+            return h
+        return self._fp.read(n)
+
+
+def maybe_decompressed(fp):
+    """Sniff a stream: behind ``ZMAGIC`` a decompressing reader,
+    otherwise a reader that replays the sniffed bytes (plain BSF3/BSF4
+    files stay readable)."""
+    head = fp.read(4)
+    if head == ZMAGIC:
+        import zstandard
+
+        return zstandard.ZstdDecompressor().stream_reader(fp)
+    return _PushbackReader(head, fp)

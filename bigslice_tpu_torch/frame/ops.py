@@ -15,9 +15,10 @@ intermediate leaves int64's range. The hand-written kernels
 (``parallel/cuda_kernels.py``) compute the same function in native
 ``uint32`` arithmetic.
 
-Host (object) columns hash on the host by a stable per-row CRC-32
-(``hash_host_column``), bit-equal to the JAX package's, so that host
-keys route across processes as device keys do. The registry
+Host (object) columns hash on the host by a stable CRC-32
+(``hash_host_column``; all-str columns through the native kernel, the
+rest row by row), bit-equal to the JAX package's, so that host keys
+route across processes as device keys do. The registry
 (``Ops``, ``register_ops``, ``ops_for``) says which column types may
 serve as shuffle and sort keys (``can_hash``, ``can_compare``).
 """
@@ -132,9 +133,24 @@ def _stable_obj_hash(v) -> int:
 
 
 def hash_host_column(col, seed: int = 0) -> np.ndarray:
-    """Hash a host (object) column to numpy uint32 on the host, row by
-    row (the JAX package's native CRC path is bit-identical to this
-    one)."""
+    """Hash a host (object) column to numpy uint32 on the host.
+
+    An all-str column takes the native CRC kernel
+    (``native.crc32_strings``), bit-identical to the per-row path: both
+    are the zlib CRC-32 of the UTF-8 bytes. A column the kernel refuses
+    (a non-str element, a lone surrogate) or a process without it takes
+    the exact per-row hash."""
+    # Spot-check two cells before building a full list: a mixed or
+    # non-str column must not pay an O(n) copy only to be refused.
+    if len(col) and isinstance(col[0], str) \
+            and isinstance(col[len(col) // 2], str):
+        from bigslice_tpu_torch import native
+
+        if native.enabled():
+            h = native.crc32_strings(
+                col.tolist() if isinstance(col, np.ndarray) else col)
+            if h is not None:
+                return _fmix32_np(h ^ np.uint32(_seed32(seed)))
     out = np.fromiter((_stable_obj_hash(v) for v in col), dtype=np.uint32,
                       count=len(col))
     return _fmix32_np(out ^ np.uint32(_seed32(seed)))

@@ -23,7 +23,7 @@ import random
 import shutil
 import tempfile
 import time
-from typing import BinaryIO, Callable, Iterator
+from typing import BinaryIO, Callable, Iterator, Optional
 
 from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
 
@@ -88,6 +88,24 @@ def open_read(path: str) -> BinaryIO:
     """Open for streaming binary read; raises FileNotFoundError when
     absent. Transient open failures retry."""
     return retry_transient(lambda: open(_local(path), "rb"), f"open {path}")
+
+
+def size(path: str) -> Optional[int]:
+    """File size in bytes, or None when the file is missing: cache
+    eviction accounting, never a correctness input."""
+    p = _local(path)
+    with contextlib.suppress(OSError):
+        return os.stat(p).st_size
+    return None
+
+
+def mtime(path: str) -> Optional[float]:
+    """Last-modified time as a POSIX timestamp, or None when the file is
+    missing: the result cache's TTL input, never correctness."""
+    p = _local(path)
+    with contextlib.suppress(OSError):
+        return os.stat(p).st_mtime
+    return None
 
 
 def remove(path: str) -> None:

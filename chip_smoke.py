@@ -109,6 +109,26 @@ host Map over ScanReader lines to int32 ids, a device Reduce, a host
 Map over its result. Each once counted and five times warm, every row
 against numpy, with its wall, rows/s, peak memory and K1/K2 launches.
 
+Phases 23-25 drive dictionary-encoded string keys and the result cache,
+each once counted and five times warm, every row checked: 23, ``urls``,
+the reference's demo (cmd/urls) as
+``models.urls.domain_count_encoded(Session(), 4, lines)`` over 2**22
+lines in the shape of the JAX package's urls benchmark (RandomState(7),
+domains ``zipf(1.5) % 5000``), against collections.Counter of
+``_domain``, with the native rung that parsed, the spawn parse pool's
+processes, start-up and resident memory, and the host sweep's seconds
+against the Reduce's; then ``domain_count`` (host str keys, the native
+CRC) over the first 2**20 lines, equal to the encoded count of the same
+lines. 24, ``dict-wordcount``, phase 17's corpus through
+``dictenc.dict_encoded_reduce`` (a host Flatmap to words, the encode, a
+dense Reduce), equal to phase 17's Counter, beside phases 17 and 22's
+walls (the native CRC in place; both print its calls). 25, ``cache``,
+``Cache`` over phase 3's Reduce: the write (K1 and K2, the shards
+bit-equal to phase 3's), a fresh session over the files (no K1 or K2
+launch, no producer task in the graph), ``CachePartial`` after one
+shard file is deleted (that file rewritten, byte-equal) and
+``ReadCache``, with the write and read walls and bytes a second.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -128,7 +148,12 @@ import sys
 import time
 
 import numpy as np
-import torch
+
+if __name__ != "__mp_main__":
+    # A parse-pool worker (phase 23) re-imports this script as
+    # __mp_main__ under the spawn start method; it runs no phase and
+    # need not load torch.
+    import torch
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), for byte bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -2003,6 +2028,7 @@ def phase17_wordcount(card: str) -> dict:
     import tempfile
 
     import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch import native
     from bigslice_tpu_torch.frame import ops as frame_ops
     from bigslice_tpu_torch.models.wordcount import wordcount
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
@@ -2036,8 +2062,10 @@ def phase17_wordcount(card: str) -> dict:
                                      "collections.Counter")
 
         ck.reset_launches()
+        native.reset_calls()
         res = run()
         launches = dict(ck.LAUNCHES)
+        crc_calls = native.CALLS["crc32_strings"]
         check(res)
         shards = bs.result_shard_rows(res)  # for phase 22
         del res
@@ -2063,10 +2091,12 @@ def phase17_wordcount(card: str) -> dict:
         f"profiled run {pwall:.4f} s, device busy "
         + (f"{busy:.4f} s, host share {host_share:.4f}" if busy is not None
            else "not measured")
-        + f"; launches {launches} (first run), on {card}")
+        + f"; launches {launches} (first run), native CRC calls "
+        f"{crc_calls} (first run), on {card}")
     return dict(launches=launches, wall_s=wall, walls_s=walls, rows=n,
                 rows_per_s=n / wall, profiled_wall_s=pwall,
-                device_busy_s=busy, host_share=host_share, shards=shards)
+                device_busy_s=busy, host_share=host_share,
+                native_crc_calls=crc_calls, shards=shards)
 
 
 def numpy_fold(keys, vals, fn, init, dtype):
@@ -2545,10 +2575,12 @@ def phase22_host_fallback(card: str, wc_shards) -> dict:
     import tempfile
 
     import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch import native
     from bigslice_tpu_torch.models.wordcount import wordcount
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
 
     S = 4
+    crc_calls = []  # the native CRC's calls in the counted run
     tmp = tempfile.mkdtemp(prefix="chip-smoke-fallback-")
     path = os.path.join(tmp, "corpus.txt")
     out = {}
@@ -2569,11 +2601,16 @@ def phase22_host_fallback(card: str, wc_shards) -> dict:
             if sess.executor._outputs:
                 raise AssertionError("fallback wordcount: a group ran on "
                                      "the device path")
+            if not crc_calls:  # the counted run's check comes first
+                crc_calls.append(native.CALLS["crc32_strings"])
+                return f"; native CRC calls {crc_calls[0]} (first run)"
             return ""
 
+        native.reset_calls()
         out["fallback-wordcount"] = drive(
             "22", "host-fallback: wordcount through Session()",
             lambda: wordcount(S, path), check_wc, (), len(words), card)
+        out["fallback-wordcount"]["native_crc_calls"] = crc_calls[0]
 
         first = np.array([int(line.split(" ", 1)[0][1:], 16)
                           for line in open(path)], np.int64)
@@ -2635,6 +2672,450 @@ def phase22_host_fallback(card: str, wc_shards) -> dict:
     return out
 
 
+# -- phases 23-25: dictionary-encoded string keys and the result cache -----
+
+#: Phase 23's corpus: lines in the shape of the JAX package's urls
+#: benchmark (the reference's cmd/urls demo), and the lines of its host
+#: str-key count.
+URLS_LINES, URLS_HOST_LINES = 1 << 22, 1 << 20
+
+
+def synth_urls(n: int) -> list:
+    """``n`` URL lines: RandomState(7), domain ``zipf(1.5) % 5000``,
+    ``http://site{d}.example.com/p/{i & 1023}``."""
+    rng = np.random.RandomState(7)
+    doms = (rng.zipf(1.5, n) % 5000).astype(np.int64)
+    return [f"http://site{d}.example.com/p/{i & 1023}"
+            for i, d in enumerate(doms.tolist())]
+
+
+def _memory_gib(pid: int) -> tuple:
+    """A process's resident memory in GiB: all of it (VmRSS) and its
+    anonymous part (RssAnon: the pages no other process shares, unlike
+    mapped library files), or NaN where /proc does not say."""
+    got = {}
+    with open(f"/proc/{pid}/status") as fh:
+        for line in fh:
+            key = line.split(":", 1)[0]
+            if key in ("VmRSS", "RssAnon"):
+                got[key] = int(line.split()[1]) / 2**20
+    return got.get("VmRSS", float("nan")), got.get("RssAnon", float("nan"))
+
+
+#: What each parse worker evaluates to report its pid: a short sleep,
+#: so that the tasks spread over every worker.
+_WORKER_PID = "__import__('time').sleep(0.05) or __import__('os').getpid()"
+
+
+def _pool_startup() -> tuple:
+    """A fresh parse pool, timed until every worker has answered once
+    (their 0.05 s sleeps included): (processes, seconds, pids, whether a
+    worker imported torch)."""
+    from bigslice_tpu_torch.frame import strparse
+
+    strparse.shutdown_pool()
+    procs = strparse.parse_procs()
+    t0 = time.perf_counter()
+    pool = strparse._pool()
+    if pool is None:
+        return 0, 0.0, [], False
+    pids = set()
+    for _ in range(50):
+        pids.update(pool.map(eval, [_WORKER_PID] * (2 * procs), chunksize=1))
+        if len(pids) >= procs:
+            break
+    else:
+        raise AssertionError(f"only {len(pids)} of {procs} parse workers "
+                             f"answered")
+    secs = time.perf_counter() - t0
+    torch_in_worker = pool.apply(eval, ("'torch' in __import__('sys').modules",))
+    return procs, secs, sorted(pids), torch_in_worker
+
+
+def phase23_urls(card: str) -> dict:
+    """urls: ``models.urls.domain_count_encoded(Session(), 4, lines)``
+    over ``URLS_LINES`` lines of ``synth_urls`` (one host sweep parses
+    and encodes every line to an int32 code, through the native rung
+    and the spawn pool; a device Map and a dense Reduce count the codes;
+    the rows are decoded at the edge), against collections.Counter of
+    ``_domain``; once counted and five times warm. The host sweep's part
+    of the wall is the time from the run's start to the last parse's
+    end; the rest is the Reduce and the decode. Then ``domain_count``
+    (host str keys, the native CRC) over the first ``URLS_HOST_LINES``
+    lines, equal to the encoded count of the same lines."""
+    import collections
+    import resource
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch import native
+    from bigslice_tpu_torch.frame import strparse
+    from bigslice_tpu_torch.models import urls
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S = 4
+    lines = synth_urls(URLS_LINES >> SHIFT)
+    n = len(lines)
+    want = collections.Counter(urls._domain(u) for u in lines)
+    built = native.rungs()
+    procs, startup_s, pids, torch_in_worker = _pool_startup()
+    if torch_in_worker:
+        raise AssertionError("urls: a parse worker imported torch")
+    mem_start = np.sum([_memory_gib(p) for p in pids], axis=0)
+
+    ends = []
+    parse = strparse.domains_codes
+
+    def timed_parse(*args, **kwargs):
+        out = parse(*args, **kwargs)
+        ends.append(time.perf_counter())
+        return out
+
+    def run():
+        ends.clear()
+        sess = bs.Session()
+        t0 = time.perf_counter()
+        rows = urls.domain_count_encoded(sess, S, lines)
+        wall = time.perf_counter() - t0
+        return sess, rows, wall, max(ends) - t0
+
+    def check(rows, want, what) -> None:
+        if len(rows) != len(want) or dict(rows) != want:
+            raise AssertionError(f"{what}: counts differ from "
+                                 f"collections.Counter")
+
+    strparse.domains_codes = timed_parse
+    try:
+        ck.reset_launches()
+        strparse.reset_rungs()
+        native.reset_calls()
+        sess, rows, first_wall, first_sweep = run()
+        launches = dict(ck.LAUNCHES)
+        rungs = dict(strparse.RUNGS)
+        calls = dict(native.CALLS)
+        check(rows, want, "urls")
+        if not rungs["native-list"] + rungs["native-buffer"]:
+            raise AssertionError(f"urls: no native rung ran ({rungs})")
+        if launches["hash_partition"] <= 0:
+            raise AssertionError("urls: hash_partition was not launched")
+        lowering = dict(hash_off=sorted(sess.executor.hash_off),
+                        auto_dense_off=sorted(sess.executor.auto_dense_off))
+        del sess, rows
+        walls, sweeps, peaks = [], [], []
+        for _ in range(WARM_RUNS):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sess, rows, wall, sweep = run()
+            walls.append(wall)
+            sweeps.append(sweep)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            check(rows, want, "urls")
+            del sess, rows
+        mem_end = np.sum([_memory_gib(p) for p in pids], axis=0)
+        # The same runs parsed in this process alone (the extension rung),
+        # to weigh the pool against.
+        strparse.shutdown_pool()
+        os.environ["BIGSLICE_PARSE_PROCS"] = "0"
+        strparse.reset_rungs()
+        solo_walls, solo_sweeps = [], []
+        for _ in range(WARM_RUNS):
+            gc.collect()
+            sess, rows, w, sw = run()
+            solo_walls.append(w)
+            solo_sweeps.append(sw)
+            check(rows, want, "urls (single process)")
+            del sess, rows
+        solo_rungs = dict(strparse.RUNGS)
+    finally:
+        strparse.domains_codes = parse
+        os.environ.pop("BIGSLICE_PARSE_PROCS", None)
+        strparse.shutdown_pool()
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    wall = statistics.median(walls)
+    sweep = statistics.median(sweeps)
+    solo, solo_sweep = (statistics.median(solo_walls),
+                        statistics.median(solo_sweeps))
+    log(f"phase 23: urls: domain_count_encoded(Session(), {S}, lines), {n} "
+        f"lines ({len(want)} domains): warm wall {wall:.4f} s (median of "
+        f"{WARM_RUNS}: {', '.join(f'{w:.4f}' for w in walls)}), "
+        f"{n / wall:.1f} lines/s; host sweep {sweep:.4f} s, Reduce and "
+        f"decode {wall - sweep:.4f} s (medians); first run {first_wall:.4f} "
+        f"s (sweep {first_sweep:.4f} s); native builds {built}, rungs "
+        f"{rungs} (first run), native calls {calls}; parse pool {procs} "
+        f"processes (no torch in a worker), started in {startup_s:.4f} s, "
+        f"all workers resident {mem_start[0]:.3f} GiB ({mem_start[1]:.3f} "
+        f"anonymous) at start and {mem_end[0]:.3f} ({mem_end[1]:.3f}) GiB "
+        f"after the runs; "
+        f"this process's peak RSS {host_peak:.3f} GiB; peak device memory "
+        f"{max(peaks):.3f} GiB; launches {launches} (first run); "
+        f"{lowering}; single process (BIGSLICE_PARSE_PROCS=0): wall "
+        f"{solo:.4f} s (median of {WARM_RUNS}: "
+        f"{', '.join(f'{w:.4f}' for w in solo_walls)}), sweep "
+        f"{solo_sweep:.4f} s, rungs {solo_rungs} ({WARM_RUNS} runs), on "
+        f"{card}")
+    out = {"urls": dict(
+        launches=launches, wall_s=wall, walls_s=walls, rows=n,
+        rows_per_s=n / wall, sweep_s=sweep, sweeps_s=sweeps,
+        first_wall_s=first_wall, first_sweep_s=first_sweep, rungs=rungs,
+        native_calls=calls, native_built=built, pool_procs=procs,
+        pool_startup_s=startup_s,
+        pool_rss_anon_gib=[mem_start.tolist(), mem_end.tolist()],
+        host_peak_rss_gib=host_peak, peak_gib=max(peaks),
+        single_process_wall_s=solo, single_process_walls_s=solo_walls,
+        single_process_sweep_s=solo_sweep, **lowering)}
+
+    # The host str-key count of the first lines, and the encoded count
+    # of the same lines (parsed in this process: the pool is down).
+    head = lines[:URLS_HOST_LINES >> SHIFT]
+    head_want = collections.Counter(urls._domain(u) for u in head)
+    os.environ["BIGSLICE_PARSE_PROCS"] = "0"
+    try:
+        encoded = urls.domain_count_encoded(bs.Session(), S, head)
+    finally:
+        os.environ.pop("BIGSLICE_PARSE_PROCS", None)
+    check(encoded, head_want, "urls (encoded, head)")
+    ck.reset_launches()
+    native.reset_calls()
+    t0 = time.perf_counter()
+    res = bs.Session().run(urls.domain_count(S, head))
+    host_rows = res.rows()
+    host_wall = time.perf_counter() - t0
+    host_launches = dict(ck.LAUNCHES)
+    crc_calls = native.CALLS["crc32_strings"]
+    if sorted(host_rows) != sorted(encoded):
+        raise AssertionError("urls: domain_count differs from "
+                             "domain_count_encoded on the same lines")
+    if built["strlist"] and not crc_calls:
+        raise AssertionError("urls: the native CRC did not run")
+    log(f"phase 23: urls: domain_count(4, lines) (host str keys) over "
+        f"{len(head)} lines: wall {host_wall:.4f} s, "
+        f"{len(head) / host_wall:.1f} lines/s, native CRC calls "
+        f"{crc_calls}, launches {host_launches}, equal to the encoded "
+        f"count, on {card}")
+    out["urls-host"] = dict(launches=host_launches, wall_s=host_wall,
+                            rows=len(head),
+                            rows_per_s=len(head) / host_wall,
+                            native_crc_calls=crc_calls)
+    return out
+
+
+def phase24_dict_wordcount(card: str, wordcount_path: dict,
+                           fallback_path: dict) -> dict:
+    """dict-wordcount: phase 17's corpus through
+    ``dictenc.dict_encoded_reduce(Session(), ...)``: ``Flatmap`` of each
+    line to (word, 1), a ``MapBatches`` encode against the corpus's
+    vocabulary (built once, outside the wall), then
+    ``Reduce(dense_keys=len(vocab))`` on the card, decoded at the edge;
+    equal to collections.Counter, the counts phase 17 checks. Once
+    counted and five times warm; phases 17 and 22's walls (the same
+    traffic on the str-key host path, the native CRC in place) are
+    printed beside."""
+    import collections
+    import shutil
+    import tempfile
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.frame import dictenc
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S = 4
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-dictwc-")
+    path = os.path.join(tmp, "corpus.txt")
+    try:
+        words = wordcount_corpus(path)
+        want = collections.Counter(words)
+        t0 = time.perf_counter()
+        vocab = dictenc.GlobalVocab(sorted(want))
+        vocab_s = time.perf_counter() - t0
+
+        def run():
+            sess = bs.Session()
+            pairs = bs.Flatmap(bs.ScanReader(S, path),
+                               lambda line: [(w, 1) for w in line.split()],
+                               out=[str, np.int32])
+            t0 = time.perf_counter()
+            rows = dictenc.dict_encoded_reduce(sess, pairs,
+                                               lambda a, b: a + b, vocab)
+            return sess, rows, time.perf_counter() - t0
+
+        def check(rows) -> None:
+            if len(rows) != len(want) or dict(rows) != want:
+                raise AssertionError("dict-wordcount: counts differ from "
+                                     "collections.Counter")
+
+        ck.reset_launches()
+        sess, rows, first = run()
+        launches = dict(ck.LAUNCHES)
+        check(rows)
+        lowering = dict(hash_off=sorted(sess.executor.hash_off),
+                        auto_dense_off=sorted(sess.executor.auto_dense_off))
+        del sess, rows
+        walls, peaks = [], []
+        for _ in range(WARM_RUNS):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sess, rows, wall = run()
+            walls.append(wall)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            check(rows)
+            del sess, rows
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = statistics.median(walls)
+    n = len(words)
+    log(f"phase 24: dict-wordcount {n} words ({len(vocab)} distinct), "
+        f"S={S}, Session(): warm wall {wall:.4f} s (median of {WARM_RUNS}: "
+        f"{', '.join(f'{w:.4f}' for w in walls)}), {n / wall:.1f} words/s, "
+        f"first run {first:.4f} s, vocabulary {vocab_s:.4f} s (once, "
+        f"outside the wall); beside it, the str-key host path with the "
+        f"native CRC: phase 17 (LocalExecutor) "
+        f"{wordcount_path['wall_s']:.4f} s, phase 22 (Session()) "
+        f"{fallback_path['wall_s']:.4f} s; peak device memory "
+        f"{max(peaks):.3f} GiB, launches {launches} (first run); "
+        f"{lowering}, on {card}")
+    return dict(launches=launches, wall_s=wall, walls_s=walls, rows=n,
+                rows_per_s=n / wall, first_wall_s=first, vocab_s=vocab_s,
+                peak_gib=max(peaks), **lowering)
+
+
+def _all_tasks(roots) -> list:
+    """Every task of a compiled graph, from its roots."""
+    seen, stack = {}, list(roots)
+    while stack:
+        t = stack.pop()
+        if id(t) not in seen:
+            seen[id(t)] = t
+            stack.extend(p for d in t.deps for p in d.tasks)
+    return list(seen.values())
+
+
+def phase25_cache(card: str, mesh_shards) -> dict:
+    """cache: ``Cache(Reduce(Const(4, keys, ones), add), prefix)`` at
+    phase 3's shape (2**25 int32 keys uniform over 2**20) through
+    ``Session(executor=MeshExecutor(auto_dense=False))`` under a temp
+    directory: the write (K1 and K2 launch; the shards bit-equal to
+    phase 3's); a fresh session and executor over the same prefix (the
+    same rows, no K1 or K2 launch, no Reduce or Const task in the
+    graph, no group on the device path); ``CachePartial`` with one
+    shard file deleted (that file rewritten, byte-equal); ``ReadCache``
+    (the same rows). The write and the read each once counted and five
+    times warm, with the bytes on disk a second."""
+    import shutil
+    import tempfile
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.ops.cache import shard_path
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S = 4
+    keys, ones = _reduce_wave_input(n=(1 << 25) >> SHIFT,
+                                    span=(1 << 20) >> SHIFT)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-cache-")
+    prefix = os.path.join(tmp, "counts")
+    files = [shard_path(prefix, s, S) for s in range(S)]
+
+    def add(a, b):
+        return a + b
+
+    def build(cache=bs.Cache):
+        return cache(bs.Reduce(bs.Const(S, keys, ones), add), prefix)
+
+    def run(slice_):
+        sess = bs.Session(executor=bs.MeshExecutor(auto_dense=False))
+        t0 = time.perf_counter()
+        res = sess.run(slice_)
+        shards = bs.result_shard_rows(res)
+        return sess, res, shards, time.perf_counter() - t0
+
+    def write():
+        for f in files:
+            if os.path.exists(f):
+                os.remove(f)
+        return run(build())
+
+    def read():
+        s = build()
+        if s.deps() != ():
+            raise AssertionError("cache: a cached slice kept its deps")
+        sess, res, shards, wall = run(s)
+        tasks = _all_tasks(res.tasks)
+        if len(tasks) != S or any(isinstance(c, (bs.Reduce, bs.Const))
+                                  for t in tasks for c in t.chain):
+            raise AssertionError("cache: the cached run compiled producer "
+                                 "tasks")
+        if sess.executor._outputs:
+            raise AssertionError("cache: a cached run used the device path")
+        return sess, res, shards, wall
+
+    def timed(fn, label, check):
+        walls = []
+        for _ in range(WARM_RUNS):
+            gc.collect()
+            torch.cuda.synchronize()
+            sess, res, shards, wall = fn()
+            walls.append(wall)
+            check(shards, label)
+            del sess, res, shards
+        return walls
+
+    try:
+        ck.reset_launches()
+        _, _, shards, first_w = write()
+        wl = dict(ck.LAUNCHES)
+        if wl["hash_partition"] <= 0 or wl["hash_aggregate"] <= 0:
+            raise AssertionError(f"cache: the write launched {wl}")
+        _same_rows(shards, mesh_shards, "cache write against phase 3")
+        nbytes = sum(os.path.getsize(f) for f in files)
+        ck.reset_launches()
+        _, _, shards, first_r = read()
+        rl = dict(ck.LAUNCHES)
+        if any(rl.values()):
+            raise AssertionError(f"cache: the cached run launched {rl}")
+        _same_rows(shards, mesh_shards, "cache read against phase 3")
+        with open(files[2], "rb") as fh:
+            before = fh.read()
+        os.remove(files[2])
+        partial = build(bs.CachePartial)
+        if partial.cache.present != [True, True, False, True]:
+            raise AssertionError("cache: CachePartial's presence scan")
+        _, _, shards, partial_s = run(partial)
+        _same_rows(shards, mesh_shards, "CachePartial against phase 3")
+        with open(files[2], "rb") as fh:
+            if fh.read() != before:
+                raise AssertionError("cache: CachePartial rewrote the shard "
+                                     "file with other bytes")
+        res = bs.Session().run(bs.ReadCache([np.int32, np.int32], S, prefix))
+        _same_rows(bs.result_shard_rows(res), mesh_shards,
+                   "ReadCache against phase 3")
+        del res
+        wwalls = timed(write, "cache write",
+                       lambda sh, w: _same_rows(sh, mesh_shards, w))
+        rwalls = timed(read, "cache read",
+                       lambda sh, w: _same_rows(sh, mesh_shards, w))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ww, rw = statistics.median(wwalls), statistics.median(rwalls)
+    n = len(keys)
+    log(f"phase 25: cache: Cache(Reduce(Const({S}, keys, ones)), prefix), "
+        f"{n} rows, {nbytes} bytes on disk in {S} files: write warm wall "
+        f"{ww:.4f} s (median of {WARM_RUNS}: "
+        f"{', '.join(f'{w:.4f}' for w in wwalls)}), {nbytes / ww:.1f} "
+        f"bytes/s, launches {wl} (first run {first_w:.4f} s); cached read "
+        f"warm wall {rw:.4f} s (median of {WARM_RUNS}: "
+        f"{', '.join(f'{w:.4f}' for w in rwalls)}), {nbytes / rw:.1f} "
+        f"bytes/s, launches {rl} (first run {first_r:.4f} s); CachePartial "
+        f"with one shard deleted {partial_s:.4f} s (rewritten, "
+        f"byte-equal), ReadCache equal; on {card}")
+    return {"cache-write": dict(launches=wl, wall_s=ww, walls_s=wwalls,
+                                rows=n, rows_per_s=n / ww, bytes=nbytes,
+                                bytes_per_s=nbytes / ww),
+            "cache-read": dict(launches=rl, wall_s=rw, walls_s=rwalls,
+                               rows=n, rows_per_s=n / rw, bytes=nbytes,
+                               bytes_per_s=nbytes / rw,
+                               partial_s=partial_s)}
+
+
 def _spill_stats(ex) -> dict:
     """What the first run spilled: boundaries, bytes, rows and
     partitions written, and the plans chosen."""
@@ -2685,7 +3166,6 @@ def main() -> int:
     paths["cogroup-join"] = phase14_cogroup_join(card)
     paths["cogroup-hotkey"] = phase15_cogroup_hotkey(card)
     paths["local-reduce"] = phase16_local_reduce(card, mesh_shards)
-    del mesh_shards
     paths["wordcount"] = phase17_wordcount(card)
     wc_shards = paths["wordcount"].pop("shards")
     paths.update(phase18_fold(card))
@@ -2694,6 +3174,11 @@ def main() -> int:
     paths.update(phase21_dense(card, device))
     paths.update(phase22_host_fallback(card, wc_shards))
     del wc_shards
+    paths.update(phase23_urls(card))
+    paths["dict-wordcount"] = phase24_dict_wordcount(
+        card, paths["wordcount"], paths["fallback-wordcount"])
+    paths.update(phase25_cache(card, mesh_shards))
+    del mesh_shards
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:

@@ -5,10 +5,8 @@ seeded numpy inputs go through the JAX package's ``MeshExecutor`` on a
 one-device CPU mesh (so the device count, and with it every lowering
 decision, matches the port's) and the port's ``MeshExecutor(device=
 "cpu")``. Integer results are equal bit for bit; float sums within
-``rtol=1e-5``. Two cases have none: ``test_wordcount_model_uses_dense_path``
-needs ``models/urls.py`` and ``frame/dictenc.py``, which are not ported
-yet, and no case here needs a multi-device mesh (one device runs 8
-shards as 8 waves).
+``rtol=1e-5``. No case here needs a multi-device mesh (one device runs
+8 shards as 8 waves).
 
 Beside them: the routing and rank tables bit-equal to the JAX package's,
 the dense functions held one by one against the JAX package's (the
@@ -437,6 +435,28 @@ def test_dense_result_feeds_downstream_consumers(mesh1):
     want = {int(k): int(c) * 10 for k, c in
             zip(*np.unique(keys, return_counts=True))}
     assert {k: v[0] for k, v in rows_dict(got).items()} == want
+
+
+@pytest.mark.parametrize("kind", ["local", "mesh"])
+def test_wordcount_model_uses_dense_path(tmp_path, kind):
+    """The urls model's encoded count (a dense Reduce over the codes) on
+    the port's local and device executors, equal to the JAX package's
+    on its LocalExecutor."""
+    from bigslice_tpu.exec.local import LocalExecutor
+    from bigslice_tpu.exec.session import Session
+    import bigslice_tpu.models.urls as ref_urls
+    import bigslice_tpu_torch.models.urls as urls_mod
+
+    p = tmp_path / "urls.txt"
+    lines = [f"http://site{i % 5}.com/p{i}" for i in range(100)]
+    p.write_text("\n".join(lines) + "\n")
+    ex = (bst.LocalExecutor(device="cpu") if kind == "local"
+          else bst.MeshExecutor(device="cpu"))
+    rows = urls_mod.domain_count_encoded(bst.Session(executor=ex), 2, str(p))
+    assert dict(rows) == {f"site{i}.com": 20 for i in range(5)}
+    ref = ref_urls.domain_count_encoded(Session(executor=LocalExecutor()), 2,
+                                        str(p))
+    assert sorted(rows) == sorted(ref)
 
 
 def test_dense_combine_single_partition_one_device_mesh(mesh1, dense_calls):

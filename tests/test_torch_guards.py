@@ -13,6 +13,8 @@ import bigslice_tpu_torch as bst  # noqa: E402
 
 
 def test_slice_runs_without_jax_or_the_jax_package():
+    """Every ported path runs in a process with neither JAX nor the JAX
+    package in ``sys.modules``, nor in a spawned parse worker."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -101,9 +103,45 @@ def test_slice_runs_without_jax_or_the_jax_package():
         local.run(bs.Scan(bs.Const(4, keys), lambda shard, r: seen.append(
             sum(len(f) for f in r))))
         assert sum(seen) == 1000
-        bad = sorted(m for m in sys.modules
-                     if m == "jax" or m.startswith("jax.")
-                     or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
+        # Dictionary-encoded string keys: an encoded Reduce, the urls
+        # model's encoded count with the parse pool at two processes,
+        # a Cache written and read back, and a TarSlice.
+        import io, tarfile
+        from bigslice_tpu_torch.frame import dictenc, strparse
+        from bigslice_tpu_torch.models.urls import domain_count_encoded
+        words = np.array(["a", "b", "a", "c"] * 50, dtype=object)
+        vocab = dictenc.GlobalVocab(["a", "b", "c"])
+        rows = dictenc.dict_encoded_reduce(sess, bs.Const(
+            4, words, np.ones(200, np.int32)), lambda a, b: a + b, vocab)
+        assert sorted(rows) == [("a", 100), ("b", 50), ("c", 50)]
+        os.environ["BIGSLICE_PARSE_PROCS"] = "2"
+        urls = [f"http://s{i % 9}.com/p{i}" for i in range(1 << 16)]
+        rows = domain_count_encoded(sess, 2, urls)
+        assert dict(rows)["s0.com"] == len(range(0, 1 << 16, 9))
+        pool = strparse._pool()
+        worker_mods = pool.apply(eval, ("sorted(__import__('sys').modules)",))
+        assert "bigslice_tpu_torch.frame.strparse" in worker_mods
+        strparse.shutdown_pool()
+        prefix = os.path.join(tempfile.mkdtemp(), "c")
+        red = bs.Reduce(bs.Const(4, keys, np.ones(1000, np.int32)),
+                        lambda a, b: a + b)
+        rows = sorted(sess.run(bs.Cache(red, prefix)).rows())
+        assert rows == sorted(sess.run(bs.ReadCache(
+            [np.int32, np.int32], 4, prefix)).rows()) and len(rows) == 37
+        tpath = os.path.join(tempfile.mkdtemp(), "a.tar")
+        with tarfile.open(tpath, "w") as tf:
+            info = tarfile.TarInfo("x")
+            info.size = 2
+            tf.addfile(info, io.BytesIO(b"xy"))
+        assert sess.run(bs.TarSlice(2, tpath)).rows() == [("x", b"xy")]
+
+        def leaked(mods):
+            return sorted(m for m in mods
+                          if m == "jax" or m.startswith("jax.")
+                          or m == "bigslice_tpu"
+                          or m.startswith("bigslice_tpu."))
+
+        bad = leaked(sys.modules) + leaked(worker_mods)
         print("LEAKED", bad)
         sys.exit(1 if bad else 0)
     """)
@@ -336,3 +374,31 @@ def test_machine_combined_cogroup_group_is_refused():
         lambda: bst.Reduce(bst.Cogroup(_keyed_const(), _keyed_const()),
                            lambda a, b: a), machine_combiners=True)
     assert [r[0] for r in rows] == list(range(7))
+
+
+def test_parse_workers_import_no_torch():
+    """``import bigslice_tpu_torch`` and the parse modules load no torch
+    (the package's names import at first use), so a spawned parse
+    worker of a main script that keeps torch out of its top level stays
+    light; the worker still parses exactly."""
+    code = textwrap.dedent("""
+        import os, sys
+        import bigslice_tpu_torch
+        from bigslice_tpu_torch.frame import strparse
+        assert "torch" not in sys.modules
+        os.environ["BIGSLICE_PARSE_PROCS"] = "2"
+        pool = strparse._pool()
+        job = (b"http://A.com/x\\n/b.org\\n/", 2)
+        res = pool.map(strparse._worker_parse, [job] * 8, chunksize=1)
+        mods = set().union(*pool.map(
+            eval, ["sorted(__import__('sys').modules)"] * 8, chunksize=1))
+        strparse.shutdown_pool()
+        assert "bigslice_tpu_torch.frame.strparse" in mods
+        assert all(r[0] == "native" and r[2] == ["a.com", "b.org"]
+                   for r in res), res
+        print("TORCH", "torch" in sys.modules, "torch" in mods)
+        sys.exit(1 if "torch" in sys.modules or "torch" in mods else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -855,3 +855,81 @@ def test_misprobe_retraction_with_prefetch_and_donation(dev):
     bc = np.bincount(keys)
     assert {int(k): int(c) for s in got for k, c in zip(*s)} == {
         int(k): int(bc[k]) for k in np.nonzero(bc)[0]}
+
+
+# -- dictionary-encoded string keys and the result cache --------------------
+
+
+@pytest.mark.parametrize("executor", ["MeshExecutor", "LocalExecutor"])
+def test_dict_encoded_reduce_on_the_card_matches_the_cpu(dev, executor):
+    """The encoded Reduce (codes dense over the vocabulary) on the card
+    gives the CPU's rows, and the urls model's encoded count too."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.frame import dictenc
+    from bigslice_tpu_torch.models import urls
+
+    rng = np.random.RandomState(21)
+    words = np.array([f"w{int(i)}" for i in rng.zipf(1.3, 1 << 16) % 5000],
+                     dtype=object)
+    lines = [f"http://S{int(d)}.example.com/p/{i & 1023}"
+             for i, d in enumerate(rng.zipf(1.5, 1 << 16) % 500)]
+    got = {}
+    for device in ("cuda", "cpu"):
+        sess = bs.Session(executor=getattr(bs, executor)(device=device))
+        vocab = dictenc.GlobalVocab(sorted(set(words)))
+        rows = dictenc.dict_encoded_reduce(
+            sess, bs.Const(4, words, np.ones(len(words), np.int32)),
+            lambda a, b: a + b, vocab)
+        got[device] = (sorted(rows),
+                       sorted(urls.domain_count_encoded(sess, 4, lines)))
+    assert got["cuda"] == got["cpu"]
+    assert dict(got["cuda"][0]) == {
+        w: int(c) for w, c in zip(*np.unique(words, return_counts=True))}
+
+
+def test_cache_round_trip_on_the_card(dev, tmp_path):
+    """A Cache over a device Reduce on the card writes host copies of
+    its columns; a second session over the same prefix reads the same
+    rows with no kernel launched and no group on the device path."""
+    import bigslice_tpu_torch as bs
+
+    keys = np.random.RandomState(22).randint(0, 1 << 16, 1 << 20).astype(
+        np.int32)
+    ones = np.ones(len(keys), np.int32)
+    prefix = str(tmp_path / "c")
+
+    def build():
+        return bs.Cache(bs.Reduce(bs.Const(4, keys, ones),
+                                  lambda a, b: a + b), prefix)
+
+    cuda_kernels.reset_launches()
+    ex = bs.MeshExecutor(auto_dense=False)
+    rows = sorted(bs.Session(executor=ex).run(build()).rows())
+    assert cuda_kernels.LAUNCHES["hash_partition"] > 0
+    assert cuda_kernels.LAUNCHES["hash_aggregate"] > 0
+    bc = np.bincount(keys)
+    assert rows == [(int(k), int(bc[k])) for k in np.nonzero(bc)[0]]
+    cuda_kernels.reset_launches()
+    ex2 = bs.MeshExecutor(auto_dense=False)
+    res = bs.Session(executor=ex2).run(build())
+    assert sorted(res.rows()) == rows
+    assert all(v == 0 for v in cuda_kernels.LAUNCHES.values())
+    assert not ex2._outputs
+    cpu = bs.Session(executor=bs.LocalExecutor(device="cpu")).run(
+        bs.ReadCache([np.int32, np.int32], 4, prefix))
+    assert sorted(cpu.rows()) == rows
+
+
+def test_hash_host_column_native_on_the_card_machine(dev, monkeypatch):
+    """The native CRC builds on the card's host and equals the per-row
+    path, bit for bit."""
+    from bigslice_tpu_torch import native
+    from bigslice_tpu_torch.frame import ops as frame_ops
+    from bigslice_tpu_torch.frame.frame import obj_col
+
+    col = obj_col([f"key{i}" for i in range(4096)] + ["Ünï", ""])
+    native.reset_calls()
+    h1 = frame_ops.hash_host_column(col, seed=5)
+    assert native.CALLS["crc32_strings"] == 1
+    monkeypatch.setenv("BIGSLICE_NATIVE", "0")
+    np.testing.assert_array_equal(h1, frame_ops.hash_host_column(col, seed=5))
