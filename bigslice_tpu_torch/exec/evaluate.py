@@ -31,9 +31,34 @@ from bigslice_tpu_torch.exec.task import (
 
 MAX_CONSECUTIVE_LOST = 5
 
+# Phase markers of the device executor's wave pipeline: a wave's inputs
+# finished staging on the prefetcher, and its program was dispatched. A
+# waved task stays RUNNING through every phase, so they ride their own
+# monitor channel (notify_phase), not the (task, state) callback.
+PHASE_WAVE_PREFETCH = "wavePrefetch"
+PHASE_WAVE_COMPUTE = "waveCompute"
+
+
+def notify_phase(monitor, task, phase: str, wave: int) -> None:
+    """Deliver an executor phase event to a monitor that opts in with an
+    ``on_phase(task, phase, wave)`` attribute (``utils/status.
+    chain_monitors`` forwards to every member that has one); monitors
+    of (task, state) alone are untouched. Exception-isolated: phase
+    events fire from the prefetcher thread, where a raising monitor
+    would otherwise poison the group's staging."""
+    fn = getattr(monitor, "on_phase", None)
+    if fn is not None:
+        from bigslice_tpu_torch.utils.status import safe_monitor_call
+
+        safe_monitor_call(fn, task, phase, wave, key=id(monitor))
+
 # Safety-net sweep interval: the loop needs no polling, but a lost
 # wakeup must fail loudly rather than hang.
 SWEEP_SECS = 5.0
+
+# How long a failed evaluation waits for its in-flight tasks to settle
+# before it raises (and reports the ones that did not).
+DRAIN_SECS = 30.0
 
 _RESUBMITTABLE = (TaskState.INIT, TaskState.LOST)
 
@@ -44,7 +69,8 @@ def evaluate(executor, roots: Sequence[Task], monitor=None) -> None:
     ``executor`` implements ``submit(task)`` (async: eventually moves the
     task from WAITING to a terminal state). ``monitor``, if given, hears
     ``monitor(task, state)`` on every transition of a task of the graph;
-    an exception it raises is swallowed."""
+    an exception it raises is logged once (``safe_monitor_call``) and
+    never fails the task."""
     _Evaluation(executor, roots, monitor).run()
 
 
@@ -66,10 +92,9 @@ class _Evaluation:
         if self.monitor is not None:
             # It runs inside the transition, on the thread that made it:
             # a raising monitor must not fail the task or lose the wake.
-            try:
-                self.monitor(task, state)
-            except Exception:  # noqa: BLE001
-                pass
+            from bigslice_tpu_torch.utils.status import safe_monitor_call
+
+            safe_monitor_call(self.monitor, task, state)
         with self.cond:
             self.events.append((task, state))
             self.cond.notify_all()
@@ -209,8 +234,13 @@ class _Evaluation:
             f"(task states: {states})"
         )
 
-    def _drain(self, timeout: float = 30.0) -> None:
-        """Wait (bounded) for in-flight tasks to settle before raising."""
+    def _drain(self, timeout: Optional[float] = None) -> None:
+        """Wait (bounded) for in-flight tasks to settle before raising.
+        When the wait expires with tasks still in flight, name them: in
+        the log, and to a monitor that opts in with
+        ``on_drain_timeout(wedged)`` (the telemetry hub)."""
+        if timeout is None:
+            timeout = DRAIN_SECS
         deadline = time.time() + timeout
         while time.time() < deadline:
             if not any(
@@ -220,3 +250,26 @@ class _Evaluation:
                 return
             with self.cond:
                 self.cond.wait(timeout=0.2)
+        wedged = [
+            {"task": str(t.name), "state": t.state.name}
+            for t in self.tasks
+            if t.state in (TaskState.WAITING, TaskState.RUNNING)
+        ]
+        if not wedged:
+            return
+        import logging
+
+        head = ", ".join(
+            f"{w['task']}={w['state']}" for w in wedged[:16]
+        )
+        if len(wedged) > 16:
+            head += f", ... ({len(wedged) - 16} more)"
+        logging.getLogger("bigslice.evaluate").warning(
+            "drain timeout (%.0fs): %d task(s) still in flight: %s",
+            timeout, len(wedged), head,
+        )
+        fn = getattr(self.monitor, "on_drain_timeout", None)
+        if fn is not None:
+            from bigslice_tpu_torch.utils.status import safe_monitor_call
+
+            safe_monitor_call(fn, wedged, key=id(self.monitor))

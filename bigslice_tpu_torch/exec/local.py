@@ -32,6 +32,7 @@ from bigslice_tpu_torch import sliceio, sortio
 from bigslice_tpu_torch.exec import store as store_mod
 from bigslice_tpu_torch.exec.task import Task, TaskState
 from bigslice_tpu_torch.frame.frame import Frame
+from bigslice_tpu_torch.utils import metrics as metrics_mod
 
 # Rows a partition buffer holds before an incremental pre-combine
 # collapses it (associativity lets the combine run early, bounding the
@@ -74,6 +75,12 @@ def partition_frame(frame: Frame, ids, nparts: int) -> List[Frame]:
     sorted_frame = frame.take(order)
     return [sorted_frame.slice(bounds[p], bounds[p + 1])
             for p in range(nparts)]
+
+
+def _frame_nbytes(frame: Frame) -> int:
+    """The bytes of a frame's tensor and numpy columns (metadata only,
+    no device sync); object columns count 0."""
+    return sum(int(getattr(c, "nbytes", 0) or 0) for c in frame.cols)
 
 
 class _Limiter:
@@ -149,6 +156,68 @@ class LocalExecutor:
 
     def _place(self, frame: Frame) -> Frame:
         return frame.to(self.device)
+
+    def start(self, session) -> None:
+        """Bind the session whose telemetry hub this executor reports
+        into (``Session`` calls it)."""
+        self.session = session
+
+    def resource_stats(self) -> dict:
+        """Host memory, the card's allocator stats on ``cuda``, and the
+        task-thread bound (the status display's resource lines)."""
+        from bigslice_tpu_torch.utils import resources as resources_mod
+
+        return {
+            "host_rss_bytes": resources_mod.host_rss_bytes(),
+            "devices": resources_mod.device_memory(
+                [self.device] if self.device.type == "cuda" else []),
+            "gauges": {"procs": self.procs},
+        }
+
+    # -- telemetry seams (utils/telemetry.py): best-effort, never fail a
+    # task -------------------------------------------------------------------
+
+    def _telemetry_hub(self):
+        return getattr(getattr(self, "session", None), "telemetry", None)
+
+    def _launch_sink(self, task: Task):
+        """The kernel-launch listener of ``task``'s op (None without a
+        hub): each counted launch adds its declared cost to the op."""
+        hub = self._telemetry_hub()
+        if hub is None:
+            return None
+        op, inv = task.name.op, task.name.inv_index
+        dev = hub.device
+
+        def sink(name, cost):
+            dev.record_launch(op, inv, name, cost)
+
+        return sink
+
+    def _record_shuffle(self, task: Task, rows: List[int],
+                        nbytes: List[int]) -> None:
+        """This producer's rows and bytes routed to each partition,
+        before its combine: the hub sums producers elementwise."""
+        hub = self._telemetry_hub()
+        if hub is None:
+            return
+        try:
+            hub.record_shuffle(task.name.op, task.name.inv_index, rows,
+                               nbytes)
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _record_combine_input(self, task: Task, in_rows: int,
+                              out_rows: int) -> None:
+        """This producer's map-side combine: rows in and rows out."""
+        hub = self._telemetry_hub()
+        if hub is None:
+            return
+        try:
+            hub.record_combine_input(task.name.op, task.name.inv_index,
+                                     in_rows, out_rows)
+        except Exception:  # noqa: BLE001
+            pass
 
     # -- the executor interface (submit, reader, discard) -------------------
 
@@ -265,7 +334,11 @@ class LocalExecutor:
         try:
             if not task.transition_if(TaskState.WAITING, TaskState.RUNNING):
                 return  # another evaluation claimed it
-            self._execute(task)
+            from bigslice_tpu_torch.parallel import cuda_kernels
+
+            with metrics_mod.scope_context(task.scope), \
+                    cuda_kernels.launch_sink(self._launch_sink(task)):
+                self._execute(task)
             task.mark_ok()
         except DepLost as e:
             # A dependency's output vanished: this run is lost, and so
@@ -302,6 +375,12 @@ class LocalExecutor:
         pending_rows = [0] * nparts
         flush_at = [COMBINE_FLUSH_ROWS] * nparts
         spillers.extend([None] * nparts)
+        # Rows and bytes routed to each partition, before the combine:
+        # the honest skew signal of a combining shuffle, whose output
+        # sizes are its distinct keys and hide a hot key. The lengths
+        # are host ints already (partition_frame read its bounds back).
+        routed_rows = [0] * nparts
+        routed_bytes = [0] * nparts
         for frame in reader:
             if not len(frame):
                 continue
@@ -309,6 +388,8 @@ class LocalExecutor:
             for p, sub in enumerate(partition_frame(frame, ids, nparts)):
                 if not len(sub):
                     continue
+                routed_rows[p] += len(sub)
+                routed_bytes[p] += _frame_nbytes(sub)
                 parts[p].append(sub)
                 pending_rows[p] += len(sub)
                 if comb is not None and pending_rows[p] >= flush_at[p]:
@@ -331,12 +412,16 @@ class LocalExecutor:
                     spillers[p].spill(iter(parts[p]))
                     parts[p] = []
                     pending_rows[p] = 0
+        if nparts > 1:
+            self._record_shuffle(task, routed_rows, routed_bytes)
         if comb is not None and task.partitioner.combine_key:
             self._machine_combine(task, parts)
             return
+        combined_out_rows = 0
         for p in range(nparts):
             if comb is not None:
                 out = comb.combine_frames(parts[p])
+                combined_out_rows += len(out)
                 frames = [out] if len(out) else []
             elif spillers[p] is not None:
                 # The spilled runs, then the in-memory tail, streamed
@@ -354,6 +439,9 @@ class LocalExecutor:
             else:
                 frames = parts[p]
             self.store.put(task.name, p, frames)
+        if comb is not None:
+            self._record_combine_input(task, sum(routed_rows),
+                                       combined_out_rows)
 
     def _machine_combine(self, task: Task, parts: List[List[Frame]]) -> None:
         """Contribute this shard's partitioned output to the shared

@@ -115,10 +115,14 @@ import time
 from collections import deque
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from bigslice_tpu_torch.exec import shuffleplan
 from bigslice_tpu_torch.exec import staging
+from bigslice_tpu_torch.exec.evaluate import (PHASE_WAVE_COMPUTE,
+                                              PHASE_WAVE_PREFETCH,
+                                              notify_phase)
 from bigslice_tpu_torch.exec import store as store_mod
 from bigslice_tpu_torch.exec.local import LocalExecutor
 from bigslice_tpu_torch.exec.task import Task, TaskName, TaskState
@@ -134,6 +138,7 @@ from bigslice_tpu_torch.ops.reduce import Reduce
 from bigslice_tpu_torch.ops.reshuffle import (Reshard, Reshuffle,
                                               RowPartitioner)
 from bigslice_tpu_torch.parallel import cogroup as cogroup_mod
+from bigslice_tpu_torch.parallel import cuda_kernels
 from bigslice_tpu_torch.parallel import dense as dense_mod
 from bigslice_tpu_torch.parallel import groupby as groupby_mod
 from bigslice_tpu_torch.parallel import hashagg, segment
@@ -149,6 +154,11 @@ __all__ = ["COGROUP_DEFAULT_CAP", "DeviceGroupOutput", "MeshExecutor"]
 #: starting capacity, which its ladder grows).
 COGROUP_DEFAULT_CAP = 8
 
+#: Up to this many subids a device, a shuffle's per-partition counts are
+#: one masked count each (a scatter-add over few bins serializes on its
+#: atomics).
+_FEW_SUBIDS = 32
+
 
 def _op_base(op: str) -> str:
     """Strip the compiler's #N repeated-invocation suffix: the sort-path
@@ -161,22 +171,43 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _donate(inputs, out: "DeviceGroupOutput") -> None:
+def _output_bytes(out) -> int:
+    """Device bytes a group output holds (tensor metadata, no sync)."""
+    if isinstance(out, WavedGroupOutput):
+        return sum(_output_bytes(w) for w in out.waves)
+    cols = getattr(out, "cols", None)
+    if not cols:
+        return 0
+    return sum(_nbytes(c) for c in cols) + _nbytes(out.counts)
+
+
+def _donate(inputs, out: "DeviceGroupOutput") -> Tuple[int, int, int, int]:
     """Torch's counterpart of buffer donation: free the storage of every
     tensor a settled wave owned (staged for it alone), so that the
     caching allocator hands the blocks to the next wave's staging at
     once, whatever Python references remain. A storage the output still
     uses (a map-only chain passes its input counts through) is kept; a
-    producer output chained zero-copy is never owned, so never freed."""
+    producer output chained zero-copy is never owned, so never freed.
+    Returns the bytes and storages owned (offered), then the bytes and
+    storages freed (the honored subset, as XLA's aliased buffers are of
+    the donated ones)."""
     keep = {t.untyped_storage().data_ptr()
             for t in list(out.cols) + [out.counts]}
+    owned, freed = {}, {}
     for i in inputs:
         if not i.owned:
             continue
         for t in list(i.cols) + [i.counts]:
             st = t.untyped_storage()
-            if st.data_ptr() not in keep:
+            ptr = st.data_ptr()
+            if ptr in owned:
+                continue
+            owned[ptr] = st.nbytes()
+            if ptr not in keep:
+                freed[ptr] = owned[ptr]
                 st.resize_(0)
+    return (sum(owned.values()), len(owned), sum(freed.values()),
+            len(freed))
 
 
 class _AutoDenseRetry(Exception):
@@ -214,6 +245,9 @@ class DeviceGroupOutput:
         self.partitioned = partitioned
         self.subid = subid
         self.nmesh = nmesh
+        # Rows of each partition, as host ints, when the telemetry hub
+        # asked the program for them (read with the wave's signals).
+        self.part_rows: Optional[List[int]] = None
         self._chunks = None
         self._chunks_lock = threading.Lock()
         # Per-consumer-wave views of a subid output (_subid_wave_view).
@@ -259,13 +293,17 @@ class StagedInput(NamedTuple):
     executor for this wave alone (donated at settle), as opposed to a
     producer output chained zero-copy, which is never owned. ``ready``:
     the CUDA event behind its copies on the copy stream, which the wave
-    program's stream waits on (None when nothing is in flight)."""
+    program's stream waits on (None when nothing is in flight).
+    ``subid``: a wave-partitioned output read whole (the subid split
+    off): its leading int32 column names each row's partition, and the
+    program keeps the rows of its own wave."""
 
     cols: List[torch.Tensor]
     counts: torch.Tensor
     capacity: int
     owned: bool
     ready: Optional[object]
+    subid: bool = False
 
 
 class _WaveEntry:
@@ -349,6 +387,15 @@ class MeshExecutor:
     None of them chooses between a kernel and its plain version: the
     device alone does that.
 
+    Two lowering switches, also the JAX package's: ``hash_aggregate``
+    (default on) lets add/max/min combines
+    and joins over non-float keys take the hash lowering (the
+    ``hash_aggregate`` kernel); off pins them to the sort path.
+    ``subid_split`` (default on) splits a
+    wave-partitioned output once into each consumer wave's rows; off
+    hands each consumer wave the whole output, which its program masks
+    by subid.
+
     ``auto_dense`` (default on, the JAX package's default) lets a
     group's first wave declare a dense key bound (the module's
     docstring); off pins the hash and sort lowerings. ``fallback_procs``
@@ -362,7 +409,9 @@ class MeshExecutor:
                  device_budget_bytes: Optional[int] = None,
                  staging_arena: Optional[bool] = None,
                  fallback_procs: Optional[int] = None,
-                 auto_dense: bool = True):
+                 auto_dense: bool = True,
+                 hash_aggregate: bool = True,
+                 subid_split: bool = True):
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -406,6 +455,8 @@ class MeshExecutor:
             enabled=staging_arena, mode=staging.staging_mode(device))
         self.stage_threads = staging.stage_threads_default()
         self.auto_dense = bool(auto_dense)
+        self.hash_aggregate = bool(hash_aggregate)
+        self.subid_split = bool(subid_split)
         self.store = _BridgedStore(self)
         # The host tier: the same store (host outputs land in its frame
         # tier, device outputs serve through it) and the same device.
@@ -441,6 +492,36 @@ class MeshExecutor:
         # that close() removes).
         self._spill: Optional[store_mod.FileStore] = None
         self._spill_tmp: Optional[str] = None
+        self.session = None
+
+    def start(self, session) -> None:
+        """Bind the session whose telemetry hub and monitor this
+        executor reports into (``Session`` calls it), for its host tier
+        too."""
+        self.session = session
+        self.local.start(session)
+
+    def resource_stats(self) -> dict:
+        """Host memory, the card's allocator stats, the bytes of the
+        device-resident group outputs, and the executor's gauges
+        (adapted shuffle slack, budget-split runs, sites on the sort
+        path): the status display's resource lines."""
+        from bigslice_tpu_torch.utils import resources as resources_mod
+
+        with self._lock:
+            outs = list(self._outputs.values())
+            gauges = {
+                "shuffle_slack": dict(self._slack_memo),
+                "split_runs": dict(self.split_runs),
+                "hash_off": sorted(self._hash_off),
+            }
+        return {
+            "host_rss_bytes": resources_mod.host_rss_bytes(),
+            "devices": resources_mod.device_memory(
+                [self.device] if self.device.type == "cuda" else []),
+            "resident_output_bytes": sum(_output_bytes(o) for o in outs),
+            "gauges": gauges,
+        }
 
     # -- submission -------------------------------------------------------
 
@@ -517,12 +598,182 @@ class MeshExecutor:
         with self._lock:
             self._stage_clock.update(staged_s=0.0, exposed_s=0.0, waves=0)
 
-    def _note_staging(self, staged_s: float, exposed_s: float) -> None:
+    def _note_staging(self, task0: Task, wave: int, staged_s: float,
+                      exposed_s: float) -> None:
         with self._lock:
             c = self._stage_clock
             c["staged_s"] += staged_s
             c["exposed_s"] += exposed_s
             c["waves"] += 1
+        # The hub hears the same two numbers, so its overlap figures
+        # equal staging_seconds() over the same waves.
+        self._telemetry_staging(task0, wave, staged_s, exposed_s)
+
+    # -- telemetry seams (utils/telemetry.py) -------------------------------
+    #
+    # Best-effort: a telemetry failure never fails a wave. Each costs
+    # host arithmetic only; the per-partition rows ride the signals that
+    # each wave's settle reads back anyway (``_issue_signals``), so the
+    # hub adds no host sync. Without a hub every seam returns at once.
+
+    def _telemetry_hub(self):
+        return getattr(self.session, "telemetry", None)
+
+    def _device_telemetry(self):
+        return getattr(self._telemetry_hub(), "device", None)
+
+    def _emit_phase(self, task: Task, phase: str, wave: int) -> None:
+        """A wave-pipeline phase (inputs staged on the prefetcher, or
+        the program dispatched) through the session's monitor chain and
+        eventer."""
+        sess = self.session
+        if sess is None:
+            return
+        notify_phase(sess.monitor, task, phase, wave)
+        try:
+            sess._event(f"bigslice:{phase}", op=task.name.op, wave=wave,
+                        inv=task.name.inv_index)
+        except Exception:  # noqa: BLE001 — an eventer never fails a wave
+            pass
+
+    def _launch_sink(self, task0: Task):
+        """The kernel-launch listener of ``task0``'s op (None without a
+        hub): each counted launch adds its declared cost to the op."""
+        dev = self._device_telemetry()
+        if dev is None:
+            return None
+        op, inv = task0.name.op, task0.name.inv_index
+
+        def sink(name, cost):
+            dev.record_launch(op, inv, name, cost)
+
+        return sink
+
+    def _telemetry_staging(self, task0: Task, wave: int, dur_s: float,
+                           exposed_s: float) -> None:
+        hub = self._telemetry_hub()
+        if hub is None:
+            return
+        try:
+            hub.record_wave_staging(task0.name.op, task0.name.inv_index,
+                                    wave, dur_s, exposed_s)
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _telemetry_compute(self, task0: Task, wave: int,
+                           dur_s: float) -> None:
+        """One wave's dispatch-to-settle time, then the watermark: the
+        wave just settled, its buffers at their fullest."""
+        hub = self._telemetry_hub()
+        if hub is None:
+            return
+        try:
+            hub.record_wave_compute(task0.name.op, task0.name.inv_index,
+                                    wave, dur_s)
+        except Exception:  # noqa: BLE001
+            pass
+        self._telemetry_hbm(task0, wave)
+
+    def _telemetry_hbm(self, task0: Task, wave: Optional[int]) -> None:
+        """A device-memory watermark: the caching allocator's stats on
+        ``cuda``; on the CPU the bytes of the outputs this executor
+        holds."""
+        dev = self._device_telemetry()
+        if dev is None:
+            return
+
+        def live_bytes():
+            with self._lock:
+                outs = list(self._outputs.values())
+            return sum(_output_bytes(o) for o in outs)
+
+        dev.sample_hbm(self.device, op=task0.name.op,
+                       inv=task0.name.inv_index, wave=wave,
+                       live_bytes=live_bytes)
+
+    def _telemetry_donation(self, task0: Task, inputs,
+                            out: "DeviceGroupOutput") -> None:
+        """``_donate`` with its effectiveness recorded: the bytes of the
+        storages the wave owned against the bytes it freed (a storage
+        its output still uses stays). Host arithmetic only: no
+        allocator read."""
+        expected, nbuf, freed, nfreed = _donate(inputs, out)
+        dev = self._device_telemetry()
+        if dev is None or not nbuf:
+            return
+        try:
+            dev.record_donation(task0.name.op, task0.name.inv_index,
+                                expected, freed, nbuf, nfreed)
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _telemetry_exchange(self, task0: Task, wave: int, inputs,
+                            slack: float) -> None:
+        """One wave's exchange from its static structure: each of the N
+        devices sends a bucket of ``send_capacity`` rows to each of the
+        N - 1 others. On one device the exchange seam is the identity:
+        no message leaves the card."""
+        dev = self._device_telemetry()
+        if dev is None or task0.num_partition <= 1:
+            return
+        try:
+            N = self.nmesh
+            rowbytes = sum(torch_dtype(ct.dtype).itemsize
+                           for ct in task0.schema) or 4
+            cap = max((i.capacity for i in inputs), default=1)
+            waved = task0.num_partition > N
+            send_cap = shuffle_mod.send_capacity(
+                cap, N if waved else min(task0.num_partition, N), slack)
+            msgs = N * (N - 1)
+            dev.record_exchange(
+                task0.name.op, task0.name.inv_index, wave, messages=msgs,
+                nbytes=msgs * send_cap * (rowbytes + (4 if waved else 0)))
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _record_shuffle(self, task0: Task, out) -> None:
+        """A partitioned group's rows (and bytes) a partition: out of
+        the map side's combine, summed over its waves, from the counts
+        each wave's signals carried; a spilled boundary's from the spill
+        manifest."""
+        hub = self._telemetry_hub()
+        if hub is None:
+            return
+        try:
+            rowbytes = sum(torch_dtype(ct.dtype).itemsize
+                           * max(1, int(np.prod(ct.shape)))
+                           for ct in task0.schema) or 4
+            if isinstance(out, shuffleplan.SpilledGroupOutput):
+                rows = out.exchange.partition_rows()
+            else:
+                rows = out.part_rows
+            if rows:
+                hub.record_shuffle(task0.name.op, task0.name.inv_index,
+                                   rows, [r * rowbytes for r in rows])
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _record_shuffle_plan(self, task0: Task, plan, out) -> None:
+        """A boundary's exchange decision and, when spilled, what the
+        spill exchange wrote."""
+        dev = self._device_telemetry()
+        if dev is None:
+            return
+        try:
+            kwargs = {}
+            if out is not None:
+                kwargs = dict(
+                    spill_bytes=out.exchange.spill_bytes,
+                    spill_rows=out.exchange.spill_rows,
+                    partitions=out.exchange.partitions_written(),
+                    map_waves=out.map_waves,
+                )
+            dev.record_shuffle_plan(
+                task0.name.op, task0.name.inv_index, plan.kind,
+                plan.reason, est_bytes=plan.est_bytes,
+                budget_bytes=plan.budget_bytes, **kwargs)
+        except Exception:  # noqa: BLE001
+            pass
 
     @property
     def auto_dense_off(self) -> frozenset:
@@ -626,6 +877,11 @@ class MeshExecutor:
                 continue
         with self._lock:
             self._outputs[key] = out
+        if tasks[0].num_partition > 1:
+            self._record_shuffle(tasks[0], out)
+        # The group's output is in place (merged, if waved): the last
+        # watermark of its work.
+        self._telemetry_hbm(tasks[0], None)
 
     def _execute_group_waves(self, tasks: List[Task]):
         task0 = tasks[0]
@@ -642,7 +898,12 @@ class MeshExecutor:
                     self.shuffle_plans[_op_base(task0.name.op)] = plan
         spill = plan is not None and plan.kind == "spill"
         if task0.num_partition > 1 and spill:
-            return self._execute_group_spill(task0, wave_tasks, plan, inputs0)
+            out = self._execute_group_spill(task0, wave_tasks, plan,
+                                            inputs0)
+            self._record_shuffle_plan(task0, plan, out)
+            return out
+        if task0.num_partition > 1 and plan is not None:
+            self._record_shuffle_plan(task0, plan, None)
         if len(tasks) <= N:
             return self._execute_wave(tasks, 0, inputs0)
         # Wave streaming: ceil(S/N) waves of N shards. Partitioned outputs
@@ -681,8 +942,9 @@ class MeshExecutor:
         if not mode:
             return None, None
         ineligible = shuffleplan.spill_ineligible(task0)
-        budget = shuffleplan.spill_budget_bytes(self.device_budget_bytes,
-                                                self.nmesh)
+        budget = shuffleplan.spill_budget_bytes(
+            self.device_budget_bytes, self.nmesh,
+            device_telemetry=self._device_telemetry())
         est = inputs0 = None
         if mode == "auto" and ineligible is None and budget is not None:
             inputs0 = self._stage_exposed(wave_tasks[0], 0)
@@ -728,7 +990,7 @@ class MeshExecutor:
         t0 = time.perf_counter()
         inputs = self._group_inputs(tasks, wave)
         dt = time.perf_counter() - t0
-        self._note_staging(dt, dt)
+        self._note_staging(tasks[0], wave, dt, dt)
         return inputs
 
     def _wave_budget(self) -> Optional[int]:
@@ -806,6 +1068,7 @@ class MeshExecutor:
                                               w + 1 + depth)
                     item = (self._group_inputs(wave_tasks[w], w), None,
                             time.perf_counter() - t0)
+                    self._emit_phase(task0, PHASE_WAVE_PREFETCH, w)
                 except BaseException as e:  # noqa: BLE001 — re-raised in
                     item = (None, e, 0.0)   # wave order on the group thread
                 while not stop.is_set():
@@ -824,13 +1087,16 @@ class MeshExecutor:
         outs: List[DeviceGroupOutput] = []
         inflight: deque = deque()
 
-        def deliver(w: int, out: DeviceGroupOutput) -> None:
+        def deliver(w: int, out: DeviceGroupOutput, t_disp: float) -> None:
             # Outside the wave mutex: a sink's host work (the spill
             # writes) must not hold the wave slot.
             if sink is not None:
                 sink(w, out)
             else:
                 outs.append(out)
+            # Dispatch to settle: with waves in flight this counts queue
+            # time too, but the sum is the window staging hides behind.
+            self._telemetry_compute(task0, w, time.perf_counter() - t_disp)
 
         try:
             inputs = inputs0
@@ -843,22 +1109,26 @@ class MeshExecutor:
                     # Exposed: what this thread sat waiting for of the
                     # stager's work; the rest was hidden behind compute.
                     self._note_staging(
-                        staged_s, min(time.perf_counter() - t0, staged_s))
+                        task0, w, staged_s,
+                        min(time.perf_counter() - t0, staged_s))
+                self._emit_phase(task0, PHASE_WAVE_COMPUTE, w)
                 settled = []
                 with self._wave_mutex:
-                    inflight.append(self._dispatch_wave(wave_tasks[w], w,
-                                                        inputs))
+                    inflight.append((self._dispatch_wave(wave_tasks[w], w,
+                                                         inputs),
+                                     time.perf_counter()))
                     inputs = None
                     while len(inflight) > window:
-                        e = inflight.popleft()
-                        settled.append((e.wave, self._settle_wave(e)))
+                        e, t_disp = inflight.popleft()
+                        settled.append((e.wave, self._settle_wave(e),
+                                        t_disp))
                 for s in settled:
                     deliver(*s)
                 del settled
             while inflight:
                 with self._wave_mutex:
-                    e = inflight.popleft()
-                    s = (e.wave, self._settle_wave(e))
+                    e, t_disp = inflight.popleft()
+                    s = (e.wave, self._settle_wave(e), t_disp)
                 deliver(*s)
             return outs
         finally:
@@ -900,8 +1170,11 @@ class MeshExecutor:
         """One wave, dispatched and settled at once (the serial path)."""
         if inputs is None:
             inputs = self._stage_exposed(tasks, wave)
+        t_run = time.perf_counter()
         with self._wave_mutex:
-            return self._settle_wave(self._dispatch_wave(tasks, wave, inputs))
+            out = self._settle_wave(self._dispatch_wave(tasks, wave, inputs))
+        self._telemetry_compute(tasks[0], wave, time.perf_counter() - t_run)
+        return out
 
     def _await_inputs(self, inputs) -> None:
         """Order the wave program after its inputs' copies: the current
@@ -926,17 +1199,21 @@ class MeshExecutor:
         task0 = tasks[0]
         self._await_inputs(inputs)
         self._maybe_auto_dense(task0, inputs, wave)
-        budget = self._wave_budget()
-        if (budget and task0.num_partition > 1 and len(inputs) == 1
-                and self._splittable_chain(task0)
-                and self._wave_bytes_estimate(task0, inputs) > budget):
-            split = self._try_execute_wave_split(tasks, wave, inputs, budget)
-            if split is not None:
-                return _WaveEntry(tasks, wave, None, done=split)
-        stages = self._stages_for(task0)
-        slack = self._wave_slack(task0)
-        result = self._program(task0, stages, slack)(wave, inputs)
-        first = (result, slack, self._issue_signals(result))
+        with cuda_kernels.launch_sink(self._launch_sink(task0)):
+            budget = self._wave_budget()
+            if (budget and task0.num_partition > 1 and len(inputs) == 1
+                    and not inputs[0].subid
+                    and self._splittable_chain(task0)
+                    and self._wave_bytes_estimate(task0, inputs) > budget):
+                split = self._try_execute_wave_split(tasks, wave, inputs,
+                                                     budget)
+                if split is not None:
+                    return _WaveEntry(tasks, wave, None, done=split)
+            stages = self._stages_for(task0)
+            slack = self._wave_slack(task0)
+            result = self._program(task0, stages, slack)(wave, inputs)
+            self._telemetry_exchange(task0, wave, inputs, slack)
+            first = (result, slack, self._issue_signals(result))
         return _WaveEntry(tasks, wave, inputs, first=first)
 
     def _issue_signals(self, result):
@@ -946,10 +1223,16 @@ class MeshExecutor:
         pinned memory behind an event, so that reading one wave's
         signals waits for that wave's work, not for a later wave already
         queued behind it."""
+        parts = result[6] if len(result) > 6 else None
         sig = torch.stack([x.to(torch.int64) for x in result[1:5]])
+        if parts is not None:
+            # The partitions' row counts (asked for by the telemetry
+            # hub) ride the same copy: no read of their own.
+            sig = torch.cat([sig, parts.to(torch.int64)])
         if self.device.type != "cuda":
             return sig.tolist
-        host = torch.empty(4, dtype=torch.int64, pin_memory=True)
+        host = torch.empty(sig.shape[0], dtype=torch.int64,
+                           pin_memory=True)
         host.copy_(sig, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
@@ -966,11 +1249,13 @@ class MeshExecutor:
         owned inputs."""
         if entry.done is not None:
             return entry.done
+        task0 = entry.tasks[0]
         try:
-            out = self._execute_wave_on(entry.tasks, entry.wave,
-                                        entry.inputs, first=entry.first)
+            with cuda_kernels.launch_sink(self._launch_sink(task0)):
+                out = self._execute_wave_on(entry.tasks, entry.wave,
+                                            entry.inputs, first=entry.first)
             if self.donate_buffers:
-                _donate(entry.inputs, out)
+                self._telemetry_donation(task0, entry.inputs, out)
             return out
         finally:
             entry.inputs = entry.first = None
@@ -994,7 +1279,9 @@ class MeshExecutor:
                         wave, inputs, carry)
                     signals = self._issue_signals(result)
                 out_counts, out_cols = result[0], result[5]
-                overflow, badrange, hashov, gbover = signals()
+                sig = signals()
+                overflow, badrange, hashov, gbover = sig[:4]
+                part_rows = sig[4:] or None
                 if gbover > 0:
                     # A strict GroupByKey's capacity overflow: a user
                     # error on its own channel, never a slack or hash
@@ -1042,13 +1329,15 @@ class MeshExecutor:
                         f"shuffle overflow in group {task0.name.op} even at "
                         f"full slack")
                 self._slack_memo[opbase] = min(slack * 4, full_slack)
-        return DeviceGroupOutput(
+        out = DeviceGroupOutput(
             list(out_cols), out_counts,
             int(out_cols[0].shape[0]) // self.nmesh, task0.schema,
             partitioned=task0.num_partition > 1,
             subid=has_shuffle and task0.num_partition > self.nmesh,
             nmesh=self.nmesh,
         )
+        out.part_rows = part_rows
+        return out
 
     # -- the device-budget wave split ---------------------------------------
 
@@ -1144,7 +1433,7 @@ class MeshExecutor:
         with self._lock:
             self.split_runs[_op_base(task0.name.op)] = K
         if self.donate_buffers:
-            _donate(inputs, merged)
+            self._telemetry_donation(task0, inputs, merged)
         return merged
 
     def _run_slice(self, tasks: List[Task], wave: int, inp: StagedInput,
@@ -1214,7 +1503,8 @@ class MeshExecutor:
         before, or a dense bound is declared — the dense table, or where
         it gates itself off the sort path that honours the range check,
         takes precedence."""
-        if opbase in self._hash_off or fc.dense_keys is not None:
+        if (not self.hash_aggregate or opbase in self._hash_off
+                or fc.dense_keys is not None):
             return None
         return fc.hash_ops()
 
@@ -1261,7 +1551,7 @@ class MeshExecutor:
         far larger than the data beats nothing). Wave 0 only: declaring
         mid-group would mix dense and sort routing across waves; the
         badrange signal and the group retry guard a misprobe."""
-        if wave != 0 or not self.auto_dense:
+        if wave != 0 or not self.auto_dense or inputs[0].subid:
             return
         opb = _op_base(task0.name.op)
         with self._lock:
@@ -1409,23 +1699,33 @@ class MeshExecutor:
         reaches a consumer as its wave's view); a join reads two inputs,
         a Cogroup one per input, every other chain one. ``carry``, a
         split wave's running merge (mask, keys and values), joins the
-        rows ahead of the shuffle's combine (``_run_slice``)."""
+        rows ahead of the shuffle's combine (``_run_slice``). With a
+        telemetry hub a shuffle's program also returns its rows a
+        partition (``[nparts]``, on the device) as a seventh element;
+        the settle reads them with the signals."""
         opbase = _op_base(task.name.op)
         nmesh = self.nmesh
         device = self.device
+        part_counts = self._telemetry_hub() is not None
 
         def stepped(wave: int, inputs, carry=None):
             masks, col_sets = [], []
             for inp in inputs:
                 cols = list(inp.cols)
                 size = cols[0].shape[0]
-                masks.append(torch.arange(size, device=device)
-                             < inp.counts[0])
+                valid = torch.arange(size, device=device) < inp.counts[0]
+                if inp.subid:
+                    # A wave-partitioned output read whole: this wave's
+                    # rows are those of its own subid.
+                    valid = valid & (cols[0] == wave)
+                    cols = cols[1:]
+                masks.append(valid)
                 col_sets.append(cols)
             zero = torch.zeros((), dtype=torch.int32, device=device)
             # A strict GroupByKey's overflow rides a channel of its own
             # (gbover), as does the hash lowerings' (hashov).
             overflow = badrange = hashov = gbover = zero
+            parts = None
             run_stages = stages
             if stages and stages[0][0] == "cogroup":
                 # The Cogroup is the chain's only stage: its aligner
@@ -1564,14 +1864,46 @@ class MeshExecutor:
                         overflow = overflow + ov
                         badrange = badrange + nb
                     cols = list(cols)
+                    if part_counts:
+                        parts = self._partition_counts(
+                            mask, cols, s.num_partition,
+                            planar=hops is not None and dense_k is None)
             if all(kind == "map" for kind, _ in stages):
                 # Map-only chain: the mask is untouched, counts carry over.
                 return (inputs[0].counts, overflow, badrange, hashov,
                         gbover, tuple(cols))
             out_n, cols = compact_to_bucket(mask, cols)
-            return out_n.reshape(1), overflow, badrange, hashov, gbover, cols
+            return (out_n.reshape(1), overflow, badrange, hashov, gbover,
+                    cols, parts)
 
         return stepped
+
+    def _partition_counts(self, mask, cols, nparts: int,
+                          planar: bool = False) -> torch.Tensor:
+        """A shuffle's valid rows a partition, on the device (no host
+        read): partition p lives on device p % nmesh with subid p //
+        nmesh (the leading column when partitions outnumber devices).
+        The hash lowering's output is planar (each device's W regions
+        of equal size, in subid order), so its counts are one sum a
+        region; otherwise one masked count a subid for a few subids,
+        and a scatter-add for many."""
+        N = self.nmesh
+        if nparts <= N:
+            return mask.reshape(N, -1).sum(1)[:nparts]
+        W = (nparts + N - 1) // N
+        if planar:
+            per = mask.reshape(N, W, -1).sum(2)  # [device, subid]
+            return per.t().reshape(-1)[:nparts]
+        sub = cols[0].reshape(N, -1)
+        m = mask.reshape(N, -1)
+        if W <= _FEW_SUBIDS:
+            per = torch.stack([(m & (sub == w)).sum(1) for w in range(W)])
+            return per.reshape(-1)[:nparts]
+        idx = (sub.to(torch.int64).clamp(0, W - 1) * N
+               + torch.arange(N, device=mask.device)[:, None])
+        counts = torch.zeros(W * N, dtype=torch.int64, device=mask.device)
+        counts.index_add_(0, idx.reshape(-1), m.reshape(-1).to(torch.int64))
+        return counts[:nparts]
 
     # -- cross-wave merge and the consumer-side subid split ----------------
 
@@ -1599,12 +1931,16 @@ class MeshExecutor:
                     buf[pos : pos + c[d]] = o.cols[j][start : start + c[d]]
                     pos += c[d]
             packed.append(buf)
-        return DeviceGroupOutput(
+        merged = DeviceGroupOutput(
             packed, torch.tensor(totals, dtype=torch.int32,
                                  device=self.device),
             cap, task0.schema, partitioned=True, subid=outs[0].subid,
             nmesh=N,
         )
+        if all(o.part_rows is not None for o in outs):
+            merged.part_rows = [sum(r) for r in
+                                zip(*(o.part_rows for o in outs))]
+        return merged
 
     def _subid_wave_view(self, out: DeviceGroupOutput, task0: Task,
                          wave: int) -> DeviceGroupOutput:
@@ -1704,7 +2040,11 @@ class MeshExecutor:
         if out is not None and out.partitioned:
             # Device-resident shuffle output: partition p on device
             # p % nmesh. A subid output (more partitions than devices)
-            # reaches each consumer wave as its partition's view.
+            # reaches each consumer wave as its partition's view, or
+            # with the subid split off whole, for the program to mask.
+            if out.subid and not self.subid_split:
+                return StagedInput(out.cols, out.counts, out.capacity,
+                                   False, None, subid=True)
             if out.subid:
                 out = self._subid_wave_view(out, task0, wave)
             return StagedInput(out.cols, out.counts, out.capacity, False,

@@ -6,10 +6,17 @@ an inner local executor, runs what the device path cannot lower);
 also over ``cuda``. ``Session(executor=MeshExecutor(device="cpu"))`` or
 ``Session(executor=LocalExecutor(device="cpu"))`` runs the same paths
 on the CPU through the kernels' plain versions, as the tests do.
+
+Each session carries the observability plane: a telemetry hub
+(``utils/telemetry.py``, off with ``BIGSLICE_TELEMETRY=0``), the task
+status (``utils/status.py``), an optional Chrome trace and eventer, and
+a profiler gate (``utils/xprof.py``); the executors report into the hub
+through their seams.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -21,6 +28,13 @@ from bigslice_tpu_torch.exec.store import Missing
 from bigslice_tpu_torch.exec.task import Task, TaskState
 from bigslice_tpu_torch.ops.base import Slice, make_name
 from bigslice_tpu_torch.ops.func import Func, invocation_counter
+from bigslice_tpu_torch.utils import metrics as metrics_mod
+
+
+class ObservabilityNotPorted(NotImplementedError):
+    """A part of the observability plane that has no port yet: the debug
+    HTTP server (``debug_port``) and the fleet merge (``telemetry_summary(
+    scope="fleet")``)."""
 
 
 class _InvocationGate:
@@ -54,31 +68,49 @@ class _InvocationGate:
 
 class Result(Slice):
     """A computed slice: the output of a session run, one task per
-    shard. Reading re-evaluates lost tasks first."""
+    shard. Reading re-evaluates lost tasks first. ``scope`` merges the
+    user counters of its tasks; ``corr`` is the run's correlation id."""
 
     def __init__(self, session: "Session", slice_: Slice,
                  tasks: Sequence[Task]):
         super().__init__(slice_.schema, len(tasks), make_name("result"))
         self.session = session
         self.tasks = list(tasks)
+        self.scope = metrics_mod.Scope()
+        for t in self.tasks:
+            self.scope.merge(t.scope)
+        self.corr: Optional[str] = None
 
     def reader(self, shard: int, deps) -> sliceio.Reader:
         task = self.tasks[shard]
 
         def read():
             # Re-evaluate-before-read with retry: an output that vanished
-            # between evaluation and the scan re-runs its producers.
+            # between evaluation and the scan re-runs its producers. The
+            # frames stream as the store yields them; a Missing in the
+            # middle of the stream (a corrupt frame) restarts the shard
+            # only if nothing was yielded yet, and re-raises otherwise.
             last = None
             for _ in range(MAX_CONSECUTIVE_LOST):
                 if task.state != TaskState.OK:
                     evaluate(self.session.executor, [task])
                 try:
-                    frames = list(self.session.executor.reader(task, 0))
+                    r = self.session.executor.reader(task, 0)
                 except Missing as e:
                     last = e
                     task.mark_lost(e)
                     continue
-                yield from frames
+                emitted = False
+                try:
+                    for f in r:
+                        emitted = True
+                        yield f
+                except Missing as e:
+                    task.mark_lost(e)
+                    if emitted:
+                        raise
+                    last = e
+                    continue
                 return
             raise last
 
@@ -100,6 +132,11 @@ class Result(Slice):
             self.session.executor.discard(t)
 
 
+def _telemetry_on() -> bool:
+    return os.environ.get("BIGSLICE_TELEMETRY", "1").lower() not in (
+        "0", "false", "off")
+
+
 class Session:
     """Compiles and evaluates slices on one executor.
 
@@ -109,14 +146,41 @@ class Session:
       (The JAX package's default is the local executor.)
     - ``parallelism``: the local executor's task threads.
     - ``monitor``: ``monitor(task, state)`` on every task transition.
+    - ``trace_path``: write a Chrome trace of the task schedule (one
+      complete event a task run, and the session's instants) at
+      ``shutdown()``.
+    - ``status``: print the per-op task counts on stderr as they change
+      (``utils/status.py``); ``session.status`` holds them either way.
+    - ``eventer``: ``eventer(name, **fields)`` hears the session's events
+      (sessionStart, the invocations, taskComplete, the hub's records).
     - ``machine_combiners``: the producer tasks of a combining shuffle
       share one combiner buffer a partition, combined once when the
       last lands: fewer, larger combines, at the cost of retrying the
       whole producer group when one of its outputs is lost.
+    - ``debug_port``: the debug HTTP server is not ported yet; any value
+      raises ``ObservabilityNotPorted``.
+
+    ``session.profiler.window(seconds)`` profiles the process with
+    ``torch.profiler`` on demand.
+
+    The telemetry hub (``session.telemetry``, None with
+    ``BIGSLICE_TELEMETRY=0``) hears every transition and the executors'
+    seams; ``telemetry_summary()`` returns what it holds.
     """
 
     def __init__(self, executor=None, parallelism: Optional[int] = None,
-                 monitor=None, machine_combiners: bool = False):
+                 monitor=None, trace_path: Optional[str] = None,
+                 status: bool = False, eventer=None,
+                 machine_combiners: bool = False,
+                 debug_port: Optional[int] = None):
+        from bigslice_tpu_torch.utils import status as status_mod
+        from bigslice_tpu_torch.utils import trace as trace_mod
+        from bigslice_tpu_torch.utils import xprof as xprof_mod
+
+        if debug_port is not None:
+            raise ObservabilityNotPorted(
+                "Session(debug_port=): the debug HTTP server "
+                "(utils/debughttp.py) is not ported yet")
         if executor is None:
             if parallelism is not None:
                 from bigslice_tpu_torch.exec.local import LocalExecutor
@@ -127,21 +191,72 @@ class Session:
 
                 executor = MeshExecutor()
         self.executor = executor
-        self.monitor = monitor
+        self.eventer = eventer
+        self.trace_path = trace_path
+        self.tracer = trace_mod.Tracer() if trace_path else None
+        # The hub hears the monitor chain and the phase channel below
+        # and the executors' seams; its instants ride _event into the
+        # eventer and the trace. BIGSLICE_TELEMETRY=0 builds none, and
+        # every seam then does nothing.
+        self.telemetry = None
+        if _telemetry_on():
+            from bigslice_tpu_torch.utils import telemetry as telemetry_mod
+
+            self.telemetry = telemetry_mod.TelemetryHub(eventer=self._event)
+            self.telemetry.device.set_device(
+                getattr(executor, "device", None))
+        self.status = status_mod.Status()
+        self.status.set_telemetry(self.telemetry)
+        stats_fn = getattr(self.executor, "resource_stats", None)
+        if stats_fn is not None:
+            self.status.set_resources_provider(stats_fn)
+        self._printer = None
+        if status:
+            self._printer = status_mod.StatusPrinter(self.status)
+            self._printer.start()
+        monitors = [monitor, self.status, self.telemetry]
+        if self.tracer is not None:
+            monitors.append(trace_mod.TaskTraceMonitor(self.tracer))
+        if eventer is not None:
+            monitors.append(self._event_monitor)
+        self.monitor = status_mod.chain_monitors(*monitors)
         self.machine_combiners = machine_combiners
+        self.profiler = xprof_mod.Profiler(
+            device=getattr(executor, "device", None))
         self._gate = _InvocationGate()
+        start = getattr(executor, "start", None)
+        if start is not None:
+            start(self)
+        self._event("bigslice:sessionStart", executor=executor.name)
+
+    def _event(self, name: str, **fields) -> None:
+        if self.eventer is not None:
+            self.eventer(name, **fields)
+        if self.tracer is not None:
+            self.tracer.instant(name, **fields)
+
+    def _event_monitor(self, task, state) -> None:
+        if state == TaskState.OK:
+            self.eventer("bigslice:taskComplete", task=str(task.name))
 
     def shutdown(self) -> None:
         """Release the executor's resources (its private spill
-        directory)."""
+        directory), stop the status printer, and write the trace."""
         close = getattr(self.executor, "close", None)
         if close is not None:
             close()
+        if self._printer is not None:
+            self._printer.stop()
+        if self.tracer is not None and self.trace_path:
+            self.tracer.save(self.trace_path)
+            self._event("bigslice:traceSaved", path=self.trace_path)
 
-    def run(self, func: Any, *args) -> Result:
+    def run(self, func: Any, *args, corr: Optional[str] = None) -> Result:
         """Compile and evaluate ``func(*args)``: ``func`` is a registered
         ``Func`` (invoked; an exclusive one's run takes the session
-        alone), a Slice, or a callable returning one."""
+        alone), a Slice, or a callable returning one. ``corr`` is the
+        run's correlation id in the trace and the eventer's invocation
+        event (default ``inv<index>``); the result carries it."""
         exclusive = False
         if isinstance(func, Func):
             inv = func.invocation(*args)
@@ -165,13 +280,64 @@ class Session:
                 "run: expected Func, Slice or callable, got %s",
                 type(func).__name__,
             )
+        corr = corr or f"inv{inv_index}"
+        if self.eventer is not None or self.tracer is not None:
+            import reprlib
+
+            loc = typecheck.caller_location()
+            self._event(
+                f"bigslice:invocation:{inv_index}",
+                inv=inv_index,
+                corr=corr,
+                location=f"{loc[0]}:{loc[1]}" if loc else "?",
+                args=", ".join(reprlib.repr(a) for a in args),
+            )
         tasks = compile_mod.Compiler(
             inv_index, shuffle_mode=shuffleplan.plan_mode() or "",
             machine_combiners=self.machine_combiners,
         ).compile(slice_)
         self._gate.acquire(exclusive)
         try:
-            evaluate(self.executor, tasks, monitor=self.monitor)
+            try:
+                evaluate(self.executor, tasks, monitor=self.monitor)
+            except Exception as e:
+                self._dump_flight(inv_index, e)
+                raise
         finally:
             self._gate.release(exclusive)
-        return Result(self, slice_, tasks)
+        res = Result(self, slice_, tasks)
+        res.corr = corr
+        return res
+
+    def _dump_flight(self, inv_index, err) -> None:
+        """Write the hub's flight recorder beside a fatal run (only with
+        ``BIGSLICE_FLIGHTREC_DIR`` set)."""
+        if self.telemetry is None:
+            return
+        try:
+            path = self.telemetry.dump_flight_record(
+                inv=inv_index, reason=repr(err))
+            if path:
+                self._event("bigslice:flightRecorder", inv=inv_index,
+                            path=path)
+        except Exception:  # noqa: BLE001 — telemetry never fails a run
+            pass
+
+    def telemetry_summary(self, scope: str = "session") -> dict:
+        """The telemetry hub's signals (``utils/telemetry.py``): per-op
+        task-duration quantiles and stragglers, shuffle skew (rows and
+        bytes a partition, ratio, hot partition), wave overlap, the
+        combine's input cardinality, and the ``device`` plane (kernel
+        launches with their declared bytes and operations, builds, HBM
+        watermarks, donation). ``{}`` with the
+        hub off (``BIGSLICE_TELEMETRY=0``). ``scope="fleet"``, the
+        cross-process merge, is not ported yet and raises."""
+        if scope == "fleet":
+            raise ObservabilityNotPorted(
+                "telemetry_summary(scope='fleet'): the fleet merge "
+                "(utils/fleettelemetry.py) is not ported yet")
+        if scope != "session":
+            raise ValueError(f"telemetry_summary: unknown scope {scope!r}")
+        if self.telemetry is None:
+            return {}
+        return self.telemetry.summary()

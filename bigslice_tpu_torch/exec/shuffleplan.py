@@ -61,14 +61,21 @@ def plan_mode(env: Optional[str] = None) -> Optional[str]:
 
 
 def spill_budget_bytes(device_budget_bytes: Optional[int] = None,
-                       nmesh: int = 1) -> Optional[int]:
+                       nmesh: int = 1, *,
+                       device_telemetry=None) -> Optional[int]:
     """The device-memory budget ``auto`` holds a boundary's staged bytes
-    against: ``BIGSLICE_SPILL_BUDGET_BYTES`` first, else the executor's
+    against: ``BIGSLICE_SPILL_BUDGET_BYTES`` first, else the measured
+    budget of the session's device telemetry (``hbm_budget()``: the
+    card's memory from ``torch.cuda.mem_get_info``), else the executor's
     per-device working-set budget times the device count. None: no
     budget known, and ``auto`` stays in-program."""
     env = os.environ.get("BIGSLICE_SPILL_BUDGET_BYTES")
     if env:
         return int(env)
+    if device_telemetry is not None:
+        measured = device_telemetry.hbm_budget()
+        if measured:
+            return int(measured)
     if device_budget_bytes:
         return int(device_budget_bytes) * max(1, int(nmesh))
     return None

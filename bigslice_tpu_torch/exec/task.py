@@ -12,7 +12,10 @@ from __future__ import annotations
 import dataclasses
 import enum
 import threading
-from typing import Callable, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from bigslice_tpu_torch.utils import metrics as metrics_mod
 
 
 class TaskState(enum.IntEnum):
@@ -125,6 +128,13 @@ class Task:
         self.error: Optional[BaseException] = None
         self._subs: List[Callable] = []
         self.consecutive_lost = 0
+        # User counters incremented by this task's functions (merged
+        # into its Result's scope).
+        self.scope = metrics_mod.Scope()
+        # Monotonic stamp of each state's latest entry, taken inside
+        # the transition before subscribers run: the telemetry hub's
+        # task durations.
+        self.state_times: Dict[TaskState, float] = {}
 
     @property
     def num_partition(self) -> int:
@@ -145,6 +155,7 @@ class Task:
                   error: Optional[BaseException] = None) -> None:
         with self._lock:
             self._state = state
+            self.state_times[state] = time.monotonic()
             if error is not None:
                 self.error = error
             if state == TaskState.OK:
@@ -160,6 +171,7 @@ class Task:
             if self._state != frm:
                 return False
             self._state = to
+            self.state_times[to] = time.monotonic()
             self._cond.notify_all()
             subs = list(self._subs)
         for fn in subs:

@@ -13,7 +13,6 @@ from __future__ import annotations
 from typing import Callable, List, Sequence, Tuple, Union
 
 import numpy as np
-import torch
 
 from bigslice_tpu_torch.frame import dictenc, strparse
 from bigslice_tpu_torch.ops.base import Slice
@@ -35,9 +34,7 @@ def _add(a, b):
 
 
 def _attach_one(code):
-    # A tensor, not the literal 1: a device Map's fn must return tensors,
-    # or the Map runs on the host tier, a Python call a row.
-    return (code, torch.ones_like(code))
+    return (code, 1)
 
 
 def _domains_batch(urls) -> np.ndarray:

@@ -30,6 +30,7 @@ import shutil
 import subprocess
 import sysconfig
 import threading
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,6 +64,12 @@ def _count(name: str) -> None:
         CALLS[name] += 1
 
 
+#: This process's first-use builds: one record a ``.so``, with its wall
+#: seconds and whether the digest's file was already built (a cache
+#: hit). The telemetry hub reports them.
+BUILDS: list = []
+
+
 def enabled() -> bool:
     return os.environ.get("BIGSLICE_NATIVE", "1") not in (
         "0", "false", "off")
@@ -84,10 +91,13 @@ def _build_locked(src: str, extra: Sequence[str] = (),
     when there is no compiler or the build fails."""
     so = _so_path(src, extra, tag)
     if os.path.exists(so):
+        BUILDS.append({"name": os.path.basename(so), "wall_s": 0.0,
+                       "cache_hit": True})
         return so
     cc = shutil.which("cc") or shutil.which("gcc") or shutil.which("g++")
     if cc is None:
         return None
+    t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"
     try:
@@ -100,6 +110,8 @@ def _build_locked(src: str, extra: Sequence[str] = (),
         except OSError:
             pass
         return None
+    BUILDS.append({"name": os.path.basename(so),
+                   "wall_s": time.perf_counter() - t0, "cache_hit": False})
     return so
 
 

@@ -14,7 +14,11 @@ The verdict is a trace over meta tensors (shapes and dtypes, no data):
 a function that the trace cannot run — data-dependent Python control
 flow, ``.item()``, host objects, tensors made without the inputs'
 device (``torch.tensor(..., device=x.device)`` is device tier) — is host
-tier. The local executor runs a host-tier stage (on the device
+tier. So is a function that increments a user counter
+(``utils/metrics.py``): traced, its increment would count traces, not
+rows. A Map output that is a Python literal (``lambda c: (c, 1)``) is
+broadcast to every row, as JAX's vmap does, in the declared ``out=``
+dtype (else int32, float32 or bool). The local executor runs a host-tier stage (on the device
 executor, its host tier) through the readers here, per row over the
 frame's host copy.
 
@@ -38,6 +42,17 @@ from bigslice_tpu_torch.frame.frame import _DOWNCAST, Frame, _coerce
 from bigslice_tpu_torch.ops.base import Slice, make_name, single_dep
 from bigslice_tpu_torch.slicetype import (ColType, Schema, numpy_dtype,
                                           torch_dtype)
+from bigslice_tpu_torch.utils import metrics as metrics_mod
+
+# Why a traced function touching a counter is refused the device tier.
+_METRICS_WHY = ("function increments metrics counters, which only count "
+                "correctly on the host tier (a traced increment runs per "
+                "trace, not per row)")
+
+# The dtype a Python literal output takes without a declared one (JAX's
+# weak types with 64-bit off).
+_LITERAL_DTYPES = ((bool, torch.bool), (int, torch.int32),
+                   (float, torch.float32))
 
 
 def _as_schema(out, default_prefix: int = 1) -> Schema:
@@ -58,31 +73,73 @@ def _meta(t_shape, dtype) -> torch.Tensor:
     return torch.empty(t_shape, dtype=dtype, device="meta")
 
 
+def _literal_dtype(v, declared) -> Optional[torch.dtype]:
+    """The dtype a literal output ``v`` broadcasts to: the declared one,
+    else a numpy scalar's own (cast down to 32 bits), else int32,
+    float32 or bool; None when ``v`` is no literal."""
+    if isinstance(v, np.generic):
+        dt = torch.from_numpy(np.asarray(v)).dtype
+        dt = _DOWNCAST.get(dt, dt)
+    else:
+        dt = next((d for t, d in _LITERAL_DTYPES if type(v) is t), None)
+    if dt is None:
+        return None
+    return declared if declared is not None else dt
+
+
 def meta_outputs(fn: Callable, in_types: Sequence[ColType],
-                 extra: Sequence[torch.Tensor] = ()):
+                 extra: Sequence[torch.Tensor] = (), why: list = None,
+                 literals: Optional[Sequence] = None,
+                 literal_at: Optional[list] = None):
     """``fn`` called on one row of meta tensors (plus the unbatched
-    ``extra`` arguments as meta tensors): its outputs as a tuple of meta
-    tensors, or None when the call raises or returns anything but
-    tensors."""
+    ``extra`` arguments as meta tensors) under a metrics ``TraceProbe``:
+    its outputs as a tuple of meta tensors, or None when the call
+    raises, touches a counter (the reason appended to ``why``) or
+    returns anything but tensors. With ``literals`` (a declared torch
+    dtype or None per output), a Python literal output stands as a
+    0-d meta tensor of the dtype it broadcasts to, and its index is
+    appended to ``literal_at``."""
+    probe = metrics_mod.TraceProbe()
     try:
-        out = fn(*[_meta(ct.shape, torch_dtype(ct.dtype)) for ct in in_types],
-                 *[_meta(e.shape, e.dtype) for e in extra])
+        with metrics_mod.scope_context(probe):
+            out = fn(*[_meta(ct.shape, torch_dtype(ct.dtype))
+                       for ct in in_types],
+                     *[_meta(e.shape, e.dtype) for e in extra])
     except Exception:  # noqa: BLE001 — any failure means "not device tier"
+        return None
+    if probe.touched:
+        if why is not None:
+            why.append(_METRICS_WHY)
         return None
     if not isinstance(out, (tuple, list)):
         out = (out,)
-    if not all(isinstance(o, torch.Tensor) for o in out):
-        return None
+    out = list(out)
+    for i, o in enumerate(out):
+        if isinstance(o, torch.Tensor):
+            continue
+        declared = (literals[i] if literals is not None
+                    and i < len(literals) else None)
+        dt = _literal_dtype(o, declared) if literals is not None else None
+        if dt is None:
+            return None
+        out[i] = _meta((), dt)
+        if literal_at is not None:
+            literal_at.append(i)
     return tuple(out)
 
 
-def _try_trace(fn: Callable, in_schema: Schema, extra: Sequence = ()):
-    """``(schema, dtypes)``: the output Schema of ``fn`` over one row of
-    ``in_schema`` (plus the unbatched ``extra`` arguments) and the torch
-    dtypes ``fn`` itself returns; None when it must run host tier."""
+def _try_trace(fn: Callable, in_schema: Schema, extra: Sequence = (),
+               why: list = None, literals: Optional[Sequence] = None):
+    """``(schema, dtypes, literal)``: the output Schema of ``fn`` over
+    one row of ``in_schema`` (plus the unbatched ``extra`` arguments),
+    the torch dtypes ``fn`` itself returns (a literal's, the dtype it
+    broadcasts to) and whether any output is a Python literal; None
+    when it must run host tier."""
     if not all(ct.is_device for ct in in_schema):
         return None
-    out = meta_outputs(fn, in_schema, extra_tensors(extra))
+    literal_at: list = []
+    out = meta_outputs(fn, in_schema, extra_tensors(extra), why=why,
+                       literals=literals, literal_at=literal_at)
     if out is None:
         return None
     try:
@@ -90,17 +147,23 @@ def _try_trace(fn: Callable, in_schema: Schema, extra: Sequence = ()):
                         shape=tuple(o.shape)) for o in out]
     except KeyError:  # a dtype the device tier does not hold
         return None
-    return Schema(cols, prefix=min(1, len(cols))), [o.dtype for o in out]
+    return (Schema(cols, prefix=min(1, len(cols))), [o.dtype for o in out],
+            bool(literal_at))
 
 
 def _cast_wrapper(fn: Callable, dtypes: Sequence[torch.dtype]) -> Callable:
-    """``fn`` with its outputs cast to ``dtypes``."""
+    """``fn`` with its outputs cast to ``dtypes``; a literal output
+    becomes a 0-d tensor on the first argument's device, which vmap
+    broadcasts to every row."""
 
     def wrapper(*args):
         o = fn(*args)
         if not isinstance(o, (tuple, list)):
             o = (o,)
-        return tuple(v.to(dt) for v, dt in zip(o, dtypes))
+        return tuple(
+            v.to(dt) if isinstance(v, torch.Tensor)
+            else torch.as_tensor(v, dtype=dt, device=args[0].device)
+            for v, dt in zip(o, dtypes))
 
     return wrapper
 
@@ -133,10 +196,16 @@ class Map(_Pipelined):
         self.fn = fn
         self.args = tuple(args)
         traced = None
+        why: list = []
         if mode in ("auto", "device"):
-            traced = _try_trace(fn, slice_.schema, self.args)
+            declared = None
+            if out is not None:
+                declared = [torch_dtype(ct.dtype) if ct.is_device else None
+                            for ct in _as_schema(out)]
+            traced = _try_trace(fn, slice_.schema, self.args, why=why,
+                                literals=declared or ())
         if traced is not None:
-            traced, dtypes = traced
+            traced, dtypes, literal = traced
             self.mode = "device"
             schema = traced if out is None else _as_schema(out)
             if len(schema) != len(traced):
@@ -155,19 +224,21 @@ class Map(_Pipelined):
                              for d, t in zip(schema, traced)],
                             schema.prefix)
             want = [torch_dtype(ct.dtype) for ct in schema]
-            if dtypes != want:
+            if dtypes != want or literal:
                 # The cast wrapper IS the op's function from here on: the
-                # executor vmaps self.fn and must see the schema's dtypes.
+                # executor vmaps self.fn and must see the schema's dtypes
+                # (and tensors where fn returns literals).
                 self.fn = _cast_wrapper(fn, want)
         else:
             if mode == "device":
                 raise typecheck.errorf(
-                    "map: function is not a device function over %s",
-                    slice_.schema,
-                )
+                    "map: %s", why[0] if why else
+                    f"function is not a device function over "
+                    f"{slice_.schema}")
             if out is None:
                 raise typecheck.errorf(
-                    "map: host-mode function requires out= column types")
+                    "map: host-mode function requires out= column types%s",
+                    f" ({why[0]})" if why else "")
             self.mode = "host"
             schema = _as_schema(out)
         super().__init__(slice_, schema, name)
@@ -178,7 +249,10 @@ class Map(_Pipelined):
         extras = extra_tensors(self.args, cols[0].device)
         out = torch.func.vmap(self.fn, in_dims=(0,) * len(cols)
                               + (None,) * len(extras))(*cols, *extras)
-        return list(out) if isinstance(out, (tuple, list)) else [out]
+        out = list(out) if isinstance(out, (tuple, list)) else [out]
+        # A broadcast literal comes back as a stride-0 view: columns are
+        # contiguous (the kernels require it).
+        return [o if o.is_contiguous() else o.contiguous() for o in out]
 
     def reader(self, shard, deps):
         def read():

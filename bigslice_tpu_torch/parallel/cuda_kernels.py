@@ -23,6 +23,14 @@ runs on ``torch.cuda.current_stream()``, the kernel allocates nothing
 wrapper adds one to ``LAUNCHES[name]`` per launch and nowhere else (one
 per ``hash_aggregate`` call, whose C function runs its three passes).
 
+Each kernel declares the bytes and operations of a launch from its
+arguments (``cost``): the least traffic of the function (each input
+read once, each output written once) and its integer operations. The
+telemetry hub sums them per op, and ``chip_smoke.py`` holds each
+kernel's time against the same bytes. Where a launch runs inside
+``launch_sink(fn)``, ``fn(name, cost)`` hears it at the increment of
+``LAUNCHES``: the hub's per-op launch counts are those increments.
+
 The library is built at first use, keyed by a hash of the sources and
 flags, into ``bigslice_tpu_torch/_build/`` (one ``nvcc -c`` per source,
 all started together, then one link).
@@ -30,6 +38,8 @@ all started together, then one link).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -60,6 +70,14 @@ LAUNCHES = {"hash_partition": 0, "hash_aggregate": 0, "probe_add1": 0}
 #: was already built).
 BUILD_SECONDS = 0.0
 
+#: This process's build of the library: its file, wall seconds and
+#: whether the digest's ``.so`` was already built (a cache hit).
+BUILDS: list = []
+
+# The launch listener of the running op (``launch_sink``).
+_SINK: contextvars.ContextVar = contextvars.ContextVar(
+    "bigslice_tpu_torch_launch_sink", default=None)
+
 _LIB = None
 _LIB_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
@@ -82,9 +100,65 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, **shape) -> None:
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+    sink = _SINK.get()
+    if sink is not None:
+        sink(name, cost(name, **shape))
+
+
+@contextlib.contextmanager
+def launch_sink(fn):
+    """Within the block (this thread's context), every counted launch
+    also calls ``fn(name, cost)``; ``fn`` None is a no-op block."""
+    if fn is None:
+        yield
+        return
+    token = _SINK.set(fn)
+    try:
+        yield
+    finally:
+        _SINK.reset(token)
+
+
+def cost(name: str, **shape) -> dict:
+    """The declared work of one launch of kernel ``name``: ``{"bytes",
+    "flops"}``, each input read once and each output written once, and
+    the integer operations of the function.
+
+    - ``hash_partition(n, key_itemsizes, valid, nparts, with_counts)``:
+      the key columns, the mask's bytes and the int32 ids of n rows,
+      plus the int32 histogram; the murmur fmix32 chain of each key (8
+      operations) and the modulus.
+    - ``hash_aggregate(n, key_itemsizes, val_itemsizes, nparts, R)``:
+      the mask, keys, values and int32 partition ids of n rows in; the
+      presence byte, keys and values of ``nparts * R`` slots out; the
+      slot hash of each key and one op a value lane a row.
+    - ``probe_add1(numel)``: an int32 array read and written, one add
+      an element.
+    """
+    if name == "hash_partition":
+        n = int(shape["n"])
+        kb = sum(shape["key_itemsizes"])
+        nbytes = n * (kb + (1 if shape.get("valid") else 0) + 4)
+        if shape.get("with_counts"):
+            nbytes += 4 * int(shape["nparts"])
+        flops = n * (8 * len(shape["key_itemsizes"]) + 2)
+    elif name == "hash_aggregate":
+        n = int(shape["n"])
+        kb = sum(shape["key_itemsizes"])
+        vb = sum(shape["val_itemsizes"])
+        T = int(shape["nparts"]) * int(shape["R"])
+        nbytes = n * (1 + kb + vb + 4) + T * (1 + kb + vb)
+        flops = n * (8 * len(shape["key_itemsizes"]) + 2
+                     + len(shape["val_itemsizes"]))
+    elif name == "probe_add1":
+        numel = int(shape["numel"])
+        nbytes, flops = 8 * numel, numel
+    else:
+        raise ValueError(f"cost: unknown kernel {name!r}")
+    return {"bytes": int(nbytes), "flops": int(flops)}
 
 
 # -- build -----------------------------------------------------------------
@@ -157,7 +231,8 @@ def build():
         srcs = sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"libbigslice_kernels-{_digest(srcs)}.so"
-        if not out.exists():
+        cache_hit = out.exists()
+        if not cache_hit:
             _compile(nvcc, out)
         lib = ctypes.CDLL(str(out))
         vp, ci, cll, cu = (ctypes.c_void_p, ctypes.c_int,
@@ -172,6 +247,8 @@ def build():
                    lib.bs_hash_aggregate):
             fn.restype = ci
         BUILD_SECONDS = time.perf_counter() - t0
+        BUILDS.append({"name": out.name, "wall_s": BUILD_SECONDS,
+                       "cache_hit": cache_hit})
         _LIB = lib
         return lib
 
@@ -218,7 +295,7 @@ def probe() -> bool:
     x = torch.zeros((8, 128), dtype=torch.int32, device="cuda")
     _check(lib.bs_probe_add1(x.data_ptr(), x.numel(), _stream(x.device)),
            "probe_add1")
-    _count("probe_add1")
+    _count("probe_add1", numel=x.numel())
     torch.cuda.synchronize()
     return bool((x == 1).all())
 
@@ -287,7 +364,10 @@ def hash_partition(keys: Sequence[torch.Tensor], nparts: int, seed: int = 0,
     rc = lib.bs_hash_partition(
         *partition_args(keys, nparts, seed, valid, ids, counts))
     _check(rc, "hash_partition")
-    _count("hash_partition")
+    _count("hash_partition", n=n,
+           key_itemsizes=tuple(k.element_size() for k in keys),
+           valid=valid is not None, nparts=nparts,
+           with_counts=with_counts)
     return ids, counts
 
 
@@ -457,7 +537,10 @@ def hash_aggregate(valid: torch.Tensor, key_cols: Sequence[torch.Tensor],
     rc = build().bs_hash_aggregate(*aggregate_args(
         valid, key_cols, val_cols, ops, part, nparts, R, seed, plan, buf))
     _check(rc, "hash_aggregate")
-    _count("hash_aggregate")
+    _count("hash_aggregate", n=n,
+           key_itemsizes=tuple(k.element_size() for k in key_cols),
+           val_itemsizes=tuple(v.element_size() for v in val_cols),
+           nparts=nparts, R=R)
     return buf.present, buf.out_keys, buf.tables, buf.overflow
 
 

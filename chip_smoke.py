@@ -129,6 +129,28 @@ launch, no producer task in the graph), ``CachePartial`` after one
 shard file is deleted (that file rewritten, byte-equal) and
 ``ReadCache``, with the write and read walls and bytes a second.
 
+Phase 26, ``observability``, drives the telemetry hub over the main
+path: (a) phase 3's reduce-wave through ``Session(executor=
+MeshExecutor(auto_dense=False), trace_path=..., eventer=...)``, its
+rows against np.bincount, the hub's per-partition vector against numpy
+(each shard's distinct keys a partition, the partition from the plain
+K1 on a CPU copy), the hub's kernel launches against the ``LAUNCHES``
+deltas, each kernel's declared bytes a launch against phase 2's bound,
+its peak HBM against ``max_memory_allocated`` and at least a map
+wave's staged bytes, its staging against
+``staging_seconds()`` and the Chrome trace's complete events against
+the run's tasks; (b) phase 16's rows through ``LocalExecutor()``, the
+routed vector against np.bincount of the plain K1; (c) ten alternating
+pairs of (a)'s Reduce with ``BIGSLICE_TELEMETRY=0`` and the default,
+each a fresh session, the medians and ratio (printed, not gated), and
+host syncs a run each way after one warm-up count, which must be equal
+(the hub adds no sync); (d) a
+``Profiler.window`` around one run of (a), whose trace names K1's and
+K2's kernels, with each kernel's achieved bytes a second from the
+declared bytes and the profiled time; (e) a ``Counter`` inside a Map
+over device columns, host tier, counting 2**20 rows exactly; (f)
+whether ``pyarrow`` and ``fsspec`` import.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -145,6 +167,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -367,7 +390,14 @@ def phase2_kernels(device) -> dict:
     del flush
     wrapper = time_ms(route)
     plain = time_ms(route_plain, reps=5)
-    bound = nbytes(key, valid, ids) / HBM_BYTES_PER_S * 1e3
+    # The kernel's declared cost (cuda_kernels.cost, what the telemetry
+    # hub sums) is the byte model of every bound here: key, mask and ids.
+    bound_bytes = ck.cost("hash_partition", n=n, key_itemsizes=(4,),
+                          valid=True, nparts=4, with_counts=False)["bytes"]
+    if bound_bytes != nbytes(key, valid, ids):
+        raise AssertionError("hash_partition's declared bytes differ from "
+                             "its tensors'")
+    bound = bound_bytes / HBM_BYTES_PER_S * 1e3
     log(f"phase 2: hash_partition n={n} keys=1 nparts=4 masked, no "
         f"counts (map wave): kernel {ms:.4f} ms (queued {queued:.4f}), L2 "
         f"flushed {flushed:.4f} ms (queued {flushed_queued:.4f}), wrapper "
@@ -377,6 +407,7 @@ def phase2_kernels(device) -> dict:
         max_abs_err=err, ms=ms, queued_ms=queued, flushed_ms=flushed,
         flushed_queued_ms=flushed_queued, wrapper_ms=wrapper,
         plain_ms=plain, bound_ms=bound, bound_by="bytes", library_ms=None,
+        bound_bytes=bound_bytes,
         shape="n=2**23, 1 int32 key, valid mask, nparts=4, no counts",
     )
 
@@ -392,7 +423,9 @@ def phase2_kernels(device) -> dict:
     err = max(err, int((ids.to(torch.int64) - pids).abs().max()))
     ms25, queued25 = bare_partition_ms([key], 4, 0, None, with_counts=True)
     plain25 = time_ms(lambda: ck.hash_partition_plain([key], 4, 0), reps=5)
-    bound25 = nbytes(key, ids, counts) / HBM_BYTES_PER_S * 1e3
+    bound25 = ck.cost("hash_partition", n=n, key_itemsizes=(4,),
+                      valid=False, nparts=4, with_counts=True)["bytes"] \
+        / HBM_BYTES_PER_S * 1e3
     log(f"phase 2: hash_partition n={n} keys=1 nparts=4 counts: kernel "
         f"{ms25:.4f} ms (queued {queued25:.4f}; plain {plain25:.4f} ms, "
         f"bound {bound25:.4f} ms), bit-equal")
@@ -440,7 +473,9 @@ def phase2_kernels(device) -> dict:
     if not torch.equal(ids, pids):
         raise AssertionError("hash_partition != plain on float keys")
     msf, queuedf = bare_partition_ms([key], 4, 0, valid, with_counts=False)
-    boundf = nbytes(key, valid, ids) / HBM_BYTES_PER_S * 1e3
+    boundf = ck.cost("hash_partition", n=n, key_itemsizes=(4,),
+                     valid=True, nparts=4, with_counts=False)["bytes"] \
+        / HBM_BYTES_PER_S * 1e3
     log(f"phase 2: hash_partition n={n} float32 key with +-0.0 and NaN "
         f"nparts=4 masked (float-key map wave): kernel {msf:.4f} ms (queued "
         f"{queuedf:.4f}; bound {boundf:.4f} ms), bit-equal")
@@ -492,14 +527,20 @@ def phase2_kernels(device) -> dict:
                                    nparts, R, nkeys, by_pass=True)
     wrapper = time_ms(agg)
     plain = time_ms(agg_plain, reps=3, warmup=1)
-    bound = nbytes(valid, key, one, part, got[0], *got[1], *got[2]) \
-        / HBM_BYTES_PER_S * 1e3
+    bound_bytes = ck.cost("hash_aggregate", n=n, key_itemsizes=(4,),
+                          val_itemsizes=(4,), nparts=nparts, R=R)["bytes"]
+    if bound_bytes != nbytes(valid, key, one, part, got[0], *got[1],
+                             *got[2]):
+        raise AssertionError("hash_aggregate's declared bytes differ from "
+                             "its tensors'")
+    bound = bound_bytes / HBM_BYTES_PER_S * 1e3
     log(f"phase 2: hash_aggregate n={n} nparts={nparts} R={R} (map side): "
         f"kernel {ms:.4f} ms, wrapper {wrapper:.4f} ms (plain {plain:.4f} "
         f"ms, bound {bound:.4f} ms), {nkeys} keys, rows equal")
     results["hash_aggregate"] = dict(
         ms=ms, wrapper_ms=wrapper, plain_ms=plain, bound_ms=bound,
         bound_by="bytes", library_ms=None, pass_ms=passes,
+        bound_bytes=bound_bytes,
         shape="n=2**23, nparts=4, R=2**21, keys over 2**20, int32 add",
     )
 
@@ -515,7 +556,8 @@ def phase2_kernels(device) -> dict:
     rkeys = int(got[0].sum())
     rms, rpasses = bare_aggregate_ms(rvalid, [rkey], [rval], ["add"], rpart,
                                      1, R, rkeys, by_pass=True)
-    rbound = nbytes(rvalid, rkey, rval, rpart, got[0], *got[1], *got[2]) \
+    rbound = ck.cost("hash_aggregate", n=R, key_itemsizes=(4,),
+                     val_itemsizes=(4,), nparts=1, R=R)["bytes"] \
         / HBM_BYTES_PER_S * 1e3
     log(f"phase 2: hash_aggregate n={R} ({rn} valid) nparts=1 R={R} "
         f"(reduce side): kernel {rms:.4f} ms (bound {rbound:.4f} ms), "
@@ -817,7 +859,8 @@ def _probe_timing(device) -> dict:
         f"ms; one empty kernel launch: {empty:.4f} ms)")
     return dict(
         max_abs_err=0, ms=ms3, plain_ms=plain3,
-        bound_ms=2 * nbytes(x) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bound_ms=ck.cost("probe_add1", numel=x.numel())["bytes"]
+        / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=plain3, empty_launch_ms=empty, shape="(8, 128) int32",
     )
 
@@ -3132,6 +3175,351 @@ def _spill_stats(ex) -> dict:
                               for p in ex.shuffle_plans.values()}))
 
 
+def _hub_launches(summary) -> dict:
+    """Launches per kernel the hub attributed to the run's ops."""
+    got = {name: 0 for name in PATH_KERNELS}
+    for per_kernel in summary["device"]["kernels"].values():
+        for name, k in per_kernel.items():
+            got[name] += k["launches"]
+    return got
+
+
+def _expected_part_rows(keys, S, span=1 << 20) -> list:
+    """Rows out of the map side's combine a partition: each Const
+    shard's distinct keys, each key in the partition the plain K1 names
+    on a CPU copy."""
+    from bigslice_tpu_torch.parallel.cuda_kernels import hash_partition_plain
+
+    part_of, _ = hash_partition_plain(
+        [torch.arange(span, dtype=torch.int32)], S, 0, False, None)
+    part_of = part_of.numpy()
+    n = len(keys)
+    base, extra = divmod(n, S)
+    want = np.zeros(S, np.int64)
+    for shard in range(S):
+        start = shard * base + min(shard, extra)
+        end = start + base + (1 if shard < extra else 0)
+        uniq = np.unique(keys[start:end])
+        want += np.bincount(part_of[uniq], minlength=S)
+    return want.tolist()
+
+
+def _count_syncs(fn, sites: list = None) -> int:
+    """Host syncs of one call: each operation that waits for the device
+    warns under torch's sync debug mode. With ``sites``, the Python
+    line each sync came from is appended to it."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    if sites is not None:
+        sites.extend(f"{os.path.basename(w.filename)}:{w.lineno}"
+                     for w in syncs)
+    return len(syncs)
+
+
+def phase26_observability(card: str, kern: dict) -> dict:
+    """observability: the telemetry hub, the trace, the profiler window
+    and user metrics over the main path (the module docstring's (a) to
+    (f))."""
+    import collections
+    import tempfile
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.task import iter_tasks
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.utils import metrics, xprof
+
+    S = 4
+    keys, ones = _reduce_wave_input()
+    n = len(keys)
+    check = _count_check(keys)
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-obs-")
+
+    def reduce_slice():
+        return bs.Reduce(bs.Const(S, keys, ones), lambda a, b: a + b)
+
+    def read_all(res):
+        for shard in range(S):
+            list(res.reader(shard, ()))
+
+    # -- (a) the main path at full width with the hub on.
+    trace_path = os.path.join(out_dir, "trace.json")
+    events = []
+    ex = bs.MeshExecutor(auto_dense=False)
+    sess = bs.Session(executor=ex, trace_path=trace_path,
+                      eventer=lambda name, **f: events.append(name))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = sess.run(reduce_slice())
+    read_all(res)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    summary = sess.telemetry_summary()
+    check(bs.result_shard_rows(res), S)
+    for name in ("hash_partition", "hash_aggregate"):
+        if launches[name] <= 0:
+            raise AssertionError(f"observability: {name} did not launch")
+    skews = {op: e["skew"] for op, e in summary["ops"].items()
+             if "skew" in e}
+    if len(skews) != 1:
+        raise AssertionError(f"observability: {len(skews)} shuffle "
+                             f"boundaries, not one")
+    (map_op, skew), = skews.items()
+    want_rows = _expected_part_rows(keys, S)
+    overflowed = sorted(ex.hash_off)
+    if overflowed:
+        # The sort path's combine-shuffle emits the same rows: one a
+        # distinct key of a shard.
+        log(f"phase 26: hash tables overflowed at {overflowed}; the "
+            f"vector is the sort fallback's")
+    if skew["rows"] != want_rows:
+        raise AssertionError(f"observability: hub vector {skew['rows']} != "
+                             f"numpy {want_rows}")
+    hub_launches = _hub_launches(summary)
+    if hub_launches != launches:
+        raise AssertionError(f"observability: hub launches {hub_launches} "
+                             f"!= LAUNCHES {launches}")
+    per_launch = {}
+    map_kernels = summary["device"]["kernels"][map_op]
+    for name in ("hash_partition", "hash_aggregate"):
+        k = map_kernels[name]
+        per_launch[name] = k["bytes"] / k["launches"]
+        if not overflowed and per_launch[name] != kern[name]["bound_bytes"]:
+            raise AssertionError(
+                f"observability: {name} declared {per_launch[name]} bytes "
+                f"a map-side launch, phase 2's bound "
+                f"{kern[name]['bound_bytes']}")
+    hbm = summary["device"]["hbm"]
+    if hbm["source"] != "memory_stats" or hbm["peak_bytes"] != peak:
+        raise AssertionError(f"observability: hub peak {hbm['peak_bytes']} "
+                             f"!= max_memory_allocated {peak}")
+    # Independent of the allocator: a map wave's staged columns (its
+    # share of keys and values) were on the card at once, and the peak
+    # fits the card.
+    wave_bytes = (keys.nbytes + ones.nbytes) // S
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not wave_bytes <= hbm["peak_bytes"] <= total:
+        raise AssertionError(f"observability: hub peak {hbm['peak_bytes']} "
+                             f"outside [{wave_bytes}, {total}]")
+    clock = ex.staging_seconds()
+    hub_ops = [sess.telemetry._ops[op] for op in summary["ops"]
+               if "waves" in summary["ops"][op]]
+    hub_staged = sum(r.staging_s for r in hub_ops)
+    hub_exposed = sum(r.exposed_s for r in hub_ops)
+    if (sum(r.staged_waves for r in hub_ops) != clock["waves"]
+            or abs(hub_staged - clock["staged_s"]) > 1e-9
+            or abs(hub_exposed - clock["exposed_s"]) > 1e-9):
+        raise AssertionError(f"observability: hub staging {hub_staged} / "
+                             f"{hub_exposed} != staging_seconds {clock}")
+    sess.shutdown()
+    with open(trace_path) as fh:
+        trace = json.load(fh)["traceEvents"]
+    ntasks = len(iter_tasks(res.tasks))  # the Reduce's and the Const's
+    complete = [e for e in trace if e["ph"] == "X"]
+    if len(complete) != ntasks:
+        raise AssertionError(f"observability: {len(complete)} complete "
+                             f"trace events for {ntasks} tasks")
+    overlap = summary["overlap_efficiency"]
+    log(f"phase 26a: reduce-wave {n} rows with the hub: wall {wall:.4f} s, "
+        f"vector {skew['rows']} (ratio {skew['ratio']}, hot "
+        f"{skew['max_shard']}), launches {launches} = hub's, declared "
+        f"bytes a map-side launch K1 {per_launch['hash_partition']:.0f} "
+        f"K2 {per_launch['hash_aggregate']:.0f} (phase 2's bounds), peak "
+        f"{peak} bytes = hub's (>= a wave's staged {wave_bytes}), staging {hub_staged:.6f} s exposed "
+        f"{hub_exposed:.6f} s = staging_seconds(), overlap {overlap}, "
+        f"{len(complete)} complete trace events, {len(events)} events, "
+        f"on {card}")
+    del res
+    gc.collect()
+
+    # -- (b) the local tier: rows routed a partition before the combine.
+    lsess = bs.Session(executor=bs.LocalExecutor())
+    lres = lsess.run(reduce_slice())
+    read_all(lres)
+    lsum = lsess.telemetry_summary()
+    lskews = [e["skew"] for e in lsum["ops"].values() if "skew" in e]
+    part_of, _ = ck.hash_partition_plain(
+        [torch.arange(1 << 20, dtype=torch.int32)], S, 0, False, None)
+    want_local = np.bincount(part_of.numpy()[keys], minlength=S).tolist()
+    if len(lskews) != 1 or lskews[0]["rows"] != want_local:
+        raise AssertionError(f"observability: local vector "
+                             f"{[k['rows'] for k in lskews]} != "
+                             f"{want_local}")
+    log(f"phase 26b: local tier routed vector {want_local} = np.bincount "
+        f"of the plain K1, bytes {lskews[0]['bytes']}")
+    del lres
+    gc.collect()
+
+    # -- (c) the cost of the collection: ten alternating pairs.
+    def run_once(telemetry_on: bool):
+        if telemetry_on:
+            os.environ.pop("BIGSLICE_TELEMETRY", None)
+        else:
+            os.environ["BIGSLICE_TELEMETRY"] = "0"
+        try:
+            s_ = bs.Session(executor=bs.MeshExecutor(auto_dense=False))
+            t = time.perf_counter()
+            r = s_.run(reduce_slice())
+            read_all(r)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+        finally:
+            os.environ.pop("BIGSLICE_TELEMETRY", None)
+
+    run_once(False)
+    run_once(True)  # warm both
+    on_s, off_s = [], []
+    for i in range(10):
+        order = (False, True) if i % 2 == 0 else (True, False)
+        for flag in order:
+            (on_s if flag else off_s).append(run_once(flag))
+        gc.collect()
+    # Host syncs a run, each way after one uncounted warm-up count: the
+    # first run counted under the sync debug mode can count one sync
+    # more than the runs after it.
+    syncs_off, syncs_on = [], []
+    sites = {False: [], True: []}
+    _count_syncs(lambda: run_once(False))
+    _count_syncs(lambda: run_once(True))
+    for _ in range(3):
+        for flag, out in ((False, syncs_off), (True, syncs_on)):
+            where: list = []
+            out.append(_count_syncs(lambda: run_once(flag), where))
+            sites[flag].append(collections.Counter(where))
+    med_on, med_off = statistics.median(on_s), statistics.median(off_s)
+    log(f"phase 26c: ten alternating pairs, hub on {med_on:.4f} s, off "
+        f"{med_off:.4f} s (median), ratio {med_on / med_off:.4f}; on "
+        f"{', '.join(f'{w:.4f}' for w in on_s)}; off "
+        f"{', '.join(f'{w:.4f}' for w in off_s)}; host syncs a run: on "
+        f"{syncs_on}, off {syncs_off}, on {card}")
+    if syncs_on != syncs_off:
+        for flag in (False, True):
+            log(f"phase 26c: sync sites, hub {'on' if flag else 'off'}: "
+                f"{[dict(c) for c in sites[flag]]}")
+        raise AssertionError(f"observability: the hub changed the host "
+                             f"syncs a run ({syncs_off} -> {syncs_on})")
+
+    # -- (d) a profiler window around one run of (a): the window on this
+    # thread (the profiler starts where its client registered), the run
+    # on another once the window is up.
+    psess = bs.Session(executor=bs.MeshExecutor(auto_dense=False))
+    prof = xprof.Profiler(device="cuda")
+    failed = []
+
+    def run_in_window():
+        try:
+            # Run once the profiler records (its start takes a while).
+            deadline = time.monotonic() + 60
+            while not xprof.recording():
+                if time.monotonic() > deadline:
+                    raise AssertionError("observability: the profiler "
+                                         "window never started")
+                time.sleep(0.01)
+            time.sleep(0.2)
+            read_all(psess.run(reduce_slice()))
+            torch.cuda.synchronize()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            failed.append(e)
+
+    th = threading.Thread(target=run_in_window)
+    th.start()
+    window = prof.window(3.0, out_dir=os.path.join(out_dir, "w"))
+    th.join()
+    if failed:
+        raise failed[0]
+    ptrace = os.path.join(window["dir"], "trace.json")
+    if not os.path.exists(ptrace):
+        raise AssertionError(f"observability: no trace in {window}")
+    with open(ptrace) as fh:
+        pevents = json.load(fh)["traceEvents"]
+    kern_us = {"hash_partition": 0.0, "hash_aggregate": 0.0}
+    kern_n = {"hash_partition": 0, "hash_aggregate": 0}
+    for e in pevents:
+        nm = str(e.get("name", ""))
+        if e.get("cat") != "kernel":
+            continue
+        if "hash_partition_kernel" in nm:
+            kern_us["hash_partition"] += float(e.get("dur", 0))
+            kern_n["hash_partition"] += 1
+        elif "agg_" in nm and "_kernel" in nm:
+            kern_us["hash_aggregate"] += float(e.get("dur", 0))
+            kern_n["hash_aggregate"] += 1
+    psum = psess.telemetry_summary()["device"]["kernels"]
+    plaunch = _hub_launches(psess.telemetry_summary())
+    if not (kern_n["hash_partition"] and kern_n["hash_aggregate"]):
+        raise AssertionError(f"observability: the profiler trace names no "
+                             f"K1 or K2 kernel ({kern_n})")
+    if kern_n["hash_partition"] != plaunch["hash_partition"]:
+        raise AssertionError(f"observability: the window holds "
+                             f"{kern_n['hash_partition']} K1 kernels of the "
+                             f"run's {plaunch['hash_partition']}")
+    achieved = {}
+    for name in kern_us:
+        declared = sum(per[name]["bytes"] for per in psum.values()
+                       if name in per)
+        achieved[name] = declared / (kern_us[name] * 1e-6)
+    log(f"phase 26d: profiler window {window['seconds']} s, trace "
+        f"{os.path.getsize(ptrace)} bytes, kernel events {kern_n}, device "
+        f"us {kern_us}, achieved bytes/s K1 "
+        f"{achieved['hash_partition']:.4e} K2 "
+        f"{achieved['hash_aggregate']:.4e} (declared bytes over profiled "
+        f"time; peak {HBM_BYTES_PER_S:.3e}), on {card}")
+
+    # -- (e) user metrics: exact at 2**20 rows, a Python call a row.
+    m = 1 << 20
+    counter = metrics.new_counter("chip_smoke_rows")
+
+    def count_row(x):
+        counter.incr()
+        return x
+
+    mp = bs.Map(bs.Const(S, np.arange(m, dtype=np.int32)), count_row,
+                out=[np.int32])
+    if mp.mode != "host":
+        raise AssertionError("observability: a counting Map is not host "
+                             "tier")
+    t0 = time.perf_counter()
+    mres = bs.Session().run(mp)
+    mwall = time.perf_counter() - t0
+    got = counter.value(mres.scope)
+    if got != m:
+        raise AssertionError(f"observability: counter {got} != {m}")
+    log(f"phase 26e: a Counter in a host-tier Map counted {got} rows "
+        f"exactly in {mwall:.4f} s (cut to 2**20 rows: one Python call a "
+        f"row)")
+
+    # -- (f) the machine's packages, for the data plane's next slice.
+    found = {}
+    for pkg in ("pyarrow", "fsspec"):
+        try:
+            mod = __import__(pkg)
+            found[pkg] = getattr(mod, "__version__", "present")
+        except ImportError:
+            found[pkg] = None
+    log(f"phase 26f: pyarrow {found['pyarrow']}, fsspec {found['fsspec']}")
+    return dict(launches=launches, wall_s=wall, rows=n,
+                vector=skew["rows"], local_vector=want_local,
+                peak_bytes=peak, staging=clock, overlap=overlap,
+                declared_bytes_per_launch=per_launch,
+                pairs_on_s=on_s, pairs_off_s=off_s, median_on_s=med_on,
+                median_off_s=med_off, ratio=med_on / med_off,
+                syncs_on=syncs_on, syncs_off=syncs_off,
+                profiler_kernel_us=kern_us, achieved_bytes_per_s=achieved,
+                counter_rows=got, packages=found)
+
+
 def nbytes_of(*arrays) -> int:
     return int(sum(a.nbytes for a in arrays))
 
@@ -3146,6 +3534,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     card = phase0_card()
     phase1_build()
@@ -3179,6 +3568,7 @@ def main() -> int:
         card, paths["wordcount"], paths["fallback-wordcount"])
     paths.update(phase25_cache(card, mesh_shards))
     del mesh_shards
+    paths["observability"] = phase26_observability(card, kern)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
@@ -3194,6 +3584,7 @@ def main() -> int:
              match=True, **{k: kern[name][k] for k in LINE_KEYS})
         for name in PATH_KERNELS
     ]}
+    log(f"chip_smoke: phases 0-26 in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

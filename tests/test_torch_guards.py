@@ -205,6 +205,55 @@ def test_dense_reduce_and_fallback_wordcount_run_without_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_observability_plane_runs_without_jax():
+    """Every module of the observability plane, driven through a session
+    with the hub, a trace, an eventer, a counter, the status printer and
+    a profiler window, imports neither JAX nor the JAX package."""
+    code = textwrap.dedent("""
+        import json, os, sys, tempfile
+        import numpy as np
+        import bigslice_tpu_torch as bs
+        from bigslice_tpu_torch.utils import (devicetelemetry, metrics,
+                                              resources, stats, status,
+                                              telemetry, topn, trace, xprof)
+
+        d = tempfile.mkdtemp()
+        events = []
+        sess = bs.Session(executor=bs.MeshExecutor(device="cpu"),
+                          trace_path=os.path.join(d, "t.json"),
+                          eventer=lambda n, **f: events.append(n),
+                          status=True)
+        keys = np.arange(1000, dtype=np.int32) % 37
+        res = sess.run(bs.Reduce(bs.Const(4, keys, np.ones(1000, np.int32)),
+                                 lambda a, b: a + b), corr="c1")
+        assert len(res.rows()) == 37 and res.corr == "c1"
+        c = metrics.new_counter("rows")
+        def f(x):
+            c.incr()
+            return x
+        r = sess.run(bs.Map(bs.Const(2, keys), f, out=[np.int32]))
+        assert c.value(r.scope) == 1000
+        s = sess.telemetry_summary()
+        json.dumps(s)
+        assert any("skew" in e for e in s["ops"].values())
+        assert sess.telemetry.prometheus_text()
+        assert sess.executor.resource_stats()["host_rss_bytes"]
+        out = sess.profiler.window(0.05, out_dir=os.path.join(d, "w"))
+        assert out["files"]
+        sess.shutdown()
+        assert json.load(open(os.path.join(d, "t.json")))["traceEvents"]
+        assert "bigslice:sessionStart" in events
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_entry_points_raise_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")

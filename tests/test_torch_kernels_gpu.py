@@ -933,3 +933,86 @@ def test_hash_host_column_native_on_the_card_machine(dev, monkeypatch):
     assert native.CALLS["crc32_strings"] == 1
     monkeypatch.setenv("BIGSLICE_NATIVE", "0")
     np.testing.assert_array_equal(h1, frame_ops.hash_host_column(col, seed=5))
+
+
+@pytest.mark.parametrize("shape", ["map-wave", "counts", "mixed"])
+def test_declared_hash_partition_cost_is_the_byte_model(dev, shape):
+    """A K1 launch on the card declares the bytes of its tensors: the
+    keys, the mask and the ids of every row, and the histogram."""
+    n = 1 << 20
+    keys = [torch.from_numpy(k).to(dev) for k in _mixed(n, 5)[:3]]
+    if shape == "map-wave":
+        keys, valid, counts = keys[:1], torch.ones(n, dtype=torch.bool,
+                                                   device=dev), False
+    elif shape == "counts":
+        keys, valid, counts = keys[:1], None, True
+    else:
+        valid, counts = torch.ones(n, dtype=torch.bool, device=dev), True
+    heard = []
+    with cuda_kernels.launch_sink(lambda name, cost: heard.append(
+            (name, cost))):
+        ids, hist = cuda_kernels.hash_partition(keys, 4, 0,
+                                                with_counts=counts,
+                                                valid=valid)
+    torch.cuda.synchronize()
+    want = sum(k.nbytes for k in keys) + ids.nbytes
+    want += valid.nbytes if valid is not None else 0
+    want += hist.nbytes if hist is not None else 0
+    assert heard == [("hash_partition", {
+        "bytes": want, "flops": n * (8 * len(keys) + 2)})]
+
+
+def test_declared_hash_aggregate_cost_is_the_byte_model(dev):
+    n, nparts, R = 1 << 20, 4, 1 << 18
+    g = torch.Generator(device="cpu").manual_seed(3)
+    key = torch.randint(0, 1 << 16, (n,), generator=g,
+                        dtype=torch.int32).to(dev)
+    val = torch.ones(n, dtype=torch.int32, device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    part, _ = cuda_kernels.hash_partition([key], nparts, 0,
+                                          with_counts=False)
+    heard = []
+    with cuda_kernels.launch_sink(lambda name, cost: heard.append(
+            (name, cost))):
+        present, okeys, ovals, _ = cuda_kernels.hash_aggregate(
+            valid, [key], [val], ["add"], part, nparts, R)
+    torch.cuda.synchronize()
+    want = (valid.nbytes + key.nbytes + val.nbytes + part.nbytes
+            + present.nbytes + okeys[0].nbytes + ovals[0].nbytes)
+    assert heard == [("hash_aggregate", {"bytes": want,
+                                         "flops": n * 11})]
+
+
+@pytest.mark.parametrize("executor", ["MeshExecutor", "LocalExecutor"])
+def test_hub_launches_equal_the_launch_counts(dev, executor):
+    """The hub's per-op kernel launches, summed, equal the LAUNCHES
+    deltas of the run, and its peak HBM equals max_memory_allocated."""
+    import bigslice_tpu_torch as bs
+
+    n = 1 << 20
+    keys = np.random.RandomState(9).randint(0, 1 << 16, n).astype(np.int32)
+    if executor == "MeshExecutor":
+        ex = bs.MeshExecutor(auto_dense=False)
+    else:
+        ex = bs.LocalExecutor(procs=4)
+    sess = bs.Session(executor=ex)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(cuda_kernels.LAUNCHES)
+    res = sess.run(bs.Reduce(bs.Const(4, keys, np.ones(n, np.int32)),
+                             lambda a, b: a + b))
+    rows = res.rows()
+    torch.cuda.synchronize()
+    delta = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    assert len(rows) == len(np.unique(keys))
+    assert delta["hash_partition"] > 0
+    dev_sum = sess.telemetry_summary()["device"]
+    got = {k: 0 for k in before}
+    for per_kernel in dev_sum["kernels"].values():
+        for name, k in per_kernel.items():
+            got[name] += k["launches"]
+    assert got == delta
+    if executor == "MeshExecutor":
+        assert dev_sum["hbm"]["source"] == "memory_stats"
+        assert dev_sum["hbm"]["peak_bytes"] == \
+            torch.cuda.max_memory_allocated()

@@ -401,3 +401,77 @@ def test_concurrent_pipelined_runs_on_one_executor():
         sys.setswitchinterval(old)
     assert not errors, errors
     assert results == {i: True for i in range(6)}
+
+
+def _combines(op):
+    """The port's and the JAX package's combine function for ``op``."""
+    import jax.numpy as jnp
+
+    if op == "add":
+        return (lambda a, b: a + b), (lambda a, b: a + b)
+    return torch.maximum, jnp.maximum
+
+
+@pytest.mark.parametrize("op", ["add", "max"])
+def test_hash_aggregate_off_pins_the_sort_path(monkeypatch, ref_session,
+                                                op):
+    """hash_aggregate=False takes an add (or max) Reduce off the hash
+    lowering: no K2 table is built, and the rows equal the default's
+    and the JAX package's."""
+    from bigslice_tpu_torch.parallel import hashagg
+
+    calls = []
+    real = hashagg.hash_aggregate
+
+    def counting(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(hashagg, "hash_aggregate", counting)
+    n = 1 << 12
+    keys = np.random.RandomState(5).randint(0, 300, n).astype(np.int32)
+    vals = np.arange(n, dtype=np.int32)
+
+    fn, ref_fn = _combines(op)
+
+    def run(**kw):
+        sess = bst.Session(executor=bst.MeshExecutor(
+            device="cpu", auto_dense=False, **kw))
+        return sorted(sess.run(bst.Reduce(bst.Const(8, keys, vals),
+                                          fn)).rows())
+
+    default = run()
+    assert calls, "the default took the hash lowering"
+    calls.clear()
+    pinned = run(hash_aggregate=False)
+    assert not calls
+    want = sorted(tuple(int(x) for x in r) for r in ref_session.run(
+        ref_bs.Reduce(ref_bs.Const(8, keys, vals), ref_fn)).rows())
+    assert pinned == default == want
+
+
+@pytest.mark.parametrize("shards", [8, 12])
+def test_subid_split_off_masks_the_whole_output(ref_session, shards):
+    """subid_split=False hands each consumer wave the whole
+    wave-partitioned output, which its program masks by subid: no
+    per-wave views are built, and the rows are the split's."""
+    n = 1 << 12
+    keys = np.random.RandomState(6).randint(0, 500, n).astype(np.int32)
+    vals = np.arange(n, dtype=np.int32)
+
+    def run(**kw):
+        ex = bst.MeshExecutor(device="cpu", auto_dense=False, **kw)
+        res = bst.Session(executor=ex).run(
+            bst.Reduce(bst.Const(shards, keys, vals), lambda a, b: a + b))
+        views = [o._wave_views for o in ex._outputs.values()
+                 if getattr(o, "subid", False)]
+        return sorted(res.rows()), views
+
+    split, views = run()
+    assert views and all(v is not None for v in views)
+    whole, views = run(subid_split=False)
+    assert views and all(v is None for v in views)
+    want = sorted(tuple(int(x) for x in r) for r in ref_session.run(
+        ref_bs.Reduce(ref_bs.Const(shards, keys, vals),
+                      lambda a, b: a + b)).rows())
+    assert whole == split == want
