@@ -63,6 +63,18 @@ output may be kept across sessions in files (``Cache``,
     res = bs.Session().run(bs.Cache(bs.Reduce(bs.Const(4, keys, vals),
                                               lambda a, b: a + b),
                                     "cache/counts"))
+
+Data lands and leaves through Arrow and Parquet (``ParquetReader``,
+``Result.to_arrow``, ``to_pandas``, ``write_parquet``; ``pyarrow`` and
+``fsspec`` are imported at first use), and stores, the spill exchange
+and caches take any fsspec URL prefix (``memory://``, ``gs://``)::
+
+    s = bs.ParquetReader(4, "memory://data/*.parquet",
+                         out=[np.int32, np.int32])
+    res = bs.Session().run(bs.Reduce(s, lambda a, b: a + b))
+    res.write_parquet("memory://out/counts")
+    from bigslice_tpu_torch.models.kmeans import kmeans
+    centroids = kmeans(bs.Session(), points, k=16, iters=5)
 """
 
 import importlib
@@ -94,6 +106,7 @@ _EXPORTS = {
     "MapBatches": "ops.mapops",
     "Materialize": "ops.base",
     "MeshExecutor": "exec.meshexec",
+    "ParquetReader": "ops.parquet",
     "Pragma": "ops.base",
     "Prefixed": "ops.mapops",
     "Procs": "ops.base",

@@ -568,7 +568,8 @@ class MeshExecutor:
 
     def close(self) -> None:
         """Remove the private spill directory (a ``BIGSLICE_SPILL_DIR``
-        named by the caller is theirs to keep)."""
+        named by the caller, a directory or a URL base such as
+        ``memory://spill``, is theirs to keep)."""
         with self._lock:
             tmp, self._spill_tmp = self._spill_tmp, None
         if tmp is not None:

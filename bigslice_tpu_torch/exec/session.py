@@ -26,6 +26,7 @@ from bigslice_tpu_torch.exec import shuffleplan
 from bigslice_tpu_torch.exec.evaluate import MAX_CONSECUTIVE_LOST, evaluate
 from bigslice_tpu_torch.exec.store import Missing
 from bigslice_tpu_torch.exec.task import Task, TaskState
+from bigslice_tpu_torch.frame.frame import Frame
 from bigslice_tpu_torch.ops.base import Slice, make_name
 from bigslice_tpu_torch.ops.func import Func, invocation_counter
 from bigslice_tpu_torch.utils import metrics as metrics_mod
@@ -125,6 +126,35 @@ class Result(Slice):
         for f in self.frames():
             out.extend(f.rows())
         return out
+
+    def _merged(self, frames) -> Frame:
+        frames = list(frames)
+        return Frame.concat(frames) if frames else Frame.empty(self.schema)
+
+    def to_arrow(self, names=None):
+        """All result rows as one ``pyarrow.Table`` (``frame/arrow.py``'s
+        mapping: vector columns as FixedSizeList, ragged lists as List,
+        strings as String)."""
+        from bigslice_tpu_torch.frame import arrow
+
+        return arrow.to_arrow(self._merged(self.frames()), names=names)
+
+    def to_pandas(self, names=None):
+        """All result rows as a ``pandas.DataFrame``."""
+        return self.to_arrow(names=names).to_pandas()
+
+    def write_parquet(self, url_prefix: str, names=None) -> None:
+        """Write one Parquet file a shard, named
+        ``{url_prefix}-NNNN-of-MMMM.parquet`` (a local path or any fsspec
+        URL). An empty shard writes an empty file, so the set is
+        complete."""
+        from bigslice_tpu_torch.frame import arrow
+
+        m = self.num_shards
+        for shard in range(m):
+            arrow.write_parquet(
+                self._merged(self.reader(shard, ())),
+                f"{url_prefix}-{shard:04d}-of-{m:04d}.parquet", names=names)
 
     def discard(self) -> None:
         """Drop stored task outputs."""

@@ -3,9 +3,10 @@ addressable by (task name, partition) and re-readable — what makes
 lost-task recovery and Result reuse possible.
 
 ``MemoryStore`` holds frames in host memory; ``FileStore`` writes them
-under a local directory in the BSF4 codec (``frame/codec.py``), with the
-layout ``{prefix}/inv{N}/{op}/{shard}-of-{num}/p{partition}``, and reads
-them back a frame at a time. The spill exchange
+under a local directory or any fsspec URL prefix (``gs://``, ``s3://``,
+``memory://``) in the BSF4 codec (``frame/codec.py``), with the layout
+``{prefix}/inv{N}/{op}/{shard}-of-{num}/p{partition}``, and reads them
+back a frame at a time. The spill exchange
 (``exec/shuffleplan.py``) writes through a ``FileStore``.
 """
 
@@ -110,11 +111,13 @@ class MemoryStore(Store):
 
 
 class FileStore(Store):
-    """Durable partition store under a local directory. Reads stream a
-    frame at a time (``codec.read_stream``), so a spilled partition
-    never materializes whole on read-back; a corrupt file is moved
-    aside (``*.quarantine``) and its read raises ``Missing``, the
-    lost-output signal that re-runs its producers."""
+    """Durable partition store under a local directory or a URL prefix
+    (``utils/fileio.py``; ``memory://`` is one filesystem a process, so
+    give each store its own prefix). Reads stream a frame at a time
+    (``codec.read_stream``), so a spilled partition never materializes
+    whole on read-back; a corrupt file is moved aside (``*.quarantine``)
+    and its read raises ``Missing``, the lost-output signal that re-runs
+    its producers."""
 
     streaming = True
 
@@ -280,4 +283,6 @@ class FileStore(Store):
             self._warm_gen[name] = self._warm_gen.get(name, 0) + 1
             for k in [k for k in self._warm if k[0] == name]:
                 del self._warm[k]
-        fileio.remove_tree(os.path.dirname(self._path(name, 0)))
+        path = self._path(name, 0)
+        fileio.remove_tree(path.rsplit("/", 1)[0] if fileio.is_url(path)
+                           else os.path.dirname(path))

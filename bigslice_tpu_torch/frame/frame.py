@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from bigslice_tpu_torch.frame import ops as frame_ops
-from bigslice_tpu_torch.slicetype import ColType, Schema, coltype, \
-    numpy_dtype
+from bigslice_tpu_torch.slicetype import BFLOAT16, ColType, Schema, \
+    coltype, numpy_dtype
 
 _DOWNCAST = {
     torch.int64: torch.int32,
@@ -49,7 +49,10 @@ def to_numpy(col) -> np.ndarray:
     """A column of either package (torch tensor, numpy or JAX array) as
     a host numpy array."""
     if isinstance(col, torch.Tensor):
-        return col.detach().cpu().numpy()
+        col = col.detach().cpu()
+        if col.dtype == torch.bfloat16:  # numpy has no bfloat16: its bits
+            return col.view(torch.int16).numpy().view(BFLOAT16)
+        return col.numpy()
     return np.asarray(col)
 
 
@@ -68,7 +71,11 @@ def _coerce(c, device):
             a = a.astype(np.uint32)
         elif a.dtype == np.float64:
             a = a.astype(np.float32)
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        bf16 = a.dtype == BFLOAT16  # numpy has no bfloat16: its bits
+        t = torch.from_numpy(np.ascontiguousarray(
+            a.view(np.int16) if bf16 else a))
+        if bf16:
+            t = t.view(torch.bfloat16)
     t = t.to(_DOWNCAST.get(t.dtype, t.dtype))
     return t if device is None else t.to(device)
 
@@ -191,6 +198,12 @@ class Frame:
                 out.append(c[host_idx])
         return Frame(out, self.schema)
 
+    def with_prefix(self, prefix: int) -> "Frame":
+        return Frame(self.cols, self.schema.with_prefix(prefix))
+
+    def with_cols(self, cols: Sequence[Any], schema: Schema) -> "Frame":
+        return Frame(cols, schema)
+
     def to(self, device) -> "Frame":
         """The frame with its device columns on ``device`` (itself when
         they are there already): the one placement rule."""
@@ -309,8 +322,29 @@ class Frame:
                 else c.tolist() for c in self.numpy_cols()]
         return list(zip(*cols)) if cols else []
 
+    def to_pylists(self) -> List[list]:
+        """Each column as a Python list (vector cells as nested lists,
+        host cells as they are)."""
+        return [c.tolist() if c.dtype != np.dtype(object) else list(c)
+                for c in self.numpy_cols()]
+
     def __repr__(self) -> str:
         return f"Frame(n={len(self)}, schema={self.schema})"
+
+    def __eq__(self, other) -> bool:
+        """Equal schemas and equal cells, wherever the columns lie
+        (NaN is unequal to itself, as in ``np.array_equal``)."""
+        if not isinstance(other, Frame):
+            return NotImplemented
+        if self.schema != other.schema or len(self) != len(other):
+            return False
+        for a, b in zip(self.numpy_cols(), other.numpy_cols()):
+            if a.dtype == np.dtype(object) or b.dtype == np.dtype(object):
+                if list(a) != list(b):
+                    return False
+            elif not np.array_equal(a, b):
+                return False
+        return True
 
     def __hash__(self):
         raise TypeError("Frame is not hashable")

@@ -68,7 +68,7 @@ def _bits32(col: torch.Tensor) -> torch.Tensor:
     col = torch.where(col == 0, torch.zeros_like(col), col)
     if dt == torch.float32:
         return col.view(torch.int32).to(torch.int64) & M32
-    if dt == torch.float16:
+    if dt in (torch.float16, torch.bfloat16):  # the uint16 bits, widened
         return col.view(torch.int16).to(torch.int64) & 0xFFFF
     raise TypeError(f"cannot hash device column of dtype {dt}")
 

@@ -10,7 +10,8 @@ consistent across code changes is the user's responsibility.
 Files hold the checksummed columnar codec (``frame/codec.py``) in a
 zstd container when ``zstandard`` is installed, plain frames otherwise;
 reads sniff either, and the files are the JAX package's, byte for byte.
-Prefixes are local paths: a URL prefix raises ``URLNotPorted``.
+Prefixes are local paths or any fsspec URL (``gs://``, ``s3://``,
+``memory://``) through ``utils/fileio.py``.
 
 On the device executor a cached slice runs on the host tier (its inner
 local executor), reading a device producer's output through the store

@@ -37,8 +37,8 @@ from bigslice_tpu_torch.parallel import segment
 from bigslice_tpu_torch.slicetype import Schema, torch_dtype
 
 class LoweringNotPorted(NotImplementedError):
-    """A slice needs something this package does not have yet (an
-    fsspec URL prefix: ``fileio.URLNotPorted``)."""
+    """A slice needs something this package or its environment does
+    not have (a URL path without ``fsspec``: ``fileio.URLNotPorted``)."""
 
 
 _TRACE_CACHE: dict = {}

@@ -2,8 +2,8 @@
 
 Arbitrary Python doing I/O a shard at a time, feeding the pipelines
 downstream; they run on the local executor (on the device executor,
-its host tier). A path names a local file: URL prefixes are not
-ported (``utils/fileio.URLNotPorted``).
+its host tier). A path is a local file or any fsspec URL
+(``utils/fileio.py``).
 """
 
 from __future__ import annotations

@@ -83,11 +83,12 @@ _LIB_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 _AVAILABLE: Optional[bool] = None
 
-# Column codes shared with csrc/common.cuh.
+# Column codes shared with csrc/common.cuh. bfloat16 takes the 16-bit
+# float code: its -0.0 is 0x8000 too, and key_bits folds it onto +0.0.
 _KEY_CODES = {
     torch.int32: 0, torch.uint32: 0, torch.float32: 1,
     torch.int16: 2, torch.uint16: 3, torch.int8: 4, torch.uint8: 5,
-    torch.bool: 5, torch.float16: 6,
+    torch.bool: 5, torch.float16: 6, torch.bfloat16: 6,
 }
 _VAL_DTYPE_CODES = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
 _OP_CODES = {"add": 0, "max": 1, "min": 2}

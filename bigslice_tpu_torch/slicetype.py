@@ -10,20 +10,37 @@ torch dtype (``torch_dtype``/``numpy_dtype`` map between the two).
 A column is either
 
 - a **device** column: a fixed-width 32-bit-first dtype (int8/16/32,
-  uint8/16/32, float16/float32, bool), or
+  uint8/16/32, float16/bfloat16/float32, bool), or
 - a **host** column: arbitrary Python objects in a numpy object array.
 
 64-bit numerics are not device dtypes: frames downcast them on entry
 (docs/design.md §2).
+
+numpy has no bfloat16. Its schema type is ``ml_dtypes.bfloat16`` where
+that package is installed (the JAX package's type, so the two packages'
+schemas compare equal), else a two-byte structured stand-in; either way
+a host copy holds the column's bits (``BFLOAT16``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterable, Tuple
+from typing import Any, Iterable, Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+def _bfloat16_dtype() -> np.dtype:
+    try:
+        import ml_dtypes
+    except ImportError:
+        return np.dtype([("bfloat16", "<u2")])
+    return np.dtype(ml_dtypes.bfloat16)
+
+
+#: The numpy (schema) dtype of a ``torch.bfloat16`` device column.
+BFLOAT16 = _bfloat16_dtype()
 
 _NP_TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
@@ -35,6 +52,7 @@ _NP_TO_TORCH = {
     np.dtype(np.uint32): torch.uint32,
     np.dtype(np.float16): torch.float16,
     np.dtype(np.float32): torch.float32,
+    BFLOAT16: torch.bfloat16,
 }
 _TORCH_TO_NP = {t: n for n, t in _NP_TO_TORCH.items()}
 
@@ -160,3 +178,17 @@ class Schema:
         """The non-key column types."""
         return self.cols[self.prefix :]
 
+    def with_prefix(self, prefix: int) -> "Schema":
+        return Schema(self.cols, prefix)
+
+    def assignable_to(self, other: "Schema") -> bool:
+        """Column-wise type compatibility (the prefix is not compared)."""
+        return self.cols == other.cols
+
+    @staticmethod
+    def concat(a: "Schema", b: "Schema", prefix: int = 1) -> "Schema":
+        return Schema(a.cols + b.cols, prefix)
+
+
+def schema_of(cols: Sequence[Any], prefix: int = 1) -> Schema:
+    return Schema(cols, prefix)

@@ -1,13 +1,17 @@
-"""Local file IO for the stores: path joins, atomic writes, reads, and
-bounded retry of transient failures.
+"""File IO for the stores, the result cache and the sources: one seam
+for local paths and object stores.
 
-Local paths only. A URL (``gs://...``, ``memory://...``) needs
-``fsspec``, which this package does not use: it raises ``URLNotPorted``
-by name.
+A path containing ``://`` routes to its ``fsspec`` filesystem
+(``gs://``, ``s3://``, ``memory://``, ...), imported at first use; a
+bare path uses plain ``os`` and ``open``. Without ``fsspec`` a URL
+raises ``URLNotPorted`` by name.
 
-Atomicity: a write goes to a temp file beside the target and is
+Atomicity: a local write goes to a temp file beside the target and is
 renamed over it with ``os.replace``, so readers never observe a partial
-file; on error the temp file is removed.
+file; on error the temp file is removed. A URL write goes to a temp key
+beside the target, moved onto it server-side when complete: an object
+store commits a key when the upload closes (``memory://`` shows it at
+open), so a failed writer leaves the final key untouched.
 
 Transient failures: opens and commits retry with bounded exponential
 backoff and jitter (``retry_transient``; ``BIGSLICE_IO_RETRIES``,
@@ -18,6 +22,8 @@ retries: it is the store's ``Missing`` signal.
 from __future__ import annotations
 
 import contextlib
+import io
+import itertools
 import os
 import random
 import shutil
@@ -27,21 +33,32 @@ from typing import BinaryIO, Callable, Iterator, Optional
 
 from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
 
+# Distinct temp keys for concurrent URL writes of one process.
+_TMP_IDS = itertools.count()
+
 
 class URLNotPorted(LoweringNotPorted):
-    """A store path is a URL: object stores (fsspec) are not ported."""
+    """A store path is a URL and ``fsspec`` is not installed."""
 
 
 def is_url(path: str) -> bool:
     return "://" in path
 
 
-def _local(path: str) -> str:
-    if is_url(path):
+def _fsspec(path: str):
+    try:
+        import fsspec
+    except ImportError as e:
         raise URLNotPorted(
-            f"{path}: URL store paths need fsspec, which is not ported; "
-            f"use a local directory")
-    return path
+            f"{path}: URL store paths need fsspec, which is not "
+            f"installed; use a local directory") from e
+    return fsspec
+
+
+def _fs(path: str):
+    """The fsspec filesystem of a URL and the URL's path within it."""
+    fs, _, paths = _fsspec(path).get_fs_token_paths(path)
+    return fs, paths[0]
 
 
 # Outcomes a retry cannot change: absence is the Missing signal, and
@@ -76,53 +93,117 @@ def retry_transient(fn: Callable, what: str = "io"):
 
 
 def join(*parts: str) -> str:
-    return os.path.join(_local(parts[0]), *parts[1:])
+    """Path join that keeps a URL's scheme ('/' separator)."""
+    if is_url(parts[0]):
+        _fsspec(parts[0])
+        return "/".join(p.strip("/") if i else p.rstrip("/")
+                        for i, p in enumerate(parts))
+    return os.path.join(*parts)
 
 
 def exists(path: str) -> bool:
-    return retry_transient(lambda: os.path.exists(_local(path)),
-                           f"exists {path}")
+    def attempt():
+        if is_url(path):
+            fs, p = _fs(path)
+            return fs.exists(p)
+        return os.path.exists(path)
+
+    return retry_transient(attempt, f"exists {path}")
 
 
 def open_read(path: str) -> BinaryIO:
     """Open for streaming binary read; raises FileNotFoundError when
-    absent. Transient open failures retry."""
-    return retry_transient(lambda: open(_local(path), "rb"), f"open {path}")
+    absent (both tiers). Transient open failures retry."""
+    def attempt():
+        if is_url(path):
+            fs, p = _fs(path)
+            f = fs.open(p, "rb")
+            if isinstance(f, io.BytesIO):
+                # memory:// hands every opener its one stored file,
+                # position included: give this reader its own (the bytes
+                # are shared, not copied).
+                return io.BytesIO(f.getvalue())
+            return f
+        return open(path, "rb")
+
+    return retry_transient(attempt, f"open {path}")
 
 
 def size(path: str) -> Optional[int]:
-    """File size in bytes, or None when the file is missing: cache
-    eviction accounting, never a correctness input."""
-    p = _local(path)
+    """File size in bytes, or None when unknowable (a missing file, an
+    object store without a size field): cache eviction accounting,
+    never a correctness input."""
+    if is_url(path):
+        fs, p = _fs(path)
+        with contextlib.suppress(OSError):
+            v = fs.info(p).get("size")
+            return int(v) if v is not None else None
+        return None
     with contextlib.suppress(OSError):
-        return os.stat(p).st_size
+        return os.stat(path).st_size
     return None
 
 
 def mtime(path: str) -> Optional[float]:
-    """Last-modified time as a POSIX timestamp, or None when the file is
-    missing: the result cache's TTL input, never correctness."""
-    p = _local(path)
+    """Last-modified time as a POSIX timestamp, or None when unknowable:
+    the result cache's TTL input, never correctness."""
+    if is_url(path):
+        fs, p = _fs(path)
+        with contextlib.suppress(OSError):
+            info = fs.info(p)
+            m = info.get("mtime") or info.get("LastModified") \
+                or info.get("created")
+            if m is None:
+                return None
+            ts = getattr(m, "timestamp", None)
+            return float(ts() if callable(ts) else m)
+        return None
     with contextlib.suppress(OSError):
-        return os.stat(p).st_mtime
+        return os.stat(path).st_mtime
     return None
 
 
 def remove(path: str) -> None:
-    """Best-effort removal of one file."""
+    """Best-effort removal of one file (both tiers)."""
+    if is_url(path):
+        fs, p = _fs(path)
+        with contextlib.suppress(OSError):
+            fs.rm(p)
+        return
     with contextlib.suppress(OSError):
-        os.unlink(_local(path))
+        os.unlink(path)
 
 
 def rename(src: str, dst: str) -> None:
-    os.replace(_local(src), _local(dst))
+    """``os.replace`` locally, a server-side move on object stores."""
+    if is_url(src):
+        fs, p = _fs(src)
+        fs.mv(p, _fs(dst)[1])
+        return
+    os.replace(src, dst)
 
 
 @contextlib.contextmanager
 def atomic_write(path: str) -> Iterator[BinaryIO]:
     """Write ``path`` so that readers never observe a partial file; on
     error nothing is left behind."""
-    d = os.path.dirname(_local(path)) or "."
+    if is_url(path):
+        fs, p = _fs(path)
+        with contextlib.suppress(OSError):
+            fs.makedirs(p.rsplit("/", 1)[0], exist_ok=True)
+        tmp = f"{p}.tmp-{os.getpid()}-{next(_TMP_IDS)}"
+        ok = False
+        try:
+            with fs.open(tmp, "wb") as fp:
+                yield fp
+            retry_transient(lambda: fs.mv(tmp, p), f"commit {path}")
+            ok = True
+        finally:
+            if not ok:
+                with contextlib.suppress(OSError):
+                    fs.rm(tmp)
+        return
+    d = os.path.dirname(path) or "."
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp-")
     ok = False
@@ -137,6 +218,11 @@ def atomic_write(path: str) -> Iterator[BinaryIO]:
 
 
 def remove_tree(path: str) -> None:
-    """Best-effort recursive removal of a directory."""
-    if os.path.isdir(_local(path)):
+    """Best-effort recursive removal of a directory or a URL prefix."""
+    if is_url(path):
+        fs, p = _fs(path)
+        with contextlib.suppress(OSError):
+            fs.rm(p, recursive=True)
+        return
+    if os.path.isdir(path):
         shutil.rmtree(path, ignore_errors=True)

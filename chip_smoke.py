@@ -151,6 +151,31 @@ declared bytes and the profiled time; (e) a ``Counter`` inside a Map
 over device columns, host tier, counting 2**20 rows exactly; (f)
 whether ``pyarrow`` and ``fsspec`` import.
 
+Phase 27 drives the data plane and k-means: (a) ``parquet-reduce``,
+2**25 rows of int64 keys uniform over 2**20 and int64 values (each
+wrapping when cast down to int32) from default_rng(27), written once
+outside the timed runs as one Parquet file of 32 row groups under a
+``memory://`` prefix, read by ``ParquetReader(4, url, out=[int32,
+int32])`` into ``Reduce(add)`` through ``MeshExecutor(auto_dense=False)``
+(the host producer routes each row group with K1; the reduce side
+combines with K2), then at the default, every key's sum against numpy
+and in its K1 shard, the result written with ``Result.write_parquet``
+to ``memory://`` and read back with pyarrow; the median warm wall of
+three runs, rows/s, peak device memory, the launches and the reader's
+own decode seconds; (b) ``parquet-glob-spill``, the same rows as 8
+local files under a ``*`` glob through a ``Reshuffle`` (a device group
+whose boundary spills) into the Reduce, with ``BIGSLICE_SHUFFLE=spill``
+and ``BIGSLICE_SPILL_DIR=memory://...``, its shards equal to (a)'s; (c)
+(a)'s Reduce under ``Cache`` on a ``memory://`` prefix: the write, then
+a re-run with no launch and the same rows; (d) ``Result.to_arrow`` of
+(a)'s 2**20 result rows and ``to_pandas`` where pandas imports; (e)
+``kmeans``: ``models.kmeans.kmeans(Session(), points, k=1024, iters=5,
+num_shards=4)`` over 2**20 float32 points of d = 128 in 1024 Gaussian
+blobs (default_rng(27)), each iteration held against float64 on the
+card from the same centroids (an assignment may flip only within
+float32 rounding; the centroids within ``KMEANS_RTOL``), with seconds
+an iteration and the launches.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -3225,6 +3250,43 @@ def _count_syncs(fn, sites: list = None) -> int:
     return len(syncs)
 
 
+def _trace_launch_lags(events) -> dict:
+    """A profiler trace's runtime launches against its kernel events,
+    joined on the correlation id: the launch-to-kernel-start lag (a
+    negative lag is a clock skew between the host's and the card's
+    timestamps), the launches with no kernel event (all, and those
+    after the profiler's warm-up range), and where in the
+    trace (us from its first event) each K1 kernel and each launch
+    without a kernel lies."""
+    timed = [e for e in events if "ts" in e and e.get("ph") != "M"]
+    t0 = min(float(e["ts"]) for e in timed) if timed else 0.0
+    launch = {e.get("args", {}).get("correlation"): float(e["ts"])
+              for e in timed if e.get("cat") in ("cuda_runtime",
+                                                 "cuda_driver")
+              and "aunch" in str(e.get("name", ""))}
+    kernels = [e for e in timed if e.get("cat") == "kernel"]
+    seen = {e.get("args", {}).get("correlation") for e in kernels}
+    lags = sorted(float(e["ts"]) - launch[c] for e in kernels
+                  if (c := e.get("args", {}).get("correlation")) in launch)
+    warm_end = max((float(e["ts"]) + float(e.get("dur", 0)) for e in timed
+                    if e.get("name") == "xprof_warmup"), default=None)
+    return {
+        "lag_us_min": round(lags[0], 1) if lags else None,
+        "lag_us_median": round(statistics.median(lags), 1) if lags
+        else None,
+        "launches": len(launch), "kernels": len(kernels),
+        "orphans": sum(1 for c in launch if c not in seen),
+        "orphans_after_warmup": None if warm_end is None else sum(
+            1 for c, t in launch.items() if c not in seen and t > warm_end),
+        "orphan_at_us": sorted(round(t - t0, 1) for c, t in launch.items()
+                               if c not in seen)[:8],
+        "k1_at_us": [round(float(e["ts"]) - t0, 1) for e in kernels
+                     if "hash_partition_kernel" in str(e.get("name"))],
+        "trace_us": round(max(float(e["ts"]) + float(e.get("dur", 0))
+                              for e in timed) - t0, 1) if timed else 0.0,
+    }
+
+
 def phase26_observability(card: str, kern: dict) -> dict:
     """observability: the telemetry hub, the trace, the profiler window
     and user metrics over the main path (the module docstring's (a) to
@@ -3413,10 +3475,15 @@ def phase26_observability(card: str, kern: dict) -> dict:
 
     # -- (d) a profiler window around one run of (a): the window on this
     # thread (the profiler starts where its client registered), the run
-    # on another once the window is up.
+    # on another once the window is up. The window closes when the run
+    # has synchronised (its length is only a cap), and opens with the
+    # profiler's warm-up burst (utils/xprof.py), which takes the first
+    # device records that a session late in a long process drops.
     psess = bs.Session(executor=bs.MeshExecutor(auto_dense=False))
     prof = xprof.Profiler(device="cuda")
     failed = []
+    run_done = threading.Event()
+    run_s = []
 
     def run_in_window():
         try:
@@ -3428,14 +3495,25 @@ def phase26_observability(card: str, kern: dict) -> dict:
                                          "window never started")
                 time.sleep(0.01)
             time.sleep(0.2)
+            t = time.perf_counter()
             read_all(psess.run(reduce_slice()))
             torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t)
+            if not xprof.recording():
+                raise AssertionError(f"observability: the profiler window "
+                                     f"closed before the run ended "
+                                     f"({run_s[0]:.4f} s)")
         except BaseException as e:  # noqa: BLE001 — re-raised below
             failed.append(e)
+        finally:
+            run_done.set()
 
     th = threading.Thread(target=run_in_window)
     th.start()
-    window = prof.window(3.0, out_dir=os.path.join(out_dir, "w"))
+    t_window = time.perf_counter()
+    window = prof.window(120.0, out_dir=os.path.join(out_dir, "w"),
+                         until=run_done)
+    held = time.perf_counter() - t_window
     th.join()
     if failed:
         raise failed[0]
@@ -3461,7 +3539,10 @@ def phase26_observability(card: str, kern: dict) -> dict:
     if not (kern_n["hash_partition"] and kern_n["hash_aggregate"]):
         raise AssertionError(f"observability: the profiler trace names no "
                              f"K1 or K2 kernel ({kern_n})")
+    lag = _trace_launch_lags(pevents)
     if kern_n["hash_partition"] != plaunch["hash_partition"]:
+        log(f"phase 26d: the window misses a K1 kernel: window held "
+            f"{held:.4f} s around a run of {run_s[0]:.4f} s; {lag}")
         raise AssertionError(f"observability: the window holds "
                              f"{kern_n['hash_partition']} K1 kernels of the "
                              f"run's {plaunch['hash_partition']}")
@@ -3470,12 +3551,18 @@ def phase26_observability(card: str, kern: dict) -> dict:
         declared = sum(per[name]["bytes"] for per in psum.values()
                        if name in per)
         achieved[name] = declared / (kern_us[name] * 1e-6)
-    log(f"phase 26d: profiler window {window['seconds']} s, trace "
+    log(f"phase 26d: profiler window held {held:.4f} s (cap "
+        f"{window['seconds']} s) around a run of {run_s[0]:.4f} s, trace "
         f"{os.path.getsize(ptrace)} bytes, kernel events {kern_n}, device "
         f"us {kern_us}, achieved bytes/s K1 "
         f"{achieved['hash_partition']:.4e} K2 "
         f"{achieved['hash_aggregate']:.4e} (declared bytes over profiled "
-        f"time; peak {HBM_BYTES_PER_S:.3e}), on {card}")
+        f"time; peak {HBM_BYTES_PER_S:.3e}), launch to kernel start "
+        f"us min {lag['lag_us_min']} median {lag['lag_us_median']}, "
+        f"launches with no kernel event {lag['orphans']} of "
+        f"{lag['launches']} (the warm-up's {xprof.WARMUP_KERNELS} fills "
+        f"included), {lag['orphans_after_warmup']} after the warm-up, on "
+        f"{card}")
 
     # -- (e) user metrics: exact at 2**20 rows, a Python call a row.
     m = 1 << 20
@@ -3518,6 +3605,411 @@ def phase26_observability(card: str, kern: dict) -> dict:
                 syncs_on=syncs_on, syncs_off=syncs_off,
                 profiler_kernel_us=kern_us, achieved_bytes_per_s=achieved,
                 counter_rows=got, packages=found)
+
+
+# -- phase 27: the data plane (Parquet, URL stores, spill, cache) and kmeans
+
+
+#: Phase 27's Parquet rows (phase 3's shape), key span and row groups.
+PARQUET_ROWS = 1 << 25
+PARQUET_SPAN = 1 << 20
+PARQUET_GROUPS = 32
+#: Phase 27's warm runs of each Parquet path (the median is reported).
+PARQUET_WARM_RUNS = 3
+#: Phase 27e: points, dimension, blobs and centroids, iterations, shards.
+KMEANS_N, KMEANS_D, KMEANS_K, KMEANS_ITERS = 1 << 20, 128, 1024, 5
+#: Phase 27e: the centroids' tolerance against float64 sums of the same
+#: assignment (float32 accumulation of about n / k points a centroid).
+KMEANS_RTOL, KMEANS_ATOL = 1e-4, 1e-3
+
+
+def _parquet_input():
+    """27a's rows: int64 keys uniform over 2**20 and int64 values over
+    +-2**40 (each wraps when cast down to int32), from default_rng(27)."""
+    rng = np.random.default_rng(27)
+    n, span = PARQUET_ROWS >> SHIFT, PARQUET_SPAN >> SHIFT
+    keys = rng.integers(0, span, n, dtype=np.int64)
+    vals = rng.integers(-(1 << 40), 1 << 40, n, dtype=np.int64)
+    return keys, vals
+
+
+def _parquet_want(keys, vals):
+    """Each present key (int32) and its sum as the device adds it (int32,
+    wrapping), from numpy: the float64 bincount of the cast-down values
+    is exact (each |sum| < 2**53)."""
+    span = PARQUET_SPAN >> SHIFT
+    sums = np.bincount(keys, weights=vals.astype(np.int32), minlength=span)
+    present = np.nonzero(np.bincount(keys, minlength=span))[0]
+    return (present.astype(np.int32),
+            sums[present].astype(np.int64).astype(np.int32))
+
+
+def _sum_check(want):
+    """Rows of a summing Reduce against ``want``, each row in the shard
+    the plain K1 names."""
+    wk, wv = want
+
+    def check(shards, S):
+        k = np.concatenate([s[0] for s in shards])
+        v = np.concatenate([s[1] for s in shards])
+        o = np.argsort(k)
+        if not (np.array_equal(k[o], wk) and np.array_equal(v[o], wv)):
+            raise AssertionError("sums differ from numpy")
+        _shard_keys_routed(shards, S)
+
+    return check
+
+
+def _parquet_files(url_prefix, S):
+    """The shards ``Result.write_parquet`` wrote, read back with pyarrow
+    as numpy columns (key, sum)."""
+    import fsspec
+    import pyarrow.parquet as pq
+
+    out = []
+    for s in range(S):
+        with fsspec.open(f"{url_prefix}-{s:04d}-of-{S:04d}.parquet",
+                         "rb") as fh:
+            t = pq.read_table(fh)
+        out.append([np.array(t.column(0)), np.array(t.column(1))])
+    return out
+
+
+def _kmeans_points():
+    """27e's points: 2**20 float32 rows of d = 128 around 1024 centres
+    (normal, sd 10 a coordinate) with unit Gaussian noise, from
+    default_rng(27): a SIFT1M-shaped IVF training set."""
+    rng = np.random.default_rng(27)
+    n, d, k = KMEANS_N >> SHIFT, KMEANS_D, KMEANS_K >> SHIFT
+    centres = rng.normal(0.0, 10.0, (k, d))
+    labels = rng.integers(0, k, n)
+    return (centres[labels] + rng.standard_normal((n, d))).astype(np.float32)
+
+
+def _kmeans_check(sess, base, points_dev, before, after, it):
+    """One iteration of the port's kmeans against float64 on the card,
+    from the same centroids: the port's assignments (its device Map over
+    ``base``, read on the card) against float64 argmin, a flip allowed
+    only where the two distances lie within float32 rounding; the
+    port's centroids against float64 means of the port's assignment.
+    Returns (flips, largest centroid error)."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.models import kmeans as km
+
+    res = sess.run(bs.Map(base, km._assign_vec, args=(before,)))
+    port = torch.cat([f.cols[0] for s in range(res.num_shards)
+                      for f in res.reader(s, ())]).to(points_dev.device,
+                                                       torch.int64)
+    x = points_dev.to(torch.float64)
+    c = torch.from_numpy(before).to(points_dev.device, torch.float64)
+    d2 = (torch.sum(c * c, 1)[None, :] - 2.0 * x @ c.T
+          + torch.sum(x * x, 1)[:, None])
+    ref = torch.argmin(d2, 1)
+    flips = torch.nonzero(port != ref)[:, 0]
+    if len(flips):
+        # The float32 rank expansion's rounding: d products of |c||x|
+        # and ||c||^2 terms, each within d * eps32 of its magnitude.
+        eps = float(np.finfo(np.float32).eps)
+        d = x.shape[1]
+        xa = x[flips].abs()
+        gap = (d2[flips, port[flips]] - d2[flips, ref[flips]]).abs()
+        scale = torch.maximum(
+            torch.sum(c[port[flips]] ** 2, 1)
+            + 2 * torch.sum(c[port[flips]].abs() * xa, 1),
+            torch.sum(c[ref[flips]] ** 2, 1)
+            + 2 * torch.sum(c[ref[flips]].abs() * xa, 1))
+        if bool((gap > 2 * d * eps * scale).any()):
+            raise AssertionError(f"kmeans iteration {it}: an assignment "
+                                 f"flipped beyond float32 rounding")
+    k = c.shape[0]
+    sums = torch.zeros_like(c).index_add_(0, port, x)
+    counts = torch.bincount(port, minlength=k).to(torch.float64)
+    want = torch.where(counts[:, None] > 0,
+                       sums / counts.clamp(min=1)[:, None], c).cpu().numpy()
+    err = np.abs(after.astype(np.float64) - want)
+    if not np.all(err <= KMEANS_ATOL + KMEANS_RTOL * np.abs(want)):
+        raise AssertionError(f"kmeans iteration {it}: centroids off by "
+                             f"{err.max()} (rtol {KMEANS_RTOL}, atol "
+                             f"{KMEANS_ATOL})")
+    del res
+    return len(flips), float(err.max())
+
+
+def phase27_data_plane(card: str) -> dict:
+    """data plane: the module docstring's (a) to (d)."""
+    import shutil
+    import tempfile
+
+    import fsspec
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S = 4
+    tag = f"chip-smoke-{os.getpid()}"
+    url = f"memory://{tag}/in/rows.parquet"
+    keys, vals = _parquet_input()
+    n = len(keys)
+    want = _parquet_want(keys, vals)
+    check = _sum_check(want)
+    t0 = time.perf_counter()
+    with fsspec.open(url, "wb") as fh:
+        pq.write_table(pa.table({"k": keys, "v": vals}), fh,
+                       row_group_size=n // PARQUET_GROUPS)
+    write_s = time.perf_counter() - t0
+    nbytes = fsspec.filesystem("memory").info(f"/{tag}/in/rows.parquet")[
+        "size"]
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-parquet-")
+    out = {}
+
+    def add(a, b):
+        return a + b
+
+    def run(make, auto_dense, env=None):
+        """A counted first run, then PARQUET_WARM_RUNS warm runs of
+        ``Reduce(src, add)`` (``make()`` gives the reader and ``src``),
+        each a new session and executor; every run checked."""
+        saved = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        try:
+            first = None
+            walls, peaks, decode = [], [], []
+            for i in range(1 + PARQUET_WARM_RUNS):
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ck.reset_launches()
+                reader, src = make()
+                ex = bs.MeshExecutor(auto_dense=auto_dense)
+                sess = bs.Session(executor=ex)
+                t0 = time.perf_counter()
+                res = sess.run(bs.Reduce(src, add))
+                shards = bs.result_shard_rows(res)
+                wall = time.perf_counter() - t0
+                check(shards, S)
+                if i == 0:
+                    first = dict(launches=dict(ck.LAUNCHES), first_s=wall,
+                                 auto_dense_off=sorted(ex.auto_dense_off),
+                                 hash_off=sorted(ex.hash_off),
+                                 plans=sorted({f"{p.kind}/{p.reason}" for p
+                                               in ex.shuffle_plans.values()}),
+                                 stats=reader.stats(), res=res,
+                                 shards=shards)
+                else:
+                    walls.append(wall)
+                    peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+                    decode.append(reader.stats()["decode_s"])
+                    sess.shutdown()
+                    del res, sess
+            return dict(first, walls_s=walls, wall_s=statistics.median(walls),
+                        peak_gib=max(peaks), decode_s=decode,
+                        rows_per_s=n / statistics.median(walls))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def report(label, r):
+        log(f"phase 27{label}: warm wall {r['wall_s']:.4f} s (median of "
+            f"{len(r['walls_s'])}: {', '.join(f'{w:.4f}' for w in r['walls_s'])}"
+            f"), {r['rows_per_s']:.1f} rows/s, peak device memory "
+            f"{r['peak_gib']:.3f} GiB; Parquet decode (the reader's timer, "
+            f"summed over {S} shard threads) "
+            f"{', '.join(f'{s:.4f}' for s in r['decode_s'])} s; first run "
+            f"{r['first_s']:.4f} s, launches {r['launches']}, row groups "
+            f"{r['stats']['row_groups']}, auto_dense_off "
+            f"{r['auto_dense_off']}, hash_off {r['hash_off']}, plans "
+            f"{r['plans']}; on {card}")
+
+    def keep(r):
+        return {k: v for k, v in r.items() if k not in ("res", "shards")}
+
+    try:
+        # -- (a) one file, row groups round-robin; K2's lowering, then
+        # the default.
+        def single():
+            r = bs.ParquetReader(S, url, out=[np.int32, np.int32])
+            return r, r
+
+        log(f"phase 27a: {n} rows, {PARQUET_GROUPS} row groups, {nbytes} "
+            f"bytes of Parquet in memory:// (written in {write_s:.4f} s)")
+        ra = run(single, auto_dense=False)
+        report("a parquet-reduce (auto_dense=False)", ra)
+        if (ra["launches"]["hash_partition"] <= 0
+                or ra["launches"]["hash_aggregate"] <= 0):
+            raise AssertionError(f"parquet-reduce: launches {ra['launches']}")
+        outp = f"memory://{tag}/out/sums"
+        t0 = time.perf_counter()
+        ra["res"].write_parquet(outp)
+        wp_s = time.perf_counter() - t0
+        back = _parquet_files(outp, S)
+        check(back, S)
+        log(f"phase 27a: write_parquet of {S} shards in {wp_s:.4f} s, read "
+            f"back with pyarrow: every sum equal to numpy, every row in "
+            f"its K1 shard")
+        mesh_shards = ra["shards"]
+        rd = run(single, auto_dense=True)
+        report("a parquet-reduce (default)", rd)
+        _same_rows(rd["shards"], mesh_shards, "27a default against "
+                   "auto_dense=False")
+        # -- (d) export 27a's result rows.
+        res = ra["res"]
+        t0 = time.perf_counter()
+        table = res.to_arrow(names=["key", "sum"])
+        arrow_s = time.perf_counter() - t0
+        if table.num_rows != len(want[0]):
+            raise AssertionError(f"to_arrow: {table.num_rows} rows")
+        o = np.argsort(table.column(0).to_numpy())
+        if not (np.array_equal(table.column(0).to_numpy()[o], want[0])
+                and np.array_equal(table.column(1).to_numpy()[o], want[1])):
+            raise AssertionError("to_arrow: rows differ from numpy")
+        try:
+            import pandas
+
+            pandas_version = pandas.__version__
+            t0 = time.perf_counter()
+            df = res.to_pandas(names=["key", "sum"])
+            pandas_s = time.perf_counter() - t0
+            if len(df) != len(want[0]):
+                raise AssertionError(f"to_pandas: {len(df)} rows")
+        except ImportError:
+            pandas_version, pandas_s = "absent", None
+        log(f"phase 27d: to_arrow of {table.num_rows} rows in {arrow_s:.4f} "
+            f"s (equal to numpy); pandas {pandas_version}"
+            + (f", to_pandas {pandas_s:.4f} s" if pandas_s else ""))
+        out["parquet-reduce"] = dict(keep(ra), write_parquet_s=wp_s,
+                                     to_arrow_s=arrow_s, pandas=pandas_version,
+                                     to_pandas_s=pandas_s, parquet_bytes=nbytes)
+        out["parquet-reduce-default"] = keep(rd)
+        del res, table
+
+        # -- (b) 8 local files under a glob, a Reshuffle before the
+        # Reduce (the host producer's boundary is the local store; the
+        # device group's is spilled) under the spill exchange on a
+        # memory:// base.
+        files = 8
+        per = n // files
+        for i in range(files):
+            pq.write_table(pa.table({"k": keys[i * per:(i + 1) * per],
+                                     "v": vals[i * per:(i + 1) * per]}),
+                           os.path.join(tmp, f"part-{i}.parquet"),
+                           row_group_size=per // 4)
+        spill = f"memory://{tag}/spill"
+
+        def globbed():
+            r = bs.ParquetReader(S, os.path.join(tmp, "part-*.parquet"),
+                                 out=[np.int32, np.int32])
+            return r, bs.Reshuffle(r)
+
+        rb = run(globbed, auto_dense=False,
+                 env={"BIGSLICE_SHUFFLE": "spill",
+                      "BIGSLICE_SPILL_DIR": spill})
+        _same_rows(rb["shards"], mesh_shards, "27b against 27a")
+        spilled = fsspec.filesystem("memory").find(f"/{tag}/spill")
+        if not spilled:
+            raise AssertionError("27b: nothing spilled under the memory:// "
+                                 "base")
+        report(f"b parquet-glob-spill ({files} files, {len(spilled)} spill "
+               f"files under memory://)", rb)
+        out["parquet-glob-spill"] = dict(keep(rb), spill_files=len(spilled))
+
+        # -- (c) 27a's Reduce under Cache on a memory:// prefix.
+        cprefix = f"memory://{tag}/cache/sums"
+
+        def cached():
+            return bs.Cache(bs.Reduce(single()[1], add), cprefix)
+
+        def crun():
+            gc.collect()
+            torch.cuda.synchronize()
+            ck.reset_launches()
+            sess = bs.Session(executor=bs.MeshExecutor(auto_dense=False))
+            s = cached()
+            t0 = time.perf_counter()
+            shards = bs.result_shard_rows(sess.run(s))
+            wall = time.perf_counter() - t0
+            _same_rows(shards, mesh_shards, "27c against 27a")
+            return s, wall, dict(ck.LAUNCHES)
+
+        _, cw, cwl = crun()
+        if cwl["hash_partition"] <= 0:
+            raise AssertionError(f"27c: the cache write launched {cwl}")
+        s, cr, crl = crun()
+        if s.deps() != () or any(crl.values()):
+            raise AssertionError(f"27c: the cached re-run launched {crl} "
+                                 f"(deps {s.deps()})")
+        rwalls = [crun()[1] for _ in range(PARQUET_WARM_RUNS)]
+        log(f"phase 27c: Cache on memory://: write {cw:.4f} s, launches "
+            f"{cwl}; cached re-run {cr:.4f} s, launches {crl}; warm cached "
+            f"reads {', '.join(f'{w:.4f}' for w in rwalls)} s; rows equal "
+            f"to 27a's; on {card}")
+        out["parquet-cache-write"] = dict(launches=cwl, wall_s=cw, rows=n)
+        out["parquet-cache-read"] = dict(launches=crl, wall_s=cr,
+                                         walls_s=rwalls, rows=n)
+    finally:
+        mem = fsspec.filesystem("memory")
+        if mem.exists(f"/{tag}"):
+            mem.rm(f"/{tag}", recursive=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase27_kmeans(card: str) -> dict:
+    """27e: ``models.kmeans.kmeans`` through ``Session()``, each
+    iteration held to float64 on the card (``_kmeans_check``)."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.models import kmeans as km
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S = 4
+    pts = _kmeans_points()
+    k = KMEANS_K >> SHIFT
+    sess = bs.Session(executor=bs.MeshExecutor())
+    iters = []
+
+    def on_iter(i, before, after):
+        torch.cuda.synchronize()
+        iters.append((time.perf_counter(), before, after))
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    cents = km.kmeans(sess, pts, k=k, iters=KMEANS_ITERS, num_shards=S,
+                      seed=27, on_iter=on_iter)
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.all(np.isfinite(cents)) or cents.shape != (k, KMEANS_D):
+        raise AssertionError(f"kmeans: centroids {cents.shape}, finite "
+                             f"{np.isfinite(cents).all()}")
+    if launches["hash_partition"] <= 0:
+        raise AssertionError(f"kmeans: launches {launches}")
+    per_iter = [b[0] - a[0] for a, b in zip([(t0,)] + iters, iters)]
+    csess = bs.Session(executor=bs.MeshExecutor())
+    base = csess.run(bs.Const(S, pts))
+    dev = torch.from_numpy(pts).cuda()
+    flips, errs = [], []
+    for i, (_, before, after) in enumerate(iters):
+        f, e = _kmeans_check(csess, base, dev, before, after, i)
+        flips.append(f)
+        errs.append(e)
+    log(f"phase 27e: kmeans n={len(pts)} d={KMEANS_D} k={k}, "
+        f"{KMEANS_ITERS} iterations on {S} shards in {wall:.4f} s "
+        f"({wall / KMEANS_ITERS:.4f} s an iteration; each "
+        f"{', '.join(f'{s:.4f}' for s in per_iter)}), peak device memory "
+        f"{peak:.3f} GiB, launches {launches}; against float64 on the "
+        f"card: flips {flips} (each within float32 rounding), largest "
+        f"centroid error {max(errs):.3e} (rtol {KMEANS_RTOL}, atol "
+        f"{KMEANS_ATOL}); on {card}")
+    return dict(launches=launches, wall_s=wall,
+                s_per_iter=wall / KMEANS_ITERS, iter_s=per_iter,
+                peak_gib=peak, flips=flips, centroid_err=errs, rows=len(pts))
 
 
 def nbytes_of(*arrays) -> int:
@@ -3569,6 +4061,8 @@ def main() -> int:
     paths.update(phase25_cache(card, mesh_shards))
     del mesh_shards
     paths["observability"] = phase26_observability(card, kern)
+    paths.update(phase27_data_plane(card))
+    paths["kmeans"] = phase27_kmeans(card)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
@@ -3584,7 +4078,7 @@ def main() -> int:
              match=True, **{k: kern[name][k] for k in LINE_KEYS})
         for name in PATH_KERNELS
     ]}
-    log(f"chip_smoke: phases 0-26 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 0-27 in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -371,18 +371,134 @@ def test_read_cache_needs_every_shard(tmp_path):
         bst.ReadCache([np.int32], 2, str(tmp_path / "none"))
 
 
-def test_url_prefix_raises_by_name():
+def test_url_prefix_raises_by_name(monkeypatch):
+    """Without fsspec a URL prefix raises by name (with it, the memory://
+    cases below run)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "fsspec", None)
     with pytest.raises(fileio.URLNotPorted):
         bst.Cache(bst.Const(1, np.arange(4, dtype=np.int32)),
                   "memory://bucket/c")
 
 
-def test_fileio_size_and_mtime(tmp_path):
+def test_fileio_size_and_mtime(tmp_path, monkeypatch):
     p = str(tmp_path / "f")
     assert fileio.size(p) is None and fileio.mtime(p) is None
     with open(p, "wb") as fh:
         fh.write(b"x" * 37)
     assert fileio.size(p) == 37
     assert abs(fileio.mtime(p) - os.stat(p).st_mtime) < 1e-6
+    u = f"memory://torch-cache-size-{os.getpid()}/f"
+    assert fileio.size(u) is None and fileio.mtime(u) is None
+    with fileio.atomic_write(u) as fh:
+        fh.write(b"y" * 11)
+    assert fileio.size(u) == 11
+    assert abs(fileio.mtime(u) - time.time()) < 60
+    fileio.remove(u)
+    assert not fileio.exists(u)
+    import sys
+
+    monkeypatch.setitem(sys.modules, "fsspec", None)
     with pytest.raises(fileio.URLNotPorted):
         fileio.size("s3://bucket/key")
+
+
+# -- memory:// prefixes (the JAX package's tests/test_store.py cases) -----
+
+
+def _url(tag):
+    return f"memory://torch-cache-{tag}-{os.getpid()}-{time.monotonic_ns()}"
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_cache_on_url_prefix(kind):
+    """Cache, its writethrough and the read back over memory://; a
+    second session serves every shard from the files and recomputes
+    nothing, and the JAX package reads the port's files (and the other
+    way round) with equal rows."""
+    base = _url(kind)
+    calls = []
+
+    def gen(shard):
+        calls.append(shard)
+        yield ([shard] * 3, [1] * 3)
+
+    def build(prefix):
+        return bst.Cache(bst.ReaderFunc(3, gen, out=[np.int32, np.int32]),
+                         prefix)
+
+    r1 = sorted(_session(kind).run(build(f"{base}/wc")).rows())
+    assert len(calls) == 3
+    r2 = sorted(_session(kind).run(build(f"{base}/wc")).rows())
+    assert r1 == r2 == [(s, 1) for s in range(3) for _ in range(3)]
+    assert len(calls) == 3  # served from the cache
+    schema = [np.int32, np.int32]
+    back = RefSession().run(ref_bs.ReadCache(schema, 3, f"{base}/wc"))
+    assert sorted(back.rows()) == r1
+    RefSession().run(ref_bs.Cache(ref_bs.ReaderFunc(
+        3, gen, out=[np.int32, np.int32]), f"{base}/jax"))
+    got = _session(kind).run(bst.ReadCache(schema, 3, f"{base}/jax"))
+    assert sorted(got.rows()) == r1
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_readcache_and_partial_on_url_prefix(kind):
+    base = _url(f"r{kind}")
+    src = np.arange(8, dtype=np.int32)
+    _session(kind).run(bst.Cache(bst.Const(2, src), f"{base}/rc"))
+    rc = bst.ReadCache([np.int32], 2, f"{base}/rc")
+    assert sorted(_session(kind).run(rc).rows()) == [(i,) for i in range(8)]
+    fileio.remove(shard_path(f"{base}/rc", 0, 2))
+    partial = bst.CachePartial(bst.Const(2, src), f"{base}/rc")
+    assert partial.cache.present == [False, True]
+    assert sorted(_session(kind).run(partial).rows()) == \
+        [(i,) for i in range(8)]
+    assert fileio.exists(shard_path(f"{base}/rc", 0, 2))
+
+
+def test_cached_device_reduce_on_url_prefix_runs_no_kernel():
+    """A Cache over a device Reduce on memory://: the re-run compiles no
+    producer task and launches nothing; the rows equal the JAX
+    package's."""
+    keys, vals = _keyed(5000, 300, seed=5)
+    prefix = f"{_url('dev')}/sums"
+
+    def build():
+        return bst.Cache(bst.Reduce(bst.Const(4, keys, vals), _add), prefix)
+
+    rows = sorted(bst.Session(executor=bst.MeshExecutor(
+        device="cpu", auto_dense=False)).run(build()).rows())
+    cuda_kernels.reset_launches()
+    s2 = build()
+    assert s2.deps() == ()
+    ex2 = bst.MeshExecutor(device="cpu", auto_dense=False)
+    assert sorted(bst.Session(executor=ex2).run(s2).rows()) == rows
+    assert not ex2._outputs
+    assert all(v == 0 for v in cuda_kernels.LAUNCHES.values())
+    ref = RefSession().run(ref_bs.Reduce(ref_bs.Const(4, keys, vals), _add))
+    assert sorted(ref.rows()) == rows
+
+
+def test_result_cache_ttl_expiry_on_url_prefix(rc_policy):
+    """An object store's creation time is its last modification: a file
+    past the TTL expires on memory:// as on a local path."""
+    rc_policy.configure_result_cache(ttl_s=300.0, max_bytes=None)
+    keys, vals = _keyed()
+    prefix = f"{_url('ttl')}/p"
+    sess = _session("local")
+
+    def run():
+        res = sess.run(bst.Cache(bst.Reduce(bst.Const(4, keys, vals), _add),
+                                 prefix))
+        rows = sorted(map(tuple, res.rows()))
+        res.discard()
+        return rows
+
+    first = run()
+    assert run() == first
+    assert rc_policy.result_cache_counts()["hit"] == 4
+    rc_policy.configure_result_cache(ttl_s=0.05)
+    time.sleep(0.1)
+    assert run() == first
+    assert rc_policy.result_cache_counts()["expired"] == 4

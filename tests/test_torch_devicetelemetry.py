@@ -361,6 +361,72 @@ def test_profiler_recording_is_seen_from_other_threads(tmp_path):
     assert seen == [True] and not xprof.recording()
 
 
+def test_profiler_window_ends_when_until_is_set(tmp_path):
+    from bigslice_tpu_torch.utils import xprof
+
+    done = threading.Event()
+    seen = []
+
+    def work():
+        while not xprof.recording():
+            time.sleep(0.01)
+        torch.arange(4096).sum()
+        seen.append(xprof.recording())
+        done.set()
+
+    t = threading.Thread(target=work)
+    t.start()
+    t0 = time.monotonic()
+    out = Profiler(device="cpu").window(60.0, out_dir=str(tmp_path / "w"),
+                                        until=done)
+    held = time.monotonic() - t0
+    t.join()
+    # The work ran whole inside the window, which closed with it and not
+    # at its 60 s cap.
+    assert seen == [True] and not xprof.recording()
+    assert held < 30.0 and out["files"] == ["trace.json"]
+    assert Profiler(device="cpu").window(0.05, out_dir=str(
+        tmp_path / "w2"))["files"]  # gate released
+
+
+@pytest.mark.parametrize("mode", ["window", "trace_run"])
+def test_device_trace_warms_up_before_it_records(tmp_path, monkeypatch,
+                                                 mode):
+    from bigslice_tpu_torch.utils import xprof
+
+    seen = []
+    monkeypatch.setattr(xprof, "_traces_device", lambda device: True)
+    monkeypatch.setattr(xprof, "_device_warmup",
+                        lambda device: seen.append(xprof.recording()))
+    prof = Profiler(every_run_dir=str(tmp_path / "runs"), device="cpu")
+    if mode == "window":
+        prof.window(0.05, out_dir=str(tmp_path / "w"))
+    else:
+        handle = prof.trace_run()
+        assert xprof.recording()
+        handle.close()
+    # The burst ran once, before the trace counted as recording.
+    assert seen == [False] and not xprof.recording()
+
+
+def test_device_trace_warmup_failure_releases_the_gate(tmp_path,
+                                                       monkeypatch):
+    from bigslice_tpu_torch.utils import xprof
+
+    def broken(device):
+        raise RuntimeError("no card")
+
+    monkeypatch.setattr(xprof, "_traces_device", lambda device: True)
+    monkeypatch.setattr(xprof, "_device_warmup", broken)
+    prof = Profiler(every_run_dir=str(tmp_path / "runs"), device="cpu")
+    assert prof.trace_run() is None  # a run is never failed by profiling
+    with pytest.raises(RuntimeError, match="no card"):
+        prof.window(0.05, out_dir=str(tmp_path / "w"))
+    assert not xprof.recording()
+    monkeypatch.setattr(xprof, "_traces_device", lambda device: False)
+    assert prof.window(0.05, out_dir=str(tmp_path / "w2"))["files"]
+
+
 def test_profiler_busy_rejects_second_window(tmp_path):
     prof = Profiler(device="cpu")
     started = threading.Event()

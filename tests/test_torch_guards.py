@@ -254,6 +254,60 @@ def test_observability_plane_runs_without_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_data_plane_and_kmeans_run_without_jax():
+    """Parquet -> Reduce -> write_parquet, a memory:// store and spill,
+    to_arrow and k-means run with neither JAX nor the JAX package in
+    ``sys.modules``; importing the package alone (or its models) loads
+    none of pyarrow, fsspec and pandas."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        import numpy as np
+        import bigslice_tpu_torch as bs
+        import bigslice_tpu_torch.models
+        from bigslice_tpu_torch.frame import arrow
+        from bigslice_tpu_torch.utils import fileio
+        lazy = [m for m in ("pyarrow", "fsspec", "pandas")
+                if m in sys.modules]
+        assert not lazy, lazy
+        import pyarrow as pa, pyarrow.parquet as pq
+        d = tempfile.mkdtemp()
+        rng = np.random.default_rng(1)
+        k, v = rng.integers(0, 50, 4000), rng.integers(0, 9, 4000)
+        pq.write_table(pa.table({"k": k, "v": v}), os.path.join(d, "a.parquet"),
+                       row_group_size=500)
+        sess = bs.Session(executor=bs.MeshExecutor(device="cpu"))
+        res = sess.run(bs.Reduce(bs.ParquetReader(
+            4, os.path.join(d, "*.parquet"), out=[np.int32, np.int32]),
+            lambda a, b: a + b))
+        assert dict(res.rows()) == {
+            int(i): int(v[k == i].sum()) for i in np.unique(k)}
+        res.write_parquet("memory://guard/out")
+        assert arrow.parquet_row_group_count(
+            "memory://guard/out-0000-of-0004.parquet") == 1
+        assert res.to_arrow().num_rows == 50
+        os.environ["BIGSLICE_SHUFFLE"] = "spill"
+        os.environ["BIGSLICE_SPILL_DIR"] = "memory://guard/spill"
+        r2 = bs.Session(executor=bs.MeshExecutor(device="cpu")).run(
+            bs.Reduce(bs.Const(4, k.astype(np.int32), v.astype(np.int32)),
+                      lambda a, b: a + b))
+        assert sorted(r2.rows()) == sorted(res.rows())
+        del os.environ["BIGSLICE_SHUFFLE"]
+        from bigslice_tpu_torch.models import kmeans
+        pts = np.concatenate([rng.normal(10 * i, 1, (40, 3))
+                              for i in range(3)]).astype(np.float32)
+        c = kmeans.kmeans(sess, pts, k=3, iters=3, num_shards=2)
+        assert np.allclose(c, kmeans.kmeans_oracle(pts, 3, 3), atol=1e-4)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_entry_points_raise_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")

@@ -1016,3 +1016,134 @@ def test_hub_launches_equal_the_launch_counts(dev, executor):
         assert dev_sum["hbm"]["source"] == "memory_stats"
         assert dev_sum["hbm"]["peak_bytes"] == \
             torch.cuda.max_memory_allocated()
+
+
+@pytest.mark.parametrize("nparts", [1, 4, 1000])
+def test_hash_partition_bfloat16_keys(dev, nparts):
+    """bfloat16 keys take the 16-bit float code: bit-equal to the plain
+    version, -0.0 and +0.0 in one partition."""
+    rng = np.random.RandomState(nparts)
+    n = (1 << 20) + 5
+    f = torch.from_numpy((rng.randn(n) * 1e3).astype(np.float32))
+    for i, v in enumerate([0.0, -0.0, float("nan"), float("inf"),
+                           float("-inf")]):
+        f[i::97] = v
+    key = f.to(torch.bfloat16).to(dev)
+    before = cuda_kernels.LAUNCHES["hash_partition"]
+    ids, counts = cuda_kernels.hash_partition([key], nparts, 5)
+    assert cuda_kernels.LAUNCHES["hash_partition"] == before + 1
+    want_ids, want_counts = cuda_kernels.hash_partition_plain(
+        [key], nparts, 5)
+    assert torch.equal(ids, want_ids)
+    assert torch.equal(counts, want_counts)
+    zero = torch.nonzero(key == 0).squeeze(1)
+    assert bool((ids[zero] == ids[zero][0]).all())
+
+
+@pytest.mark.parametrize("url", ["local", "memory"])
+def test_parquet_reduce_on_the_card_matches_the_cpu(dev, tmp_path, url):
+    """ParquetReader -> Reduce on the card (K1 routes each row group, K2
+    on the reduce side) equals the same run on the CPU, shard by shard;
+    write_parquet's files hold the same rows."""
+    pa = pytest.importorskip("pyarrow")
+    pq = pytest.importorskip("pyarrow.parquet")
+    fsspec = pytest.importorskip("fsspec")
+    import bigslice_tpu_torch as bs
+
+    rng = np.random.default_rng(12)
+    n = 1 << 20
+    keys = rng.integers(0, 1 << 16, n)
+    vals = rng.integers(-(1 << 40), 1 << 40, n)
+    base = (str(tmp_path / "in") if url == "local"
+            else f"memory://gpu-parquet-{id(tmp_path)}")
+    path = f"{base}/rows.parquet"
+    if url == "local":
+        (tmp_path / "in").mkdir()
+    with fsspec.open(path, "wb") as fh:
+        pq.write_table(pa.table({"k": keys, "v": vals}), fh,
+                       row_group_size=1 << 16)
+
+    def run(ex):
+        return bs.Session(executor=ex).run(bs.Reduce(
+            bs.ParquetReader(4, path, out=[np.int32, np.int32]),
+            lambda a, b: a + b))
+
+    cuda_kernels.reset_launches()
+    res = run(bs.MeshExecutor(auto_dense=False))
+    got = bs.result_shard_rows(res)
+    assert cuda_kernels.LAUNCHES["hash_partition"] == 16
+    assert cuda_kernels.LAUNCHES["hash_aggregate"] > 0
+    want = bs.result_shard_rows(run(bs.MeshExecutor(device="cpu",
+                                                    auto_dense=False)))
+    for g, w in zip(got, want):
+        for gc, wc in zip(g, w):
+            assert gc.tobytes() == wc.tobytes()
+    sums = np.bincount(keys, weights=vals.astype(np.int32))
+    k = np.concatenate([s[0] for s in got])
+    v = np.concatenate([s[1] for s in got])
+    assert np.array_equal(v, sums[k].astype(np.int64).astype(np.int32))
+    res.write_parquet(f"{base}/out")
+    for s in range(4):
+        with fsspec.open(f"{base}/out-{s:04d}-of-0004.parquet", "rb") as fh:
+            t = pq.read_table(fh)
+        assert np.array_equal(np.sort(t.column(0).to_numpy()),
+                              np.sort(got[s][0]))
+
+
+def test_kmeans_on_the_card_matches_the_cpu(dev):
+    """kmeans_step on the card against the CPU's, and kmeans through
+    Session() on the card against the CPU run from the same start."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.models import kmeans as km
+
+    rng = np.random.default_rng(3)
+    pts = (rng.normal(0, 10, (32, 16))[rng.integers(0, 32, 1 << 14)]
+           + rng.standard_normal((1 << 14, 16))).astype(np.float32)
+    cents = pts[:32].copy()
+    got = km.kmeans_step(torch.from_numpy(pts).to(dev),
+                         torch.from_numpy(cents).to(dev)).cpu().numpy()
+    want = km.kmeans_step(torch.from_numpy(pts),
+                          torch.from_numpy(cents)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    cuda_kernels.reset_launches()
+    on_card = km.kmeans(bs.Session(), pts, k=32, iters=3, num_shards=4)
+    assert cuda_kernels.LAUNCHES["hash_partition"] > 0
+    on_cpu = km.kmeans(bs.Session(executor=bs.MeshExecutor(device="cpu")),
+                       pts, k=32, iters=3, num_shards=4)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_profiler_window_holds_every_launch(dev, tmp_path):
+    import json
+    import threading
+
+    from bigslice_tpu_torch.utils import xprof
+
+    keys = [torch.arange(1 << 20, dtype=torch.int32, device=dev)]
+    done = threading.Event()
+    failed = []
+
+    def launch():
+        try:
+            while not xprof.recording():
+                pass
+            for _ in range(8):
+                cuda_kernels.hash_partition(keys, 4, 0)
+            torch.cuda.synchronize()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            failed.append(e)
+        finally:
+            done.set()
+
+    t = threading.Thread(target=launch)
+    t.start()
+    out = xprof.Profiler(device="cuda").window(
+        60.0, out_dir=str(tmp_path / "w"), until=done)
+    t.join()
+    assert not failed, failed
+    with open(str(tmp_path / "w" / out["files"][0])) as fp:
+        events = json.load(fp)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "hash_partition_kernel" in str(e.get("name"))]
+    assert len(k1) == 8
+    assert any(e.get("name") == "xprof_warmup" for e in events)

@@ -351,3 +351,66 @@ def test_lost_spill_entry_reruns_the_group(monkeypatch):
     assert dict(res.rows()) == oracle
     assert lost
     sess.shutdown()
+
+
+def test_spill_exchange_on_a_memory_url_base(monkeypatch, ref_session):
+    """BIGSLICE_SPILL_DIR=memory://...: the exchange spills through a
+    FileStore on the URL, the shards equal the in-program run and the
+    JAX package's, a discard retires the entries, and close() leaves the
+    operator-named base alone (no private temp directory)."""
+    fsspec = pytest.importorskip("fsspec")
+    name = f"torch-spill-{os.getpid()}"
+    monkeypatch.setenv("BIGSLICE_SPILL_DIR", f"memory://{name}")
+    keys, vals = _keyed()
+    want = bst.result_shard_rows(ref_session.run(
+        ref_bs.Reduce(ref_bs.Const(8, keys, vals), _add)))
+
+    def make(bs):
+        return bs.Reduce(bs.Const(8, keys, vals), _add)
+
+    mem, _, _ = _run(monkeypatch, make)
+    spill, ex, sess = _run(monkeypatch, make, mode="spill")
+    _assert_shards_equal(spill, mem)
+    _assert_shards_equal(spill, want)
+    (out,) = _spilled(ex)
+    assert out.exchange.spill_bytes > 0
+    assert ex._spill_tmp is None
+    assert ex._spill_store().prefix == f"memory://{name}"
+    fs = fsspec.filesystem("memory")
+    assert fs.find(f"/{name}")
+    producer = next(t for (_, t) in ex._task_index.values()
+                    if isinstance(ex._outputs.get(t.group_key),
+                                  shuffleplan.SpilledGroupOutput))
+    ex.discard(producer)
+    assert fs.find(f"/{name}") == []
+    sess.shutdown()
+    assert ex._spill_tmp is None
+    if fs.exists(f"/{name}"):
+        fs.rm(f"/{name}", recursive=True)
+
+
+def test_lost_spill_entry_on_a_memory_url_reruns_the_group(monkeypatch):
+    keys, vals = _keyed(2000)
+    oracle = {}
+    for k, v in zip(keys.tolist(), vals.tolist()):
+        oracle[k] = oracle.get(k, 0) + v
+    monkeypatch.setenv("BIGSLICE_SHUFFLE", "spill")
+    monkeypatch.setenv("BIGSLICE_SPILL_DIR",
+                       f"memory://torch-spill-lost-{os.getpid()}")
+    orig = shuffleplan.SpillExchange.read_partition
+    lost = []
+
+    def lose_once(self, partition):
+        if not lost:
+            lost.append(partition)
+            self.store.drop(self.names[0], partition)
+        return orig(self, partition)
+
+    monkeypatch.setattr(shuffleplan.SpillExchange, "read_partition",
+                        lose_once)
+    sess = bst.Session(executor=bst.MeshExecutor(device="cpu",
+                                                 prefetch_depth=0))
+    assert dict(sess.run(bst.Reduce(bst.Const(4, keys, vals),
+                                    _add)).rows()) == oracle
+    assert lost
+    sess.shutdown()

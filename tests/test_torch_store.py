@@ -1,10 +1,15 @@
 """The port's FileStore (``bigslice_tpu_torch.exec.store``), mirroring
-the JAX package's store tests on local paths: the round trip, streaming
-reads, the empty partition, atomic writes, prefetch warming, the
-discard race and quarantine. The two packages' FileStores share a
-layout and a codec, so each reads the other's partitions, row for row.
+the JAX package's store tests: the round trip, streaming reads, the
+empty partition, atomic writes, prefetch warming, the discard race and
+quarantine, on local paths and (the ``*_on_a_url`` cases) on
+``memory://`` prefixes through fsspec. The two packages' FileStores
+share a layout and a codec, so each reads the other's partitions, row
+for row, on either kind of prefix. ``memory://`` is one filesystem a
+process: every case takes its own prefix.
 """
 
+import itertools
+import sys
 import threading
 import time
 
@@ -100,7 +105,10 @@ def test_atomic_write_cleanup_on_error(tmp_path):
     assert list((tmp_path / "d").iterdir()) == []
 
 
-def test_url_prefix_raises_by_name():
+def test_url_prefix_raises_by_name(monkeypatch):
+    """Without fsspec a URL store raises by name (with it, the memory://
+    cases below run)."""
+    monkeypatch.setitem(sys.modules, "fsspec", None)
     with pytest.raises(fileio.URLNotPorted, match="fsspec"):
         FileStore("memory://bucket/run")
 
@@ -216,6 +224,173 @@ def test_corrupt_file_is_quarantined_and_missing(tmp_path):
 def test_aux_blobs_and_drop(tmp_path, make):
     store = MemoryStore() if make == "memory" else FileStore(
         str(tmp_path / "store"))
+    assert store.get_aux("a") is None
+    store.put_aux("a", b"xyz")
+    assert store.get_aux("a") == b"xyz"
+    name = TaskName(1, "d", 0, 1)
+    store.put(name, 0, [_frame([1])])
+    store.put(name, 1, [_frame([2])])
+    store.drop(name, 0)
+    assert not store.committed(name, 0) and store.committed(name, 1)
+
+
+# -- memory:// prefixes (the JAX package's tests/test_store.py cases) -----
+
+_URL_IDS = itertools.count()
+
+
+@pytest.fixture
+def url():
+    """A fresh memory:// prefix, removed after the test."""
+    import fsspec
+
+    name = f"torch-store-{next(_URL_IDS)}"
+    yield f"memory://{name}"
+    fs = fsspec.filesystem("memory")
+    if fs.exists(f"/{name}"):
+        fs.rm(f"/{name}", recursive=True)
+
+
+def test_filestore_roundtrip_on_a_url(url):
+    store = FileStore(url)
+    name = TaskName(1, "op", 0, 2)
+    store.put(name, 0, [_frame([1, 2]), _frame([3])])
+    assert store.committed(name, 0) and not store.committed(name, 1)
+    assert [f.cols[0].tolist() for f in store.read(name, 0)] == [[1, 2], [3]]
+    store.discard(name)
+    assert not store.committed(name, 0)
+    with pytest.raises(Missing):
+        store.read(name, 0)
+
+
+def test_filestore_read_streams_and_empty_partition_on_a_url(url):
+    store = FileStore(url)
+    name = TaskName(1, "big", 0, 1)
+    store.put(name, 0, [_frame(list(range(100))) for _ in range(5)])
+    r = store.read(name, 0)
+    assert not isinstance(r, (list, tuple))
+    assert len(next(iter(r))) == 100
+    empty = TaskName(1, "empty", 0, 1)
+    store.put(empty, 0, [])
+    assert store.committed(empty, 0)
+    assert list(store.read(empty, 0)) == []
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_each_package_reads_the_others_partitions_on_a_url(url, writer):
+    rng = np.random.RandomState(4)
+    cols = [rng.randint(0, 1000, 300).astype(np.int32),
+            rng.rand(300, 3).astype(np.float32)]
+    if writer == "jax":
+        RefFileStore(url).put(RefTaskName(2, "op@x.py:3", 1, 4), 5,
+                              [RefFrame(cols, prefix=1)])
+        got = list(FileStore(url).read(TaskName(2, "op@x.py:3", 1, 4),
+                                       5))[0].cols
+    else:
+        FileStore(url).put(TaskName(2, "op@x.py:3", 1, 4), 5,
+                           [Frame.from_numpy(cols)])
+        got = list(RefFileStore(url).read(
+            RefTaskName(2, "op@x.py:3", 1, 4), 5))[0].to_host().cols
+    for g, w in zip(got, cols):
+        assert np.asarray(g).tobytes() == w.tobytes()
+
+
+def test_session_with_url_store_matches_the_jax_package(url):
+    """Every task output of a local-executor session persisted to a
+    memory:// store; the shards equal the JAX package's on its own."""
+    import bigslice_tpu as ref_bs
+    import bigslice_tpu_torch as bst
+    from bigslice_tpu.exec.local import LocalExecutor as RefLocal
+    from bigslice_tpu.exec.session import Session as RefSession
+
+    keys = np.arange(40, dtype=np.int32) % 5
+    ones = np.ones(40, np.int32)
+    sess = bst.Session(executor=bst.LocalExecutor(
+        device="cpu", store=FileStore(f"{url}/port")))
+    got = bst.result_shard_rows(sess.run(bst.Reduce(bst.Const(4, keys, ones),
+                                                    lambda a, b: a + b)))
+    ref = RefSession(executor=RefLocal(store=RefFileStore(f"{url}/jax")))
+    want = bst.result_shard_rows(ref.run(ref_bs.Reduce(
+        ref_bs.Const(4, keys, ones), lambda a, b: a + b)))
+    for g, w in zip(got, want):
+        assert [c.tobytes() for c in g] == [c.tobytes() for c in w]
+    assert dict(zip(*[np.concatenate(c) for c in zip(*got)])) == \
+        {i: 8 for i in range(5)}
+
+
+def test_atomic_write_cleanup_on_error_on_a_url(url):
+    """A failing writer leaves neither the key nor its temp key."""
+    import fsspec
+
+    path = f"{url}/d/x"
+    with pytest.raises(RuntimeError):
+        with fileio.atomic_write(path) as fp:
+            fp.write(b"partial")
+            raise RuntimeError("boom")
+    assert not fileio.exists(path)
+    assert fsspec.filesystem("memory").find(url.split("://")[1]) == []
+    with fileio.atomic_write(path) as fp:
+        fp.write(b"whole")
+    with fileio.open_read(path) as fp:
+        assert fp.read() == b"whole"
+    assert fileio.size(path) == 5 and fileio.mtime(path) > 0
+
+
+def test_url_readers_do_not_share_a_position(url):
+    """memory:// hands every opener one stored file: each reader gets
+    its own position (concurrent readers of one key interleave)."""
+    path = f"{url}/r"
+    with fileio.atomic_write(path) as fp:
+        fp.write(bytes(range(10)))
+    a, b = fileio.open_read(path), fileio.open_read(path)
+    assert a.read(3) == bytes([0, 1, 2])
+    assert b.read(3) == bytes([0, 1, 2])
+    assert a.read(2) == bytes([3, 4])
+
+
+def test_filestore_prefetch_on_a_url(url):
+    """Warming serves one read, a missing partition stays Missing, and a
+    discard drops a warmed entry (the generation guard), on memory://."""
+    store = FileStore(url)
+    name = TaskName(1, "warm", 0, 1)
+    store.put(name, 0, [_frame([4, 5, 6])])
+    store.prefetch(name, 0)
+    assert _wait(lambda: (name, 0) in store._warm)
+    assert [f.cols[0].tolist() for f in store.read(name, 0)] == [[4, 5, 6]]
+    assert (name, 0) not in store._warm
+    assert [f.cols[0].tolist() for f in store.read(name, 0)] == [[4, 5, 6]]
+    gone = TaskName(1, "nothere", 0, 1)
+    store.prefetch(gone, 0)
+    assert _wait(lambda: (gone, 0) not in store._warm_pending)
+    with pytest.raises(Missing):
+        store.read(gone, 0)
+    store.prefetch(name, 0)
+    assert _wait(lambda: (name, 0) in store._warm)
+    store.discard(name)
+    with pytest.raises(Missing):
+        store.read(name, 0)
+
+
+def test_corrupt_url_file_is_quarantined_and_missing(url):
+    store = FileStore(url)
+    name = TaskName(1, "bad", 0, 1)
+    store.put(name, 0, [_frame(list(range(50)))])
+    path = store._path(name, 0)
+    with fileio.open_read(path) as fp:
+        data = bytearray(fp.read())
+    data[40] ^= 0xFF
+    with fileio.atomic_write(path) as fp:
+        fp.write(bytes(data))
+    with pytest.raises(Missing, match="quarantined"):
+        list(store.read(name, 0))
+    assert store.quarantined == 1 and not store.committed(name, 0)
+    assert fileio.exists(path + ".quarantine")
+    store.put(name, 0, [_frame([7])])
+    assert [f.cols[0].tolist() for f in store.read(name, 0)] == [[7]]
+
+
+def test_aux_blobs_and_drop_on_a_url(url):
+    store = FileStore(url)
     assert store.get_aux("a") is None
     store.put_aux("a", b"xyz")
     assert store.get_aux("a") == b"xyz"
