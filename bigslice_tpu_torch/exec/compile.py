@@ -10,6 +10,10 @@
 - *Combiner plumbing*: a consumer's combiner is wired into its
   *producer* tasks' partitioners for map-side combining; with machine
   combiners, the producers of one shuffle share a ``combine_key``.
+- *Coded combines*: with a coded planner (``BIGSLICE_CODED=combine``,
+  ``exec/codedplan.py``) a combining producer set of k shards becomes
+  k + r striped coverage members (``_compile_coded``); unset, the graph
+  is unchanged.
 
 The task graph for a pipeline equals the JAX package's, name for name
 (``graph_string``).
@@ -61,8 +65,13 @@ _compiler_serial = itertools.count(1)
 
 class Compiler:
     def __init__(self, inv_index: int, shuffle_mode: Optional[str] = None,
-                 machine_combiners: bool = False):
+                 machine_combiners: bool = False, coded=None):
         self.inv_index = inv_index
+        # The coded k-of-n planner (exec/codedplan.py), frozen per
+        # compilation: the session resolves BIGSLICE_CODED once a run.
+        # None = unset, and the graph is today's (reference
+        # exec/compile.py:66).
+        self.coded = coded
         # Machine combiners: the producer tasks of one combining shuffle
         # share one combiner buffer (the local executor's
         # ``_machine_combine``), keyed by the stamped ``combine_key``.
@@ -147,21 +156,44 @@ class Compiler:
             op_name = f"{op_name}~{seen}"
 
         place_out = _device_output(part, slice_.schema)
-        tasks: List[Task] = []
-        for shard in range(num_tasks):
+
+        def deps_for_shard(shard: int) -> List[TaskDep]:
+            """The deps of the uncoded task at ``shard``, which are also
+            a coded member's deps for unit ``shard``."""
             deps: List[TaskDep] = []
             for dep_tasks, dep, dep_part in dep_task_lists:
                 if dep.shuffle:
+                    # A coded producer set carries its CoverageGroup on
+                    # every member: the consumer reads the k-of-n view.
+                    grp = (getattr(dep_tasks[0], "coded_group", None)
+                           if dep_tasks else None)
                     deps.append(TaskDep(tuple(dep_tasks), shard,
                                         expand=dep.expand,
-                                        combine_key=dep_part.combine_key))
+                                        combine_key=dep_part.combine_key,
+                                        coded=grp))
                 else:
                     # Aligned read: shard i reads dep shard i's partition 0.
                     deps.append(TaskDep((dep_tasks[shard],), 0))
+            return deps
+
+        grp = None
+        if (self.coded is not None and part.combiner is not None
+                and not part.combine_key):
+            # A coded boundary candidate: a map-side combine no machine
+            # combiner shares (group_for declines k < 2).
+            grp = self.coded.group_for(self.inv_index, op_name, num_tasks)
+        if grp is not None:
+            tasks = self._compile_coded(grp, chain, part, slice_, key,
+                                        op_name, deps_for_shard, place_out)
+            self._memo[key] = tasks
+            return tasks
+
+        tasks: List[Task] = []
+        for shard in range(num_tasks):
             task = Task(
                 name=TaskName(self.inv_index, op_name, shard, num_tasks),
                 do=_make_do(chain, shard, place_out),
-                deps=deps,
+                deps=deps_for_shard(shard),
                 partitioner=part,
                 schema=slice_.schema,
                 procs=slice_.procs,
@@ -179,6 +211,50 @@ class Compiler:
             task.group_key = (self.inv_index, op_name, self.serial, key)
             tasks.append(task)
         self._memo[key] = tasks
+        return tasks
+
+    def _compile_coded(self, grp, chain, part, slice_, key, op_name,
+                       deps_for_shard, place_out) -> List[Task]:
+        """The ``n = k + r`` striped coverage members of one coded
+        boundary (reference exec/compile.py:303-351). Member ``i``
+        computes units ``grp.covers(i)``, unit ``u`` being the uncoded
+        task at shard ``u``'s work (its do closure, deps, partitioner
+        and combiner), and stores each unit under
+        ``grp.cover_name(u, i)``."""
+        tasks: List[Task] = []
+        for i in range(grp.n):
+            deps: List[TaskDep] = []
+            units = []
+            for u in grp.covers(i):
+                lo = len(deps)
+                deps.extend(deps_for_shard(u))
+                # (unit, do, dep_lo, dep_hi): the executor slices the
+                # member's dep factories back apart per unit.
+                units.append((u, _make_do(chain, u, place_out), lo,
+                              len(deps)))
+            task = Task(
+                name=TaskName(self.inv_index, f"{op_name}~k{grp.k}r{grp.r}",
+                              i, grp.n),
+                do=_coded_body_unused,
+                deps=deps,
+                partitioner=part,
+                schema=slice_.schema,
+                procs=slice_.procs,
+                exclusive=slice_.exclusive,
+            )
+            task.chain = chain
+            task.coded_group = grp
+            task.coded_units = units
+            # The plan's stamp on the members alone (consumers keep
+            # their configuration).
+            task.partition_config = (f"coded:k{grp.k}r{grp.r}",)
+            task.shuffle_mode = self.shuffle_mode
+            # Per-unit outputs live under cover names the spill exchange
+            # does not track: coverage members always run whole.
+            task.spill_ineligible = "coded coverage partials"
+            task.group_key = (self.inv_index, op_name, self.serial, key)
+            tasks.append(task)
+        grp.tasks = tuple(tasks)
         return tasks
 
     def _compile_result(self, result, slice_: Slice,
@@ -323,6 +399,13 @@ def _make_do(chain: Sequence[Slice], shard: int, place_out: bool = False):
         return placed(reader, place_out)
 
     return do
+
+
+def _coded_body_unused(dep_factories, place=None):
+    # A coverage member runs unit by unit (LocalExecutor._execute_coded):
+    # reaching the task-level body means an executor missed that branch.
+    raise RuntimeError(
+        "coded coverage task body must run via _execute_coded, not task.do")
 
 
 def compile_slice(slice_: Slice, inv_index: int = 1) -> List[Task]:

@@ -17,6 +17,13 @@ split into partitions (``partition_frame``) and the device combine (the
 sort and segmented scan, ``segment.cached_reduce_kernel``) run on the
 card; host functions, host keys and the host combine run on the host,
 and a host chain's frames never visit the card.
+
+The robustness plane (the JAX package's): the ``task.run`` chaos seam
+after each RUNNING claim, cooperative cancellation between frames (a
+``TaskCancelled`` settles CANCELLED), a coded coverage member run unit
+by unit (``_execute_coded``) and read back through the masked k-of-n
+view (``_coded_dep_factory``), and speculative duplicates of
+stragglers on free permits (``speculate``).
 """
 
 from __future__ import annotations
@@ -30,8 +37,9 @@ import torch
 
 from bigslice_tpu_torch import sliceio, sortio
 from bigslice_tpu_torch.exec import store as store_mod
-from bigslice_tpu_torch.exec.task import Task, TaskState
+from bigslice_tpu_torch.exec.task import Task, TaskCancelled, TaskState
 from bigslice_tpu_torch.frame.frame import Frame
+from bigslice_tpu_torch.utils import faultinject
 from bigslice_tpu_torch.utils import metrics as metrics_mod
 
 # Rows a partition buffer holds before an incremental pre-combine
@@ -98,6 +106,16 @@ class _Limiter:
             self._cond.wait_for(lambda: self._avail >= n)
             self._avail -= n
 
+    def try_acquire(self, n: int) -> bool:
+        """Permits only if they are free now: a speculative duplicate
+        never takes capacity from a first run."""
+        n = min(n, self.capacity)
+        with self._cond:
+            if self._avail < n:
+                return False
+            self._avail -= n
+            return True
+
     def release(self, n: int) -> None:
         n = min(n, self.capacity)
         with self._cond:
@@ -153,6 +171,10 @@ class LocalExecutor:
         self._mc_contrib: dict = {}        # ck -> {shard: [parts]}
         self._mc_committed: dict = {}      # (ck, p) -> Frame
         self._mc_keys_committed: set = set()
+        # Speculative duplicates (exec/adaptive.py): at most one racing
+        # duplicate a task name.
+        self._spec_lock = threading.Lock()
+        self._spec_inflight: set = set()
 
     def _place(self, frame: Frame) -> Frame:
         return frame.to(self.device)
@@ -207,21 +229,22 @@ class LocalExecutor:
         except Exception:  # noqa: BLE001
             pass
 
-    def _record_combine_input(self, task: Task, in_rows: int,
+    def _record_combine_input(self, op: str, inv: int, in_rows: int,
                               out_rows: int) -> None:
         """This producer's map-side combine: rows in and rows out."""
         hub = self._telemetry_hub()
         if hub is None:
             return
         try:
-            hub.record_combine_input(task.name.op, task.name.inv_index,
-                                     in_rows, out_rows)
+            hub.record_combine_input(op, inv, in_rows, out_rows)
         except Exception:  # noqa: BLE001
             pass
 
     # -- the executor interface (submit, reader, discard) -------------------
 
     def submit(self, task: Task) -> None:
+        # Only a task that runs on this pool may be speculated.
+        task._local_tier = True
         self._queue.put(task)
         with self._pool_lock:
             if self._idle == 0 and self._workers < self.procs:
@@ -257,6 +280,11 @@ class LocalExecutor:
 
     def discard(self, task: Task) -> None:
         self.store.discard(task.name)
+        # A coverage member's units live under cover names.
+        grp = getattr(task, "coded_group", None)
+        if grp is not None:
+            for u, _do, _lo, _hi in getattr(task, "coded_units", ()):
+                self.store.discard(grp.cover_name(u, task.name.shard))
         # Free the machine-combiner buffers this task consumed.
         with self._mc_lock:
             for dep in task.deps:
@@ -270,6 +298,9 @@ class LocalExecutor:
     # -- task execution -----------------------------------------------------
 
     def _dep_factory(self, dep):
+        grp = getattr(dep, "coded", None)
+        if grp is not None:
+            return self._coded_dep_factory(dep, grp)
         if dep.combine_key:
             # One shared, already-combined buffer a partition. No commit
             # means the producer group's buffers are gone: a lost dep,
@@ -328,18 +359,78 @@ class LocalExecutor:
 
         return factory
 
+    def _coded_stats(self):
+        return getattr(getattr(self, "coded", None), "stats", None)
+
+    def _coded_dep_factory(self, dep, grp):
+        """The masked k-of-n read of a coverage group (reference
+        exec/local.py:311-365): for each unit, exactly one owner's copy,
+        the first owner in the group's order whose entry exists, so the
+        consumer sees the frames the uncoded plan would give. A unit
+        with no copy left is a lost dep: its owners rerun."""
+
+        def factory():
+            stats = self._coded_stats()
+
+            def gen():
+                for u in range(grp.k):
+                    owners = grp.owners(u)
+                    served = None
+                    for oi in owners:
+                        try:
+                            reader = self.store.read(
+                                grp.cover_name(u, oi), dep.partition)
+                        except store_mod.Missing:
+                            continue
+                        served = oi
+                        try:
+                            yield from reader
+                        except store_mod.Missing as e:
+                            # Rows were yielded already: another owner's
+                            # copy would duplicate them. Rerun the unit.
+                            raise DepLost(grp.tasks[oi], all_producers=[
+                                grp.tasks[j] for j in owners]) from e
+                        break
+                    if served is None:
+                        raise DepLost(grp.tasks[owners[0]], all_producers=[
+                            grp.tasks[j] for j in owners])
+                    if stats is not None:
+                        dup = sum(1 for oj in owners if oj != served
+                                  and grp.tasks[oj].state == TaskState.OK)
+                        if dup:
+                            stats.record("masked", op=grp.op, unit=u,
+                                         extra_copies=dup)
+
+            return gen()
+
+        return factory
+
     def _run(self, task: Task) -> None:
         permits = self._limiter.capacity if task.exclusive else task.procs
         self._limiter.acquire(permits)
         try:
             if not task.transition_if(TaskState.WAITING, TaskState.RUNNING):
                 return  # another evaluation claimed it
+            if faultinject.ENABLED:
+                # Chaos seam after the RUNNING claim (reference
+                # exec/local.py:373-382): 'slow' delays the body, 'stuck'
+                # parks until cancelled, 'lose' drops the run to LOST.
+                fault = faultinject.fire("task.run")
+                fault = faultinject.absorb_slow_or_stuck(fault, task)
+                if fault is not None:
+                    raise faultinject.injected_error(fault)
             from bigslice_tpu_torch.parallel import cuda_kernels
 
             with metrics_mod.scope_context(task.scope), \
                     cuda_kernels.launch_sink(self._launch_sink(task)):
                 self._execute(task)
             task.mark_ok()
+        except TaskCancelled:
+            # CANCELLED only if still RUNNING: losing the CAS means
+            # another path settled the task (a duplicate won).
+            task.transition_if(TaskState.RUNNING, TaskState.CANCELLED)
+        except faultinject.InjectedLoss as e:
+            task.mark_lost(e)
         except DepLost as e:
             # A dependency's output vanished: this run is lost, and so
             # are its producers; the evaluator reruns them first.
@@ -351,25 +442,162 @@ class LocalExecutor:
         finally:
             self._limiter.release(permits)
 
-    def _execute(self, task: Task) -> None:
+    # -- speculative duplicates (exec/adaptive.py) ------------------------
+
+    def speculate(self, task: Task, on_outcome=None) -> bool:
+        """Race a duplicate of a RUNNING task on a free permit (reference
+        exec/local.py:408-448); True when it launched. The first to
+        finish wins by the atomic RUNNING → OK transition; deterministic
+        bodies make the loser's store puts idempotent. Never speculated:
+        a task not run by this pool, an exclusive, machine-combined or
+        coded task. ``on_outcome`` hears ``"won"`` or ``"wasted"``."""
+        if not getattr(task, "_local_tier", False):
+            return False
+        if task.exclusive or task.partitioner.combine_key:
+            return False
+        if getattr(task, "coded_group", None) is not None:
+            return False
+        if task.state != TaskState.RUNNING:
+            return False
+        with self._spec_lock:
+            if task.name in self._spec_inflight:
+                return False
+            self._spec_inflight.add(task.name)
+        if not self._limiter.try_acquire(task.procs):
+            with self._spec_lock:
+                self._spec_inflight.discard(task.name)
+            return False
+        threading.Thread(target=self._run_speculative,
+                         args=(task, on_outcome), daemon=True,
+                         name=f"speculate-{task.name.op}").start()
+        return True
+
+    def _run_speculative(self, task: Task, on_outcome) -> None:
+        won = False
+        try:
+            from bigslice_tpu_torch.parallel import cuda_kernels
+
+            with metrics_mod.scope_context(task.scope), \
+                    cuda_kernels.launch_sink(self._launch_sink(task)):
+                self._execute(task, record_telemetry=False)
+            won = task.transition_if(TaskState.RUNNING, TaskState.OK)
+        except Exception:  # noqa: BLE001 — the original still runs;
+            pass           # its own ladder judges the task
+        finally:
+            self._limiter.release(task.procs)
+            with self._spec_lock:
+                self._spec_inflight.discard(task.name)
+        if won:
+            with task._lock:
+                task.consecutive_lost = 0
+        if on_outcome is not None:
+            try:
+                on_outcome("won" if won else "wasted")
+            except Exception:  # noqa: BLE001
+                pass
+
+    def _execute(self, task: Task, record_telemetry: bool = True) -> None:
+        if getattr(task, "coded_units", None):
+            self._execute_coded(task, record_telemetry)
+            return
         spillers: List[Optional[object]] = []
         try:
-            self._execute_inner(task, spillers)
+            self._execute_inner(task, spillers, record_telemetry)
         finally:
             # Spill directories never outlive the task.
             for sp in spillers:
                 if sp is not None:
                     sp.cleanup()
 
-    def _execute_inner(self, task: Task, spillers) -> None:
+    def _execute_coded(self, task: Task,
+                       record_telemetry: bool = True) -> None:
+        """A coverage member (reference exec/local.py:504-593): each unit
+        is one uncoded shard's work (its do closure over its dep slice),
+        routed and combined as that shard's, stored under the unit's
+        cover name. Cancellation seams between units and frames stop a
+        member coverage made redundant."""
+        grp = task.coded_group
+        comb = task.combiner
+        nparts = task.num_partition
+        stats = self._coded_stats()
+        for u, do_u, lo, hi in task.coded_units:
+            task.check_cancel()
+            if faultinject.ENABLED:
+                # Chaos seam a unit (reference exec/local.py:520-527).
+                fault = faultinject.fire("coded.cover")
+                fault = faultinject.absorb_slow_or_stuck(fault, task)
+                if fault is not None:
+                    raise faultinject.injected_error(fault)
+            factories = [self._dep_factory(d) for d in task.deps[lo:hi]]
+            reader = do_u(factories, place=self._place)
+            parts: List[List[Frame]] = [[] for _ in range(nparts)]
+            pending_rows = [0] * nparts
+            flush_at = [COMBINE_FLUSH_ROWS] * nparts
+            routed_rows = [0] * nparts
+            routed_bytes = [0] * nparts
+            in_rows = 0
+            for frame in reader:
+                if not len(frame):
+                    continue
+                task.check_cancel()
+                in_rows += len(frame)
+                ids = task.partitioner.partition_ids(frame, nparts)
+                for p, sub in enumerate(partition_frame(frame, ids, nparts)):
+                    if not len(sub):
+                        continue
+                    routed_rows[p] += len(sub)
+                    routed_bytes[p] += _frame_nbytes(sub)
+                    parts[p].append(sub)
+                    pending_rows[p] += len(sub)
+                    if pending_rows[p] >= flush_at[p]:
+                        combined = comb.combine_frames(parts[p])
+                        parts[p] = [combined] if len(combined) else []
+                        pending_rows[p] = len(combined)
+                        flush_at[p] = max(COMBINE_FLUSH_ROWS,
+                                          2 * len(combined))
+            name = grp.cover_name(u, task.name.shard)
+            out_rows = 0
+            for p in range(nparts):
+                out = comb.combine_frames(parts[p])
+                out_rows += len(out)
+                self.store.put(name, p, [out] if len(out) else [])
+            if record_telemetry:
+                # Under the logical op (the uncoded name): the boundary's
+                # true cardinality, whichever plan computed it.
+                self._record_combine_input(grp.op, task.name.inv_index,
+                                           in_rows, out_rows)
+                if nparts > 1:
+                    hub = self._telemetry_hub()
+                    if hub is not None:
+                        try:
+                            hub.record_shuffle(grp.op, task.name.inv_index,
+                                               routed_rows, routed_bytes)
+                        except Exception:  # noqa: BLE001
+                            pass
+            if stats is not None:
+                stats.record("unit", op=grp.op, unit=u,
+                             member=task.name.shard, rows=in_rows)
+        # The member's own entries commit empty: consumers read the
+        # per-unit cover names.
+        for p in range(nparts):
+            self.store.put(task.name, p, [])
+
+    def _execute_inner(self, task: Task, spillers,
+                       record_telemetry: bool = True) -> None:
         factories = [self._dep_factory(d) for d in task.deps]
         reader = task.do(factories, place=self._place)
         nparts = task.num_partition
         comb = task.combiner
         if nparts <= 1 and comb is None:
             # Streamed: a streaming store writes batch by batch without
-            # holding the shard.
-            self.store.put(task.name, 0, (f for f in reader if len(f)))
+            # holding the shard. The cancellation seam rides the stream.
+            def stream():
+                for f in reader:
+                    task.check_cancel()
+                    if len(f):
+                        yield f
+
+            self.store.put(task.name, 0, stream())
             return
         parts: List[List[Frame]] = [[] for _ in range(nparts)]
         pending_rows = [0] * nparts
@@ -384,6 +612,7 @@ class LocalExecutor:
         for frame in reader:
             if not len(frame):
                 continue
+            task.check_cancel()
             ids = task.partitioner.partition_ids(frame, nparts)
             for p, sub in enumerate(partition_frame(frame, ids, nparts)):
                 if not len(sub):
@@ -412,7 +641,9 @@ class LocalExecutor:
                     spillers[p].spill(iter(parts[p]))
                     parts[p] = []
                     pending_rows[p] = 0
-        if nparts > 1:
+        if nparts > 1 and record_telemetry:
+            # A speculative duplicate skips it: the original's routed
+            # sizes are counted already.
             self._record_shuffle(task, routed_rows, routed_bytes)
         if comb is not None and task.partitioner.combine_key:
             self._machine_combine(task, parts)
@@ -439,9 +670,9 @@ class LocalExecutor:
             else:
                 frames = parts[p]
             self.store.put(task.name, p, frames)
-        if comb is not None:
-            self._record_combine_input(task, sum(routed_rows),
-                                       combined_out_rows)
+        if comb is not None and record_telemetry:
+            self._record_combine_input(task.name.op, task.name.inv_index,
+                                       sum(routed_rows), combined_out_rows)
 
     def _machine_combine(self, task: Task, parts: List[List[Frame]]) -> None:
         """Contribute this shard's partitioned output to the shared

@@ -102,6 +102,20 @@ feeding a shuffle, over host or vector inputs or machine-combined, and
 the operators only the local executor runs (``Scan``, ``MapBatches``,
 the sources). Host consumers read device outputs through the store
 bridge; device consumers stage host outputs through the arena.
+
+The robustness plane is the JAX package's: the chaos seams
+``mesh.dispatch`` (each group dispatch), ``staging.assemble`` and
+``shuffle.upload`` (each staged wave, retried with ``fileio``'s bounded
+backoff over the same host data); an *infra* failure (a CUDA
+out-of-memory error, or the injected ``InjectedInfraError``) puts the
+op on probation for ``PROBATION_SECS`` and marks its tasks LOST, so the
+evaluator resubmits them to the host tier, while a sticky CUDA error
+(an illegal address, a launch failure, a device-side assert) is the
+task's fatal error; cancellation is checked before a group dispatches
+and between its waves, never inside a launch; with an adaptive planner
+(``BIGSLICE_ADAPTIVE``) the skew policy splits a flagged consumer wave
+into row slices and the cost policy sets the wave budget from the
+card's memory.
 """
 
 from __future__ import annotations
@@ -125,7 +139,8 @@ from bigslice_tpu_torch.exec.evaluate import (PHASE_WAVE_COMPUTE,
                                               notify_phase)
 from bigslice_tpu_torch.exec import store as store_mod
 from bigslice_tpu_torch.exec.local import LocalExecutor
-from bigslice_tpu_torch.exec.task import Task, TaskName, TaskState
+from bigslice_tpu_torch.exec.task import (Task, TaskCancelled, TaskName,
+                                          TaskState)
 from bigslice_tpu_torch.frame.frame import Frame
 from bigslice_tpu_torch.ops.cogroup import Cogroup
 from bigslice_tpu_torch.ops.const import Const
@@ -147,8 +162,10 @@ from bigslice_tpu_torch.parallel import shuffle as shuffle_mod
 from bigslice_tpu_torch.parallel.jitutil import bucket_size
 from bigslice_tpu_torch.parallel.segment import compact_to_bucket, take
 from bigslice_tpu_torch.slicetype import torch_dtype
+from bigslice_tpu_torch.utils import faultinject, fileio
 
-__all__ = ["COGROUP_DEFAULT_CAP", "DeviceGroupOutput", "MeshExecutor"]
+__all__ = ["COGROUP_DEFAULT_CAP", "DeviceGroupOutput", "HostLostError",
+           "MeshExecutor", "PROBATION_SECS"]
 
 #: The least group capacity a Cogroup op records (the JAX package's
 #: starting capacity, which its ladder grows).
@@ -158,6 +175,84 @@ COGROUP_DEFAULT_CAP = 8
 #: one masked count each (a scatter-add over few bins serializes on its
 #: atomics).
 _FEW_SUBIDS = 32
+
+
+class HostLostError(RuntimeError):
+    """A host of the device plane was lost (the chaos plane's
+    ``hostloss`` kind). Raised by name: this package has no elastic mesh
+    recovery, so it is the task's fatal error."""
+
+
+#: How long an op whose device path failed with an infra error runs on
+#: the host tier before the device path is tried again (reference
+#: exec/meshexec.py:188).
+PROBATION_SECS = 30.0
+
+# The runtime's error types that are infra, matched by class name along
+# the MRO: torch.cuda.OutOfMemoryError (torch.OutOfMemoryError in newer
+# releases) — the allocator could not serve a request, and the context
+# stays usable.
+_INFRA_ERROR_TYPE_NAMES = frozenset({"OutOfMemoryError"})
+
+# What torch prints for the same class, for errors that reach us as
+# strings ("CUDA out of memory. Tried to allocate ...", "CUDA error: out
+# of memory"), and the injected marker.
+_INFRA_ERR_MARKERS = (
+    "resource_exhausted", "cuda out of memory", "cuda error: out of memory",
+)
+
+# Sticky CUDA errors poison the context for the rest of the process: the
+# host tier runs on the same card and would fail again, so these are
+# never infra, whatever else the chain says.
+_STICKY_ERR_MARKERS = (
+    "illegal memory access", "an illegal instruction",
+    "unspecified launch failure", "device-side assert",
+    "misaligned address", "cudaerrorlaunchfailure",
+    "cudaerrorillegaladdress", "uncorrectable ecc",
+    "hardware stack error", "unknown error",
+)
+
+
+def _exception_chain(e: BaseException, contexts: bool = True):
+    """The failure chain, cycle-safe: explicit causes, a TaskError's
+    ``cause``, and (by default) implicit ``__context__`` links."""
+    seen = set()
+    stack = [e]
+    while stack:
+        err = stack.pop()
+        if err is None or id(err) in seen:
+            continue
+        seen.add(id(err))
+        yield err
+        cause = getattr(err, "cause", None)
+        if isinstance(cause, BaseException):
+            stack.append(cause)
+        stack.append(err.__cause__)
+        if contexts:
+            stack.append(err.__context__)
+
+
+def _is_infra_error_type(err: BaseException) -> bool:
+    return any(c.__name__ in _INFRA_ERROR_TYPE_NAMES
+               for c in type(err).__mro__)
+
+
+def _looks_like_infra_error(e: BaseException) -> bool:
+    """Is the failure of the infra class (reference exec/meshexec.py:
+    228-264): retryable on the host tier, unlike a user error, which
+    fails the same everywhere? A sticky CUDA error anywhere in the chain
+    says no; then the type (an out-of-memory error anywhere in the
+    chain), then torch's and the injection's markers. Implicit contexts
+    are not followed: an infra error that was handled hangs off the
+    ``__context__`` of whatever the handler raised next."""
+    chain = list(_exception_chain(e, contexts=False))
+    if any(m in repr(err).lower() for err in chain
+           for m in _STICKY_ERR_MARKERS):
+        return False
+    if any(_is_infra_error_type(err) for err in chain):
+        return True
+    return any(m in repr(err).lower() for err in chain
+               for m in _INFRA_ERR_MARKERS)
 
 
 def _op_base(op: str) -> str:
@@ -468,6 +563,8 @@ class MeshExecutor:
         self._groups: Dict[Tuple, _GroupState] = {}
         # Every group that has launched, by key: all its shards' tasks.
         self._members: Dict[Tuple, List[Task]] = {}
+        # One lock a launched group: its runs take turns.
+        self._group_turns: Dict[Tuple, threading.Lock] = {}
         self._outputs: Dict[Tuple, object] = {}
         self._task_index: Dict[TaskName, Tuple[Tuple, Task]] = {}
         # Ops whose hash table overflowed: back on the sort path for good,
@@ -493,6 +590,17 @@ class MeshExecutor:
         self._spill: Optional[store_mod.FileStore] = None
         self._spill_tmp: Optional[str] = None
         self.session = None
+        # The Session attaches its planners here when their knobs engage
+        # (exec/adaptive.py, exec/codedplan.py); None runs today's path.
+        self.adaptive = None
+        self.coded = None
+        # Per-op probation after an infra failure (op base -> monotonic
+        # end), and the resubmissions it sent to the host tier.
+        self._probation: Dict[str, float] = {}
+        self._probation_runs: Dict[str, int] = {}
+        # The tasks the running group thread claimed: its cancellation
+        # checks read their requests.
+        self._claimed = threading.local()
 
     def start(self, session) -> None:
         """Bind the session whose telemetry hub and monitor this
@@ -525,6 +633,23 @@ class MeshExecutor:
 
     # -- submission -------------------------------------------------------
 
+    @property
+    def probation(self) -> Dict[str, dict]:
+        """The ops put on probation by an infra failure: op base ->
+        ``{"remaining_s", "host_runs"}`` (the resubmissions it sent to
+        the host tier)."""
+        now = time.monotonic()
+        with self._lock:
+            return {op: {"remaining_s": max(0.0, until - now),
+                         "host_runs": self._probation_runs.get(op, 0)}
+                    for op, until in self._probation.items()}
+
+    def speculate(self, task: Task, on_outcome=None) -> bool:
+        """A speculative duplicate of a RUNNING task (exec/adaptive.py),
+        delegated to the host tier, whose stamp limits it to tasks its
+        own pool runs: a device group has no duplicate to race."""
+        return self.local.speculate(task, on_outcome=on_outcome)
+
     def submit(self, task: Task) -> None:
         if not self._eligible(task):
             # The whole group shares the verdict (it is a function of
@@ -538,8 +663,10 @@ class MeshExecutor:
             if members is not None:
                 # A resubmission (lost output) of a group that launched
                 # before: the program spans every shard, so re-run the
-                # whole group now and settle only this task.
-                launch = (members, [task])
+                # whole group and settle the members then waiting (the
+                # lost members of one group arrive together; one rerun
+                # settles them all).
+                launch = (members, None)
             else:
                 g = self._groups.get(key)
                 if g is None:
@@ -797,6 +924,22 @@ class MeshExecutor:
         the sources run on the host tier."""
         if task.chain is None:
             return False
+        if getattr(task, "coded_group", None) is not None or any(
+                getattr(d, "coded", None) is not None for d in task.deps):
+            # A coverage member runs unit by unit with per-unit store
+            # names, and its consumer reads the masked view: both are
+            # the host tier's (reference exec/meshexec.py:1231-1238).
+            return False
+        opb = _op_base(task.name.op)
+        with self._lock:
+            until = self._probation.get(opb)
+            if until is not None:
+                if time.monotonic() < until:
+                    # On probation (reference exec/meshexec.py:1240-1246).
+                    self._probation_runs[opb] = \
+                        self._probation_runs.get(opb, 0) + 1
+                    return False
+                del self._probation[opb]
         last = task.chain[-1]
         part = task.partitioner
         if isinstance(last, Cogroup):
@@ -845,26 +988,84 @@ class MeshExecutor:
     # -- group orchestration ----------------------------------------------
 
     def _run_group(self, key, tasks: List[Task],
-                   arrived: List[Task]) -> None:
+                   arrived: Optional[List[Task]]) -> None:
         """Run the group of ``tasks`` (every shard) and settle the
-        ``arrived`` ones, which this run claims."""
-        claimed = [t for t in arrived
-                   if t.transition_if(TaskState.WAITING, TaskState.RUNNING)]
+        ``arrived`` ones, which this run claims; ``None`` (a rerun)
+        claims every member then WAITING. Runs of one group take turns,
+        so concurrent resubmissions never run it twice at once."""
+        with self._lock:
+            turn = self._group_turns.setdefault(key, threading.Lock())
+        with turn:
+            claimed = [t for t in (tasks if arrived is None else arrived)
+                       if t.transition_if(TaskState.WAITING,
+                                          TaskState.RUNNING)]
+            if claimed:
+                self._run_claimed(key, tasks, claimed)
+
+    def _run_claimed(self, key, tasks: List[Task],
+                     claimed: List[Task]) -> None:
+        """Dispatch the group and settle ``claimed``: OK, CANCELLED,
+        LOST (a lost dep, or an infra error: probation), or ERR."""
+        self._claimed.tasks = claimed
         try:
+            # Cancellation before dispatch (reference exec/meshexec.py:
+            # 1504-1510); between waves in _execute_waves.
+            self._check_cancel()
+            if faultinject.ENABLED:
+                # Chaos seam (reference exec/meshexec.py:1515-1524):
+                # 'slow' is absorbed, 'infra' takes the probation ladder
+                # below, 'hostloss' surfaces as HostLostError.
+                fault = faultinject.absorb_slow(
+                    faultinject.fire("mesh.dispatch"))
+                if fault is not None:
+                    err = faultinject.injected_error(fault)
+                    if fault.kind == "hostloss":
+                        err = HostLostError(
+                            f"host lost during group {tasks[0].name.op} "
+                            f"({fault.describe()}); this package has no "
+                            f"elastic mesh recovery")
+                        err.fault, err.fault_site = fault, fault.site
+                    raise err
             self._execute_group(key, tasks)
             with self._lock:
                 for t in tasks:
                     self._task_index[t.name] = (key, t)
             for t in claimed:
                 t.mark_ok()
+        except TaskCancelled:
+            # A cooperative stop: resubmittable, not fatal.
+            for t in claimed:
+                t.transition_if(TaskState.RUNNING, TaskState.CANCELLED)
         except DepLost as e:
             for p in e.producers:
-                p.mark_lost(e)
+                # A producer that is not OK is being recomputed already.
+                if p.state == TaskState.OK:
+                    p.mark_lost(e)
             for t in claimed:
                 t.mark_lost(e)
         except Exception as e:  # noqa: BLE001 — settles as the task's error
+            if _looks_like_infra_error(e):
+                # The infra class (reference exec/meshexec.py:1615-1628):
+                # the op's device path goes on probation and its tasks
+                # are LOST, so the evaluator resubmits them to the host
+                # tier until probation ends. MAX_CONSECUTIVE_LOST still
+                # bounds a loop.
+                with self._lock:
+                    self._probation[_op_base(tasks[0].name.op)] = (
+                        time.monotonic() + PROBATION_SECS)
+                for t in claimed:
+                    t.mark_lost(e)
+                return
             for t in claimed:
                 t.set_state(TaskState.ERR, e)
+        finally:
+            self._claimed.tasks = ()
+
+    def _check_cancel(self) -> None:
+        """Raise TaskCancelled if a task this group thread claimed was
+        asked to stop (all members share a deadline's request)."""
+        for t in getattr(self._claimed, "tasks", ()):
+            t.check_cancel()
 
     def _execute_group(self, key, tasks: List[Task]) -> None:
         while True:
@@ -994,12 +1195,42 @@ class MeshExecutor:
         self._note_staging(tasks[0], wave, dt, dt)
         return inputs
 
-    def _wave_budget(self) -> Optional[int]:
-        """The per-device wave working-set budget the split, the
-        prefetch clip and the subid split hold estimates against: the
-        static ``device_budget_bytes`` (the adaptive, measured budget is
-        not ported)."""
-        return self.device_budget_bytes or None
+    def _wave_budget(self, task0: Task) -> Tuple[Optional[int], bool]:
+        """The per-device wave working-set budget the split and the
+        prefetch clip hold estimates against (reference
+        exec/meshexec.py:2160-2176): the static ``device_budget_bytes``
+        when set (an explicit knob wins), else the adaptive cost
+        policy's measured ``hbm_budget()`` × headroom. Returns
+        ``(budget, adaptive)``; ``adaptive`` marks a measured budget."""
+        if self.device_budget_bytes:
+            return self.device_budget_bytes, False
+        planner = self.adaptive
+        if planner is not None:
+            b = planner.cost_wave_budget(_op_base(task0.name.op),
+                                         inv=task0.name.inv_index)
+            if b:
+                return b, True
+        return None, False
+
+    def _adaptive_skew_split(self, tasks: List[Task], wave: int, inputs):
+        """The skew policy's wave-boundary consult (reference
+        exec/meshexec.py:2178-2197): a skew-flagged producer op in the
+        wave's deps runs the wave as K row slices through
+        ``_execute_wave_sliced``, whose merge equals the unsplit wave's.
+        None runs it unsplit. The budget split's preconditions: one
+        input, no subid, a row-local chain ending in a shuffle."""
+        planner = self.adaptive
+        task0 = tasks[0]
+        if (planner is None or task0.num_partition <= 1
+                or len(inputs) != 1 or inputs[0].subid
+                or not self._splittable_chain(task0)):
+            return None
+        K = planner.skew_split_k(
+            [d.tasks[0].name.op for d in task0.deps], inputs[0].capacity,
+            inv=task0.name.inv_index)
+        if K <= 1:
+            return None
+        return self._execute_wave_sliced(tasks, wave, inputs, K)
 
     def _effective_prefetch_depth(self, task0: Task, inputs,
                                   nwaves: int) -> int:
@@ -1007,12 +1238,20 @@ class MeshExecutor:
         (1 + depth) wave working sets fit the wave budget — prefetch must
         not bust the budget the wave split enforces."""
         depth = min(self.prefetch_depth, nwaves - 1)
-        budget = self._wave_budget()
-        if depth > 0 and budget:
+        if depth <= 0:
+            return 0
+        budget, adaptive = self._wave_budget(task0)
+        if budget:
             est = self._wave_bytes_estimate(task0, inputs)
+            depth0 = depth
             while depth > 0 and (1 + depth) * est > budget:
                 depth -= 1
-        return max(depth, 0)
+            if adaptive and depth < depth0:
+                self.adaptive.note_cost_action(
+                    "prefetch_clip", _op_base(task0.name.op),
+                    inv=task0.name.inv_index, depth=depth,
+                    configured=depth0, budget_bytes=budget)
+        return depth
 
     def _execute_waves(self, task0: Task, wave_tasks: List[List[Task]],
                        inputs0=None, sink=None) -> List[DeviceGroupOutput]:
@@ -1030,6 +1269,10 @@ class MeshExecutor:
                                                  depth, sink)
         outs: List[DeviceGroupOutput] = []
         for w in range(len(wave_tasks)):
+            if w:
+                # Between-waves cancellation (reference
+                # exec/meshexec.py:2254-2257).
+                self._check_cancel()
             # Wave 0's inputs are handed on, not held across the loop.
             inputs, inputs0 = inputs0, None
             out = self._execute_wave(wave_tasks[w], w, inputs)
@@ -1103,6 +1346,11 @@ class MeshExecutor:
             inputs = inputs0
             for w in range(nwaves):
                 if w:
+                    # Between-waves cancellation (reference
+                    # exec/meshexec.py:2362-2364): the finally below
+                    # stops the stager; staged waves already returned
+                    # their arena buffers behind their copies' events.
+                    self._check_cancel()
                     t0 = time.perf_counter()
                     inputs, err, staged_s = staged.get()
                     if err is not None:
@@ -1201,7 +1449,7 @@ class MeshExecutor:
         self._await_inputs(inputs)
         self._maybe_auto_dense(task0, inputs, wave)
         with cuda_kernels.launch_sink(self._launch_sink(task0)):
-            budget = self._wave_budget()
+            budget, adaptive = self._wave_budget(task0)
             if (budget and task0.num_partition > 1 and len(inputs) == 1
                     and not inputs[0].subid
                     and self._splittable_chain(task0)
@@ -1209,7 +1457,15 @@ class MeshExecutor:
                 split = self._try_execute_wave_split(tasks, wave, inputs,
                                                      budget)
                 if split is not None:
+                    if adaptive:
+                        opb = _op_base(task0.name.op)
+                        self.adaptive.note_cost_action(
+                            "wave_split", opb, inv=task0.name.inv_index,
+                            k=self.split_runs.get(opb), budget_bytes=budget)
                     return _WaveEntry(tasks, wave, None, done=split)
+            split = self._adaptive_skew_split(tasks, wave, inputs)
+            if split is not None:
+                return _WaveEntry(tasks, wave, None, done=split)
             stages = self._stages_for(task0)
             slack = self._wave_slack(task0)
             result = self._program(task0, stages, slack)(wave, inputs)
@@ -1968,7 +2224,7 @@ class MeshExecutor:
         # ARE the data, so no overflow ladder is needed.
         per = torch.bincount(subid[valid].to(torch.int64), minlength=W)
         capr = bucket_size(int(per.max()) if per.numel() else 1)
-        budget = self._wave_budget()
+        budget = self.device_budget_bytes
         if budget:
             # Skewed subids push capr toward the whole output, so W views
             # (and the split's scratch) could double W-fold the device
@@ -2099,36 +2355,66 @@ class MeshExecutor:
         recycles the pinned buffers once it completes, and the wave
         program waits on it). On ``cpu`` the assembled buffers are the
         program's inputs. Object columns or dtype drift, and
-        ``staging_arena=False``, take ``_upload``."""
+        ``staging_arena=False``, take ``_upload``.
+
+        A transient failure of the assembly or the upload (the
+        ``staging.assemble`` and ``shuffle.upload`` seams, both at entry)
+        reruns it with ``fileio``'s bounded backoff over the same host
+        data; when the retries run out, the arena gets its buffers back
+        before the error propagates."""
         arena = self.staging_arena
         if arena.enabled:
             try:
-                host_cols, counts, capacity, bufs = staging.assemble(
-                    shard_lists, schema, self.nmesh, arena)
+                host_cols, counts, capacity, bufs = fileio.retry_transient(
+                    lambda: staging.assemble(shard_lists, schema,
+                                             self.nmesh, arena),
+                    "staging.assemble")
             except staging.StagingFallback:
                 pass
             else:
                 host_counts = arena.acquire(torch.int32, (self.nmesh,))
                 host_counts.copy_(torch.tensor(counts, dtype=torch.int32))
-                if self.device.type != "cuda":
-                    return StagedInput(host_cols, host_counts, capacity,
-                                       True, None)
-                with torch.cuda.stream(self._copy_stream):
-                    dev = [torch.empty(h.shape, dtype=h.dtype,
-                                       device=self.device)
-                           for h in host_cols + [host_counts]]
-                    for d, h in zip(dev, host_cols + [host_counts]):
-                        d.copy_(h, non_blocking=True)
-                    ready = torch.cuda.Event()
-                    ready.record(self._copy_stream)
-                arena.release(bufs + [host_counts], ready)
-                return StagedInput(dev[:-1], dev[-1], capacity, True, ready)
-        return self._upload(shard_lists, schema)
+                bufs = bufs + [host_counts]
+                try:
+                    return fileio.retry_transient(
+                        lambda: self._place_assembled(host_cols, host_counts,
+                                                      capacity, bufs),
+                        "shuffle.upload")
+                except BaseException:
+                    arena.abandon(bufs)
+                    raise
+        return fileio.retry_transient(
+            lambda: self._upload(shard_lists, schema), "shuffle.upload")
+
+    def _place_assembled(self, host_cols, host_counts, capacity: int,
+                         bufs) -> StagedInput:
+        """An assembled wave onto the device: on ``cpu`` the buffers are
+        the inputs; on ``cuda`` one ``non_blocking`` copy a column on the
+        copy stream, the event behind them recorded, and the arena
+        buffers released behind that event."""
+        if faultinject.ENABLED:
+            # Chaos seam (reference parallel/shuffle.py:661-681), before
+            # any copy is issued: a retry re-places the same host data.
+            faultinject.maybe_raise("shuffle.upload")
+        if self.device.type != "cuda":
+            return StagedInput(host_cols, host_counts, capacity, True, None)
+        with torch.cuda.stream(self._copy_stream):
+            dev = [torch.empty(h.shape, dtype=h.dtype, device=self.device)
+                   for h in host_cols + [host_counts]]
+            for d, h in zip(dev, host_cols + [host_counts]):
+                d.copy_(h, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        self.staging_arena.release(bufs, ready)
+        return StagedInput(dev[:-1], dev[-1], capacity, True, ready)
 
     def _upload(self, shard_lists, schema) -> StagedInput:
         """Stage per-shard frame lists shard by shard: each shard
         concatenated, padded to a power-of-two capacity and copied to
         the device (pageable copies on the current stream)."""
+        if faultinject.ENABLED:
+            # Chaos seam (reference parallel/shuffle.py:661-681), at entry.
+            faultinject.maybe_raise("shuffle.upload")
         frames = [Frame.concat(fl) if fl else None for fl in shard_lists]
         while len(frames) < self.nmesh:
             frames.append(None)

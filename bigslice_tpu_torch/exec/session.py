@@ -11,19 +11,23 @@ Each session carries the observability plane: a telemetry hub
 (``utils/telemetry.py``, off with ``BIGSLICE_TELEMETRY=0``), the task
 status (``utils/status.py``), an optional Chrome trace and eventer, and
 a profiler gate (``utils/xprof.py``); the executors report into the hub
-through their seams.
+through their seams. It attaches the robustness plane's planners from
+their knobs (``BIGSLICE_ADAPTIVE``, ``BIGSLICE_CODED``), and ``run``
+takes a deadline.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Any, List, Optional, Sequence, Tuple
 
 from bigslice_tpu_torch import sliceio, typecheck
 from bigslice_tpu_torch.exec import compile as compile_mod
 from bigslice_tpu_torch.exec import shuffleplan
-from bigslice_tpu_torch.exec.evaluate import MAX_CONSECUTIVE_LOST, evaluate
+from bigslice_tpu_torch.exec.evaluate import (MAX_CONSECUTIVE_LOST,
+                                              DeadlineExceeded, evaluate)
 from bigslice_tpu_torch.exec.store import Missing
 from bigslice_tpu_torch.exec.task import Task, TaskState
 from bigslice_tpu_torch.frame.frame import Frame
@@ -190,6 +194,14 @@ class Session:
     - ``debug_port``: the debug HTTP server is not ported yet; any value
       raises ``ObservabilityNotPorted``.
 
+    From the environment, as in the JAX package: ``BIGSLICE_ADAPTIVE``
+    attaches an adaptive planner (``session.adaptive``,
+    ``exec/adaptive.py``) and ``BIGSLICE_CODED`` a coded planner
+    (``session.coded``, ``exec/codedplan.py``); unset, both are None and
+    nothing of them runs. ``BIGSLICE_CHAOS`` installs a fault plan for
+    the process (``utils/faultinject.py``). The JAX package's ``elastic``
+    and ``mesh_provider`` (elastic mesh recovery) are not ported.
+
     ``session.profiler.window(seconds)`` profiles the process with
     ``torch.profiler`` on demand.
 
@@ -254,6 +266,21 @@ class Session:
         self.profiler = xprof_mod.Profiler(
             device=getattr(executor, "device", None))
         self._gate = _InvocationGate()
+        # The planners (reference exec/session.py:382-423): attached only
+        # when their knob engages; with it unset nothing of them exists.
+        from bigslice_tpu_torch.exec import adaptive as adaptive_mod
+        from bigslice_tpu_torch.exec import codedplan as codedplan_mod
+
+        self.adaptive = adaptive_mod.planner_from_env(self.telemetry)
+        if self.adaptive is not None:
+            if self.telemetry is not None:
+                self.telemetry.adaptive = self.adaptive.stats
+            executor.adaptive = self.adaptive
+        self.coded = codedplan_mod.planner_from_env(self.telemetry)
+        if self.coded is not None:
+            if self.telemetry is not None:
+                self.telemetry.coded = self.coded.stats
+            executor.coded = self.coded
         start = getattr(executor, "start", None)
         if start is not None:
             start(self)
@@ -281,12 +308,25 @@ class Session:
             self.tracer.save(self.trace_path)
             self._event("bigslice:traceSaved", path=self.trace_path)
 
-    def run(self, func: Any, *args, corr: Optional[str] = None) -> Result:
+    def run(self, func: Any, *args, corr: Optional[str] = None,
+            deadline_s: Optional[float] = None) -> Result:
         """Compile and evaluate ``func(*args)``: ``func`` is a registered
         ``Func`` (invoked; an exclusive one's run takes the session
         alone), a Slice, or a callable returning one. ``corr`` is the
         run's correlation id in the trace and the eventer's invocation
-        event (default ``inv<index>``); the result carries it."""
+        event (default ``inv<index>``); the result carries it.
+
+        ``deadline_s`` bounds this run's wall time, counted from the
+        call: when it expires, the tasks in flight are cooperatively
+        cancelled at their next seam (a frame, a coverage unit, a wave
+        boundary), drained, and ``DeadlineExceeded``
+        (``exec/evaluate.py``) raises. The tasks stay resubmittable."""
+        deadline = None
+        if deadline_s is not None:
+            if deadline_s <= 0:
+                raise typecheck.errorf(
+                    "run: deadline_s must be > 0, got %r", deadline_s)
+            deadline = time.monotonic() + float(deadline_s)
         exclusive = False
         if isinstance(func, Func):
             inv = func.invocation(*args)
@@ -324,20 +364,37 @@ class Session:
             )
         tasks = compile_mod.Compiler(
             inv_index, shuffle_mode=shuffleplan.plan_mode() or "",
-            machine_combiners=self.machine_combiners,
+            machine_combiners=self.machine_combiners, coded=self.coded,
         ).compile(slice_)
         self._gate.acquire(exclusive)
         try:
             try:
-                evaluate(self.executor, tasks, monitor=self.monitor)
+                evaluate(self.executor, tasks, monitor=self.monitor,
+                         deadline=deadline)
+            except DeadlineExceeded:
+                self._record_deadline("expired", deadline_s)
+                raise
             except Exception as e:
                 self._dump_flight(inv_index, e)
                 raise
+            if deadline_s is not None:
+                self._record_deadline("met", deadline_s)
         finally:
             self._gate.release(exclusive)
         res = Result(self, slice_, tasks)
         res.corr = corr
         return res
+
+    def _record_deadline(self, outcome: str, deadline_s) -> None:
+        """A ``run(deadline_s=)`` outcome into the hub's deadline plane
+        (reference exec/session.py:655-666)."""
+        if self.telemetry is None:
+            return
+        try:
+            self.telemetry.record_deadline(outcome, deadline_s=deadline_s,
+                                           source="session")
+        except Exception:  # noqa: BLE001 — telemetry never fails a run
+            pass
 
     def _dump_flight(self, inv_index, err) -> None:
         """Write the hub's flight recorder beside a fatal run (only with

@@ -39,6 +39,7 @@ import torch
 from bigslice_tpu_torch.exec import store as store_mod
 from bigslice_tpu_torch.exec.task import TaskName
 from bigslice_tpu_torch.frame.frame import Frame
+from bigslice_tpu_torch.utils import faultinject, fileio
 
 #: The values ``BIGSLICE_SHUFFLE`` takes. Unset: the planner is
 #: disengaged and every boundary runs the in-program exchange.
@@ -159,6 +160,12 @@ class SpillExchange:
         rows = int(cols[0].shape[0]) if cols else 0
         if rows == 0:
             return 0
+        if faultinject.ENABLED:
+            # Chaos seam (reference exec/shuffleplan.py:203-205), before
+            # any frame is built: a transient retries with backoff.
+            fileio.retry_transient(
+                lambda: faultinject.maybe_raise("spill.write"),
+                "spill.write")
         self.store.put(self.names[wave], partition, [Frame(list(cols),
                                                             schema)])
         nbytes = sum(c.numel() * c.element_size() for c in cols)
@@ -191,7 +198,19 @@ class SpillExchange:
         ``Missing``."""
         frames: List[Frame] = []
         for w in self._waves_of(partition):
-            frames.extend(self.store.read(self.names[w], partition))
+            name = self.names[w]
+            if faultinject.ENABLED:
+                # Chaos seam (reference exec/shuffleplan.py:244-256): the
+                # spilled partition vanishes.
+                f = faultinject.fire("spill.read")
+                if f is not None:
+                    self.store.drop(name, partition)
+                    e = store_mod.Missing(
+                        f"{name} p{partition} (injected spill loss)")
+                    e.fault = f
+                    e.fault_site = f.site
+                    raise e
+            frames.extend(self.store.read(name, partition))
         return frames
 
     def prefetch(self, partition: int) -> None:

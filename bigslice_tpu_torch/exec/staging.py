@@ -27,7 +27,10 @@ The arena's policy follows the device:
   so the assembled buffers go to the wave program as they are and are
   never recycled.
 
-``hits``/``misses``/``recycled`` count reuse. ``StagingFallback`` marks
+``hits``/``misses``/``recycled`` count reuse; ``outstanding`` counts the
+recycle-mode buffers handed out and not yet returned (``release``
+behind a copy's event, ``abandon`` when no copy was issued), so that a
+cancelled or failed wave that kept one shows. ``StagingFallback`` marks
 inputs outside the contract (object columns, dtype drift between
 frames); the caller then takes the per-shard upload path.
 
@@ -47,6 +50,7 @@ import torch
 from bigslice_tpu_torch.frame.frame import Frame
 from bigslice_tpu_torch.parallel.jitutil import bucket_size
 from bigslice_tpu_torch.slicetype import torch_dtype
+from bigslice_tpu_torch.utils import faultinject
 
 
 class StagingFallback(Exception):
@@ -128,6 +132,7 @@ class StagingArena:
         self.hits = 0
         self.misses = 0
         self.recycled = 0
+        self.outstanding = 0
 
     def _reap(self) -> None:
         """Move buffers whose copy has completed to the free list (under
@@ -137,15 +142,19 @@ class StagingArena:
             if not event.query():
                 still.append((event, bufs))
                 continue
-            for b in bufs:
-                nb = b.numel() * b.element_size()
-                if self._held_bytes + nb > self.max_bytes:
-                    continue
-                self._free.setdefault((b.dtype, tuple(b.shape)),
-                                      []).append(b)
-                self._held_bytes += nb
-                self.recycled += 1
+            self._recycle(bufs)
         self._pending = still
+
+    def _recycle(self, bufs) -> None:
+        """Put buffers on the free list (under the lock), dropping what
+        exceeds the byte bound."""
+        for b in bufs:
+            nb = b.numel() * b.element_size()
+            if self._held_bytes + nb > self.max_bytes:
+                continue
+            self._free.setdefault((b.dtype, tuple(b.shape)), []).append(b)
+            self._held_bytes += nb
+            self.recycled += 1
 
     def acquire(self, dtype: torch.dtype, shape: Tuple[int, ...]
                 ) -> torch.Tensor:
@@ -153,6 +162,7 @@ class StagingArena:
         if self.mode == "recycle":
             with self._lock:
                 self._reap()
+                self.outstanding += 1
                 free = self._free.get((dtype, shape))
                 if free:
                     buf = free.pop()
@@ -180,7 +190,17 @@ class StagingArena:
             raise ValueError("StagingArena.release: a recycled buffer "
                              "needs the event behind its copy")
         with self._lock:
+            self.outstanding -= len(bufs)
             self._pending.append((event, list(bufs)))
+
+    def abandon(self, bufs: Sequence[torch.Tensor]) -> None:
+        """Return buffers no copy ever read (the wave failed, or fell
+        back, before its upload): free at once in recycle mode."""
+        if self.mode != "recycle" or not bufs:
+            return
+        with self._lock:
+            self.outstanding -= len(bufs)
+            self._recycle(bufs)
 
     def stats(self) -> dict:
         """Counts, and ``pinned``: whether every buffer the arena holds
@@ -193,6 +213,7 @@ class StagingArena:
                     "held_bytes": self._held_bytes, "hits": self.hits,
                     "misses": self.misses, "recycled": self.recycled,
                     "in_flight": len(self._pending),
+                    "outstanding": self.outstanding,
                     "pinned": (all(b.is_pinned() for b in held)
                                if held else None)}
 
@@ -215,7 +236,12 @@ def assemble(per_shard_frames: Sequence[Sequence[Frame]], schema,
 
     Returns ``(host_cols, counts, capacity, bufs)``; ``bufs`` are the
     arena buffers to release once their upload is issued. Raises
-    ``StagingFallback`` for object columns or dtype/shape drift."""
+    ``StagingFallback`` for object columns or dtype/shape drift, having
+    returned the buffers it took."""
+    if faultinject.ENABLED:
+        # Chaos seam (reference exec/staging.py:284), at entry before any
+        # arena state moves: the executor's staging retry reruns it.
+        faultinject.maybe_raise("staging.assemble")
     lists = [list(fl) for fl in per_shard_frames]
     if len(lists) > nmesh:
         raise ValueError(f"{len(lists)} shard lists for a {nmesh}-slot "
@@ -236,18 +262,22 @@ def assemble(per_shard_frames: Sequence[Sequence[Frame]], schema,
     if any(dt is None for dt, _ in specs):
         raise StagingFallback("object column")
     host_cols: List[torch.Tensor] = []
-    for j, (dt, dims) in enumerate(specs):
-        buf = arena.acquire(dt, (nmesh * capacity,) + dims)
-        host_cols.append(buf)
-        for i, fl in enumerate(lists):
-            off = i * capacity
-            for f in fl:
-                c = f.cols[j]
-                if _col_spec(c) != (dt, dims):
-                    raise StagingFallback("column dtype/shape drift")
-                n = int(c.shape[0])
-                buf[off : off + n].copy_(c)
-                off += n
-            buf[off : (i + 1) * capacity].zero_()
+    try:
+        for j, (dt, dims) in enumerate(specs):
+            buf = arena.acquire(dt, (nmesh * capacity,) + dims)
+            host_cols.append(buf)
+            for i, fl in enumerate(lists):
+                off = i * capacity
+                for f in fl:
+                    c = f.cols[j]
+                    if _col_spec(c) != (dt, dims):
+                        raise StagingFallback("column dtype/shape drift")
+                    n = int(c.shape[0])
+                    buf[off : off + n].copy_(c)
+                    off += n
+                buf[off : (i + 1) * capacity].zero_()
+    except BaseException:
+        arena.abandon(host_cols)
+        raise
     return host_cols, counts, capacity, list(host_cols)
 

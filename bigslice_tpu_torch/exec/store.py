@@ -19,11 +19,21 @@ from typing import Dict, Iterator, List, Optional, Tuple
 from bigslice_tpu_torch.exec.task import TaskName
 from bigslice_tpu_torch.frame import codec
 from bigslice_tpu_torch.frame.frame import Frame
-from bigslice_tpu_torch.utils import fileio
+from bigslice_tpu_torch.utils import faultinject, fileio
 
 
 class Missing(KeyError):
     """The requested (task, partition) output is not committed."""
+
+
+def _injected_loss(name: TaskName, partition: int, fault) -> Missing:
+    """A chaos-plane ``store.read`` loss (reference exec/store.py:32):
+    Missing, the signal a real loss gives, carrying the fault marker so
+    that telemetry attributes the recovery to the site."""
+    e = Missing(f"{name} p{partition} (injected store loss)")
+    e.fault = fault
+    e.fault_site = fault.site
+    return e
 
 
 class Store:
@@ -86,6 +96,14 @@ class MemoryStore(Store):
             return (name, partition) in self._data
 
     def read(self, name, partition):
+        if faultinject.ENABLED:
+            # Chaos seam (reference exec/store.py:125-135): 'slow' sleeps
+            # its delay and is absorbed; a loss drops the committed entry.
+            f = faultinject.absorb_slow(faultinject.fire("store.read"))
+            if f is not None:
+                with self._lock:
+                    self._data.pop((name, partition), None)
+                raise _injected_loss(name, partition, f)
         with self._lock:
             frames = self._data.get((name, partition))
         if frames is None:
@@ -170,6 +188,12 @@ class FileStore(Store):
             return None
 
     def put(self, name, partition, frames):
+        if faultinject.ENABLED:
+            # Chaos seam (reference exec/store.py:229-236), before the
+            # frames are touched: a transient retries without consuming
+            # a one-shot stream.
+            fileio.retry_transient(
+                lambda: faultinject.maybe_raise("store.put"), "store.put")
         with self._warm_lock:
             # New contents supersede anything warmed or in flight.
             self._warm_gen[name] = self._warm_gen.get(name, 0) + 1
@@ -207,7 +231,13 @@ class FileStore(Store):
                         self._warm_worker_live = False
                         return
                     key, gen = self._warm_queue.pop(0)
-                self._prefetch_one(key, gen)
+                try:
+                    self._prefetch_one(key, gen)
+                except BaseException:  # noqa: BLE001 — isolate items
+                    # One poisoned item never stops the worker; the
+                    # direct read raises the authoritative error.
+                    with self._warm_lock:
+                        self._warm_pending.discard(key)
         except BaseException:
             with self._warm_lock:
                 self._warm_worker_live = False
@@ -240,6 +270,13 @@ class FileStore(Store):
 
     def _read_direct(self, name, partition):
         path = self._path(name, partition)
+        if faultinject.ENABLED:
+            # Chaos seam (reference exec/store.py:322-330): 'slow' is
+            # absorbed; a loss removes the committed file.
+            f = faultinject.absorb_slow(faultinject.fire("store.read"))
+            if f is not None:
+                fileio.remove(path)
+                raise _injected_loss(name, partition, f)
         try:
             fp = fileio.open_read(path)
         except FileNotFoundError as e:

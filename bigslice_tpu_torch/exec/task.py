@@ -4,7 +4,7 @@ A Task is a named node in the compiled DAG with a ``do`` closure
 (composed slice readers), dependencies on other tasks' partitioned
 outputs, and a lock + condition runtime state that the evaluator and
 executors coordinate through. State magnitudes order task progression:
-INIT < WAITING < RUNNING < OK < ERR < LOST.
+INIT < WAITING < RUNNING < OK < ERR < LOST < CANCELLED.
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ class TaskState(enum.IntEnum):
     OK = 3
     ERR = 4
     LOST = 5
+    # Cooperatively cancelled (coded coverage settled without this
+    # member, or the run's deadline expired). Not fatal, unlike ERR:
+    # the evaluator resubmits a CANCELLED task that is needed again.
+    CANCELLED = 6
 
 
 class TaskError(Exception):
@@ -34,6 +38,18 @@ class TaskError(Exception):
         self.task = task
         self.cause = cause
         super().__init__(f"task {task.name}: {cause!r}")
+
+
+class TaskCancelled(Exception):
+    """Raised inside a task body at a cancellation seam (between frames,
+    coverage units, waves) after ``request_cancel``: the executor settles
+    the task RUNNING → CANCELLED instead of ERR. Cooperative: a task
+    stops only where it can stop cleanly, never inside a launch or a
+    store write."""
+
+    def __init__(self, task: "Task"):
+        self.task = task
+        super().__init__(f"task {task.name} cancelled")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,12 +74,17 @@ class TaskDep:
                  (Reduce semantics).
     combine_key: nonempty when the producers share one machine-level
                  combiner buffer (``Session(machine_combiners=True)``).
+    coded:       the producers' ``CoverageGroup`` when the coded planner
+                 over-decomposed them (``exec/codedplan.py``): the
+                 consumer reads a masked k-of-n view. None whenever
+                 ``BIGSLICE_CODED`` is unset.
     """
 
     tasks: Tuple["Task", ...]
     partition: int
     expand: bool = False
     combine_key: str = ""
+    coded: object = None
 
 
 class Partitioner:
@@ -128,6 +149,11 @@ class Task:
         self.error: Optional[BaseException] = None
         self._subs: List[Callable] = []
         self.consecutive_lost = 0
+        # Cooperative cancellation: the flag is read at the task body's
+        # seams; the event wakes a blocked body (the chaos plane's
+        # ``stuck`` kind parks on it). Cleared on resubmission.
+        self.cancel_requested = False
+        self.cancel_event = threading.Event()
         # User counters incremented by this task's functions (merged
         # into its Result's scope).
         self.scope = metrics_mod.Scope()
@@ -178,10 +204,37 @@ class Task:
             fn(self, to)
         return True
 
+    def request_cancel(self) -> None:
+        """Ask a WAITING or RUNNING task to stop at its next cancellation
+        seam. No transition: the executor (or the evaluator, for a task
+        that never started) settles CANCELLED when the body stops."""
+        with self._lock:
+            self.cancel_requested = True
+        self.cancel_event.set()
+
+    def clear_cancel(self) -> None:
+        """Drop the cancellation request (a CANCELLED task resubmitted)."""
+        with self._lock:
+            self.cancel_requested = False
+        self.cancel_event.clear()
+
+    def check_cancel(self) -> None:
+        """Seam helper: raise TaskCancelled if cancellation was asked
+        for (one flag read)."""
+        if self.cancel_requested:
+            raise TaskCancelled(self)
+
     def mark_ok(self) -> None:
         with self._lock:
             self.consecutive_lost = 0
         self.set_state(TaskState.OK)
+
+    def reset_for_retry(self) -> None:
+        """Return a fatal task to INIT for a fresh evaluation, its
+        consecutive-loss count cleared."""
+        with self._lock:
+            self.consecutive_lost = 0
+        self.set_state(TaskState.INIT)
 
     def mark_lost(self, error: Optional[BaseException] = None) -> None:
         """Record a loss (missing output); the evaluator resubmits lost

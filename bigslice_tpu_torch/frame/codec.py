@@ -58,6 +58,7 @@ import torch
 
 from bigslice_tpu_torch.frame.frame import Frame, obj_col
 from bigslice_tpu_torch.slicetype import ColType, Schema
+from bigslice_tpu_torch.utils import faultinject
 
 MAGIC = b"BSF3"    # legacy container (npy numeric payloads)
 MAGIC4 = b"BSF4"   # raw-payload container (zero-copy decode)
@@ -366,6 +367,18 @@ def _read_exact(fp, n: int) -> bytes:
     return b"".join(parts)
 
 
+def _corrupt_body(body: bytes, kind: str) -> bytes:
+    """The chaos plane's frame damage: ``flip`` flips one payload bit
+    (the CRC catches it), ``truncate`` cuts the body short (the length
+    check catches it). The codec's own detector fires either way."""
+    if kind == "truncate":
+        return body[: len(body) // 2]
+    ba = bytearray(body)
+    if ba:
+        ba[len(ba) // 2] ^= 0x40
+    return bytes(ba)
+
+
 def read_stream(fp: BinaryIO) -> Iterator[Frame]:
     """Incrementally decode frames from a file object, one frame's bytes
     resident at a time: a consumed frame's buffer frees with its
@@ -378,6 +391,11 @@ def read_stream(fp: BinaryIO) -> Iterator[Frame]:
             raise CorruptionError("bad frame header in stream")
         (blen, _crc) = struct.unpack_from("<QI", header, 4)
         body = _read_exact(fp, blen)
+        if faultinject.ENABLED:
+            # Chaos seam (reference frame/codec.py:454-457).
+            fault = faultinject.fire("codec.read")
+            if fault is not None:
+                body = _corrupt_body(body, fault.kind)
         frame, _ = decode_frame(header + body)
         yield frame
 

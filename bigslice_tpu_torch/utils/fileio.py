@@ -16,7 +16,9 @@ open), so a failed writer leaves the final key untouched.
 Transient failures: opens and commits retry with bounded exponential
 backoff and jitter (``retry_transient``; ``BIGSLICE_IO_RETRIES``,
 ``BIGSLICE_IO_BACKOFF``). True absence (``FileNotFoundError``) never
-retries: it is the store's ``Missing`` signal.
+retries: it is the store's ``Missing`` signal. The chaos plane's
+``io.read`` and ``io.commit`` seams (``utils/faultinject.py``) sit
+inside those retries, on both tiers.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import time
 from typing import BinaryIO, Callable, Iterator, Optional
 
 from bigslice_tpu_torch.ops.reduce import LoweringNotPorted
+from bigslice_tpu_torch.utils import faultinject
 
 # Distinct temp keys for concurrent URL writes of one process.
 _TMP_IDS = itertools.count()
@@ -115,6 +118,9 @@ def open_read(path: str) -> BinaryIO:
     """Open for streaming binary read; raises FileNotFoundError when
     absent (both tiers). Transient open failures retry."""
     def attempt():
+        if faultinject.ENABLED:
+            # Chaos seam (reference utils/fileio.py:105).
+            faultinject.maybe_raise("io.read")
         if is_url(path):
             fs, p = _fs(path)
             f = fs.open(p, "rb")
@@ -196,7 +202,14 @@ def atomic_write(path: str) -> Iterator[BinaryIO]:
         try:
             with fs.open(tmp, "wb") as fp:
                 yield fp
-            retry_transient(lambda: fs.mv(tmp, p), f"commit {path}")
+
+            def commit():
+                if faultinject.ENABLED:
+                    # Chaos seam (reference utils/fileio.py:185).
+                    faultinject.maybe_raise("io.commit")
+                fs.mv(tmp, p)
+
+            retry_transient(commit, f"commit {path}")
             ok = True
         finally:
             if not ok:
@@ -210,7 +223,14 @@ def atomic_write(path: str) -> Iterator[BinaryIO]:
     try:
         with os.fdopen(fd, "wb") as fp:
             yield fp
-        retry_transient(lambda: os.replace(tmp, path), f"commit {path}")
+
+        def commit():
+            if faultinject.ENABLED:
+                # Chaos seam (reference utils/fileio.py:204).
+                faultinject.maybe_raise("io.commit")
+            os.replace(tmp, path)
+
+        retry_transient(commit, f"commit {path}")
         ok = True
     finally:
         if not ok and os.path.exists(tmp):

@@ -44,6 +44,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from bigslice_tpu_torch.utils import faultinject
+
 # Flagging thresholds. Deliberately conservative defaults: a production
 # alert that fires on balanced workloads is worse than none. Tests (and
 # operators) tune per-hub attributes directly.
@@ -135,6 +137,62 @@ class _OpRecord:
         self.combine_boundaries = 0
 
 
+class DeadlineStats:
+    """Deadline attribution (``Session.run(deadline_s=)``,
+    ``exec/evaluate.DeadlineExceeded``): outcome counts per tenant (""
+    for a session's own runs) and per source. Made by the hub's first
+    ``record_deadline``, so a process without deadlines exports no
+    sample."""
+
+    MAX_TENANTS = 64
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # (tenant, outcome) -> count; tenant "" = a session's own run.
+        self._counts: Dict[Tuple[str, str], int] = {}
+        self._sources: Dict[str, int] = {}
+
+    def record(self, outcome: str, tenant: str = "",
+               deadline_s=None, source: str = "") -> None:
+        tenant = str(tenant or "")
+        with self._lock:
+            known = {t for t, _ in self._counts}
+            if tenant not in known and len(known) >= self.MAX_TENANTS:
+                tenant = "_overflow"
+            k = (tenant, str(outcome))
+            self._counts[k] = self._counts.get(k, 0) + 1
+            if source:
+                self._sources[source] = self._sources.get(source, 0) + 1
+
+    def count(self, outcome: str, tenant: Optional[str] = None) -> int:
+        with self._lock:
+            return sum(
+                n for (t, o), n in self._counts.items()
+                if o == outcome and (tenant is None or t == tenant)
+            )
+
+    def summary(self) -> dict:
+        with self._lock:
+            by_tenant: Dict[str, Dict[str, int]] = {}
+            for (t, o), n in sorted(self._counts.items()):
+                by_tenant.setdefault(t or "_session", {})[o] = n
+            return {
+                "by_tenant": by_tenant,
+                "by_source": dict(sorted(self._sources.items())),
+            }
+
+    def prometheus_lines(self, metric, line) -> None:
+        with self._lock:
+            counts = dict(self._counts)
+        metric("bigslice_deadline_outcomes_total",
+               "Deadline outcomes (met, expired) per tenant; tenant "
+               "_session = Session.run(deadline_s=) calls.",
+               "counter")
+        for (t, o), n in sorted(counts.items()):
+            line("bigslice_deadline_outcomes_total",
+                 {"tenant": t or "_session", "outcome": o}, n)
+
+
 class TelemetryHub:
     """The aggregation layer. Participates in the monitor chain (it is
     a ``(task, state)`` callable exposing ``on_phase``) and receives
@@ -154,7 +212,8 @@ class TelemetryHub:
         # Recovery ladder: LOST tasks pending recovery (task key ->
         # (first-loss stamp, site)), per-site recovered and fatal
         # counters, and recovery-latency samples per site. The site is
-        # "organic" until fault injection is ported.
+        # the chaos plane's injecting seam found in the loss's error
+        # chain (utils/faultinject.py), else "organic".
         self._recovery_pending: Dict[str, Tuple[float, str]] = {}
         self._recovered: Dict[str, int] = {}
         self._recovery_fatal: Dict[str, int] = {}
@@ -187,6 +246,13 @@ class TelemetryHub:
         self.device = devicetelemetry.DeviceTelemetry(
             eventer=self._emit
         )
+        # The robustness plane's stats, attached by the Session when a
+        # knob engages (exec/adaptive.py, exec/codedplan.py) or made by
+        # the first record_deadline: None otherwise, and then neither
+        # the summary nor Prometheus carries a sample of them.
+        self.adaptive = None
+        self.coded = None
+        self.deadline = None
         self.skew_ratio = skew_ratio
         self.skew_min_rows = skew_min_rows
         self.straggler_factor = straggler_factor
@@ -288,11 +354,17 @@ class TelemetryHub:
                     # First loss opens the recovery window (repeat
                     # losses keep the original stamp: time-to-recovery
                     # measures loss → healthy, retries included).
-                    site = "organic"
+                    # (Reference utils/telemetry.py:405.)
+                    site = faultinject.fault_site_of(
+                        getattr(task, "error", None)) or "organic"
                     times = getattr(task, "state_times", None) or {}
                     self._recovery_pending[key] = (
                         times.get(TaskState.LOST, now), site,
                     )
+            elif state == TaskState.CANCELLED:
+                # A cooperative stop: no duration sample, and the task
+                # leaves the running ledger (live_stragglers).
+                rec.running.pop(key, None)
             elif state == TaskState.ERR:
                 rec.running.pop(key, None)
                 pend = self._recovery_pending.pop(key, None)
@@ -398,7 +470,23 @@ class TelemetryHub:
             "task_states": states,
             "events": events,
         }
+        plan = faultinject.active_plan()
+        if plan is not None:
+            doc["chaos"] = plan.snapshot()
         return doc
+
+    def record_deadline(self, outcome: str, tenant: str = "",
+                        deadline_s=None, source: str = "") -> None:
+        """One deadline outcome (met, expired): the deadline plane is
+        made here, at the first (reference utils/telemetry.py:651)."""
+        with self._lock:
+            if self.deadline is None:
+                self.deadline = DeadlineStats()
+        self.deadline.record(outcome, tenant=tenant, deadline_s=deadline_s,
+                             source=source)
+        self._emit("bigslice:deadline", outcome=outcome,
+                   tenant=tenant or None, deadline_s=deadline_s,
+                   source=source or None)
 
     # -- executor seams ---------------------------------------------------
 
@@ -688,6 +776,15 @@ class TelemetryHub:
                     "timeouts": self._drain_timeouts,
                     "wedged": list(self._drain_wedged),
                 }
+        plan = faultinject.active_plan()
+        if plan is not None:
+            snap = plan.snapshot()
+            out["chaos"] = {
+                "seed": snap["seed"],
+                "spec": snap["spec"],
+                "injected": snap["injected"],
+                "by_kind": snap["by_kind"],
+            }
         # Device plane: kernel launches and builds, HBM watermarks, donation
         # effectiveness (utils/devicetelemetry.py). Always present so
         # consumers need no existence dance; empty sub-dicts mean "no
@@ -707,6 +804,15 @@ class TelemetryHub:
             out["result_cache"] = result_cache_counts()
         except Exception:
             out["result_cache"] = {}
+        # The robustness plane (reference utils/telemetry.py:930-953):
+        # only what is attached.
+        for name in ("adaptive", "coded", "deadline"):
+            stats = getattr(self, name)
+            if stats is not None:
+                try:
+                    out[name] = stats.summary()
+                except Exception:
+                    out[name] = {}
         return out
 
     @staticmethod
@@ -936,8 +1042,8 @@ class TelemetryHub:
             # -- recovery ladder ----------------------------------------
             metric("bigslice_task_recovered_total",
                    "Lost tasks the recovery ladder brought back to OK, "
-                   "by attributed fault site ('organic' until fault "
-                   "injection is ported).", "counter")
+                   "by attributed fault site ('organic' = no chaos "
+                   "marker in the loss's error chain).", "counter")
             for site, n in sorted(self._recovered.items()):
                 line("bigslice_task_recovered_total", {"site": site}, n)
             metric("bigslice_task_recovery_fatal_total",
@@ -987,6 +1093,25 @@ class TelemetryHub:
                      {"outcome": outcome}, n)
         except Exception:
             pass
+
+        # -- the robustness plane (exec/adaptive.py, exec/codedplan.py,
+        # the deadline ladder, utils/faultinject.py) -------------------
+        for stats in (self.adaptive, self.coded, self.deadline):
+            if stats is not None:
+                try:
+                    stats.prometheus_lines(metric, line)
+                except Exception:
+                    pass
+        plan = faultinject.active_plan()
+        if plan is not None:
+            snap = plan.snapshot()
+            metric("bigslice_fault_injected_total",
+                   "Chaos-plane injected faults by site and kind "
+                   "(utils/faultinject.py).", "counter")
+            for site in sorted(snap["by_kind"]):
+                for kind, n in sorted(snap["by_kind"][site].items()):
+                    line("bigslice_fault_injected_total",
+                         {"site": site, "kind": kind}, n)
 
         metric("bigslice_stat_total",
                "Framework-internal stats.Map counters.", "counter")

@@ -176,6 +176,26 @@ card from the same centroids (an assignment may flip only within
 float32 rounding; the centroids within ``KMEANS_RTOL``), with seconds
 an iteration and the launches.
 
+Phase 28 drives the robustness plane, each part with its wall and
+launches on its own lines: (a) ``chaos-mesh``, phase 3's Reduce under
+the JAX package's mesh chaos plan at prefetch depth 0 and 2, arena on
+and off, each against its fault-free run and numpy (``mesh.dispatch``
+once, the op on probation with its host-tier runs counted, no fatal
+recovery, the seed's sorted injection log replayed, the card's memory
+and the arena's outstanding buffers back at their baselines); (b)
+``chaos-local``, phase 16's rows on ``LocalExecutor(procs=4)`` over 8
+shards with a ``FileStore`` under the package's local plan (files
+quarantined, ``store.read`` recovered); (c) ``chaos-spill``, phase
+13's spill path under write transients, a lost and a corrupted spilled
+partition; (d) ``coded``, ``BIGSLICE_CODED=combine`` on phase 16's
+Reduce, r losses silent, r + 1 loud, a stuck member cancelled; (e)
+``deadline``, ``run(deadline_s=0.5)`` with a stuck host-tier task at
+depth 2, then a fresh run; (f) ``adaptive-skew``, ``-cost`` and
+``-spec`` against ``off``; (g) ``seam-cost``, ten alternating pairs of
+phase 3's Reduce with no plan and with a rate-0 plan on every site,
+equal host syncs asserted; (h) the ``chaosslice`` CLI, two subprocesses
+at once.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -4012,6 +4032,649 @@ def phase27_kmeans(card: str) -> dict:
                 peak_gib=peak, flips=flips, centroid_err=errs, rows=len(pts))
 
 
+#: Phase 28's plans: the JAX package's (tests/test_chaos.py:373 and the
+#: local plan of its test_local_chaos_plan_recovers_bit_identical).
+MESH_CHAOS_SPEC = ("5:mesh.dispatch=1.0x1~infra,staging.assemble=1.0x2,"
+                   "shuffle.upload=1.0x2,store.read=0.25x4,"
+                   "eval.resubmit=0.15x2")
+LOCAL_CHAOS_SPEC = ("7:store.read=0.15x5,codec.read=0.2x3~flip,"
+                    "io.read=0.3x4,store.put=0.3x3,eval.resubmit=0.1x2")
+#: 28c's plan over the spill exchange: write transients, a spilled
+#: partition lost, a spilled frame's bits flipped.
+SPILL_CHAOS_SPEC = "9:spill.write=1.0x2,spill.read=1.0x1,codec.read=1.0x1~flip"
+
+
+def _sorted_log(plan) -> list:
+    return sorted((e["site"], e["kind"], e["inv_id"])
+                  for e in plan.snapshot()["log"])
+
+
+def _discard_run(ex, res) -> None:
+    """Discard every task of a run: its outputs leave the device."""
+    from bigslice_tpu_torch.exec.task import iter_tasks
+
+    for t in iter_tasks(res.tasks):
+        ex.discard(t)
+
+
+def _read_shards(res):
+    import bigslice_tpu_torch as bs
+
+    for shard in range(res.num_shards):
+        list(res.reader(shard, ()))
+    return bs.result_shard_rows(res)
+
+
+def _baseline(ex) -> tuple:
+    """The card's allocated bytes and the arena's buffers handed out and
+    not returned, after the device has drained."""
+    torch.cuda.synchronize()
+    gc.collect()
+    return (torch.cuda.memory_allocated(),
+            ex.staging_arena.stats()["outstanding"])
+
+
+def _under_plan(spec, fn):
+    """``fn()`` with the fault plan ``spec`` installed; the plan is
+    cleared whatever happens. Returns (fn's value, the plan)."""
+    from bigslice_tpu_torch.utils import faultinject
+
+    plan = faultinject.install(faultinject.parse_plan(spec))
+    try:
+        return fn(), plan
+    finally:
+        faultinject.clear()
+
+
+def _launch_delta(fn):
+    """``fn()``'s value, its wall and the launches it made, by kernel."""
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(ck.LAUNCHES)
+
+
+def phase28a_mesh_chaos(card: str) -> dict:
+    """28a: phase 3's Reduce (2**25 rows over 2**20 keys, S = 4,
+    ``auto_dense=False``) under the JAX package's mesh chaos plan, at
+    prefetch depth 0 and 2 with the staging arena on and off: shards
+    bit-equal to the fault-free run and to numpy, ``mesh.dispatch``
+    fired once, the op on probation with its resubmissions on the inner
+    LocalExecutor (counted), no fatal recovery, the same sorted
+    injection log on a second run of the seed, and the card's memory
+    and the arena's outstanding buffers back at their baselines."""
+    import bigslice_tpu_torch as bs
+
+    S = 4
+    keys, ones = _reduce_wave_input()
+    check = _count_check(keys)
+    make = lambda: bs.Reduce(bs.Const(S, keys, ones),  # noqa: E731
+                             lambda a, b: a + b)
+    out = {"configs": {}}
+    first = None
+    for i, (depth, arena) in enumerate(((0, True), (0, False), (2, True),
+                                        (2, False))):
+        label = f"depth {depth}, arena {'on' if arena else 'off'}"
+
+        def run(label=label, depth=depth, arena=arena):
+            ex = bs.MeshExecutor(auto_dense=False, prefetch_depth=depth,
+                                 staging_arena=arena)
+            sess = bs.Session(executor=ex)
+            res = sess.run(make())
+            return ex, sess, res, _read_shards(res)
+
+        (ex0, _, res0, base), base_wall, base_l = _launch_delta(run)
+        check(base, S)
+        _discard_run(ex0, res0)
+        del res0
+        mem0, _ = _baseline(ex0)
+        ((ex, sess, res, got), plan), wall, launches = _launch_delta(
+            lambda: _under_plan(MESH_CHAOS_SPEC, run))
+        _same_rows(got, base, f"28a {label}: against the fault-free run")
+        check(got, S)
+        snap = plan.snapshot()
+        if snap["injected"].get("mesh.dispatch") != 1:
+            raise AssertionError(f"28a {label}: injected {snap['injected']}")
+        rec = sess.telemetry_summary()["recovery"]
+        if rec["fatal_total"] != 0:
+            raise AssertionError(f"28a {label}: recovery {rec}")
+        prob = ex.probation
+        host_runs = sum(p["host_runs"] for p in prob.values())
+        if len(prob) != 1 or host_runs < S:
+            raise AssertionError(f"28a {label}: probation {prob}")
+        log1 = _sorted_log(plan)
+        _discard_run(ex, res)
+        del res
+        mem1, outstanding = _baseline(ex)
+        if outstanding:
+            raise AssertionError(f"28a {label}: {outstanding} arena buffers "
+                                 f"not returned")
+        replay = None
+        if i == 0:
+            # The first faulted run builds what the host tier builds once
+            # a process: the replay's baseline is after it.
+            ((ex2, _, res2, got2), plan2), _, _ = _launch_delta(
+                lambda: _under_plan(MESH_CHAOS_SPEC, run))
+            _same_rows(got2, got, "28a replay")
+            replay = _sorted_log(plan2) == log1
+            if not replay:
+                raise AssertionError("28a: the seed's second run injected "
+                                     "another sorted log")
+            _discard_run(ex2, res2)
+            del res2
+            mem2, outstanding = _baseline(ex2)
+            if mem2 != mem1 or outstanding:
+                raise AssertionError(f"28a replay: memory {mem1} -> {mem2}, "
+                                     f"outstanding {outstanding}")
+        elif mem1 != mem0:
+            raise AssertionError(f"28a {label}: memory {mem0} -> {mem1}")
+        log(f"phase 28a: mesh chaos {label}: fault-free wall {base_wall:.4f} "
+            f"s, launches {base_l}; faulted wall {wall:.4f} s, launches "
+            f"{launches}; injected {snap['injected']}; recovered "
+            f"{rec['recovered_total']} by site "
+            f"{ {k: v['recovered'] for k, v in rec['by_site'].items()} }; "
+            f"probation {prob}; memory {mem0} -> {mem1} B; replay "
+            f"{'same sorted log' if replay else '-'}; hash_off "
+            f"{sorted(ex.hash_off)}; on {card}")
+        out["configs"][label] = dict(
+            base_wall_s=base_wall, wall_s=wall, base_launches=base_l,
+            launches=launches, injected=snap["injected"],
+            recovered=rec["recovered_total"], host_runs=host_runs,
+            hash_off=sorted(ex.hash_off))
+        if first is None:
+            first = launches
+        del sess, ex, ex0
+    out["launches"] = first
+    return out
+
+
+def phase28b_local_chaos(card: str) -> dict:
+    """28b: phase 16's rows on ``LocalExecutor(procs=4)`` with a
+    ``FileStore`` on local disk under the JAX package's local plan, over
+    8 shards and 4 task threads as that package's test runs it: shards
+    bit-equal to the fault-free run, files quarantined, ``store.read``
+    among the recovered sites.
+
+    Over phase 16's 4 shards the run makes fewer than 26 ``store.read``
+    calls, so the seed's five losses (calls 26-36) all fall on the
+    read-back, whose evaluations no monitor hears, and can all land on
+    one task's retries: the evaluator's cap of five consecutive losses
+    then fails it, the designed verdict for such a plan (on the chip,
+    one run in one). 28b checks recovery, not the cap: it also raises
+    ``MAX_CONSECUTIVE_LOST`` to 25 for its run, as the JAX package's
+    ``test_reduce_survives_random_output_loss`` does (28a keeps the
+    cap)."""
+    import shutil
+    import tempfile
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec import evaluate as evaluate_mod
+    from bigslice_tpu_torch.exec import store as store_mod
+    from bigslice_tpu_torch.models.wordcount import wordcount_ids
+
+    S = 8
+    keys, _ = _reduce_wave_input()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-chaos-")
+    cap = evaluate_mod.MAX_CONSECUTIVE_LOST
+    evaluate_mod.MAX_CONSECUTIVE_LOST = 25
+    try:
+        def run(sub):
+            sess = bs.Session(executor=bs.LocalExecutor(
+                procs=4, store=store_mod.FileStore(os.path.join(tmp, sub))))
+            rows = _read_shards(sess.run(wordcount_ids(S, keys, 1 << 20)))
+            # The summary's chaos section is the installed plan's.
+            return sess, rows, sess.telemetry_summary()
+
+        (_, base, _), base_wall, base_l = _launch_delta(lambda: run("base"))
+        _count_check(keys)(base, S)
+        ((sess, got, summary), plan), wall, launches = _launch_delta(
+            lambda: _under_plan(LOCAL_CHAOS_SPEC, lambda: run("chaos")))
+        _same_rows(got, base, "28b against the fault-free run")
+        rec = summary["recovery"]
+        quarantined = sess.executor.store.quarantined
+        if not (quarantined > 0 and "store.read" in rec["by_site"]
+                and rec["fatal_total"] == 0):
+            raise AssertionError(f"28b: quarantined {quarantined}, recovery "
+                                 f"{rec}")
+        if summary["chaos"]["injected"] != plan.snapshot()["injected"]:
+            raise AssertionError("28b: the summary's chaos section differs")
+    finally:
+        evaluate_mod.MAX_CONSECUTIVE_LOST = cap
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 28b: local chaos {len(keys)} rows, S={S}: fault-free wall "
+        f"{base_wall:.4f} s, launches {base_l}; faulted wall {wall:.4f} s, "
+        f"launches {launches}; injected {plan.snapshot()['injected']}; "
+        f"quarantined {quarantined}; recovered by site "
+        f"{ {k: v['recovered'] for k, v in rec['by_site'].items()} }; on "
+        f"{card}")
+    return dict(launches=launches, wall_s=wall, base_wall_s=base_wall,
+                base_launches=base_l, quarantined=quarantined,
+                injected=plan.snapshot()["injected"])
+
+
+def phase28c_spill_chaos(card: str) -> dict:
+    """28c: phase 13's spill path (reduce-wave, ``BIGSLICE_SHUFFLE=
+    spill``) under spill.write transients, a spill.read loss and a
+    codec.read flip on the spill files: bit-equal to the fault-free
+    spilled run."""
+    import bigslice_tpu_torch as bs
+
+    S = 4
+    keys, ones = _reduce_wave_input()
+    os.environ["BIGSLICE_SHUFFLE"] = "spill"
+    try:
+        def run():
+            ex = bs.MeshExecutor(auto_dense=False)
+            sess = bs.Session(executor=ex)
+            rows = _read_shards(sess.run(bs.Reduce(
+                bs.Const(S, keys, ones), lambda a, b: a + b)))
+            return ex, sess, rows
+
+        (ex0, s0, base), base_wall, base_l = _launch_delta(run)
+        s0.shutdown()
+        _count_check(keys)(base, S)
+        ((ex, sess, got), plan), wall, launches = _launch_delta(
+            lambda: _under_plan(SPILL_CHAOS_SPEC, run))
+        _same_rows(got, base, "28c against the fault-free spilled run")
+        rec = sess.telemetry_summary()["recovery"]
+        quarantined = ex._spill.quarantined
+        sess.shutdown()
+    finally:
+        os.environ.pop("BIGSLICE_SHUFFLE", None)
+    snap = plan.snapshot()
+    if (snap["injected"] != {"spill.write": 2, "spill.read": 1,
+                             "codec.read": 1} or rec["fatal_total"]
+            or "spill.read" not in rec["by_site"]):
+        raise AssertionError(f"28c: injected {snap['injected']}, recovery "
+                             f"{rec}")
+    log(f"phase 28c: spill chaos {len(keys)} rows: fault-free wall "
+        f"{base_wall:.4f} s, launches {base_l}; faulted wall {wall:.4f} s, "
+        f"launches {launches}; injected {snap['injected']}; quarantined "
+        f"{quarantined}; recovered by site "
+        f"{ {k: v['recovered'] for k, v in rec['by_site'].items()} }; on "
+        f"{card}")
+    return dict(launches=launches, wall_s=wall, base_wall_s=base_wall,
+                base_launches=base_l, quarantined=quarantined)
+
+
+def phase28d_coded(card: str) -> dict:
+    """28d: ``BIGSLICE_CODED=combine`` on phase 16's Reduce: bit-equal to
+    ``off``; exactly r ``coded.cover`` losses complete with no
+    recompute; r + 1 (the two owners of unit 0, one worker so the order
+    is the members') recompute, loudly; a stuck member is cancelled once
+    coverage settles."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.task import TaskState, iter_tasks
+    from bigslice_tpu_torch.models.wordcount import wordcount_ids
+
+    S = 4
+    keys, _ = _reduce_wave_input()
+
+    def run(procs=None):
+        sess = bs.Session(executor=bs.LocalExecutor(procs=procs))
+        res = sess.run(wordcount_ids(S, keys, 1 << 20))
+        return sess, res, _read_shards(res)
+
+    (_, _, off), off_wall, off_l = _launch_delta(run)
+    _count_check(keys)(off, S)
+    os.environ["BIGSLICE_CODED"] = "combine"
+    try:
+        (sess, res, got), wall, launches = _launch_delta(run)
+        _same_rows(got, off, "28d coded against off")
+        st = sess.telemetry.coded
+        k, r = S, -(-S // 8)
+        if st.count("covered") != 1 or st.count("group") != 1:
+            raise AssertionError(f"28d: {st.summary()['counts']}")
+        counts = {"engaged": dict(st.summary()["counts"])}
+        walls = {"off": off_wall, "engaged": wall}
+        for label, spec, procs in (
+                ("r losses", f"5:coded.cover=1.0x{r}~lose", None),
+                ("r + 1 losses", f"5:coded.cover=1.0x{r + 1}~lose", 1),
+                ("stuck", "5:coded.cover=1.0x1~stuck", None)):
+            ((sess, res, got), plan), w, _ = _launch_delta(
+                lambda: _under_plan(spec, lambda: run(procs)))
+            _same_rows(got, off, f"28d {label}")
+            st = sess.telemetry.coded
+            c = dict(st.summary()["counts"])
+            members = [t for t in iter_tasks(res.tasks)
+                       if getattr(t, "coded_group", None) is not None]
+            if label == "r losses" and (c.get("recovered", 0)
+                                        or c.get("covered") != 1):
+                raise AssertionError(f"28d {label}: {c}")
+            if label == "r + 1 losses" and not c.get("recovered", 0):
+                raise AssertionError(f"28d {label}: no recompute, {c}")
+            if label == "stuck" and not (
+                    c.get("cancelled", 0) >= 1 and any(
+                        t.state == TaskState.CANCELLED for t in members)):
+                raise AssertionError(f"28d {label}: {c}")
+            counts[label] = c
+            walls[label] = w
+    finally:
+        os.environ.pop("BIGSLICE_CODED", None)
+    log(f"phase 28d: coded k={k} r={r} over {len(keys)} rows: walls "
+        f"{ {k: round(v, 4) for k, v in walls.items()} } s; counts "
+        f"{counts}; launches off {off_l}, engaged {launches}; on {card}")
+    return dict(launches=launches, walls_s=walls, counts=counts,
+                off_launches=off_l)
+
+
+def phase28e_deadline(card: str) -> dict:
+    """28e: ``run(deadline_s=0.5)`` under ``task.run=1.0x1~stuck`` on the
+    device executor at prefetch depth 2 (its host tier one task thread):
+    DeadlineExceeded within 0.5 s + DEADLINE_DRAIN_SECS, every task
+    pending, the card's memory and the arena at their baselines, and a
+    fresh run with no plan on the same session equal to numpy."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.evaluate import (DEADLINE_DRAIN_SECS,
+                                                  DeadlineExceeded)
+
+    S = 4
+    keys, ones = _reduce_wave_input()
+    ex = bs.MeshExecutor(prefetch_depth=2, fallback_procs=1,
+                         auto_dense=False)
+    sess = bs.Session(executor=ex)
+
+    def graph():
+        # A host-tier batch stage (the stuck task's), then the device
+        # reduce side at depth 2.
+        s = bs.MapBatches(bs.Const(S, keys, ones), lambda f: f,
+                          out=[np.int32, np.int32])
+        return bs.Reduce(s, lambda a, b: a + b)
+
+    mem0, out0 = _baseline(ex)
+
+    def expire():
+        t0 = time.perf_counter()
+        try:
+            sess.run(graph(), deadline_s=0.5)
+        except DeadlineExceeded as e:
+            return e, time.perf_counter() - t0
+        raise AssertionError("28e: the run met its deadline")
+
+    (err, raised_s), plan = _under_plan("5:task.run=1.0x1~stuck", expire)
+    mem1, out1 = _baseline(ex)
+    if not (0.5 <= raised_s < 0.5 + DEADLINE_DRAIN_SECS
+            and err.pending == 2 * S and mem1 == mem0 and out1 == out0
+            and plan.snapshot()["injected"] == {"task.run": 1}):
+        raise AssertionError(f"28e: raised after {raised_s:.3f} s, pending "
+                             f"{err.pending}, memory {mem0} -> {mem1}, "
+                             f"arena outstanding {out0} -> {out1}")
+    res, wall, launches = _launch_delta(lambda: sess.run(graph()))
+    rows = _read_shards(res)
+    _count_check(keys)(rows, S)
+    dl = sess.telemetry_summary()["deadline"]
+    log(f"phase 28e: deadline 0.5 s: DeadlineExceeded after "
+        f"{raised_s:.4f} s, pending {err.pending}, memory {mem0} -> {mem1} "
+        f"B, arena outstanding {out0} -> {out1}; fresh run {wall:.4f} s, "
+        f"launches {launches}, equal to numpy; deadline plane {dl}; on "
+        f"{card}")
+    return dict(launches=launches, raised_s=raised_s, pending=err.pending,
+                fresh_wall_s=wall, memory=[mem0, mem1])
+
+
+def _skew_keys() -> np.ndarray:
+    """Phase 3's keys with key 0 repeated 2**24 times more."""
+    keys, _ = _reduce_wave_input()
+    return np.concatenate([keys, np.zeros(1 << 24, np.int32)])
+
+
+def phase28f_adaptive(card: str) -> dict:
+    """28f: each adaptive policy against ``off``, bit-equal: skew (28f's
+    hot key through a Reshuffle and a Map into the Reduce, S = 8: the
+    consumer waves run as K row slices), cost (no
+    ``device_budget_bytes``: phase 3's reduce-wave shaped from
+    ``hbm_budget()`` × ``BIGSLICE_ADAPTIVE_HEADROOM=0.01``) and spec (a
+    ``task.run`` slow fault on the local tier, raced by a duplicate)."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.models.wordcount import wordcount_ids
+
+    out = {}
+    skeys = _skew_keys()
+    sones = np.ones(len(skeys), np.int32)
+
+    def skew_run():
+        ex = bs.MeshExecutor(auto_dense=False)
+        sess = bs.Session(executor=ex)
+        res = sess.run(bs.Reduce(bs.Map(
+            bs.Reshuffle(bs.Const(8, skeys, sones)), lambda k, v: (k, v + 0)),
+            lambda a, b: a + b))
+        return ex, sess, _read_shards(res)
+
+    def with_env(env, fn):
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            return fn()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    (_, _, off), off_wall, off_l = _launch_delta(skew_run)
+    _count_check(skeys)(off, 8)
+    (ex, sess, got), wall, launches = _launch_delta(
+        lambda: with_env({"BIGSLICE_ADAPTIVE": "skew"}, skew_run))
+    _same_rows(got, off, "28f skew against off")
+    st = sess.adaptive.stats
+    splits = [d for d in st.summary()["decisions"] if d["action"] == "split"]
+    if not splits or not any(k >= 2 for k in ex.split_runs.values()):
+        raise AssertionError(f"28f skew: no split ({st.summary()['counts']})")
+    log(f"phase 28f: skew {len(skeys)} rows, S=8: off {off_wall:.4f} s "
+        f"(launches {off_l}), skew {wall:.4f} s (launches {launches}); K "
+        f"{splits[0]['k']}, ratio {splits[0]['ratio']}, skew_splits "
+        f"{st.skew_splits}, split_runs {ex.split_runs}; on {card}")
+    out["adaptive-skew"] = dict(launches=launches, wall_s=wall,
+                                off_wall_s=off_wall, off_launches=off_l,
+                                K=splits[0]["k"], skew_splits=st.skew_splits)
+
+    keys, ones = _reduce_wave_input()
+
+    def cost_run():
+        ex = bs.MeshExecutor(auto_dense=False, prefetch_depth=2)
+        sess = bs.Session(executor=ex)
+        return ex, sess, _read_shards(sess.run(bs.Reduce(
+            bs.Const(4, keys, ones), lambda a, b: a + b)))
+
+    (_, _, off), off_wall, _ = _launch_delta(cost_run)
+    (ex, sess, got), wall, launches = _launch_delta(
+        lambda: with_env({"BIGSLICE_ADAPTIVE": "cost",
+                          "BIGSLICE_ADAPTIVE_HEADROOM": "0.01"}, cost_run))
+    _same_rows(got, off, "28f cost against off")
+    doc = sess.adaptive.stats.summary()
+    budget = [d for d in doc["decisions"] if d["action"] == "wave_budget"]
+    K = sorted(set(ex.split_runs.values()))
+    if not budget or not K or K[0] < 2:
+        raise AssertionError(f"28f cost: {doc['counts']}, split {K}")
+    log(f"phase 28f: cost reduce-wave: off {off_wall:.4f} s, cost "
+        f"{wall:.4f} s (launches {launches}); budget "
+        f"{budget[0]['budget_bytes']} B of {budget[0]['hbm_limit_bytes']} "
+        f"B (headroom {budget[0]['headroom']}), sub-waves K {K}, counts "
+        f"{doc['counts']}; on {card}")
+    out["adaptive-cost"] = dict(launches=launches, wall_s=wall,
+                                off_wall_s=off_wall,
+                                budget_bytes=budget[0]["budget_bytes"],
+                                K=K[0], counts=doc["counts"])
+
+    def spec_run():
+        sess = bs.Session(executor=bs.LocalExecutor())
+        sess.telemetry.straggler_factor = 2.0
+        res = sess.run(wordcount_ids(4, keys, 1 << 20))
+        return sess, _read_shards(res)
+
+    (_, off), off_wall, _ = _launch_delta(spec_run)
+    ((sess, got), plan), wall, launches = _launch_delta(
+        lambda: with_env({"BIGSLICE_ADAPTIVE": "spec",
+                          "BIGSLICE_CHAOS_SLOW_S": "2.0"},
+                         lambda: _under_plan("3:task.run=1.0x1~slow",
+                                             spec_run)))
+    _same_rows(got, off, "28f spec against off")
+    st = sess.adaptive.stats
+    deadline = time.monotonic() + 30.0
+    while (st.speculative_won + st.speculative_wasted
+           < st.speculative_launched and time.monotonic() < deadline):
+        time.sleep(0.01)
+    if not (st.speculative_launched >= 1 and st.speculative_won
+            + st.speculative_wasted == st.speculative_launched):
+        raise AssertionError(f"28f spec: {st.summary()['speculative']}")
+    # The slowed original finishes its (wasted) body on its own thread:
+    # wait for its permit, so that 28g's pairs time an idle card.
+    lim = sess.executor._limiter
+    while lim._avail < lim.capacity and time.monotonic() < deadline:
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    log(f"phase 28f: spec local-reduce: off {off_wall:.4f} s, slowed and "
+        f"raced {wall:.4f} s (launches {launches}); speculative "
+        f"{st.summary()['speculative']}; on {card}")
+    out["adaptive-spec"] = dict(launches=launches, wall_s=wall,
+                                off_wall_s=off_wall,
+                                speculative=st.summary()["speculative"])
+    return out
+
+
+def phase28g_seam_cost(card: str) -> dict:
+    """28g: phase 3's reduce-wave in ten alternating pairs, no plan
+    against a plan of rate 0 on every site (each seam reached, none
+    fires): both medians and the host syncs a run (asserted equal); with
+    no plan ``faultinject.fire`` is never reached and the summary holds
+    no chaos, coded or adaptive section."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.utils import faultinject
+
+    keys, ones = _reduce_wave_input()
+
+    def once():
+        ex = bs.MeshExecutor(auto_dense=False)
+        sess = bs.Session(executor=ex)
+        t0 = time.perf_counter()
+        _read_shards(sess.run(bs.Reduce(bs.Const(4, keys, ones),
+                                        lambda a, b: a + b)))
+        return time.perf_counter() - t0, sess
+
+    def run(armed: bool):
+        if armed:
+            return _under_plan("1:*=0.0", once)[0][0]
+        return once()[0]
+
+    calls0 = faultinject.CALLS
+    (_, sess), wall, launches = _launch_delta(once)
+    if faultinject.CALLS != calls0:
+        raise AssertionError("28g: a seam reached faultinject with no plan")
+    doc = sess.telemetry_summary()
+    text = sess.telemetry.prometheus_text()
+    if {"chaos", "coded", "adaptive", "deadline"} & set(doc) or any(
+            f in text for f in ("bigslice_fault_injected",
+                                "bigslice_coded", "bigslice_adaptive",
+                                "bigslice_deadline")):
+        raise AssertionError("28g: a robustness sample with no knob set")
+    run(False)
+    run(True)
+    plain, armed = [], []
+    for i in range(10):
+        for flag in ((False, True) if i % 2 == 0 else (True, False)):
+            (armed if flag else plain).append(run(flag))
+        gc.collect()
+    _count_syncs(lambda: run(False))
+    _count_syncs(lambda: run(True))
+    syncs_plain = [_count_syncs(lambda: run(False)) for _ in range(2)]
+    syncs_armed = [_count_syncs(lambda: run(True)) for _ in range(2)]
+    reached = faultinject.CALLS - calls0
+    med_p, med_a = statistics.median(plain), statistics.median(armed)
+    log(f"phase 28g: seam cost, ten alternating pairs: no plan {med_p:.4f} "
+        f"s, rate-0 plan on every site {med_a:.4f} s (median), ratio "
+        f"{med_a / med_p:.4f}; no plan {', '.join(f'{w:.4f}' for w in plain)}"
+        f"; armed {', '.join(f'{w:.4f}' for w in armed)}; host syncs a run "
+        f"{syncs_plain} against {syncs_armed}; seams reached {reached} over "
+        f"the armed runs; launches {launches}; on {card}")
+    if syncs_plain != syncs_armed:
+        raise AssertionError(f"28g: armed seams changed the host syncs "
+                             f"({syncs_plain} -> {syncs_armed})")
+    return dict(launches=launches, wall_s=wall, plain_median_s=med_p,
+                armed_median_s=med_a, plain_s=plain, armed_s=armed,
+                syncs_plain=syncs_plain, syncs_armed=syncs_armed)
+
+
+def phase28h_chaosslice(card: str) -> dict:
+    """28h: ``python -m bigslice_tpu_torch.tools.chaosslice`` as two
+    subprocesses on the card at once, with the JAX package's CLI plans
+    (its ``test_chaosslice_cli_local`` and ``_spill``): the local one on
+    a FileStore, the spill one on the device executor; each exits 0
+    with a bit-identical JSON summary."""
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    runs = {
+        "local": ["-chaos", "7:store.read=0.2x3,io.read=0.5x2,"
+                  "codec.read=0.3x1~flip", "-rows", str(1 << 20),
+                  "-shards", "4"],
+        "spill": ["-chaos", "7:spill.read=0.5x2,spill.write=0.5x2",
+                  "-rows", str(1 << 20), "-shards", "16", "-mesh",
+                  "-shuffle", "spill"],
+    }
+    t0 = time.perf_counter()
+    procs = {label: subprocess.Popen(
+        [sys.executable, "-m", "bigslice_tpu_torch.tools.chaosslice",
+         *args, "-json", os.path.join(d, f"{label}.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for label, args in runs.items()}
+    out = {}
+    for label, p in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=300)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"28h {label}: exit {p.returncode}\n"
+                                 f"{stdout[-2000:]}\n{stderr[-2000:]}")
+        with open(os.path.join(d, f"{label}.json")) as fh:
+            doc = json.load(fh)
+        if not (doc["ok"] and doc["bit_identical"]
+                and doc["device"] == "cuda"):
+            raise AssertionError(f"28h {label}: {doc}")
+        log(f"phase 28h: chaosslice {label}: exit 0, done {wall:.2f} s "
+            f"after both started, matrix "
+            f"{[(r['site'], r['injected'], r['recovered']) for r in doc['matrix']]}"
+            f", walls {doc['wall_s']}; on {card}")
+        out[label] = dict(wall_s=wall, matrix=doc["matrix"],
+                          walls=doc["wall_s"])
+    return out
+
+
+def phase28_robustness(card: str) -> dict:
+    """Phase 28, the robustness plane: 28a-28h, each with its wall and
+    its launches by kernel on its own lines."""
+    t0 = time.perf_counter()
+    paths = {}
+    for name, fn in (("chaos-mesh", phase28a_mesh_chaos),
+                     ("chaos-local", phase28b_local_chaos),
+                     ("chaos-spill", phase28c_spill_chaos),
+                     ("coded", phase28d_coded),
+                     ("deadline", phase28e_deadline)):
+        t = time.perf_counter()
+        paths[name] = fn(card)
+        log(f"phase 28: {name} took {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    paths.update(phase28f_adaptive(card))
+    log(f"phase 28: adaptive took {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    paths["seam-cost"] = phase28g_seam_cost(card)
+    log(f"phase 28: seam-cost took {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    cli = phase28h_chaosslice(card)
+    log(f"phase 28: chaosslice took {time.perf_counter() - t:.2f} s")
+    log(f"phase 28: robustness in {time.perf_counter() - t0:.2f} s")
+    paths["chaos-mesh"]["cli"] = cli
+    return paths
+
+
 def nbytes_of(*arrays) -> int:
     return int(sum(a.nbytes for a in arrays))
 
@@ -4063,6 +4726,7 @@ def main() -> int:
     paths["observability"] = phase26_observability(card, kern)
     paths.update(phase27_data_plane(card))
     paths["kmeans"] = phase27_kmeans(card)
+    paths.update(phase28_robustness(card))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
@@ -4078,7 +4742,7 @@ def main() -> int:
              match=True, **{k: kern[name][k] for k in LINE_KEYS})
         for name in PATH_KERNELS
     ]}
-    log(f"chip_smoke: phases 0-27 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 0-28 in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

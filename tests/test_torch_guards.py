@@ -505,3 +505,65 @@ def test_parse_workers_import_no_torch():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_robustness_plane_runs_without_jax():
+    """The robustness plane's modules (utils/faultinject, exec/adaptive,
+    exec/codedplan, tools/chaosslice) and runs under a chaos plan, a
+    coded combine, a deadline and each adaptive policy import neither
+    JAX nor the JAX package; faultinject, adaptive and codedplan import
+    only the standard library (and the task names), chaosslice adds
+    numpy."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        before = set(sys.modules)
+        from bigslice_tpu_torch.utils import faultinject
+        from bigslice_tpu_torch.exec import adaptive, codedplan
+        light = sorted(m for m in set(sys.modules) - before
+                       if m.split(".")[0] in ("torch", "numpy"))
+        assert not light, light
+        import numpy as np
+        import bigslice_tpu_torch as bs
+        from bigslice_tpu_torch.exec.evaluate import DeadlineExceeded
+        from bigslice_tpu_torch.tools import chaosslice
+
+        keys = np.arange(2000, dtype=np.int32) % 37
+        vals = np.ones(2000, np.int32)
+        red = lambda: bs.Reduce(bs.Const(8, keys, vals), lambda a, b: a + b)
+        faultinject.install(faultinject.parse_plan(
+            "5:mesh.dispatch=1.0x1~infra,staging.assemble=1.0x2,"
+            "shuffle.upload=1.0x2,store.read=0.25x4,eval.resubmit=0.15x2"))
+        sess = bs.Session(executor=bs.MeshExecutor(device="cpu",
+                                                   prefetch_depth=2))
+        assert len(sess.run(red()).rows()) == 37
+        assert sess.executor.probation
+        faultinject.clear()
+        os.environ["BIGSLICE_CODED"] = "combine"
+        local = bs.Session(executor=bs.LocalExecutor(device="cpu"))
+        assert len(local.run(red()).rows()) == 37
+        assert local.telemetry.coded.count("covered") == 1
+        del os.environ["BIGSLICE_CODED"]
+        faultinject.install(faultinject.parse_plan("5:task.run=1.0x1~stuck"))
+        try:
+            bs.Session(executor=bs.LocalExecutor(device="cpu", procs=1)).run(
+                red(), deadline_s=0.2)
+            raise SystemExit("no deadline")
+        except DeadlineExceeded:
+            pass
+        faultinject.clear()
+        os.environ["BIGSLICE_ADAPTIVE"] = "all"
+        s = bs.Session(executor=bs.MeshExecutor(device="cpu"))
+        assert len(s.run(red()).rows()) == 37 and s.adaptive is not None
+        del os.environ["BIGSLICE_ADAPTIVE"]
+        assert chaosslice.main(["-chaos", "7:store.read=0.2x3,io.read=0.5x2",
+                                "-rows", "2000", "-shards", "4",
+                                "-device", "cpu"]) == 0
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -1147,3 +1147,208 @@ def test_profiler_window_holds_every_launch(dev, tmp_path):
           and "hash_partition_kernel" in str(e.get("name"))]
     assert len(k1) == 8
     assert any(e.get("name") == "xprof_warmup" for e in events)
+
+
+# -- the robustness plane on the card ----------------------------------------
+
+MESH_CHAOS_SPEC = ("5:mesh.dispatch=1.0x1~infra,staging.assemble=1.0x2,"
+                   "shuffle.upload=1.0x2,store.read=0.25x4,"
+                   "eval.resubmit=0.15x2")
+
+
+def _sum_oracle(keys, vals):
+    out = {}
+    for k, v in zip(keys.tolist(), vals.tolist()):
+        out[k] = out.get(k, 0) + v
+    return out
+
+
+@pytest.mark.parametrize("arena", [True, False], ids=["arena", "noarena"])
+@pytest.mark.parametrize("prefetch", [0, 2], ids=["pf0", "pf2"])
+def test_mesh_chaos_plan_on_the_card(dev, prefetch, arena):
+    """The mesh chaos matrix at a small size on the card: equal to the
+    fault-free run and to numpy, the op on probation with its
+    resubmissions on the host tier, no fatal recovery, and the arena's
+    buffers and the card's memory back where they were."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.task import iter_tasks
+    from bigslice_tpu_torch.utils import faultinject
+
+    rng = np.random.RandomState(11)
+    keys = rng.randint(0, 4001, 1 << 16).astype(np.int32)
+    vals = rng.randint(0, 100, 1 << 16).astype(np.int32)
+    want = _sum_oracle(keys, vals)
+
+    def run():
+        ex = bs.MeshExecutor(prefetch_depth=prefetch, staging_arena=arena,
+                             auto_dense=False)
+        sess = bs.Session(executor=ex)
+        res = sess.run(bs.Reduce(bs.Const(8, keys, vals),
+                                 lambda a, b: a + b))
+        rows = {int(k): int(v) for k, v in res.rows()}
+        for t in iter_tasks(res.tasks):
+            ex.discard(t)
+        return rows, sess
+
+    def chaos_run():
+        plan = faultinject.install(faultinject.parse_plan(MESH_CHAOS_SPEC))
+        try:
+            rows, sess = run()
+        finally:
+            faultinject.clear()
+        torch.cuda.synchronize()
+        return rows, sess, sorted((e["site"], e["kind"], e["inv_id"])
+                                  for e in plan.snapshot()["log"])
+
+    base, _ = run()
+    # The first run under the plan warms what the host tier's path
+    # builds once a process; the second must end where the first did.
+    _, _, log1 = chaos_run()
+    mem0 = torch.cuda.memory_allocated()
+    got, sess, log2 = chaos_run()
+    assert got == base == want
+    assert log1 == log2
+    assert sum(1 for e in log2 if e[0] == "mesh.dispatch") == 1
+    assert sess.telemetry_summary()["recovery"]["fatal_total"] == 0
+    (prob,) = sess.executor.probation.values()
+    assert prob["host_runs"] >= 8
+    assert sess.executor.staging_arena.stats()["outstanding"] == 0
+    assert torch.cuda.memory_allocated() == mem0
+
+
+def test_wave_cancel_at_depth_2_returns_memory_and_arena(dev, monkeypatch):
+    """A cancel at a wave boundary of a pipelined group (depth 2) on the
+    card: the group lands CANCELLED, reruns, equals numpy; once every
+    output is discarded the card's memory and the arena's outstanding
+    count are at their baselines."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec import evaluate as evaluate_mod
+    from bigslice_tpu_torch.exec.compile import compile_slice
+    from bigslice_tpu_torch.exec.task import TaskState, iter_tasks
+
+    rng = np.random.RandomState(5)
+    keys = rng.randint(0, 1 << 14, 1 << 20).astype(np.int32)
+    ones = np.ones(1 << 20, np.int32)
+    ex = bs.MeshExecutor(prefetch_depth=2, auto_dense=False)
+    make = lambda: bs.Reduce(bs.Const(8, keys, ones),  # noqa: E731
+                             lambda a, b: a + b)
+    warm = compile_slice(make())
+    evaluate_mod.evaluate(ex, warm)
+    for t in iter_tasks(warm):
+        ex.discard(t)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    roots = compile_slice(make())
+    fired = []
+    orig = ex._telemetry_compute
+
+    def settled(task0, wave, dur_s):
+        if wave == 2 and not fired:
+            fired.append(1)
+            for t in iter_tasks(roots):
+                if t.state == TaskState.RUNNING:
+                    t.request_cancel()
+        return orig(task0, wave, dur_s)
+
+    monkeypatch.setattr(ex, "_telemetry_compute", settled)
+    monkeypatch.setattr(evaluate_mod, "SWEEP_SECS", 0.05)
+    states = []
+    evaluate_mod.evaluate(ex, roots, monitor=lambda t, st: states.append(st))
+    assert fired and TaskState.CANCELLED in states
+    got = {}
+    for t in roots:
+        for f in ex.reader(t, 0):
+            for k, v in f.rows():
+                got[int(k)] = int(v)
+    bc = np.bincount(keys)
+    assert got == {int(k): int(bc[k]) for k in np.nonzero(bc)[0]}
+    for t in iter_tasks(roots):
+        ex.discard(t)
+    torch.cuda.synchronize()
+    assert ex.staging_arena.stats()["outstanding"] == 0
+    assert torch.cuda.memory_allocated() == mem0
+
+
+def test_deadline_abort_at_depth_2_returns_memory_and_arena(dev):
+    """``run(deadline_s=0.5)`` with a stuck host-tier task at depth 2:
+    DeadlineExceeded within the deadline and the drain bound, every task
+    pending, the card's memory and the arena at their baselines, and a
+    fresh run on the same session equal to numpy."""
+    import time
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.evaluate import (DEADLINE_DRAIN_SECS,
+                                                  DeadlineExceeded)
+    from bigslice_tpu_torch.utils import faultinject
+
+    rng = np.random.RandomState(7)
+    keys = rng.randint(0, 1 << 12, 1 << 18).astype(np.int32)
+    ones = np.ones(1 << 18, np.int32)
+    ex = bs.MeshExecutor(prefetch_depth=2, fallback_procs=1,
+                         auto_dense=False)
+    sess = bs.Session(executor=ex)
+
+    def graph():
+        s = bs.Map(bs.Const(4, keys, ones), lambda k, v: (k, v),
+                   out=[np.int32, np.int32], mode="host")
+        return bs.Reduce(s, lambda a, b: a + b)
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    faultinject.install(faultinject.parse_plan("5:task.run=1.0x1~stuck"))
+    t0 = time.monotonic()
+    try:
+        with pytest.raises(DeadlineExceeded) as ei:
+            sess.run(graph(), deadline_s=0.5)
+    finally:
+        faultinject.clear()
+    assert time.monotonic() - t0 < 0.5 + DEADLINE_DRAIN_SECS
+    assert ei.value.pending == 8
+    torch.cuda.synchronize()
+    assert ex.staging_arena.stats()["outstanding"] == 0
+    assert torch.cuda.memory_allocated() == mem0
+    res = sess.run(graph())
+    bc = np.bincount(keys)
+    assert {int(k): int(v) for k, v in res.rows()} == \
+        {int(k): int(bc[k]) for k in np.nonzero(bc)[0]}
+
+
+def test_infra_classifier_on_a_real_out_of_memory_error(dev, monkeypatch):
+    """A real allocation past ``mem_get_info`` raises torch's
+    OutOfMemoryError, which classifies as infra (and so takes probation
+    to the host tier, equal to numpy); a sticky error's text does not."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.meshexec import _looks_like_infra_error
+
+    free, _ = torch.cuda.mem_get_info(dev)
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(free + (8 << 30), dtype=torch.uint8, device=dev)
+    assert _looks_like_infra_error(ei.value)
+    wrapped = RuntimeError("a wave failed")
+    wrapped.__cause__ = ei.value
+    assert _looks_like_infra_error(wrapped)
+    assert not _looks_like_infra_error(RuntimeError(
+        "CUDA error: an illegal memory access was encountered\nCUDA "
+        "kernel errors might be asynchronously reported at some other "
+        "API call, so the stacktrace below might be incorrect."))
+    assert not _looks_like_infra_error(RuntimeError(
+        "CUDA error: device-side assert triggered"))
+
+    ex = bs.MeshExecutor(auto_dense=False)
+    orig = ex._execute_group
+    once = []
+
+    def oom_once(key, tasks):
+        if not once:
+            once.append(1)
+            torch.empty(free + (8 << 30), dtype=torch.uint8, device=dev)
+        return orig(key, tasks)
+
+    monkeypatch.setattr(ex, "_execute_group", oom_once)
+    rng = np.random.RandomState(3)
+    keys = rng.randint(0, 999, 1 << 16).astype(np.int32)
+    vals = rng.randint(0, 9, 1 << 16).astype(np.int32)
+    res = bs.Session(executor=ex).run(bs.Reduce(bs.Const(4, keys, vals),
+                                                lambda a, b: a + b))
+    assert {int(k): int(v) for k, v in res.rows()} == _sum_oracle(keys, vals)
+    assert len(ex.probation) == 1
