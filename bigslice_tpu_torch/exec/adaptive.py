@@ -334,6 +334,22 @@ class AdaptivePlanner:
             self._cost_logged.add((action, op))
         self.stats.record("cost", action, op=op, **detail)
 
+    # -- cross-plane consumers ---------------------------------------------
+
+    def observe_kernel_wave(self, selector, op: str,
+                            hub_op: Optional[str] = None) -> None:
+        """Route the kernel selector's re-selection consult
+        (``parallel/kernelselect.py``) through the planner (reference
+        exec/adaptive.py:364-378): the selector reads the same per-
+        partition rows the skew policy splits on. Advisory: a selector
+        error never becomes a wave error."""
+        if selector is None:
+            return
+        try:
+            selector.observe_wave(op, hub_op=hub_op)
+        except Exception:  # noqa: BLE001
+            pass
+
     # -- spec policy -------------------------------------------------------
 
     def watch(self, tasks, executor) -> Optional["_SpecWatcher"]:

@@ -163,7 +163,8 @@ class LocalExecutor:
         self._queue: "queue.SimpleQueue" = queue.SimpleQueue()
         self._pool_lock = threading.Lock()
         self._workers = 0
-        self._idle = 0
+        # Tasks submitted and not yet finished (queued or running).
+        self._demand = 0
         # Machine combiners: per combine key, each producer shard's
         # partitioned contributions; combined once when the last shard
         # lands, then committed per partition.
@@ -245,35 +246,36 @@ class LocalExecutor:
     def submit(self, task: Task) -> None:
         # Only a task that runs on this pool may be speculated.
         task._local_tier = True
-        self._queue.put(task)
         with self._pool_lock:
-            if self._idle == 0 and self._workers < self.procs:
+            self._queue.put(task)
+            # A worker a task queued or running, up to procs. (Counting
+            # idle workers instead let one idle worker stand for every
+            # task queued before it woke: under load a whole op's tasks
+            # ran one at a time on one thread.)
+            self._demand += 1
+            if self._workers < min(self.procs, self._demand):
                 self._workers += 1
                 threading.Thread(target=self._worker_loop,
                                  daemon=True).start()
 
     def _worker_loop(self) -> None:
         while True:
-            with self._pool_lock:
-                self._idle += 1
             try:
                 task = self._queue.get(timeout=self.WORKER_IDLE_SECS)
             except queue.Empty:
-                # A task queued after the timeout fired, while this
-                # worker still counted as idle (so submit made no new
-                # one), must not strand: look again under the lock.
+                # Exit only with the queue empty under the lock submit
+                # holds: a task queued as the timeout fired is taken.
                 with self._pool_lock:
-                    self._idle -= 1
                     try:
                         task = self._queue.get_nowait()
                     except queue.Empty:
                         self._workers -= 1
                         return
+            try:
                 self._run(task)
-                continue
-            with self._pool_lock:
-                self._idle -= 1
-            self._run(task)
+            finally:
+                with self._pool_lock:
+                    self._demand -= 1
 
     def reader(self, task: Task, partition: int) -> sliceio.Reader:
         return self.store.read(task.name, partition)

@@ -262,6 +262,15 @@ def _op_base(op: str) -> str:
     return op.split("#", 1)[0]
 
 
+def _dtype_name(dtype) -> str:
+    """A column dtype's numpy name ("int32"), as the JAX package names
+    the kernel selector's sites."""
+    try:
+        return str(np.dtype(dtype))
+    except TypeError:
+        return str(dtype)
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -594,6 +603,11 @@ class MeshExecutor:
         # (exec/adaptive.py, exec/codedplan.py); None runs today's path.
         self.adaptive = None
         self.coded = None
+        # The kernel selector (parallel/kernelselect.py), attached by the
+        # Session when BIGSLICE_KERNEL_SELECT engages a mode (reference
+        # exec/meshexec.py:644-649). None: the hash, sort and dense
+        # routing below is today's, and no selection code runs.
+        self.kernel_select = None
         # Per-op probation after an infra failure (op base -> monotonic
         # end), and the resubmissions it sent to the host tier.
         self._probation: Dict[str, float] = {}
@@ -865,9 +879,9 @@ class MeshExecutor:
         each wave's signals carried; a spilled boundary's from the spill
         manifest."""
         hub = self._telemetry_hub()
-        if hub is None:
-            return
         try:
+            if hub is None:
+                return
             rowbytes = sum(torch_dtype(ct.dtype).itemsize
                            * max(1, int(np.prod(ct.shape)))
                            for ct in task0.schema) or 4
@@ -879,6 +893,30 @@ class MeshExecutor:
                 hub.record_shuffle(task0.name.op, task0.name.inv_index,
                                    rows, [r * rowbytes for r in rows])
         except Exception:  # noqa: BLE001
+            pass
+        finally:
+            # The op's rows a partition just changed: the selector's
+            # re-selection consult (reference exec/meshexec.py:2105-2108).
+            self._kernel_reselect(task0)
+
+    def _kernel_reselect(self, task0: Task) -> None:
+        """The kernel selector compares the op's rows a partition with
+        the snapshot its decisions were based on and drops those that
+        shifted (reference exec/meshexec.py:2110-2134); through the
+        adaptive planner when one is attached. One process and one
+        device here, so no rank can diverge."""
+        sel = self.kernel_select
+        if sel is None:
+            return
+        opb = _op_base(task0.name.op)
+        sel.current_inv = task0.name.inv_index
+        try:
+            if self.adaptive is not None:
+                self.adaptive.observe_kernel_wave(sel, opb,
+                                                  hub_op=task0.name.op)
+            else:
+                sel.observe_wave(opb, hub_op=task0.name.op)
+        except Exception:  # noqa: BLE001 — advisory, never a wave error
             pass
 
     def _record_shuffle_plan(self, task0: Task, plan, out) -> None:
@@ -1561,6 +1599,7 @@ class MeshExecutor:
                             self._auto_dense_off.add(opbase)
                             if auto._auto_site:
                                 self._auto_dense_off.add(auto._auto_site)
+                        self._forget_selection(opbase, auto._auto_site)
                         raise _AutoDenseRetry()
                     # A user error, not skew: no slack retry.
                     raise ValueError(
@@ -1574,6 +1613,7 @@ class MeshExecutor:
                     # sort path for good.
                     with self._lock:
                         self._hash_off.add(opbase)
+                    self._forget_selection(opbase)
                     continue
                 if not has_shuffle or overflow == 0:
                     break
@@ -1629,7 +1669,8 @@ class MeshExecutor:
                 hash_table = (fc is not None
                               and s.partitioner.partition_fn is None
                               and self._hash_combine_ops(
-                                  _op_base(task0.name.op), fc) is not None)
+                                  _op_base(task0.name.op), fc,
+                                  decide=False) is not None)
         return self.wave_bytes_model(rows, rowbytes, fanout, hash_table,
                                      self._wave_slack(task0))
 
@@ -1753,17 +1794,56 @@ class MeshExecutor:
         with self._lock:
             return dict(self._cogroup_caps)
 
-    def _hash_combine_ops(self, opbase: str, fc):
+    def _hash_combine_ops(self, opbase: str, fc, decide: bool = True):
         """The classified ops when the hash lowering serves this combiner,
         None for the sort (or dense) lowering: the combiner's own verdict
         (``FrameCombiner.hash_ops``) unless the op's table overflowed
         before, or a dense bound is declared — the dense table, or where
         it gates itself off the sort path that honours the range check,
-        takes precedence."""
+        takes precedence.
+
+        A kernel selector (reference exec/meshexec.py:3488-3552) takes
+        these gates' verdict as the boundary's eligibility: ``static``
+        records it and moves nothing; ``measured`` may send an eligible
+        boundary to the sort path where its probe says so, never one the
+        gates refuse onto the hash path. The combiner's schema is the
+        boundary's: its dtypes name the decision's site.
+        ``decide=False`` (the wave size model) reads a standing decision
+        and makes none, so that decisions are made where the program
+        runs, after wave 0's dense discovery, as in the JAX package."""
         if (not self.hash_aggregate or opbase in self._hash_off
                 or fc.dense_keys is not None):
-            return None
-        return fc.hash_ops()
+            ops = None
+        else:
+            ops = fc.hash_ops()
+        sel = self.kernel_select
+        if sel is None:
+            return ops
+        schema = fc.schema
+        key_dtypes = tuple(_dtype_name(ct.dtype) for ct in schema.key)
+        val_dtypes = tuple(_dtype_name(ct.dtype) for ct in schema.values)
+        # Boundaries of one op with the same dtypes share a decision.
+        site = "k(%s)v(%s)" % (",".join(key_dtypes), ",".join(val_dtypes))
+        if not decide:
+            kernel = sel.decision(opbase, site)
+        else:
+            kernel = sel.choose(
+                opbase, site, nkeys=len(schema.key),
+                nvals=len(schema.values), ops=ops or (),
+                key_dtypes=key_dtypes, val_dtypes=val_dtypes,
+                hash_eligible=ops is not None,
+                dense_bound=fc.dense_keys is not None)
+        return None if kernel == "sort" else ops
+
+    def _forget_selection(self, *opbases) -> None:
+        """A gate under these ops' lowerings moved (a dense bound was
+        retracted, or a hash table overflowed): the selector's cached
+        verdicts for them no longer hold, and their reruns decide
+        again."""
+        if self.kernel_select is not None:
+            for opb in opbases:
+                if opb:
+                    self.kernel_select.forget(opb)
 
     # -- auto-dense discovery ------------------------------------------------
 
@@ -1960,6 +2040,15 @@ class MeshExecutor:
         telemetry hub a shuffle's program also returns its rows a
         partition (``[nparts]``, on the device) as a seventh element;
         the settle reads them with the signals."""
+        if self.kernel_select is not None:
+            # Attribution only (reference exec/meshexec.py:3777-3781):
+            # instants of decisions made while this program runs land in
+            # its invocation's section. The JAX package also keys its
+            # compiled program on the op's live decisions (:3796-3802);
+            # this program is rebuilt on every call, so there is nothing
+            # to key, and a re-selection takes effect at the op's next
+            # wave.
+            self.kernel_select.current_inv = task.name.inv_index
         opbase = _op_base(task.name.op)
         nmesh = self.nmesh
         device = self.device

@@ -12,8 +12,10 @@ Each session carries the observability plane: a telemetry hub
 status (``utils/status.py``), an optional Chrome trace and eventer, and
 a profiler gate (``utils/xprof.py``); the executors report into the hub
 through their seams. It attaches the robustness plane's planners from
-their knobs (``BIGSLICE_ADAPTIVE``, ``BIGSLICE_CODED``), and ``run``
-takes a deadline.
+their knobs (``BIGSLICE_ADAPTIVE``, ``BIGSLICE_CODED``) and the
+kernel selector from ``BIGSLICE_KERNEL_SELECT``
+(``parallel/kernelselect.py``), and ``run`` takes a deadline. With
+``debug_port`` it serves the debug HTTP endpoints.
 """
 
 from __future__ import annotations
@@ -37,9 +39,9 @@ from bigslice_tpu_torch.utils import metrics as metrics_mod
 
 
 class ObservabilityNotPorted(NotImplementedError):
-    """A part of the observability plane that has no port yet: the debug
-    HTTP server (``debug_port``) and the fleet merge (``telemetry_summary(
-    scope="fleet")``)."""
+    """A part of the observability plane that has no port yet: the fleet
+    merge (``telemetry_summary(scope="fleet")``, the debug server's
+    ``/debug/fleet`` and ``obsdump --fleet``)."""
 
 
 class _InvocationGate:
@@ -191,8 +193,10 @@ class Session:
       share one combiner buffer a partition, combined once when the
       last lands: fewer, larger combines, at the cost of retrying the
       whole producer group when one of its outputs is lost.
-    - ``debug_port``: the debug HTTP server is not ported yet; any value
-      raises ``ObservabilityNotPorted``.
+    - ``debug_port``: start the debug HTTP server
+      (``utils/debughttp.py``) on this port of 127.0.0.1, 0 for a free
+      one; ``session.debug`` is the server (None without the option)
+      and ``shutdown()`` closes it.
 
     From the environment, as in the JAX package: ``BIGSLICE_ADAPTIVE``
     attaches an adaptive planner (``session.adaptive``,
@@ -219,10 +223,6 @@ class Session:
         from bigslice_tpu_torch.utils import trace as trace_mod
         from bigslice_tpu_torch.utils import xprof as xprof_mod
 
-        if debug_port is not None:
-            raise ObservabilityNotPorted(
-                "Session(debug_port=): the debug HTTP server "
-                "(utils/debughttp.py) is not ported yet")
         if executor is None:
             if parallelism is not None:
                 from bigslice_tpu_torch.exec.local import LocalExecutor
@@ -276,11 +276,30 @@ class Session:
             if self.telemetry is not None:
                 self.telemetry.adaptive = self.adaptive.stats
             executor.adaptive = self.adaptive
+        # The kernel selector (reference exec/session.py:397-413): with
+        # BIGSLICE_KERNEL_SELECT unset none exists, and the executor's
+        # lowerings are today's.
+        from bigslice_tpu_torch.parallel import kernelselect as kselect_mod
+
+        self.kernel_select = kselect_mod.selector_from_env(
+            self.telemetry, device=getattr(executor, "device", None))
+        if self.kernel_select is not None:
+            if self.telemetry is not None:
+                self.telemetry.kernel_select = self.kernel_select.stats
+            if hasattr(executor, "kernel_select"):
+                executor.kernel_select = self.kernel_select
         self.coded = codedplan_mod.planner_from_env(self.telemetry)
         if self.coded is not None:
             if self.telemetry is not None:
                 self.telemetry.coded = self.coded.stats
             executor.coded = self.coded
+        # The debug server (reference exec/session.py:347-351), last, so
+        # that a knob the planners refuse leaves no listener behind.
+        self.debug = None
+        if debug_port is not None:
+            from bigslice_tpu_torch.utils.debughttp import DebugServer
+
+            self.debug = DebugServer(self, debug_port)
         start = getattr(executor, "start", None)
         if start is not None:
             start(self)
@@ -304,6 +323,8 @@ class Session:
             close()
         if self._printer is not None:
             self._printer.stop()
+        if self.debug is not None:
+            self.debug.close()
         if self.tracer is not None and self.trace_path:
             self.tracer.save(self.trace_path)
             self._event("bigslice:traceSaved", path=self.trace_path)
@@ -366,6 +387,8 @@ class Session:
             inv_index, shuffle_mode=shuffleplan.plan_mode() or "",
             machine_combiners=self.machine_combiners, coded=self.coded,
         ).compile(slice_)
+        if self.debug is not None:
+            self.debug.register_roots(tasks)
         self._gate.acquire(exclusive)
         try:
             try:

@@ -67,6 +67,9 @@ class _OpDeviceRecord:
         self.inv = inv
         # kernel launches: kernel -> [launches, bytes, flops]
         self.kernels: Dict[str, List[float]] = {}
+        # the kernel selector's probe launches (kind "kselect"), kept
+        # apart from the op's wave launches
+        self.kselect_kernels: Dict[str, List[float]] = {}
         # donation effectiveness
         self.donation_expected_bytes = 0
         self.donation_aliased_bytes = 0
@@ -137,15 +140,28 @@ class DeviceTelemetry:
     # -- kernel launches ----------------------------------------------------
 
     def record_launch(self, op: str, inv: Optional[int], kernel: str,
-                      cost: Optional[dict] = None) -> None:
+                      cost: Optional[dict] = None,
+                      kind: Optional[str] = None) -> None:
         """One kernel launch attributed to ``op``, with the declared
-        ``{"bytes", "flops"}`` of ``cuda_kernels.cost``."""
+        ``{"bytes", "flops"}`` of ``cuda_kernels.cost``. ``kind``
+        ``"kselect"`` is a kernel selector's probe
+        (``parallel/kernelselect.py``): summed apart, under
+        ``summary()["kselect"]``, and in no total."""
         cost = cost or {}
         with self._lock:
-            k = self._op(op, inv).kernels.setdefault(kernel, [0, 0.0, 0.0])
+            rec = self._op(op, inv)
+            table = rec.kselect_kernels if kind == "kselect" else rec.kernels
+            k = table.setdefault(kernel, [0, 0.0, 0.0])
             k[0] += 1
             k[1] += float(cost.get("bytes") or 0)
             k[2] += float(cost.get("flops") or 0)
+
+    def cost_bytes(self, op: str) -> float:
+        """The declared bytes of ``op``'s wave launches so far (the
+        kernel selector's static evidence; 0 for an op with none)."""
+        with self._lock:
+            rec = self._ops.get(op)
+            return rec.bytes_accessed if rec is not None else 0.0
 
     # -- HBM watermarks -----------------------------------------------------
 
@@ -331,6 +347,7 @@ class DeviceTelemetry:
         """The ``telemetry_summary()["device"]`` payload."""
         with self._lock:
             kernels = {}
+            kselect = {}
             tot_launches = 0
             tot_flops = tot_bytes = 0.0
             donation = {}
@@ -353,6 +370,12 @@ class DeviceTelemetry:
                                         for k in rec.kernels.values())
                     tot_bytes += rec.bytes_accessed
                     tot_flops += rec.flops
+                if rec.kselect_kernels:
+                    kselect[op] = {
+                        name: {"launches": int(k[0]), "bytes": k[1],
+                               "flops": k[2]}
+                        for name, k in sorted(rec.kselect_kernels.items())
+                    }
                 if rec.donation_buffers:
                     eff = (rec.donation_aliased_bytes
                            / rec.donation_expected_bytes
@@ -442,7 +465,7 @@ class DeviceTelemetry:
             if sp_tot.get("budget_bytes"):
                 splan["totals"]["within_budget"] = bool(
                     peak <= sp_tot["budget_bytes"])
-        return {
+        out = {
             # The JAX package's per-op program compiles: none in the
             # port, which builds kernels (``builds``), not programs.
             "compile": {},
@@ -454,6 +477,10 @@ class DeviceTelemetry:
             "shuffle_plan": splan,
             "totals": totals,
         }
+        if kselect:
+            # A kernel selector's probes (BIGSLICE_KERNEL_SELECT=measured).
+            out["kselect"] = kselect
+        return out
 
     def prometheus_lines(self, metric, line) -> None:
         """Append this recorder's counters and gauges through the hub's

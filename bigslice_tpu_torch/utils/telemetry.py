@@ -253,6 +253,10 @@ class TelemetryHub:
         self.adaptive = None
         self.coded = None
         self.deadline = None
+        # The kernel selector's stats (parallel/kernelselect.py),
+        # attached by the Session when BIGSLICE_KERNEL_SELECT engages a
+        # mode (reference utils/telemetry.py:286-292); None otherwise.
+        self.kernel_select = None
         self.skew_ratio = skew_ratio
         self.skew_min_rows = skew_min_rows
         self.straggler_factor = straggler_factor
@@ -804,9 +808,9 @@ class TelemetryHub:
             out["result_cache"] = result_cache_counts()
         except Exception:
             out["result_cache"] = {}
-        # The robustness plane (reference utils/telemetry.py:930-953):
-        # only what is attached.
-        for name in ("adaptive", "coded", "deadline"):
+        # The robustness plane and the kernel selector (reference
+        # utils/telemetry.py:930-953): only what is attached.
+        for name in ("adaptive", "kernel_select", "coded", "deadline"):
             stats = getattr(self, name)
             if stats is not None:
                 try:
@@ -1095,8 +1099,10 @@ class TelemetryHub:
             pass
 
         # -- the robustness plane (exec/adaptive.py, exec/codedplan.py,
-        # the deadline ladder, utils/faultinject.py) -------------------
-        for stats in (self.adaptive, self.coded, self.deadline):
+        # the deadline ladder, utils/faultinject.py) and the kernel
+        # selector (parallel/kernelselect.py) ---------------------------
+        for stats in (self.adaptive, self.kernel_select, self.coded,
+                      self.deadline):
             if stats is not None:
                 try:
                     stats.prometheus_lines(metric, line)

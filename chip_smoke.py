@@ -196,6 +196,32 @@ phase 3's Reduce with no plan and with a rate-0 plan on every site,
 equal host syncs asserted; (h) the ``chaosslice`` CLI, two subprocesses
 at once.
 
+Phase 29 drives the operator plane at reduce-wave's shape (2**25 rows
+over 2**20 keys, S = 4, ``auto_dense=False``): (a) ``debug-server``,
+a run through ``Session(debug_port=0, trace_path=...)`` with every
+route polled while it is live and after it (each 200, ``/debug/fleet``
+501), ``/debug/device``'s launches against the hub's and ``LAUNCHES``,
+every ``/debug/metrics`` line parsed, ``/debug/profile?seconds=0.5``
+around a run holding K1's and K2's kernel events while a second window
+gets 409, alternating pairs of the run with and without a client
+polling the server, and a ``close()`` that drains a window in flight;
+(b) ``kselect-static``, ``BIGSLICE_KERNEL_SELECT=static`` over sparse
+int32 keys (hash, ``static:cuda-kernel``, bit-equal to the unset run,
+whose launches are phase 3's), float32 keys with +-0.0 (sort,
+``hash-ineligible``, no K2) and small contiguous keys (dense,
+``dense-bound``), every row against numpy, then phase 21's misprobe
+unset and under ``static``: the retracted op records ``dense`` and then
+``hash``, with the unset run's rows and launches; (c)
+``kselect-measured``: the probe's sort and hash medians and samples,
+the verdict, the probe's launches (kind ``kselect``) apart from the
+op's wave launches, rows bit-equal to the unset run's, then the same op
+over a hot key: one re-selection, and a new decision, then the race at
+eight more op shapes (256 and 65,536 rows, one or two keys, one or four
+value lanes); (d) ``tools``: ``slicetrace`` over
+(a)'s and (c)'s traces (``:kernels``, skew, overlap, no recovery;
+``--merge`` into rank lanes) and ``obsdump``'s workload on the card,
+whose summary's device section lists K1 and K2.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -209,6 +235,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2423,6 +2450,17 @@ AB_PAIRS = 10
 SHIFT = 0
 
 
+def _misprobe_keys(S: int) -> np.ndarray:
+    """Phase 21's misprobe (also 29b's): 2**24 int32 keys whose first
+    shard lies below 2**16 and the rest below 2**21, so that the bound
+    discovered on wave 0 is retracted by a later one."""
+    ne = 1 << (24 - SHIFT)
+    mrng = np.random.RandomState(23)
+    return np.concatenate([mrng.randint(0, 1 << (16 - SHIFT), ne // S),
+                           mrng.randint(0, 1 << (21 - SHIFT), ne - ne // S)]
+                          ).astype(np.int32)
+
+
 def _timed_reduce_wave(keys, ones, S, auto_dense) -> float:
     """One reduce-wave run (session, run, every shard read back) on
     ``MeshExecutor(auto_dense=auto_dense)``: its wall in seconds."""
@@ -2606,11 +2644,8 @@ def phase21_dense(card: str, device) -> dict:
                              dense_keys=span)),
         check_d, ("hash_partition",), n, card, expect={"hash_aggregate": 0})
 
-    ne = 1 << (24 - SHIFT)
-    mrng = np.random.RandomState(23)
-    mk = np.concatenate([mrng.randint(0, 1 << (16 - SHIFT), ne // S),
-                         mrng.randint(0, 1 << (21 - SHIFT), ne - ne // S)]
-                        ).astype(np.int32)
+    mk = _misprobe_keys(S)
+    ne = len(mk)
     mones = np.ones(ne, np.int32)
     mbc = np.bincount(mk)
     mpresent = np.nonzero(mbc)[0]
@@ -4675,6 +4710,663 @@ def phase28_robustness(card: str) -> dict:
     return paths
 
 
+# -- phase 29: the operator plane (the debug server, kernel selection,
+# slicetrace and obsdump)
+
+#: One Prometheus text-format sample line (the JAX package's
+#: tests/test_debughttp.py:19-24).
+_PROM_SAMPLE_RE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*"
+    r"(\{[a-zA-Z_][a-zA-Z0-9_]*=\"(?:[^\"\\]|\\.)*\""
+    r"(,[a-zA-Z_][a-zA-Z0-9_]*=\"(?:[^\"\\]|\\.)*\")*\})?"
+    r" [-+]?([0-9]*\.?[0-9]+([eE][-+]?[0-9]+)?|Inf|NaN)$"
+)
+#: Phase 29a: every route of the debug server and the status it answers
+#: (the fleet merge is not ported: 501 in either format).
+DEBUG_ROUTES = {
+    "/debug": 200, "/debug/status": 200, "/debug/tasks": 200,
+    "/debug/trace": 200, "/debug/resources": 200, "/debug/metrics": 200,
+    "/debug/device": 200, "/debug/fleet": 501,
+    "/debug/fleet?format=prom": 501,
+}
+#: Phase 29a: alternating pairs of the hub-on run with and without a
+#: client polling the debug server.
+POLL_PAIRS = 5
+
+
+def _http_get(port: int, path: str, timeout: float = 60.0) -> tuple:
+    """(status, body) of one GET on 127.0.0.1:port."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _kernel_events(trace_path: str) -> dict:
+    """K1's and K2's kernel events in a torch.profiler Chrome trace."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    n = {"hash_partition": 0, "hash_aggregate": 0}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        nm = str(e.get("name", ""))
+        if "hash_partition_kernel" in nm:
+            n["hash_partition"] += 1
+        elif "agg_" in nm and "_kernel" in nm:
+            n["hash_aggregate"] += 1
+    return n
+
+
+def _wait_recording(what: str) -> None:
+    from bigslice_tpu_torch.utils import xprof
+
+    deadline = time.monotonic() + 60
+    while not xprof.recording():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: the profile window never started")
+        time.sleep(0.005)
+
+
+def _p29_reduce(bs, keys, ones, S=4):
+    # One source line: every phase-29 Reduce is the same op site, so the
+    # kernel selector's decisions and re-selection see one op.
+    return bs.Reduce(bs.Const(S, keys, ones), lambda a, b: a + b)
+
+
+def _p29_run(sess, keys, ones, S=4):
+    """One run of the phase's Reduce, every shard read back, synchronised."""
+    import bigslice_tpu_torch as bs
+
+    res = sess.run(_p29_reduce(bs, keys, ones, S))
+    for shard in range(S):
+        list(res.reader(shard, ()))
+    torch.cuda.synchronize()
+    return res
+
+
+def phase29a_debug_server(card: str, out_dir: str) -> dict:
+    """29a: reduce-wave through ``Session(debug_port=0, trace_path=...)``,
+    every route polled while the run is live and after it; the device
+    route's launches against the hub's and ``LAUNCHES``; the metrics
+    parsed; a profile window around a run, and a second one refused;
+    the hub-on wall with and without a polling client; close() drains."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S = 4
+    keys, ones = _reduce_wave_input()
+    check = _count_check(keys)
+    trace_path = os.path.join(out_dir, "trace-29a.json")
+    sess = bs.Session(executor=bs.MeshExecutor(auto_dense=False),
+                      debug_port=0, trace_path=trace_path)
+    port = sess.debug.port
+
+    live = {}
+    done = threading.Event()
+
+    def poll():
+        # At least one full pass, the first one while the run is live.
+        while True:
+            for path in DEBUG_ROUTES:
+                live.setdefault(path, set()).add(_http_get(port, path)[0])
+            if done.is_set():
+                return
+
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    th = threading.Thread(target=poll)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        res = _p29_run(sess, keys, ones, S)
+    finally:
+        done.set()
+        th.join()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    check(bs.result_shard_rows(res), S)
+    after = {path: _http_get(port, path) for path in DEBUG_ROUTES}
+    for path, want in DEBUG_ROUTES.items():
+        if live[path] != {want} or after[path][0] != want:
+            raise AssertionError(f"29a: {path} answered {live[path]} live, "
+                                 f"{after[path][0]} after, not {want}")
+    if "fleet" not in after["/debug/fleet"][1]:
+        raise AssertionError(f"29a: /debug/fleet's 501 does not name the "
+                             f"fleet merge: {after['/debug/fleet'][1]!r}")
+    device = json.loads(after["/debug/device"][1])
+    served = {name: 0 for name in PATH_KERNELS}
+    for per_kernel in device["kernels"].values():
+        for name, k in per_kernel.items():
+            served[name] += k["launches"]
+    hub = _hub_launches(sess.telemetry_summary())
+    if not (served == hub == launches) or not (
+            launches["hash_partition"] and launches["hash_aggregate"]):
+        raise AssertionError(f"29a: /debug/device launches {served}, hub "
+                             f"{hub}, LAUNCHES {launches}")
+    if device["compile"] != {} or not device["hbm"].get("samples"):
+        raise AssertionError(f"29a: /debug/device compile "
+                             f"{device['compile']}, hbm {device['hbm']}")
+    samples = 0
+    for line in after["/debug/metrics"][1].splitlines():
+        if not line or line.startswith("#"):
+            continue
+        if not _PROM_SAMPLE_RE.match(line):
+            raise AssertionError(f"29a: unparseable metrics line {line!r}")
+        samples += 1
+    tasks = json.loads(after["/debug/tasks"][1])
+    log(f"phase 29a: reduce-wave {len(keys)} rows with the debug server "
+        f"live: wall {wall:.4f} s, every route answered while live and "
+        f"after ({', '.join(f'{p} {c}' for p, c in DEBUG_ROUTES.items())}), "
+        f"/debug/device launches {served} = hub's = LAUNCHES, {samples} "
+        f"metrics samples parsed, {len(tasks['nodes'])} tasks and "
+        f"{len(tasks['links'])} links, on {card}")
+
+    # A profile window around a live run, and a second window refused.
+    got = []
+    wt = threading.Thread(target=lambda: got.append(
+        _http_get(port, "/debug/profile?seconds=0.5", timeout=180)))
+    wt.start()
+    _wait_recording("29a")
+    busy = _http_get(port, "/debug/profile?seconds=0.1")
+    t0 = time.perf_counter()
+    _p29_run(sess, keys, ones, S)
+    run_s = time.perf_counter() - t0
+    wt.join()
+    if busy[0] != 409:
+        raise AssertionError(f"29a: a second window got {busy[0]}, not 409")
+    if got[0][0] != 200:
+        raise AssertionError(f"29a: the profile window answered {got[0]}")
+    window = json.loads(got[0][1])
+    kev = _kernel_events(os.path.join(window["dir"], "trace.json"))
+    if not (kev["hash_partition"] and kev["hash_aggregate"]):
+        raise AssertionError(f"29a: the window holds no K1 or K2 kernel "
+                             f"event ({kev}) around a run of {run_s:.4f} s")
+    log(f"phase 29a: /debug/profile?seconds=0.5 around a run of "
+        f"{run_s:.4f} s: kernel events {kev}; a second window: "
+        f"{busy[0]}")
+
+    # The hub-on wall with and without a client polling the server.
+    def timed(polling: bool) -> float:
+        stop = threading.Event()
+
+        def client():
+            while not stop.is_set():
+                for path in ("/debug/metrics", "/debug/status",
+                             "/debug/device"):
+                    _http_get(port, path)
+
+        cl = threading.Thread(target=client) if polling else None
+        if cl is not None:
+            cl.start()
+        try:
+            t = time.perf_counter()
+            _p29_run(sess, keys, ones, S)
+            return time.perf_counter() - t
+        finally:
+            stop.set()
+            if cl is not None:
+                cl.join()
+
+    quiet_s, polled_s = [], []
+    for i in range(POLL_PAIRS):
+        for polling in ((False, True) if i % 2 == 0 else (True, False)):
+            (polled_s if polling else quiet_s).append(timed(polling))
+        gc.collect()
+    med_q, med_p = statistics.median(quiet_s), statistics.median(polled_s)
+    log(f"phase 29a: {POLL_PAIRS} alternating pairs, hub on, no client "
+        f"{med_q:.4f} s, a client polling /debug/metrics, /debug/status "
+        f"and /debug/device {med_p:.4f} s (median), ratio "
+        f"{med_p / med_q:.4f}; quiet {', '.join(f'{w:.4f}' for w in quiet_s)}"
+        f"; polled {', '.join(f'{w:.4f}' for w in polled_s)}, on {card}")
+
+    # close() drains: a window in flight completes; then the socket is
+    # gone.
+    got = []
+    wt = threading.Thread(target=lambda: got.append(
+        _http_get(port, "/debug/profile?seconds=0.3", timeout=180)))
+    wt.start()
+    _wait_recording("29a close")
+    t0 = time.perf_counter()
+    sess.shutdown()  # closes the server (and writes the trace)
+    drained_s = time.perf_counter() - t0
+    wt.join()
+    if got[0][0] != 200:
+        raise AssertionError(f"29a: the request in flight at close got "
+                             f"{got[0][0]}")
+    try:
+        _http_get(port, "/debug", timeout=5)
+    except OSError:
+        pass
+    else:
+        raise AssertionError("29a: the server answered after close()")
+    log(f"phase 29a: close() drained a 0.3 s window in flight in "
+        f"{drained_s:.4f} s (200), then refused connections")
+    del res
+    gc.collect()
+    return dict(launches=launches, wall_s=wall, metrics_samples=samples,
+                profile_kernel_events=kev, poll_quiet_s=quiet_s,
+                poll_polled_s=polled_s, median_quiet_s=med_q,
+                median_polled_s=med_p, drained_s=drained_s,
+                trace=trace_path)
+
+
+def _kselect_decisions(sess) -> list:
+    return sess.kernel_select.stats.summary()["decisions"]
+
+
+def phase29b_static(card: str, phase3_launches: dict) -> dict:
+    """29b: ``BIGSLICE_KERNEL_SELECT=static`` over three corpora of 2**25
+    rows: sparse int32 keys (hash, static:cuda-kernel, bit-equal to the
+    unset run, whose launches are phase 3's), float32 keys with +-0.0
+    (sort, hash-ineligible, no K2) and small contiguous keys (dense,
+    dense-bound, at the executor's default auto-dense); then phase 21's
+    misprobe of 2**24 rows, whose retracted op decides again (dense, then
+    hash with static:cuda-kernel) with the unset run's rows and
+    launches."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S = 4
+    keys, ones = _reduce_wave_input()
+    bc = np.bincount(keys, minlength=1 << 20)
+    present = np.nonzero(bc)[0]
+    # Sparse: a bijection of the 2**20 keys onto [0, 2**30), out of any
+    # dense bound's reach.
+    sparse = ((keys.astype(np.int64) * 92821 + 17) % (1 << 30)).astype(
+        np.int32)
+    sp_keys = ((present.astype(np.int64) * 92821 + 17) % (1 << 30)).astype(
+        np.int32)
+    sp_order = np.argsort(sp_keys)
+    # Float: 2**16 distinct float32 values (multiples of 1/64), the first
+    # two 0.0 and -0.0, one drawn a row; the oracle folds -0.0 onto 0.0.
+    pool = ((np.arange(1 << 16) - (1 << 15)) / 64.0).astype(np.float32)
+    pool[1 << 15] = 1024.5  # the zero's own slot takes a fresh value
+    pool[0], pool[1] = 0.0, -0.0
+    idx = keys & 0xFFFF
+    floats = pool[idx]
+    if not (idx == 0).any() or not (idx == 1).any():
+        raise AssertionError("29b: the float keys lack 0.0 or -0.0")
+    f_keys, f_inv = np.unique(np.where(pool == 0, np.float32(0), pool),
+                              return_inverse=True)
+    f_counts = np.bincount(f_inv, weights=np.bincount(
+        idx, minlength=1 << 16)).astype(np.int64)
+    f_keys, f_counts = f_keys[f_counts > 0], f_counts[f_counts > 0]
+    # Dense: keys over 2**16 contiguous values.
+    dense = keys & 0xFFFF
+
+    def flat(shards):
+        return (np.concatenate([s[0] for s in shards]),
+                np.concatenate([s[1] for s in shards]))
+
+    def check_sparse(shards):
+        k, v = flat(shards)
+        o = np.argsort(k)
+        if not (np.array_equal(k[o], sp_keys[sp_order])
+                and np.array_equal(v[o], bc[present][sp_order])):
+            raise AssertionError("29b: sparse counts differ from numpy")
+        _shard_keys_routed(shards, S)
+
+    def check_float(shards):
+        k, v = flat(shards)
+        if (k == 0).sum() != 1:
+            raise AssertionError("29b: +-0.0 are not one key")
+        k = np.where(k == 0, np.float32(0), k)
+        o = np.argsort(k)
+        if not (np.array_equal(k[o], f_keys)
+                and np.array_equal(v[o], f_counts)):
+            raise AssertionError("29b: float counts differ from numpy")
+        _shard_keys_routed(shards, S)
+
+    def check_dense(shards):
+        k, v = flat(shards)
+        dbc = np.bincount(dense, minlength=1 << 16)
+        o = np.argsort(k)
+        if not (np.array_equal(k[o], np.nonzero(dbc)[0])
+                and np.array_equal(v[o], dbc[dbc > 0])):
+            raise AssertionError("29b: dense counts differ from numpy")
+
+    def counted(k, auto_dense=False):
+        sess = bs.Session(executor=bs.MeshExecutor(auto_dense=auto_dense))
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        res = _p29_run(sess, k, ones, S)
+        wall = time.perf_counter() - t0
+        return sess, bs.result_shard_rows(res), wall, dict(ck.LAUNCHES)
+
+    os.environ.pop("BIGSLICE_KERNEL_SELECT", None)
+    base_sess, base_rows, base_wall, base_launches = counted(sparse)
+    check_sparse(base_rows)
+    if base_sess.kernel_select is not None:
+        raise AssertionError("29b: a selector exists with the knob unset")
+    for name in ("hash_partition", "hash_aggregate"):
+        if base_launches[name] != phase3_launches[name]:
+            raise AssertionError(f"29b: unset launches {base_launches} are "
+                                 f"not phase 3's {phase3_launches}")
+    del base_sess
+    out = {}
+    os.environ["BIGSLICE_KERNEL_SELECT"] = "static"
+    try:
+        for label, k, chk, auto, want in (
+                ("sparse", sparse, check_sparse, False,
+                 ("hash", "static:cuda-kernel")),
+                ("float", floats, check_float, False,
+                 ("sort", "hash-ineligible")),
+                ("dense", dense, check_dense, True,
+                 ("dense", "dense-bound"))):
+            sess, rows, wall, launches = counted(k, auto_dense=auto)
+            chk(rows)
+            dec = {(d["kernel"], d["reason"])
+                   for d in _kselect_decisions(sess)}
+            if dec != {want}:
+                raise AssertionError(f"29b {label}: decisions {dec}, not "
+                                     f"{want}")
+            if label == "sparse":
+                _same_rows(rows, base_rows, "29b sparse against unset")
+                if launches != base_launches:
+                    raise AssertionError(f"29b sparse: launches {launches} "
+                                         f"!= unset {base_launches}")
+            if label == "float" and launches["hash_aggregate"]:
+                raise AssertionError(f"29b float: K2 launched "
+                                     f"{launches['hash_aggregate']} times")
+            log(f"phase 29b: static, {label} keys, {len(k)} rows: "
+                f"{sorted(dec)}, wall {wall:.4f} s, launches {launches}"
+                f"{' = the unset run' if label == 'sparse' else ''}, on "
+                f"{card}")
+            out[f"kselect-static-{label}"] = dict(
+                launches=launches, wall_s=wall, decisions=sorted(dec))
+            del sess, rows
+            gc.collect()
+    finally:
+        os.environ.pop("BIGSLICE_KERNEL_SELECT", None)
+    log(f"phase 29b: unset, sparse keys: wall {base_wall:.4f} s, launches "
+        f"{base_launches} (phase 3's K1 and K2)")
+
+    # The misprobe: a retracted dense bound must not leave its op's
+    # cached "dense" verdict standing.
+    mk = _misprobe_keys(S)
+    mones = np.ones(len(mk), np.int32)
+
+    def misprobe(mode):
+        if mode is None:
+            os.environ.pop("BIGSLICE_KERNEL_SELECT", None)
+        else:
+            os.environ["BIGSLICE_KERNEL_SELECT"] = mode
+        try:
+            sess = bs.Session(executor=bs.MeshExecutor())
+        finally:
+            os.environ.pop("BIGSLICE_KERNEL_SELECT", None)
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        res = _p29_run(sess, mk, mones, S)
+        wall = time.perf_counter() - t0
+        return (sess, bs.result_shard_rows(res), wall, dict(ck.LAUNCHES),
+                sorted(sess.executor.auto_dense_off))
+
+    _, m_base, m_base_wall, m_base_launches, m_base_off = misprobe(None)
+    _count_check(mk, span=1 << 21)(m_base, S)
+    sess, m_rows, m_wall, m_launches, m_off = misprobe("static")
+    _same_rows(m_rows, m_base, "29b misprobe against unset")
+    by_op = {}
+    for d in _kselect_decisions(sess):
+        by_op.setdefault(d["op"].split("@")[0], []).append(
+            (d["kernel"], d["reason"]))
+    if (m_launches != m_base_launches or m_off != m_base_off
+            or not m_base_off
+            or by_op.get("reduce") != [("dense", "dense-bound"),
+                                       ("hash", "static:cuda-kernel")]):
+        raise AssertionError(f"29b misprobe: launches {m_launches} against "
+                             f"unset {m_base_launches}, retracted {m_off} "
+                             f"against {m_base_off}, decisions {by_op}")
+    log(f"phase 29b: static, phase 21's misprobe, {len(mk)} rows: "
+        f"decisions {by_op}, retracted {[o.split('@')[0] for o in m_off]}, "
+        f"wall {m_wall:.4f} s (unset {m_base_wall:.4f} s), launches "
+        f"{m_launches} = the unset run's, on {card}")
+    out["kselect-static-misprobe"] = dict(
+        launches=m_launches, wall_s=m_wall, decisions=by_op)
+    out["kselect-unset-misprobe"] = dict(launches=m_base_launches,
+                                         wall_s=m_base_wall)
+    del sess, m_rows, m_base
+    gc.collect()
+    out["kselect-unset-sparse"] = dict(launches=base_launches,
+                                       wall_s=base_wall)
+    return out
+
+
+def phase29c_measured(card: str, out_dir: str) -> dict:
+    """29c: ``BIGSLICE_KERNEL_SELECT=measured`` at the reduce-wave shape:
+    the probe's medians and samples, the verdict, the probe's launches
+    (kind kselect) apart from the op's wave launches, rows bit-equal to
+    the unset run's; then the same op over a hot key, whose max partition
+    moves by RESELECT_RATIO: one re-selection, and the op decides
+    again; then the race at eight other op shapes."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.parallel import kernelselect as ks
+
+    S = 4
+    keys, ones = _reduce_wave_input()
+    os.environ.pop("BIGSLICE_KERNEL_SELECT", None)
+    base = bs.result_shard_rows(_p29_run(
+        bs.Session(executor=bs.MeshExecutor(auto_dense=False)), keys, ones,
+        S))
+    trace_path = os.path.join(out_dir, "trace-29c.json")
+    os.environ["BIGSLICE_KERNEL_SELECT"] = "measured"
+    try:
+        sess = bs.Session(executor=bs.MeshExecutor(auto_dense=False),
+                          trace_path=trace_path)
+    finally:
+        os.environ.pop("BIGSLICE_KERNEL_SELECT", None)
+    if sess.kernel_select is None or sess.kernel_select.mode != "measured":
+        raise AssertionError("29c: no measured selector")
+    st = sess.kernel_select.stats
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = _p29_run(sess, keys, ones, S)
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    _same_rows(bs.result_shard_rows(res), base, "29c measured against unset")
+    summary = sess.telemetry_summary()
+    probe_launches = {name: 0 for name in PATH_KERNELS}
+    for per_kernel in summary["device"].get("kselect", {}).values():
+        for name, k in per_kernel.items():
+            probe_launches[name] += k["launches"]
+    wave_launches = _hub_launches(summary)
+    if {n: wave_launches[n] + probe_launches[n] for n in PATH_KERNELS} \
+            != launches:
+        raise AssertionError(f"29c: wave {wave_launches} + probe "
+                             f"{probe_launches} != LAUNCHES {launches}")
+    probed = [d for d in _kselect_decisions(sess) if "walls_ms" in d]
+    if not probed:
+        raise AssertionError(f"29c: no probe ran: {_kselect_decisions(sess)}")
+    # Each probe: one warm-up and PROBE_ITERS timed calls of the hash
+    # core (a decision may reuse a probe of the same shape).
+    per_probe = 1 + ks.PROBE_ITERS
+    k2 = probe_launches["hash_aggregate"]
+    if not (k2 and k2 % per_probe == 0 and k2 <= per_probe * len(probed)
+            and probe_launches["hash_partition"] == 0):
+        raise AssertionError(f"29c: the probes launched {probe_launches} "
+                             f"for {len(probed)} probed decisions")
+    for d in probed:
+        if not all(np.isfinite(v) and v > 0 for v in d["walls_ms"].values()):
+            raise AssertionError(f"29c: probe medians {d['walls_ms']}")
+        log(f"phase 29c: measured, op {d['op']} site {d['site']}: probe at "
+            f"{d['probe_rows']} rows, medians ms {d['walls_ms']}, samples "
+            f"ms {d['walls_all_ms']}"
+            f"{', hash overflow rows ' + str(d['hash_overflow_rows']) if 'hash_overflow_rows' in d else ''}"
+            f" -> {d['kernel']} ({d['reason']}), on {card}")
+    verdicts = [(d["op"], d["kernel"], d["reason"])
+                for d in _kselect_decisions(sess) if d["kernel"] != "reselect"]
+    log(f"phase 29c: measured, reduce-wave {len(keys)} rows: wall "
+        f"{wall:.4f} s, rows = the unset run's, verdicts {verdicts}, "
+        f"launches {launches}: the op's waves {wave_launches}, the probe "
+        f"(kselect) {probe_launches}, on {card}")
+
+    # The same op over a hot key: 31 rows in 32 on key 0, the rest
+    # uniform, so the map side's rows a partition fall by more than
+    # RESELECT_RATIO.
+    rng = np.random.RandomState(2929)
+    hot = np.where(rng.randint(0, 32, len(keys)) == 0, keys, 0).astype(
+        np.int32)
+    r0, d0 = st.count("reselect", "measured:skew-shift"), len(
+        _kselect_decisions(sess))
+    res2 = _p29_run(sess, hot, ones, S)
+    _count_check(hot)(bs.result_shard_rows(res2), S)
+    new = _kselect_decisions(sess)[d0:]
+    reselects = st.count("reselect", "measured:skew-shift") - r0
+    decided = [d for d in new if d["kernel"] != "reselect"]
+    shifted = [d for d in new if d["kernel"] == "reselect"]
+    if reselects != 1 or len(decided) != 1:
+        raise AssertionError(f"29c: the hot run made {reselects} "
+                             f"re-selections and decisions {decided}")
+    log(f"phase 29c: the same op over a hot key: decided again "
+        f"({decided[0]['kernel']}, {decided[0]['reason']}, probe at "
+        f"{decided[0].get('probe_rows')} rows, medians ms "
+        f"{decided[0].get('walls_ms')}), then {reselects} re-selection "
+        f"(max rows a partition {decided[0].get('max_rows')} -> "
+        f"{shifted[0]['max_rows']}), on {card}")
+    # After the re-selection the op decides again, against the hot
+    # profile, which the same run does not shift.
+    d1 = len(_kselect_decisions(sess))
+    res3 = _p29_run(sess, hot, ones, S)
+    _same_rows(bs.result_shard_rows(res3), bs.result_shard_rows(res2),
+               "29c hot run twice")
+    again = _kselect_decisions(sess)[d1:]
+    if [d["kernel"] == "reselect" for d in again] != [False]:
+        raise AssertionError(f"29c: after the re-selection: {again}")
+    log(f"phase 29c: after it, the op decided again ({again[0]['kernel']}, "
+        f"{again[0]['reason']}, probe at {again[0].get('probe_rows')} rows, "
+        f"medians ms {again[0].get('walls_ms')}), no further re-selection")
+    sess.shutdown()  # writes the trace
+
+    # The race at other op shapes: the probe's two row ends, one and two
+    # key columns, one and four value lanes (add, max, min, add), so that
+    # a shape where the sort core wins would show. Outside the counted
+    # runs.
+    sweep = []
+    racer = ks.KernelSelector("measured", None, device="cuda")
+    for rows in (256, ks.MAX_PROBE_ROWS):
+        for nkeys, nvals in ((1, 1), (2, 1), (1, 4), (2, 4)):
+            ops = ("add", "max", "min", "add")[:nvals]
+            p = racer._run_probe("sweep", None, rows, max(1, rows // 4),
+                                 nkeys, nvals, ops, ("int32",) * nvals)
+            w = p["walls_ms"]
+            if not all(np.isfinite(v) and v > 0 for v in w.values()):
+                raise AssertionError(f"29c sweep: medians {w}")
+            sweep.append(dict(rows=rows, nkeys=nkeys, nvals=nvals,
+                              walls_ms=w, winner=p["winner"],
+                              sort_over_hash=round(w["sort"] / w["hash"], 4),
+                              hash_overflow_rows=p.get(
+                                  "hash_overflow_rows", 0)))
+            log(f"phase 29c: probe sweep, {rows} rows ({rows // 4} "
+                f"distinct), {nkeys} key(s), {nvals} value lane(s) {ops}: "
+                f"medians ms {w}, sort/hash {w['sort'] / w['hash']:.4f}, "
+                f"{p['winner']} wins, hash overflow rows "
+                f"{p.get('hash_overflow_rows', 0)}, samples ms "
+                f"{p['walls_all_ms']}, on {card}")
+    sort_wins = [(d["rows"], d["nkeys"], d["nvals"]) for d in sweep
+                 if d["winner"] == "sort"]
+    log(f"phase 29c: probe sweep: the sort core wins at "
+        f"{sort_wins or 'no swept shape'}")
+    del res, res2, res3
+    gc.collect()
+    return dict(launches=launches, wall_s=wall,
+                probe_launches=probe_launches, wave_launches=wave_launches,
+                probes=[dict(op=d["op"], rows=d["probe_rows"],
+                             walls_ms=d["walls_ms"],
+                             walls_all_ms=d["walls_all_ms"],
+                             kernel=d["kernel"], reason=d["reason"])
+                        for d in probed + decided + again
+                        if "walls_ms" in d],
+                verdicts=verdicts, reselects=reselects, sweep=sweep,
+                trace=trace_path)
+
+
+def phase29d_tools(card: str, out_dir: str, traces: list) -> dict:
+    """29d: slicetrace over 29a's and 29c's traces (each section, and
+    ``--merge`` of the two into rank lanes), and obsdump's workload on the
+    card (a trace and a summary whose device section lists K1 and K2)."""
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.tools import obsdump, slicetrace
+
+    trace_a, trace_c = traces
+    report_c = slicetrace.analyze(trace_c)
+    report_a = slicetrace.analyze(trace_a)
+    for want in (":kernels", ":skew", ":overlap", "measured:"):
+        if want not in report_c:
+            raise AssertionError(f"29d: 29c's report lacks {want}")
+    for report in (report_a, report_c):
+        if ":recovery" in report or ":skew" not in report:
+            raise AssertionError("29d: a report without skew, or with a "
+                                 "recovery section after no fault")
+    merged = slicetrace.analyze_merged([trace_a, trace_c])
+    if "fleet: 2 rank trace(s) merged" not in merged or ":lanes" not in \
+            merged:
+        raise AssertionError("29d: --merge rendered no rank lanes")
+    t_path = os.path.join(out_dir, "obsdump-trace.json")
+    s_path = os.path.join(out_dir, "obsdump-summary.json")
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    rc = obsdump.main(["--trace", t_path, "--summary", s_path])
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    with open(s_path) as fh:
+        summary = json.load(fh)
+    with open(t_path) as fh:
+        n_events = len(json.load(fh)["traceEvents"])
+    listed = _hub_launches(summary)
+    if (rc != 0 or listed != launches
+            or not (listed["hash_partition"] and listed["hash_aggregate"])
+            or not summary["workload"]["device"].startswith("cuda")):
+        raise AssertionError(f"29d: obsdump rc {rc}, device kernels "
+                             f"{listed}, LAUNCHES {launches}, workload "
+                             f"{summary['workload']}")
+    log(f"phase 29d: slicetrace of 29c's trace: "
+        f"{len(report_c.splitlines())} lines with :kernels, :skew, "
+        f":overlap, no :recovery; --merge of 29a's and 29c's traces: "
+        f"{merged.splitlines()[0]}; obsdump on the card: exit {rc} in "
+        f"{wall:.4f} s, {n_events} trace events, workload "
+        f"{summary['workload']}, device kernels {listed} = LAUNCHES, on "
+        f"{card}")
+    return dict(launches=launches, wall_s=wall, report_lines=len(
+        report_c.splitlines()), obsdump_workload=summary["workload"])
+
+
+def phase29_operator_plane(card: str, phase3_launches: dict) -> dict:
+    """Phase 29, the operator plane: 29a-29d, each with its wall and its
+    launches by kernel on its own lines."""
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-ops-")
+    t0 = time.perf_counter()
+    paths = {}
+    t = time.perf_counter()
+    paths["debug-server"] = phase29a_debug_server(card, out_dir)
+    log(f"phase 29: debug-server took {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    paths.update(phase29b_static(card, phase3_launches))
+    log(f"phase 29: kselect static took {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    paths["kselect-measured"] = phase29c_measured(card, out_dir)
+    log(f"phase 29: kselect measured took {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    paths["obsdump"] = phase29d_tools(
+        card, out_dir, [paths["debug-server"].pop("trace"),
+                        paths["kselect-measured"].pop("trace")])
+    log(f"phase 29: tools took {time.perf_counter() - t:.2f} s")
+    log(f"phase 29: operator plane in {time.perf_counter() - t0:.2f} s")
+    return paths
+
+
 def nbytes_of(*arrays) -> int:
     return int(sum(a.nbytes for a in arrays))
 
@@ -4727,6 +5419,8 @@ def main() -> int:
     paths.update(phase27_data_plane(card))
     paths["kmeans"] = phase27_kmeans(card)
     paths.update(phase28_robustness(card))
+    paths.update(phase29_operator_plane(card,
+                                        paths["reduce-wave"]["launches"]))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
@@ -4742,7 +5436,7 @@ def main() -> int:
              match=True, **{k: kern[name][k] for k in LINE_KEYS})
         for name in PATH_KERNELS
     ]}
-    log(f"chip_smoke: phases 0-28 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 0-29 in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -453,21 +453,36 @@ def test_materialize_breaks_the_pipeline():
             (2,), (4,), (6,), (8,)]
 
 
+#: How long a task of the concurrency test waits for its peers.
+RENDEZVOUS_S = 5.0
+
+
 @pytest.mark.parametrize("pragma,most", [(None, 4), (bst.Procs(2), 2),
                                          (bst.Procs(9), 1),
                                          (bst.Exclusive(), 1)])
 def test_procs_and_exclusive_bound_concurrency(pragma, most):
     """Eight one-row tasks on ``LocalExecutor(procs=4)``: the most that
-    run at once is ``procs`` over each task's permits."""
-    lock = threading.Lock()
+    run at once is ``procs`` over each task's permits.
+
+    The overlap is proved by a bounded rendezvous, not by timing: each
+    task waits (up to ``RENDEZVOUS_S``) until ``min(most, 2)`` tasks have
+    been inside at once, so a loaded machine that schedules the worker
+    threads late cannot keep them apart. Each then holds its permits
+    for 0.1 s, as before the rendezvous, so that a run past the bound
+    would overlap and show."""
+    cond = threading.Condition()
     state = {"now": 0, "peak": 0}
+    target = min(most, 2)
 
     def slow(x):
-        with lock:
+        with cond:
             state["now"] += 1
             state["peak"] = max(state["peak"], state["now"])
+            cond.notify_all()
+            cond.wait_for(lambda: state["peak"] >= target,
+                          timeout=RENDEZVOUS_S)
         time.sleep(0.1)
-        with lock:
+        with cond:
             state["now"] -= 1
         return (x,)
 

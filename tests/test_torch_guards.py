@@ -567,3 +567,53 @@ def test_robustness_plane_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_operator_plane_runs_without_jax():
+    """The operator plane's modules (utils/debughttp, parallel/
+    kernelselect, tools/slicetrace, tools/obsdump) and a session with the
+    debug server and a measured selector, slicetrace over its trace and
+    obsdump's workload, import neither JAX nor the JAX package;
+    debughttp and slicetrace import only the standard library (and the
+    hub, for slicetrace)."""
+    code = textwrap.dedent("""
+        import json, os, sys, tempfile, urllib.request
+        before = set(sys.modules)
+        from bigslice_tpu_torch.utils import debughttp
+        from bigslice_tpu_torch.tools import slicetrace
+        light = sorted(m for m in set(sys.modules) - before
+                       if m.split(".")[0] in ("torch", "numpy"))
+        assert not light, light
+        import numpy as np
+        import bigslice_tpu_torch as bs
+        from bigslice_tpu_torch.parallel import kernelselect
+        from bigslice_tpu_torch.tools import obsdump
+
+        d = tempfile.mkdtemp()
+        os.environ["BIGSLICE_KERNEL_SELECT"] = "measured"
+        trace = os.path.join(d, "t.json")
+        sess = bs.Session(executor=bs.MeshExecutor(device="cpu"),
+                          debug_port=0, trace_path=trace)
+        keys = np.arange(4000, dtype=np.int32) * 7919 % 100003
+        res = sess.run(bs.Reduce(bs.Const(4, keys, np.ones(4000, np.int32)),
+                                 lambda a, b: a + b))
+        assert len(res.rows()) == 4000
+        del os.environ["BIGSLICE_KERNEL_SELECT"]
+        url = f"http://127.0.0.1:{sess.debug.port}/debug/device"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            assert "kernels" in json.loads(r.read().decode())
+        assert sess.kernel_select.stats.samples >= 2
+        sess.shutdown()
+        assert ":kernels" in slicetrace.analyze(trace)
+        summary = obsdump.run_workload(os.path.join(d, "o.json"), rows=4096,
+                                       device="cpu")
+        assert summary["workload"]["shards"] == 4
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

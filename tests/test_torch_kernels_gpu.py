@@ -1352,3 +1352,182 @@ def test_infra_classifier_on_a_real_out_of_memory_error(dev, monkeypatch):
                                                 lambda a, b: a + b))
     assert {int(k): int(v) for k, v in res.rows()} == _sum_oracle(keys, vals)
     assert len(ex.probation) == 1
+
+
+# -- the operator plane on the card: kernel selection and the debug server --
+
+
+def _count_reduce(bs, keys, shards=4):
+    return bs.Reduce(bs.Const(shards, keys, np.ones(len(keys), np.int32)),
+                     lambda a, b: a + b)
+
+
+def _selected_run(monkeypatch, mode, keys, shards=4, auto_dense=False):
+    """One counting Reduce on the card under ``BIGSLICE_KERNEL_SELECT``
+    (``mode`` None: unset); (rows, decisions, launches)."""
+    import bigslice_tpu_torch as bs
+
+    if mode is None:
+        monkeypatch.delenv("BIGSLICE_KERNEL_SELECT", raising=False)
+    else:
+        monkeypatch.setenv("BIGSLICE_KERNEL_SELECT", mode)
+    sess = bs.Session(executor=bs.MeshExecutor(auto_dense=auto_dense))
+    torch.cuda.synchronize()
+    before = dict(cuda_kernels.LAUNCHES)
+    res = sess.run(_count_reduce(bs, keys, shards))
+    rows = sorted(map(tuple, res.rows()))
+    torch.cuda.synchronize()
+    launches = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+    decisions = ([(d["kernel"], d["reason"]) for d in
+                  sess.kernel_select.stats.summary()["decisions"]]
+                 if sess.kernel_select is not None else None)
+    monkeypatch.delenv("BIGSLICE_KERNEL_SELECT", raising=False)
+    return rows, decisions, launches
+
+
+def test_static_selection_launches_k2_for_sparse_keys_only(dev,
+                                                           monkeypatch):
+    """``static`` on the card: sparse int32 keys take the hash lowering
+    (``static:cuda-kernel``, K2 launched, rows equal to the unset run's);
+    float32 keys take the sort path, and no K2 launches."""
+    rng = np.random.RandomState(14)
+    base = rng.randint(0, 1 << 16, 1 << 20).astype(np.int64)
+    sparse = ((base * 92821 + 17) % (1 << 30)).astype(np.int32)
+    floats = (base.astype(np.float32) / 64.0)
+    floats[:2] = [0.0, -0.0]
+    unset, dec, unset_launches = _selected_run(monkeypatch, None, sparse)
+    assert dec is None
+    got, dec, launches = _selected_run(monkeypatch, "static", sparse)
+    assert got == unset
+    assert set(dec) == {("hash", "static:cuda-kernel")}
+    assert launches["hash_aggregate"] > 0
+    assert launches == unset_launches
+    got, dec, launches = _selected_run(monkeypatch, "static", floats)
+    assert set(dec) == {("sort", "hash-ineligible")}
+    assert launches["hash_aggregate"] == 0
+    assert launches["hash_partition"] > 0
+    want = {}
+    for k in np.where(floats == 0, np.float32(0), floats).tolist():
+        want[k] = want.get(k, 0) + 1
+    assert {float(k): int(v) for k, v in got} == want
+
+
+def test_static_misprobe_launches_equal_the_unset_run(dev, monkeypatch):
+    """A misprobe on the card under ``static``: the retracted reduce side
+    decides again after its ``dense`` verdict, and K1's and K2's
+    launches and the rows equal the unset run's."""
+    rng = np.random.RandomState(11)
+    keys = rng.randint(0, 8, 20 * 4096).astype(np.int32)
+    keys[-4096:] = 500_000
+    unset, dec, unset_launches = _selected_run(monkeypatch, None, keys,
+                                               shards=20, auto_dense=True)
+    assert dec is None and unset_launches["hash_aggregate"] > 0
+    got, dec, launches = _selected_run(monkeypatch, "static", keys,
+                                       shards=20, auto_dense=True)
+    assert got == unset
+    assert launches == unset_launches
+    assert dec[-2:] == [("dense", "dense-bound"),
+                        ("hash", "static:cuda-kernel")]
+
+
+def test_measured_probe_on_the_card(dev):
+    """A measured probe on the card: finite, positive medians for both
+    cores, every sample timed, and the hash core's launches (a warm-up
+    and PROBE_ITERS) the op's under kind kselect, equal to LAUNCHES."""
+    from bigslice_tpu_torch.parallel import kernelselect as ks
+    from bigslice_tpu_torch.utils.telemetry import TelemetryHub
+
+    hub = TelemetryHub()
+    sel = ks.KernelSelector("measured", hub, device="cuda")
+    torch.cuda.synchronize()
+    before = cuda_kernels.LAUNCHES["hash_aggregate"]
+    kernel = sel.choose("gpu-probe-op", "s", nkeys=1, nvals=1,
+                        ops=("add",), key_dtypes=("int32",),
+                        val_dtypes=("int32",), hash_eligible=True,
+                        dense_bound=False)
+    assert kernel in ("hash", "sort")
+    d = sel.stats.summary()["decisions"][0]
+    assert d["reason"] in ("measured:probe", "measured:margin")
+    assert set(d["walls_ms"]) == {"sort", "hash"}
+    for name, samples in d["walls_all_ms"].items():
+        assert len(samples) == ks.PROBE_ITERS
+        assert all(np.isfinite(x) and x > 0 for x in samples), name
+        assert np.isfinite(d["walls_ms"][name]) and d["walls_ms"][name] > 0
+    launched = cuda_kernels.LAUNCHES["hash_aggregate"] - before
+    assert launched == 1 + ks.PROBE_ITERS
+    dev_sum = hub.device.summary()
+    assert dev_sum["kselect"]["gpu-probe-op"]["hash_aggregate"][
+        "launches"] == launched
+    assert dev_sum["totals"]["launches"] == 0
+
+
+def test_debug_device_launches_equal_launches(dev):
+    """``/debug/device`` of a session on the card lists K1's and K2's
+    launches, equal to the run's ``LAUNCHES`` delta and the hub's."""
+    import json
+    import urllib.request
+
+    import bigslice_tpu_torch as bs
+
+    sess = bs.Session(executor=bs.MeshExecutor(auto_dense=False),
+                      debug_port=0)
+    try:
+        keys = np.random.RandomState(3).randint(0, 1 << 16, 1 << 20).astype(
+            np.int32)
+        torch.cuda.synchronize()
+        before = dict(cuda_kernels.LAUNCHES)
+        res = sess.run(_count_reduce(bs, keys))
+        assert len(res.rows()) == len(np.unique(keys))
+        torch.cuda.synchronize()
+        delta = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in before}
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{sess.debug.port}/debug/device",
+                timeout=30) as r:
+            doc = json.loads(r.read().decode())
+        served = {k: 0 for k in delta}
+        for per_kernel in doc["kernels"].values():
+            for name, k in per_kernel.items():
+                served[name] += k["launches"]
+        assert served == delta
+        assert delta["hash_partition"] > 0 and delta["hash_aggregate"] > 0
+        assert doc["kernels"] == sess.telemetry_summary()["device"][
+            "kernels"]
+        assert doc["hbm"]["source"] == "memory_stats"
+    finally:
+        sess.shutdown()
+
+
+@pytest.mark.parametrize("prefetch", [1, 2])
+def test_measured_probe_under_the_pipeline_and_the_skew_split(dev, prefetch,
+                                                              monkeypatch):
+    """The probe's synchronisations at program build, on the group's
+    thread, while the prefetcher stages later waves on the copy stream
+    and the skew policy splits a hot wave: no deadlock, and the rows
+    equal the unset run's."""
+    import bigslice_tpu_torch as bs
+
+    rng = np.random.RandomState(7)
+    n = 1 << 20
+    keys = np.where(rng.rand(n) < 0.7, 0,
+                    rng.randint(0, 1 << 12, n)).astype(np.int32)
+    ones = np.ones(n, np.int32)
+
+    def run():
+        sess = bs.Session(executor=bs.MeshExecutor(
+            auto_dense=False, prefetch_depth=prefetch))
+        res = sess.run(bs.Reduce(
+            bs.Map(bs.Reshuffle(bs.Const(8, keys, ones)),
+                   lambda k, v: (k, v + 0)),
+            lambda a, b: a + b))
+        return sorted(map(tuple, res.rows())), sess
+
+    monkeypatch.delenv("BIGSLICE_KERNEL_SELECT", raising=False)
+    monkeypatch.delenv("BIGSLICE_ADAPTIVE", raising=False)
+    want, _ = run()
+    monkeypatch.setenv("BIGSLICE_KERNEL_SELECT", "measured")
+    monkeypatch.setenv("BIGSLICE_ADAPTIVE", "skew")
+    got, sess = run()
+    assert got == want
+    assert sess.adaptive.stats.skew_splits >= 1
+    assert any("walls_ms" in d for d in
+               sess.kernel_select.stats.summary()["decisions"])

@@ -755,3 +755,31 @@ def test_frame_host_half_and_reader_helpers():
     got = list(sliceio.multi_reader([iter(parts[:1]), iter(parts[1:])]))
     assert [len(x) for x in got] == [2, 3]
     assert [len(x) for x in sliceio.rebatch(iter(parts * 3), 4)] == [4, 4, 4, 3]
+
+
+def test_pool_starts_a_worker_for_each_task_it_queues():
+    """One worker idle in the pool (left by a one-task run) must not stand
+    for every task queued before it wakes: the next run's four tasks all
+    run at once on ``procs=4``. Each task waits, bounded, until all four
+    are inside, which one worker alone can never reach."""
+    import threading
+
+    ex = bst.LocalExecutor(device="cpu", procs=4)
+    sess = bst.Session(executor=ex)
+    sess.run(bst.Const(1, np.arange(4, dtype=np.int32)))  # one worker
+    cond = threading.Condition()
+    state = {"now": 0, "peak": 0}
+
+    def meet(x):
+        with cond:
+            state["now"] += 1
+            state["peak"] = max(state["peak"], state["now"])
+            cond.notify_all()
+            cond.wait_for(lambda: state["peak"] >= 4, timeout=5.0)
+            state["now"] -= 1
+        return (x,)
+
+    res = sess.run(bst.Map(bst.Const(4, np.arange(4, dtype=np.int32)), meet,
+                           out=[np.int32], mode="host"))
+    assert sorted(res.rows()) == [(i,) for i in range(4)]
+    assert state["peak"] == 4

@@ -228,9 +228,33 @@ def test_eventer_hears_the_session_and_corr_rides_the_result():
 
 
 def test_debug_port_and_fleet_scope_raise_by_name():
-    with pytest.raises(ObservabilityNotPorted, match="debughttp"):
-        bs.Session(executor=bs.LocalExecutor(device="cpu"), debug_port=0)
+    """``debug_port`` starts the debug server as the JAX package's does
+    (``session.debug`` on a free port, the same routes answering, closed
+    at shutdown); what still raises by name is the fleet merge: the
+    summary's fleet scope and, on the server, ``/debug/fleet`` (501)."""
+    import urllib.error
+    import urllib.request
+
+    def get(s, path):
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{s.debug.port}{path}", timeout=10) as r:
+            return r.status
+
+    port = bs.Session(executor=bs.LocalExecutor(device="cpu"), debug_port=0)
+    ref = RefSession(debug_port=0)
+    try:
+        for s in (port, ref):
+            assert s.debug.port > 0
+            assert [get(s, p) for p in ("/debug", "/debug/status")] == [
+                200, 200]
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            get(port, "/debug/fleet")
+        assert ei.value.code == 501
+    finally:
+        port.shutdown()
+        ref.shutdown()
     sess = _local()
+    assert sess.debug is None
     with pytest.raises(ObservabilityNotPorted, match="fleet"):
         sess.telemetry_summary(scope="fleet")
 

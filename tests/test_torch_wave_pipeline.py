@@ -303,7 +303,7 @@ def test_split_fold_holds_one_row_a_key(lowering):
     def run(budget):
         ex = _ex(prefetch_depth=0, device_budget_bytes=budget)
         if lowering == "sort":
-            ex._hash_combine_ops = lambda opbase, fc: None
+            ex._hash_combine_ops = lambda opbase, fc, decide=True: None
         rows = _rows(bst.Session(executor=ex), bst.Reduce(
             bst.Const(4, keys, vals), lambda a, b: a + b))
         (out,) = [o for o in ex._outputs.values()
