@@ -809,3 +809,25 @@ extern "C" int bs_hash_aggregate(
     agg_spill_kernel<<<kSpillBlocks, 256, 0, stream>>>(a, nkeys);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Loads every instantiation bs_hash_aggregate launches into the current
+// context (see bs_load_kernels in probe.cu).
+extern "C" int bs_load_hash_aggregate() {
+  cudaFuncAttributes attr;
+  const void* fns[] = {
+      reinterpret_cast<const void*>(agg_count_kernel<true>),
+      reinterpret_cast<const void*>(agg_count_kernel<false>),
+      reinterpret_cast<const void*>(agg_scatter_staged_kernel<true>),
+      reinterpret_cast<const void*>(agg_scatter_staged_kernel<false>),
+      reinterpret_cast<const void*>(agg_scatter_direct_kernel),
+      reinterpret_cast<const void*>(agg_bucket_kernel<4, 1, 2>),
+      reinterpret_cast<const void*>(
+          agg_bucket_kernel<1, BS_MAX_COLS, BS_MAX_COLS>),
+      reinterpret_cast<const void*>(agg_spill_kernel),
+  };
+  for (const void* fn : fns) {
+    const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}

@@ -208,3 +208,13 @@ extern "C" int bs_hash_partition(const void* const* key_ptrs,
         mode);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Loads this file's kernels into the current context (see
+// bs_load_kernels in probe.cu).
+extern "C" int bs_load_hash_partition() {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, hash_partition_kernel<true>);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, hash_partition_kernel<false>);
+  return static_cast<int>(e);
+}

@@ -65,8 +65,21 @@ _compiler_serial = itertools.count(1)
 
 class Compiler:
     def __init__(self, inv_index: int, shuffle_mode: Optional[str] = None,
-                 machine_combiners: bool = False, coded=None):
+                 machine_combiners: bool = False, coded=None,
+                 mesh_signature=None, kernel_select_mode=None):
         self.inv_index = inv_index
+        # The repr-stable device signature of the session's executor
+        # ((axis names, shape), None for the local executor), stamped
+        # into every task's partition_config: the program cache's key
+        # (serve/programcache.py) tells programs of different device
+        # layouts apart (reference exec/compile.py:93-100).
+        self.mesh_signature = mesh_signature
+        # The kernel selector's mode (parallel/kernelselect.py), frozen
+        # per compilation: stamped into partition_config, so programs
+        # built under selector control never share a program-cache
+        # digest with unselected ones. None = knob unset, the 4-tuple
+        # alone (reference :62-79).
+        self.kernel_select_mode = kernel_select_mode
         # The coded k-of-n planner (exec/codedplan.py), frozen per
         # compilation: the session resolves BIGSLICE_CODED once a run.
         # None = unset, and the graph is today's (reference
@@ -176,6 +189,18 @@ class Compiler:
                     deps.append(TaskDep((dep_tasks[shard],), 0))
             return deps
 
+        # The repr-stable partition config (no ids), which the program
+        # cache's digest keys on (reference :233-247). Plan-knob stamps
+        # append only when their planner is engaged.
+        base_config = (
+            part.num_partition,
+            bool(part.combiner),
+            bool(part.partition_fn),
+            self.mesh_signature,
+        )
+        if self.kernel_select_mode is not None:
+            base_config += ("kselect:" + self.kernel_select_mode,)
+
         grp = None
         if (self.coded is not None and part.combiner is not None
                 and not part.combine_key):
@@ -184,7 +209,8 @@ class Compiler:
             grp = self.coded.group_for(self.inv_index, op_name, num_tasks)
         if grp is not None:
             tasks = self._compile_coded(grp, chain, part, slice_, key,
-                                        op_name, deps_for_shard, place_out)
+                                        op_name, deps_for_shard, place_out,
+                                        base_config)
             self._memo[key] = tasks
             return tasks
 
@@ -202,6 +228,7 @@ class Compiler:
             # Structural metadata for the executor, which runs all shards
             # of a fused chain as one op group.
             task.chain = chain
+            task.partition_config = base_config
             # Shuffle-plan stamps: the frozen knob, and why this
             # boundary can never spill (a machine-combined one re-combines
             # to one row a key, which spilled partials cannot honour).
@@ -214,7 +241,8 @@ class Compiler:
         return tasks
 
     def _compile_coded(self, grp, chain, part, slice_, key, op_name,
-                       deps_for_shard, place_out) -> List[Task]:
+                       deps_for_shard, place_out,
+                       base_config) -> List[Task]:
         """The ``n = k + r`` striped coverage members of one coded
         boundary (reference exec/compile.py:303-351). Member ``i``
         computes units ``grp.covers(i)``, unit ``u`` being the uncoded
@@ -246,8 +274,10 @@ class Compiler:
             task.coded_group = grp
             task.coded_units = units
             # The plan's stamp on the members alone (consumers keep
-            # their configuration).
-            task.partition_config = (f"coded:k{grp.k}r{grp.r}",)
+            # their configuration), as the selector's: engaged plans
+            # never share a program-cache digest with unset ones.
+            task.partition_config = base_config + (
+                f"coded:k{grp.k}r{grp.r}",)
             task.shuffle_mode = self.shuffle_mode
             # Per-unit outputs live under cover names the spill exchange
             # does not track: coverage members always run whole.

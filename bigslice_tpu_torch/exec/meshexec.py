@@ -116,6 +116,15 @@ and between its waves, never inside a launch; with an adaptive planner
 (``BIGSLICE_ADAPTIVE``) the skew policy splits a flagged consumer wave
 into row slices and the cost policy sets the wave budget from the
 card's memory.
+
+The program cache (``serve/programcache.py``): with a telemetry hub,
+each wave program is looked up in the executor's session-local table
+by its stage functions' ids (weakref-guarded), and its first call at
+each argument signature probes the process-wide tier under a content
+digest (``_served_program``): a hit there is a program some earlier
+Session of the process built. A program is rebuilt on every call all
+the same: nothing is compiled, so the table and the tier hold its
+identity and accounting.
 """
 
 from __future__ import annotations
@@ -126,6 +135,7 @@ import shutil
 import tempfile
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -162,7 +172,7 @@ from bigslice_tpu_torch.parallel import shuffle as shuffle_mod
 from bigslice_tpu_torch.parallel.jitutil import bucket_size
 from bigslice_tpu_torch.parallel.segment import compact_to_bucket, take
 from bigslice_tpu_torch.slicetype import torch_dtype
-from bigslice_tpu_torch.utils import faultinject, fileio
+from bigslice_tpu_torch.utils import devicetelemetry, faultinject, fileio
 
 __all__ = ["COGROUP_DEFAULT_CAP", "DeviceGroupOutput", "HostLostError",
            "MeshExecutor", "PROBATION_SECS"]
@@ -253,6 +263,26 @@ def _looks_like_infra_error(e: BaseException) -> bool:
         return True
     return any(m in repr(err).lower() for err in chain
                for m in _INFRA_ERR_MARKERS)
+
+
+#: Entries of an executor's session-local program table (reference
+#: exec/meshexec.py:101).
+_PROGRAM_CACHE_MAX = 64
+
+
+class _ProgramEntry:
+    """One session-local program table entry: the program's cross-session
+    digest (None: never shared), its repr-stable spec, the seconds its
+    first ``_program`` took, and the argument signatures its calls have
+    had in this executor (each probes the process-wide tier once)."""
+
+    __slots__ = ("serve_key", "spec", "build_s", "sigs")
+
+    def __init__(self, serve_key, spec, build_s: float):
+        self.serve_key = serve_key
+        self.spec = spec
+        self.build_s = build_s
+        self.sigs: set = set()
 
 
 def _op_base(op: str) -> str:
@@ -576,6 +606,11 @@ class MeshExecutor:
         self._group_turns: Dict[Tuple, threading.Lock] = {}
         self._outputs: Dict[Tuple, object] = {}
         self._task_index: Dict[TaskName, Tuple[Tuple, Task]] = {}
+        # The session-local program table (reference :714): session key
+        # (with the stage functions' ids) -> (_ProgramEntry, weakrefs to
+        # those functions). It holds accounting, not programs: a wave
+        # program is rebuilt on every call (``_program``).
+        self._programs: Dict[Tuple, Tuple[_ProgramEntry, tuple]] = {}
         # Ops whose hash table overflowed: back on the sort path for good,
         # which handles any key distribution.
         self._hash_off: set = set()
@@ -2039,15 +2074,17 @@ class MeshExecutor:
         rows ahead of the shuffle's combine (``_run_slice``). With a
         telemetry hub a shuffle's program also returns its rows a
         partition (``[nparts]``, on the device) as a seventh element;
-        the settle reads them with the signals."""
+        the settle reads them with the signals.
+
+        The program is rebuilt on every call (a re-selection or a
+        retracted bound takes effect at the op's next wave); with a
+        telemetry hub it is accounted in the program cache
+        (``_served_program``)."""
+        t0 = time.perf_counter()
         if self.kernel_select is not None:
             # Attribution only (reference exec/meshexec.py:3777-3781):
-            # instants of decisions made while this program runs land in
-            # its invocation's section. The JAX package also keys its
-            # compiled program on the op's live decisions (:3796-3802);
-            # this program is rebuilt on every call, so there is nothing
-            # to key, and a re-selection takes effect at the op's next
-            # wave.
+            # instants of decisions made while this program is built and
+            # run land in its invocation's section.
             self.kernel_select.current_inv = task.name.inv_index
         opbase = _op_base(task.name.op)
         nmesh = self.nmesh
@@ -2222,7 +2259,189 @@ class MeshExecutor:
             return (out_n.reshape(1), overflow, badrange, hashov, gbover,
                     cols, parts)
 
-        return stepped
+        return self._served_program(task, stages, slack, stepped,
+                                    time.perf_counter() - t0)
+
+    # -- the program cache (serve/programcache.py) --------------------------
+
+    def _served_program(self, task: Task, stages: List[tuple], slack: float,
+                        stepped, build_s: float):
+        """Account ``stepped`` in the program cache (reference
+        :3803-3821, :4360-4401): look its session key up in the
+        executor's table (the stage functions' ids, guarded by weakrefs
+        against recycled ids), making an entry with the program's
+        cross-session digest on a miss, and return a callable that
+        probes the process-wide tier once per argument signature (the
+        wave inputs' shapes and dtypes) and counts every later call as a
+        session-local hit. Without a hub, ``stepped`` itself."""
+        dev = self._device_telemetry()
+        if dev is None:
+            return stepped
+        fns = self._stage_fns(stages)
+        struct = self._stage_struct(stages)
+        engaged = self._op_hash_engaged(task, stages)
+        token = (self.kernel_select.token(_op_base(task.name.op))
+                 if self.kernel_select is not None else None)
+        ncols = self._input_ncols(task)
+        key = (struct, tuple(id(f) for f in fns), task.num_partition,
+               len(task.schema), ncols, slack, engaged, token)
+        with self._lock:
+            cached = self._programs.get(key)
+        if cached is not None:
+            entry, refs = cached
+            if not (len(refs) == len(fns) and all(
+                    r is None or r() is f for r, f in zip(refs, fns))):
+                cached = None
+        if cached is None:
+            # The serve digest's parts (reference :4373-4387): the
+            # structural key under the device signature and partition
+            # config, the stage functions by content, and the serve-only
+            # extras.
+            key_parts = (getattr(task, "partition_config", None),
+                         (tuple(kind for kind, _ in stages),
+                          task.num_partition, ncols, slack,
+                          self.donate_buffers))
+            extra = ((struct,
+                      tuple((str(ct.dtype), tuple(ct.shape))
+                            for ct in task.schema),
+                      len(task.schema), engaged)
+                     + ((token,) if token is not None else ()))
+            entry = _ProgramEntry(
+                devicetelemetry.serve_key(task.name.op, "group", key_parts,
+                                          fns, extra),
+                ("group", key_parts, extra), build_s)
+            refs = []
+            for f in fns:
+                try:
+                    refs.append(weakref.ref(f))
+                except TypeError:  # an unweakrefable callable
+                    refs.append(None)
+            with self._lock:
+                self._programs[key] = (entry, tuple(refs))
+                while len(self._programs) > _PROGRAM_CACHE_MAX:
+                    self._programs.pop(next(iter(self._programs)))
+        op, inv = task.name.op, task.name.inv_index
+        dtype = self.device.type
+
+        def run(wave: int, inputs, carry=None):
+            sig = (dtype,) + tuple(
+                (inp.subid, tuple((str(c.dtype), tuple(c.shape))
+                                  for c in inp.cols))
+                for inp in inputs)
+            if carry is not None:
+                sig += (("carry",) + tuple(tuple(c.shape)
+                                           for c in carry[1]),)
+            with self._lock:
+                fresh = sig not in entry.sigs
+                entry.sigs.add(sig)
+            try:
+                if fresh:
+                    dev.probe_program(op, inv, "group", entry.serve_key,
+                                      sig, entry.spec, entry.build_s)
+                else:
+                    dev.record_program(op, inv, "group", "hit")
+            except Exception:  # noqa: BLE001 — telemetry never fails a run
+                pass
+            return stepped(wave, inputs, carry)
+
+        return run
+
+    @staticmethod
+    def _stage_struct(stages) -> tuple:
+        """Repr-stable stage descriptors for the cross-session program
+        key (reference :4405-4456): the stages with every function
+        removed, since ``_stage_fns`` fingerprints those by content, so
+        that two sessions whose pipelines differ only in function
+        objects share a key while any structural knob the program
+        branches on (dense key spaces, prefixes, capacities, shard
+        counts) still splits it."""
+        out = []
+        for kind, s in stages:
+            if kind == "map":
+                out.append((kind, len(s.args)))
+            elif kind == "flatmap":
+                out.append((kind, s.fanout))
+            elif kind == "filter":
+                out.append((kind,))
+            elif kind == "head":
+                out.append((kind, s.n))
+            elif kind == "groupby":
+                out.append((kind, s.prefix, s.capacity, s.on_overflow))
+            elif kind == "cogroup":
+                out.append((kind, s.prefix, s.nvals))
+            elif kind == "combine":
+                fc = s.frame_combiner
+                out.append((kind, fc.nkeys, fc.nvals, fc.dense_keys))
+            elif kind == "fold":
+                out.append((kind, s.prefix, repr(s.init), str(s.acc_dtype),
+                            s.dense_keys))
+            elif kind == "join":
+                fa, fb = s.frame_combiners
+                out.append((kind, s.prefix, fa.nkeys, fa.nvals, fb.nvals,
+                            fa.dense_keys, fb.dense_keys, s.num_shards))
+            else:  # shuffle
+                fc = s.partitioner.combiner
+                out.append((kind, s.schema.prefix, fc is not None,
+                            s.partitioner.partition_fn is not None,
+                            s.num_partition,
+                            fc.dense_keys if fc is not None else None,
+                            fc.nkeys if fc is not None else None,
+                            fc.nvals if fc is not None else None))
+        return tuple(out)
+
+    @staticmethod
+    def _stage_fns(stages) -> list:
+        """The user functions a wave program closes over, in stage order
+        (reference :4458-4479)."""
+        fns = []
+        for kind, s in stages:
+            if kind in ("map", "flatmap", "fold"):
+                fns.append(s.fn)
+            elif kind == "filter":
+                fns.append(s.pred)
+            elif kind == "combine":
+                fns.append(s.frame_combiner.fn)
+            elif kind == "join":
+                fns.extend(fc.fn for fc in s.frame_combiners)
+            elif kind == "shuffle":
+                fc = s.partitioner.combiner
+                if fc is not None:
+                    fns.append(fc.fn)
+                pf = s.partitioner.partition_fn
+                if pf is not None:
+                    fns.append(getattr(pf, "fn", pf))
+        return fns
+
+    @staticmethod
+    def _input_ncols(task: Task) -> Tuple[int, ...]:
+        """Per-input column counts (one entry a dep; one for a
+        source)."""
+        innermost = task.chain[-1]
+        deps = innermost.deps()
+        if deps:
+            return tuple(len(d.slice.schema) for d in deps)
+        return (len(innermost.schema),)
+
+    def _op_hash_engaged(self, task: Task, stages) -> bool:
+        """Would a stage of this op's program take a hash lowering now
+        (reference :3565-3584)? The gates are the program's own: the
+        combine stage's, the shuffle's with a combiner and no partition
+        function, the join's."""
+        opbase = _op_base(task.name.op)
+        for kind, s in stages:
+            if kind == "combine":
+                if self._hash_combine_ops(opbase,
+                                          s.frame_combiner) is not None:
+                    return True
+            elif kind == "shuffle":
+                fc = s.partitioner.combiner
+                if (fc is not None and s.partitioner.partition_fn is None
+                        and self._hash_combine_ops(opbase, fc) is not None):
+                    return True
+            elif kind == "join":
+                if self._hash_join_ops(opbase, s) is not None:
+                    return True
+        return False
 
     def _partition_counts(self, mask, cols, nparts: int,
                           planar: bool = False) -> torch.Tensor:

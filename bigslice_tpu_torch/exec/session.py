@@ -198,6 +198,9 @@ class Session:
       one; ``session.debug`` is the server (None without the option)
       and ``shutdown()`` closes it.
 
+    A ``ServeServer`` (``serve/server.py``) built over the session sets
+    itself as ``session.serve``; ``shutdown()`` drains it first.
+
     From the environment, as in the JAX package: ``BIGSLICE_ADAPTIVE``
     attaches an adaptive planner (``session.adaptive``,
     ``exec/adaptive.py``) and ``BIGSLICE_CODED`` a coded planner
@@ -293,6 +296,10 @@ class Session:
             if self.telemetry is not None:
                 self.telemetry.coded = self.coded.stats
             executor.coded = self.coded
+        # The serving plane (serve/server.py): a ServeServer attached to
+        # this session sets itself here, so that shutdown() drains its
+        # invocations before the executor goes (reference :343-346).
+        self.serve = None
         # The debug server (reference exec/session.py:347-351), last, so
         # that a knob the planners refuse leaves no listener behind.
         self.debug = None
@@ -316,8 +323,15 @@ class Session:
             self.eventer("bigslice:taskComplete", task=str(task.name))
 
     def shutdown(self) -> None:
-        """Release the executor's resources (its private spill
-        directory), stop the status printer, and write the trace."""
+        """Drain an attached serving server (its invocations run on this
+        session's executor; its close() also prints the final snapshot),
+        release the executor's resources (its private spill directory),
+        stop the status printer, and write the trace."""
+        if self.serve is not None:
+            try:
+                self.serve.close()
+            except Exception:  # noqa: BLE001 — shutdown must finish
+                pass
         close = getattr(self.executor, "close", None)
         if close is not None:
             close()
@@ -386,6 +400,10 @@ class Session:
         tasks = compile_mod.Compiler(
             inv_index, shuffle_mode=shuffleplan.plan_mode() or "",
             machine_combiners=self.machine_combiners, coded=self.coded,
+            mesh_signature=self._mesh_signature(),
+            kernel_select_mode=(self.kernel_select.mode
+                                if self.kernel_select is not None
+                                else None),
         ).compile(slice_)
         if self.debug is not None:
             self.debug.register_roots(tasks)
@@ -407,6 +425,17 @@ class Session:
         res = Result(self, slice_, tasks)
         res.corr = corr
         return res
+
+    def _mesh_signature(self):
+        """The executor's repr-stable device signature for the
+        compiler's partition_config (reference :668-681): the device
+        executor's one-axis layout of ``nmesh`` device slots, as the JAX
+        package's ``MeshTopology(mesh).signature()`` names a one-axis
+        mesh; None for the local executor."""
+        nmesh = getattr(self.executor, "nmesh", None)
+        if nmesh is None:
+            return None
+        return (("shards",), (int(nmesh),))
 
     def _record_deadline(self, outcome: str, deadline_s) -> None:
         """A ``run(deadline_s=)`` outcome into the hub's deadline plane

@@ -33,7 +33,10 @@ kernel's time against the same bytes. Where a launch runs inside
 
 The library is built at first use, keyed by a hash of the sources and
 flags, into ``bigslice_tpu_torch/_build/`` (one ``nvcc -c`` per source,
-all started together, then one link).
+all started together, then one link). Loading it also loads every
+kernel into the CUDA context (``bs_load_kernels``, csrc/probe.cu): under
+CUDA's lazy module loading a kernel's first launch in a process would
+otherwise wait for the device.
 """
 
 from __future__ import annotations
@@ -244,9 +247,13 @@ def build():
         lib.bs_hash_aggregate.argtypes = [
             vp, vp, ci, vp, vp, ci, vp, vp, cll, ci, cll, cu, ci, ci, vp,
             vp, vp, vp, vp, vp, vp, ci, vp]
+        lib.bs_load_kernels.argtypes = []
         for fn in (lib.bs_probe_add1, lib.bs_hash_partition,
-                   lib.bs_hash_aggregate):
+                   lib.bs_hash_aggregate, lib.bs_load_kernels):
             fn.restype = ci
+        # Load every kernel now: under CUDA's lazy module loading a
+        # kernel's first launch would otherwise wait for the device.
+        _check(lib.bs_load_kernels(), "bs_load_kernels")
         BUILD_SECONDS = time.perf_counter() - t0
         BUILDS.append({"name": out.name, "wall_s": BUILD_SECONDS,
                        "cache_hit": cache_hit})

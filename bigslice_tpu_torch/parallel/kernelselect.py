@@ -40,8 +40,11 @@ The static reasons, against the JAX package's:
 The probe launches its kernels on the selector's device; its launches
 are attributed to the op under kind ``kselect``, apart from the op's
 wave launches (``DeviceTelemetry.record_launch``). The JAX package's
-probes compile into a cross-session program cache; this package
-compiles nothing, so a second selector's probe builds nothing either.
+probes compile into its cross-session program cache; this package
+compiles nothing, but its two probe programs enter the port's program
+cache (``serve/programcache.py``) under kind ``kselect`` all the same:
+a second selector of the process probing the same op shape finds both
+there (``cross_session_hits``) and builds none (``program_builds``).
 
 Re-selection: each decision keeps the per-partition snapshot it was
 based on; ``observe_wave`` (the executor calls it after each
@@ -399,8 +402,10 @@ class KernelSelector:
                     out.append(torch.minimum(x, y))
             return tuple(out)
 
+        t0 = time.perf_counter()
         sort_core = segment.make_segmented_reduce_masked(nkeys, nvals, cfn)
         hash_core = hashagg.make_hash_combine(nkeys, nvals, ops)
+        build_s = time.perf_counter() - t0
 
         rng = np.random.default_rng(0xB165)
         keys = tuple(
@@ -435,6 +440,22 @@ class KernelSelector:
                 dev.record_launch(opbase, inv, name, cost, kind="kselect")
 
         progs = {"sort": run_sort, "hash": run_hash}
+        if dev is not None and sig is not None:
+            # Both candidates enter the program cache (reference
+            # :455-466), purely structural (no user function): a second
+            # selector of the process probing this op shape finds them
+            # there, kind "kselect".
+            from bigslice_tpu_torch.utils.devicetelemetry import serve_key
+
+            arg_sig = (device.type,) + tuple(
+                (str(t.dtype), tuple(t.shape)) for t in (valid,) + keys
+                + vals)
+            for name in progs:
+                key_parts = (name,) + sig[1:]
+                dev.probe_program(
+                    opbase, inv, "kselect",
+                    serve_key(opbase, "kselect", key_parts, ()), arg_sig,
+                    ("kselect", key_parts), build_s / len(progs))
         samples: Dict[str, List[float]] = {n: [] for n in progs}
         with cuda_kernels.launch_sink(sink):
             for fn in progs.values():
@@ -464,6 +485,18 @@ class KernelSelector:
         return out
 
     # -- the decision set and re-selection --------------------------------
+
+    def token(self, opbase: str) -> tuple:
+        """The op's live decisions, repr-stable (reference :488-499):
+        folded into the executor's session-local program key and the
+        cross-session serve digest, so that programs built under
+        different selections never share an identity."""
+        with self._lock:
+            return tuple(sorted(
+                (site, d["kernel"])
+                for (op, site), d in self._decisions.items()
+                if op == opbase
+            ))
 
     def decision(self, opbase: str, site: str) -> Optional[str]:
         with self._lock:

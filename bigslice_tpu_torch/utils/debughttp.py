@@ -23,8 +23,9 @@ port, ``session.debug.port`` says which). Its routes (reference
   what is missing, for ``?format=json`` and ``?format=prom`` alike.
 
 The request plumbing (a threaded server, GET/POST dispatch through an
-overridable route method, in-flight tracking with a draining
-``close()``) is what a serving plane's server subclasses.
+overridable route method, a bounded body read, in-flight tracking with
+a draining ``close()``) is what the serving plane's ``ServeServer``
+(``serve/server.py``) subclasses.
 
 ``close()`` **drains**: it stops admitting requests (503), waits,
 bounded by ``DRAIN_TIMEOUT_S``, for those in flight, then releases the
@@ -82,6 +83,18 @@ class DebugServer:
                         self._send(404, "text/plain", "not found\n")
                 finally:
                     server._exit()
+
+            def _read_body(self, limit: int = 16 << 20):
+                """The request body, or None when its Content-Length
+                exceeds ``limit`` (the caller answers 413: an oversized
+                request must not pass for an empty one; reference
+                :85-95)."""
+                n = int(self.headers.get("Content-Length") or 0)
+                if n > limit:
+                    return None
+                if n <= 0:
+                    return b""
+                return self.rfile.read(n)
 
             def _send(self, code, ctype, body: str):
                 data = body.encode()

@@ -1,5 +1,5 @@
 """Device-plane telemetry: kernel launches and their declared cost,
-builds, HBM watermarks, donation effectiveness.
+builds, the program cache, HBM watermarks, donation effectiveness.
 
 The telemetry hub carries this recorder as ``hub.device``:
 
@@ -9,14 +9,22 @@ The telemetry hub carries this recorder as ``hub.device``:
    (``parallel/cuda_kernels.cost``). The wrapper reports every launch
    it counts into ``cuda_kernels.LAUNCHES`` to the op whose context it
    runs in (``cuda_kernels.launch_sink``), and this recorder sums the
-   launches, declared bytes and operations per op and kernel.
-2. **Compile telemetry.** The kernels' and ``native/``'s first-use
+   launches, declared bytes and operations per op and kernel;
+   ``total_cost_bytes()`` is the running sum of the declared bytes of
+   every launch it heard (the serving plane's cost gate reads it).
+2. **Builds and programs.** The kernels' and ``native/``'s first-use
    builds (wall time, and whether the digest's ``.so`` was already
    built: a cache hit) are process-wide records read at summary time.
-   The port compiles no wave program (a wave program is Python that
-   launches the kernels), so the JAX package's program-cache hits,
-   misses and compile times do not apply: ``summary()["compile"]``
-   stays empty and the hub's ``program_cache`` is None.
+   The port compiles no wave program: a wave program is a Python
+   closure that launches the kernels, rebuilt on every wave in
+   microseconds, so ``summary()["compile"]`` stays empty. What the
+   JAX package's program-cache accounting counts is kept per op and
+   program kind (``record_program``, ``probe_program``): a program
+   built after a miss (``program_builds``, with its build seconds), a
+   hit in the executor's session-local table (``cache_hits``), and a
+   hit in the process-wide tier (``cross_session_hits``,
+   ``serve/programcache.py``): a program some earlier Session of the
+   process built.
 3. **HBM.** A per-wave watermark from the CUDA caching allocator
    (allocated, reserved and peak bytes, against the card's memory);
    where the device has no allocator (the CPU), the bytes of the
@@ -28,7 +36,6 @@ The telemetry hub carries this recorder as ``hub.device``:
 
 Every entry point is lock-protected, exception-safe and O(1).
 """
-
 from __future__ import annotations
 
 import threading
@@ -62,9 +69,33 @@ def build_records() -> List[dict]:
     return out
 
 
+def serve_key(op: str, kind: str, key_parts, fns, extra=None
+              ) -> Optional[str]:
+    """The cross-session digest of a program (``serve/programcache``,
+    reference ``DeviceTelemetry.instrument``): None when ``fns`` is None
+    (never shared), a function defeats fingerprinting, or the tier is
+    off (``BIGSLICE_PROGRAM_CACHE=0``)."""
+    if fns is None:
+        return None
+    try:
+        from bigslice_tpu_torch.serve import programcache as pc
+
+        if pc.cache_capacity() <= 0:
+            return None
+        fp = pc.fn_fingerprint(fns)
+        if fp is None:
+            return None
+        return pc.serve_digest(op, kind, key_parts, extra, fp)
+    except Exception:  # noqa: BLE001 — the cache is never a dependency
+        return None
+
+
 class _OpDeviceRecord:
     def __init__(self, inv: Optional[int] = None):
         self.inv = inv
+        # wave programs: kind -> [built, session hits, cross-session
+        # hits, build seconds]
+        self.programs: Dict[str, List[float]] = {}
         # kernel launches: kernel -> [launches, bytes, flops]
         self.kernels: Dict[str, List[float]] = {}
         # the kernel selector's probe launches (kind "kselect"), kept
@@ -112,6 +143,9 @@ class DeviceTelemetry:
         self._hbm_source: Optional[str] = None
         self._eventer = eventer
         self.device = None
+        # Declared bytes of every launch heard, monotonic (op records
+        # may be evicted).
+        self._cost_bytes_total = 0.0
 
     def set_device(self, device) -> None:
         """The executor's device: ``cuda`` samples its allocator and
@@ -155,6 +189,52 @@ class DeviceTelemetry:
             k[0] += 1
             k[1] += float(cost.get("bytes") or 0)
             k[2] += float(cost.get("flops") or 0)
+            self._cost_bytes_total += float(cost.get("bytes") or 0)
+
+    def total_cost_bytes(self) -> float:
+        """The declared bytes of every launch this recorder heard, the
+        probes' too (reference ``:673``, where it is the compiled
+        programs' bytes-accessed): the serving plane's cost gate reads
+        its delta over an invocation."""
+        with self._lock:
+            return self._cost_bytes_total
+
+    # -- wave programs ------------------------------------------------------
+
+    def record_program(self, op: str, inv: Optional[int], kind: str,
+                       outcome: str, build_s: float = 0.0) -> None:
+        """One wave program's first call at an argument signature
+        (``built`` after a miss, ``cross_session`` from the process-wide
+        tier) or a later one (``hit``, the session-local table)."""
+        col = {"built": 0, "hit": 1, "cross_session": 2}[outcome]
+        with self._lock:
+            rec = self._op(op, inv)
+            p = rec.programs.setdefault(kind, [0, 0, 0, 0.0])
+            p[col] += 1
+            if outcome == "built":
+                p[3] += max(0.0, float(build_s))
+
+    def probe_program(self, op: str, inv: Optional[int], kind: str,
+                      key: Optional[str], sig: tuple, spec,
+                      build_s: float) -> None:
+        """A program's first call at ``sig`` in its executor: a hit in
+        the process-wide tier when ``key`` (``serve_key``) is held
+        there, else a build, published under ``key``."""
+        outcome = "built"
+        if key is not None:
+            try:
+                from bigslice_tpu_torch.serve.programcache import (
+                    global_program_cache,
+                )
+
+                cache = global_program_cache()
+                if cache.get(key, sig) is not None:
+                    outcome = "cross_session"
+                else:
+                    cache.put(key, sig, spec, build_s)
+            except Exception:  # noqa: BLE001 — never fails a run
+                pass
+        self.record_program(op, inv, kind, outcome, build_s)
 
     def cost_bytes(self, op: str) -> float:
         """The declared bytes of ``op``'s wave launches so far (the
@@ -359,7 +439,19 @@ class DeviceTelemetry:
                             "in_program_boundaries": 0}
             exchange = {}
             ex_tot = {"exchange_messages": 0, "exchange_bytes": 0}
+            programs = {}
+            pr_tot = [0, 0, 0, 0.0]
             for op, rec in self._ops.items():
+                if rec.programs:
+                    programs[op] = {
+                        kind: {"built": int(p[0]), "hits": int(p[1]),
+                               "cross_session_hits": int(p[2]),
+                               "build_s": round(p[3], 6)}
+                        for kind, p in sorted(rec.programs.items())
+                    }
+                    for p in rec.programs.values():
+                        for i in range(4):
+                            pr_tot[i] += p[i]
                 if rec.kernels:
                     kernels[op] = {
                         name: {"launches": int(k[0]), "bytes": k[1],
@@ -455,6 +547,13 @@ class DeviceTelemetry:
             "donation_effectiveness": round(
                 don_aliased / don_expected, 4
             ) if don_expected else None,
+            # The wave programs (the JAX package's compiles, cache_hits
+            # and cross_session_hits): built after a miss, session-local
+            # hits, process-wide hits.
+            "program_builds": int(pr_tot[0]),
+            "cache_hits": int(pr_tot[1]),
+            "cross_session_hits": int(pr_tot[2]),
+            "program_build_s": round(pr_tot[3], 6),
         }
         if exchange:
             totals.update(ex_tot)
@@ -471,6 +570,7 @@ class DeviceTelemetry:
             "compile": {},
             "kernels": kernels,
             "builds": build_records(),
+            "programs": programs,
             "hbm": hbm,
             "donation": donation,
             "exchange": exchange,

@@ -246,6 +246,11 @@ class TelemetryHub:
         self.device = devicetelemetry.DeviceTelemetry(
             eventer=self._emit
         )
+        # The serving plane (serve/server.py): an invocation server
+        # hooks its per-tenant ServingStats here, so that they ride
+        # summary()["serving"] and Prometheus (reference :277-279). None
+        # outside a serving process.
+        self.serving = None
         # The robustness plane's stats, attached by the Session when a
         # knob engages (exec/adaptive.py, exec/codedplan.py) or made by
         # the first record_deadline: None otherwise, and then neither
@@ -797,9 +802,18 @@ class TelemetryHub:
             out["device"] = self.device.summary()
         except Exception:
             out["device"] = {}
-        # The JAX package's program cache: not applicable, the port
-        # compiles no wave program.
-        out["program_cache"] = None
+        # The cross-Session program cache (serve/programcache.py):
+        # process scope, so the numbers cover every session this process
+        # ran (reference :904-915). Always present (zeros before any
+        # program was built).
+        try:
+            from bigslice_tpu_torch.serve.programcache import (
+                program_cache_stats,
+            )
+
+            out["program_cache"] = program_cache_stats()
+        except Exception:
+            out["program_cache"] = {}
         # The file-backed result cache (ops/cache.py): process-scope
         # hit and miss counts.
         try:
@@ -808,9 +822,10 @@ class TelemetryHub:
             out["result_cache"] = result_cache_counts()
         except Exception:
             out["result_cache"] = {}
-        # The robustness plane and the kernel selector (reference
-        # utils/telemetry.py:930-953): only what is attached.
-        for name in ("adaptive", "kernel_select", "coded", "deadline"):
+        # The serving plane, the robustness plane and the kernel selector
+        # (reference utils/telemetry.py:924-953): only what is attached.
+        for name in ("serving", "adaptive", "kernel_select", "coded",
+                     "deadline"):
             stats = getattr(self, name)
             if stats is not None:
                 try:
@@ -1083,6 +1098,36 @@ class TelemetryHub:
         except Exception:
             pass
 
+        # -- cross-Session program cache (serve/programcache.py) ------
+        try:
+            from bigslice_tpu_torch.serve.programcache import (
+                program_cache_stats,
+            )
+
+            pc = program_cache_stats()
+            metric("bigslice_program_cache_total",
+                   "Cross-Session program cache outcomes (process scope; "
+                   "serve/programcache.py).", "counter")
+            for outcome, key in (("hit", "hits"), ("miss", "misses"),
+                                 ("insert", "inserts"),
+                                 ("evict", "evictions"),
+                                 ("discard", "discards")):
+                line("bigslice_program_cache_total",
+                     {"outcome": outcome}, pc.get(key, 0))
+            metric("bigslice_program_cache_entries",
+                   "Wave programs currently held by the cross-Session "
+                   "program cache.", "gauge")
+            line("bigslice_program_cache_entries", {},
+                 pc.get("entries", 0))
+            metric("bigslice_program_cache_compile_seconds_saved_total",
+                   "Program build seconds the cross-Session program "
+                   "cache's hits stood for (build seconds: the port "
+                   "compiles no wave program).", "counter")
+            line("bigslice_program_cache_compile_seconds_saved_total",
+                 {}, f"{pc.get('compile_s_saved', 0.0):.6f}")
+        except Exception:
+            pass
+
         # -- cross-request result cache (ops/cache.py) ----------------
         try:
             from bigslice_tpu_torch.ops.cache import result_cache_counts
@@ -1098,11 +1143,12 @@ class TelemetryHub:
         except Exception:
             pass
 
-        # -- the robustness plane (exec/adaptive.py, exec/codedplan.py,
-        # the deadline ladder, utils/faultinject.py) and the kernel
-        # selector (parallel/kernelselect.py) ---------------------------
-        for stats in (self.adaptive, self.kernel_select, self.coded,
-                      self.deadline):
+        # -- the serving plane (serve/server.py), the robustness plane
+        # (exec/adaptive.py, exec/codedplan.py, the deadline ladder,
+        # utils/faultinject.py) and the kernel selector
+        # (parallel/kernelselect.py) -------------------------------------
+        for stats in (self.serving, self.adaptive, self.kernel_select,
+                      self.coded, self.deadline):
             if stats is not None:
                 try:
                     stats.prometheus_lines(metric, line)

@@ -106,11 +106,13 @@ group reruns on K2. 22, ``host-fallback``: word count through
 ``LocalExecutor``) over phase 17's corpus, equal to
 collections.Counter and to phase 17's shards; and a mixed chain, a
 host Map over ScanReader lines to int32 ids, a device Reduce, a host
-Map over its result. Each once counted and five times warm, every row
-against numpy, with its wall, rows/s, peak memory and K1/K2 launches.
+Map over its result. Each once counted and warm (word count three
+times, the chain five), every row against numpy, with its wall, rows/s,
+peak memory and K1/K2 launches.
 
 Phases 23-25 drive dictionary-encoded string keys and the result cache,
-each once counted and five times warm, every row checked: 23, ``urls``,
+each once counted and warm (23 and 24 three times, 25 five), every row
+checked: 23, ``urls``,
 the reference's demo (cmd/urls) as
 ``models.urls.domain_count_encoded(Session(), 4, lines)`` over 2**22
 lines in the shape of the JAX package's urls benchmark (RandomState(7),
@@ -222,6 +224,30 @@ value lanes); (d) ``tools``: ``slicetrace`` over
 ``--merge`` into rank lanes) and ``obsdump``'s workload on the card,
 whose summary's device section lists K1 and K2.
 
+Phase 30 drives the serving plane: (a) ``full-width``, phase 3's
+Reduce (2**25 rows over 2**20 keys, S = 4, ``auto_dense=False``)
+registered on ``ServeServer(Session(...), port=0, slots=2,
+queue_depth=64)`` and invoked over HTTP once with every row: the rows
+against np.bincount, K1 4 and K2 8 as in phase 3 (the path's counted
+run), the latency beside phase 3's warm wall; (b) ``program-cache``,
+the server attached to a fresh Session and invoked again: bit-equal
+rows, the program cache's hits risen, no group program built after a
+miss; (c) ``sustained``, the JAX package's serve-qps shape (2**20 rows
+over 2**12 keys, S = 2) on a fresh ``Session()``, 8 closed-loop HTTP
+clients over 4 tenants for 10 s with ``rows: false``: every
+``num_rows`` checked, QPS, p50, p99, rows/s and shed recorded; (d)
+``admission``, a gated slow pipeline: 503 with the queue full, 429 at
+the quota, the predictive 504 and a mid-flight 504 that frees its slot,
+then under ``BIGSLICE_ADAPTIVE=cost`` the sole invocation's declared
+launch bytes (the sum of ``cuda_kernels.cost`` over its launches) as
+its prediction, and a budget below two invocations' bytes shedding the
+second concurrent one; (e) ``result-cache``, a ``cache=True``
+pipeline whose second invocation is a hit with no K1 or K2 launch; (f)
+the ``sliceserve`` CLI in a subprocess: its JSON line, a ``reduce``
+invocation, SIGTERM, exit 0 and the final snapshot line, with the
+spawn to the first 200 (a fresh process's cold start) beside (b)'s
+fresh-Session request.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -254,6 +280,9 @@ if __name__ != "__mp_main__":
 HBM_BYTES_PER_S = 3.35e12
 #: Warm runs of each phase-3 Reduce; the wall reported is their median.
 WARM_RUNS = 5
+#: Warm runs of the host-tier word-count and urls paths (phases 22-24),
+#: seconds each: fewer, to keep the script well inside its time limit.
+HOST_WARM_RUNS = 3
 
 REPLACES = {
     "hash_partition": "bigslice_tpu/parallel/pallas_kernels.py:176",
@@ -1154,11 +1183,12 @@ def phase3_slice(card: str) -> dict:
 
 
 def drive(phase: str, label: str, make_slice, check, need, rows: int,
-          card: str, expect=None, auto_dense: bool = True) -> dict:
+          card: str, expect=None, auto_dense: bool = True,
+          warm: int = WARM_RUNS) -> dict:
     """One path through ``Session().run``: a counted first run (launch
     counts set to 0 just before, read just after; every kernel in
     ``need`` must have launched, and each kernel in ``expect`` exactly
-    that many times), then ``WARM_RUNS`` warm runs whose
+    that many times), then ``warm`` warm runs whose
     median wall is reported. A run is session construction, the run and
     reading every shard back to the host; ``check(session, result)``
     holds each run's output against numpy and raises on a mismatch. Peak
@@ -1194,7 +1224,7 @@ def drive(phase: str, label: str, make_slice, check, need, rows: int,
     note = check(sess, res)
     del sess, res
     walls, peaks = [], []
-    for _ in range(WARM_RUNS):
+    for _ in range(warm):
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1207,7 +1237,7 @@ def drive(phase: str, label: str, make_slice, check, need, rows: int,
     gc.collect()
     wall = statistics.median(walls)
     log(f"phase {phase}: {label}, {rows} rows: warm wall {wall:.4f} s "
-        f"(median of {WARM_RUNS}: {', '.join(f'{w:.4f}' for w in walls)}), "
+        f"(median of {warm}: {', '.join(f'{w:.4f}' for w in walls)}), "
         f"{rows / wall:.1f} rows/s, peak device memory {max(peaks):.3f} GiB, "
         f"launches {launches} (first run){note or ''}, on {card}")
     return dict(launches=launches, wall_s=wall, walls_s=walls, rows=rows,
@@ -2692,7 +2722,8 @@ def phase22_host_fallback(card: str, wc_shards) -> dict:
     first word's id) and word counts (host tier, staged onto the card),
     a device Reduce adding them, then a host Map over its result (read
     back through the store bridge), against numpy. Each once counted
-    and five times warm."""
+    and warm (word count ``HOST_WARM_RUNS`` times, the chain
+    ``WARM_RUNS``)."""
     import collections
     import shutil
     import tempfile
@@ -2732,7 +2763,8 @@ def phase22_host_fallback(card: str, wc_shards) -> dict:
         native.reset_calls()
         out["fallback-wordcount"] = drive(
             "22", "host-fallback: wordcount through Session()",
-            lambda: wordcount(S, path), check_wc, (), len(words), card)
+            lambda: wordcount(S, path), check_wc, (), len(words), card,
+            warm=HOST_WARM_RUNS)
         out["fallback-wordcount"]["native_crc_calls"] = crc_calls[0]
 
         first = np.array([int(line.split(" ", 1)[0][1:], 16)
@@ -2861,11 +2893,12 @@ def phase23_urls(card: str) -> dict:
     and encodes every line to an int32 code, through the native rung
     and the spawn pool; a device Map and a dense Reduce count the codes;
     the rows are decoded at the edge), against collections.Counter of
-    ``_domain``; once counted and five times warm. The host sweep's part
-    of the wall is the time from the run's start to the last parse's
-    end; the rest is the Reduce and the decode. Then ``domain_count``
-    (host str keys, the native CRC) over the first ``URLS_HOST_LINES``
-    lines, equal to the encoded count of the same lines."""
+    ``_domain``; once counted and ``HOST_WARM_RUNS`` times warm. The
+    host sweep's part of the wall is the time from the run's start to
+    the last parse's end; the rest is the Reduce and the decode. Then
+    ``domain_count`` (host str keys, the native CRC) over the first
+    ``URLS_HOST_LINES`` lines, equal to the encoded count of the same
+    lines."""
     import collections
     import resource
 
@@ -2924,7 +2957,7 @@ def phase23_urls(card: str) -> dict:
                         auto_dense_off=sorted(sess.executor.auto_dense_off))
         del sess, rows
         walls, sweeps, peaks = [], [], []
-        for _ in range(WARM_RUNS):
+        for _ in range(HOST_WARM_RUNS):
             gc.collect()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2941,7 +2974,7 @@ def phase23_urls(card: str) -> dict:
         os.environ["BIGSLICE_PARSE_PROCS"] = "0"
         strparse.reset_rungs()
         solo_walls, solo_sweeps = [], []
-        for _ in range(WARM_RUNS):
+        for _ in range(HOST_WARM_RUNS):
             gc.collect()
             sess, rows, w, sw = run()
             solo_walls.append(w)
@@ -2960,7 +2993,7 @@ def phase23_urls(card: str) -> dict:
                         statistics.median(solo_sweeps))
     log(f"phase 23: urls: domain_count_encoded(Session(), {S}, lines), {n} "
         f"lines ({len(want)} domains): warm wall {wall:.4f} s (median of "
-        f"{WARM_RUNS}: {', '.join(f'{w:.4f}' for w in walls)}), "
+        f"{HOST_WARM_RUNS}: {', '.join(f'{w:.4f}' for w in walls)}), "
         f"{n / wall:.1f} lines/s; host sweep {sweep:.4f} s, Reduce and "
         f"decode {wall - sweep:.4f} s (medians); first run {first_wall:.4f} "
         f"s (sweep {first_sweep:.4f} s); native builds {built}, rungs "
@@ -2972,9 +3005,10 @@ def phase23_urls(card: str) -> dict:
         f"this process's peak RSS {host_peak:.3f} GiB; peak device memory "
         f"{max(peaks):.3f} GiB; launches {launches} (first run); "
         f"{lowering}; single process (BIGSLICE_PARSE_PROCS=0): wall "
-        f"{solo:.4f} s (median of {WARM_RUNS}: "
+        f"{solo:.4f} s (median of {HOST_WARM_RUNS}: "
         f"{', '.join(f'{w:.4f}' for w in solo_walls)}), sweep "
-        f"{solo_sweep:.4f} s, rungs {solo_rungs} ({WARM_RUNS} runs), on "
+        f"{solo_sweep:.4f} s, rungs {solo_rungs} ({HOST_WARM_RUNS} runs), "
+        f"on "
         f"{card}")
     out = {"urls": dict(
         launches=launches, wall_s=wall, walls_s=walls, rows=n,
@@ -3030,9 +3064,9 @@ def phase24_dict_wordcount(card: str, wordcount_path: dict,
     vocabulary (built once, outside the wall), then
     ``Reduce(dense_keys=len(vocab))`` on the card, decoded at the edge;
     equal to collections.Counter, the counts phase 17 checks. Once
-    counted and five times warm; phases 17 and 22's walls (the same
-    traffic on the str-key host path, the native CRC in place) are
-    printed beside."""
+    counted and ``HOST_WARM_RUNS`` times warm; phases 17 and 22's walls
+    (the same traffic on the str-key host path, the native CRC in place)
+    are printed beside."""
     import collections
     import shutil
     import tempfile
@@ -3074,7 +3108,7 @@ def phase24_dict_wordcount(card: str, wordcount_path: dict,
                         auto_dense_off=sorted(sess.executor.auto_dense_off))
         del sess, rows
         walls, peaks = [], []
-        for _ in range(WARM_RUNS):
+        for _ in range(HOST_WARM_RUNS):
             gc.collect()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3088,7 +3122,8 @@ def phase24_dict_wordcount(card: str, wordcount_path: dict,
     wall = statistics.median(walls)
     n = len(words)
     log(f"phase 24: dict-wordcount {n} words ({len(vocab)} distinct), "
-        f"S={S}, Session(): warm wall {wall:.4f} s (median of {WARM_RUNS}: "
+        f"S={S}, Session(): warm wall {wall:.4f} s (median of "
+        f"{HOST_WARM_RUNS}: "
         f"{', '.join(f'{w:.4f}' for w in walls)}), {n / wall:.1f} words/s, "
         f"first run {first:.4f} s, vocabulary {vocab_s:.4f} s (once, "
         f"outside the wall); beside it, the str-key host path with the "
@@ -5367,6 +5402,511 @@ def phase29_operator_plane(card: str, phase3_launches: dict) -> dict:
     return paths
 
 
+# -- phase 30: the serving plane ---------------------------------------------
+
+#: Phase 30's pipelines read their data from here: module-level
+#: functions keep one identity (and one op site) across sessions, as a
+#: served pipeline's do.
+_P30 = {}
+
+
+def _p30_add(a, b):
+    return a + b
+
+
+def _p30_reduce():
+    """Phase 3's Reduce: 2**25 rows over 2**20 keys, S = 4."""
+    import bigslice_tpu_torch as bs
+
+    return bs.Reduce(bs.Const(4, _P30["keys"], _P30["ones"]), _p30_add)
+
+
+def _p30_qps():
+    """The JAX package's serve-qps pipeline: 2**20 rows over 2**12 keys,
+    S = 2 (two waves on one card)."""
+    import bigslice_tpu_torch as bs
+
+    return bs.Reduce(bs.Const(2, _P30["qkeys"], _P30["qones"]), _p30_add)
+
+
+def _p30_small(n_keys=4096):
+    """A 2**22-row Reduce for the admission, cost and cache parts."""
+    import bigslice_tpu_torch as bs
+
+    return bs.Reduce(bs.Const(4, _P30["skeys"] % np.int32(n_keys),
+                              _P30["sones"]), _p30_add)
+
+
+def _p30_post(port: int, doc: dict, timeout: float = 300.0) -> tuple:
+    """(status, decoded JSON) of one POST /serve/invoke."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/serve/invoke",
+        data=json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _p30_rows_check(doc: dict, bc, what: str) -> np.ndarray:
+    """Every row of a served count against np.bincount; the rows as a
+    sorted [n, 2] array."""
+    rows = np.asarray(doc["rows"], dtype=np.int64).reshape(-1, 2)
+    rows = rows[np.argsort(rows[:, 0])]
+    present = np.nonzero(bc)[0]
+    if (doc["rows_truncated"] or doc["num_rows"] != len(present)
+            or not np.array_equal(rows[:, 0], present)
+            or not np.array_equal(rows[:, 1], bc[present])):
+        raise AssertionError(f"{what}: the served rows differ from "
+                             f"np.bincount ({doc['num_rows']} rows)")
+    return rows
+
+
+def _p30_counts(sess) -> dict:
+    t = sess.telemetry_summary()["device"]["totals"]
+    return {k: t[k] for k in ("program_builds", "cache_hits",
+                              "cross_session_hits")}
+
+
+def phase30ab_full_width(card: str, phase3: dict) -> tuple:
+    """30a: phase 3's Reduce registered on ``ServeServer(Session(...),
+    port=0, slots=2, queue_depth=64)`` and invoked over HTTP once with
+    every row: the rows against np.bincount, K1 and K2 launches equal to
+    phase 3's. 30b: the server attached to a fresh Session and invoked
+    again: bit-equal rows, the program cache's hits risen, and no group
+    program built after a miss in the fresh Session."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.serve import programcache
+    from bigslice_tpu_torch.serve.server import ServeServer
+
+    n, span = 1 << 25, 1 << 20
+    _P30["keys"] = np.random.RandomState(42).randint(
+        0, span, n).astype(np.int32)
+    _P30["ones"] = np.ones(n, np.int32)
+    bc = np.bincount(_P30["keys"], minlength=span)
+    sess_a = bs.Session(executor=bs.MeshExecutor(auto_dense=False))
+    server = ServeServer(sess_a, port=0, slots=2, queue_depth=64)
+    server.register("reduce-wave", _p30_reduce)
+    req = {"pipeline": "reduce-wave", "tenant": "chip", "max_rows": 1 << 21}
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    code, doc = _p30_post(server.port, req)
+    wall_a = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    if code != 200:
+        raise AssertionError(f"30a: {code} {str(doc)[:2000]}")
+    rows_a = _p30_rows_check(doc, bc, "30a")
+    want = {k: phase3[k] for k in ("hash_partition", "hash_aggregate")}
+    got = {k: launches[k] for k in want}
+    if got != want or got != {"hash_partition": 4, "hash_aggregate": 8}:
+        raise AssertionError(f"30a: launches {launches}, phase 3's {phase3}")
+    counts_a = _p30_counts(sess_a)
+    lat_a = doc["latency_s"]
+    log(f"phase 30a: reduce-wave served over HTTP, {n} rows, "
+        f"{doc['num_rows']} rows back = np.bincount: latency_s "
+        f"{doc['latency_s']} (server), {wall_a:.4f} s at the client, "
+        f"against phase 3's warm wall {phase3['wall_s']:.4f} s; launches "
+        f"{launches}; programs {counts_a}; on {card}")
+    del doc
+
+    pc0 = programcache.global_program_cache().stats()
+    sess_b = bs.Session(executor=bs.MeshExecutor(auto_dense=False))
+    server.attach_session(sess_b)
+    sess_a.shutdown()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    code, doc = _p30_post(server.port, req)
+    wall_b = time.perf_counter() - t0
+    launches_b = dict(ck.LAUNCHES)
+    if code != 200:
+        raise AssertionError(f"30b: {code} {str(doc)[:2000]}")
+    rows_b = _p30_rows_check(doc, bc, "30b")
+    pc1 = programcache.global_program_cache().stats()
+    counts_b = _p30_counts(sess_b)
+    if not np.array_equal(rows_a, rows_b):
+        raise AssertionError("30b: the fresh Session's rows differ")
+    if (counts_b["program_builds"] != 0
+            or counts_b["cross_session_hits"] < 2
+            or pc1["hits"] - pc0["hits"] != counts_b["cross_session_hits"]
+            or launches_b != dict(launches)):
+        raise AssertionError(f"30b: programs {counts_b}, cache {pc0} -> "
+                             f"{pc1}, launches {launches_b}")
+    saved = pc1["compile_s_saved"] - pc0["compile_s_saved"]
+    log(f"phase 30b: a fresh Session attached: latency_s "
+        f"{doc['latency_s']} (server), {wall_b:.4f} s at the client, rows "
+        f"bit-equal to 30a's; programs {counts_b} (none built after a "
+        f"miss); global hits {pc0['hits']} -> {pc1['hits']}, "
+        f"compile_s_saved +{saved:.6f} s (build seconds); launches "
+        f"{launches_b}; on {card}")
+    lat_b = doc["latency_s"]
+    del doc, rows_a, rows_b
+    _P30.pop("keys")
+    _P30.pop("ones")
+    out = dict(launches=launches, latency_s=wall_a, server_latency_s=lat_a,
+               fresh_latency_s=wall_b, fresh_server_latency_s=lat_b,
+               programs_first=counts_a, programs_fresh=counts_b,
+               cache_hits=pc1["hits"] - pc0["hits"],
+               compile_s_saved=saved)
+    return server, sess_b, out
+
+
+def phase30c_sustained(card: str, server) -> dict:
+    """30c: the JAX package's serve-qps shape (bench.py:1218-1330) on a
+    fresh ``Session()`` (the default executor): 8 closed-loop HTTP
+    clients over 4 tenants for 10 s, ``rows: false``; every response's
+    ``num_rows`` checked; QPS, p50, p99, rows/s and shed recorded."""
+    import threading
+
+    import bigslice_tpu_torch as bs
+
+    rows, span = 1 << 20, 1 << 12
+    _P30["qkeys"] = np.random.RandomState(42).randint(
+        0, span, rows).astype(np.int32)
+    _P30["qones"] = np.ones(rows, np.int32)
+    want = len(np.unique(_P30["qkeys"]))
+    old = server.session
+    server.attach_session(bs.Session())
+    old.shutdown()
+    server.register("qps", _p30_qps)
+    shed0 = server.stats.summary()["totals"]["shed"]
+    for tenant in ("t0", "t1", "t2", "t3"):  # the first wave of each
+        code, doc = _p30_post(server.port, {"pipeline": "qps",
+                                            "tenant": tenant, "rows": False})
+        if code != 200 or doc["num_rows"] != want:
+            raise AssertionError(f"30c warm-up: {code} {doc}")
+    seconds, clients = 10.0, 8
+    lats, bad, errors = [], [], []
+    lock = threading.Lock()
+    stop_at = time.perf_counter() + seconds
+
+    def client(i):
+        tenant = f"t{i % 4}"
+        while time.perf_counter() < stop_at:
+            t0 = time.perf_counter()
+            try:
+                code, doc = _p30_post(server.port, {
+                    "pipeline": "qps", "tenant": tenant, "rows": False})
+            except Exception as e:  # noqa: BLE001 — reported below
+                with lock:
+                    errors.append(repr(e))
+                return
+            dt = time.perf_counter() - t0
+            with lock:
+                if code == 200 and doc.get("num_rows") == want:
+                    lats.append(dt)
+                elif code != 503:
+                    bad.append((code, str(doc)[:200]))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors or bad or not lats:
+        raise AssertionError(f"30c: errors {errors[:3]}, bad {bad[:3]}, "
+                             f"{len(lats)} good")
+    shed = server.stats.summary()["totals"]["shed"] - shed0
+    qps = len(lats) / wall
+    p50 = float(np.percentile(lats, 50))
+    p99 = float(np.percentile(lats, 99))
+    log(f"phase 30c: serve-qps ({rows} rows over {span} keys, S=2, "
+        f"{clients} clients over 4 tenants, slots=2, rows false) for "
+        f"{wall:.2f} s: {len(lats)} ok, {qps:.2f} QPS, p50 {p50:.4f} s, "
+        f"p99 {p99:.4f} s, {qps * rows:.1f} rows/s, shed {shed}; on {card}")
+    return dict(qps=qps, p50_s=p50, p99_s=p99, rows_per_s=qps * rows,
+                shed=shed, requests=len(lats), wall_s=wall)
+
+
+def phase30d_admission(card: str) -> dict:
+    """30d: a gated slow pipeline gives 503 with the queue full and 429
+    at the quota; the predictive 504 fires, and a mid-flight 504 frees
+    its slot for the queued request. Then the cost gate: under
+    ``BIGSLICE_ADAPTIVE=cost`` the sole invocation's declared launch
+    bytes (the sum of ``cuda_kernels.cost`` over its counted launches)
+    become its prediction, and with a budget below two invocations'
+    bytes the second concurrent one is shed "predicted cost"."""
+    import tempfile
+    import threading
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.serve.server import ServeServer
+
+    n = 1 << 22
+    _P30["skeys"] = np.random.RandomState(30).randint(
+        0, 1 << 20, n).astype(np.int32)
+    _P30["sones"] = np.ones(n, np.int32)
+    gate, started = threading.Event(), threading.Event()
+
+    def slow():
+        started.set()
+        if not gate.wait(60):
+            raise AssertionError("30d: the gate was never opened")
+        return _p30_small()
+
+    cache_dir = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+    sess = bs.Session(executor=bs.MeshExecutor(auto_dense=False))
+    srv = ServeServer(sess, port=0, slots=1, queue_depth=0, tenant_quota=1,
+                      result_cache_dir=cache_dir)
+    srv.register("slow", slow)
+    srv.register("fast", _p30_small)
+    out = {}
+
+    def occupy(key, req):
+        out[key] = srv.invoke_request(req)
+
+    def hold(key, req):
+        gate.clear()
+        started.clear()
+        t = threading.Thread(target=occupy, args=(key, req))
+        t.start()
+        if not started.wait(60):
+            raise AssertionError("30d: the slow pipeline never started")
+        return t
+
+    t0 = time.perf_counter()
+    t = hold("a", {"pipeline": "slow", "tenant": "a"})
+    full = srv.invoke_request({"pipeline": "fast", "tenant": "b"})
+    srv.queue_depth = 4
+    quota = srv.invoke_request({"pipeline": "fast", "tenant": "a"})
+    gate.set()
+    t.join(120)
+    if full[0] != 503 or quota[0] != 429 or out["a"][0] != 200:
+        raise AssertionError(f"30d: queue full {full}, quota {quota}, "
+                             f"first {out['a'][0]}")
+    # The predictive 504: the EWMA of "fast" (its run above) times a
+    # budget it cannot meet.
+    code, doc = srv.invoke_request({"pipeline": "fast", "tenant": "c",
+                                    "deadline_s": 60})
+    ewma = srv._pipe_latency["fast"]
+    code2, doc2 = srv.invoke_request({"pipeline": "fast", "tenant": "c",
+                                      "deadline_s": ewma / 4})
+    if code != 200 or code2 != 504 or "predicted wall" not in doc2["error"]:
+        raise AssertionError(f"30d predictive: {code}, {code2} {doc2}")
+    # Mid-flight: a 0.25 s budget expires while the slow pipeline holds
+    # the slot; its 504 frees the slot for the queued request.
+    t = hold("mid", {"pipeline": "slow", "tenant": "d", "deadline_s": 0.25})
+    waiter = threading.Thread(target=occupy, args=(
+        "queued", {"pipeline": "fast", "tenant": "e"}))
+    waiter.start()
+    deadline = time.monotonic() + 30
+    while srv.stats.queued < 1 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    time.sleep(0.3)
+    gate.set()
+    t.join(120)
+    waiter.join(120)
+    if (out["mid"][0] != 504 or "pending_tasks" not in out["mid"][1]
+            or out["queued"][0] != 200):
+        raise AssertionError(f"30d mid-flight: {out['mid']}, queued "
+                             f"{out['queued'][0]}")
+    outcomes = srv.stats.summary()["tenants"]
+    log(f"phase 30d: admission: queue full 503, quota 429, predictive 504 "
+        f"(EWMA {ewma:.4f} s, budget {ewma / 4:.4f} s), mid-flight 504 "
+        f"then the queued request 200; outcomes "
+        f"{ {t: o['outcomes'] for t, o in outcomes.items()} } in "
+        f"{time.perf_counter() - t0:.2f} s; on {card}")
+
+    # 30e rides this server: its result cache.
+    result_cache = phase30e_result_cache(card, srv)
+    sess.shutdown()
+
+    # The cost gate: its own session, built under the knob.
+    saved = {k: os.environ.get(k) for k in
+             ("BIGSLICE_ADAPTIVE", "BIGSLICE_SERVE_COST_BUDGET_BYTES")}
+    os.environ["BIGSLICE_ADAPTIVE"] = "cost"
+    os.environ.pop("BIGSLICE_SERVE_COST_BUDGET_BYTES", None)
+    try:
+        csess = bs.Session(executor=bs.MeshExecutor(auto_dense=False))
+        csrv = ServeServer(csess, port=0, slots=2, queue_depth=4)
+        cgate, cstarted = threading.Event(), threading.Event()
+
+        def cost_pipe(gated=False):
+            if gated:
+                cstarted.set()
+                if not cgate.wait(60):
+                    raise AssertionError("30d cost: the gate was never "
+                                         "opened")
+            return _p30_small()
+
+        csrv.register("cost", cost_pipe)
+        spied = []
+        count = ck._count
+
+        def spy(name, **shape):
+            spied.append(ck.cost(name, **shape)["bytes"])
+            count(name, **shape)
+
+        ck._count = spy
+        try:
+            code, doc = csrv.invoke_request({"pipeline": "cost"})
+        finally:
+            ck._count = count
+        predicted = csrv._pipe_cost.get("cost")
+        if code != 200 or not spied or predicted != sum(spied):
+            raise AssertionError(f"30d cost: {code}, predicted {predicted} "
+                                 f"against {sum(spied)} declared over "
+                                 f"{len(spied)} launches")
+        budget = predicted * 3 // 2
+        os.environ["BIGSLICE_SERVE_COST_BUDGET_BYTES"] = str(budget)
+        th = threading.Thread(target=lambda: out.__setitem__(
+            "cost_a", csrv.invoke_request({"pipeline": "cost",
+                                           "args": [True]})))
+        th.start()
+        if not cstarted.wait(60):
+            raise AssertionError("30d cost: the first invocation never "
+                                 "started")
+        shed = csrv.invoke_request({"pipeline": "cost"})
+        cgate.set()
+        th.join(120)
+        counts = csess.adaptive.stats.summary()["counts"]["cost"]
+        if (shed[0] != 503 or "predicted cost" not in shed[1]["error"]
+                or out["cost_a"][0] != 200 or counts.get("serve_shed") != 1):
+            raise AssertionError(f"30d cost: shed {shed}, first "
+                                 f"{out['cost_a'][0]}, counts {counts}")
+        log(f"phase 30d: cost gate: predicted {predicted} bytes = the sum "
+            f"of cuda_kernels.cost over the sole run's {len(spied)} "
+            f"launches; budget {budget}: the second concurrent invocation "
+            f"shed 503 ({shed[1]['error']}); adaptive counts {counts}; on "
+            f"{card}")
+        csess.shutdown()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return dict(predicted_bytes=predicted, cost_launches=len(spied),
+                budget_bytes=budget, ewma_s=ewma,
+                result_cache=result_cache)
+
+
+def phase30e_result_cache(card: str, srv) -> dict:
+    """30e: a ``cache=True`` pipeline: the first invocation computes and
+    writes (K1 and K2 launched), the second is a hit with no K1 or K2
+    launch and the same rows."""
+    from bigslice_tpu_torch.ops import cache as cache_mod
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    srv.register("cached", _p30_small, cache=True)
+    req = {"pipeline": "cached", "args": [1 << 16], "max_rows": 1 << 17}
+    walls, launches = [], []
+    docs = []
+    c0 = cache_mod.result_cache_counts()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        code, doc = srv.invoke_request(dict(req))
+        walls.append(time.perf_counter() - t0)
+        launches.append(dict(ck.LAUNCHES))
+        if code != 200:
+            raise AssertionError(f"30e: {code} {doc}")
+        docs.append(sorted(map(tuple, doc["rows"])))
+    c1 = cache_mod.result_cache_counts()
+    bc = np.bincount(_P30["skeys"] % (1 << 16), minlength=1 << 16)
+    present = np.nonzero(bc)[0]
+    if (docs[0] != docs[1] or len(docs[0]) != len(present)
+            or [k for k, _ in docs[0]] != present.tolist()
+            or [v for _, v in docs[0]] != bc[present].tolist()):
+        raise AssertionError("30e: the cached rows differ from np.bincount")
+    if (not (launches[0]["hash_partition"] and launches[0]["hash_aggregate"])
+            or launches[1]["hash_partition"] or launches[1]["hash_aggregate"]
+            or c1["hit"] - c0["hit"] < 1 or c1["miss"] - c0["miss"] < 1):
+        raise AssertionError(f"30e: launches {launches}, counts {c0} -> "
+                             f"{c1}")
+    log(f"phase 30e: result cache: miss {walls[0]:.4f} s (launches "
+        f"{launches[0]}), hit {walls[1]:.4f} s (launches {launches[1]}), "
+        f"counts {c0} -> {c1}; on {card}")
+    return dict(miss_s=walls[0], hit_s=walls[1], launches=launches)
+
+
+def phase30f_cli(card: str) -> dict:
+    """30f: ``python -m bigslice_tpu_torch.tools.sliceserve --port 0`` in
+    a subprocess: its JSON line, one ``reduce`` invocation, SIGTERM; exit
+    0 and the final snapshot line on stderr. Spawn to the first 200 is a
+    fresh process's cold start (interpreter and torch import, the CUDA
+    context, the kernel library loaded from its digest's ``.so``)."""
+    import signal as signal_mod
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "bigslice_tpu_torch.tools.sliceserve",
+         "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        first = proc.stdout.readline()
+        ready_s = time.perf_counter() - t0
+        if not first:
+            proc.wait(60)
+            raise AssertionError(f"30f: no JSON line, exit {proc.returncode}"
+                                 f"\n{proc.stderr.read()[-3000:]}")
+        info = json.loads(first)
+        code, doc = _p30_post(info["port"], {"pipeline": "reduce"})
+        first_200_s = time.perf_counter() - t0
+        code2, doc2 = _p30_post(info["port"], {"pipeline": "reduce"})
+        keys = np.random.RandomState(42).randint(
+            0, 1 << 12, 1 << 18).astype(np.int32)
+        want = len(np.unique(keys))
+        if (code, code2) != (200, 200) or doc["num_rows"] != want or \
+                doc2["num_rows"] != want:
+            raise AssertionError(f"30f: {code} {str(doc)[:300]}; {code2}")
+        proc.send_signal(signal_mod.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or "sliceserve: shutdown after" not in stderr:
+        raise AssertionError(f"30f: exit {proc.returncode}\n{stderr[-3000:]}")
+    snap = [ln for ln in stderr.splitlines()
+            if "sliceserve: shutdown after" in ln][0]
+    log(f"phase 30f: sliceserve CLI: JSON line after {ready_s:.3f} s, "
+        f"first 200 after {first_200_s:.3f} s (server latency_s "
+        f"{doc['latency_s']}), second latency_s {doc2['latency_s']}; "
+        f"SIGTERM -> exit 0, {snap!r}; on {card}")
+    return dict(ready_s=ready_s, first_200_s=first_200_s,
+                first_latency_s=doc["latency_s"],
+                second_latency_s=doc2["latency_s"])
+
+
+def phase30_serving(card: str, phase3: dict) -> dict:
+    """Phase 30, the serving plane: 30a-30f, each with its wall on its
+    own line. The counted run of the path is 30a's invocation."""
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    server, _, ab = phase30ab_full_width(card, phase3)
+    log(f"phase 30: full width and program cache took "
+        f"{time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    ab["sustained"] = phase30c_sustained(card, server)
+    server.session.shutdown()
+    _P30.clear()
+    gc.collect()
+    log(f"phase 30: sustained took {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    ab["admission"] = phase30d_admission(card)
+    log(f"phase 30: admission, cost gate and result cache took "
+        f"{time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    ab["cli"] = phase30f_cli(card)
+    log(f"phase 30: CLI took {time.perf_counter() - t:.2f} s")
+    _P30.clear()
+    gc.collect()
+    log(f"phase 30: serving plane in {time.perf_counter() - t0:.2f} s")
+    return {"serving": ab}
+
+
 def nbytes_of(*arrays) -> int:
     return int(sum(a.nbytes for a in arrays))
 
@@ -5383,44 +5923,59 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     device = torch.device("cuda")
+    # Each phase's wall, logged at the end: where the script's time goes.
+    walls = {}
+
+    def timed(label, fn, *fargs):
+        t = time.perf_counter()
+        out = fn(*fargs)
+        walls[label] = round(time.perf_counter() - t, 2)
+        return out
+
     card = phase0_card()
-    phase1_build()
-    kern = phase2_kernels(device)
-    slice_ = phase3_slice(card)
+    timed("1", phase1_build)
+    kern = timed("2", phase2_kernels, device)
+    slice_ = timed("3", phase3_slice, card)
     mesh_shards = slice_.pop("shards")
     paths = {"reduce-wave": slice_,
-             "lww-wave": phase4_lww(card),
-             "float-key": phase5_float_key(card),
-             "overflow-fallback": phase6_overflow(card),
-             "sortshuffle": phase7_sortshuffle(card),
-             "join": phase8_join(card),
-             "join-sort": phase9_join_sort(card),
-             "groupby": phase10_groupby(card)}
-    paths["pipeline"] = phase11_pipeline(card)
-    paths["budget-split"] = phase12_budget_split(card, slice_["peak_gib"])
-    paths["spill"] = phase13_spill(card)
-    paths["cogroup-join"] = phase14_cogroup_join(card)
-    paths["cogroup-hotkey"] = phase15_cogroup_hotkey(card)
-    paths["local-reduce"] = phase16_local_reduce(card, mesh_shards)
-    paths["wordcount"] = phase17_wordcount(card)
+             "lww-wave": timed("4", phase4_lww, card),
+             "float-key": timed("5", phase5_float_key, card),
+             "overflow-fallback": timed("6", phase6_overflow, card),
+             "sortshuffle": timed("7", phase7_sortshuffle, card),
+             "join": timed("8", phase8_join, card),
+             "join-sort": timed("9", phase9_join_sort, card),
+             "groupby": timed("10", phase10_groupby, card)}
+    paths["pipeline"] = timed("11", phase11_pipeline, card)
+    paths["budget-split"] = timed("12", phase12_budget_split, card,
+                                  slice_["peak_gib"])
+    paths["spill"] = timed("13", phase13_spill, card)
+    paths["cogroup-join"] = timed("14", phase14_cogroup_join, card)
+    paths["cogroup-hotkey"] = timed("15", phase15_cogroup_hotkey, card)
+    paths["local-reduce"] = timed("16", phase16_local_reduce, card,
+                                  mesh_shards)
+    paths["wordcount"] = timed("17", phase17_wordcount, card)
     wc_shards = paths["wordcount"].pop("shards")
-    paths.update(phase18_fold(card))
-    paths["fold-hotkey"] = phase19_fold_hotkey(card)
-    paths.update(phase20_func_api(card))
-    paths.update(phase21_dense(card, device))
-    paths.update(phase22_host_fallback(card, wc_shards))
+    paths.update(timed("18", phase18_fold, card))
+    paths["fold-hotkey"] = timed("19", phase19_fold_hotkey, card)
+    paths.update(timed("20", phase20_func_api, card))
+    paths.update(timed("21", phase21_dense, card, device))
+    paths.update(timed("22", phase22_host_fallback, card, wc_shards))
     del wc_shards
-    paths.update(phase23_urls(card))
-    paths["dict-wordcount"] = phase24_dict_wordcount(
-        card, paths["wordcount"], paths["fallback-wordcount"])
-    paths.update(phase25_cache(card, mesh_shards))
+    paths.update(timed("23", phase23_urls, card))
+    paths["dict-wordcount"] = timed(
+        "24", phase24_dict_wordcount, card, paths["wordcount"],
+        paths["fallback-wordcount"])
+    paths.update(timed("25", phase25_cache, card, mesh_shards))
     del mesh_shards
-    paths["observability"] = phase26_observability(card, kern)
-    paths.update(phase27_data_plane(card))
-    paths["kmeans"] = phase27_kmeans(card)
-    paths.update(phase28_robustness(card))
-    paths.update(phase29_operator_plane(card,
-                                        paths["reduce-wave"]["launches"]))
+    paths["observability"] = timed("26", phase26_observability, card, kern)
+    paths.update(timed("27", phase27_data_plane, card))
+    paths["kmeans"] = timed("27e", phase27_kmeans, card)
+    paths.update(timed("28", phase28_robustness, card))
+    paths.update(timed("29", phase29_operator_plane, card,
+                       paths["reduce-wave"]["launches"]))
+    paths.update(timed("30", phase30_serving, card, dict(
+        paths["reduce-wave"]["launches"],
+        wall_s=paths["reduce-wave"]["wall_s"])))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
@@ -5436,7 +5991,8 @@ def main() -> int:
              match=True, **{k: kern[name][k] for k in LINE_KEYS})
         for name in PATH_KERNELS
     ]}
-    log(f"chip_smoke: phases 0-29 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phase walls s {walls}")
+    log(f"chip_smoke: phases 0-30 in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

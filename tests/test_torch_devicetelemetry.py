@@ -125,9 +125,14 @@ def test_builds_are_reported():
 
 
 def test_program_cache_is_not_applicable():
-    """The port compiles no wave program: on a waved run the summary's
-    program cache is None and the per-op compile records stay empty,
-    while the JAX package's summary carries both keys."""
+    """The JAX package's program cache compiles XLA executables; the
+    port compiles no wave program, so the per-op compile records stay
+    empty. What the cache accounts applies all the same: on a waved run
+    the summary's ``program_cache`` is the process-wide stats dict with
+    the JAX package's keys, and the device totals count the wave
+    programs built after a miss and the session-local hits."""
+    from bigslice_tpu.serve.programcache import ProgramCache as RefCache
+
     sess = bs.Session(executor=bs.MeshExecutor(device="cpu",
                                                auto_dense=False))
     n = 1 << 12
@@ -136,10 +141,19 @@ def test_program_cache_is_not_applicable():
                              lambda a, b: a + b))
     assert len(res.rows()) == len(np.unique(keys))
     summary = sess.telemetry_summary()
-    assert summary["program_cache"] is None
+    pc = summary["program_cache"]
+    assert set(pc) == set(RefCache(capacity=4).stats())
+    assert pc["enabled"] and pc["entries"] >= 1
     assert summary["device"]["compile"] == {}
-    assert not {"compiles", "cache_hits", "compile_s"} & set(
-        summary["device"]["totals"])
+    totals = summary["device"]["totals"]
+    assert not {"compiles", "compile_s"} & set(totals)
+    # Two ops, eight waves each (a wave's rerun calls its program
+    # again): every call after an op's first at its input shape is a
+    # session-local hit.
+    assert totals["program_builds"] + totals["cross_session_hits"] >= 2
+    assert totals["cache_hits"] >= 1
+    assert (totals["program_builds"] + totals["cross_session_hits"]
+            + totals["cache_hits"]) >= 16
 
 
 def test_summary_totals_roll_up():

@@ -617,3 +617,57 @@ def test_operator_plane_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_serving_plane_runs_without_jax():
+    """The serving plane's modules (serve/programcache, serve/server,
+    tools/sliceserve) and a served pipeline through the program cache,
+    a fresh Session attached and the sliceserve CLI's server, import
+    neither JAX nor the JAX package; serve/programcache imports only the
+    standard library."""
+    code = textwrap.dedent("""
+        import json, sys, urllib.request
+        before = set(sys.modules)
+        from bigslice_tpu_torch.serve import programcache
+        light = sorted(m for m in set(sys.modules) - before
+                       if m.split(".")[0] in ("torch", "numpy"))
+        assert not light, light
+        import numpy as np
+        import bigslice_tpu_torch as bs
+        from bigslice_tpu_torch.serve import ServeServer
+        from bigslice_tpu_torch.tools import sliceserve
+
+        keys = np.arange(4000, dtype=np.int32) % 37
+
+        def pipe():
+            return bs.Reduce(bs.Const(4, keys, np.ones(4000, np.int32)),
+                             lambda a, b: a + b)
+
+        sess = bs.Session(executor=bs.MeshExecutor(device="cpu"))
+        srv = ServeServer(sess, port=0)
+        srv.register("count", pipe)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/serve/invoke",
+            data=json.dumps({"pipeline": "count"}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert json.loads(r.read())["num_rows"] == 37
+        srv.attach_session(bs.Session(executor=bs.MeshExecutor(device="cpu")))
+        code, doc = srv.invoke_request({"pipeline": "count"})
+        assert code == 200 and doc["num_rows"] == 37
+        assert programcache.program_cache_stats()["hits"] >= 1
+        srv.session.shutdown()
+        sess.shutdown()
+        cli = sliceserve.build_server(port=0, device="cpu")
+        code, doc = cli.invoke_request({"pipeline": "reduce",
+                                        "args": [4096, 64]})
+        assert code == 200 and doc["num_rows"] == 64, doc
+        cli.session.shutdown()
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

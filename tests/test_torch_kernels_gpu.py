@@ -1531,3 +1531,77 @@ def test_measured_probe_under_the_pipeline_and_the_skew_split(dev, prefetch,
     assert sess.adaptive.stats.skew_splits >= 1
     assert any("walls_ms" in d for d in
                sess.kernel_select.stats.summary()["decisions"])
+
+
+def _served_count(n_keys=4096):
+    import bigslice_tpu_torch as bs
+
+    keys = np.random.RandomState(15).randint(0, 1 << 20, 1 << 20).astype(
+        np.int32)
+    return bs.Reduce(bs.Const(4, keys % np.int32(n_keys),
+                              np.ones(len(keys), np.int32)),
+                     lambda a, b: a + b)
+
+
+def test_served_reduce_on_the_card_through_the_program_cache(dev):
+    """A pipeline served by ``ServeServer`` over a Session on the card:
+    its rows equal the CPU server's, K1 and K2 launch, and a fresh
+    Session attached finds every group program in the process-wide
+    program cache, with the same rows and launches."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.serve import ServeServer, programcache
+
+    cpu = ServeServer(bs.Session(executor=bs.MeshExecutor(device="cpu")))
+    cpu.register("count", _served_count)
+    want = cpu.invoke_request({"pipeline": "count", "max_rows": 1 << 13})
+    cpu.session.shutdown()
+    srv = ServeServer(bs.Session(executor=bs.MeshExecutor(auto_dense=False)))
+    srv.register("count", _served_count)
+    docs, launches, programs = [], [], []
+    try:
+        for fresh in (False, True):
+            if fresh:
+                old = srv.session
+                srv.attach_session(bs.Session(
+                    executor=bs.MeshExecutor(auto_dense=False)))
+                old.shutdown()
+            torch.cuda.synchronize()
+            before = dict(cuda_kernels.LAUNCHES)
+            code, doc = srv.invoke_request({"pipeline": "count",
+                                            "max_rows": 1 << 13})
+            torch.cuda.synchronize()
+            assert code == 200, doc
+            launches.append({k: cuda_kernels.LAUNCHES[k] - before[k]
+                             for k in before})
+            docs.append(sorted(map(tuple, doc["rows"])))
+            programs.append(srv.session.telemetry_summary()["device"][
+                "totals"])
+        assert want[0] == 200
+        assert docs[0] == docs[1] == sorted(map(tuple, want[1]["rows"]))
+        assert launches[0] == launches[1]
+        assert launches[0]["hash_partition"] and launches[0]["hash_aggregate"]
+        assert programs[1]["program_builds"] == 0
+        assert programs[1]["cross_session_hits"] >= 2
+        assert programcache.program_cache_stats()["hits"] >= 2
+    finally:
+        srv.session.shutdown()
+
+
+def test_first_launch_in_a_fresh_process_does_not_wait(dev):
+    """C2.19: a fresh process's first K1 and K2 launch behind a 0.1 s
+    busy-wait returns before it ends, since the library loads every
+    kernel when it is built (``bs_load_kernels``)."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    out = subprocess.run(
+        [sys.executable, str(root / "tools_torch_first_launch.py")],
+        capture_output=True, text=True, timeout=600, cwd=root)
+    assert out.returncode == 0, out.stderr[-3000:]
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    for key in ("k1_first", "k2_first", "k1_second", "k2_second"):
+        assert doc[key]["waited"] is False, doc
+        assert doc[key]["ms"] < 50, doc

@@ -146,32 +146,51 @@ def test_session_chicken_bit_zero_samples():
 
 
 def test_selection_keys_decisions_not_plans(monkeypatch):
-    """The JAX package stamps the mode into every partitioned task's
-    partition_config, for its program cache. The port has none: its
-    compiled plan is the same with the knob set, and what it keys is the
+    """The selector's mode keys the compiled plan as the JAX package's
+    does: every partitioned task's ``partition_config`` is the JAX
+    package's 4-tuple (partitions, combiner, partition fn, the one-axis
+    device signature), with the ``kselect:<mode>`` stamp once a mode is
+    set, equal task for task to the JAX package's for the same slice on
+    its one-device mesh. What the executor keys its lowerings on is the
     selector's decision per (op, site), the site named from the
     boundary's dtypes as the JAX package names it, and its probe per op
     shape, which ops of one shape share."""
-    def build(mod):
-        return mod.Reduce(mod.Const(4, np.arange(32, dtype=np.int32),
-                                    np.ones(32, np.int32)),
-                          lambda a, b: a + b)
+    keys = np.arange(32, dtype=np.int32)
 
     def configs(tasks):
-        return [getattr(t, "partition_config", None)
-                for t in iter_tasks(tasks)]
+        # The op site, its #N re-invocation suffix dropped: each
+        # package counts its own invocations of the line.
+        return sorted((t.name.op.split("#")[0], t.name.shard,
+                       getattr(t, "partition_config", None))
+                      for t in iter_tasks(tasks))
 
-    unset = configs(port_compile.Compiler(1).compile(build(bst)))
+    def both():
+        port = Session(executor=MeshExecutor(device="cpu",
+                                             auto_dense=False))
+        res = port.run(_count_pipeline(bst, keys))
+        mesh = Mesh(np.array(jax.devices()[:1]), ("shards",))
+        ref = RefSession(executor=RefMesh(mesh, staging_arena=False))
+        ref_res = ref.run(_count_pipeline(ref_bs, keys))
+        assert sorted(map(tuple, res.rows())) == sorted(
+            map(tuple, ref_res.rows()))
+        return port, configs(res.tasks), configs(ref_res.tasks)
+
+    _, unset, ref_unset = both()
+    assert unset == ref_unset
+    assert {c for _, _, c in unset} == {(1, False, False, (("shards",), (1,))),
+                                        (8, True, False, (("shards",), (1,)))}
     monkeypatch.setenv("BIGSLICE_KERNEL_SELECT", "static")
-    sess = Session(executor=MeshExecutor(device="cpu", auto_dense=False))
-    res = sess.run(build(bst))
-    assert configs(res.tasks) == unset == [None] * len(unset)
+    sess, got, ref_got = both()
+    assert got == ref_got
+    assert [c[:4] for _, _, c in got] == [c for _, _, c in unset]
+    assert {c[4:] for _, _, c in got} == {("kselect:static",)}
     sel = sess.kernel_select
     sites = {(d["op"], d["site"]) for d in sel.stats.summary()["decisions"]}
     assert {site for _, site in sites} == {"k(int32)v(int32)"}
     assert len({op for op, _ in sites}) == len(sites) >= 2
     for op, site in sites:
         assert sel.decision(op, site) == "hash"
+        assert sel.token(op) == ((site, "hash"),)
     # One probe for the ops of one shape; another value dtype is another
     # site, decided and probed on its own.
     calls = []
