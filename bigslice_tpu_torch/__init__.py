@@ -64,6 +64,14 @@ output may be kept across sessions in files (``Cache``,
                                               lambda a, b: a + b),
                                     "cache/counts"))
 
+Global sequence attention is a combinator too (``SelfAttend`` over a
+slice of three device vector columns q, k, v): on one device slot the
+device executor runs it as the ring or Ulysses over S = 1 shard, and
+over more shards on its host tier's broadcast reader::
+
+    o = bs.Session().run(bs.SelfAttend(bs.Const(1, q, k, v), causal=True,
+                                       heads=2))
+
 Data lands and leaves through Arrow and Parquet (``ParquetReader``,
 ``Result.to_arrow``, ``to_pandas``, ``write_parquet``; ``pyarrow`` and
 ``fsspec`` are imported at first use), and stores, the spill exchange
@@ -78,6 +86,8 @@ and caches take any fsspec URL prefix (``memory://``, ``gs://``)::
 """
 
 import importlib
+
+__version__ = "0.1.0"
 
 #: Each public name and the module that defines it, imported at first
 #: use (PEP 562): ``import bigslice_tpu_torch`` alone loads neither torch
@@ -121,6 +131,7 @@ _EXPORTS = {
     "Scan": "ops.mapops",
     "ScanReader": "ops.source",
     "Schema": "slicetype",
+    "SelfAttend": "ops.attention",
     "Session": "exec.session",
     "Slice": "ops.base",
     "TarSlice": "archive",

@@ -40,7 +40,8 @@ from bigslice_tpu_torch.ops.base import Slice, unwrap
 def pipeline(slice_: Slice) -> List[Slice]:
     """The fusable chain starting at slice_ (outermost first); it stops
     at a ``Result`` (also under ``Prefixed``), whose tasks are reused,
-    and before a ``Materialize``d slice, whose output is stored."""
+    and before a ``Materialize``d slice, whose output is stored. A
+    shuffle or broadcast dep is a boundary too."""
     out: List[Slice] = []
     while True:
         if _is_result(unwrap(slice_)):
@@ -49,9 +50,10 @@ def pipeline(slice_: Slice) -> List[Slice]:
         deps = slice_.deps()
         if len(deps) != 1:
             return out
-        if deps[0].shuffle or deps[0].slice.materialize:
+        dep = deps[0]
+        if dep.shuffle or dep.broadcast or dep.slice.materialize:
             return out
-        slice_ = deps[0].slice
+        slice_ = dep.slice
 
 
 def _is_result(slice_: Slice) -> bool:
@@ -184,6 +186,10 @@ class Compiler:
                                         expand=dep.expand,
                                         combine_key=dep_part.combine_key,
                                         coded=grp))
+                elif dep.broadcast:
+                    # Broadcast read: every shard reads every producer
+                    # task's partition 0, the full dataset in shard order.
+                    deps.append(TaskDep(tuple(dep_tasks), 0))
                 else:
                     # Aligned read: shard i reads dep shard i's partition 0.
                     deps.append(TaskDep((dep_tasks[shard],), 0))

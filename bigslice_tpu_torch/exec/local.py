@@ -348,6 +348,9 @@ class LocalExecutor:
 
         def factory():
             def gen():
+                # Producer by producer, in dep.tasks order: a broadcast
+                # dep's producers in shard order, the global row order
+                # SelfAttend's host tier reads (never merged by key).
                 for t in dep.tasks:
                     # Missing may surface mid-stream too (a FileStore
                     # read that meets a corrupt frame): the producer is

@@ -50,7 +50,16 @@ row validity carried as a bool mask and one compaction at the end:
   over the union of its N inputs' shuffled rows and a rank-scatter into
   per-input [keys, G] matrices with exact counts
   (``cogroup.make_cogroup_align``); the readback decodes them into the
-  contract's object lists (``cogroup.ragged_from_padded``).
+  contract's object lists (``cogroup.ragged_from_padded``);
+- ``attend`` (a SelfAttend, the innermost slice of its chain, over a
+  group of no more shards than device slots): Ulysses
+  (``ulysses.masked_local_body``) when heads divide the slots, heads >
+  1 and no ``block_q`` is set (or ``method="ulysses"``), else the ring
+  (``ringattention.masked_local_body``), over the producer's
+  unpartitioned device output read zero-copy; the choice lands in
+  ``attend_methods``. A producer without such an output (it ran on the
+  host tier) sends the group to the host tier's broadcast reader
+  (``_AttendHostFallback``).
 
 A wave's output is front-packed into ``bucket_size`` of its surviving
 rows, never the size of the table or buffer they came from.
@@ -129,6 +138,7 @@ identity and accounting.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue as queue_mod
 import shutil
@@ -151,7 +161,9 @@ from bigslice_tpu_torch.exec import store as store_mod
 from bigslice_tpu_torch.exec.local import LocalExecutor
 from bigslice_tpu_torch.exec.task import (Task, TaskCancelled, TaskName,
                                           TaskState)
+from bigslice_tpu_torch.frame import codec as codec_mod
 from bigslice_tpu_torch.frame.frame import Frame
+from bigslice_tpu_torch.ops.attention import SelfAttend
 from bigslice_tpu_torch.ops.cogroup import Cogroup
 from bigslice_tpu_torch.ops.const import Const
 from bigslice_tpu_torch.ops.fold import Fold
@@ -168,7 +180,9 @@ from bigslice_tpu_torch.parallel import dense as dense_mod
 from bigslice_tpu_torch.parallel import groupby as groupby_mod
 from bigslice_tpu_torch.parallel import hashagg, segment
 from bigslice_tpu_torch.parallel import join as join_mod
+from bigslice_tpu_torch.parallel import ringattention
 from bigslice_tpu_torch.parallel import shuffle as shuffle_mod
+from bigslice_tpu_torch.parallel import ulysses
 from bigslice_tpu_torch.parallel.jitutil import bucket_size
 from bigslice_tpu_torch.parallel.segment import compact_to_bucket, take
 from bigslice_tpu_torch.slicetype import torch_dtype
@@ -185,6 +199,13 @@ COGROUP_DEFAULT_CAP = 8
 #: one masked count each (a scatter-add over few bins serializes on its
 #: atomics).
 _FEW_SUBIDS = 32
+
+
+class _AttendHostFallback(Exception):
+    """A SelfAttend group's dep has no unpartitioned device-resident
+    output for the attend stage to read (its producer ran on the host
+    tier): the group runs on the host tier, whose broadcast reader has
+    the same global semantics."""
 
 
 class HostLostError(RuntimeError):
@@ -618,6 +639,8 @@ class MeshExecutor:
         self._slack_memo: Dict[str, float] = {}
         # Per-op Cogroup group capacities: the widest its waves built.
         self._cogroup_caps: Dict[str, int] = {}
+        # op base -> the attend stage's lowering ("ring" or "ulysses").
+        self.attend_methods: Dict[str, str] = {}
         # Op sites whose discovered dense bound a later wave proved
         # wrong: never probed again.
         self._auto_dense_off: set = set()
@@ -650,6 +673,8 @@ class MeshExecutor:
         # The tasks the running group thread claimed: its cancellation
         # checks read their requests.
         self._claimed = threading.local()
+        # The staging breakdown's sink of the wave a thread stages.
+        self._stage_tls = threading.local()
 
     def start(self, session) -> None:
         """Bind the session whose telemetry hub and monitor this
@@ -776,15 +801,18 @@ class MeshExecutor:
             self._stage_clock.update(staged_s=0.0, exposed_s=0.0, waves=0)
 
     def _note_staging(self, task0: Task, wave: int, staged_s: float,
-                      exposed_s: float) -> None:
+                      exposed_s: float,
+                      breakdown: Optional[dict] = None) -> None:
         with self._lock:
             c = self._stage_clock
             c["staged_s"] += staged_s
             c["exposed_s"] += exposed_s
             c["waves"] += 1
         # The hub hears the same two numbers, so its overlap figures
-        # equal staging_seconds() over the same waves.
-        self._telemetry_staging(task0, wave, staged_s, exposed_s)
+        # equal staging_seconds() over the same waves, and the breakdown
+        # of where the staging time went.
+        self._telemetry_staging(task0, wave, staged_s, exposed_s,
+                                breakdown)
 
     # -- telemetry seams (utils/telemetry.py) -------------------------------
     #
@@ -827,13 +855,18 @@ class MeshExecutor:
         return sink
 
     def _telemetry_staging(self, task0: Task, wave: int, dur_s: float,
-                           exposed_s: float) -> None:
+                           exposed_s: float,
+                           breakdown: Optional[dict] = None) -> None:
+        """One wave's staging seconds, the part the group thread waited
+        for, and the read/decode/assemble/upload breakdown (the parts
+        are timed inside the staging, so they sum to at most it)."""
         hub = self._telemetry_hub()
         if hub is None:
             return
         try:
             hub.record_wave_staging(task0.name.op, task0.name.inv_index,
-                                    wave, dur_s, exposed_s)
+                                    wave, dur_s, exposed_s,
+                                    breakdown=breakdown)
         except Exception:  # noqa: BLE001
             pass
 
@@ -985,16 +1018,19 @@ class MeshExecutor:
     def _eligible(self, task: Task) -> bool:
         """Whether the device path runs ``task``; the rest runs on the
         host tier. The JAX package's rule (its ``_eligible``), less what
-        this package has not (SPMD, coded groups, probation,
-        ``SelfAttend``): device columns throughout, scalar keys where a
+        this package has not (SPMD): not a coded group and not on
+        probation; device columns throughout, scalar keys where a
         shuffle routes them, a per-row (device) partitioner and a device
         combiner; device-tier Map/Filter/Flatmap, Reduce and Fold; a
         GroupByKey or JoinAggregate (both sides' fns device, both
         inputs device scalars) only as the chain's innermost slice; a
-        Cogroup alone in its chain, unshuffled, over device scalar
-        inputs and not machine-combined (its own output is host lists,
-        the readback's decode); and nothing else — Scan, MapBatches and
-        the sources run on the host tier."""
+        SelfAttend only as the chain's innermost slice and over no more
+        shards than device slots (it spans the whole sequence in one
+        program, which waves would cut: S > 1 runs on the host tier
+        here); a Cogroup alone in its chain, unshuffled, over device
+        scalar inputs and not machine-combined (its own output is host
+        lists, the readback's decode); and nothing else — Scan,
+        MapBatches and the sources run on the host tier."""
         if task.chain is None:
             return False
         if getattr(task, "coded_group", None) is not None or any(
@@ -1015,6 +1051,8 @@ class MeshExecutor:
                 del self._probation[opb]
         last = task.chain[-1]
         part = task.partitioner
+        if isinstance(last, SelfAttend) and task.name.num_shard > self.nmesh:
+            return False
         if isinstance(last, Cogroup):
             if part.combine_key or any(d.combine_key for d in task.deps):
                 return False
@@ -1044,7 +1082,9 @@ class MeshExecutor:
             elif isinstance(s, Fold):
                 if not s.device:
                     return False
-            elif isinstance(s, GroupByKey):
+            elif isinstance(s, (GroupByKey, SelfAttend)):
+                # Its own op typechecks its inputs (device scalars, or
+                # the device vectors q, k, v).
                 if s is not last:
                     return False
             elif isinstance(s, JoinAggregate):
@@ -1116,6 +1156,13 @@ class MeshExecutor:
                     p.mark_lost(e)
             for t in claimed:
                 t.mark_lost(e)
+        except _AttendHostFallback:
+            # No device output for the attend stage to read: the group
+            # runs the host tier's broadcast reader (the JAX package's
+            # rule; a failure of the stage itself is never sent there).
+            for t in claimed:
+                t.set_state(TaskState.WAITING)
+                self.local.submit(t)
         except Exception as e:  # noqa: BLE001 — settles as the task's error
             if _looks_like_infra_error(e):
                 # The infra class (reference exec/meshexec.py:1615-1628):
@@ -1263,10 +1310,30 @@ class MeshExecutor:
                        ) -> List[StagedInput]:
         """Stage a wave on this thread: all of its time is exposed."""
         t0 = time.perf_counter()
-        inputs = self._group_inputs(tasks, wave)
+        with self._staging_breakdown() as stats:
+            inputs = self._group_inputs(tasks, wave)
         dt = time.perf_counter() - t0
-        self._note_staging(tasks[0], wave, dt, dt)
+        self._note_staging(tasks[0], wave, dt, dt, stats)
         return inputs
+
+    @contextlib.contextmanager
+    def _staging_breakdown(self):
+        """The breakdown of the wave this thread stages: its reads and
+        uploads add their seconds to it (``_stage_stat``)."""
+        stats: dict = {}
+        self._stage_tls.stats = stats
+        try:
+            yield stats
+        finally:
+            self._stage_tls.stats = None
+
+    def _stage_stat(self, key: str, dt: float) -> None:
+        """Add one part (``read_s``, ``decode_s``, ``assemble_s``,
+        ``upload_s``) to the breakdown of the wave this thread stages,
+        if one is being recorded."""
+        stats = getattr(self._stage_tls, "stats", None)
+        if stats is not None:
+            stats[key] = stats.get(key, 0.0) + dt
 
     def _wave_budget(self, task0: Task) -> Tuple[Optional[int], bool]:
         """The per-device wave working-set budget the split and the
@@ -1383,11 +1450,13 @@ class MeshExecutor:
                     # store's warm cache is small).
                     self._hint_store_prefetch(wave_tasks, w + 1,
                                               w + 1 + depth)
-                    item = (self._group_inputs(wave_tasks[w], w), None,
-                            time.perf_counter() - t0)
+                    with self._staging_breakdown() as stats:
+                        item = (self._group_inputs(wave_tasks[w], w), None,
+                                time.perf_counter() - t0, stats)
                     self._emit_phase(task0, PHASE_WAVE_PREFETCH, w)
                 except BaseException as e:  # noqa: BLE001 — re-raised in
-                    item = (None, e, 0.0)   # wave order on the group thread
+                    # wave order on the group thread
+                    item = (None, e, 0.0, None)
                 while not stop.is_set():
                     try:
                         staged.put(item, timeout=0.1)
@@ -1425,14 +1494,14 @@ class MeshExecutor:
                     # their arena buffers behind their copies' events.
                     self._check_cancel()
                     t0 = time.perf_counter()
-                    inputs, err, staged_s = staged.get()
+                    inputs, err, staged_s, stats = staged.get()
                     if err is not None:
                         raise err
                     # Exposed: what this thread sat waiting for of the
                     # stager's work; the rest was hidden behind compute.
                     self._note_staging(
                         task0, w, staged_s,
-                        min(time.perf_counter() - t0, staged_s))
+                        min(time.perf_counter() - t0, staged_s), stats)
                 self._emit_phase(task0, PHASE_WAVE_COMPUTE, w)
                 settled = []
                 with self._wave_mutex:
@@ -1992,11 +2061,11 @@ class MeshExecutor:
         or a Reshard (each reads its shuffled input as it is) or a
         Prefixed (its rows are its input's). A JoinAggregate, the
         innermost slice of its chain, is the first stage; a Cogroup is
-        the only one."""
+        the only one. A SelfAttend, innermost too, is the first stage."""
         kinds = ((Map, "map"), (Flatmap, "flatmap"), (Filter, "filter"),
                  (Head, "head"), (Reduce, "combine"), (Fold, "fold"),
                  (JoinAggregate, "join"), (GroupByKey, "groupby"),
-                 (Cogroup, "cogroup"))
+                 (Cogroup, "cogroup"), (SelfAttend, "attend"))
         stages: List[tuple] = []
         for s in reversed(task.chain):
             for cls, kind in kinds:
@@ -2123,6 +2192,14 @@ class MeshExecutor:
             if stages and stages[0][0] == "join":
                 mask, cols, badrange, hashov = self._join_prelude(
                     opbase, stages[0][1], masks, col_sets)
+                run_stages = stages[1:]
+            elif stages and stages[0][0] == "attend":
+                # Attention over the producer's device output: the
+                # count masks padded K columns, and causal positions are
+                # logical global rows. Output rows beyond the count are
+                # masked by the producer's mask, which carries over.
+                cols = [self._attend(opbase, stages[0][1], inputs[0])]
+                mask = masks[0]
                 run_stages = stages[1:]
             else:
                 mask, cols = masks[0], col_sets[0]
@@ -2262,6 +2339,39 @@ class MeshExecutor:
         return self._served_program(task, stages, slack, stepped,
                                     time.perf_counter() - t0)
 
+    def _attend(self, opbase: str, att: SelfAttend,
+                inp: StagedInput) -> torch.Tensor:
+        """The attend stage: Ulysses when heads divide the device slots,
+        heads > 1 and ``method`` is "ulysses", or "auto" with no
+        ``block_q`` (Ulysses has no tiling, and a ``block_q`` bounds the
+        score memory); else the ring, its heads on a leading batch axis
+        (the JAX package vmaps the ring body over them). The choice is
+        recorded in ``attend_methods``. Returns o, [cap, d] fp32."""
+        nmesh = self.nmesh
+        heads = att.heads
+        hd = att.d // heads
+        count0 = inp.counts[0:1]
+        q, k, v = inp.cols
+        cap0 = q.shape[0]
+        use_ulysses = (heads % nmesh == 0 and heads > 1
+                       and (att.method == "ulysses"
+                            or (att.method == "auto" and att.block_q == 0)))
+        with self._lock:
+            self.attend_methods[opbase] = ("ulysses" if use_ulysses
+                                           else "ring")
+        if use_ulysses:
+            body = ulysses.masked_local_body(
+                nmesh, heads, hd, causal=att.causal, dtype=att.dtype)
+            qh, kh, vh = (c.reshape(cap0, heads, hd) for c in (q, k, v))
+            return body(count0, qh, kh, vh).reshape(cap0, att.d)
+        body = ringattention.masked_local_body(
+            nmesh, hd, causal=att.causal, dtype=att.dtype,
+            block_q=att.block_q)
+        qh, kh, vh = (c.reshape(cap0, heads, hd).transpose(0, 1)
+                      for c in (q, k, v))
+        o = body(count0, qh, kh, vh)                  # [heads, cap, hd]
+        return o.transpose(0, 1).reshape(cap0, att.d)
+
     # -- the program cache (serve/programcache.py) --------------------------
 
     def _served_program(self, task: Task, stages: List[tuple], slack: float,
@@ -2369,6 +2479,9 @@ class MeshExecutor:
                 out.append((kind, s.prefix, s.capacity, s.on_overflow))
             elif kind == "cogroup":
                 out.append((kind, s.prefix, s.nvals))
+            elif kind == "attend":
+                out.append((kind, (s.d, s.causal, str(s.dtype), s.block_q,
+                                   s.heads, s.method)))
             elif kind == "combine":
                 fc = s.frame_combiner
                 out.append((kind, fc.nkeys, fc.nvals, fc.dense_keys))
@@ -2571,13 +2684,19 @@ class MeshExecutor:
         """One ``StagedInput`` per dep, or one upload of the innermost
         source's shards. Called from the prefetcher thread as well as the
         group thread: it reads executor state and issues copies, nothing
-        else."""
+        else. Inside ``_staging_breakdown`` its parts are timed."""
         task0 = tasks[0]
         if not task0.deps:
-            shard_lists = [
-                [f for f in t.chain[-1].reader(t.name.shard, []) if len(f)]
-                for t in tasks
-            ]
+            t0 = time.perf_counter()
+            with codec_mod.decode_clock() as ck:
+                shard_lists = [
+                    [f for f in t.chain[-1].reader(t.name.shard, [])
+                     if len(f)]
+                    for t in tasks
+                ]
+            self._stage_stat("decode_s", ck.seconds)
+            self._stage_stat("read_s",
+                             max(0.0, time.perf_counter() - t0 - ck.seconds))
             return [self._stage_upload(shard_lists, task0.chain[-1].schema)]
         return [self._dep_input(tasks, i, wave)
                 for i in range(len(task0.deps))]
@@ -2587,11 +2706,23 @@ class MeshExecutor:
         """One dep's staged input: a device-resident producer output is
         chained zero-copy (never owned); a store-resident one (a spilled
         boundary's partitions, a result plane kept on the host) is read
-        shard by shard and staged through the arena."""
+        shard by shard and staged through the arena. The attend stage
+        reads only the former (``_AttendHostFallback`` otherwise)."""
         task0 = tasks[0]
         dep0 = task0.deps[dep_idx]
         with self._lock:
             out = self._outputs.get(dep0.tasks[0].group_key)
+        if isinstance(task0.chain[-1], SelfAttend):
+            # The broadcast dep's device layout is the producer's
+            # unpartitioned, unwaved output, read aligned and zero-copy
+            # (device s holds sequence block s). Anything else (a
+            # host-tier producer) has no layout the stage can read: the
+            # group runs the host tier's broadcast reader instead.
+            if (isinstance(out, DeviceGroupOutput) and not out.partitioned
+                    and out.cols is not None and out.nmesh == self.nmesh):
+                return StagedInput(out.cols, out.counts, out.capacity,
+                                   False, None)
+            raise _AttendHostFallback(str(task0.name))
         if isinstance(out, shuffleplan.SpilledGroupOutput):
             out = None  # nothing on the device: read through the bridge
         if isinstance(out, WavedGroupOutput):
@@ -2621,23 +2752,34 @@ class MeshExecutor:
             return self._machine_buffers_input(tasks, dep_idx)
 
         # Store-resident dep: each shard's frames, the shards' reads
-        # fanned out on the staging pool.
-        def read_shard(t: Task) -> List[Frame]:
+        # fanned out on the staging pool; a decode clock a shard splits
+        # reading from decoding.
+        def read_shard(t: Task) -> Tuple[List[Frame], float]:
             dep = t.deps[dep_idx]
             frames: List[Frame] = []
-            for p in dep.tasks:
-                try:
-                    frames.extend(self.store.read(p.name, dep.partition))
-                except store_mod.Missing as e:
-                    if getattr(e, "spilled_group", False):
-                        # A spilled partition holds every producer
-                        # shard's rows: the whole group re-runs.
-                        raise DepLost(*dep.tasks) from e
-                    raise DepLost(p) from e
-            return frames
+            with codec_mod.decode_clock() as ck:
+                for p in dep.tasks:
+                    try:
+                        frames.extend(self.store.read(p.name,
+                                                      dep.partition))
+                    except store_mod.Missing as e:
+                        if getattr(e, "spilled_group", False):
+                            # A spilled partition holds every producer
+                            # shard's rows: the whole group re-runs.
+                            raise DepLost(*dep.tasks) from e
+                        raise DepLost(p) from e
+            return frames, ck.seconds
 
-        per_shard = staging.map_shards(read_shard, tasks, self.stage_threads)
-        return self._stage_upload(per_shard, dep0.tasks[0].schema)
+        t0 = time.perf_counter()
+        results = staging.map_shards(read_shard, tasks, self.stage_threads)
+        elapsed = time.perf_counter() - t0
+        # The shards' decode clocks overlap on the pool: capped at the
+        # wall time, so the parts stay within the staging.
+        decode_s = min(sum(r[1] for r in results), elapsed)
+        self._stage_stat("decode_s", decode_s)
+        self._stage_stat("read_s", max(0.0, elapsed - decode_s))
+        return self._stage_upload([r[0] for r in results],
+                                  dep0.tasks[0].schema)
 
     def _machine_buffers_input(self, tasks: List[Task],
                                dep_idx: int) -> StagedInput:
@@ -2672,6 +2814,7 @@ class MeshExecutor:
         before the error propagates."""
         arena = self.staging_arena
         if arena.enabled:
+            t0 = time.perf_counter()
             try:
                 host_cols, counts, capacity, bufs = fileio.retry_transient(
                     lambda: staging.assemble(shard_lists, schema,
@@ -2683,14 +2826,18 @@ class MeshExecutor:
                 host_counts = arena.acquire(torch.int32, (self.nmesh,))
                 host_counts.copy_(torch.tensor(counts, dtype=torch.int32))
                 bufs = bufs + [host_counts]
+                t1 = time.perf_counter()
+                self._stage_stat("assemble_s", t1 - t0)
                 try:
-                    return fileio.retry_transient(
+                    placed = fileio.retry_transient(
                         lambda: self._place_assembled(host_cols, host_counts,
                                                       capacity, bufs),
                         "shuffle.upload")
                 except BaseException:
                     arena.abandon(bufs)
                     raise
+                self._stage_stat("upload_s", time.perf_counter() - t1)
+                return placed
         return fileio.retry_transient(
             lambda: self._upload(shard_lists, schema), "shuffle.upload")
 
@@ -2718,16 +2865,20 @@ class MeshExecutor:
 
     def _upload(self, shard_lists, schema) -> StagedInput:
         """Stage per-shard frame lists shard by shard: each shard
-        concatenated, padded to a power-of-two capacity and copied to
-        the device (pageable copies on the current stream)."""
+        concatenated (assembly), padded to a power-of-two capacity and
+        copied to the device (upload; pageable copies on the current
+        stream)."""
         if faultinject.ENABLED:
             # Chaos seam (reference parallel/shuffle.py:661-681), at entry.
             faultinject.maybe_raise("shuffle.upload")
+        t0 = time.perf_counter()
         frames = [Frame.concat(fl) if fl else None for fl in shard_lists]
         while len(frames) < self.nmesh:
             frames.append(None)
         counts = [len(f) if f is not None else 0 for f in frames]
         capacity = bucket_size(max(counts + [1]))
+        t1 = time.perf_counter()
+        self._stage_stat("assemble_s", t1 - t0)
         cols = []
         for j, ct in enumerate(schema):
             buf = torch.zeros((self.nmesh * capacity,) + ct.shape,
@@ -2738,6 +2889,7 @@ class MeshExecutor:
                     buf[start : start + counts[d]] = f.cols[j].to(self.device)
             cols.append(buf)
         counts_t = torch.tensor(counts, dtype=torch.int32, device=self.device)
+        self._stage_stat("upload_s", time.perf_counter() - t1)
         return StagedInput(cols, counts_t, capacity, True, None)
 
     # -- frame materialization for result reads ------------------------------

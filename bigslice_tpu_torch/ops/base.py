@@ -62,12 +62,18 @@ class Dep:
                  operators of this package yet).
     expand:      partition streams are merged by key rather than
                  concatenated (Reduce-style consumers).
+    broadcast:   every consumer shard reads EVERY producer task's
+                 partition 0 (the full dataset), in producer-shard
+                 order: a fusion boundary, like shuffle. The host tier
+                 of globally coupled ops (SelfAttend); the device tier
+                 reads the producer's device output aligned instead.
     """
 
     slice: "Slice"
     shuffle: bool = False
     partitioner: Optional[Callable] = None
     expand: bool = False
+    broadcast: bool = False
 
 
 class Combiner:

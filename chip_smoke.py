@@ -248,6 +248,30 @@ invocation, SIGTERM, exit 0 and the final snapshot line, with the
 spawn to the first 200 (a fresh process's cold start) beside (b)'s
 fresh-Session request.
 
+Phase 31 drives attention, the one-card tools and the staging
+breakdown: (a) ``SelfAttend`` on the device tier at the JAX package's
+attention shape on one device (S = 1, seq 2**13, 2 heads of 128,
+causal, RandomState(31)) in three lowerings, ``auto`` in fp32 with TF32
+off (Ulysses), ``auto`` in bf16 and the ring in bf16 tiled at
+``block_q = max(128, seq // 64)``, each once counted and three times
+warm against the host's float64 oracle (fp32 at 3e-4, bf16 at 3e-2,
+and by the norm of the difference at 1e-5 and 1e-2),
+with its warm wall, the stage's device time (CUDA events around the
+executor's attend stage over the staged columns) and TFLOP/s of the
+forward's 4 * seq**2 * heads * head_dim operations over it, the peak
+device memory (the tiled ring's below Ulysses') and K1-K3 launches (0:
+no shuffle); then ``scaled_dot_product_attention`` on the same q, k, v
+in fp32 and bf16, a yardstick that is not on the path; (b) S = 4 (more
+shards than the one device slot) on the host tier's broadcast reader,
+no attend lowering recorded, against the oracle at seq 2**12; (c) an
+outer ``Map(o * 2)`` fused after the attend stage at S = 1, seq 2**12;
+(d) every ``slicer`` mode on the card (200,000 rows, 100,000 for
+``oom``, 8 shards), ``microbench --quick`` with every line parsed, and
+``slicetypecheck`` over a source with six known problems; (e) phase
+3's reduce-wave with the hub on, its source group's
+``staging_breakdown`` (read, assemble, upload) non-negative and within
+its staged seconds.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -5907,6 +5931,361 @@ def phase30_serving(card: str, phase3: dict) -> dict:
     return {"serving": ab}
 
 
+# -- phase 31: attention, the one-card tools, the staging breakdown ---------
+
+#: 31a's shape: the JAX package's attention benchmark at one device
+#: (seq 2**13, 2 heads of 128, causal) and its forward operation count,
+#: 4 * seq**2 * heads * head_dim.
+ATT_SEQ, ATT_HEADS, ATT_HD = 1 << 13, 2, 128
+ATT_FLOPS = 4 * ATT_SEQ ** 2 * ATT_HEADS * ATT_HD
+#: The reference tests' tolerances: fp32 and bf16 products.
+ATT_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+#: Limits on ||out - ref|| / ||ref||. At 31a's inputs (0.3 * randn) the
+#: softmax is nearly uniform and the elementwise tolerances would pass
+#: a body that ignored q k^T and returned the causal running mean of v
+#: (its relative error is about 8e-2 there); bf16 rounding of q, k, v
+#: and p gives about 2e-3.
+ATT_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _att_inputs(seq: int, seed: int):
+    """(q, k, v) as [seq, heads * hd] float32 columns, and the float64
+    oracle over them (causal), computed on the host."""
+    from bigslice_tpu_torch.parallel.ulysses import dense_mha_reference
+
+    rng = np.random.RandomState(seed)
+    d = ATT_HEADS * ATT_HD
+    cols = [(rng.randn(seq, d) * 0.3).astype(np.float32) for _ in range(3)]
+    ref = dense_mha_reference(
+        *(c.reshape(seq, ATT_HEADS, ATT_HD) for c in cols),
+        causal=True).reshape(seq, d)
+    return cols, ref
+
+
+def _att_check(what: str, out: np.ndarray, ref: np.ndarray,
+               tol: float, rel_tol: float = ATT_REL["float32"]):
+    """Hold ``out`` against the oracle elementwise at ``tol`` and by the
+    norm of the difference at ``rel_tol``: (max |err|, relative err)."""
+    if out.shape != ref.shape or not np.isfinite(out).all():
+        raise AssertionError(f"{what}: shape {out.shape} or non-finite "
+                             f"values, expected {ref.shape}")
+    diff = out.astype(np.float64) - ref
+    err = float(np.abs(diff).max())
+    rel = float(np.linalg.norm(diff) / np.linalg.norm(ref))
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol,
+                               err_msg=f"{what} against the oracle")
+    if not rel <= rel_tol:
+        raise AssertionError(f"{what}: relative error {rel:.3e} against "
+                             f"the oracle, limit {rel_tol}")
+    return err, rel
+
+
+def _att_rows(res) -> np.ndarray:
+    """A SelfAttend result's o column in row order, shard by shard (the
+    global sequence order; ``result_shard_rows`` would sort it)."""
+    from bigslice_tpu_torch.frame.frame import to_numpy
+
+    return np.concatenate([to_numpy(f.cols[0])
+                           for shard in range(res.num_shards)
+                           for f in res.reader(shard, ())])
+
+
+def _att_run(bs, S, cols, **kw):
+    """Build a session, run SelfAttend over ``Const(S, q, k, v)`` and
+    read its rows back: (output [seq, d], executor)."""
+    ex = bs.MeshExecutor()
+    res = bs.Session(executor=ex).run(
+        bs.SelfAttend(bs.Const(S, *cols), causal=True, heads=ATT_HEADS, **kw))
+    out = _att_rows(res)
+    torch.cuda.synchronize()
+    return out, ex
+
+
+def _att_counted(bs, S, cols, **kw):
+    """The counted run: ``_att_run`` with the launches it made."""
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out, ex = _att_run(bs, S, cols, **kw)
+    wall = time.perf_counter() - t0
+    return out, ex, wall, {k: ck.LAUNCHES[k] for k in PATH_KERNELS}
+
+
+def phase31a_device_tier(card: str) -> dict:
+    """31a: SelfAttend at full width on the device tier (S = 1, seq
+    2**13, 2 heads of 128, causal) in three lowerings: ``auto`` in fp32
+    (Ulysses), ``auto`` in bf16 and the ring in bf16 tiled at
+    ``block_q = max(128, seq // 64)``. Each once counted and three times
+    warm, against the host's float64 oracle, with the stage's device
+    time (CUDA events around the executor's attend stage over the staged
+    columns), TFLOP/s of the forward's operations over it, the peak
+    device memory and the launches; then scaled_dot_product_attention
+    on the same q, k, v as a yardstick that is not on the path."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.meshexec import MeshExecutor, StagedInput
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: fp32 attention needs it off")
+    cols, ref = _att_inputs(ATT_SEQ, 31)
+    block_q = max(128, ATT_SEQ // 64)
+    lowerings = [
+        ("attention-ulysses-fp32", dict(), "ulysses"),
+        ("attention-ulysses-bf16", dict(dtype=torch.bfloat16), "ulysses"),
+        ("attention-ring-bf16", dict(dtype=torch.bfloat16, method="ring",
+                                     block_q=block_q), "ring"),
+    ]
+    dev_cols = [torch.from_numpy(c).cuda() for c in cols]
+    counts = torch.tensor([ATT_SEQ], dtype=torch.int32, device="cuda")
+    staged = StagedInput(dev_cols, counts, ATT_SEQ, False, None)
+    scratch = MeshExecutor()
+    out_paths = {}
+    for name, kw, method in lowerings:
+        dt = "bfloat16" if "dtype" in kw else "float32"
+        out, ex, counted_s, launches = _att_counted(bs, 1, cols, **kw)
+        if set(ex.attend_methods.values()) != {method}:
+            raise AssertionError(f"{name}: attend_methods "
+                                 f"{ex.attend_methods}, expected {method}")
+        err, rel = _att_check(name, out, ref, ATT_TOL[dt], ATT_REL[dt])
+        del out, ex
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out, _ = _att_run(bs, 1, cols, **kw)
+            walls.append(time.perf_counter() - t0)
+        _att_check(name, out, ref, ATT_TOL[dt], ATT_REL[dt])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        att = bs.SelfAttend(bs.Const(1, *cols), causal=True,
+                            heads=ATT_HEADS, **kw)
+        stage_ms = time_ms(lambda: scratch._attend("phase31", att, staged),
+                           reps=5, warmup=1)
+        out_paths[name] = dict(
+            wall_s=round(statistics.median(walls), 4),
+            walls_s=[round(w, 4) for w in walls],
+            counted_s=round(counted_s, 4), stage_ms=round(stage_ms, 4),
+            tflops=round(ATT_FLOPS / (stage_ms * 1e-3) / 1e12, 3),
+            peak_gib=round(peak, 4), max_abs_err=err, rel_err=rel,
+            method=method,
+            launches=launches)
+        log(f"phase 31a: {name} ({method}, {dt}) warm wall "
+            f"{out_paths[name]['wall_s']} s (runs {out_paths[name]['walls_s']}"
+            f"), stage {stage_ms:.4f} ms device = "
+            f"{out_paths[name]['tflops']} TFLOP/s of {ATT_FLOPS:.3e}, peak "
+            f"{peak:.4f} GiB, max |err| {err:.3e} (tol {ATT_TOL[dt]}), "
+            f"relative err {rel:.3e} (limit {ATT_REL[dt]}), "
+            f"launches {launches}, on {card}")
+        for k in PATH_KERNELS:
+            if launches[k]:
+                raise AssertionError(f"{name}: {k} launched {launches[k]}x; "
+                                     f"the attend path has no shuffle")
+    if not (out_paths["attention-ring-bf16"]["peak_gib"]
+            < out_paths["attention-ulysses-fp32"]["peak_gib"]):
+        raise AssertionError("the tiled ring's peak is not below Ulysses'")
+    # The yardstick: one library call on the same q, k, v, not on the path.
+    qh, kh, vh = (c.reshape(ATT_SEQ, ATT_HEADS, ATT_HD).transpose(0, 1)[None]
+                  for c in dev_cols)
+    sdpa = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q4, k4, v4 = (x.to(dt).contiguous() for x in (qh, kh, vh))
+        sdpa[str(dt).split(".")[1]] = round(time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True), reps=5, warmup=1), 4)
+    log(f"phase 31a: scaled_dot_product_attention (yardstick, not on the "
+        f"path) ms {sdpa}, on {card}")
+    out_paths["attention-ulysses-fp32"]["sdpa_ms"] = sdpa
+    del staged, dev_cols, scratch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out_paths
+
+
+def phase31b_host_tier(card: str) -> dict:
+    """31b: S = 4 > the one device slot: the group runs on the host tier
+    (no attend lowering recorded), shard 0's float64 oracle over the
+    broadcast read, against an independent oracle, seq 2**12."""
+    import bigslice_tpu_torch as bs
+
+    cols, ref = _att_inputs(1 << 12, 32)
+    out, ex, wall, launches = _att_counted(bs, 4, cols)
+    if ex.attend_methods:
+        raise AssertionError(f"attention-host: the device stage ran "
+                             f"({ex.attend_methods})")
+    err, _ = _att_check("attention-host", out, ref, 1e-5)
+    log(f"phase 31b: attention-host (S = 4, host tier) wall {wall:.4f} s, "
+        f"max |err| {err:.3e}, launches {launches}, on {card}")
+    return {"wall_s": round(wall, 4), "max_abs_err": err,
+            "launches": launches}
+
+
+def phase31c_fused_map(card: str) -> dict:
+    """31c: Map(o * 2) fused after the attend stage, S = 1, seq 2**12."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    cols, ref = _att_inputs(1 << 12, 33)
+    ex = bs.MeshExecutor()
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = bs.Session(executor=ex).run(bs.Map(
+        bs.SelfAttend(bs.Const(1, *cols), causal=True, heads=ATT_HEADS),
+        lambda o: o * 2.0))
+    out = _att_rows(res)
+    wall = time.perf_counter() - t0
+    launches = {k: ck.LAUNCHES[k] for k in PATH_KERNELS}
+    ops = {t.op.split("@")[0] for t in ex._task_index}
+    if "attend_map" not in ops or not ex.attend_methods:
+        raise AssertionError(f"attention-map: the Map did not fuse into the "
+                             f"device attend group ({ops})")
+    err, _ = _att_check("attention-map", out, 2.0 * ref, ATT_TOL["float32"])
+    log(f"phase 31c: attention-map (o * 2 fused) wall {wall:.4f} s, max "
+        f"|err| {err:.3e}, launches {launches}, on {card}")
+    return {"wall_s": round(wall, 4), "max_abs_err": err,
+            "launches": launches}
+
+
+#: 31d's checker source: six problems, on lines 7, 8, 10, 12, 13, 14.
+_TYPED_SRC = (
+    "import bigslice_tpu_torch as bs\n"
+    "@bs.func\n"
+    "def pipe(n: int, name: str, rate: np.float32, free):\n"
+    "    return None\n"
+    "x = 'hello'\n"
+    "sess.run(pipe, 4, 'corpus', 0.5, object())\n"
+    "sess.run(pipe, 'four', 'corpus', 0.5, 1)\n"
+    "sess.run(pipe, 4, 7, 0.5, 1)\n"
+    "sess.run(pipe, 4, x, 2, 1)\n"
+    "sess.run(pipe, 4, [1], 0.5, 1)\n"
+    "sess.run(pipe, dynamic_thing, 'c', 0.5, 1)\n"
+    "sess.run(pipe, 4, 'c', 0.5, lambda: 1)\n"
+    "sess.run(pipe, 4, 'c', 0.5, open('f'))\n"
+    "sess.run(pipe, 4, 'c', 0.5, (i for i in x))\n"
+)
+_MICROBENCH_NAMES = {"eval_chain", "eval_fanout", "frame_hash",
+                     "frame_partition", "frame_sort", "codec_encode",
+                     "codec_decode", "device_reduce", "wave_stress"}
+
+
+def phase31d_tools(card: str) -> dict:
+    """31d: the one-card tools on the card: every slicer mode (each
+    checks its own result and exits 0), ``microbench --quick`` with
+    every line parsed, and ``slicetypecheck`` over a source with six
+    known problems."""
+    import contextlib
+    import io
+    import tempfile
+
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.tools import microbench, slicer, slicetypecheck
+
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    walls = {}
+    for mode in sorted(slicer.MODES):
+        rows = "100000" if mode == "oom" else "200000"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = slicer.main([mode, "-rows", rows, "-shards", "8"])
+        walls[mode] = round(time.perf_counter() - t0, 3)
+        if rc != 0 or f"slicer {mode}:" not in buf.getvalue():
+            raise AssertionError(f"slicer {mode}: rc {rc}, {buf.getvalue()}")
+        log(f"phase 31d: {buf.getvalue().strip()}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = microbench.main(["--quick"])
+    walls["microbench"] = round(time.perf_counter() - t0, 3)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    names = {ln.split()[0] for ln in lines}
+    if rc != 0 or names != _MICROBENCH_NAMES:
+        raise AssertionError(f"microbench --quick: rc {rc}, lines {lines}")
+    for ln in lines:
+        rate = re.search(r"([0-9.]+) (us/task|Mrows/s|Krows/s)", ln)
+        if rate is None or not float(rate.group(1)) > 0:
+            raise AssertionError(f"microbench: unparsed line {ln!r}")
+        log(f"phase 31d: microbench {ln}")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "pipe.py")
+        with open(path, "w") as fh:
+            fh.write(_TYPED_SRC)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = slicetypecheck.main([path])
+    got = sorted(int(ln.split(":")[1]) for ln in buf.getvalue().splitlines())
+    if rc != 1 or got != [7, 8, 10, 12, 13, 14]:
+        raise AssertionError(f"slicetypecheck: rc {rc}, lines {got}")
+    launches = {k: ck.LAUNCHES[k] for k in PATH_KERNELS}
+    log(f"phase 31d: slicetypecheck found problems on lines {got}; tool "
+        f"walls s {walls}, launches {launches}, on {card}")
+    return {"walls_s": walls, "launches": launches}
+
+
+def phase31e_staging_breakdown(card: str) -> dict:
+    """31e: phase 3's reduce-wave with the hub on: the source group's
+    ``staging_breakdown`` holds read, assemble and upload seconds, each
+    non-negative, their sum within its staged seconds."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    S, n, span = 4, 1 << 25, 1 << 20
+    keys = np.random.RandomState(42).randint(0, span, n).astype(np.int32)
+    ones = np.ones(n, np.int32)
+    sess = bs.Session(executor=bs.MeshExecutor(auto_dense=False))
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    res = sess.run(bs.Reduce(bs.Const(S, keys, ones), lambda a, b: a + b))
+    total = sum(int(sh[1].astype(np.int64).sum())
+                for sh in bs.result_shard_rows(res))
+    wall = time.perf_counter() - t0
+    launches = {k: ck.LAUNCHES[k] for k in PATH_KERNELS}
+    if total != n:
+        raise AssertionError(f"staging-breakdown: counts sum {total} != {n}")
+    waves = {op.split("@")[0]: o["waves"]
+             for op, o in sess.telemetry_summary()["ops"].items()
+             if "waves" in o}
+    sess.shutdown()
+    src = waves.get("const", {})
+    parts = src.get("staging_breakdown")
+    if (not parts or not {"read_s", "assemble_s", "upload_s"} <= set(parts)
+            or min(parts.values()) < 0
+            or sum(parts.values()) > src["staging_s"] + 1e-6):
+        raise AssertionError(f"staging-breakdown: {src}")
+    log(f"phase 31e: staging breakdown s {parts} within staged "
+        f"{src['staging_s']} s over {src['staged']} waves; wall {wall:.4f} "
+        f"s, launches {launches}, on {card}")
+    return {"wall_s": round(wall, 4), "breakdown": parts,
+            "staging_s": src["staging_s"], "launches": launches}
+
+
+def phase31_attention(card: str) -> dict:
+    """Phase 31: 31a-31e, each with its wall on its own line."""
+    t0 = time.perf_counter()
+    paths = {}
+    for label, key, fn in (("31a", None, phase31a_device_tier),
+                           ("31b", "attention-host", phase31b_host_tier),
+                           ("31c", "attention-map", phase31c_fused_map),
+                           ("31d", "tools", phase31d_tools),
+                           ("31e", "staging-breakdown",
+                            phase31e_staging_breakdown)):
+        t = time.perf_counter()
+        out = fn(card)
+        if key is None:
+            paths.update(out)
+        else:
+            paths[key] = out
+        gc.collect()
+        log(f"phase {label} took {time.perf_counter() - t:.2f} s")
+    log(f"phase 31: attention, tools and staging breakdown in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return paths
+
+
 def nbytes_of(*arrays) -> int:
     return int(sum(a.nbytes for a in arrays))
 
@@ -5976,6 +6355,7 @@ def main() -> int:
     paths.update(timed("30", phase30_serving, card, dict(
         paths["reduce-wave"]["launches"],
         wall_s=paths["reduce-wave"]["wall_s"])))
+    paths.update(timed("31", phase31_attention, card))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
@@ -5992,7 +6372,7 @@ def main() -> int:
         for name in PATH_KERNELS
     ]}
     log(f"chip_smoke: phase walls s {walls}")
-    log(f"chip_smoke: phases 0-30 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 0-31 in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

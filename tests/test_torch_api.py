@@ -537,7 +537,17 @@ def _golden_builders():
         return bs.Cogroup(bs.Reduce(s, add),
                           bs.Map(b, lambda k, v: (k, v)))
 
+    def attend_chain(bs):
+        # The attend stage breaks the pipeline once (its broadcast dep)
+        # and keeps the maps before and after it fused.
+        q = np.random.RandomState(0).randn(32, 8).astype(np.float32)
+        s = bs.Const(4, q, q, q)
+        att = bs.SelfAttend(bs.Map(s, lambda a, b, c: (a, b, c * 2)),
+                            causal=True)
+        return bs.Map(att, lambda o: (o,))
+
     return {"trivial": trivial, "shuffle": shuffle,
+            "attend-chain": attend_chain,
             "waved-reduce": waved_reduce, "branch-shuffle": branch_shuffle,
             "reshuffle-chain": reshuffle_chain,
             "branch-materialize": branch_materialize,
@@ -545,8 +555,8 @@ def _golden_builders():
 
 
 def test_golden_cases_cover_the_testdata():
-    """Every golden graph but attend-chain (SelfAttend is not ported)
-    has a case here or in the Cogroup and join tests."""
+    """Every golden graph has a case here or in the Cogroup and join
+    tests."""
     names = {f[: -len(".graph")] for f in os.listdir(
         os.path.join(os.path.dirname(__file__), "testdata"))
         if f.endswith(".graph")}

@@ -367,8 +367,20 @@ def test_profiler_recording_is_seen_from_other_threads(tmp_path):
     from bigslice_tpu_torch.utils import xprof
 
     seen = []
-    t = threading.Thread(target=lambda: (time.sleep(0.3),
-                                         seen.append(xprof.recording())))
+
+    def watch():
+        # A cold process's first torch.profiler entry takes seconds, so
+        # the window opens late: wait for it (bounded), as a worker
+        # thread would, instead of reading the flag once.
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            if xprof.recording():
+                seen.append(True)
+                return
+            time.sleep(0.01)
+        seen.append(False)
+
+    t = threading.Thread(target=watch)
     t.start()
     Profiler(device="cpu").window(0.8, out_dir=str(tmp_path / "w"))
     t.join()

@@ -671,3 +671,59 @@ def test_serving_plane_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_attention_tools_and_staging_breakdown_run_without_jax():
+    """SelfAttend on both tiers (the device stage at S = 1, the host
+    tier's broadcast reader at S = 4), the three one-card tools' mains
+    and the hub's staging breakdown import neither JAX nor the JAX
+    package."""
+    code = textwrap.dedent("""
+        import contextlib, io, os, sys, tempfile
+        import numpy as np
+        import bigslice_tpu_torch as bs
+        from bigslice_tpu_torch.parallel.ulysses import dense_mha_reference
+        from bigslice_tpu_torch.tools import microbench, slicer
+        from bigslice_tpu_torch.tools import slicetypecheck
+
+        rng = np.random.RandomState(0)
+        q3, k3, v3 = (rng.randn(40, 2, 4).astype(np.float32) * 0.3
+                      for _ in range(3))
+        flat = [x.reshape(40, 8) for x in (q3, k3, v3)]
+        ref = dense_mha_reference(q3, k3, v3, causal=True).reshape(40, 8)
+        for S in (1, 4):
+            ex = bs.MeshExecutor(device="cpu")
+            res = bs.Session(executor=ex).run(bs.SelfAttend(
+                bs.Const(S, *flat), causal=True, heads=2))
+            out = np.stack([np.asarray(o) for (o,) in res.rows()])
+            np.testing.assert_allclose(out, ref, rtol=3e-4, atol=3e-4)
+            assert bool(ex.attend_methods) == (S == 1), ex.attend_methods
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert slicer.main(["reduce", "-rows", "500", "-shards", "2",
+                                "-device", "cpu"]) == 0
+            microbench.bench_eval(10)
+            microbench.bench_device_reduce(1 << 8, device="cpu")
+        path = os.path.join(tempfile.mkdtemp(), "p.py")
+        with open(path, "w") as fh:
+            fh.write("import bigslice_tpu_torch as bs\\n@bs.func\\n"
+                     "def f(a):\\n    return None\\nsess.run(f)\\n")
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert slicetypecheck.main([path]) == 1
+        sess = bs.Session(executor=bs.MeshExecutor(device="cpu",
+                                                   prefetch_depth=0))
+        keys = np.arange(4000, dtype=np.int32) % 37
+        sess.run(bs.Reduce(bs.Const(4, keys, np.ones(4000, np.int32)),
+                           lambda a, b: a + b))
+        waves = [o["waves"] for o in sess.telemetry_summary()["ops"].values()
+                 if "waves" in o]
+        assert any("staging_breakdown" in w for w in waves), waves
+        sess.shutdown()
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

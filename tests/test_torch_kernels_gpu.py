@@ -1605,3 +1605,81 @@ def test_first_launch_in_a_fresh_process_does_not_wait(dev):
     for key in ("k1_first", "k2_first", "k1_second", "k2_second"):
         assert doc[key]["waited"] is False, doc
         assert doc[key]["ms"] < 50, doc
+
+
+def _attention_inputs(seq, heads, hd, seed):
+    rng = np.random.RandomState(seed)
+    q3, k3, v3 = (rng.randn(seq, heads, hd).astype(np.float32) * 0.3
+                  for _ in range(3))
+    return (q3, k3, v3), [x.reshape(seq, heads * hd) for x in (q3, k3, v3)]
+
+
+@pytest.mark.parametrize("method,block_q", [("auto", 0), ("ring", 128)])
+def test_selfattend_on_the_card_fp32(dev, method, block_q):
+    """The device stage on the card at seq 2^11 in full fp32 (TF32 off)
+    against the host's float64 oracle."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel.ulysses import dense_mha_reference
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    seq, heads, hd = 1 << 11, 2, 64
+    (q3, k3, v3), flat = _attention_inputs(seq, heads, hd, 0)
+    ex = bs.MeshExecutor()
+    res = bs.Session(executor=ex).run(bs.SelfAttend(
+        bs.Const(1, *flat), causal=True, heads=heads, method=method,
+        block_q=block_q))
+    out = np.stack([np.asarray(o) for (o,) in res.rows()])
+    ref = dense_mha_reference(q3, k3, v3, causal=True).reshape(seq, -1)
+    np.testing.assert_allclose(out, ref, rtol=3e-4, atol=3e-4)
+    assert set(ex.attend_methods.values()) == {
+        "ulysses" if method == "auto" else "ring"}
+
+
+@pytest.mark.parametrize("method,block_q", [("auto", 0), ("ring", 128)])
+def test_selfattend_on_the_card_bf16(dev, method, block_q):
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel.ulysses import dense_mha_reference
+
+    seq, heads, hd = 1 << 11, 2, 64
+    (q3, k3, v3), flat = _attention_inputs(seq, heads, hd, 1)
+    res = bs.Session(executor=bs.MeshExecutor()).run(bs.SelfAttend(
+        bs.Const(1, *flat), causal=True, heads=heads, method=method,
+        block_q=block_q, dtype=torch.bfloat16))
+    out = np.stack([np.asarray(o) for (o,) in res.rows()])
+    assert out.dtype == np.float32
+    ref = dense_mha_reference(q3, k3, v3, causal=True).reshape(seq, -1)
+    np.testing.assert_allclose(out, ref, rtol=3e-2, atol=3e-2)
+    # At 0.3 * randn the softmax is nearly uniform, so the elementwise
+    # tolerance alone would pass a body that ignored q k^T and returned
+    # the causal running mean of v (a relative error of about 8e-2);
+    # bf16 rounding of q, k, v and p gives about 2e-3.
+    rel = np.linalg.norm(out - ref) / np.linalg.norm(ref)
+    assert rel <= 1e-2, rel
+
+
+def test_selfattend_attend_methods_and_tiers_on_the_card(dev):
+    """The lowering's choice on the card's one slot, S > 1 on the host
+    tier, and the refusal of fp32 attention under TF32."""
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.task import TaskError
+
+    _, flat = _attention_inputs(256, 4, 16, 2)
+    cases = [(dict(heads=4), {"ulysses"}), (dict(heads=1), {"ring"}),
+             (dict(heads=4, block_q=32), {"ring"}),
+             (dict(heads=4, method="ring"), {"ring"})]
+    for kw, want in cases:
+        ex = bs.MeshExecutor()
+        bs.Session(executor=ex).run(bs.SelfAttend(bs.Const(1, *flat),
+                                                  **kw)).rows()
+        assert set(ex.attend_methods.values()) == want, kw
+    ex = bs.MeshExecutor()
+    rows = bs.Session(executor=ex).run(bs.SelfAttend(
+        bs.Const(4, *flat), heads=4)).rows()
+    assert len(rows) == 256 and ex.attend_methods == {}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(TaskError, match="allow_tf32"):
+            bs.Session(executor=bs.MeshExecutor()).run(
+                bs.SelfAttend(bs.Const(1, *flat), heads=4))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
