@@ -6,6 +6,12 @@ path's kernels written by hand in CUDA C++ for Hopper
 (``csrc/``). This package imports neither JAX nor ``bigslice_tpu``; its
 tests hold it against both.
 
+The device executor's mesh is one slot on one card, or one
+``torch.distributed`` rank a slot, every rank running the same driver
+(``exec/spmd.py``'s ``spmd_session()`` after
+``utils.distributed.initialize()``; ``python -m
+bigslice_tpu_torch.tools.run -launch N program.py`` starts N ranks).
+
 What it runs today, through the device executor (on ``cuda`` by
 default): ``Const`` sources, the device tier of ``Map``, ``Filter``,
 ``Flatmap`` (fixed fanout) and ``Head``, ``Reduce`` with any
@@ -67,7 +73,8 @@ output may be kept across sessions in files (``Cache``,
 Global sequence attention is a combinator too (``SelfAttend`` over a
 slice of three device vector columns q, k, v): on one device slot the
 device executor runs it as the ring or Ulysses over S = 1 shard, and
-over more shards on its host tier's broadcast reader::
+over more shards, or over more than one rank, on its host tier's
+broadcast reader::
 
     o = bs.Session().run(bs.SelfAttend(bs.Const(1, q, k, v), causal=True,
                                        heads=2))

@@ -39,7 +39,7 @@
 //   C  spill: places the spilled rows into the finished table by double
 //      hashing over the whole region (two-level: an odd stride over the
 //      region's buckets and one over the slots in a bucket), with atomicCAS
-//      claims on the claim words pass B left, for at most 16 probes; the
+//      claims on the claim words pass B left, for at most 64 probes; the
 //      rows still unplaced are the overflow. It is always launched and
 //      reads the spill count on the device.
 //
@@ -70,9 +70,16 @@
 // the random traffic off device memory.
 #include "common.cuh"
 
-// Probe bound per row in a bucket and in a region (AGG_PROBE_MAX of the
-// JAX package).
+// Probe bound per row in a bucket (AGG_PROBE_MAX of the JAX package).
 static constexpr int kProbeMax = 16;
+// Probe bound per spilled row in its region. A spilled key is lost when
+// every probe meets another key, about load^probes: at a load of 0.63 (a
+// reduce side whose rows are mostly distinct keys in bucket_size(rows)
+// slots) that is 7e-4 a key with 16 probes, enough for such a table to
+// overflow now and then and send its op to the sort path for good, and
+// 2e-13 with 64. Only the rows pass B spilled walk it, so the longer walk
+// costs little.
+static constexpr int kSpillProbeMax = 64;
 
 // Claim words pass B leaves for pass C; a claim word >= 0 is the payload
 // index of the spilled row that claimed the slot in pass C.
@@ -639,7 +646,7 @@ __global__ void agg_spill_kernel(AggArgs a, int nkeys) {
     const uint32_t bstep = (g | 1u) & nbmask;
     const uint32_t sstep = ((g >> 16) | 1u) & bmask;
     long long placed = -1;
-    for (int probe = 0; probe < kProbeMax; ++probe) {
+    for (int probe = 0; probe < kSpillProbeMax; ++probe) {
       const long long slot =
           base +
           (static_cast<long long>((home_bucket + probe * bstep) & nbmask)

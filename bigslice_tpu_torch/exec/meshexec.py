@@ -1,10 +1,23 @@
 """The device executor: op groups streamed through the device in waves.
 
 Tasks of one compiled op (all shards of a fused chain) form a *group*;
-the executor runs a group as one device program per *wave*. This
-package drives one device slot (``nmesh == 1``), so a group of S shards
-runs as S waves of one shard each — the JAX package's S > N wave
-streaming with N = 1.
+the executor runs a group as one device program per *wave*, over the N
+slots of its mesh (``parallel/meshutil.py``): one slot on one card, or
+one ``torch.distributed`` rank a slot, every rank running the same
+driver. A group of S shards runs ceil(S / N) waves; shard s runs on slot
+``s % N`` in wave ``s // N``, and each rank stages, computes and holds
+its own slot's rows only (the JAX package's S > N wave streaming).
+
+Across ranks the executor keeps the JAX package's SPMD contract
+(reference exec/spmd.py): one dispatcher thread launches device groups
+in the session's plan order (``plan_groups``), every decision that
+chooses the next collective comes from a value gathered over the mesh
+(each wave's overflow, badrange, hash-overflow and group-by signals and
+its output rows, the dense bound probe, a merge's and a Cogroup's
+capacity), and the outputs a host reads are gathered to every rank in
+launch order (``plan_gather``, ``DeviceGroupOutput.gather``). The host
+tier runs redundantly on every rank. With one slot none of it issues a
+collective.
 
 A wave program runs the chain's stages over the staged columns, with
 row validity carried as a bool mask and one compaction at the end:
@@ -180,6 +193,7 @@ from bigslice_tpu_torch.parallel import dense as dense_mod
 from bigslice_tpu_torch.parallel import groupby as groupby_mod
 from bigslice_tpu_torch.parallel import hashagg, segment
 from bigslice_tpu_torch.parallel import join as join_mod
+from bigslice_tpu_torch.parallel import meshutil
 from bigslice_tpu_torch.parallel import ringattention
 from bigslice_tpu_torch.parallel import shuffle as shuffle_mod
 from bigslice_tpu_torch.parallel import ulysses
@@ -209,9 +223,44 @@ class _AttendHostFallback(Exception):
 
 
 class HostLostError(RuntimeError):
-    """A host of the device plane was lost (the chaos plane's
-    ``hostloss`` kind). Raised by name: this package has no elastic mesh
-    recovery, so it is the task's fatal error."""
+    """A host of the device plane was lost: a peer rank died or stopped
+    beating mid-gang, or the chaos plane's ``hostloss`` kind; or, over
+    ranks, this rank fell out of step with its peers (a device group or
+    a gather failed here). Raised by name: this package has no elastic
+    mesh recovery, so it is the task's fatal error; the recovery is to
+    restart the driver on every rank."""
+
+
+class UngatheredOutputError(RuntimeError):
+    """A host read reached a device output of a multi-rank mesh that the
+    plan kept on the devices (reference exec/meshexec.py:113-119): the
+    gather is a collective, which must not run lazily from a reader
+    thread. The store bridge turns it into ``Missing``."""
+
+
+# What a collective raises when a peer is gone, by runtime marker (a
+# user error that merely mentions a peer must not match).
+_DIST_ERR_MARKERS = (
+    "connection closed by peer", "connection reset by peer",
+    "gloo alltoall failed", "gloo allgather failed",
+    "gloo allreduce failed", "gloo all-reduce failed",
+    "gloo all-gather failed", "socket timeout", "nccl communicator was "
+    "aborted", "ncclremoteerror",
+)
+
+
+def _looks_like_host_loss(e: BaseException) -> bool:
+    """A lost peer: the keepalive's ``PeerLostError`` anywhere in the
+    chain, or a collective's peer-loss marker."""
+    from bigslice_tpu_torch.utils.distributed import PeerLostError
+
+    for err in _exception_chain(e):
+        if isinstance(err, (PeerLostError, HostLostError)):
+            return True
+        text = repr(err).lower()
+        if any(m in text for m in _DIST_ERR_MARKERS):
+            return True
+    return False
 
 
 #: How long an op whose device path failed with an infra error runs on
@@ -383,13 +432,12 @@ class DepLost(Exception):
 
 
 class DeviceGroupOutput:
-    """A group's output resident on the device: columns of
-    ``nmesh * capacity`` rows (device d's rows at ``[d*capacity, ...)``,
-    front-packed) plus int32 per-device valid counts. When
-    ``partitioned``, device p holds partition p; a ``subid`` output
-    (more partitions than devices) carries a leading int32 column: its
-    partition p lives on device ``p % nmesh`` with subid
-    ``p // nmesh``."""
+    """A group's output resident on this rank's device: its slot's
+    columns of ``capacity`` rows (front-packed; the capacity is the same
+    on every rank) plus an int32[1] valid count. When ``partitioned``,
+    slot p holds partition p; a ``subid`` output (more partitions than
+    slots) carries a leading int32 column: its partition p lives on slot
+    ``p % nmesh`` with subid ``p // nmesh``."""
 
     def __init__(self, cols, counts, capacity: int, schema,
                  partitioned: bool, subid: bool = False, nmesh: int = 1):
@@ -409,18 +457,38 @@ class DeviceGroupOutput:
         self._wave_views = None
         self._views_lock = threading.Lock()
 
+    def _local_chunk(self) -> List[torch.Tensor]:
+        """Per column, this slot's valid rows on the host."""
+        n = int(self.counts[0])
+        return [c[:n].to("cpu", copy=True) for c in self.cols]
+
+    def gather(self, mesh: meshutil.Mesh) -> None:
+        """Every slot's valid rows to this rank's host (a collective:
+        the dispatcher calls it in launch order on every rank, never a
+        reader thread; reference exec/meshexec.py:301-324)."""
+        with self._chunks_lock:
+            if self._chunks is None and self.cols is not None:
+                every = mesh.all_gather_object(self._local_chunk())
+                self._chunks = [[every[d][j] for d in range(self.nmesh)]
+                                for j in range(len(self.cols))]
+
+    @property
+    def gathered(self) -> bool:
+        """Host-readable without a collective: one slot, or gathered."""
+        return self.nmesh == 1 or self._chunks is not None
+
     def host_chunks(self) -> List[List[torch.Tensor]]:
-        """Per column, per device, the valid rows on the host (memoized:
-        every (task, partition) read would otherwise copy again)."""
+        """Per column, per slot, the valid rows on the host (memoized:
+        every (task, partition) read would otherwise copy again). On a
+        mesh of ranks only after ``gather``."""
         with self._chunks_lock:
             if self._chunks is None:
-                counts = self.counts.cpu().tolist()
-                cap = self.capacity
-                self._chunks = [
-                    [c[d * cap : d * cap + counts[d]].to("cpu", copy=True)
-                     for d in range(self.nmesh)]
-                    for c in self.cols
-                ]
+                if self.nmesh > 1:
+                    raise UngatheredOutputError(
+                        "device group output is resident on the ranks' "
+                        "devices by plan; a host read would need an "
+                        "unplanned collective gather")
+                self._chunks = [[c] for c in self._local_chunk()]
             return self._chunks
 
     def drop_device(self) -> None:
@@ -484,6 +552,26 @@ class WavedGroupOutput:
         self.waves = waves
         self.nmesh = nmesh
 
+    def gather(self, mesh: meshutil.Mesh) -> None:
+        for w in self.waves:
+            w.gather(mesh)
+
+    @property
+    def gathered(self) -> bool:
+        return all(w.gathered for w in self.waves)
+
+
+class _GatherEntry:
+    """A late-gather debt in the dispatch plan (reference
+    exec/meshexec.py:443-455): an output that ran before, still on the
+    devices, which a newly planned run reads on the host. Its collective
+    runs on the dispatcher, in plan order."""
+
+    __slots__ = ("key",)
+
+    def __init__(self, key):
+        self.key = key
+
 
 class _BridgedStore(store_mod.MemoryStore):
     """The frame store, extended to serve device-resident group outputs:
@@ -497,7 +585,16 @@ class _BridgedStore(store_mod.MemoryStore):
         try:
             return super().read(name, partition)
         except store_mod.Missing:
-            frames = self.owner._frames_by_name(name, partition)
+            try:
+                frames = self.owner._frames_by_name(name, partition)
+            except UngatheredOutputError as e:
+                err = self.owner._gang_error
+                if err is not None:
+                    # A gather failed on this rank: fatal, not Missing.
+                    raise HostLostError(str(err)) from err
+                # Read outside the planned gathers: the retriable store
+                # contract, not a sticky error.
+                raise store_mod.Missing(f"{name} p{partition}") from e
             if frames is None:
                 raise
             return iter(frames)
@@ -511,6 +608,7 @@ class _GroupState:
     def __init__(self, num_shard: int):
         self.num_shard = num_shard
         self.tasks: Dict[int, Task] = {}
+        self.launched = False
 
 
 class MeshExecutor:
@@ -555,7 +653,20 @@ class MeshExecutor:
     group's first wave declare a dense key bound (the module's
     docstring); off pins the hash and sort lowerings. ``fallback_procs``
     bounds the task threads of the host tier, ``local``: a
-    ``LocalExecutor`` on this executor's store and device."""
+    ``LocalExecutor`` on this executor's store and device.
+
+    ``mesh`` (``parallel/meshutil.Mesh``, default the one-slot mesh of
+    ``device``): with ``utils.distributed.global_mesh()``, one slot a
+    rank, ``nmesh`` the world size and the device the mesh's. Over more
+    than one rank the dispatch is ordered (``ordered_dispatch``: one
+    dispatcher thread launches groups in the session's plan order;
+    reference exec/meshexec.py:548, :770), the keepalive is checked
+    before every group, any failure of a device group or of a gather is
+    fatal on this rank (``HostLostError``: its peers cannot follow a
+    decision only this rank made; restart the driver on every rank),
+    and the spill exchange, the subid split, kernel selection's
+    measured probe and the adaptive planner's measured budgets stay off
+    (each would decide differently on each rank)."""
 
     name = "mesh"
 
@@ -566,7 +677,14 @@ class MeshExecutor:
                  fallback_procs: Optional[int] = None,
                  auto_dense: bool = True,
                  hash_aggregate: bool = True,
-                 subid_split: bool = True):
+                 subid_split: bool = True,
+                 mesh: Optional[meshutil.Mesh] = None):
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(
+                    f"MeshExecutor: device {device} is not the mesh's "
+                    f"{mesh.device}")
+            device = mesh.device
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -591,8 +709,12 @@ class MeshExecutor:
             # raises).
             self._copy_stream = torch.cuda.Stream(device)
         self.device = device
-        # One device slot: a group of S shards streams as S waves.
-        self.nmesh = 1
+        self.mesh = mesh if mesh is not None else meshutil.Mesh(None, device)
+        self.nmesh = self.mesh.size
+        self.slot = self.mesh.rank
+        self.multiprocess = self.nmesh > 1
+        # Over ranks the launch order must be the same everywhere.
+        self.ordered_dispatch = self.multiprocess
         if prefetch_depth is None:
             env = os.environ.get("BIGSLICE_PREFETCH_DEPTH")
             prefetch_depth = int(env) if env else 1
@@ -675,6 +797,35 @@ class MeshExecutor:
         self._claimed = threading.local()
         # The staging breakdown's sink of the wave a thread stages.
         self._stage_tls = threading.local()
+        # Over ranks: the first failure of a device group or a gather on
+        # this rank. The ranks are out of step from then on, so every
+        # later group and host read of a device output fails with it.
+        self._gang_error: Optional[HostLostError] = None
+        # The keepalive over the process group's store: a wedged peer is
+        # caught before this rank enters a collective it would never
+        # leave (reference :746-751).
+        self._keepalive = None
+        if self.multiprocess:
+            from bigslice_tpu_torch.utils.distributed import get_keepalive
+
+            self._keepalive = get_keepalive()
+        # Ordered dispatch (reference :770-796): the plan of group keys
+        # (and late-gather debts), what each planned group's members are,
+        # the run token that planned it, the complete groups waiting for
+        # their turn, the groups that went to the host tier, and the
+        # consumer-driven gather marks.
+        self._plan: List = []
+        self._plan_set: set = set()
+        self._plan_members: Dict = {}
+        self._plan_token: Dict = {}
+        self._ready_set: set = set()
+        self._launches: Dict = {}
+        self._cancelled: set = set()
+        self._ready_cond = threading.Condition(self._lock)
+        self._dispatcher: Optional[threading.Thread] = None
+        self._gather_analyzed: Dict = {}
+        self._gather_marked: Dict = {}
+        self._gather_pending: set = set()
 
     def start(self, session) -> None:
         """Bind the session whose telemetry hub and monitor this
@@ -729,9 +880,26 @@ class MeshExecutor:
             # The whole group shares the verdict (it is a function of
             # the chain, deps and partitioner), so a resubmitted task
             # returns to the tier that made its output.
+            if self.ordered_dispatch and task.group_key is not None:
+                # It never runs on the devices: unblock the plan.
+                with self._lock:
+                    self._cancelled.add(task.group_key)
+                    self._ready_cond.notify_all()
             self.local.submit(task)
             return
         key = task.group_key
+        if self.multiprocess:
+            with self._lock:
+                rerun = key in self._members
+            if rerun:
+                # Over ranks a launched group never reruns: its peers,
+                # which did not lose its output, would never enter the
+                # rerun's collectives.
+                task.set_state(TaskState.ERR, self._out_of_step(
+                    f"a rerun of device group {task.name.op} (its output "
+                    f"was lost on this rank)"))
+                return
+        planned = False
         with self._lock:
             members = self._members.get(key)
             if members is not None:
@@ -747,14 +915,225 @@ class MeshExecutor:
                     g = self._groups[key] = _GroupState(task.name.num_shard)
                 g.tasks[task.name.shard] = task
                 launch = None
-                if len(g.tasks) == g.num_shard:
+                if len(g.tasks) == g.num_shard and not g.launched:
+                    g.launched = True
                     del self._groups[key]
                     members = [g.tasks[s] for s in range(g.num_shard)]
                     self._members[key] = members
                     launch = (members, members)
-        if launch is not None:
+                    # A planned group waits for its turn on the
+                    # dispatcher; an unplanned one (no planning session)
+                    # runs at once.
+                    planned = self.ordered_dispatch and key in self._plan_set
+                    if planned:
+                        self._ready_set.add(key)
+                        self._launches[key] = launch
+            if self.ordered_dispatch:
+                self._ready_cond.notify_all()
+        if launch is not None and not planned:
             threading.Thread(target=self._run_group, args=(key, *launch),
                              daemon=True).start()
+
+    # -- ordered dispatch (reference exec/meshexec.py:805-999) -------------
+
+    def plan_groups(self, entries, token=None) -> None:
+        """Register the launch order of the run's device groups (the
+        session calls it before evaluation): ``entries`` is an ordered
+        sequence of ``(group_key, member_tasks)``, groups whose members
+        are all OK left out. ``token`` names the run for
+        ``finish_run``."""
+        if not self.ordered_dispatch:
+            return
+        with self._lock:
+            for k, members in entries:
+                if k is not None and k not in self._plan_set:
+                    self._plan.append(k)
+                    self._plan_set.add(k)
+                    self._plan_members[k] = tuple(members)
+                    self._plan_token[k] = token
+            self._start_dispatcher()
+            self._ready_cond.notify_all()
+
+    def _start_dispatcher(self) -> None:
+        if self._dispatcher is None:
+            self._dispatcher = threading.Thread(
+                target=self._dispatch_loop, daemon=True,
+                name="mesh-dispatch")
+            self._dispatcher.start()
+
+    def plan_gather(self, roots, token=None) -> None:
+        """Consumer-driven gather (reference :829-880), called by the
+        session before ``plan_groups``: mark the run's groups whose
+        outputs a host reads (the roots, producers of host-tier
+        consumers, producers a device consumer reads through the store
+        bridge). Everything else stays on the ranks' devices. An output
+        that ran before, still on the devices, which this run newly
+        reads on the host becomes a late-gather debt at the plan's
+        front. Compile-time state only, so every rank marks the same
+        groups."""
+        if not self.ordered_dispatch:
+            return
+        from bigslice_tpu_torch.exec.task import iter_tasks
+
+        need: Dict = {}  # insertion-ordered: the same on every rank
+        analyzed = []
+        for t in iter_tasks(roots):
+            if t.group_key is not None:
+                analyzed.append(t.group_key)
+            if t.state == TaskState.OK:
+                continue
+            for d in t.deps:
+                pkey = d.tasks[0].group_key
+                if pkey is not None and self._consumer_reads_host(t, d):
+                    need[pkey] = None
+        for rt in roots:
+            if rt.group_key is not None:
+                need[rt.group_key] = None
+        with self._lock:
+            for k in analyzed:
+                self._gather_analyzed[k] = token
+            for k in need:
+                self._gather_marked[k] = token
+            queued = False
+            for k in need:
+                out = self._outputs.get(k)
+                if (out is not None and not getattr(out, "gathered", True)
+                        and k not in self._gather_pending):
+                    entry = _GatherEntry(k)
+                    self._plan.append(entry)
+                    self._plan_set.add(entry)
+                    self._plan_token[entry] = token
+                    self._gather_pending.add(k)
+                    queued = True
+            if queued:
+                self._start_dispatcher()
+                self._ready_cond.notify_all()
+
+    def _consumer_reads_host(self, consumer: Task, dep) -> bool:
+        """Does ``consumer`` read ``dep``'s output through the store
+        bridge? ``_dep_input``'s zero-copy conditions, from compile-time
+        facts (reference :882-902)."""
+        if not self._eligible(consumer, count=False):
+            return True
+        if dep.tasks[0].num_partition > 1:
+            return False  # partition-addressed on the slots
+        return len(dep.tasks) != 1
+
+    def finish_run(self, token=None, failed: bool = True) -> None:
+        """The session's evaluation ended (reference :904-975): drop
+        this run's plan entries that will never be submitted, flushing a
+        partly arrived group's tasks to the host tier, and its gather
+        marks. An aborted run's unpaid gather debts are dropped; a
+        successful run's stay for the dispatcher (its result scan waits
+        on them)."""
+        if not self.ordered_dispatch:
+            return
+        flush = []
+        with self._lock:
+            keep = []
+            for k in self._plan:
+                if self._plan_token.get(k) != token:
+                    keep.append(k)
+                    continue
+                if isinstance(k, _GatherEntry):
+                    if not failed:
+                        keep.append(k)
+                        continue
+                    self._plan_set.discard(k)
+                    self._plan_token.pop(k, None)
+                    self._gather_pending.discard(k.key)
+                    continue
+                g = self._groups.get(k)
+                if g is not None and not g.launched:
+                    g.launched = True
+                    del self._groups[k]
+                    flush.extend(g.tasks.values())
+                if k in self._ready_set:
+                    # Complete, never dispatched: its tasks still wait.
+                    self._ready_set.discard(k)
+                    flush.extend(self._launches.pop(k)[1])
+                self._plan_set.discard(k)
+                self._plan_members.pop(k, None)
+                self._plan_token.pop(k, None)
+                self._cancelled.discard(k)
+            self._plan = keep
+            for d in (self._gather_analyzed, self._gather_marked):
+                for k in [k for k, t in d.items() if t == token]:
+                    del d[k]
+            self._ready_cond.notify_all()
+        for t in flush:
+            self.local.submit(t)
+
+    def _pop_head(self, head) -> None:
+        self._plan.pop(0)
+        self._plan_set.discard(head)
+        self._plan_members.pop(head, None)
+        self._plan_token.pop(head, None)
+
+    def _dispatch_loop(self) -> None:
+        """The one dispatcher (reference :1378-1452): launch the plan's
+        head once every member is accounted for (arrived, or OK from an
+        earlier run), pay gather debts in their place, skip groups that
+        went to the host tier. State decides, never a clock: the timed
+        wait only polls."""
+        while True:
+            launch = gather = None
+            with self._lock:
+                while True:
+                    while not self._plan:
+                        self._ready_cond.wait()
+                    head = self._plan[0]
+                    if isinstance(head, _GatherEntry):
+                        self._pop_head(head)
+                        gather = (head.key, self._outputs.get(head.key))
+                        break
+                    if head in self._cancelled:
+                        self._pop_head(head)
+                        self._cancelled.discard(head)
+                        continue
+                    if head in self._ready_set:
+                        self._pop_head(head)
+                        self._ready_set.discard(head)
+                        launch = (head,) + self._launches.pop(head)
+                        break
+                    g = self._groups.get(head)
+                    arrived = g.tasks if g is not None else {}
+                    pending = [t for t in self._plan_members.get(head, ())
+                               if t.name.shard not in arrived
+                               and t.state != TaskState.OK]
+                    if not pending:
+                        full = list(self._plan_members.get(head, ()))
+                        self._pop_head(head)
+                        if g is not None and arrived and not g.launched:
+                            # Partly OK from an earlier run: the program
+                            # spans every shard; the arrived ones settle.
+                            g.launched = True
+                            del self._groups[head]
+                            full.sort(key=lambda t: t.name.shard)
+                            self._members[head] = full
+                            launch = (head, full, list(arrived.values()))
+                            break
+                        continue
+                    self._ready_cond.wait(timeout=0.05)
+            if gather is not None:
+                key, out = gather
+                try:
+                    if out is not None:
+                        out.gather(self.mesh)
+                except Exception as e:  # noqa: BLE001 — latched: the
+                    # readers of any device output fail with it
+                    self._out_of_step(f"the gather of device group "
+                                      f"{key[1]}", e)
+                finally:
+                    with self._lock:
+                        self._gather_pending.discard(key)
+                        self._ready_cond.notify_all()
+                continue
+            try:
+                self._run_group(*launch)
+            except Exception as e:  # noqa: BLE001 — keep the only
+                # dispatcher alive; _run_group settles its tasks
+                self._out_of_step(f"device group {launch[0][1]}", e)
 
     def reader(self, task: Task, partition: int):
         return self.store.read(task.name, partition)
@@ -920,9 +1299,9 @@ class MeshExecutor:
     def _telemetry_exchange(self, task0: Task, wave: int, inputs,
                             slack: float) -> None:
         """One wave's exchange from its static structure: each of the N
-        devices sends a bucket of ``send_capacity`` rows to each of the
-        N - 1 others. On one device the exchange seam is the identity:
-        no message leaves the card."""
+        slots sends a bucket of ``send_capacity`` rows to each of the
+        N - 1 others, over the mesh's backend. On one slot the exchange
+        seam is the identity: no message leaves the card."""
         dev = self._device_telemetry()
         if dev is None or task0.num_partition <= 1:
             return
@@ -937,7 +1316,8 @@ class MeshExecutor:
             msgs = N * (N - 1)
             dev.record_exchange(
                 task0.name.op, task0.name.inv_index, wave, messages=msgs,
-                nbytes=msgs * send_cap * (rowbytes + (4 if waved else 0)))
+                nbytes=msgs * send_cap * (rowbytes + (4 if waved else 0)),
+                backend=self.mesh.backend)
         except Exception:  # noqa: BLE001
             pass
 
@@ -971,10 +1351,11 @@ class MeshExecutor:
         """The kernel selector compares the op's rows a partition with
         the snapshot its decisions were based on and drops those that
         shifted (reference exec/meshexec.py:2110-2134); through the
-        adaptive planner when one is attached. One process and one
-        device here, so no rank can diverge."""
+        adaptive planner when one is attached. Over ranks it is skipped
+        (reference :2118-2124): a lowering that diverged between ranks
+        would deadlock the exchange."""
         sel = self.kernel_select
-        if sel is None:
+        if sel is None or self.multiprocess:
             return
         opb = _op_base(task0.name.op)
         sel.current_inv = task0.name.inv_index
@@ -1015,7 +1396,7 @@ class MeshExecutor:
         with self._lock:
             return frozenset(self._auto_dense_off)
 
-    def _eligible(self, task: Task) -> bool:
+    def _eligible(self, task: Task, count: bool = True) -> bool:
         """Whether the device path runs ``task``; the rest runs on the
         host tier. The JAX package's rule (its ``_eligible``), less what
         this package has not (SPMD): not a coded group and not on
@@ -1030,7 +1411,13 @@ class MeshExecutor:
         here); a Cogroup alone in its chain, unshuffled, over device
         scalar inputs and not machine-combined (its own output is host
         lists, the readback's decode); and nothing else — Scan,
-        MapBatches and the sources run on the host tier."""
+        MapBatches and the sources run on the host tier.
+
+        Over ranks no op goes on probation (a failed group is fatal
+        there), and a SelfAttend runs on the host tier by name: its
+        multi-slot stage (the ring's K/V rotation, Ulysses' two
+        all_to_alls) is not ported. ``count`` False (the gather planner)
+        leaves the probation tally alone."""
         if task.chain is None:
             return False
         if getattr(task, "coded_group", None) is not None or any(
@@ -1045,13 +1432,17 @@ class MeshExecutor:
             if until is not None:
                 if time.monotonic() < until:
                     # On probation (reference exec/meshexec.py:1240-1246).
-                    self._probation_runs[opb] = \
-                        self._probation_runs.get(opb, 0) + 1
+                    if count:
+                        self._probation_runs[opb] = \
+                            self._probation_runs.get(opb, 0) + 1
                     return False
                 del self._probation[opb]
         last = task.chain[-1]
         part = task.partitioner
-        if isinstance(last, SelfAttend) and task.name.num_shard > self.nmesh:
+        if isinstance(last, SelfAttend) and (
+                task.name.num_shard > self.nmesh or self.multiprocess):
+            # S > N: the stage spans the whole sequence in one program.
+            # Over ranks: the multi-slot attend stage is not ported.
             return False
         if isinstance(last, Cogroup):
             if part.combine_key or any(d.combine_key for d in task.deps):
@@ -1118,9 +1509,12 @@ class MeshExecutor:
     def _run_claimed(self, key, tasks: List[Task],
                      claimed: List[Task]) -> None:
         """Dispatch the group and settle ``claimed``: OK, CANCELLED,
-        LOST (a lost dep, or an infra error: probation), or ERR."""
+        LOST (a lost dep, or an infra error: probation), or ERR. Over
+        ranks every failure is ERR (``_out_of_step``)."""
         self._claimed.tasks = claimed
         try:
+            if self._gang_error is not None:
+                raise self._gang_error
             # Cancellation before dispatch (reference exec/meshexec.py:
             # 1504-1510); between waves in _execute_waves.
             self._check_cancel()
@@ -1139,47 +1533,98 @@ class MeshExecutor:
                             f"elastic mesh recovery")
                         err.fault, err.fault_site = fault, fault.site
                     raise err
-            self._execute_group(key, tasks)
+            if self._keepalive is not None:
+                # A wedged peer fails this group fast instead of
+                # hanging it in a collective (reference :1511-1514).
+                self._keepalive.check()
+            with meshutil.active(self.mesh):
+                self._execute_group(key, tasks)
             with self._lock:
                 for t in tasks:
                     self._task_index[t.name] = (key, t)
+                out = self._outputs.get(key)
+                device_only = (key in self._gather_analyzed
+                               and key not in self._gather_marked)
+            if self.multiprocess and out is not None and not device_only:
+                # In launch order, before any consumer can start: the
+                # outputs a host reads are on every rank's host
+                # (reference :1530-1540). Unplanned groups gather.
+                out.gather(self.mesh)
             for t in claimed:
                 t.mark_ok()
-        except TaskCancelled:
+        except Exception as e:  # noqa: BLE001 — settles as the tasks' state
+            if self.multiprocess:
+                # A rerun, probation or a host-tier retry would be this
+                # rank's decision alone, and its peers would wait in a
+                # collective it never enters: fatal on this rank.
+                err = self._out_of_step(f"device group {tasks[0].name.op}",
+                                        e)
+                for t in claimed:
+                    t.set_state(TaskState.ERR, err)
+            else:
+                self._settle_failure(tasks, claimed, e)
+        finally:
+            self._claimed.tasks = ()
+
+    def _settle_failure(self, tasks: List[Task], claimed: List[Task],
+                        e: Exception) -> None:
+        """One process: settle the claimed tasks of a failed group."""
+        if isinstance(e, TaskCancelled):
             # A cooperative stop: resubmittable, not fatal.
             for t in claimed:
                 t.transition_if(TaskState.RUNNING, TaskState.CANCELLED)
-        except DepLost as e:
+        elif isinstance(e, DepLost):
             for p in e.producers:
                 # A producer that is not OK is being recomputed already.
                 if p.state == TaskState.OK:
                     p.mark_lost(e)
             for t in claimed:
                 t.mark_lost(e)
-        except _AttendHostFallback:
+        elif isinstance(e, _AttendHostFallback):
             # No device output for the attend stage to read: the group
             # runs the host tier's broadcast reader (the JAX package's
             # rule; a failure of the stage itself is never sent there).
             for t in claimed:
                 t.set_state(TaskState.WAITING)
                 self.local.submit(t)
-        except Exception as e:  # noqa: BLE001 — settles as the task's error
-            if _looks_like_infra_error(e):
-                # The infra class (reference exec/meshexec.py:1615-1628):
-                # the op's device path goes on probation and its tasks
-                # are LOST, so the evaluator resubmits them to the host
-                # tier until probation ends. MAX_CONSECUTIVE_LOST still
-                # bounds a loop.
-                with self._lock:
-                    self._probation[_op_base(tasks[0].name.op)] = (
-                        time.monotonic() + PROBATION_SECS)
-                for t in claimed:
-                    t.mark_lost(e)
-                return
+        elif _looks_like_infra_error(e):
+            # The infra class (reference exec/meshexec.py:1615-1628): the
+            # op's device path goes on probation and its tasks are LOST,
+            # so the evaluator resubmits them to the host tier until
+            # probation ends. MAX_CONSECUTIVE_LOST still bounds a loop.
+            with self._lock:
+                self._probation[_op_base(tasks[0].name.op)] = (
+                    time.monotonic() + PROBATION_SECS)
+            for t in claimed:
+                t.mark_lost(e)
+        else:
             for t in claimed:
                 t.set_state(TaskState.ERR, e)
-        finally:
-            self._claimed.tasks = ()
+
+    def _out_of_step(self, what: str,
+                     cause: Optional[BaseException] = None) -> HostLostError:
+        """Over ranks: ``what`` failed on this rank, so the ranks are
+        out of step (its peers may wait in a collective this rank will
+        never enter). Latch the first such error, which every later
+        group and host read of a device output raises, and return it
+        (reference :1578-1584 for a lost peer)."""
+        if isinstance(cause, HostLostError):
+            err = cause
+        elif cause is not None and _looks_like_host_loss(cause):
+            err = HostLostError(
+                f"peer process lost during {what}: restart the driver "
+                f"on every rank; cause: {cause!r}")
+        else:
+            err = HostLostError(
+                f"{what} failed on rank {self.slot}, so the ranks are "
+                f"out of step: restart the driver on every rank"
+                + (f"; cause: {cause!r}" if cause is not None else ""))
+        if err is not cause:
+            err.__cause__ = cause
+        with self._lock:
+            if self._gang_error is None:
+                self._gang_error = err
+            return self._gang_error
 
     def _check_cancel(self) -> None:
         """Raise TaskCancelled if a task this group thread claimed was
@@ -1263,7 +1708,7 @@ class MeshExecutor:
             mode = shuffleplan.plan_mode()
         if not mode:
             return None, None
-        ineligible = shuffleplan.spill_ineligible(task0)
+        ineligible = shuffleplan.spill_ineligible(task0, self.multiprocess)
         budget = shuffleplan.spill_budget_bytes(
             self.device_budget_bytes, self.nmesh,
             device_telemetry=self._device_telemetry())
@@ -1345,7 +1790,9 @@ class MeshExecutor:
         if self.device_budget_bytes:
             return self.device_budget_bytes, False
         planner = self.adaptive
-        if planner is not None:
+        if planner is not None and not self.multiprocess:
+            # A measured budget differs on each rank: over ranks only
+            # the static knob splits a wave.
             b = planner.cost_wave_budget(_op_base(task0.name.op),
                                          inv=task0.name.inv_index)
             if b:
@@ -1361,7 +1808,8 @@ class MeshExecutor:
         input, no subid, a row-local chain ending in a shuffle."""
         planner = self.adaptive
         task0 = tasks[0]
-        if (planner is None or task0.num_partition <= 1
+        if (planner is None or self.multiprocess
+                or task0.num_partition <= 1
                 or len(inputs) != 1 or inputs[0].subid
                 or not self._splittable_chain(task0)):
             return None
@@ -1617,13 +2065,16 @@ class MeshExecutor:
 
     def _issue_signals(self, result):
         """Start reading a program's four signals (overflow, badrange,
-        hash overflow, groupby overflow) back to the host; returns a
-        callable that gives them as ints. On ``cuda`` the copy lands in
-        pinned memory behind an event, so that reading one wave's
-        signals waits for that wave's work, not for a later wave already
-        queued behind it."""
+        hash overflow, groupby overflow) back to the host, and over ranks
+        its output rows too; returns a callable that gives them as ints.
+        On ``cuda`` the copy lands in pinned memory behind an event, so
+        that reading one wave's signals waits for that wave's work, not
+        for a later wave already queued behind it."""
         parts = result[6] if len(result) > 6 else None
-        sig = torch.stack([x.to(torch.int64) for x in result[1:5]])
+        sig = [x.to(torch.int64) for x in result[1:5]]
+        if self.multiprocess:
+            sig.append(result[0].reshape(-1)[0].to(torch.int64))
+        sig = torch.stack(sig)
         if parts is not None:
             # The partitions' row counts (asked for by the telemetry
             # hub) ride the same copy: no read of their own.
@@ -1679,8 +2130,17 @@ class MeshExecutor:
                     signals = self._issue_signals(result)
                 out_counts, out_cols = result[0], result[5]
                 sig = signals()
+                nsig = 4
+                if self.multiprocess:
+                    # Every rank decides from the same numbers: the
+                    # signals and partition rows summed, the output rows
+                    # at their largest (the JAX package's psums).
+                    every = self.mesh.all_gather(sig)
+                    sig = [sum(v) for v in zip(*every)]
+                    rows_max = max(r[4] for r in every)
+                    nsig = 5
                 overflow, badrange, hashov, gbover = sig[:4]
-                part_rows = sig[4:] or None
+                part_rows = sig[nsig:] or None
                 if gbover > 0:
                     # A strict GroupByKey's capacity overflow: a user
                     # error on its own channel, never a slack or hash
@@ -1730,9 +2190,17 @@ class MeshExecutor:
                         f"shuffle overflow in group {task0.name.op} even at "
                         f"full slack")
                 self._slack_memo[opbase] = min(slack * 4, full_slack)
+        out_cols = list(out_cols)
+        if self.multiprocess:
+            cap = bucket_size(rows_max)
+            if int(out_cols[0].shape[0]) < cap:
+                # One capacity on every rank: a consumer's exchange sizes
+                # its buckets from it.
+                out_cols = [torch.cat([c, c.new_zeros(
+                    (cap - c.shape[0],) + tuple(c.shape[1:]))])
+                    for c in out_cols]
         out = DeviceGroupOutput(
-            list(out_cols), out_counts,
-            int(out_cols[0].shape[0]) // self.nmesh, task0.schema,
+            out_cols, out_counts, int(out_cols[0].shape[0]), task0.schema,
             partitioned=task0.num_partition > 1,
             subid=has_shuffle and task0.num_partition > self.nmesh,
             nmesh=self.nmesh,
@@ -2035,8 +2503,15 @@ class MeshExecutor:
         lo, hi = torch.aminmax(torch.where(valid, key, key[0]))
         kmin, kmax, n = torch.stack([lo.to(torch.int64), hi.to(torch.int64),
                                      inp.counts[0].to(torch.int64)]).tolist()
+        empty = (torch.iinfo(torch.int32).max, torch.iinfo(torch.int32).min)
         if n == 0:
-            return torch.iinfo(torch.int32).max, torch.iinfo(torch.int32).min
+            kmin, kmax = empty
+        if self.multiprocess:
+            # The whole wave's range, the same on every rank (the JAX
+            # package's pmin/pmax, reference :3593-3675).
+            every = self.mesh.all_gather([kmin, kmax])
+            kmin = min(r[0] for r in every)
+            kmax = max(r[1] for r in every)
         return kmin, kmax
 
     def _hash_join_ops(self, opbase: str, s: JoinAggregate):
@@ -2184,8 +2659,10 @@ class MeshExecutor:
                 # returns the distinct keys' rows already front-packed,
                 # at the width its largest group needs (no deficit).
                 s = stages[0][1]
+                agree = ((lambda g: self.mesh.pmax_host([g])[0])
+                         if self.multiprocess else None)
                 n, cols, _, G = cogroup_mod.make_cogroup_align(
-                    s.prefix, s.nvals)(masks, col_sets)
+                    s.prefix, s.nvals, agree=agree)(masks, col_sets)
                 self._note_cogroup_width(opbase, G)
                 return (n.reshape(1), overflow, badrange, hashov, gbover,
                         tuple(cols))
@@ -2328,8 +2805,10 @@ class MeshExecutor:
                         parts = self._partition_counts(
                             mask, cols, s.num_partition,
                             planar=hops is not None and dense_k is None)
-            if all(kind == "map" for kind, _ in stages):
-                # Map-only chain: the mask is untouched, counts carry over.
+            if (all(kind == "map" for kind, _ in stages)
+                    and not inputs[0].subid):
+                # Map-only chain: the mask is untouched (no subid masked
+                # it), so the counts carry over.
                 return (inputs[0].counts, overflow, badrange, hashov,
                         gbover, tuple(cols))
             out_n, cols = compact_to_bucket(mask, cols)
@@ -2559,61 +3038,65 @@ class MeshExecutor:
     def _partition_counts(self, mask, cols, nparts: int,
                           planar: bool = False) -> torch.Tensor:
         """A shuffle's valid rows a partition, on the device (no host
-        read): partition p lives on device p % nmesh with subid p //
-        nmesh (the leading column when partitions outnumber devices).
-        The hash lowering's output is planar (each device's W regions
-        of equal size, in subid order), so its counts are one sum a
-        region; otherwise one masked count a subid for a few subids,
-        and a scatter-add for many."""
+        read): this slot holds partitions ``p % nmesh == slot``, the
+        w-th of them with subid w (the leading column when partitions
+        outnumber the slots), so its counts land at ``w * nmesh + slot``
+        and the rest stay 0 for the other ranks' terms (the settle sums
+        them). The hash lowering's output is planar (from each source
+        slot, W regions of equal size, in subid order), so its counts
+        are one sum a region; otherwise one masked count a subid for a
+        few subids, and a scatter-add for many."""
         N = self.nmesh
-        if nparts <= N:
-            return mask.reshape(N, -1).sum(1)[:nparts]
-        W = (nparts + N - 1) // N
-        if planar:
-            per = mask.reshape(N, W, -1).sum(2)  # [device, subid]
-            return per.t().reshape(-1)[:nparts]
-        sub = cols[0].reshape(N, -1)
-        m = mask.reshape(N, -1)
-        if W <= _FEW_SUBIDS:
-            per = torch.stack([(m & (sub == w)).sum(1) for w in range(W)])
-            return per.reshape(-1)[:nparts]
-        idx = (sub.to(torch.int64).clamp(0, W - 1) * N
-               + torch.arange(N, device=mask.device)[:, None])
-        counts = torch.zeros(W * N, dtype=torch.int64, device=mask.device)
-        counts.index_add_(0, idx.reshape(-1), m.reshape(-1).to(torch.int64))
-        return counts[:nparts]
+        W = max(1, (nparts + N - 1) // N)
+        if W == 1:
+            per = mask.sum().reshape(1)
+        elif planar:
+            per = mask.reshape(-1, W, mask.shape[0] // (N * W)
+                               ).sum((0, 2))
+        else:
+            sub = cols[0]
+            if W <= _FEW_SUBIDS:
+                per = torch.stack([(mask & (sub == w)).sum()
+                                   for w in range(W)])
+            else:
+                per = torch.zeros(W, dtype=torch.int64, device=mask.device)
+                per.index_add_(0, sub.to(torch.int64).clamp(0, W - 1),
+                               mask.to(torch.int64))
+        if N == 1:
+            return per[:nparts]
+        full = torch.zeros((W, N), dtype=torch.int64, device=mask.device)
+        full[:, self.slot] = per.to(torch.int64)
+        return full.reshape(-1)[:nparts]
 
     # -- cross-wave merge and the consumer-side subid split ----------------
 
     def _merge_outputs(self, outs: List[DeviceGroupOutput],
                        task0: Task) -> DeviceGroupOutput:
         """Merge partitioned outputs (the waves', or a split wave's
-        slices') into one: each device's valid rows of every output in
-        order, front-packed into ``bucket_size`` of the largest device's
+        slices') into one: this slot's valid rows of every output in
+        order, front-packed into ``bucket_size`` of the largest slot's
         total; consumers treat the merged rows as multiple producer
         contributions and re-combine them."""
         if len(outs) == 1:
             return outs[0]
-        N = self.nmesh
-        counts = [o.counts.tolist() for o in outs]
-        totals = [sum(c[d] for c in counts) for d in range(N)]
-        cap = bucket_size(max(totals))
+        counts = [int(o.counts[0]) for o in outs]
+        total = sum(counts)
+        # The largest slot's total: one capacity on every rank.
+        cap = bucket_size(self.mesh.pmax_host([total])[0])
         packed = []
         for j in range(len(outs[0].cols)):
             c0 = outs[0].cols[j]
-            buf = c0.new_zeros((N * cap,) + tuple(c0.shape[1:]))
-            for d in range(N):
-                pos = d * cap
-                for o, c in zip(outs, counts):
-                    start = d * o.capacity
-                    buf[pos : pos + c[d]] = o.cols[j][start : start + c[d]]
-                    pos += c[d]
+            buf = c0.new_zeros((cap,) + tuple(c0.shape[1:]))
+            pos = 0
+            for o, n in zip(outs, counts):
+                buf[pos : pos + n] = o.cols[j][:n]
+                pos += n
             packed.append(buf)
         merged = DeviceGroupOutput(
-            packed, torch.tensor(totals, dtype=torch.int32,
+            packed, torch.tensor([total], dtype=torch.int32,
                                  device=self.device),
             cap, task0.schema, partitioned=True, subid=outs[0].subid,
-            nmesh=N,
+            nmesh=self.nmesh,
         )
         if all(o.part_rows is not None for o in outs):
             merged.part_rows = [sum(r) for r in
@@ -2738,7 +3221,9 @@ class MeshExecutor:
             # p % nmesh. A subid output (more partitions than devices)
             # reaches each consumer wave as its partition's view, or
             # with the subid split off whole, for the program to mask.
-            if out.subid and not self.subid_split:
+            if out.subid and (not self.subid_split or self.multiprocess):
+                # Over ranks the split's view capacities would differ by
+                # rank (reference :3242-3245): the program masks.
                 return StagedInput(out.cols, out.counts, out.capacity,
                                    False, None, subid=True)
             if out.subid:
@@ -2816,15 +3301,15 @@ class MeshExecutor:
         if arena.enabled:
             t0 = time.perf_counter()
             try:
-                host_cols, counts, capacity, bufs = fileio.retry_transient(
+                host_cols, count, capacity, bufs = fileio.retry_transient(
                     lambda: staging.assemble(shard_lists, schema,
-                                             self.nmesh, arena),
+                                             self.nmesh, arena, self.slot),
                     "staging.assemble")
             except staging.StagingFallback:
                 pass
             else:
-                host_counts = arena.acquire(torch.int32, (self.nmesh,))
-                host_counts.copy_(torch.tensor(counts, dtype=torch.int32))
+                host_counts = arena.acquire(torch.int32, (1,))
+                host_counts.fill_(count)
                 bufs = bufs + [host_counts]
                 t1 = time.perf_counter()
                 self._stage_stat("assemble_s", t1 - t0)
@@ -2864,31 +3349,30 @@ class MeshExecutor:
         return StagedInput(dev[:-1], dev[-1], capacity, True, ready)
 
     def _upload(self, shard_lists, schema) -> StagedInput:
-        """Stage per-shard frame lists shard by shard: each shard
-        concatenated (assembly), padded to a power-of-two capacity and
-        copied to the device (upload; pageable copies on the current
-        stream)."""
+        """Stage this slot's frames of a wave's per-shard lists: its
+        shard concatenated (assembly), padded to the power-of-two
+        capacity of the wave's largest shard and copied to the device
+        (upload; pageable copies on the current stream)."""
         if faultinject.ENABLED:
             # Chaos seam (reference parallel/shuffle.py:661-681), at entry.
             faultinject.maybe_raise("shuffle.upload")
         t0 = time.perf_counter()
-        frames = [Frame.concat(fl) if fl else None for fl in shard_lists]
-        while len(frames) < self.nmesh:
-            frames.append(None)
-        counts = [len(f) if f is not None else 0 for f in frames]
+        counts = [sum(len(f) for f in fl) for fl in shard_lists]
         capacity = bucket_size(max(counts + [1]))
+        mine = (shard_lists[self.slot] if self.slot < len(shard_lists)
+                else [])
+        frame = Frame.concat(mine) if mine else None
         t1 = time.perf_counter()
         self._stage_stat("assemble_s", t1 - t0)
         cols = []
         for j, ct in enumerate(schema):
-            buf = torch.zeros((self.nmesh * capacity,) + ct.shape,
+            buf = torch.zeros((capacity,) + ct.shape,
                               dtype=torch_dtype(ct.dtype), device=self.device)
-            for d, f in enumerate(frames):
-                if f is not None:
-                    start = d * capacity
-                    buf[start : start + counts[d]] = f.cols[j].to(self.device)
+            if frame is not None:
+                buf[: len(frame)] = frame.cols[j].to(self.device)
             cols.append(buf)
-        counts_t = torch.tensor(counts, dtype=torch.int32, device=self.device)
+        n = len(frame) if frame is not None else 0
+        counts_t = torch.tensor([n], dtype=torch.int32, device=self.device)
         self._stage_stat("upload_s", time.perf_counter() - t1)
         return StagedInput(cols, counts_t, capacity, True, None)
 

@@ -31,7 +31,7 @@ from bigslice_tpu_torch.exec import shuffleplan
 from bigslice_tpu_torch.exec.evaluate import (MAX_CONSECUTIVE_LOST,
                                               DeadlineExceeded, evaluate)
 from bigslice_tpu_torch.exec.store import Missing
-from bigslice_tpu_torch.exec.task import Task, TaskState
+from bigslice_tpu_torch.exec.task import Task, TaskState, iter_tasks
 from bigslice_tpu_torch.frame.frame import Frame
 from bigslice_tpu_torch.ops.base import Slice, make_name
 from bigslice_tpu_torch.ops.func import Func, invocation_counter
@@ -409,15 +409,21 @@ class Session:
             self.debug.register_roots(tasks)
         self._gate.acquire(exclusive)
         try:
+            token = self._plan_run(tasks)
+            failed = True
             try:
                 evaluate(self.executor, tasks, monitor=self.monitor,
                          deadline=deadline)
+                failed = False
             except DeadlineExceeded:
                 self._record_deadline("expired", deadline_s)
                 raise
             except Exception as e:
                 self._dump_flight(inv_index, e)
                 raise
+            finally:
+                if token is not None:
+                    self.executor.finish_run(token, failed=failed)
             if deadline_s is not None:
                 self._record_deadline("met", deadline_s)
         finally:
@@ -425,6 +431,30 @@ class Session:
         res = Result(self, slice_, tasks)
         res.corr = corr
         return res
+
+    def _plan_run(self, tasks):
+        """Register this evaluation's group launch order with an
+        ordered-dispatch executor (reference exec/session.py:683-712):
+        the post-order DFS of the task graph, the same on every rank of
+        one driver, groups whose members are all OK left out; the gather
+        marks first. Returns the run's token (None without planning)."""
+        if not getattr(self.executor, "ordered_dispatch", False):
+            return None
+        groups: dict = {}
+        order = []
+        for t in iter_tasks(tasks):
+            if t.group_key is None:
+                continue
+            if t.group_key not in groups:
+                groups[t.group_key] = []
+                order.append(t.group_key)
+            groups[t.group_key].append(t)
+        token = object()
+        self.executor.plan_gather(tasks, token=token)
+        self.executor.plan_groups(((k, groups[k]) for k in order
+                     if not all(m.state == TaskState.OK for m in groups[k])),
+                    token=token)
+        return token
 
     def _mesh_signature(self):
         """The executor's repr-stable device signature for the

@@ -118,14 +118,18 @@ def choose(mode: Optional[str], est_bytes: Optional[int],
         else "no-budget", est_bytes, budget_bytes)
 
 
-def spill_ineligible(task) -> Optional[str]:
+def spill_ineligible(task, multiprocess: bool = False) -> Optional[str]:
     """Why a shuffle-boundary task can never spill, or None: the
-    compiler's stamp, or a machine-combined boundary (its merge
+    compiler's stamp, a mesh of more than one process (each rank would
+    write only its own slots' partitions, reference
+    exec/shuffleplan.py:118), or a machine-combined boundary (its merge
     re-combines to one row per key, which spilled per-wave partials
     cannot honour)."""
     stamped = getattr(task, "spill_ineligible", None)
     if stamped:
         return stamped
+    if multiprocess:
+        return "multiprocess mesh"
     if task.partitioner.combine_key:
         return "machine-combiner buffer"
     return None

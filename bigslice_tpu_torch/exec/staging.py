@@ -9,10 +9,14 @@ the card in one copy:
 1. **Scan** — exact per-shard row counts from the frames' lengths (or a
    header-only ``codec.scan_frames`` pass over raw stream bytes), which
    fix the bucketed capacity before any payload moves.
-2. **Assemble** — take one ``(nmesh * capacity, ...)`` host buffer per
-   column from the arena, ``copy_`` each frame's column into its row
-   slice (torch's copy releases the GIL, which the wave prefetcher's
-   thread needs), and zero only the padding tail.
+2. **Assemble** — take one ``(capacity, ...)`` host buffer per column
+   from the arena for this rank's own slot, ``copy_`` each of its
+   frames' columns into its row slice (torch's copy releases the GIL,
+   which the wave prefetcher's thread needs), and zero only the padding
+   tail. The capacity is ``bucket_size`` of the largest shard of the
+   wave, counted over every slot's frames (each rank runs the same
+   driver and host tier, so it holds them all): every rank arrives at
+   the same capacity without a collective, as the exchange needs.
 
 The arena's policy follows the device:
 
@@ -26,6 +30,12 @@ The arena's policy follows the device:
 - ``zerocopy`` (``cpu``): the executor's tensors ARE the host buffers,
   so the assembled buffers go to the wave program as they are and are
   never recycled.
+
+Under more than one process on a host (``LOCAL_WORLD_SIZE`` ranks) the
+byte bound is the host's, split evenly over them (the JAX package's
+multi-process arena policy, reference exec/staging.py:170-173, turns
+recycling off; here each rank's pinned buffers are its own, so they
+recycle, but N ranks must not pin N times the host's bound).
 
 ``hits``/``misses``/``recycled`` count reuse; ``outstanding`` counts the
 recycle-mode buffers handed out and not yet returned (``release``
@@ -121,6 +131,8 @@ class StagingArena:
         if max_bytes is None:
             env = os.environ.get("BIGSLICE_STAGING_ARENA_BYTES")
             max_bytes = int(env) if env else 1 << 28
+            max_bytes //= max(1, int(os.environ.get("LOCAL_WORLD_SIZE",
+                                                    "1")))
         self.max_bytes = int(max_bytes)
         self.mode = mode
         self._lock = threading.Lock()
@@ -226,18 +238,20 @@ def _col_spec(c) -> Tuple[Optional[torch.dtype], Tuple[int, ...]]:
 
 
 def assemble(per_shard_frames: Sequence[Sequence[Frame]], schema,
-             nmesh: int, arena: StagingArena):
-    """Two-pass assembly of per-shard frame lists into global padded
-    per-column host buffers.
+             nmesh: int, arena: StagingArena, slot: int = 0):
+    """Two-pass assembly of a wave's per-shard frame lists (one a slot,
+    up to ``nmesh``) into slot ``slot``'s padded per-column host
+    buffers.
 
-    Pass 1 takes exact per-shard row counts from the frames' lengths.
-    Pass 2 takes one buffer per column from the arena and copies every
-    frame's column into its row slice, then zeroes the padding tail.
+    Pass 1 takes exact per-shard row counts from the frames' lengths:
+    the capacity is ``bucket_size`` of the largest. Pass 2 takes one
+    buffer per column from the arena and copies the slot's frames into
+    it, then zeroes the padding tail.
 
-    Returns ``(host_cols, counts, capacity, bufs)``; ``bufs`` are the
-    arena buffers to release once their upload is issued. Raises
-    ``StagingFallback`` for object columns or dtype/shape drift, having
-    returned the buffers it took."""
+    Returns ``(host_cols, count, capacity, bufs)``; ``count`` is the
+    slot's rows, ``bufs`` the arena buffers to release once their upload
+    is issued. Raises ``StagingFallback`` for object columns or
+    dtype/shape drift, having returned the buffers it took."""
     if faultinject.ENABLED:
         # Chaos seam (reference exec/staging.py:284), at entry before any
         # arena state moves: the executor's staging retry reruns it.
@@ -245,7 +259,7 @@ def assemble(per_shard_frames: Sequence[Sequence[Frame]], schema,
     lists = [list(fl) for fl in per_shard_frames]
     if len(lists) > nmesh:
         raise ValueError(f"{len(lists)} shard lists for a {nmesh}-slot "
-                         f"device")
+                         f"mesh")
     while len(lists) < nmesh:
         lists.append([])
     counts = [sum(len(f) for f in fl) for fl in lists]
@@ -264,20 +278,18 @@ def assemble(per_shard_frames: Sequence[Sequence[Frame]], schema,
     host_cols: List[torch.Tensor] = []
     try:
         for j, (dt, dims) in enumerate(specs):
-            buf = arena.acquire(dt, (nmesh * capacity,) + dims)
+            buf = arena.acquire(dt, (capacity,) + dims)
             host_cols.append(buf)
-            for i, fl in enumerate(lists):
-                off = i * capacity
-                for f in fl:
-                    c = f.cols[j]
-                    if _col_spec(c) != (dt, dims):
-                        raise StagingFallback("column dtype/shape drift")
-                    n = int(c.shape[0])
-                    buf[off : off + n].copy_(c)
-                    off += n
-                buf[off : (i + 1) * capacity].zero_()
+            off = 0
+            for f in lists[slot]:
+                c = f.cols[j]
+                if _col_spec(c) != (dt, dims):
+                    raise StagingFallback("column dtype/shape drift")
+                n = int(c.shape[0])
+                buf[off : off + n].copy_(c)
+                off += n
+            buf[off:capacity].zero_()
     except BaseException:
         arena.abandon(host_cols)
         raise
-    return host_cols, counts, capacity, list(host_cols)
-
+    return host_cols, counts[slot], capacity, list(host_cols)

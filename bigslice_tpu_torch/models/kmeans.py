@@ -20,32 +20,45 @@ def kmeans_step(points: torch.Tensor, centroids: torch.Tensor
     """One k-means iteration on one device.
 
     points: float[n, d]; centroids: float[k, d] -> new centroids
-    float[k, d] (a centroid with no point keeps 0). Distances rank by the
-    ||x - c||^2 = ||x||^2 - 2 x·c + ||c||^2 expansion, ||x||^2 dropped
-    (the same for every centroid): x·cᵀ and the one-hot sums are the two
-    matmuls.
-    """
+    float[k, d] (a centroid with no point keeps 0)."""
+    sums, counts = _centroid_stats(points, centroids)
+    return sums / torch.clamp(counts, min=1.0)[:, None]
+
+
+def _centroid_stats(points: torch.Tensor, centroids: torch.Tensor):
+    """Each centroid's sum of its nearest points, float[k, d], and their
+    count, float[k]. Distances rank by the ||x - c||^2 = ||x||^2 - 2 x·c
+    + ||c||^2 expansion, ||x||^2 dropped (the same for every centroid):
+    x·cᵀ and the one-hot sums are the two matmuls."""
     dots = torch.matmul(points, centroids.T)  # [n, k]
     c2 = torch.sum(centroids * centroids, dim=1)  # [k]
     assign = torch.argmin(c2[None, :] - 2.0 * dots, dim=1)  # [n]
     onehot = torch.nn.functional.one_hot(
         assign, centroids.shape[0]).to(points.dtype)  # [n, k]
-    sums = torch.matmul(onehot.T, points)  # [k, d]
-    counts = torch.sum(onehot, dim=0)  # [k]
-    return sums / torch.clamp(counts, min=1.0)[:, None]
-
-
-class MeshKmeansNotPorted(NotImplementedError):
-    """The data-parallel step over several devices waits for the
-    multi-GPU exchange."""
+    return torch.matmul(onehot.T, points), torch.sum(onehot, dim=0)
 
 
 def mesh_kmeans_step(mesh, k: int, d: int):
-    """The k-means step sharded over a device mesh: not ported."""
-    raise MeshKmeansNotPorted(
-        "mesh_kmeans_step: the data-parallel step over several devices "
-        "needs the multi-GPU exchange, which is not ported; use "
-        "kmeans_step on one device or kmeans through a Session")
+    """The k-means step data-parallel over a mesh's ranks (reference
+    models/kmeans.py:38-70): each rank holds its own rows of the points;
+    the centroid sums and counts are summed over the ranks (``psum``),
+    so every rank returns the same centroids. Returns
+    ``step(points_local float[n_r, d], centroids float[k, d]) ->
+    float[k, d]``, on the mesh's device (the centroids are moved there).
+    One slot reduces to ``kmeans_step``."""
+
+    def step(points: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+        if points.shape[1] != d or centroids.shape != (k, d):
+            raise ValueError(
+                f"mesh_kmeans_step: points [n, {points.shape[1]}] and "
+                f"centroids {tuple(centroids.shape)} for k={k}, d={d}")
+        points = points.to(mesh.device)
+        centroids = centroids.to(mesh.device, points.dtype)
+        sums, counts = _centroid_stats(points, centroids)
+        sums, counts = mesh.psum(sums), mesh.psum(counts)
+        return sums / torch.clamp(counts, min=1.0)[:, None]
+
+    return step
 
 
 def kmeans(sess, points: np.ndarray, k: int, iters: int = 10,

@@ -151,12 +151,30 @@ def process_count() -> int:
 
 
 def verify_registry_across_hosts() -> None:
-    """Raise if the processes of this program disagree on the registry.
-    One process agrees with itself: return at once. The comparison
-    across processes belongs to the multi-process executor, which is not
-    ported: more than one raises ``NotImplementedError``."""
-    if process_count() == 1:
+    """Raise on every rank if the processes of this program disagree on
+    the registry (reference ops/func.py:168-207), naming the ranks whose
+    digest differs from rank 0's and, for each, the registrations only
+    one side has. The digests and locations are all-gathered, not
+    broadcast: rank 0 must see a mismatch too, or it would sail on into
+    a collective the drifted rank never enters. One process agrees with
+    itself."""
+    n = process_count()
+    if n == 1:
         return
-    raise NotImplementedError(
-        "verify_registry_across_hosts: the multi-process registry check "
-        "is not ported")
+    import torch.distributed as dist
+
+    mine = (registry_digest(), func_locations())
+    every = [None] * n
+    dist.all_gather_object(every, mine)
+    ref_digest, ref_locs = every[0]
+    bad = [r for r, (d, _) in enumerate(every) if d != ref_digest]
+    if not bad:
+        return
+    detail = "\n".join(
+        registry_diff(every[r][1], ref_locs, mine_label=f"rank {r}",
+                      other_label="rank 0") for r in bad)
+    raise RuntimeError(
+        f"bigslice_tpu_torch Func registry differs between processes: "
+        f"rank(s) {', '.join(map(str, bad))} disagree with rank 0; "
+        f"ensure every process registers the same @func definitions in "
+        f"the same order (no conditional registration)\n{detail}")

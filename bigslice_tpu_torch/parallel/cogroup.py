@@ -51,11 +51,14 @@ _DUMP_LANES = 1024
 
 
 def make_cogroup_align(nk: int, nvals: Tuple[int, ...],
-                       capacity: Optional[int] = None):
+                       capacity: Optional[int] = None, agree=None):
     """Build the cogroup aligner for inputs with ``nk`` key columns and
     ``nvals[j]`` value columns each, at the shared capacity G
     (``capacity``; None: ``bucket_size`` of the largest group, read back
-    to the host once).
+    to the host once, then passed through ``agree`` when given: the
+    executor's max over the mesh, the JAX package's pmax of the deficit,
+    reference parallel/cogroup.py:136, so every slot builds and records
+    the same width).
 
     ``align(masks, col_sets) -> (count, cols, deficit, G)``: ``cols`` is
     ``[key..., per input: value matrices [U, G]..., count int32[U]]``
@@ -120,6 +123,8 @@ def make_cogroup_align(nk: int, nvals: Tuple[int, ...],
                    else torch.zeros((), dtype=torch.int32, device=device))
         if capacity is None:
             G = bucket_size(int(largest))
+            if agree is not None:
+                G = int(agree(G))
         else:
             G = int(capacity)
         deficit = torch.clamp(largest - G, min=0).to(torch.int32)

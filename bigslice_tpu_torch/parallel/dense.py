@@ -341,7 +341,7 @@ def make_dense_combine(K: int, ops: Tuple[str, ...]):
 
 
 def make_dense_join(K: int, ops_a: Tuple[str, ...], ops_b: Tuple[str, ...],
-                    nparts: int, seed: int = 0, me: int = 0):
+                    nparts: int, seed: int = 0, me: Optional[int] = None):
     """Sort-free aggregating inner join for dense-coded keys: each side
     scatter-accumulates into a [maxc] table indexed by the static
     within-partition rank of its keys (partition ``me`` holds exactly
@@ -354,9 +354,12 @@ def make_dense_join(K: int, ops_a: Tuple[str, ...], ops_b: Tuple[str, ...],
     (``routing_tables(K, nparts, seed)[1]``) rows; ``bad`` counts rows
     whose key is outside [0, K) or owned by another partition (either
     violates the declared contract). The tables are built on the
-    inputs' device at the first call."""
+    inputs' device at the first call. ``me`` is this partition (default
+    the active mesh's slot, reference :289); ``bad`` is this slot's
+    term, summed over the mesh by the executor (reference :297)."""
+    from bigslice_tpu_torch.parallel import meshutil
 
-    def side(mask, key, vals, ops, pid, rank, maxc):
+    def side(mask, key, vals, ops, pid, rank, maxc, me):
         in_range = (key >= 0) & (key < K)
         safe_key = torch.where(in_range, key, 0).to(torch.int64)
         owned = in_range & (pid[safe_key] == me)
@@ -368,11 +371,12 @@ def make_dense_join(K: int, ops_a: Tuple[str, ...], ops_b: Tuple[str, ...],
     def join(mask_a, cols_a, mask_b, cols_b):
         slot_table, pid, rank, maxc = _tables_on(
             K, nparts, seed, _device_key(mask_a.device))
+        mine = meshutil.axis_index() if me is None else me
         pa, ta, bad_a = side(mask_a, cols_a[0], cols_a[1:], ops_a, pid,
-                             rank, maxc)
+                             rank, maxc, mine)
         pb, tb, bad_b = side(mask_b, cols_b[0], cols_b[1:], ops_b, pid,
-                             rank, maxc)
-        my_slots = slot_table[me]
+                             rank, maxc, mine)
+        my_slots = slot_table[mine]
         mask = pa & pb & (my_slots != K)
         return mask, [my_slots, *ta, *tb], bad_a + bad_b
 
@@ -427,7 +431,7 @@ def make_dense_fold(K: int, op: str, acc_dtype, init_val):
 
 
 def make_dense_combine_shuffle(nmesh: int, K: int, ops: Tuple[str, ...],
-                               seed: int = 0, me: int = 0):
+                               seed: int = 0, me: Optional[int] = None):
     """The fused dense combine + shuffle: per-shard dense tables (one
     scatter-accumulate pass), gathered through the static routing
     permutation into [nmesh, maxc] planes and moved by ONE exchange
@@ -437,7 +441,10 @@ def make_dense_combine_shuffle(nmesh: int, K: int, ops: Tuple[str, ...],
     (out_cols = key column then value columns, front-packing left to
     the caller's compaction), each of ``routing_tables(K, nmesh,
     seed)[1]`` rows. The tables are built on the inputs' device at the
-    first call."""
+    first call. ``me`` is this slot (default the active mesh's,
+    reference :413); ``bad`` is this slot's term, summed over the mesh
+    by the executor at settle (reference :384)."""
+    from bigslice_tpu_torch.parallel import meshutil
     from bigslice_tpu_torch.parallel import shuffle as shuffle_mod
 
     def masked(valid, key, *vals):
@@ -467,7 +474,7 @@ def make_dense_combine_shuffle(nmesh: int, K: int, ops: Tuple[str, ...],
                 red = (red + r[q] if op == "add"
                        else _pair_extreme(red, r[q], op))
             out_vals.append(red)
-        my_slots = slot_table[me]
+        my_slots = slot_table[meshutil.axis_index() if me is None else me]
         mask = recv_present.any(0) & (my_slots != K)
         zero = torch.zeros((), dtype=torch.int32, device=valid.device)
         return mask, zero, bad, (my_slots, *out_vals)

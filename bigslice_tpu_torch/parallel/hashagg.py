@@ -215,17 +215,17 @@ def make_hash_combine_shuffle(nmesh: int, nkeys: int, nvals: int,
     (W = wave count when partitions outnumber the devices; the subid
     column leads and says which of a device's W partitions a row
     belongs to). ``overflow`` > 0 means the table could not place every
-    row: the caller must discard the result.
+    row: the caller must discard the result. It is this slot's term;
+    the executor sums it over the mesh at settle (the JAX package's
+    psum, reference :362-373). ``nparts`` need not divide the mesh.
     """
     from bigslice_tpu_torch.parallel import shuffle as shuffle_mod
 
     if nparts is None:
         nparts = nmesh
-    if nparts % nmesh:
-        raise NotImplementedError(
-            f"make_hash_combine_shuffle: {nparts} partitions over {nmesh} "
-            f"devices (padding partitions to the mesh is not ported)")
-    W = nparts // nmesh
+    # Partitions pad up to whole waves of the mesh (reference
+    # :351-356): the padding regions are empty planes.
+    W = -(-nparts // nmesh)
 
     def masked(valid, *cols):
         size = cols[0].shape[0]
@@ -239,14 +239,18 @@ def make_hash_combine_shuffle(nmesh: int, nkeys: int, nvals: int,
         )
 
         def route(x):
-            # Region p -> device p % nmesh carrying subid p // nmesh:
-            # regroup regions device-major so the exchange hands each
-            # device its own W regions from every source.
-            planes = x.reshape((W, nmesh, R) + tuple(x.shape[1:]))
-            planes = planes.transpose(0, 1).reshape(
-                (nmesh, W * R) + tuple(x.shape[1:]))
+            # Region p -> slot p % nmesh carrying subid p // nmesh:
+            # regroup regions slot-major so the exchange hands each
+            # slot its own W regions from every source.
+            rest = tuple(x.shape[1:])
+            planes = x.reshape((nparts, R) + rest)
+            if nparts < nmesh * W:
+                planes = torch.cat([planes, planes.new_zeros(
+                    (nmesh * W - nparts, R) + rest)])
+            planes = planes.reshape((W, nmesh, R) + rest)
+            planes = planes.transpose(0, 1).reshape((nmesh, W * R) + rest)
             recv = shuffle_mod.all_to_all(planes, nmesh)
-            return recv.reshape((nmesh * W * R,) + tuple(x.shape[1:]))
+            return recv.reshape((nmesh * W * R,) + rest)
 
         recv_mask = route(present)
         out_cols = [route(c) for c in list(ok) + list(ovs)]

@@ -8,8 +8,10 @@ accumulates its queries' output with an online (flash-style) softmax:
               rescale the running (max, denom, acc), exactly
               K/V blocks advance one hop around the ring
 
-This package drives one device slot (``MeshExecutor.nmesh == 1``), so
-the ring has one member and one hop: the local block is the whole
+The attend stage runs on one device slot (``MeshExecutor.nmesh == 1``;
+over more than one rank the executor runs a SelfAttend on its host
+tier, until the ring's K/V rotation over the mesh is ported), so the
+ring has one member and one hop: the local block is the whole
 sequence. The online softmax, its constants and its order of
 operations are the JAX package's all the same (the -1e30 fill, the
 running max ``m``, the ``corr`` rescale, ``l`` clamped at 1e-30 at the
@@ -232,13 +234,13 @@ def masked_local_body(nmesh: int = 1, d: int = 0, causal: bool = False,
     never shifts a position. On the one device slot the ring has one
     member, whose block starts at logical row 0: a position is its row
     index, and its one hop sees every K row. Output rows beyond count
-    are unspecified (callers carry counts). ``nmesh`` must be 1 until
-    the multi-GPU exchange lands."""
+    are unspecified (callers carry counts). ``nmesh`` must be 1: the
+    ring's K/V rotation over a mesh of ranks is not ported."""
     if nmesh != 1:
         raise ValueError(
-            f"ring attention: this package drives one device slot "
-            f"(nmesh {nmesh}); the multi-GPU ring waits for the NCCL "
-            f"exchange")
+            f"ring attention: the attend stage runs on one device slot "
+            f"(nmesh {nmesh}); the ring's K/V rotation over the mesh is "
+            f"not ported")
     cdt = compute_dtype(dtype)
     scale = score_scale(d)
 

@@ -18,11 +18,12 @@ with a map-side combine fused into its one sort) then
    retries with more slack) and out-of-range partitioner ids as
    ``bad``.
 
-This package runs on one device slot, so the only exchange is the
-one-device permutation (the identity), and with more partitions than
-devices every row goes to lane 0 carrying its partition as a leading
-``subid`` column. A multi-GPU exchange over NCCL replaces
-``all_to_all`` behind the same signature.
+The bodies see one slot's rows (a rank's, ``parallel/meshutil.py``):
+``all_to_all`` is the mesh's exchange over its process group, the
+identity on one slot, and with more partitions than slots each row
+carries its partition's subid as a leading column. The overflow and bad
+signals are this slot's; the executor sums them over the mesh with the
+wave's other signals before it reads any of them.
 """
 
 from __future__ import annotations
@@ -130,6 +131,9 @@ def bucket_exchange(nshards: int, send_cap: int, dest_row, dest_off,
     stay = torch.nonzero(dest_row < nshards).squeeze(1)
     slot = (dest_row[stay].to(torch.int64) * send_cap
             + dest_off[stay].to(torch.int64))
+    # Counts first, then the data planes (reference :164-168).
+    recv_counts = all_to_all(send_counts.reshape(nshards, 1),
+                             nshards).reshape(nshards)
     out_cols = []
     for c in cols:
         lanes = segment.eq_lanes(c)
@@ -141,8 +145,6 @@ def bucket_exchange(nshards: int, send_cap: int, dest_row, dest_off,
         recv = all_to_all(planes, nshards)
         out_cols.append(recv.reshape((nshards * send_cap,)
                                      + tuple(c.shape[1:])))
-    recv_counts = all_to_all(send_counts.reshape(nshards, 1),
-                             nshards).reshape(nshards)
     row_in_bucket = torch.arange(send_cap, dtype=torch.int32, device=device)
     valid_mask = (row_in_bucket[None, :]
                   < recv_counts[:, None]).reshape(-1)
@@ -208,8 +210,8 @@ def make_shuffle_fn(nshards: int, nkeys: int, capacity: int, seed: int = 0,
                 nshards - ndest, dtype=torch.int32, device=device)])
         valid_mask, out_cols = bucket_exchange(
             nshards, send_cap, dest_row, dest_off, send_counts, s_cols)
-        # The JAX package sums both signals over the mesh (psum); one
-        # device slot holds the only term.
+        # This slot's term of the signals the JAX package psums here
+        # (reference :321-324); the executor sums them at settle.
         overflow = torch.clamp(counts.max() - send_cap, min=0)
         return valid_mask, overflow.to(torch.int32), n_bad, out_cols
 
@@ -313,15 +315,13 @@ def make_combine_shuffle_fn(nshards: int, nkeys: int, nvals: int, cfn,
 
 
 def all_to_all(planes: torch.Tensor, nmesh: int) -> torch.Tensor:
-    """The exchange seam: ``planes[d]`` is what this device sends to
-    device ``d``; returns what it receives, ``[s]`` from device ``s``.
-    On one device the exchange is the identity permutation."""
-    if nmesh != 1:
-        raise NotImplementedError(
-            "all_to_all: the multi-device exchange is not ported; this "
-            "package runs on one device slot"
-        )
-    return planes
+    """The exchange seam: ``planes[d]`` is what this slot sends to slot
+    ``d``; returns what it receives, ``[s]`` from slot ``s``. The
+    identity on one slot; else the active mesh's ``all_to_all_single``
+    over its process group (``meshutil.all_to_all``)."""
+    from bigslice_tpu_torch.parallel import meshutil
+
+    return meshutil.all_to_all(planes, nmesh)
 
 
 def partition_cols(chunks: Sequence[Sequence[torch.Tensor]],

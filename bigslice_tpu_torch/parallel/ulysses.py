@@ -9,8 +9,10 @@ all_to_all each way:
 
 then computes ordinary full-sequence attention for the local heads, one
 batched product pair, and a second all_to_all restores sequence
-sharding. This package drives one device slot, where both all_to_alls
-are the identity: the device holds every head of the whole sequence.
+sharding. The attend stage runs on one device slot (over more than one
+rank the executor runs a SelfAttend on its host tier), where both
+all_to_alls are the identity: the device holds every head of the whole
+sequence.
 The middle phase is the JAX package's: a [H, seq, seq] fp32 score
 tensor, the padded-row validity and logical positions, and the full
 softmax with its 1e-30 clamp. Products take ``dtype`` operands and an
@@ -106,16 +108,16 @@ def masked_local_body(nmesh: int = 1, nheads: int = 1, d: int = 0,
 
 def _check_heads(nheads: int, nmesh: int) -> None:
     """The JAX package's refusal of heads that do not divide the mesh,
-    then this package's of more than its one device slot."""
+    then this package's of more than one device slot (the two
+    all_to_alls over a mesh of ranks are not ported)."""
     if nheads % nmesh != 0:
         raise ValueError(
             f"ulysses: nheads ({nheads}) must divide evenly over the "
             f"mesh ({nmesh} devices); use ring attention for H < N")
     if nmesh != 1:
         raise ValueError(
-            f"ulysses: this package drives one device slot (nmesh "
-            f"{nmesh}); the multi-GPU all_to_all waits for the NCCL "
-            f"exchange")
+            f"ulysses: the attend stage runs on one device slot (nmesh "
+            f"{nmesh}); its all_to_alls over the mesh are not ported")
 
 
 def dense_mha_reference(q, k, v, causal: bool = False):

@@ -106,11 +106,12 @@ class _OpDeviceRecord:
         self.donation_aliased_bytes = 0
         self.donation_buffers = 0
         self.donation_aliased_buffers = 0
-        # the shuffle's exchange: buckets x rows of the one-device
-        # exchange seam (all local until the multi-GPU exchange)
+        # the shuffle's exchange: buckets x rows sent between slots, and
+        # the backend that moved them (None on one slot: all local)
         self.exchange_waves = 0
         self.exchange_messages = 0
         self.exchange_bytes = 0
+        self.exchange_backend: Optional[str] = None
         # shuffle-plan attribution (exec/shuffleplan.py)
         self.plan_counts: Dict[str, int] = {}
         self.plan_reason = ""
@@ -356,15 +357,19 @@ class DeviceTelemetry:
 
     def record_exchange(self, op: str, inv: Optional[int],
                         wave: Optional[int], messages: int = 0,
-                        nbytes: int = 0) -> None:
+                        nbytes: int = 0,
+                        backend: Optional[str] = None) -> None:
         """One wave's exchange: buckets and their bytes (bucket
-        capacity times row bytes, valid rows or padding). On one device
-        the exchange is the identity seam, so every byte stays local."""
+        capacity times row bytes, valid rows or padding), and the
+        process group's backend that moved them (None on one slot, where
+        the exchange is the identity seam and every byte stays local)."""
         with self._lock:
             rec = self._op(op, inv)
             rec.exchange_waves += 1
             rec.exchange_messages += max(0, int(messages))
             rec.exchange_bytes += max(0, int(nbytes))
+            if backend is not None:
+                rec.exchange_backend = backend
         self._emit("bigslice:exchange", op=op, inv=inv, wave=wave,
                    messages=int(messages), bytes=int(nbytes))
 
@@ -520,6 +525,9 @@ class DeviceTelemetry:
                         "messages": rec.exchange_messages,
                         "bytes": rec.exchange_bytes,
                     }
+                    if rec.exchange_backend is not None:
+                        exchange[op]["exchange_backend"] = \
+                            rec.exchange_backend
                     ex_tot["exchange_messages"] += rec.exchange_messages
                     ex_tot["exchange_bytes"] += rec.exchange_bytes
             hbm: dict = {}

@@ -17,13 +17,13 @@ the kernel's bound; K1 also with the L2 flushed, K2 also pass by pass.
 Phase 3 runs the keyed Reduce at the shape of the JAX package's
 ``reduce-wave`` scenario (2**25 rows, keys uniform over 2**20, S = 4
 shards: 4 waves on one card) and a max/min Reduce at 2**24 rows, each
-five times warm (the median wall is reported), checks them against
+three times warm (the median wall is reported), checks them against
 numpy, and checks that the kernels' launch counters rose during the
 runs. The counted run of the main path is the process's first: its
 executor runs the probe kernel, which is cached per process after that.
 
 Phases 4-7 drive the sort lowering and the map stages, each at full
-width, each once counted and five times warm, every output row checked
+width, each once counted and three times warm, every output row checked
 against numpy: 4, ``lww-wave``, Const -> Map -> Filter -> a Reduce
 keeping the latest record per key (a combine fn that does not classify)
 at 2**25 rows; 5, ``float-key``, a counting Reduce over float32 keys
@@ -106,12 +106,12 @@ group reruns on K2. 22, ``host-fallback``: word count through
 ``LocalExecutor``) over phase 17's corpus, equal to
 collections.Counter and to phase 17's shards; and a mixed chain, a
 host Map over ScanReader lines to int32 ids, a device Reduce, a host
-Map over its result. Each once counted and warm (word count three
-times, the chain five), every row against numpy, with its wall, rows/s,
+Map over its result. Each once counted and warm (word count twice,
+the chain three times), every row against numpy, with its wall, rows/s,
 peak memory and K1/K2 launches.
 
 Phases 23-25 drive dictionary-encoded string keys and the result cache,
-each once counted and warm (23 and 24 three times, 25 five), every row
+each once counted and warm (23 and 24 twice, 25 three times), every row
 checked: 23, ``urls``,
 the reference's demo (cmd/urls) as
 ``models.urls.domain_count_encoded(Session(), 4, lines)`` over 2**22
@@ -163,7 +163,7 @@ int32])`` into ``Reduce(add)`` through ``MeshExecutor(auto_dense=False)``
 combines with K2), then at the default, every key's sum against numpy
 and in its K1 shard, the result written with ``Result.write_parquet``
 to ``memory://`` and read back with pyarrow; the median warm wall of
-three runs, rows/s, peak device memory, the launches and the reader's
+two runs, rows/s, peak device memory, the launches and the reader's
 own decode seconds; (b) ``parquet-glob-spill``, the same rows as 8
 local files under a ``*`` glob through a ``Reshuffle`` (a device group
 whose boundary spills) into the Reduce, with ``BIGSLICE_SHUFFLE=spill``
@@ -272,6 +272,17 @@ outer ``Map(o * 2)`` fused after the attend stage at S = 1, seq 2**12;
 ``staging_breakdown`` (read, assemble, upload) non-negative and within
 its staged seconds.
 
+Phase 32 drives the device executor over 2 ``torch.distributed`` ranks
+that share the card over gloo, started fresh by the port's launcher
+(``tools/multihost_smoke.py``): (a) reduce-wave at full width (2**25
+rows over 2**20 keys) at S = 8 shards, 4 waves a rank, once counted and
+three times warm, every row against numpy and in the shard K1 names, K1
+and K2 launched on each rank (their sums in the kernels line), the
+backend, the exchange's transport and bytes and each rank's walls
+printed, and the mesh k-means step at phase 27e's shape against one
+rank's; (b) one NCCL rank through the exchange seam's own path; (c) a
+wedged rank caught by its peer's keepalive.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -302,11 +313,14 @@ if __name__ != "__mp_main__":
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), for byte bounds.
 HBM_BYTES_PER_S = 3.35e12
-#: Warm runs of each phase-3 Reduce; the wall reported is their median.
-WARM_RUNS = 5
-#: Warm runs of the host-tier word-count and urls paths (phases 22-24),
-#: seconds each: fewer, to keep the script well inside its time limit.
-HOST_WARM_RUNS = 3
+#: Warm runs of each phase-3 Reduce and of every path driven like it;
+#: the wall reported is their median. Three (was five) and the host
+#: paths' two (was three) keep the script, phase 32 included, inside
+#: its time limit.
+WARM_RUNS = 3
+#: Warm runs of the host-tier word-count and urls paths (phases 17,
+#: 22-24), seconds each: fewer still.
+HOST_WARM_RUNS = 2
 
 REPLACES = {
     "hash_partition": "bigslice_tpu/parallel/pallas_kernels.py:176",
@@ -1721,7 +1735,7 @@ def phase11_pipeline(card: str) -> dict:
     """pipeline: phase 3's reduce-wave at S = 4 and S = 16 under each of
     ``PIPELINE_SETTINGS`` (the serial loop with the per-shard pageable
     upload; the serial loop through the arena; prefetch depth 1 and 2),
-    five warm runs each on one executor. Rows bit-equal across settings
+    three warm runs each on one executor. Rows bit-equal across settings
     and exact against numpy; depth 1 must hide some staging and every
     arena setting must reuse buffers after the first run. Then phase 8's
     join at depth 0 and 1 (its two producer groups staged by two
@@ -2191,8 +2205,8 @@ def phase17_wordcount(card: str) -> dict:
     ``LocalExecutor()`` over a generated corpus of 2**18 lines of 8
     words (2**21 words over 2**16 distinct): the counts against
     collections.Counter, each word in the shard its routing hash names;
-    one counted run, three warm runs, and one profiled run for the
-    host share (the wall's part with the device idle)."""
+    one counted run, ``HOST_WARM_RUNS`` warm runs, and one profiled run
+    for the host share (the wall's part with the device idle)."""
     import collections
     import tempfile
 
@@ -2202,7 +2216,7 @@ def phase17_wordcount(card: str) -> dict:
     from bigslice_tpu_torch.models.wordcount import wordcount
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
 
-    S, runs = 4, 3
+    S, runs = 4, HOST_WARM_RUNS
     tmp = tempfile.mkdtemp(prefix="chip-smoke-wordcount-")
     path = os.path.join(tmp, "corpus.txt")
     try:
@@ -3181,7 +3195,7 @@ def phase25_cache(card: str, mesh_shards) -> dict:
     same rows, no K1 or K2 launch, no Reduce or Const task in the
     graph, no group on the device path); ``CachePartial`` with one
     shard file deleted (that file rewritten, byte-equal); ``ReadCache``
-    (the same rows). The write and the read each once counted and five
+    (the same rows). The write and the read each once counted and three
     times warm, with the bytes on disk a second."""
     import shutil
     import tempfile
@@ -3729,7 +3743,7 @@ PARQUET_ROWS = 1 << 25
 PARQUET_SPAN = 1 << 20
 PARQUET_GROUPS = 32
 #: Phase 27's warm runs of each Parquet path (the median is reported).
-PARQUET_WARM_RUNS = 3
+PARQUET_WARM_RUNS = 2
 #: Phase 27e: points, dimension, blobs and centroids, iterations, shards.
 KMEANS_N, KMEANS_D, KMEANS_K, KMEANS_ITERS = 1 << 20, 128, 1024, 5
 #: Phase 27e: the centroids' tolerance against float64 sums of the same
@@ -4395,21 +4409,40 @@ def phase28c_spill_chaos(card: str) -> dict:
                 base_launches=base_l, quarantined=quarantined)
 
 
+def _quiesce_local(executors) -> None:
+    """Wait until every worker thread of these local executors has
+    exited. A worker holds its executor, and so its store's frames on
+    the card, for ``WORKER_IDLE_SECS`` after its last task, and a
+    coverage member that coverage made redundant runs on to its next
+    cancellation check after the run has returned: a later phase's
+    memory baseline must see neither."""
+    deadline = time.monotonic() + 30.0 + max(
+        (ex.WORKER_IDLE_SECS for ex in executors), default=0.0)
+    while any(ex._workers > 0 for ex in executors):
+        if time.monotonic() > deadline:
+            raise AssertionError("local executor workers still alive: "
+                                 f"{[ex._workers for ex in executors]}")
+        time.sleep(0.05)
+
+
 def phase28d_coded(card: str) -> dict:
     """28d: ``BIGSLICE_CODED=combine`` on phase 16's Reduce: bit-equal to
     ``off``; exactly r ``coded.cover`` losses complete with no
     recompute; r + 1 (the two owners of unit 0, one worker so the order
     is the members') recompute, loudly; a stuck member is cancelled once
-    coverage settles."""
+    coverage settles. The phase returns once its executors' workers
+    have exited (``_quiesce_local``)."""
     import bigslice_tpu_torch as bs
     from bigslice_tpu_torch.exec.task import TaskState, iter_tasks
     from bigslice_tpu_torch.models.wordcount import wordcount_ids
 
     S = 4
     keys, _ = _reduce_wave_input()
+    executors = []
 
     def run(procs=None):
         sess = bs.Session(executor=bs.LocalExecutor(procs=procs))
+        executors.append(sess.executor)
         res = sess.run(wordcount_ids(S, keys, 1 << 20))
         return sess, res, _read_shards(res)
 
@@ -4449,6 +4482,8 @@ def phase28d_coded(card: str) -> dict:
             walls[label] = w
     finally:
         os.environ.pop("BIGSLICE_CODED", None)
+    del sess, res, got
+    _quiesce_local(executors)
     log(f"phase 28d: coded k={k} r={r} over {len(keys)} rows: walls "
         f"{ {k: round(v, 4) for k, v in walls.items()} } s; counts "
         f"{counts}; launches off {off_l}, engaged {launches}; on {card}")
@@ -6286,6 +6321,140 @@ def phase31_attention(card: str) -> dict:
     return paths
 
 
+#: Phase 32's ranks: two processes share the one card over gloo (NCCL
+#: refuses two ranks on one GPU).
+SPMD_RANKS = 2
+#: Phase 32's deadline a launch (the phase must take under 120 s).
+SPMD_DEADLINE_S = 150.0
+
+
+def _spmd_reports(out: str, n: int) -> list:
+    """The ranks' reports (a wedged rank writes none)."""
+    reports = []
+    for r in range(n):
+        path = os.path.join(out, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as fh:
+                reports.append(json.load(fh))
+    return reports
+
+
+def _spmd_launch(n: int, out: str, args: list, env=None):
+    """``multihost_smoke``'s ranks (the port's launcher): fresh
+    processes, never forked from this one, which holds a CUDA context."""
+    from bigslice_tpu_torch.tools import multihost_smoke as ms
+
+    os.makedirs(out, exist_ok=True)
+    cmd = [sys.executable, "-m", "bigslice_tpu_torch.tools.multihost_smoke",
+           "--worker", "--out", out] + args
+    res = ms.launch(n, cmd, deadline_s=SPMD_DEADLINE_S, env=env)
+    if res.rc != 0:
+        raise AssertionError(
+            f"phase 32: {n} rank(s) {args[:2]} exit {res.rcs} after "
+            f"{res.seconds:.1f} s (timed out {res.timed_out}); stderr "
+            f"tails: {[e[-2000:] for e in res.stderr]}")
+    return res, _spmd_reports(out, n)
+
+
+def phase32_spmd(card: str) -> dict:
+    """32: ``spmd``, the device executor over 2 ranks on the one card.
+    (a) reduce-wave at full width, the JAX package's ``bench.py``
+    scenario (2**25 rows, keys uniform over 2**20 from RandomState(42))
+    at S = 4 x N = 8 shards, so 4 waves a rank, through
+    ``MeshExecutor(mesh=global_mesh(), auto_dense=False)``
+    on both ranks over gloo (the card's tensors handed to gloo, which
+    stages them through the host): one
+    counted run and three warm ones (median wall), every shard's rows
+    against numpy and every row in the shard the plain K1 names, K1 and
+    K2 launched on each rank, the registry digest equal on both; the
+    mesh k-means step at phase 27e's shape (2**20 points, d = 128, k =
+    1024) against a one-rank step on the same points. (b) one rank over
+    NCCL on the card runs the exchange seam's own path (int32, uint32,
+    bool planes) and a psum. (c) a wedged rank (its keepalive stopped):
+    its peer raises PeerLostError before the next collective."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    # The ranks' own contexts share the card with this process's cache.
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = tempfile.mkdtemp(prefix="chip-spmd-")
+    n = SPMD_RANKS
+    rows, keyspace, S = 1 << 25, 1 << 20, 4 * SPMD_RANKS
+    res, reps = _spmd_launch(n, os.path.join(base, "a"), [
+        "--backend", "gloo", "--rows", str(rows), "--keyspace",
+        str(keyspace), "--shards", str(S), "--warm", "3", "--points",
+        str(KMEANS_N), "--dim", str(KMEANS_D), "--k", str(KMEANS_K),
+        "--threads", str(max(1, (os.cpu_count() or 2) // n))])
+    if len(reps) != n:
+        raise AssertionError(f"phase 32a: {len(reps)} reports of {n}")
+    launches = {name: 0 for name in PATH_KERNELS}
+    for r in reps:
+        if not r["ok"]:
+            raise AssertionError(f"phase 32a: rank {r['rank']}: {r}")
+        if r["jax_loaded"] or r["bigslice_tpu_loaded"]:
+            raise AssertionError(f"phase 32a: rank {r['rank']} loaded JAX")
+        for name in ("hash_partition", "hash_aggregate"):
+            if r["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"phase 32a: rank {r['rank']} never "
+                                     f"launched {name}: {r['launches']}")
+        for name in PATH_KERNELS:
+            launches[name] += r["launches"].get(name, 0)
+    if len({r["digest"] for r in reps}) != 1:
+        raise AssertionError(f"phase 32a: digests {[r['digest'] for r in reps]}")
+    if len({tuple(r["shard_rows"]) for r in reps}) != 1 or sum(
+            reps[0]["shard_rows"]) != len(np.unique(np.random.RandomState(
+                42).randint(0, keyspace, rows))):
+        raise AssertionError("phase 32a: ranks disagree on the rows")
+    warm = [statistics.median(r["reduce_warm_s"]) for r in reps]
+    log(f"phase 32a: spmd reduce-wave {rows} rows over {keyspace} keys, "
+        f"S = {S} on {n} ranks of {card}: backend {reps[0]['backend']}, "
+        f"{reps[0]['transport']} tensors handed to {reps[0]['backend']} "
+        f"(gloo stages them through the host), "
+        f"exchanged bytes a rank {[r['exchanged_bytes'] for r in reps]} "
+        f"(counted run); per-rank counted walls "
+        f"{[round(r['reduce_counted_s'], 4) for r in reps]} s, warm "
+        f"medians {[round(w, 4) for w in warm]} s (runs "
+        f"{[[round(x, 4) for x in r['reduce_warm_s']] for r in reps]}), "
+        f"launches a rank {[r['launches'] for r in reps]}, collectives "
+        f"{reps[0]['collectives']}, a warm run's host seconds inside them "
+        f"{[{k: round(v, 4) for k, v in r['warm_collective_s'].items()} for r in reps]}, "
+        f"hash_off {reps[0]['hash_off']}; "
+        f"k-means step n={KMEANS_N} d={KMEANS_D} k={KMEANS_K} against one "
+        f"rank: max abs err {[r['kmeans_max_abs_err'] for r in reps]}, "
+        f"mesh step {[round(r['kmeans_mesh_s'], 4) for r in reps]} s; "
+        f"ranks up to done {res.seconds:.2f} s")
+    _, (nccl,) = _spmd_launch(1, os.path.join(base, "b"),
+                              ["--mode", "nccl1"])
+    if not nccl["ok"]:
+        raise AssertionError(f"phase 32b: {nccl}")
+    log(f"phase 32b: one rank over {nccl['backend']} on the card: the "
+        f"exchange seam's path {nccl['checks']}")
+    _, wedge = _spmd_launch(n, os.path.join(base, "c"), [
+        "--mode", "wedge", "--backend", "gloo"],
+        env={"BIGSLICE_KEEPALIVE_INTERVAL": "0.2",
+             "BIGSLICE_KEEPALIVE_TIMEOUT": "1"})
+    (w0,) = [r for r in wedge if r["rank"] == 0]
+    if not w0["ok"]:
+        raise AssertionError(f"phase 32c: {w0}")
+    secs = time.perf_counter() - t0
+    log(f"phase 32c: a wedged rank detected by its peer in "
+        f"{w0['detect_s']:.2f} s (keepalive timeout {w0['timeout_s']} s), "
+        f"the run refused with {w0['raised'][:160]}")
+    log(f"phase 32: spmd in {secs:.2f} s on {card}")
+    return {"spmd": dict(launches=launches, wall_s=statistics.median(warm),
+                         counted_s=[r["reduce_counted_s"] for r in reps],
+                         warm_s=[r["reduce_warm_s"] for r in reps],
+                         exchanged_bytes=[r["exchanged_bytes"] for r in reps],
+                         warm_collective_s=[r["warm_collective_s"]
+                                            for r in reps],
+                         backend=reps[0]["backend"],
+                         transport=reps[0]["transport"],
+                         kmeans_err=[r["kmeans_max_abs_err"] for r in reps],
+                         nccl=nccl["checks"], wedge_detect_s=w0["detect_s"],
+                         seconds=secs)}
+
+
 def nbytes_of(*arrays) -> int:
     return int(sum(a.nbytes for a in arrays))
 
@@ -6356,6 +6525,7 @@ def main() -> int:
         paths["reduce-wave"]["launches"],
         wall_s=paths["reduce-wave"]["wall_s"])))
     paths.update(timed("31", phase31_attention, card))
+    paths.update(timed("32", phase32_spmd, card))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
@@ -6372,7 +6542,7 @@ def main() -> int:
         for name in PATH_KERNELS
     ]}
     log(f"chip_smoke: phase walls s {walls}")
-    log(f"chip_smoke: phases 0-31 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 0-32 in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -727,3 +727,44 @@ def test_attention_tools_and_staging_breakdown_run_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_spmd_modules_and_ranks_run_without_jax():
+    """The SPMD plane's modules import neither JAX nor the JAX package,
+    in the launching process or in any of its two ranks (each rank's
+    report says what its ``sys.modules`` held), and ``spmd_session()``
+    needs the GPU unless asked for the CPU."""
+    code = textwrap.dedent("""
+        import json, sys
+        import bigslice_tpu_torch as bs
+        from bigslice_tpu_torch import sliceconfig
+        from bigslice_tpu_torch.exec import spmd
+        from bigslice_tpu_torch.parallel import meshutil
+        from bigslice_tpu_torch.tools import multihost_smoke, run
+        from bigslice_tpu_torch.utils import distributed
+        import io, contextlib
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = multihost_smoke.main(["2", "--device", "cpu",
+                                       "--rows", "4096", "--deadline",
+                                       "120"])
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        assert rc == 0, summary
+        for r in summary["reports"]:
+            assert r["jax_loaded"] is False, r
+            assert r["bigslice_tpu_loaded"] is False, r
+        assert len(summary["reports"]) == 2
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    if not torch.cuda.is_available():
+        from bigslice_tpu_torch.exec.spmd import spmd_session
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            spmd_session()

@@ -1683,3 +1683,41 @@ def test_selfattend_attend_methods_and_tiers_on_the_card(dev):
                 bs.SelfAttend(bs.Const(1, *flat), heads=4))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_spmd_two_ranks_share_the_card_over_gloo(dev, tmp_path):
+    """chip_smoke.py's phase 32 at a small size: two ranks on the one
+    card over gloo run the mesh k-means step and the keyed Reduce
+    (K2's map-side combine and K1's routing on each rank, CUDA tensors
+    handed to gloo), every row checked; then one rank over NCCL runs
+    the exchange seam's own path."""
+    import json
+    import os
+    import sys
+
+    from bigslice_tpu_torch.tools import multihost_smoke as ms
+
+    cmd = [sys.executable, "-m", "bigslice_tpu_torch.tools.multihost_smoke",
+           "--worker", "--out", str(tmp_path), "--backend", "gloo",
+           "--rows", str(1 << 18), "--keyspace", str(1 << 14),
+           "--shards", "8", "--threads", "2"]
+    res = ms.launch(2, cmd, deadline_s=240)
+    assert res.rc == 0, res.stderr
+    for r in range(2):
+        with open(os.path.join(tmp_path, f"rank{r}.json")) as fh:
+            rep = json.load(fh)
+        assert rep["ok"], rep
+        assert rep["backend"] == "gloo" and rep["transport"] == "cuda"
+        assert rep["launches"]["hash_partition"] > 0
+        assert rep["launches"]["hash_aggregate"] > 0
+        assert rep["exchanged_bytes"] > 0
+    nccl = tmp_path / "nccl"
+    nccl.mkdir()
+    res = ms.launch(1, [sys.executable, "-m",
+                        "bigslice_tpu_torch.tools.multihost_smoke",
+                        "--worker", "--out", str(nccl), "--mode", "nccl1"],
+                    deadline_s=120)
+    assert res.rc == 0, res.stderr
+    with open(os.path.join(nccl, "rank0.json")) as fh:
+        rep = json.load(fh)
+    assert rep["ok"] and rep["backend"] == "nccl", rep

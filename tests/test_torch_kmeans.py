@@ -119,10 +119,52 @@ def test_kmeans_oracle_is_the_jax_packages():
                                   ref_km.kmeans_oracle(pts, 3, 4, seed=1))
 
 
-def test_mesh_kmeans_step_raises_by_name():
-    with pytest.raises(km.MeshKmeansNotPorted, match="not ported"):
-        km.mesh_kmeans_step(None, k=4, d=8)
-    assert issubclass(km.MeshKmeansNotPorted, NotImplementedError)
+def test_mesh_kmeans_step_raises_by_name(tmp_path):
+    """Was the refusal of ``mesh_kmeans_step``; now its parity test: two
+    gloo ranks, each holding half of the points, return the JAX
+    package's ``mesh_kmeans_step`` over a 2-device CPU mesh, within
+    ``STEP_RTOL``, on both ranks."""
+    import os
+    import sys
+    import textwrap
+
+    from jax.sharding import Mesh
+
+    from bigslice_tpu_torch.tools import multihost_smoke
+
+    pts = _blobs(5)
+    cents = pts[:3].copy()
+    np.save(tmp_path / "pts.npy", pts)
+    prog = tmp_path / "step.py"
+    prog.write_text(textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        from bigslice_tpu_torch.models import kmeans
+        from bigslice_tpu_torch.utils import distributed
+        out = sys.argv[1]
+        distributed.initialize(device="cpu")
+        r, n = distributed.process_index(), distributed.process_count()
+        pts = np.load(out + "/pts.npy")
+        lo, hi = r * len(pts) // n, (r + 1) * len(pts) // n
+        step = kmeans.mesh_kmeans_step(distributed.global_mesh(), 3,
+                                       pts.shape[1])
+        got = step(torch.from_numpy(pts[lo:hi]), torch.from_numpy(pts[:3]))
+        np.save(out + f"/rank{r}.npy", got.numpy())
+        distributed.shutdown()
+    """))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = multihost_smoke.launch(
+        2, [sys.executable, str(prog), str(tmp_path)], deadline_s=90,
+        env={"PYTHONPATH": repo})
+    assert res.rc == 0, res.stderr
+    mesh = Mesh(np.array(jax.devices()[:2]), ("shards",))
+    want = np.asarray(ref_km.mesh_kmeans_step(mesh, 3, pts.shape[1])(
+        pts, cents))
+    for r in range(2):
+        got = np.load(tmp_path / f"rank{r}.npy")
+        np.testing.assert_allclose(got, want, rtol=STEP_RTOL,
+                                   atol=STEP_RTOL)
 
 
 def test_models_package_names_kmeans():

@@ -48,25 +48,30 @@ def test_assemble_matches_the_jax_packages(seed, nmesh):
     want_cols, want_counts, want_cap, _ = ref_staging.assemble(
         [[RefFrame(c) for c in fl] for fl in lists], ref_schema, nmesh,
         ref_staging.StagingArena(enabled=True, mode="recycle"))
+    # Each rank assembles its own slot: slot d's buffers are the JAX
+    # package's global buffers' rows [d * cap, (d + 1) * cap).
     arena = staging.StagingArena(enabled=True, mode="zerocopy")
-    got_cols, counts, cap, bufs = staging.assemble(
-        [[Frame.from_numpy(c) for c in fl] for fl in lists], schema, nmesh,
-        arena)
-    assert counts == want_counts and cap == want_cap
-    assert len(bufs) == len(got_cols) == 3
-    for g, w in zip(got_cols, want_cols):
-        assert g.numpy().dtype == w.dtype
-        assert g.numpy().tobytes() == np.asarray(w).tobytes()
-    assert arena.stats()["misses"] == 3 and arena.stats()["hits"] == 0
+    for d in range(nmesh):
+        got_cols, count, cap, bufs = staging.assemble(
+            [[Frame.from_numpy(c) for c in fl] for fl in lists], schema,
+            nmesh, arena, slot=d)
+        assert count == want_counts[d] and cap == want_cap
+        assert len(bufs) == len(got_cols) == 3
+        for g, w in zip(got_cols, want_cols):
+            assert g.numpy().dtype == w.dtype
+            assert g.numpy().tobytes() == np.asarray(
+                w)[d * cap : (d + 1) * cap].tobytes()
+    assert arena.stats()["misses"] == 3 * nmesh
+    assert arena.stats()["hits"] == 0
 
 
 def test_assemble_with_no_frames_uses_the_schema():
     schema = Schema([ColType(np.dtype(np.int32), "", ()),
                      ColType(np.dtype(np.float32), "", (4,))], 1)
-    cols, counts, cap, _ = staging.assemble(
-        [[], []], schema, 2, staging.StagingArena(enabled=True))
-    assert counts == [0, 0] and cap == 8
-    assert cols[0].shape == (16,) and cols[1].shape == (16, 4)
+    cols, count, cap, _ = staging.assemble(
+        [[], []], schema, 2, staging.StagingArena(enabled=True), slot=1)
+    assert count == 0 and cap == 8
+    assert cols[0].shape == (8,) and cols[1].shape == (8, 4)
     assert not cols[0].any() and not cols[1].any()
 
 
