@@ -15,8 +15,10 @@ chooses the next collective comes from a value gathered over the mesh
 (each wave's overflow, badrange, hash-overflow and group-by signals and
 its output rows, the dense bound probe, a merge's and a Cogroup's
 capacity), and the outputs a host reads are gathered to every rank in
-launch order (``plan_gather``, ``DeviceGroupOutput.gather``). The host
-tier runs redundantly on every rank. With one slot none of it issues a
+launch order (``plan_gather``, ``DeviceGroupOutput.gather``). A
+host-tier task runs once, on its owner rank, and the other ranks fetch
+its outputs when they read them (``exec/hostdist.py``; machine-combined
+groups run on every rank). With one slot none of it issues a
 collective.
 
 A wave program runs the chain's stages over the staged columns, with
@@ -355,6 +357,14 @@ class _ProgramEntry:
         self.sigs: set = set()
 
 
+def _device_key(device: torch.device) -> Tuple[str, Optional[int]]:
+    """A device with its index made explicit (``cuda`` is the current
+    card's), so that ``cuda`` and ``cuda:0`` compare equal."""
+    if device.type == "cuda" and device.index is None:
+        return "cuda", torch.cuda.current_device()
+    return device.type, device.index
+
+
 def _op_base(op: str) -> str:
     """Strip the compiler's #N repeated-invocation suffix: the sort-path
     fallback and slack adaptation describe the pipeline SITE (file:line
@@ -596,6 +606,14 @@ class _BridgedStore(store_mod.MemoryStore):
                 # contract, not a sticky error.
                 raise store_mod.Missing(f"{name} p{partition}") from e
             if frames is None:
+                # A host task another rank owns (exec/hostdist.py):
+                # fetched through the store, then held here.
+                hd = self.owner._hostdist
+                if hd is not None:
+                    fetched = hd.fetch(name, partition)
+                    if fetched is not None:
+                        super().put(name, partition, fetched)
+                        return super().read(name, partition)
                 raise
             return iter(frames)
 
@@ -663,10 +681,16 @@ class MeshExecutor:
     reference exec/meshexec.py:548, :770), the keepalive is checked
     before every group, any failure of a device group or of a gather is
     fatal on this rank (``HostLostError``: its peers cannot follow a
-    decision only this rank made; restart the driver on every rank),
-    and the spill exchange, the subid split, kernel selection's
-    measured probe and the adaptive planner's measured budgets stay off
-    (each would decide differently on each rank)."""
+    decision only this rank made; restart the program on every rank,
+    or give an elastic session a coordinated ``mesh_provider``), the subid
+    split, kernel selection's measured probe and the adaptive planner's
+    measured budgets stay off (each would decide differently on each
+    rank), host-tier tasks run once on their owner rank
+    (``exec/hostdist.py``), and a spilled boundary gathers each map wave
+    so that every rank spills every partition. A 2-D mesh
+    (``Mesh(shape=(D, I))``) routes every shuffle through the two-stage
+    exchange (``parallel/hier.py``). ``resize`` moves the executor onto
+    another mesh between runs (elastic sessions)."""
 
     name = "mesh"
 
@@ -743,6 +767,7 @@ class MeshExecutor:
         # One wave program's dispatch or settle at a time.
         self._wave_mutex = threading.RLock()
         self._groups: Dict[Tuple, _GroupState] = {}
+        self._group_runs = 0
         # Every group that has launched, by key: all its shards' tasks.
         self._members: Dict[Tuple, List[Task]] = {}
         # One lock a launched group: its runs take turns.
@@ -805,10 +830,18 @@ class MeshExecutor:
         # caught before this rank enters a collective it would never
         # leave (reference :746-751).
         self._keepalive = None
+        # Over ranks, host-tier tasks run once on an owner rank and
+        # exchange outputs through the group's store (reference
+        # :747-760).
+        self._hostdist = None
         if self.multiprocess:
+            from bigslice_tpu_torch.exec.hostdist import HostTaskExchange
             from bigslice_tpu_torch.utils.distributed import get_keepalive
 
             self._keepalive = get_keepalive()
+            hd = HostTaskExchange(self, keepalive=self._keepalive)
+            if hd.active:
+                self._hostdist = hd
         # Ordered dispatch (reference :770-796): the plan of group keys
         # (and late-gather debts), what each planned group's members are,
         # the run token that planned it, the complete groups waiting for
@@ -869,6 +902,69 @@ class MeshExecutor:
                          "host_runs": self._probation_runs.get(op, 0)}
                     for op, until in self._probation.items()}
 
+    def device_group_count(self) -> int:
+        """Device group programs run so far (each launch of a group,
+        reruns included)."""
+        with self._lock:
+            return self._group_runs
+
+    def resize(self, mesh: meshutil.Mesh) -> List[Task]:
+        """Elasticity (reference exec/meshexec.py:1147-1200): move the
+        executor onto ``mesh`` between runs. Shard counts and mesh size
+        are decoupled (waves), so a compiled graph runs unchanged on it.
+        Committed outputs are salvaged to the host (later consumers
+        stage them from there, never zero-copy); an output that cannot
+        be read any more (device-only over ranks, or its device gone)
+        has its tasks marked LOST, and the evaluator recomputes them on
+        the new mesh (a launched group reruns whole, settling the
+        members then waiting; a group that failed re-forms from its
+        resubmitted members). The per-mesh state goes: the program
+        table, the adapted shuffle slack, probation and the latched gang
+        error. Returns the tasks marked LOST. Call it between runs only (the elastic
+        session drains first); ``mesh`` must be on this executor's
+        device."""
+        if _device_key(mesh.device) != _device_key(self.device):
+            raise ValueError(f"resize: the mesh's device {mesh.device} is "
+                             f"not this executor's {self.device}")
+        lost: List[Tuple[Task, BaseException]] = []
+        with self._lock:
+            # A group that launched and failed (no output) re-forms from
+            # its resubmitted members on the new mesh, one launch for
+            # all of them.
+            for key in [k for k in self._members if k not in self._outputs]:
+                del self._members[key]
+            for key in list(self._outputs):
+                out = self._outputs[key]
+                try:
+                    if isinstance(out, shuffleplan.SpilledGroupOutput):
+                        continue  # in the spill store, not on a device
+                    for w in getattr(out, "waves", None) or [out]:
+                        w.drop_device()
+                except Exception as e:  # noqa: BLE001 — gone with the mesh
+                    del self._outputs[key]
+                    for name, (k2, t) in list(self._task_index.items()):
+                        if k2 == key:
+                            del self._task_index[name]
+                            if t.state == TaskState.OK:
+                                lost.append((t, RuntimeError(
+                                    f"output of {name} lost in mesh "
+                                    f"resize: {e!r}")))
+            self._programs.clear()
+            self._slack_memo.clear()
+            self._probation.clear()
+            self._gang_error = None
+            self.mesh = mesh
+            self.nmesh = mesh.size
+            self.slot = mesh.rank
+            self.multiprocess = self.nmesh > 1
+            self.ordered_dispatch = self.multiprocess
+            if not self.multiprocess:
+                self._hostdist = None
+                self._keepalive = None
+        for t, err in lost:  # outside the lock: transitions notify
+            t.mark_lost(err)
+        return [t for t, _ in lost]
+
     def speculate(self, task: Task, on_outcome=None) -> bool:
         """A speculative duplicate of a RUNNING task (exec/adaptive.py),
         delegated to the host tier, whose stamp limits it to tasks its
@@ -885,7 +981,7 @@ class MeshExecutor:
                 with self._lock:
                     self._cancelled.add(task.group_key)
                     self._ready_cond.notify_all()
-            self.local.submit(task)
+            self._submit_host(task)
             return
         key = task.group_key
         if self.multiprocess:
@@ -933,6 +1029,28 @@ class MeshExecutor:
         if launch is not None and not planned:
             threading.Thread(target=self._run_group, args=(key, *launch),
                              daemon=True).start()
+
+    def _submit_host(self, task: Task) -> None:
+        """A host-tier task by compile-time classification (the same on
+        every rank): owner-routed over ranks (a non-owner resolves
+        through the exchange's poller), local otherwise (reference
+        :970-983). Fallbacks decided at run time (a flushed plan entry,
+        the attend stage's host reader) run locally."""
+        if self._hostdist is not None and self._hostdist.submit(task):
+            return
+        self.local.submit(task)
+
+    def release_run_outputs(self, roots: List[Task]) -> None:
+        """After a successful run: the store hygiene of the distributed
+        host tasks (``hostdist.release_run``)."""
+        if self._hostdist is not None:
+            self._hostdist.release_run(roots)
+
+    def abort_run_outputs(self, roots: List[Task], err) -> None:
+        """After a failed run: resolve the peers waiting on this rank's
+        host tasks (``hostdist.abort_run``)."""
+        if self._hostdist is not None:
+            self._hostdist.abort_run(roots, err)
 
     # -- ordered dispatch (reference exec/meshexec.py:805-999) -------------
 
@@ -1147,9 +1265,12 @@ class MeshExecutor:
         self.local.discard(task)
 
     def close(self) -> None:
-        """Remove the private spill directory (a ``BIGSLICE_SPILL_DIR``
-        named by the caller, a directory or a URL base such as
-        ``memory://spill``, is theirs to keep)."""
+        """Delete this rank's published host-task outputs from the
+        group's store, and remove the private spill directory (a
+        ``BIGSLICE_SPILL_DIR`` named by the caller, a directory or a URL
+        base such as ``memory://spill``, is theirs to keep)."""
+        if self._hostdist is not None:
+            self._hostdist.close()
         with self._lock:
             tmp, self._spill_tmp = self._spill_tmp, None
         if tmp is not None:
@@ -1313,11 +1434,33 @@ class MeshExecutor:
             waved = task0.num_partition > N
             send_cap = shuffle_mod.send_capacity(
                 cap, N if waved else min(task0.num_partition, N), slack)
+            flat_bytes = send_cap * (rowbytes + (4 if waved else 0))
+            if self.mesh.is_hier:
+                from bigslice_tpu_torch.parallel import hier
+
+                # The bodies' own capacity plan (reference :1999-2023):
+                # I - 1 ICI buckets and D - 1 DCN buckets a rank, and
+                # what the flat exchange would send across DCN.
+                D, I = self.mesh.ndcn, self.mesh.nici
+                plan = hier.exchange_plan(D, I, task0.num_partition, cap,
+                                          slack)
+                ici, dcn = N * (I - 1), N * (D - 1)
+                dcn_bytes = dcn * plan["cap2"] * (
+                    rowbytes + 4 * plan["stage2_extra_cols"])
+                dev.record_exchange(
+                    task0.name.op, task0.name.inv_index, wave,
+                    messages=ici + dcn,
+                    nbytes=ici * plan["cap1"] * (
+                        rowbytes + 4 * plan["stage1_extra_cols"])
+                    + dcn_bytes,
+                    backend=self.mesh.backend, dcn_messages=dcn,
+                    dcn_bytes=dcn_bytes, flat_dcn_messages=dcn * I,
+                    flat_dcn_bytes=dcn * I * flat_bytes)
+                return
             msgs = N * (N - 1)
             dev.record_exchange(
                 task0.name.op, task0.name.inv_index, wave, messages=msgs,
-                nbytes=msgs * send_cap * (rowbytes + (4 if waved else 0)),
-                backend=self.mesh.backend)
+                nbytes=msgs * flat_bytes, backend=self.mesh.backend)
         except Exception:  # noqa: BLE001
             pass
 
@@ -1337,7 +1480,18 @@ class MeshExecutor:
                 rows = out.exchange.partition_rows()
             else:
                 rows = out.part_rows
-            if rows:
+            if rows and self.multiprocess:
+                # Each rank reports the partitions its slot holds, at
+                # their global places: the fleet merge sums the ranks'
+                # vectors into the whole one (reference :2090-2104).
+                idx = list(range(self.slot, len(rows), self.nmesh))
+                if idx:
+                    hub.record_shuffle(
+                        task0.name.op, task0.name.inv_index,
+                        [rows[p] for p in idx],
+                        [rows[p] * rowbytes for p in idx], indices=idx,
+                        rank=self.slot)
+            elif rows:
                 hub.record_shuffle(task0.name.op, task0.name.inv_index,
                                    rows, [r * rowbytes for r in rows])
         except Exception:  # noqa: BLE001
@@ -1407,17 +1561,16 @@ class MeshExecutor:
         inputs device scalars) only as the chain's innermost slice; a
         SelfAttend only as the chain's innermost slice and over no more
         shards than device slots (it spans the whole sequence in one
-        program, which waves would cut: S > 1 runs on the host tier
-        here); a Cogroup alone in its chain, unshuffled, over device
+        program, which waves would cut); a Cogroup alone in its chain, unshuffled, over device
         scalar inputs and not machine-combined (its own output is host
         lists, the readback's decode); and nothing else — Scan,
         MapBatches and the sources run on the host tier.
 
         Over ranks no op goes on probation (a failed group is fatal
-        there), and a SelfAttend runs on the host tier by name: its
-        multi-slot stage (the ring's K/V rotation, Ulysses' two
-        all_to_alls) is not ported. ``count`` False (the gather planner)
-        leaves the probation tally alone."""
+        there); a SelfAttend over S <= N shards runs the multi-slot
+        attend stage (the ring's K/V rotation, Ulysses' two
+        all_to_alls). ``count`` False (the gather planner) leaves the
+        probation tally alone."""
         if task.chain is None:
             return False
         if getattr(task, "coded_group", None) is not None or any(
@@ -1439,10 +1592,8 @@ class MeshExecutor:
                 del self._probation[opb]
         last = task.chain[-1]
         part = task.partitioner
-        if isinstance(last, SelfAttend) and (
-                task.name.num_shard > self.nmesh or self.multiprocess):
+        if isinstance(last, SelfAttend) and task.name.num_shard > self.nmesh:
             # S > N: the stage spans the whole sequence in one program.
-            # Over ranks: the multi-slot attend stage is not ported.
             return False
         if isinstance(last, Cogroup):
             if part.combine_key or any(d.combine_key for d in task.deps):
@@ -1529,14 +1680,19 @@ class MeshExecutor:
                     if fault.kind == "hostloss":
                         err = HostLostError(
                             f"host lost during group {tasks[0].name.op} "
-                            f"({fault.describe()}); this package has no "
-                            f"elastic mesh recovery")
+                            f"({fault.describe()})")
                         err.fault, err.fault_site = fault, fault.site
                     raise err
             if self._keepalive is not None:
                 # A wedged peer fails this group fast instead of
                 # hanging it in a collective (reference :1511-1514).
                 self._keepalive.check()
+            elif faultinject.ENABLED:
+                # The keepalive's chaos site, in one process too.
+                from bigslice_tpu_torch.utils.distributed import (
+                    check_injected_peer_loss)
+
+                check_injected_peer_loss()
             with meshutil.active(self.mesh):
                 self._execute_group(key, tasks)
             with self._lock:
@@ -1553,7 +1709,7 @@ class MeshExecutor:
             for t in claimed:
                 t.mark_ok()
         except Exception as e:  # noqa: BLE001 — settles as the tasks' state
-            if self.multiprocess:
+            if self.multiprocess and not isinstance(e, _AttendHostFallback):
                 # A rerun, probation or a host-tier retry would be this
                 # rank's decision alone, and its peers would wait in a
                 # collective it never enters: fatal on this rank.
@@ -1568,7 +1724,8 @@ class MeshExecutor:
 
     def _settle_failure(self, tasks: List[Task], claimed: List[Task],
                         e: Exception) -> None:
-        """One process: settle the claimed tasks of a failed group."""
+        """Settle the claimed tasks of a failed group (one process; over
+        ranks only the attend stage's host reader comes here)."""
         if isinstance(e, TaskCancelled):
             # A cooperative stop: resubmittable, not fatal.
             for t in claimed:
@@ -1584,6 +1741,8 @@ class MeshExecutor:
             # No device output for the attend stage to read: the group
             # runs the host tier's broadcast reader (the JAX package's
             # rule; a failure of the stage itself is never sent there).
+            # Over ranks too: the producer's tier is a compile-time fact,
+            # so every rank raises it before any collective.
             for t in claimed:
                 t.set_state(TaskState.WAITING)
                 self.local.submit(t)
@@ -1633,6 +1792,8 @@ class MeshExecutor:
             t.check_cancel()
 
     def _execute_group(self, key, tasks: List[Task]) -> None:
+        with self._lock:
+            self._group_runs += 1
         while True:
             try:
                 out = self._execute_group_waves(tasks)
@@ -1684,6 +1845,8 @@ class MeshExecutor:
             # the host only, so its outputs never accumulate on the
             # device either. Readers go through host chunks already.
             def sink(w: int, wout: DeviceGroupOutput) -> None:
+                if self.multiprocess:
+                    wout.gather(self.mesh)  # every rank, in wave order
                 wout.drop_device()
                 offloaded.append(wout)
         outs = self._execute_waves(task0, wave_tasks, inputs0=inputs0,
@@ -1708,15 +1871,24 @@ class MeshExecutor:
             mode = shuffleplan.plan_mode()
         if not mode:
             return None, None
-        ineligible = shuffleplan.spill_ineligible(task0, self.multiprocess)
+        ineligible = shuffleplan.spill_ineligible(task0)
         budget = shuffleplan.spill_budget_bytes(
             self.device_budget_bytes, self.nmesh,
             device_telemetry=self._device_telemetry())
         est = inputs0 = None
+        if self.multiprocess and mode == "auto" and ineligible is None:
+            # Every rank must choose alike: the least budget of any rank
+            # (-1: none known) ...
+            least = -self.mesh.pmax_host(
+                [-1 if budget is None else -budget])[0]
+            budget = None if least < 0 else least
         if mode == "auto" and ineligible is None and budget is not None:
             inputs0 = self._stage_exposed(wave_tasks[0], 0)
             est = len(wave_tasks) * sum(
                 _nbytes(c) for i in inputs0 for c in list(i.cols) + [i.counts])
+            if self.multiprocess:
+                # ... against the largest rank's estimate.
+                est = self.mesh.pmax_host([est])[0]
         return shuffleplan.choose(mode, est, budget, ineligible), inputs0
 
     def _execute_group_spill(self, task0: Task, wave_tasks, plan, inputs0):
@@ -1736,6 +1908,10 @@ class MeshExecutor:
             self._spill_store(), task0.name, len(wave_tasks), nparts)
 
         def spill_sink(w: int, wout: DeviceGroupOutput) -> None:
+            if self.multiprocess:
+                # Every rank writes every partition to its own store (a
+                # collective, on every rank in wave order).
+                wout.gather(self.mesh)
             parts = shuffle_mod.partition_chunks(
                 wout.host_chunks(), nparts, wout.nmesh, wout.subid)
             staging.map_shards(
@@ -2757,11 +2933,18 @@ class MeshExecutor:
                     pf = part.partition_fn
                     pfn = (pf.device_fn(s.num_partition)
                            if pf is not None else None)
+                    # A 2-D mesh routes every shuffle through the
+                    # two-stage exchange (parallel/hier.py): the dense
+                    # and hash fused lowerings are one flat exchange,
+                    # whose buckets would all cross DCN, so they stay
+                    # 1-D (reference :4204-4211).
+                    hier_on = self.mesh.is_hier
                     hops = (self._hash_combine_ops(opbase, fc)
-                            if fc is not None and pf is None else None)
+                            if fc is not None and pf is None
+                            and not hier_on else None)
                     dense_k = fc.dense_keys if fc is not None else None
                     if (dense_k is not None and pf is None
-                            and fc.nkeys == 1
+                            and fc.nkeys == 1 and not hier_on
                             and s.num_partition == nmesh):
                         # Dense keys: the table combine and the static
                         # routing. It needs one partition a device, so on
@@ -2782,6 +2965,27 @@ class MeshExecutor:
                         )
                         mask, hov, cols = body(mask, *cols)
                         hashov = hashov + hov
+                    elif hier_on:
+                        from bigslice_tpu_torch.parallel import hier
+
+                        D, I = self.mesh.ndcn, self.mesh.nici
+                        if fc is not None:
+                            # The fused sort over ICI, an ICI-stage
+                            # combine, then one message a row pair a
+                            # lane over DCN.
+                            body = hier.make_hier_combine_shuffle_fn(
+                                D, I, fc.nkeys, fc.nvals,
+                                segment.canonical_combine(fc.fn, fc.nvals),
+                                slack=slack, nparts=s.num_partition,
+                                partition_fn=pfn)
+                        else:
+                            body = hier.make_hier_shuffle_fn(
+                                D, I, s.schema.prefix, cols[0].shape[0],
+                                slack=slack, nparts=s.num_partition,
+                                partition_fn=pfn)
+                        mask, ov, nb, cols = body(mask, *cols)
+                        overflow = overflow + ov
+                        badrange = badrange + nb
                     else:
                         if fc is not None:
                             # One sort serves the combine and the routing.
@@ -3206,8 +3410,11 @@ class MeshExecutor:
                 return StagedInput(out.cols, out.counts, out.capacity,
                                    False, None)
             raise _AttendHostFallback(str(task0.name))
-        if isinstance(out, shuffleplan.SpilledGroupOutput):
-            out = None  # nothing on the device: read through the bridge
+        if isinstance(out, shuffleplan.SpilledGroupOutput) or (
+                isinstance(out, DeviceGroupOutput) and out.cols is None):
+            # Nothing on the device (spilled, or salvaged to the host by
+            # a resize): read through the bridge.
+            out = None
         if isinstance(out, WavedGroupOutput):
             wout = out.waves[wave] if len(dep0.tasks) == 1 else None
             if wout is not None and wout.cols is not None:

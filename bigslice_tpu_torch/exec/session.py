@@ -15,7 +15,11 @@ through their seams. It attaches the robustness plane's planners from
 their knobs (``BIGSLICE_ADAPTIVE``, ``BIGSLICE_CODED``) and the
 kernel selector from ``BIGSLICE_KERNEL_SELECT``
 (``parallel/kernelselect.py``), and ``run`` takes a deadline. With
-``debug_port`` it serves the debug HTTP endpoints.
+``debug_port`` it serves the debug HTTP endpoints; with ``fleet_dir``
+(or ``BIGSLICE_FLEET_DIR``) each rank exports its mergeable telemetry
+snapshot there and rank 0 merges the fleet (``utils/fleettelemetry.py``);
+with ``elastic`` a run lost to a gang loss is retried on the mesh
+``mesh_provider`` gives (``MeshExecutor.resize``).
 """
 
 from __future__ import annotations
@@ -38,10 +42,44 @@ from bigslice_tpu_torch.ops.func import Func, invocation_counter
 from bigslice_tpu_torch.utils import metrics as metrics_mod
 
 
-class ObservabilityNotPorted(NotImplementedError):
-    """A part of the observability plane that has no port yet: the fleet
-    merge (``telemetry_summary(scope="fleet")``, the debug server's
-    ``/debug/fleet`` and ``obsdump --fleet``)."""
+def _is_gang_loss(e: BaseException) -> bool:
+    """Is this failure the gang-loss class an elastic retry recovers
+    from by re-forming the mesh (a ``HostLostError`` or
+    ``PeerLostError`` anywhere in its chain)? Application errors
+    re-raise: re-running them on another mesh is useless (reference
+    exec/session.py:27-50)."""
+    from bigslice_tpu_torch.exec.meshexec import HostLostError
+    from bigslice_tpu_torch.exec.task import TaskError
+    from bigslice_tpu_torch.utils.distributed import PeerLostError
+
+    seen = set()
+    stack = [e]
+    while stack:
+        err = stack.pop()
+        if err is None or id(err) in seen:
+            continue
+        seen.add(id(err))
+        if isinstance(err, (HostLostError, PeerLostError)):
+            return True
+        if isinstance(err, TaskError):
+            stack.append(err.cause)
+        stack.append(err.__cause__)
+        stack.append(err.__context__)
+    return False
+
+
+def _elastic_backoff_delay(attempt: int) -> float:
+    """The delay before elastic round ``attempt`` (0-based): base *
+    2^attempt, capped at 30 s, with up to 25 % jitter
+    (``BIGSLICE_ELASTIC_BACKOFF`` is the base, default 0.2 s; 0 turns it
+    off)."""
+    import random
+
+    base = float(os.environ.get("BIGSLICE_ELASTIC_BACKOFF", "0.2"))
+    if base <= 0:
+        return 0.0
+    d = min(30.0, base * (2 ** attempt))
+    return d * (1.0 + 0.25 * random.random())
 
 
 class _InvocationGate:
@@ -197,6 +235,23 @@ class Session:
       (``utils/debughttp.py``) on this port of 127.0.0.1, 0 for a free
       one; ``session.debug`` is the server (None without the option)
       and ``shutdown()`` closes it.
+    - ``elastic``: the most mesh-recovery retries a run makes. When a
+      run dies of a gang loss (``HostLostError`` or ``PeerLostError`` in
+      its failure chain), the session asks ``mesh_provider`` for the
+      healthy mesh, moves the executor onto it
+      (``MeshExecutor.resize``: outputs salvaged to the host, device-only
+      ones LOST) and evaluates again; completed tasks keep their
+      results. With none given, ``utils.distributed.
+      default_mesh_provider()``: the one-slot mesh of this process's
+      device in one process; over ranks it gives None and the loss
+      re-raises (a mesh chosen by one rank alone would wedge the group).
+    - ``mesh_provider``: a callable with no arguments returning the
+      mesh of the next elastic attempt, or None.
+    - ``fleet_dir`` (or ``BIGSLICE_FLEET_DIR``): a directory or fsspec
+      URL where each rank exports its mergeable telemetry snapshot
+      (periodically, at every run's end and at shutdown); rank 0 merges
+      them into ``telemetry_summary(scope="fleet")`` and ``fleet.json``
+      (``utils/fleettelemetry.py``). Nothing is written without it.
 
     A ``ServeServer`` (``serve/server.py``) built over the session sets
     itself as ``session.serve``; ``shutdown()`` drains it first.
@@ -206,8 +261,7 @@ class Session:
     ``exec/adaptive.py``) and ``BIGSLICE_CODED`` a coded planner
     (``session.coded``, ``exec/codedplan.py``); unset, both are None and
     nothing of them runs. ``BIGSLICE_CHAOS`` installs a fault plan for
-    the process (``utils/faultinject.py``). The JAX package's ``elastic``
-    and ``mesh_provider`` (elastic mesh recovery) are not ported.
+    the process (``utils/faultinject.py``).
 
     ``session.profiler.window(seconds)`` profiles the process with
     ``torch.profiler`` on demand.
@@ -221,7 +275,9 @@ class Session:
                  monitor=None, trace_path: Optional[str] = None,
                  status: bool = False, eventer=None,
                  machine_combiners: bool = False,
-                 debug_port: Optional[int] = None):
+                 debug_port: Optional[int] = None,
+                 elastic: int = 0, mesh_provider=None,
+                 fleet_dir: Optional[str] = None):
         from bigslice_tpu_torch.utils import status as status_mod
         from bigslice_tpu_torch.utils import trace as trace_mod
         from bigslice_tpu_torch.utils import xprof as xprof_mod
@@ -236,6 +292,14 @@ class Session:
 
                 executor = MeshExecutor()
         self.executor = executor
+        self.elastic = int(elastic)
+        if (self.elastic and mesh_provider is None
+                and getattr(executor, "resize", None) is not None):
+            from bigslice_tpu_torch.utils.distributed import (
+                default_mesh_provider)
+
+            mesh_provider = default_mesh_provider()
+        self.mesh_provider = mesh_provider
         self.eventer = eventer
         self.trace_path = trace_path
         self.tracer = trace_mod.Tracer() if trace_path else None
@@ -250,6 +314,20 @@ class Session:
             self.telemetry = telemetry_mod.TelemetryHub(eventer=self._event)
             self.telemetry.device.set_device(
                 getattr(executor, "device", None))
+        # The fleet plane (reference exec/session.py:307-326): with a
+        # fleet directory and the hub on, this rank exports its
+        # snapshot there; no directory, no exporter and no file.
+        self.fleet = None
+        fleet_dir = fleet_dir or os.environ.get("BIGSLICE_FLEET_DIR") or None
+        if fleet_dir and self.telemetry is not None:
+            from bigslice_tpu_torch.utils import fleettelemetry as fleet_mod
+
+            try:
+                self.fleet = fleet_mod.FleetExporter(self.telemetry,
+                                                     fleet_dir)
+                self.fleet.start()
+            except Exception:  # noqa: BLE001 — never breaks the run
+                self.fleet = None
         self.status = status_mod.Status()
         self.status.set_telemetry(self.telemetry)
         stats_fn = getattr(self.executor, "resource_stats", None)
@@ -332,6 +410,13 @@ class Session:
                 self.serve.close()
             except Exception:  # noqa: BLE001 — shutdown must finish
                 pass
+        # The last fleet export before the executor goes; rank 0's close
+        # waits (bounded) for its peers' files and writes fleet.json.
+        if self.fleet is not None:
+            try:
+                self.fleet.close()
+            except Exception:  # noqa: BLE001 — shutdown must finish
+                pass
         close = getattr(self.executor, "close", None)
         if close is not None:
             close()
@@ -409,28 +494,106 @@ class Session:
             self.debug.register_roots(tasks)
         self._gate.acquire(exclusive)
         try:
-            token = self._plan_run(tasks)
-            failed = True
-            try:
-                evaluate(self.executor, tasks, monitor=self.monitor,
-                         deadline=deadline)
-                failed = False
-            except DeadlineExceeded:
-                self._record_deadline("expired", deadline_s)
-                raise
-            except Exception as e:
-                self._dump_flight(inv_index, e)
-                raise
-            finally:
-                if token is not None:
-                    self.executor.finish_run(token, failed=failed)
-            if deadline_s is not None:
-                self._record_deadline("met", deadline_s)
+            attempts = 0
+            while True:
+                err = self._evaluate_once(tasks, deadline)
+                if err is None:
+                    # The run's non-root host-task outputs leave the
+                    # group's store (every rank finished: a barrier
+                    # inside).
+                    release = getattr(self.executor, "release_run_outputs",
+                                      None)
+                    if release is not None:
+                        release(tasks)
+                    if deadline_s is not None:
+                        self._record_deadline("met", deadline_s)
+                    break
+                if isinstance(err, DeadlineExceeded):
+                    # Not a loss the elastic ladder can buy back.
+                    self._record_deadline("expired", deadline_s)
+                    raise err
+                if attempts >= self.elastic or not _is_gang_loss(err):
+                    self._dump_flight(inv_index, err)
+                    raise err
+                delay = _elastic_backoff_delay(attempts)
+                if delay > 0:
+                    self._event("bigslice:elasticBackoff", attempt=attempts,
+                                delay_s=round(delay, 3))
+                    time.sleep(delay)
+                # Recovery swaps the shared executor's mesh: take the
+                # session alone for it (reference :720-752).
+                if not exclusive:
+                    self._gate.release(False)
+                    self._gate.acquire(True)
+                try:
+                    recovered = self._elastic_recover(tasks, err)
+                finally:
+                    if not exclusive:
+                        self._gate.release(True)
+                        self._gate.acquire(False)
+                if not recovered:
+                    self._dump_flight(inv_index, err)
+                    raise err
+                attempts += 1
         finally:
             self._gate.release(exclusive)
+            # The run-end fleet export (success or not): a peer's merge
+            # reads this file, so it must be current when the run ends.
+            if self.fleet is not None:
+                try:
+                    self.fleet.export()
+                except Exception:  # noqa: BLE001 — never fails a run
+                    pass
         res = Result(self, slice_, tasks)
         res.corr = corr
         return res
+
+    def _evaluate_once(self, tasks, deadline) -> Optional[BaseException]:
+        """One evaluation attempt: the error it ended with, or None.
+        ``finish_run`` comes before the retry decision (it flushes an
+        aborted run's parked tasks, which recovery waits for), and a
+        failed run resolves the peers waiting on this rank's host tasks
+        (``abort_run_outputs``)."""
+        token = self._plan_run(tasks)
+        err = None
+        try:
+            evaluate(self.executor, tasks, monitor=self.monitor,
+                     deadline=deadline)
+        except Exception as e:  # noqa: BLE001 — the caller decides
+            err = e
+        finally:
+            if token is not None:
+                self.executor.finish_run(token, failed=err is not None)
+            if err is not None:
+                abort = getattr(self.executor, "abort_run_outputs", None)
+                if abort is not None:
+                    abort(tasks, err)
+        return err
+
+    def _elastic_recover(self, tasks, cause) -> bool:
+        """Between elastic attempts (reference exec/session.py:
+        720-752): move the executor onto the provider's mesh and return
+        the failed tasks to INIT (completed ones keep their salvaged
+        results). False, and the loss re-raises, when a task is still in
+        flight after 30 s (a thread wedged in a collective would outlive
+        a fresh evaluation) or when there is no mesh to move to."""
+        all_tasks = iter_tasks(tasks)
+        deadline = time.monotonic() + 30.0
+        while any(t.state in (TaskState.WAITING, TaskState.RUNNING)
+                  for t in all_tasks):
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.05)
+        mesh = self.mesh_provider() if self.mesh_provider else None
+        resize = getattr(self.executor, "resize", None)
+        if resize is None or mesh is None:
+            return False
+        resize(mesh)
+        for t in all_tasks:
+            if t.state == TaskState.ERR:
+                t.reset_for_retry()
+        self._event("bigslice:elasticRetry", cause=repr(cause))
+        return True
 
     def _plan_run(self, tasks):
         """Register this evaluation's group launch order with an
@@ -457,15 +620,17 @@ class Session:
         return token
 
     def _mesh_signature(self):
-        """The executor's repr-stable device signature for the
-        compiler's partition_config (reference :668-681): the device
-        executor's one-axis layout of ``nmesh`` device slots, as the JAX
-        package's ``MeshTopology(mesh).signature()`` names a one-axis
-        mesh; None for the local executor."""
-        nmesh = getattr(self.executor, "nmesh", None)
-        if nmesh is None:
+        """The executor's repr-stable mesh signature for the compiler's
+        partition_config (reference :668-681), per run (an elastic
+        resize can swap the mesh): ``MeshTopology(mesh).signature()``,
+        the one-axis layout of ``nmesh`` slots or the 2-D (dcn, ici)
+        grid; None for the local executor."""
+        mesh = getattr(self.executor, "mesh", None)
+        if mesh is None:
             return None
-        return (("shards",), (int(nmesh),))
+        from bigslice_tpu_torch.parallel.meshutil import MeshTopology
+
+        return MeshTopology(mesh).signature()
 
     def _record_deadline(self, outcome: str, deadline_s) -> None:
         """A ``run(deadline_s=)`` outcome into the hub's deadline plane
@@ -491,6 +656,18 @@ class Session:
                             path=path)
         except Exception:  # noqa: BLE001 — telemetry never fails a run
             pass
+        # The fleet's post-mortem: this rank's flight document through
+        # the store, and rank 0 collates every rank's into one bundle.
+        if self.fleet is not None:
+            try:
+                self.fleet.export_flight(self.telemetry.flight_doc(
+                    inv=inv_index, reason=repr(err)))
+                bundle = self.fleet.collate_flights()
+                if bundle:
+                    self._event("bigslice:postmortem", inv=inv_index,
+                                bundle=bundle)
+            except Exception:  # noqa: BLE001 — telemetry never fails a run
+                pass
 
     def telemetry_summary(self, scope: str = "session") -> dict:
         """The telemetry hub's signals (``utils/telemetry.py``): per-op
@@ -499,14 +676,22 @@ class Session:
         combine's input cardinality, and the ``device`` plane (kernel
         launches with their declared bytes and operations, builds, HBM
         watermarks, donation). ``{}`` with the
-        hub off (``BIGSLICE_TELEMETRY=0``). ``scope="fleet"``, the
-        cross-process merge, is not ported yet and raises."""
-        if scope == "fleet":
-            raise ObservabilityNotPorted(
-                "telemetry_summary(scope='fleet'): the fleet merge "
-                "(utils/fleettelemetry.py) is not ported yet")
-        if scope != "session":
+        hub off (``BIGSLICE_TELEMETRY=0``).
+
+        ``scope="fleet"`` is the cross-rank merge
+        (``utils/fleettelemetry.py``): every rank's exported snapshot,
+        per-op partition vectors summed elementwise, task quantiles from
+        the merged fixed-bin histograms, device counters summed and HBM
+        peaks by rank. Without a fleet exporter it merges this process's
+        own snapshot (a fleet of one)."""
+        if scope not in ("session", "fleet"):
             raise ValueError(f"telemetry_summary: unknown scope {scope!r}")
         if self.telemetry is None:
             return {}
+        if scope == "fleet":
+            from bigslice_tpu_torch.utils import fleettelemetry as fleet_mod
+
+            if self.fleet is not None:
+                return self.fleet.fleet_summary()
+            return fleet_mod.merge_snapshots([self.telemetry.snapshot()])
         return self.telemetry.summary()

@@ -118,18 +118,17 @@ def choose(mode: Optional[str], est_bytes: Optional[int],
         else "no-budget", est_bytes, budget_bytes)
 
 
-def spill_ineligible(task, multiprocess: bool = False) -> Optional[str]:
+def spill_ineligible(task) -> Optional[str]:
     """Why a shuffle-boundary task can never spill, or None: the
-    compiler's stamp, a mesh of more than one process (each rank would
-    write only its own slots' partitions, reference
-    exec/shuffleplan.py:118), or a machine-combined boundary (its merge
+    compiler's stamp, or a machine-combined boundary (its merge
     re-combines to one row per key, which spilled per-wave partials
-    cannot honour)."""
+    cannot honour). Over ranks a boundary spills too: each map wave's
+    output is gathered to every rank, which writes every partition to
+    its own spill store (``MeshExecutor._execute_group_spill``), so no
+    rank ever needs another's files."""
     stamped = getattr(task, "spill_ineligible", None)
     if stamped:
         return stamped
-    if multiprocess:
-        return "multiprocess mesh"
     if task.partitioner.combine_key:
         return "machine-combiner buffer"
     return None
@@ -240,6 +239,7 @@ class SpilledGroupOutput:
     subid = False
     cols = None        # nothing on the device: _dep_input reads through
     counts = None      # the store bridge, never chains zero-copy
+    gathered = True    # every rank's store holds every partition
 
     def __init__(self, exchange: SpillExchange, schema, nparts: int,
                  nmesh: int, plan: ShufflePlan, map_waves: int):
@@ -255,6 +255,9 @@ class SpilledGroupOutput:
         """Consumer rounds: the nparts partitions stream through the
         device in ceil(nparts / nmesh) waves."""
         return (self.nparts + self.nmesh - 1) // self.nmesh
+
+    def gather(self, mesh) -> None:
+        """Nothing to gather: every rank wrote every partition."""
 
     def frames_for(self, partition: int) -> List[Frame]:
         return self.exchange.read_partition(partition)

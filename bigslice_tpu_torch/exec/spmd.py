@@ -10,7 +10,8 @@ order on one dispatcher thread (``MeshExecutor.ordered_dispatch``, on
 over more than one rank), enters
 every collective in the same order, and gathers the outputs a host
 reads to every rank in launch order, so result scans need no
-collective. Host-tier work runs redundantly on every rank.
+collective. A host-tier task runs once, on its owner rank, and the
+others fetch its outputs as they read them (``exec/hostdist.py``).
 
 Contract: one driver thread a process, the same program on every rank.
 

@@ -1,4 +1,4 @@
-"""Ring attention on one device: the ring with one member.
+"""Ring attention: K/V blocks rotate around the mesh's slots.
 
 The JAX package shards the sequence over its device mesh and rotates
 K/V blocks around the ring (``lax.ppermute``) while each device
@@ -8,14 +8,16 @@ accumulates its queries' output with an online (flash-style) softmax:
               rescale the running (max, denom, acc), exactly
               K/V blocks advance one hop around the ring
 
-The attend stage runs on one device slot (``MeshExecutor.nmesh == 1``;
-over more than one rank the executor runs a SelfAttend on its host
-tier, until the ring's K/V rotation over the mesh is ported), so the
-ring has one member and one hop: the local block is the whole
-sequence. The online softmax, its constants and its order of
-operations are the JAX package's all the same (the -1e30 fill, the
-running max ``m``, the ``corr`` rescale, ``l`` clamped at 1e-30 at the
-end), so the values match it at any ring length.
+Here a slot is a ``torch.distributed`` rank (``parallel/meshutil.py``):
+the attend stage's ``masked_local_body`` holds this rank's sequence
+block and rotates K/V through ``meshutil.ppermute`` (an exchange
+counted like every other collective), N hops for N slots, the last one
+without a rotation. On one slot the ring has one member and one hop:
+the local block is the whole sequence. The online softmax, its
+constants and its order of operations are the JAX package's (the -1e30
+fill, the running max ``m``, the ``corr`` rescale, ``l`` clamped at
+1e-30 at the end), so the values match it at any ring length.
+``make_ring_attention`` is the one-device form (no mesh).
 
 - The products take ``dtype`` operands (bf16 rounds q, k, v and ``p``)
   and accumulate in fp32 with an fp32 result, as the JAX package's
@@ -234,13 +236,17 @@ def masked_local_body(nmesh: int = 1, d: int = 0, causal: bool = False,
     never shifts a position. On the one device slot the ring has one
     member, whose block starts at logical row 0: a position is its row
     index, and its one hop sees every K row. Output rows beyond count
-    are unspecified (callers carry counts). ``nmesh`` must be 1: the
-    ring's K/V rotation over a mesh of ranks is not ported."""
-    if nmesh != 1:
-        raise ValueError(
-            f"ring attention: the attend stage runs on one device slot "
-            f"(nmesh {nmesh}); the ring's K/V rotation over the mesh is "
-            f"not ported")
+    are unspecified (callers carry counts).
+
+    Over ``nmesh`` slots (the active mesh's ranks, reference
+    parallel/ringattention.py:199-260) each rank holds its own sequence
+    block: positions are global LOGICAL rows, the exclusive cumsum of
+    every slot's count (gathered once) plus the local row, and the
+    resident K/V block, after i rotations, is slot ``(rank - i) %
+    nmesh``'s, its validity and offsets read from the gathered counts
+    (no scalar rotates)."""
+    from bigslice_tpu_torch.parallel import meshutil
+
     cdt = compute_dtype(dtype)
     scale = score_scale(d)
 
@@ -251,23 +257,37 @@ def masked_local_body(nmesh: int = 1, d: int = 0, causal: bool = False,
         check_fp32_matmul(q, cdt)
         B, cap = q.shape[0], q.shape[1]
         dev = q.device
-        rows = torch.arange(cap, dtype=torch.int32, device=dev)
-        valid = rows < count.reshape(()).to(device=dev, dtype=torch.int32)
+        count = count.reshape(()).to(device=dev, dtype=torch.int32)
+        my_blk = meshutil.axis_index() if nmesh > 1 else 0
+        all_counts = meshutil.all_gather_counts(count, nmesh)
+        offsets = torch.cumsum(all_counts, 0) - all_counts  # exclusive
+        idx = torch.arange(cap, dtype=torch.int32, device=dev)
+        rows = offsets[my_blk] + idx              # logical Q positions
 
         bq, nblk, pad = _q_tiling(cap, block_q)
         q3 = _pad_blocks(q.to(cdt), pad, nblk, bq, axis=1)
         rows2 = _pad_blocks(rows, pad, nblk, bq)
-        valid2 = _pad_blocks(valid, pad, nblk, bq)
+        valid2 = _pad_blocks(idx < count, pad, nblk, bq)
+        carry = _init_carry(nblk, B, bq, d, dev)
+        k_blk, v_blk = k.to(cdt), v.to(cdt)
+        for i in range(nmesh):
+            # The resident block came from slot src.
+            src = (my_blk - i) % nmesh
+            k_valid = idx < all_counts[src]
+            cols = offsets[src] + idx
 
-        def make_mask(rb, vb):
-            mask = vb[:, None] & valid[None, :]
-            if causal:
-                mask = mask & (rows[None, :] <= rb[:, None])
-            return mask
+            def make_mask(rb, vb, k_valid=k_valid, cols=cols):
+                mask = vb[:, None] & k_valid[None, :]
+                if causal:
+                    mask = mask & (cols[None, :] <= rb[:, None])
+                return mask
 
-        carry = _hop_update(q3, rows2, valid2,
-                            _init_carry(nblk, B, bq, d, dev), k.to(cdt),
-                            v.to(cdt), scale, make_mask)
+            carry = _hop_update(q3, rows2, valid2, carry, k_blk, v_blk,
+                                scale, make_mask)
+            if i < nmesh - 1:
+                # One hop around the ring (none after the last block).
+                k_blk = meshutil.ppermute(k_blk, nmesh)
+                v_blk = meshutil.ppermute(v_blk, nmesh)
         out = _finish(carry, cap, d)
         return out[0] if single else out
 

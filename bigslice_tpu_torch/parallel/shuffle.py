@@ -116,7 +116,7 @@ def route_to_buckets(dest, cols, ndest: int, sortless: bool):
 
 
 def bucket_exchange(nshards: int, send_cap: int, dest_row, dest_off,
-                    send_counts, cols):
+                    send_counts, cols, axis: Optional[str] = None):
     """Scatter rows into per-destination send buckets and exchange them
     (counts, then data) through ``all_to_all``. ``dest_row`` is each
     row's destination device lane (``nshards`` = drop, with
@@ -124,16 +124,27 @@ def bucket_exchange(nshards: int, send_cap: int, dest_row, dest_off,
     ``send_counts`` int32[nshards] the (clipped) rows per destination.
     Returns (recv_valid_mask, out_cols) with out_cols holding
     ``nshards * send_cap`` rows — a bucket from each source shard, row j
-    of source bucket s valid iff j < recv_counts[s]."""
+    of source bucket s valid iff j < recv_counts[s]. ``axis`` (``"ici"``
+    or ``"dcn"``) exchanges along that axis of a 2-D mesh, whose
+    ``nshards`` ranks it has (``parallel/hier.py``); None, over the
+    whole mesh."""
     device = dest_row.device
+
+    def exchange(planes):
+        if axis is None:
+            return all_to_all(planes, nshards)
+        from bigslice_tpu_torch.parallel import meshutil
+
+        return meshutil.axis_all_to_all(planes, nshards, axis)
+
     # Only the rows that stay are scattered: millions of dropped rows
     # writing one drop slot would serialize on it.
     stay = torch.nonzero(dest_row < nshards).squeeze(1)
     slot = (dest_row[stay].to(torch.int64) * send_cap
             + dest_off[stay].to(torch.int64))
     # Counts first, then the data planes (reference :164-168).
-    recv_counts = all_to_all(send_counts.reshape(nshards, 1),
-                             nshards).reshape(nshards)
+    recv_counts = exchange(send_counts.reshape(nshards, 1)
+                           ).reshape(nshards)
     out_cols = []
     for c in cols:
         lanes = segment.eq_lanes(c)
@@ -142,7 +153,7 @@ def bucket_exchange(nshards: int, send_cap: int, dest_row, dest_off,
         buf[slot] = lanes[stay]
         planes = buf.view(c.dtype).reshape(
             (nshards, send_cap) + tuple(c.shape[1:]))
-        recv = all_to_all(planes, nshards)
+        recv = exchange(planes)
         out_cols.append(recv.reshape((nshards * send_cap,)
                                      + tuple(c.shape[1:])))
     row_in_bucket = torch.arange(send_cap, dtype=torch.int32, device=device)
@@ -222,7 +233,8 @@ def make_combine_shuffle_fn(nshards: int, nkeys: int, nvals: int, cfn,
                             seed: int = 0,
                             partition_fn: Optional[Callable] = None,
                             slack: float = 2.0,
-                            nparts: Optional[int] = None):
+                            nparts: Optional[int] = None,
+                            axis: Optional[str] = None):
     """Fused map-side combine + shuffle: ONE stable sort serves both.
 
     A row's destination is a function of its key prefix, so one sort by
@@ -234,7 +246,9 @@ def make_combine_shuffle_fn(nshards: int, nkeys: int, nvals: int, cfn,
     out_cols)`` — the contract of ``make_shuffle_fn``'s function with
     the combine applied. ``cols`` =
     nkeys key columns then nvals value columns; with ``nparts >
-    nshards`` the out_cols carry the int32 subid column first.
+    nshards`` the out_cols carry the int32 subid column first. ``axis``
+    runs the exchange along one axis of a 2-D mesh (the first stage of
+    ``parallel/hier.py``), its ``nshards`` ranks the axis's.
     """
     if nparts is None:
         nparts = nshards
@@ -307,7 +321,8 @@ def make_combine_shuffle_fn(nshards: int, nkeys: int, nvals: int, cfn,
         payload = ((s_subid,) if waved else ()) + tuple(s_keys) + tuple(red)
         send_counts = torch.clamp(counts, max=cap_send).to(torch.int32)
         valid_mask, out_cols = bucket_exchange(
-            nshards, cap_send, dest_row, dest_off, send_counts, payload)
+            nshards, cap_send, dest_row, dest_off, send_counts, payload,
+            axis=axis)
         overflow = torch.clamp(counts.max() - cap_send, min=0)
         return valid_mask, overflow.to(torch.int32), n_bad, out_cols
 

@@ -21,6 +21,12 @@ The smoke (``python -m bigslice_tpu_torch.tools.multihost_smoke [N]
   merge), a registered Func, one counted run and ``--warm`` timed ones,
   and checks every shard's rows against numpy and each row's shard
   against the routing hash;
+- runs a host-tier word count (str keys, reference
+  tools/multihost_smoke.py:259-361) through the host-task exchange
+  (``exec/hostdist.py``): every rank owns some host tasks and waits on
+  its peers for the rest, the counts equal the words' own, after the run
+  only the result's namespaces stay published, and after every rank
+  closed its session none does;
 
 and writes a JSON report a rank under ``--out``; the parent prints one
 summary line and exits 0 when every rank passed. ``--mode`` selects a
@@ -32,7 +38,14 @@ first group: it must fail by name, never retry the group alone, and
 rank 0 must fail once it has gone), ``registry`` (rank 1 registers one
 more Func: every rank must raise, naming rank 1) and ``nccl1`` (one
 rank over NCCL runs the exchange seam's own path on int32, uint32 and
-bool planes).
+bool planes). Two more modes are the ranks of ``chip_smoke.py``'s phase
+33: ``hier`` (run with ``BIGSLICE_MESH_SHAPE=DxI``: the keyed Reduce on
+the 2-D mesh and on a flat mesh over the same ranks, each shard's rows
+checked and compared, the bytes and host seconds of each stage, the
+fleet export under ``--fleet-dir``) and ``plane`` (the host tier's word
+count of ``--corpus`` through the host-task exchange, then SelfAttend
+over the ranks on ``--att``'s q, k, v through the ring and Ulysses in
+fp32 and bf16, each rank's stage timed).
 """
 
 from __future__ import annotations
@@ -272,6 +285,286 @@ def _reduce_check(mesh, args) -> dict:
             [int(len(r[0])) for r in rows]}
 
 
+def _hostdist_check(mesh) -> dict:
+    """The host tier over the ranks: a word count whose host tasks run
+    once, each on its owner (``shard % N``), the outputs exchanged
+    through the group's store and fetched when read."""
+    import numpy as np
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.spmd import spmd_session
+
+    vocab = ["gpu", "mesh", "nvlink", "hbm", "sm"]
+
+    def gen_lines(shard):
+        yield ([" ".join(vocab[(shard + j + i) % len(vocab)]
+                         for j in range(3)) for i in range(6)],)
+
+    @bs.func
+    def host_wordcount(shards: int):
+        lines = bs.ReaderFunc(shards, gen_lines, out=[str])
+        words = bs.Flatmap(lines, lambda line: [(w,) for w in line.split()],
+                           out=[str])
+        ones = bs.Map(words, lambda w: (w, 1), out=[str, np.int32])
+        return bs.Reduce(ones, lambda a, b: a + b)
+
+    sess = spmd_session(mesh=mesh)
+    hd = sess.executor._hostdist
+    t0 = time.perf_counter()
+    got = dict(sess.run(host_wordcount, 4).rows())
+    seconds = time.perf_counter() - t0
+    want: dict = {}
+    for shard in range(4):
+        for (batch,) in gen_lines(shard):
+            for line in batch:
+                for w in line.split():
+                    want[w] = want.get(w, 0) + 1
+    split = mesh.all_gather([hd.owned_count, hd.remote_count])
+    # The run's release kept only its roots (the Reduce's tasks) in the
+    # store.
+    published = sorted(hd._published)
+    roots_only = bool(published) and all("reduce" in k for k in published)
+    mesh.barrier()  # a peer may still fetch this rank's roots
+    sess.shutdown()
+    mesh.barrier()
+    return {"hostdist_rows_ok": got == want,
+            "hostdist_split": split,
+            "hostdist_split_ok": all(o > 0 and r > 0 for o, r in split),
+            "hostdist_roots_only": roots_only,
+            "hostdist_closed_clean": not hd._published and not hd._keys,
+            "hostdist_fetched": len(hd.fetched),
+            "hostdist_s": seconds}
+
+
+def _shard_digest(cols) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for c in cols:
+        h.update(c.tobytes())
+    return h.hexdigest()[:16]
+
+
+def _hier_mode(args, rank: int, n: int, report: dict) -> int:
+    """Phase 33a/d's ranks: the keyed Reduce over ``--rows`` keys uniform
+    over ``--keyspace`` (RandomState(42)) at ``--shards`` shards on the
+    2-D mesh, then on a flat mesh over the same ranks, then on the 2-D
+    mesh again (warm): every shard's
+    rows against numpy and the shard the plain K1 names, the two
+    layouts' shards equal (by digest), K1 and K2 launched, the bytes and
+    host seconds of each stage; the 2-D session exports its fleet
+    snapshot, and rank 0 merges the fleet."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.meshexec import MeshExecutor
+    from bigslice_tpu_torch.parallel import cuda_kernels, meshutil
+    from bigslice_tpu_torch.parallel import shuffle as shuffle_mod
+    from bigslice_tpu_torch.utils import distributed
+
+    @bs.func
+    def reduce_wave(shards: int, rows: int, keyspace: int, seed: int):
+        rng = np.random.RandomState(seed)
+        keys = rng.randint(0, keyspace, rows).astype(np.int32)
+        return bs.Reduce(bs.Const(shards, keys, np.ones(rows, np.int32)),
+                         lambda a, b: a + b)
+
+    distributed.initialize(device=args.device, backend=args.backend)
+    grid = distributed.global_mesh()
+    flat = meshutil.Mesh(dist.group.WORLD, device=grid.device)
+    report.update(backend=grid.backend, transport=grid.transport,
+                  is_hier=grid.is_hier, shape=list(grid.shape))
+    keys = np.random.RandomState(42).randint(
+        0, args.keyspace, args.rows).astype(np.int32)
+    want = np.bincount(keys, minlength=args.keyspace)
+    nz = np.nonzero(want)[0]
+    fargs = (args.shards, args.rows, args.keyspace, 42)
+    ok = True
+    # The grid's first run pays the process's first-use costs (its
+    # subgroups' connections among them); its second is the warm one.
+    for name, mesh in (("hier", grid), ("flat", flat), ("hier-warm", grid)):
+        ex = MeshExecutor(mesh=mesh, auto_dense=False)
+        sess = bs.Session(executor=ex, fleet_dir=(
+            args.fleet_dir if name == "hier" else None))
+        before = dict(cuda_kernels.LAUNCHES)
+        b0, s0 = dict(mesh.axis_bytes), dict(mesh.collective_s)
+        x0 = mesh.exchanged_bytes
+        _sync(mesh.device)
+        t0 = time.perf_counter()
+        rows = bs.result_shard_rows(sess.run(reduce_wave, *fargs))
+        wall = time.perf_counter() - t0
+        placed = True
+        for sh, (k, _) in enumerate(rows):
+            part, _, _ = shuffle_mod.partition_ids(
+                [torch.from_numpy(k)], args.shards, 0)
+            placed &= bool((part.numpy() == sh).all())
+        k = np.concatenate([r[0] for r in rows])
+        v = np.concatenate([r[1] for r in rows])
+        rows_ok = (len(k) == len(nz) and len(np.unique(k)) == len(k)
+                   and bool((want[k] == v).all()))
+        report[name] = {
+            "rows_ok": rows_ok, "placed_ok": placed, "wall_s": wall,
+            "launches": {kk: vv - before.get(kk, 0) for kk, vv in
+                         cuda_kernels.LAUNCHES.items()},
+            "axis_bytes": {kk: vv - b0.get(kk, 0)
+                           for kk, vv in mesh.axis_bytes.items()},
+            "exchanged_bytes": mesh.exchanged_bytes - x0,
+            "collective_s": {kk: vv - s0.get(kk, 0.0)
+                             for kk, vv in mesh.collective_s.items()},
+            "digests": [_shard_digest(r) for r in rows],
+            "hash_off": sorted(ex.hash_off)}
+        ok &= rows_ok and placed
+        if name == "hier":
+            sess.fleet.export()
+            mesh.barrier()  # every rank's snapshot is written
+            if rank == 0:
+                with open(os.path.join(args.out, "fleet_merged.json"),
+                          "w") as fh:
+                    json.dump(sess.fleet.fleet_summary(wait_for_all=True),
+                              fh, default=str)
+            mesh.barrier()
+        sess.shutdown()
+    report["same_shards"] = (report["hier"]["digests"]
+                             == report["flat"]["digests"]
+                             == report["hier-warm"]["digests"])
+    report["ok"] = bool(ok and report["same_shards"] and grid.is_hier
+                        and "jax" not in sys.modules
+                        and "bigslice_tpu" not in sys.modules)
+    _report(args.out, rank, report)
+    flat.barrier()
+    distributed.shutdown()
+    return 0 if report["ok"] else 1
+
+
+def _stage_ms(device, fn) -> float:
+    """Milliseconds of ``fn()``: between CUDA events on the card, by the
+    host's clock on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _plane_mode(args, rank: int, n: int, report: dict) -> int:
+    """Phase 33b/c's ranks. (b) the host tier's word count of
+    ``--corpus`` (``models.wordcount.wordcount(4, path)``): the counts
+    against collections.Counter, each host task owned by exactly one
+    rank, and the remote partitions this rank fetched exactly those it
+    read (its consumers' inputs and the result scan's shards). (c)
+    SelfAttend over the ranks (S = N, causal, 2 heads) on ``--att``'s
+    q, k, v through the ring (``block_q`` 128) and Ulysses in fp32 and
+    bf16: rank 0 writes each output for the parent to hold against the
+    oracle, and each rank times its attend stage over its own block
+    (CUDA events, median of 3)."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.exec.meshexec import StagedInput
+    from bigslice_tpu_torch.exec.spmd import spmd_session
+    from bigslice_tpu_torch.frame.frame import to_numpy
+    from bigslice_tpu_torch.models.wordcount import wordcount
+    from bigslice_tpu_torch.parallel import meshutil
+    from bigslice_tpu_torch.utils import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    att_cols = dict(np.load(args.att))
+    q, k, v = (att_cols[c] for c in "qkv")
+    seq = len(q)
+
+    @bs.func
+    def host_wordcount(shards: int, path: str):
+        return wordcount(shards, path)
+
+    attends = {}
+    for method, dt in (("ring", "float32"), ("ulysses", "float32"),
+                       ("ring", "bfloat16"), ("ulysses", "bfloat16")):
+        attends[f"{method}-{dt}"] = bs.func(
+            lambda shards, method=method, dt=dt: bs.SelfAttend(
+                bs.Const(shards, q, k, v), causal=True, heads=2,
+                method=method, dtype=getattr(torch, dt),
+                block_q=128 if method == "ring" else 0))
+    distributed.initialize(device=args.device, backend=args.backend)
+    mesh = distributed.global_mesh()
+    sess = spmd_session(mesh=mesh)
+    hd = sess.executor._hostdist
+    # (b) the word count.
+    t0 = time.perf_counter()
+    res = sess.run(host_wordcount, 4, args.corpus)
+    got = dict(res.rows())
+    report["wordcount_s"] = time.perf_counter() - t0
+    with open(args.corpus) as fh:
+        want = collections.Counter(fh.read().split())
+    owned = mesh.all_gather_object(list(hd.owned_tasks))
+    everyone = [t for o in owned for t in o]
+    remote = set(hd.remote_tasks)
+    # What this rank read of remote tasks: partition p of each remote
+    # producer for each consumer shard p it owns, and every remote
+    # result shard (its scan).
+    mine = [t for t in hd.owned_tasks if "reduce" in t]
+    expect = {(t, int(c.rsplit(":", 1)[1])) for c in mine
+              for t in remote if "reduce" not in t}
+    expect |= {(t, 0) for t in remote if "reduce" in t}
+    report.update(
+        wordcount_ok=got == dict(want),
+        host_tasks=len(everyone), owned=len(hd.owned_tasks),
+        remote=len(remote), fetched=len(hd.fetched),
+        once_ok=(len(everyone) == len(set(everyone))
+                 and set(everyone) == set(hd.owned_tasks) | remote),
+        fetched_ok=set(hd.fetched) == expect)
+    # (c) attention over the ranks.
+    lo, hi = rank * seq // n, (rank + 1) * seq // n
+    report["attend"] = {}
+    for name, fn in attends.items():
+        ex = sess.executor
+        t0 = time.perf_counter()
+        res = sess.run(fn, n)
+        out = np.concatenate([to_numpy(f.cols[0])
+                              for shard in range(n)
+                              for f in res.reader(shard, ())])
+        wall = time.perf_counter() - t0
+        if rank == 0:
+            np.save(os.path.join(args.out, f"attend-{name}.npy"), out)
+        att = fn.invocation(n).invoke()
+        staged = StagedInput(
+            [torch.from_numpy(c[lo:hi]).to(mesh.device) for c in (q, k, v)],
+            torch.tensor([hi - lo], dtype=torch.int32, device=mesh.device),
+            hi - lo, False, None)
+        times = []
+        with meshutil.active(mesh):
+            for i in range(4):
+                mesh.barrier()
+                times.append(_stage_ms(
+                    mesh.device, lambda: ex._attend("phase33", att, staged)))
+        times = times[1:]  # the first is a warm-up
+        report["attend"][name] = {
+            "wall_s": wall, "stage_ms": float(np.median(times)),
+            "method": ex.attend_methods.get("phase33")}
+    report["collectives"] = dict(mesh.collectives)
+    report["ok"] = bool(report["wordcount_ok"] and report["once_ok"]
+                        and report["fetched_ok"]
+                        and "jax" not in sys.modules
+                        and "bigslice_tpu" not in sys.modules)
+    _report(args.out, rank, report)
+    mesh.barrier()
+    sess.shutdown()
+    distributed.shutdown()
+    return 0 if report["ok"] else 1
+
+
 def _worker(args) -> int:
     import torch
 
@@ -301,6 +594,10 @@ def _worker(args) -> int:
         return 1
     if args.mode == "nccl1":
         return _nccl_one_rank(args, report)
+    if args.mode == "hier":
+        return _hier_mode(args, rank, n, report)
+    if args.mode == "plane":
+        return _plane_mode(args, rank, n, report)
     distributed.initialize(device=args.device, backend=args.backend)
     mesh = distributed.global_mesh()
     from bigslice_tpu_torch.ops import func as func_mod
@@ -321,10 +618,17 @@ def _worker(args) -> int:
         return _infra(args, mesh, rank, report)
     report.update(_kmeans_check(mesh, rank, n, args))
     report.update(_reduce_check(mesh, args))
+    host_ok = True
+    if n > 1:
+        report.update(_hostdist_check(mesh))
+        host_ok = (report["hostdist_rows_ok"]
+                   and report["hostdist_split_ok"]
+                   and report["hostdist_roots_only"]
+                   and report["hostdist_closed_clean"])
     report["collectives"] = dict(mesh.collectives)
     report["seconds"] = time.perf_counter() - t_start
     report["ok"] = bool(report["kmeans_ok"] and report["reduce_rows_ok"]
-                        and report["reduce_placed_ok"]
+                        and report["reduce_placed_ok"] and host_ok
                         and not report["jax_loaded"]
                         and not report["bigslice_tpu_loaded"])
     _report(args.out, rank, report)
@@ -458,7 +762,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--worker", action="store_true")
     ap.add_argument("--mode", default="smoke",
                     choices=("smoke", "wedge", "fail", "infra", "registry",
-                             "nccl1"))
+                             "nccl1", "hier", "plane"))
     ap.add_argument("--device", default=None, help="cpu (default: cuda)")
     ap.add_argument("--backend", default=None,
                     help="gloo or nccl (default: by the device); ranks "
@@ -477,6 +781,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--threads", type=int, default=1)
     ap.add_argument("--deadline", type=float, default=300.0)
+    ap.add_argument("--fleet-dir", default=None,
+                    help="hier: the fleet export's directory")
+    ap.add_argument("--corpus", default=None,
+                    help="plane: the word count's text file")
+    ap.add_argument("--att", default=None,
+                    help="plane: an .npz of the q, k, v columns")
     return ap
 
 

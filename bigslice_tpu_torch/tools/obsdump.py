@@ -13,14 +13,17 @@ key space (the shuffle boundary's rows a partition), with K1 routing
 every row and K2 combining on the map side; the summary's ``device``
 section lists their launches.
 
-``--fleet STORE_URL``, the JAX package's offline fleet merge, raises
-``ObservabilityNotPorted``, as ``Session.telemetry_summary(scope=
-"fleet")`` does: the fleet plane (``utils/fleettelemetry.py``) is not
-ported yet.
+``--fleet STORE_URL`` is the offline fleet merge: instead of running a
+workload it reads every rank's exported snapshot
+(``telemetry-rank*.json``, written by ``Session(fleet_dir=)``) from the
+store and merges them into one ``scope="fleet"`` summary, the document
+rank 0 serves at ``/debug/fleet`` (``utils/fleettelemetry.py``).
 
 Usage:
     python -m bigslice_tpu_torch.tools.obsdump --trace TRACE.json \\
         --summary SUMMARY.json [--rows N] [--device cuda|cpu]
+    python -m bigslice_tpu_torch.tools.obsdump --fleet STORE_URL \\
+        [--summary FLEET.json]
 """
 
 from __future__ import annotations
@@ -65,12 +68,18 @@ def run_workload(trace_path: str, rows: int = 1 << 16,
 
 
 def fleet_merge(store_url: str) -> dict:
-    """The offline fleet merge: not ported; raises by name."""
-    from bigslice_tpu_torch.exec.session import ObservabilityNotPorted
+    """Read every rank's exported snapshot from the store and merge them
+    into the ``scope="fleet"`` summary (the offline counterpart of rank
+    0's live merge)."""
+    from bigslice_tpu_torch.utils import fleettelemetry as fleet_mod
 
-    raise ObservabilityNotPorted(
-        f"obsdump --fleet {store_url}: the fleet merge "
-        f"(utils/fleettelemetry.py) is not ported yet")
+    snaps = fleet_mod.load_snapshots(store_url)
+    if not snaps:
+        raise SystemExit(
+            f"obsdump: no telemetry-rank*.json snapshots under "
+            f"{store_url!r} (was the session run with "
+            f"BIGSLICE_FLEET_DIR?)")
+    return fleet_mod.merge_snapshots(snaps)
 
 
 def main(argv=None) -> int:
@@ -84,12 +93,24 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="the device executor's device (cpu in tests)")
     ap.add_argument("--fleet", metavar="STORE_URL",
-                    help="offline fleet merge (not ported: raises)")
+                    help="offline mode: read and merge every rank's "
+                         "exported snapshot from this store URL instead "
+                         "of running a workload")
     args = ap.parse_args(argv)
     if args.fleet:
-        fleet_merge(args.fleet)
+        doc = fleet_merge(args.fleet)
+        text = json.dumps(doc, indent=2, sort_keys=True)
+        if args.summary:
+            with open(args.summary, "w") as fp:
+                fp.write(text + "\n")
+            print(f"obsdump: fleet summary ({len(doc.get('ranks', []))}"
+                  f" ranks) -> {args.summary}", file=sys.stderr)
+        else:
+            print(text)
+        return 0
     if not args.trace or not args.summary:
-        ap.error("--trace and --summary are required")
+        ap.error("--trace and --summary are required "
+                 "(unless --fleet is given)")
     summary = run_workload(args.trace, rows=args.rows, device=args.device)
     with open(args.summary, "w") as fp:
         json.dump(summary, fp, indent=2, sort_keys=True, default=str)

@@ -18,9 +18,8 @@ port, ``session.debug.port`` says which). Its routes (reference
 - ``/debug/profile?seconds=N``: a ``torch.profiler`` window of the live
   process (``utils/xprof.py``); a second window while one is live
   gets 409;
-- ``/debug/fleet``: the cross-rank merge. It is not ported (the fleet
-  plane waits for the multi-process port), so it answers 501 and names
-  what is missing, for ``?format=json`` and ``?format=prom`` alike.
+- ``/debug/fleet``: the cross-rank merge (``utils/fleettelemetry.py``),
+  json, or rank-labelled Prometheus series with ``?format=prom``.
 
 The request plumbing (a threaded server, GET/POST dispatch through an
 overridable route method, a bounded body read, in-flight tracking with
@@ -144,7 +143,8 @@ class DebugServer:
             "/debug/trace   chrome trace (json)",
             "/debug/resources  device memory/RSS/combiner gauges (json)",
             "/debug/metrics  telemetry in Prometheus text format",
-            "/debug/fleet   cross-rank merged telemetry (501: not ported)",
+            "/debug/fleet   cross-rank merged telemetry (json;"
+            " ?format=prom for rank-labelled series)",
             "/debug/device  device plane: kernel launches, declared"
             " bytes and operations, HBM, donation (json)",
             "/debug/profile?seconds=N  windowed torch.profiler trace of"
@@ -173,7 +173,7 @@ class DebugServer:
             text = hub.prometheus_text() if hub else ""
             handler._send(200, "text/plain; version=0.0.4", text)
         elif path == "/debug/fleet":
-            self._fleet(handler)
+            self._fleet(handler, parse_qs(parsed.query))
         elif path == "/debug/device":
             hub = getattr(session, "telemetry", None)
             dev = getattr(hub, "device", None)
@@ -193,19 +193,38 @@ class DebugServer:
         """No POST routes on the debug surface."""
         return False
 
-    def _fleet(self, handler):
-        """The fleet scrape surface (reference :198-231). The reference
-        answers an empty document where its summary raises; here the
-        summary's refusal (``ObservabilityNotPorted``) is the answer: 501
-        with its message, for ``?format=json`` and ``?format=prom``
-        alike (the rank-labelled text needs the same merge), never an
-        empty 200."""
-        from bigslice_tpu_torch.exec.session import ObservabilityNotPorted
+    def _fleet(self, handler, query):
+        """The fleet's scrape surface (reference :199-231): the
+        cross-rank merged summary (json), or rank-labelled
+        ``bigslice_*{rank=}`` Prometheus series with ``?format=prom``.
+        Without a fleet exporter it is this process's own fleet of one:
+        the endpoint's shape never depends on the deployment. A merge
+        that fails answers 500 with its error."""
+        session = self.session
+        fmt = (query.get("format") or ["json"])[0]
+        if fmt in ("prom", "prometheus"):
+            from bigslice_tpu_torch.utils import fleettelemetry as fleet_mod
 
+            fleet = getattr(session, "fleet", None)
+            hub = getattr(session, "telemetry", None)
+            try:
+                if fleet is not None:
+                    snaps = fleet.pull()
+                elif hub is not None:
+                    snaps = [hub.snapshot()]
+                else:
+                    snaps = []
+                text = fleet_mod.prometheus_fleet_text(snaps)
+            except Exception as e:  # noqa: BLE001 — reported, not raised
+                handler._send(500, "text/plain",
+                              f"fleet scrape failed: {e!r}\n")
+                return
+            handler._send(200, "text/plain; version=0.0.4", text)
+            return
         try:
-            doc = self.session.telemetry_summary(scope="fleet")
-        except ObservabilityNotPorted as e:
-            handler._send(501, "text/plain", f"{e}\n")
+            doc = session.telemetry_summary(scope="fleet")
+        except Exception as e:  # noqa: BLE001 — reported, not raised
+            handler._send(500, "text/plain", f"fleet merge failed: {e!r}\n")
             return
         handler._send_json(200, doc)
 

@@ -112,6 +112,12 @@ class _OpDeviceRecord:
         self.exchange_messages = 0
         self.exchange_bytes = 0
         self.exchange_backend: Optional[str] = None
+        # the part of them on a 2-D mesh's DCN stage, and what one flat
+        # exchange over the same grid would have sent across it
+        self.dcn_messages = 0
+        self.dcn_bytes = 0
+        self.flat_dcn_messages = 0
+        self.flat_dcn_bytes = 0
         # shuffle-plan attribution (exec/shuffleplan.py)
         self.plan_counts: Dict[str, int] = {}
         self.plan_reason = ""
@@ -358,16 +364,26 @@ class DeviceTelemetry:
     def record_exchange(self, op: str, inv: Optional[int],
                         wave: Optional[int], messages: int = 0,
                         nbytes: int = 0,
-                        backend: Optional[str] = None) -> None:
+                        backend: Optional[str] = None,
+                        dcn_messages: int = 0, dcn_bytes: int = 0,
+                        flat_dcn_messages: int = 0,
+                        flat_dcn_bytes: int = 0) -> None:
         """One wave's exchange: buckets and their bytes (bucket
         capacity times row bytes, valid rows or padding), and the
         process group's backend that moved them (None on one slot, where
-        the exchange is the identity seam and every byte stays local)."""
+        the exchange is the identity seam and every byte stays local).
+        On a 2-D mesh ``dcn_*`` is the part of them its DCN stage moved
+        (the rest rode ICI), and ``flat_dcn_*`` what one flat exchange
+        over the same grid would have sent across DCN."""
         with self._lock:
             rec = self._op(op, inv)
             rec.exchange_waves += 1
             rec.exchange_messages += max(0, int(messages))
             rec.exchange_bytes += max(0, int(nbytes))
+            rec.dcn_messages += max(0, int(dcn_messages))
+            rec.dcn_bytes += max(0, int(dcn_bytes))
+            rec.flat_dcn_messages += max(0, int(flat_dcn_messages))
+            rec.flat_dcn_bytes += max(0, int(flat_dcn_bytes))
             if backend is not None:
                 rec.exchange_backend = backend
         self._emit("bigslice:exchange", op=op, inv=inv, wave=wave,
@@ -427,6 +443,54 @@ class DeviceTelemetry:
                     f" peak {100.0 * peak / limit:.0f}%{tail})")
         return (f"  device mem {mb:.0f}MB in use (no allocator "
                 f"limit{tail})")
+
+    def snapshot(self) -> dict:
+        """The device plane's mergeable snapshot (the ``device`` section
+        of ``TelemetryHub.snapshot()``, reference
+        utils/devicetelemetry.py:869): flat per-op counters that add
+        across ranks, under the JAX package's names (``compiles``,
+        ``cache_hits`` and ``cross_session_hits`` count this package's
+        wave programs built, found in the session's table and in the
+        process-wide tier; ``compile_s`` their build seconds; ``flops``
+        and ``bytes_accessed`` the kernels' declared work), and the HBM
+        watermark, which merges by max."""
+        with self._lock:
+            ops: Dict[str, dict] = {}
+            for op, rec in self._ops.items():
+                progs = list(rec.programs.values())
+                ops[op] = {
+                    "inv": rec.inv,
+                    "compiles": int(sum(p[0] for p in progs)),
+                    "cache_hits": int(sum(p[1] + p[2] for p in progs)),
+                    "cross_session_hits": int(sum(p[2] for p in progs)),
+                    "fallbacks": 0,
+                    "compile_s": float(sum(p[3] for p in progs)),
+                    "flops": rec.flops,
+                    "bytes_accessed": rec.bytes_accessed,
+                    "donation_expected_bytes": rec.donation_expected_bytes,
+                    "donation_aliased_bytes": rec.donation_aliased_bytes,
+                    "donation_buffers": rec.donation_buffers,
+                    "donation_aliased_buffers":
+                        rec.donation_aliased_buffers,
+                    "exchange_waves": rec.exchange_waves,
+                    "dcn_messages": rec.dcn_messages,
+                    "dcn_bytes": rec.dcn_bytes,
+                    "ici_messages": rec.exchange_messages - rec.dcn_messages,
+                    "ici_bytes": rec.exchange_bytes - rec.dcn_bytes,
+                    "flat_dcn_messages": rec.flat_dcn_messages,
+                    "flat_dcn_bytes": rec.flat_dcn_bytes,
+                    "plan_counts": dict(rec.plan_counts),
+                    "spill_bytes": rec.spill_bytes,
+                    "spill_rows": rec.spill_rows,
+                    "spill_partitions": rec.spill_partitions,
+                }
+            hbm: dict = {"peak_bytes": self._hbm_peak_bytes,
+                         "samples": len(self._hbm)}
+            if self._hbm_limit_bytes:
+                hbm["limit_bytes"] = self._hbm_limit_bytes
+            if self._hbm_source:
+                hbm["source"] = self._hbm_source
+        return {"ops": ops, "hbm": hbm}
 
     def summary(self) -> dict:
         """The ``telemetry_summary()["device"]`` payload."""

@@ -22,6 +22,8 @@ one GPU).
   (c10d ``TCPStore``); a peer whose beat has not advanced for
   ``timeout`` seconds of local time is lost, and ``check()`` raises
   ``PeerLostError`` (the executor calls it before every group).
+- ``default_mesh_provider``: the elastic session's mesh discovery, in
+  one process.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["Keepalive", "PeerLostError", "get_keepalive", "global_mesh",
+__all__ = ["Keepalive", "PeerLostError", "check_injected_peer_loss",
+           "default_mesh_provider", "get_keepalive", "global_mesh",
            "initialize", "is_coordinator", "local_device", "process_count",
            "process_index", "shutdown"]
 
@@ -145,18 +148,26 @@ def is_coordinator() -> bool:
 def global_mesh():
     """The mesh over every rank of the group (one slot a rank), built
     once a process; the one-slot mesh on this process's device when no
-    group is formed."""
+    group is formed. ``BIGSLICE_MESH_SHAPE=DxI`` makes it the 2-D DCN ×
+    ICI grid of the same ranks (rank ``g * I + i`` at ``(g, i)``); a
+    shape that does not cover the ranks raises ``ValueError``."""
     global _mesh
     from bigslice_tpu_torch.parallel import meshutil
 
-    meshutil.check_mesh_shape()  # a 2-D shape raises by name
+    shape = meshutil.mesh_shape_from_env()  # a malformed value raises
+    if shape is not None and shape[0] * shape[1] != process_count():
+        raise ValueError(
+            f"BIGSLICE_MESH_SHAPE={shape[0]}x{shape[1]}: the mesh shape "
+            f"does not cover {process_count()} rank(s)")
     with _lock:
         if _mesh is None:
             if is_initialized():
                 _mesh = meshutil.Mesh(_dist().group.WORLD,
-                                      device=_device or local_device())
+                                      device=_device or local_device(),
+                                      shape=shape)
             else:
-                _mesh = meshutil.Mesh(None, device=local_device())
+                _mesh = meshutil.Mesh(None, device=local_device(),
+                                      shape=shape)
         return _mesh
 
 
@@ -258,13 +269,77 @@ class Keepalive:
         """[(rank, seconds since its beat last advanced)], sticky."""
         return list(self._lost)
 
+    def age(self, pid: int) -> Optional[float]:
+        """Seconds since ``pid``'s beat last advanced, or None before its
+        first observed beat (the host-task exchange's liveness signal)."""
+        seen = self._seen.get(pid)
+        return None if seen is None else time.monotonic() - seen[1]
+
     def check(self) -> None:
-        """Raise ``PeerLostError`` if a peer's beat has gone stale."""
+        """Raise ``PeerLostError`` if a peer's beat has gone stale, or if
+        the chaos plane's ``peer.lost`` site fires (the stale-beat
+        verdict without the wedge, reference utils/distributed.py:
+        203-210)."""
+        check_injected_peer_loss()
         if not self._lost:
             return
         desc = ", ".join(f"rank {p} silent {a:.1f}s" for p, a in self._lost)
         raise PeerLostError(
             f"keepalive: {desc} (timeout {self.timeout:.1f}s)")
+
+
+def check_injected_peer_loss() -> None:
+    """Fire the chaos plane's ``peer.lost`` site: raise its
+    ``PeerLostError`` when it fires. The executor calls it before every
+    group in one process too, where no keepalive beats."""
+    from bigslice_tpu_torch.utils import faultinject
+
+    if faultinject.ENABLED:
+        f = faultinject.fire("peer.lost")
+        if f is not None:
+            raise faultinject.injected_error(f)
+
+
+def default_mesh_provider(probe_timeout: float = 5.0):
+    """The elastic session's built-in mesh discovery (reference
+    utils/distributed.py:252): each call probes this process's device
+    with a tiny copy and add, bounded by ``probe_timeout`` in a worker
+    thread (a wedged card must not hang recovery), and returns the
+    one-slot mesh of the device when it answers, else None (the session
+    then re-raises the gang loss).
+
+    One process only: over ranks the device health can differ by rank,
+    and a mesh chosen by one rank alone would wedge the group, so the
+    provider returns None there and the session re-raises (the
+    reference's own scope: "multi-process needs a coordinated platform
+    provider")."""
+
+    def provide():
+        from bigslice_tpu_torch.parallel import meshutil
+
+        if process_count() > 1:
+            return None
+        dev = _device or local_device(
+            None if torch.cuda.is_available() else "cpu")
+        ok = []
+
+        def probe():
+            try:
+                x = torch.ones((), device=dev)
+                (x + 1).item()
+                ok.append(True)
+            except Exception:  # noqa: BLE001 — a sick device
+                pass
+
+        t = threading.Thread(target=probe, daemon=True,
+                             name="bigslice-mesh-probe")
+        t.start()
+        t.join(probe_timeout)
+        if not ok:
+            return None
+        return meshutil.Mesh(None, device=dev)
+
+    return provide
 
 
 def get_keepalive() -> Keepalive:

@@ -42,10 +42,12 @@ the telemetry hub attributes the recovery it then observes (LOST → ...
 raising (``codec.read``) surface through the codec's own
 ``CorruptionError`` → quarantine → ``Missing`` path.
 
-``peer.lost`` and the ``hostloss`` kind name the multi-host plane,
-which this package has not: their faults raise ``InjectedLoss`` (the
-device executor surfaces ``hostloss`` as ``HostLostError``), so a spec
-the JAX package accepts parses here too.
+``peer.lost`` and the ``hostloss`` kind name the multi-host plane:
+their faults raise ``PeerLostError`` (``utils/distributed.py``), the
+gang-loss class an elastic session recovers from. ``peer.lost`` fires
+where the keepalive is checked, before every device group (in one
+process too); the device executor surfaces ``hostloss`` as
+``HostLostError``.
 """
 
 from __future__ import annotations
@@ -103,12 +105,12 @@ _site("spill.read", ("lose",),
 _site("mesh.dispatch", ("infra", "hostloss", "slow"),
       "the device executor's group dispatch: 'infra' = a device-runtime "
       "failure, the CUDA out-of-memory class (probation -> host-tier "
-      "resubmit); 'hostloss' = a lost host (HostLostError, raised by "
-      "name: no elastic mesh recovery here); 'slow' = a seeded "
+      "resubmit); 'hostloss' = a lost host (HostLostError -> elastic "
+      "mesh recovery); 'slow' = a seeded "
       "deterministic pre-dispatch delay (a reproducible straggler)")
 _site("peer.lost", ("lost",),
-      "a peer's keepalive judged stale: the multi-host plane's seam, "
-      "registered so that specs parse; nothing here fires it")
+      "Keepalive.check, before every device group: a peer's beat "
+      "judged stale -> PeerLostError -> elastic mesh recovery")
 _site("eval.resubmit", ("lose",),
       "evaluator _submit: the submission is lost in flight (task marked "
       "LOST; the evaluator's ladder resubmits, bounded by "
@@ -181,8 +183,9 @@ def injected_error(fault: Fault) -> BaseException:
             f"({fault.describe()})"
         ), fault)
     if fault.kind in ("hostloss", "lost"):
-        # No multi-host plane here: a peer loss is a loss.
-        return _mark(InjectedLoss(
+        from bigslice_tpu_torch.utils.distributed import PeerLostError
+
+        return _mark(PeerLostError(
             f"injected peer loss ({fault.describe()})"
         ), fault)
     return _mark(InjectedLoss(

@@ -96,6 +96,20 @@ def _escape_label(v: str) -> str:
             .replace("\n", "\\n"))
 
 
+def _process_rank() -> Optional[int]:
+    """The rank tag of per-process artifacts: this process's rank over
+    more than one rank, else None (one process's artifact names stay as
+    they were)."""
+    try:
+        from bigslice_tpu_torch.utils import distributed
+
+        if distributed.process_count() > 1:
+            return distributed.process_index()
+    except Exception:  # noqa: BLE001
+        pass
+    return None
+
+
 class _OpRecord:
     """Per-op accumulation (one instance per distinct op name; iterative
     drivers re-invoke under fresh ``#N``-suffixed names, so an op key is
@@ -447,6 +461,11 @@ class TelemetryHub:
 
             os.makedirs(dirname, exist_ok=True)
             stem = f"flightrec-{inv if inv is not None else 'session'}"
+            rank = doc.get("rank")
+            if rank is not None:
+                # Over ranks each rank dumps its own ring (the directory
+                # may be shared): the rank suffix keeps them apart.
+                stem += f"-rank{rank}"
             path = os.path.join(dirname, stem + ".json")
             with open(path, "w") as fp:
                 json.dump(doc, fp, indent=1, default=str)
@@ -479,6 +498,9 @@ class TelemetryHub:
             "task_states": states,
             "events": events,
         }
+        rank = _process_rank()
+        if rank is not None:
+            doc["rank"] = rank
         plan = faultinject.active_plan()
         if plan is not None:
             doc["chaos"] = plan.snapshot()
@@ -500,18 +522,32 @@ class TelemetryHub:
     # -- executor seams ---------------------------------------------------
 
     def record_shuffle(self, op: str, inv: Optional[int],
-                       rows, nbytes=None) -> None:
+                       rows, nbytes=None, indices=None,
+                       rank: Optional[int] = None) -> None:
         """One producer's (or one whole group's) per-partition sizes at
         a shuffle boundary. Contributions accumulate elementwise per op,
         so per-producer local-tier calls and whole-group device calls
-        land in the same per-op partition-size vector."""
+        land in the same per-op partition-size vector.
+
+        ``indices`` places them at explicit global partitions (over
+        ranks each rank reports the partitions its slot holds), and only
+        those entries are observed by the size histogram, so that the
+        fleet merge of the ranks' snapshots is the one-process vector
+        and histogram; a malformed ``indices`` drops the call. ``rank``
+        tags the event."""
         rows = [max(0, int(r)) for r in rows]
         if not rows:
             return
         if nbytes is None:
             nbytes = [0] * len(rows)
         nbytes = [max(0, int(b)) for b in nbytes][:len(rows)]
-        top = len(rows)
+        if indices is not None:
+            indices = [int(i) for i in indices]
+            if len(indices) != len(rows) or any(i < 0 for i in indices):
+                return
+            top = max(indices) + 1
+        else:
+            top = len(rows)
         with self._lock:
             rec = self._op(op, inv)
             if len(rec.part_rows) < top:
@@ -520,9 +556,10 @@ class TelemetryHub:
                 rec.part_bytes.extend(
                     [0] * (top - len(rec.part_bytes)))
             for i, r in enumerate(rows):
-                rec.part_rows[i] += r
+                rec.part_rows[indices[i] if indices is not None else i] += r
             for i, b in enumerate(nbytes):
-                rec.part_bytes[i] += b
+                rec.part_bytes[indices[i] if indices is not None
+                               else i] += b
             rec.shuffle_boundaries += 1
             for r in rows:  # the histogram observes per-partition sizes
                 for bi, le in enumerate(ROWS_BUCKETS):
@@ -545,9 +582,12 @@ class TelemetryHub:
             rec.skew_flagged = rec.skew_flagged or flagged
         # The accumulated vector's values (this call's contribution
         # folded in), so the last event of an op reads its final state.
+        placed = {} if indices is None else {
+            "indices": indices if len(indices) <= 64 else None,
+            "rank": rank}
         self._emit(
             "bigslice:shuffleSizes", op=op, inv=inv,
-            rows=rows if len(rows) <= 64 else None,
+            rows=rows if len(rows) <= 64 else None, **placed,
             total_rows=total, max_rows=max_rows, median_rows=median,
             ratio=round(ratio, 3), max_shard=max_shard,
             flagged=flagged,
@@ -833,6 +873,74 @@ class TelemetryHub:
                 except Exception:
                     out[name] = {}
         return out
+
+    def snapshot(self, rank: Optional[int] = None,
+                 nranks: Optional[int] = None) -> dict:
+        """This process's telemetry as a serializable, rank-tagged,
+        *mergeable* snapshot — the fleet plane's exchange format
+        (utils/fleettelemetry.py). Unlike ``summary()`` (rendered for
+        humans, quantiles from raw sample lists), every field here
+        merges losslessly across ranks: counters add, per-partition
+        vectors add elementwise, maxima take max, and task/recovery
+        durations ride fixed-bin histograms
+        (``fleettelemetry.DUR_BUCKETS_S``) whose merged quantiles are
+        within one bin of the raw-sample values."""
+        from bigslice_tpu_torch.utils import fleettelemetry as fleet_mod
+
+        if rank is None:
+            rank = fleet_mod.process_rank()
+        if nranks is None:
+            nranks = fleet_mod.process_count()
+        with self._lock:
+            ops: Dict[str, dict] = {}
+            for op, rec in self._ops.items():
+                ops[op] = {
+                    "inv": rec.inv,
+                    "durations": fleet_mod.duration_hist(
+                        rec.durations),
+                    "stragglers": list(rec.stragglers)[:16],
+                    "part_rows": list(rec.part_rows),
+                    "part_bytes": list(rec.part_bytes),
+                    "boundaries": rec.shuffle_boundaries,
+                    "rows_hist": list(rec.rows_hist),
+                    "rows_hist_sum": rec.rows_hist_sum,
+                    "rows_hist_count": rec.rows_hist_count,
+                    "staging_s": rec.staging_s,
+                    "exposed_s": rec.exposed_s,
+                    "compute_s": rec.compute_s,
+                    "staged_waves": rec.staged_waves,
+                    "max_wave": rec.max_wave,
+                    "phase_counts": dict(rec.phase_counts),
+                    "stage_phases": dict(rec.stage_phases),
+                }
+            states: Dict[str, int] = {}
+            for (_, st), n in self._state_counts.items():
+                states[st] = states.get(st, 0) + n
+            recovery = {
+                "recovered": dict(self._recovered),
+                "fatal": dict(self._recovery_fatal),
+                "pending": len(self._recovery_pending),
+                "latency": fleet_mod.duration_hist(
+                    [v for ls in self._recovery_lat.values()
+                     for v in ls]
+                ),
+            }
+            drain_timeouts = self._drain_timeouts
+        doc = {
+            "schema": fleet_mod.SNAPSHOT_SCHEMA,
+            "rank": int(rank),
+            "nranks": int(nranks),
+            "ts": time.time(),
+            "ops": ops,
+            "task_states": states,
+            "recovery": recovery,
+            "drain_timeouts": drain_timeouts,
+        }
+        try:
+            doc["device"] = self.device.snapshot()
+        except Exception:  # telemetry must never break the run
+            doc["device"] = {}
+        return doc
 
     @staticmethod
     def _lat_stats(lats: List[float]) -> dict:

@@ -201,8 +201,9 @@ at once.
 Phase 29 drives the operator plane at reduce-wave's shape (2**25 rows
 over 2**20 keys, S = 4, ``auto_dense=False``): (a) ``debug-server``,
 a run through ``Session(debug_port=0, trace_path=...)`` with every
-route polled while it is live and after it (each 200, ``/debug/fleet``
-501), ``/debug/device``'s launches against the hub's and ``LAUNCHES``,
+route polled while it is live and after it (each 200; ``/debug/fleet``
+the fleet merge of this one process in either format),
+``/debug/device``'s launches against the hub's and ``LAUNCHES``,
 every ``/debug/metrics`` line parsed, ``/debug/profile?seconds=0.5``
 around a run holding K1's and K2's kernel events while a second window
 gets 409, alternating pairs of the run with and without a client
@@ -276,12 +277,26 @@ Phase 32 drives the device executor over 2 ``torch.distributed`` ranks
 that share the card over gloo, started fresh by the port's launcher
 (``tools/multihost_smoke.py``): (a) reduce-wave at full width (2**25
 rows over 2**20 keys) at S = 8 shards, 4 waves a rank, once counted and
-three times warm, every row against numpy and in the shard K1 names, K1
+once warm, every row against numpy and in the shard K1 names, K1
 and K2 launched on each rank (their sums in the kernels line), the
 backend, the exchange's transport and bytes and each rank's walls
 printed, and the mesh k-means step at phase 27e's shape against one
 rank's; (b) one NCCL rank through the exchange seam's own path; (c) a
 wedged rank caught by its peer's keepalive.
+
+Phase 33 drives the rest of the multi-process plane: (a) reduce-wave at
+full width on 4 ranks sharing the card as a 2x2 DCN x ICI grid
+(``BIGSLICE_MESH_SHAPE=2x2``, the two-stage exchange of
+``parallel/hier.py``) at S = 16, and on the flat mesh of the same ranks,
+every shard's rows against numpy and equal between the two, each
+stage's bytes and host seconds printed; (b) phase 17's word count on 2
+ranks through the host-task exchange (``exec/hostdist.py``), each host
+task run once; (c) SelfAttend at phase 31a's shape over 2 ranks, the
+ring's K/V rotation and Ulysses' all_to_alls, fp32 and bf16, against
+the float64 oracle; (d) (a)'s fleet telemetry merged on rank 0 against
+the ranks' own snapshots; (e) an elastic session recovering from an
+injected ``peer.lost``; (f) the sm_90a build check of every source
+(``tools/aotcheck.py``).
 
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
@@ -314,13 +329,13 @@ if __name__ != "__mp_main__":
 #: H100 SXM device-memory rate (NVIDIA data sheet), for byte bounds.
 HBM_BYTES_PER_S = 3.35e12
 #: Warm runs of each phase-3 Reduce and of every path driven like it;
-#: the wall reported is their median. Three (was five) and the host
-#: paths' two (was three) keep the script, phase 32 included, inside
-#: its time limit.
+#: the wall reported is their median. Three (was five), the host paths'
+#: one (was three, then two) and phase 32a's one (was three) keep the
+#: script, phases 32 and 33 included, inside its time limit.
 WARM_RUNS = 3
 #: Warm runs of the host-tier word-count and urls paths (phases 17,
 #: 22-24), seconds each: fewer still.
-HOST_WARM_RUNS = 2
+HOST_WARM_RUNS = 1
 
 REPLACES = {
     "hash_partition": "bigslice_tpu/parallel/pallas_kernels.py:176",
@@ -4815,13 +4830,12 @@ _PROM_SAMPLE_RE = re.compile(
     r"(,[a-zA-Z_][a-zA-Z0-9_]*=\"(?:[^\"\\]|\\.)*\")*\})?"
     r" [-+]?([0-9]*\.?[0-9]+([eE][-+]?[0-9]+)?|Inf|NaN)$"
 )
-#: Phase 29a: every route of the debug server and the status it answers
-#: (the fleet merge is not ported: 501 in either format).
+#: Phase 29a: every route of the debug server and the status it answers.
 DEBUG_ROUTES = {
     "/debug": 200, "/debug/status": 200, "/debug/tasks": 200,
     "/debug/trace": 200, "/debug/resources": 200, "/debug/metrics": 200,
-    "/debug/device": 200, "/debug/fleet": 501,
-    "/debug/fleet?format=prom": 501,
+    "/debug/device": 200, "/debug/fleet": 200,
+    "/debug/fleet?format=prom": 200,
 }
 #: Phase 29a: alternating pairs of the hub-on run with and without a
 #: client polling the debug server.
@@ -4930,9 +4944,12 @@ def phase29a_debug_server(card: str, out_dir: str) -> dict:
         if live[path] != {want} or after[path][0] != want:
             raise AssertionError(f"29a: {path} answered {live[path]} live, "
                                  f"{after[path][0]} after, not {want}")
-    if "fleet" not in after["/debug/fleet"][1]:
-        raise AssertionError(f"29a: /debug/fleet's 501 does not name the "
-                             f"fleet merge: {after['/debug/fleet'][1]!r}")
+    fleet = json.loads(after["/debug/fleet"][1])
+    if (fleet.get("scope") != "fleet" or fleet.get("ranks") != [0]
+            or "bigslice_fleet_ranks 1" not in
+            after["/debug/fleet?format=prom"][1]):
+        raise AssertionError(f"29a: /debug/fleet is not this process's "
+                             f"fleet merge: {after['/debug/fleet'][1][:200]!r}")
     device = json.loads(after["/debug/device"][1])
     served = {name: 0 for name in PATH_KERNELS}
     for per_kernel in device["kernels"].values():
@@ -6339,7 +6356,8 @@ def _spmd_reports(out: str, n: int) -> list:
     return reports
 
 
-def _spmd_launch(n: int, out: str, args: list, env=None):
+def _spmd_launch(n: int, out: str, args: list, env=None,
+                 phase: str = "32"):
     """``multihost_smoke``'s ranks (the port's launcher): fresh
     processes, never forked from this one, which holds a CUDA context."""
     from bigslice_tpu_torch.tools import multihost_smoke as ms
@@ -6350,7 +6368,7 @@ def _spmd_launch(n: int, out: str, args: list, env=None):
     res = ms.launch(n, cmd, deadline_s=SPMD_DEADLINE_S, env=env)
     if res.rc != 0:
         raise AssertionError(
-            f"phase 32: {n} rank(s) {args[:2]} exit {res.rcs} after "
+            f"phase {phase}: {n} rank(s) {args[:2]} exit {res.rcs} after "
             f"{res.seconds:.1f} s (timed out {res.timed_out}); stderr "
             f"tails: {[e[-2000:] for e in res.stderr]}")
     return res, _spmd_reports(out, n)
@@ -6364,7 +6382,7 @@ def phase32_spmd(card: str) -> dict:
     ``MeshExecutor(mesh=global_mesh(), auto_dense=False)``
     on both ranks over gloo (the card's tensors handed to gloo, which
     stages them through the host): one
-    counted run and three warm ones (median wall), every shard's rows
+    counted run and one warm one, every shard's rows
     against numpy and every row in the shard the plain K1 names, K1 and
     K2 launched on each rank, the registry digest equal on both; the
     mesh k-means step at phase 27e's shape (2**20 points, d = 128, k =
@@ -6383,7 +6401,7 @@ def phase32_spmd(card: str) -> dict:
     rows, keyspace, S = 1 << 25, 1 << 20, 4 * SPMD_RANKS
     res, reps = _spmd_launch(n, os.path.join(base, "a"), [
         "--backend", "gloo", "--rows", str(rows), "--keyspace",
-        str(keyspace), "--shards", str(S), "--warm", "3", "--points",
+        str(keyspace), "--shards", str(S), "--warm", "1", "--points",
         str(KMEANS_N), "--dim", str(KMEANS_D), "--k", str(KMEANS_K),
         "--threads", str(max(1, (os.cpu_count() or 2) // n))])
     if len(reps) != n:
@@ -6453,6 +6471,250 @@ def phase32_spmd(card: str) -> dict:
                          kmeans_err=[r["kmeans_max_abs_err"] for r in reps],
                          nccl=nccl["checks"], wedge_detect_s=w0["detect_s"],
                          seconds=secs)}
+
+
+#: Phase 33a's grid: 4 ranks sharing the card as BIGSLICE_MESH_SHAPE=2x2.
+HIER_SHAPE, HIER_RANKS, HIER_SHARDS = "2x2", 4, 16
+
+
+def _fleet_check(fleet_dir: str, merged: dict) -> dict:
+    """Phase 33d: rank 0's fleet merge against the ranks' own exported
+    snapshots, summed here independently of ``merge_snapshots``: each
+    op's partition rows and task-duration histogram, the task states,
+    and the device plane's counters."""
+    from bigslice_tpu_torch.utils import fleettelemetry as fleet_mod
+
+    snaps = fleet_mod.load_snapshots(fleet_dir)
+    if sorted(s["rank"] for s in snaps) != list(range(HIER_RANKS)):
+        raise AssertionError(f"phase 33d: snapshots of ranks "
+                             f"{[s['rank'] for s in snaps]}")
+    if merged["ranks"] != list(range(HIER_RANKS)):
+        raise AssertionError(f"phase 33d: merged ranks {merged['ranks']}")
+    states: dict = {}
+    for s in snaps:
+        for k, v in s["task_states"].items():
+            states[k] = states.get(k, 0) + v
+    if merged["task_states"] != states:
+        raise AssertionError(f"phase 33d: task states "
+                             f"{merged['task_states']} against the ranks' "
+                             f"sum {states}")
+    nops = 0
+    for op, entry in merged["ops"].items():
+        rows, buckets, count = [], None, 0
+        for s in snaps:
+            o = s["ops"].get(op)
+            if o is None:
+                continue
+            pr = o["part_rows"]
+            rows += [0] * (len(pr) - len(rows))
+            for i, r in enumerate(pr):
+                rows[i] += r
+            h = o["durations"]
+            buckets = (list(h["buckets"]) if buckets is None
+                       else [a + b for a, b in zip(buckets, h["buckets"])])
+            count += h["count"]
+        if rows and entry["skew"]["rows"] != rows:
+            raise AssertionError(f"phase 33d: {op} rows {entry['skew']}")
+        if count and (entry["tasks"]["hist"]["buckets"] != buckets
+                      or entry["tasks"]["n"] != count):
+            raise AssertionError(f"phase 33d: {op} task histogram")
+        nops += 1
+    totals = merged["device"]["totals"]
+    for key in ("compiles", "dcn_messages", "ici_bytes"):
+        want = sum(o.get(key, 0) for s in snaps
+                   for o in s["device"]["ops"].values())
+        if totals[key] != want:
+            raise AssertionError(f"phase 33d: device {key} {totals[key]} "
+                                 f"against the ranks' sum {want}")
+    return {"ops": nops, "task_states": states,
+            "dcn_messages": totals["dcn_messages"],
+            "dcn_bytes": totals["dcn_bytes"],
+            "ici_bytes": totals["ici_bytes"]}
+
+
+def phase33_plane(card: str) -> dict:
+    """33: the rest of the multi-process plane on the one card, its
+    ranks fresh processes sharing it over gloo. (a) ``hier``: phase 3's
+    reduce-wave at full width (2**25 rows, keys uniform over 2**20 from
+    RandomState(42)) on 4 ranks as ``BIGSLICE_MESH_SHAPE=2x2``,
+    ``auto_dense=False``, S = 16, then on the flat mesh over the same
+    4 ranks, then on the grid again (its first run pays the processes'
+    first-use costs): every shard's rows against numpy and in the shard the plain
+    K1 names, the two layouts' shards equal, K1 and K2 launched on each
+    rank, each stage's bytes and host seconds. (b) ``hostdist``: phase
+    17's word count (2**21 Zipf-like words, str keys) on 2 ranks against
+    collections.Counter, each host task owned by exactly one rank, each
+    rank's fetches exactly the remote partitions it read. (c)
+    ``attend``: SelfAttend at phase 31a's shape (seq 2**13, 2 heads of
+    128, causal) over the 2 ranks through the ring and Ulysses in fp32
+    and bf16, against the float64 oracle at 31a's tolerances, each
+    rank's stage timed. (d) ``fleet``: (a)'s ranks export to a
+    FileStore directory; rank 0's merge equals the ranks' counters and
+    histograms summed. (e) ``elastic``: one process, an injected
+    ``peer.lost`` (seed 0, rate 0.5: the reduce side's dispatch, once)
+    during reduce-wave at S = 8 with ``Session(elastic=1)``: exact rows,
+    the lost group rerun over the salvaged map side. (f) ``aotcheck``:
+    the sm_90a build of every ``csrc/*.cu`` with its registers and
+    shared memory."""
+    import tempfile
+
+    import bigslice_tpu_torch as bs
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.tools import aotcheck
+    from bigslice_tpu_torch.utils import faultinject
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = tempfile.mkdtemp(prefix="chip-plane-")
+    launches = {name: 0 for name in PATH_KERNELS}
+    # (a) and (d): the 2-D mesh against the flat one, and the fleet.
+    rows, keyspace = 1 << 25, 1 << 20
+    fleet_dir = os.path.join(base, "fleet")
+    ta = time.perf_counter()
+    res, reps = _spmd_launch(HIER_RANKS, os.path.join(base, "a"), [
+        "--mode", "hier", "--backend", "gloo", "--rows", str(rows),
+        "--keyspace", str(keyspace), "--shards", str(HIER_SHARDS),
+        "--fleet-dir", fleet_dir, "--threads",
+        str(max(1, (os.cpu_count() or 4) // HIER_RANKS))],
+        env={"BIGSLICE_MESH_SHAPE": HIER_SHAPE}, phase="33a")
+    if len(reps) != HIER_RANKS or not all(r["ok"] for r in reps):
+        raise AssertionError(f"phase 33a: {reps}")
+    for r in reps:
+        for name in ("hash_partition", "hash_aggregate"):
+            if r["hier"]["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"phase 33a: rank {r['rank']} never "
+                                     f"launched {name} on the grid")
+        for name in PATH_KERNELS:
+            launches[name] += r["hier"]["launches"].get(name, 0)
+    if len({tuple(r["hier"]["digests"]) for r in reps}) != 1:
+        raise AssertionError("phase 33a: ranks disagree on the rows")
+    for lay in ("hier", "flat", "hier-warm"):
+        log(f"phase 33a: {lay} reduce-wave {rows} rows over {keyspace} "
+            f"keys, S = {HIER_SHARDS} on {HIER_RANKS} ranks "
+            f"({'flat' if lay == 'flat' else HIER_SHAPE}) of {card}: "
+            f"counted walls {[round(r[lay]['wall_s'], 4) for r in reps]} s, "
+            f"bytes a rank by axis {[r[lay]['axis_bytes'] for r in reps]} "
+            f"(exchanged {[r[lay]['exchanged_bytes'] for r in reps]}), "
+            f"host seconds in each collective a rank "
+            f"{[{k: round(v, 4) for k, v in r[lay]['collective_s'].items()} for r in reps]}, "
+            f"launches a rank {[r[lay]['launches'] for r in reps]}, "
+            f"hash_off {reps[0][lay]['hash_off']}")
+    log(f"phase 33a: every shard's rows equal numpy, in the shard K1 "
+        f"names, and equal between the 2x2 grid and the flat ranks; "
+        f"ranks up to done {res.seconds:.2f} s "
+        f"({time.perf_counter() - ta:.2f} s with the launch), on {card}")
+    with open(os.path.join(base, "a", "fleet_merged.json")) as fh:
+        merged = json.load(fh)
+    fleet = _fleet_check(fleet_dir, merged)
+    log(f"phase 33d: rank 0's fleet merge of {HIER_RANKS} snapshots equals "
+        f"their sum: {fleet['ops']} ops (partition rows, duration "
+        f"histograms), task states {fleet['task_states']}, DCN messages "
+        f"{fleet['dcn_messages']} ({fleet['dcn_bytes']} bytes), ICI bytes "
+        f"{fleet['ici_bytes']}, on {card}")
+    # (b) and (c): the host tier and the attend stage over 2 ranks.
+    corpus = os.path.join(base, "corpus.txt")
+    wordcount_corpus(corpus)
+    cols, ref = _att_inputs(ATT_SEQ, 31)
+    att = os.path.join(base, "att.npz")
+    np.savez(att, q=cols[0], k=cols[1], v=cols[2])
+    gc.collect()
+    tb = time.perf_counter()
+    res, reps = _spmd_launch(SPMD_RANKS, os.path.join(base, "b"), [
+        "--mode", "plane", "--backend", "gloo", "--corpus", corpus,
+        "--att", att, "--threads",
+        str(max(1, (os.cpu_count() or 2) // SPMD_RANKS))], phase="33b")
+    if len(reps) != SPMD_RANKS or not all(r["ok"] for r in reps):
+        raise AssertionError(f"phase 33b: {reps}")
+    log(f"phase 33b: hostdist word count of {WC_LINES * WC_WORDS_A_LINE} "
+        f"words over {SPMD_RANKS} ranks of {card}: equal to "
+        f"collections.Counter, {reps[0]['host_tasks']} host tasks each run "
+        f"on one rank (owned {[r['owned'] for r in reps]}), fetched "
+        f"partitions {[r['fetched'] for r in reps]} (exactly the remote "
+        f"ones each rank read), walls "
+        f"{[round(r['wordcount_s'], 4) for r in reps]} s")
+    attend = {}
+    for name in reps[0]["attend"]:
+        method, dt = name.split("-")
+        out = np.load(os.path.join(base, "b", f"attend-{name}.npy"))
+        err, rel = _att_check(f"phase 33c {name}", out, ref, ATT_TOL[dt],
+                              ATT_REL[dt])
+        stage = [r["attend"][name]["stage_ms"] for r in reps]
+        walls = [r["attend"][name]["wall_s"] for r in reps]
+        attend[name] = dict(max_abs_err=err, rel_err=rel, stage_ms=stage,
+                            wall_s=walls)
+        if {r["attend"][name]["method"] for r in reps} != {method}:
+            raise AssertionError(f"phase 33c: {name} ran "
+                                 f"{[r['attend'][name] for r in reps]}")
+        log(f"phase 33c: SelfAttend {name} seq {ATT_SEQ}, {ATT_HEADS} heads "
+            f"of {ATT_HD}, causal, over {SPMD_RANKS} ranks of {card}: "
+            f"max |err| {err:.3e} (tol {ATT_TOL[dt]}), relative "
+            f"{rel:.3e} (limit {ATT_REL[dt]}), stage ms a rank "
+            f"{[round(x, 4) for x in stage]} (CUDA events, median of 3), "
+            f"run walls {[round(w, 4) for w in walls]} s")
+    log(f"phase 33b/c: ranks up to done {res.seconds:.2f} s "
+        f"({time.perf_counter() - tb:.2f} s with the launch), collectives "
+        f"rank 0 {reps[0]['collectives']}")
+    del cols, ref
+    # (e) elastic, in this process.
+    keys = np.random.RandomState(42).randint(0, keyspace, rows).astype(
+        np.int32)
+    want = np.bincount(keys, minlength=keyspace)
+    events = []
+    ck.reset_launches()
+    plan = faultinject.install(faultinject.parse_plan("0:peer.lost=0.5x1"))
+    te = time.perf_counter()
+    try:
+        ex = bs.MeshExecutor(auto_dense=False)
+        sess = bs.Session(executor=ex, elastic=1,
+                          eventer=lambda name_, **f: events.append(name_))
+        got = bs.result_shard_rows(sess.run(bs.Reduce(
+            bs.Const(8, keys, np.ones(rows, np.int32)),
+            lambda a, b: a + b)))
+    finally:
+        faultinject.clear()
+    elastic_s = time.perf_counter() - te
+    el_launches = dict(ck.LAUNCHES)
+    snap = plan.snapshot()
+    k = np.concatenate([g[0] for g in got])
+    v = np.concatenate([g[1] for g in got])
+    if not (len(k) == int((want > 0).sum()) and bool((want[k] == v).all())):
+        raise AssertionError("phase 33e: rows differ from numpy")
+    if (snap["injected"] != {"peer.lost": 1} or snap["log"][0]["inv_id"] != 1
+            or "bigslice:elasticRetry" not in events
+            or ex.device_group_count() != 2):
+        raise AssertionError(f"phase 33e: injected {snap['injected']}, "
+                             f"events {events}, groups "
+                             f"{ex.device_group_count()}")
+    for name in PATH_KERNELS:
+        launches[name] += el_launches.get(name, 0)
+    sess.shutdown()
+    del sess, ex, got, keys
+    log(f"phase 33e: elastic reduce-wave {rows} rows, S = 8, one process on "
+        f"{card}: peer.lost injected at the reduce side's dispatch "
+        f"({snap['calls']['peer.lost']} checks), the map side salvaged to "
+        f"the host and the reduce side rerun, rows exact, in "
+        f"{elastic_s:.4f} s with the recovery; launches {el_launches}")
+    # (f) the sm_90a build check.
+    report = aotcheck.check(os.path.join(base, "aot.json"))
+    for src, entry in report["sources"].items():
+        if not entry["kernels"]:
+            raise AssertionError(f"phase 33f: {src} has no kernel")
+        for kname, kk in entry["kernels"].items():
+            log(f"phase 33f: sm_90a {src} {kname}: {kk.get('registers')} "
+                f"registers, {kk.get('shared_bytes')} B shared, "
+                f"{kk.get('local_bytes')} B local, spills "
+                f"{kk.get('spill_store_bytes', 0)}/"
+                f"{kk.get('spill_load_bytes', 0)} B, on {card}")
+    log(f"phase 33f: aotcheck built {len(report['sources'])} sources in "
+        f"{report['seconds']} s")
+    secs = time.perf_counter() - t0
+    log(f"phase 33: multi-process plane in {secs:.2f} s on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"multiprocess-plane": dict(
+        launches=launches, attend=attend, fleet=fleet, elastic_s=elastic_s,
+        aot=report["sources"], seconds=secs)}
 
 
 def nbytes_of(*arrays) -> int:
@@ -6526,6 +6788,7 @@ def main() -> int:
         wall_s=paths["reduce-wave"]["wall_s"])))
     paths.update(timed("31", phase31_attention, card))
     paths.update(timed("32", phase32_spmd, card))
+    paths.update(timed("33", phase33_plane, card))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
@@ -6542,7 +6805,7 @@ def main() -> int:
         for name in PATH_KERNELS
     ]}
     log(f"chip_smoke: phase walls s {walls}")
-    log(f"chip_smoke: phases 0-32 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 0-33 in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

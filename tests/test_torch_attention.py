@@ -235,7 +235,7 @@ def test_ring_and_ulysses_agree(mesh):
 def test_masked_bodies_mask_padding_and_take_one_device_slot():
     """The stage cores over capacity-padded columns: garbage beyond the
     count never reaches a valid row, for either body, tiled or not; a
-    wider mesh than the one slot is refused by name."""
+    body built for a wider mesh refuses to run outside one, by name."""
     seq, cap, H, dh = 37, 64, 2, 8
     rng = np.random.RandomState(13)
     pad = [rng.randn(cap, H, dh).astype(np.float32) for _ in range(3)]
@@ -252,8 +252,10 @@ def test_masked_bodies_mask_padding_and_take_one_device_slot():
             count, *(_t(x.transpose(1, 0, 2)) for x in pad))
         np.testing.assert_allclose(r.numpy().transpose(1, 0, 2)[:seq], ref,
                                    rtol=3e-4, atol=3e-4)
-    with pytest.raises(ValueError, match="one device slot"):
-        ra.masked_local_body(2, dh)
+    for body in (ra.masked_local_body(2, dh),
+                 ul.masked_local_body(2, H, dh)):
+        with pytest.raises(RuntimeError, match="built for 2 slots"):
+            body(count, *(_t(x) for x in pad))
 
 
 # -- SelfAttend (tests/test_attention_slice.py) ------------------------------

@@ -248,13 +248,30 @@ def test_debug_profile_busy_409(debug_sess):
 
 @pytest.mark.parametrize("query", ["", "?format=json", "?format=prom"])
 def test_debug_fleet_refuses_by_name(debug_sess, query):
-    """The fleet merge is not ported: /debug/fleet answers 501 naming it,
-    in either format, never the empty document the JAX package's
-    except-all would turn the refusal into."""
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        _get(debug_sess, "/debug/fleet" + query)
-    assert ei.value.code == 501
-    assert "fleet" in ei.value.read().decode()
+    """/debug/fleet answers the cross-rank merge (a fleet of one without
+    an exporter): the json is the session's fleet summary, whose
+    per-op rows and tasks the JAX package's ``merge_snapshots`` computes
+    from the same snapshot, and the Prometheus text is the JAX
+    package's ``prometheus_fleet_text`` of it."""
+    from bigslice_tpu.utils import fleettelemetry as ref_fleet
+
+    text, ctype = _get(debug_sess, "/debug/fleet" + query)
+    snap = debug_sess.telemetry.snapshot()
+    if query == "?format=prom":
+        assert ctype.startswith("text/plain")
+        assert text == ref_fleet.prometheus_fleet_text([snap])
+        assert "bigslice_fleet_ranks 1" in text
+        return
+    doc = json.loads(text)
+    want = ref_fleet.merge_snapshots([snap])
+    assert set(doc) == set(want)
+    assert doc["scope"] == "fleet" and doc["ranks"] == [0]
+    for op, entry in want["ops"].items():
+        assert doc["ops"][op].get("skew", {}).get("rows") == \
+            entry.get("skew", {}).get("rows")
+        assert doc["ops"][op].get("tasks", {}).get("n") == \
+            entry.get("tasks", {}).get("n")
+    assert doc["device"]["totals"] == want["device"]["totals"]
 
 
 def test_routes_answer_as_the_jax_package():

@@ -130,11 +130,14 @@ def test_injected_errors_carry_their_site():
     lose = faultinject.injected_error(
         faultinject.Fault("store.read", "lose", 0))
     assert isinstance(lose, faultinject.InjectedLoss)
-    # No multi-host plane: a peer loss is a loss, attributed to its site.
+    # A peer loss is the gang-loss class (the JAX package's), attributed
+    # to its site.
+    from bigslice_tpu_torch.utils.distributed import PeerLostError
+
     for site, kind in (("peer.lost", "lost"), ("mesh.dispatch",
                                                 "hostloss")):
         e = faultinject.injected_error(faultinject.Fault(site, kind, 0))
-        assert isinstance(e, faultinject.InjectedLoss)
+        assert isinstance(e, PeerLostError)
         assert faultinject.fault_site_of(e) == site
     # The message text is the JAX package's.
     f = faultinject.Fault("io.read", "io", 3)

@@ -1,6 +1,7 @@
 """Guards on the port's boundaries: the package runs without JAX or the
 JAX package, and its entry points never drop to the CPU on their own."""
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -768,3 +769,91 @@ def test_spmd_modules_and_ranks_run_without_jax():
 
         with pytest.raises(RuntimeError, match="no CUDA device"):
             spmd_session()
+
+
+_RANK_PROGRAM = """
+import os, sys
+import numpy as np
+import bigslice_tpu_torch as bs
+from bigslice_tpu_torch.exec.spmd import spmd_session
+from bigslice_tpu_torch.utils import distributed
+
+keys = np.arange(2000, dtype=np.int32) % 53
+red = bs.func(lambda n: bs.Reduce(bs.Const(2 * n, keys, keys),
+                                  lambda a, b: a + b))
+host = bs.func(lambda n: bs.Map(bs.Const(n, keys), lambda k: (str(k),),
+                                out=[str]))
+rng = np.random.RandomState(0)
+q, k, v = (rng.randn(64, 8).astype(np.float32) for _ in "qkv")
+att = bs.func(lambda n: bs.SelfAttend(bs.Const(n, q, k, v), causal=True))
+distributed.initialize(device="cpu")
+n = distributed.process_count()
+sess = spmd_session(fleet_dir=sys.argv[1])
+assert sess.executor.mesh.is_hier
+assert len(sess.run(red, n).rows()) == 53
+assert len(sess.run(host, n).rows()) == 2000
+assert len(sess.run(att, n).rows()) == 64
+assert sess.executor._hostdist.owned_count > 0
+assert sess.telemetry_summary(scope="fleet")["nranks"] == n
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
+with open(os.path.join(sys.argv[1], f"leaked{distributed.process_index()}"),
+          "w") as fh:
+    fh.write(repr(leaked))
+sess.executor.mesh.barrier()
+sess.shutdown()
+distributed.shutdown()
+"""
+
+
+def test_multiprocess_plane_runs_without_jax(tmp_path):
+    """The multi-process plane's modules (``exec/hostdist.py``,
+    ``parallel/hier.py``, ``utils/fleettelemetry.py``,
+    ``tools/aotcheck.py``) and an elastic session in one process, then
+    a 4-rank world on the 2-D mesh (a two-stage reduce, a host task
+    run by its owner, a SelfAttend over the ranks, the fleet export),
+    import neither JAX nor the JAX package."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        import numpy as np
+        import bigslice_tpu_torch as bs
+        from bigslice_tpu_torch.exec import hostdist
+        from bigslice_tpu_torch.parallel import hier
+        from bigslice_tpu_torch.tools import aotcheck, obsdump
+        from bigslice_tpu_torch.utils import faultinject, fleettelemetry
+        d = tempfile.mkdtemp()
+        faultinject.install(faultinject.parse_plan("0:peer.lost=0.5x1"))
+        os.environ["BIGSLICE_ELASTIC_BACKOFF"] = "0"
+        sess = bs.Session(executor=bs.MeshExecutor(device="cpu"),
+                          elastic=1, fleet_dir=d)
+        keys = np.arange(1000, dtype=np.int32) % 37
+        res = sess.run(bs.Reduce(bs.Const(4, keys, np.ones(1000, np.int32)),
+                                 lambda a, b: a + b))
+        assert len(res.rows()) == 37
+        assert sess.telemetry_summary(scope="fleet")["ranks"] == [0]
+        sess.shutdown()
+        faultinject.clear()
+        assert obsdump.fleet_merge(d)["merged_from"] == 1
+        assert aotcheck.sources()
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "bigslice_tpu" or m.startswith("bigslice_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    from bigslice_tpu_torch.tools import multihost_smoke
+
+    prog = tmp_path / "ranks.py"
+    prog.write_text(_RANK_PROGRAM)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = multihost_smoke.launch(
+        4, [sys.executable, str(prog), str(tmp_path)], deadline_s=150.0,
+        env={"PYTHONPATH": repo, "OMP_NUM_THREADS": "1",
+             "BIGSLICE_MESH_SHAPE": "2x2"})
+    assert res.rc == 0, "\n".join(res.stderr)
+    for r in range(4):
+        assert (tmp_path / f"leaked{r}").read_text() == "[]"

@@ -1721,3 +1721,161 @@ def test_spmd_two_ranks_share_the_card_over_gloo(dev, tmp_path):
     with open(os.path.join(nccl, "rank0.json")) as fh:
         rep = json.load(fh)
     assert rep["ok"] and rep["backend"] == "nccl", rep
+
+
+_PPERMUTE_RANKS = r"""
+import json, os, sys
+import numpy as np
+import torch
+import bigslice_tpu_torch as bs
+from bigslice_tpu_torch.exec.spmd import spmd_session
+from bigslice_tpu_torch.frame.frame import to_numpy
+from bigslice_tpu_torch.parallel.ulysses import dense_mha_reference
+from bigslice_tpu_torch.utils import distributed
+
+torch.backends.cuda.matmul.allow_tf32 = False
+rng = np.random.RandomState(3)
+q, k, v = (rng.randn(256, 32).astype(np.float32) * 0.3 for _ in "qkv")
+ring = bs.func(lambda n: bs.SelfAttend(bs.Const(n, q, k, v), causal=True,
+                                       heads=2, method="ring"))
+uly = bs.func(lambda n: bs.SelfAttend(bs.Const(n, q, k, v), causal=True,
+                                      heads=2, method="ulysses"))
+distributed.initialize(backend="gloo")
+rank, n = distributed.process_index(), distributed.process_count()
+mesh = distributed.global_mesh()
+rep = {"checks": {}}
+dev = mesh.device
+for name, x in (("int32", torch.arange(64, dtype=torch.int32, device=dev)),
+                ("bf16", (torch.arange(64, device=dev).reshape(8, 8) / 7
+                          ).to(torch.bfloat16)),
+                ("uint32", torch.arange(2**32 - 8, 2**32, dtype=torch.int64,
+                                        device=dev).to(torch.uint32))):
+    mine = x + rank if x.dtype != torch.uint32 else x
+    got = mesh._ppermute(mine, 1)
+    want = x + (rank - 1) % n if x.dtype != torch.uint32 else x
+    rep["checks"][name] = bool(got.device == dev and got.dtype == x.dtype
+                               and torch.equal(got, want))
+sess = spmd_session()
+oracle = dense_mha_reference(q.reshape(256, 2, 16), k.reshape(256, 2, 16),
+                             v.reshape(256, 2, 16), causal=True)
+oracle = oracle.reshape(256, 32)
+for name, fn in (("ring", ring), ("ulysses", uly)):
+    res = sess.run(fn, n)
+    got = np.concatenate([np.concatenate([to_numpy(f.cols[0])
+                                          for f in res.reader(s, ())])
+                          for s in range(n)])
+    rep[name + "_err"] = float(np.abs(got - oracle).max())
+rep["methods"] = sorted(sess.executor.attend_methods.values())
+rep["ppermutes"] = mesh.collectives.get("ppermute", 0)
+with open(os.path.join(sys.argv[1], f"rank{rank}.json"), "w") as fh:
+    json.dump(rep, fh)
+mesh.barrier()
+sess.shutdown()
+distributed.shutdown()
+"""
+
+
+def test_ppermute_with_cuda_tensors_on_the_ranks(dev, tmp_path):
+    """The ring's rotation (``Mesh.ppermute``: one ``all_to_all_single``
+    with the neighbour's split only) hands gloo the card's tensors: two
+    ranks sharing the card rotate int32, bf16 and uint32 planes, then
+    run a SelfAttend over both ranks through the ring and Ulysses,
+    within 3e-4 of the float64 oracle."""
+    import json
+    import os
+    import sys
+
+    from bigslice_tpu_torch.tools import multihost_smoke as ms
+
+    res = ms.launch(2, [sys.executable, "-c", _PPERMUTE_RANKS,
+                        str(tmp_path)], deadline_s=240)
+    assert res.rc == 0, res.stderr
+    for r in range(2):
+        with open(os.path.join(tmp_path, f"rank{r}.json")) as fh:
+            rep = json.load(fh)
+        assert all(rep["checks"].values()), rep
+        assert rep["ring_err"] <= 3e-4 and rep["ulysses_err"] <= 3e-4, rep
+        assert rep["methods"] == ["ring", "ulysses"] and rep["ppermutes"] > 0
+
+
+_HIER_RANKS = r"""
+import json, os, sys
+import numpy as np
+import torch
+import bigslice_tpu_torch as bs
+from bigslice_tpu_torch.exec.meshexec import MeshExecutor
+from bigslice_tpu_torch.parallel import cuda_kernels, hier
+from bigslice_tpu_torch.utils import distributed
+
+keys = np.random.RandomState(42).randint(0, 1 << 12, 1 << 16).astype(np.int32)
+red = bs.func(lambda s: bs.Reduce(bs.Const(s, keys, np.ones(1 << 16,
+                                                            np.int32)),
+                                  lambda a, b: a + b))
+distributed.initialize(backend="gloo")
+rank, n = distributed.process_index(), distributed.process_count()
+grid = distributed.global_mesh()
+rep = {"is_hier": grid.is_hier}
+cap = 1024
+k = torch.arange(cap, dtype=torch.int32, device=grid.device) + rank * cap
+sh = hier.HierMeshShuffle(grid, ncols=1, nkeys=1, capacity=cap)
+cols, cnt, ov = sh([k], torch.tensor([cap], dtype=torch.int32))
+rep["shuffle_on_card"] = cols[0].device.type
+rep["shuffle_rows"] = int(cnt[0])
+rep["shuffle_overflow"] = int(ov)
+sess = bs.Session(executor=MeshExecutor(mesh=grid, auto_dense=False))
+before = dict(cuda_kernels.LAUNCHES)
+rows = bs.result_shard_rows(sess.run(red, 4 * n))
+rep["launches"] = {kk: v - before[kk] for kk, v in
+                   cuda_kernels.LAUNCHES.items()}
+got = {}
+for kk, vv in rows:
+    got.update(zip(kk.tolist(), vv.tolist()))
+want = np.bincount(keys)
+rep["rows_ok"] = got == {i: int(c) for i, c in enumerate(want) if c}
+rep["collectives"] = dict(grid.collectives)
+with open(os.path.join(sys.argv[1], f"rank{rank}.json"), "w") as fh:
+    json.dump(rep, fh)
+grid.barrier()
+sess.shutdown()
+distributed.shutdown()
+"""
+
+
+def test_hier_exchange_subgroup_planes_on_the_card(dev, tmp_path):
+    """Four ranks sharing the card over gloo as a 2x2 grid: the two
+    stages move CUDA planes within row and column subgroups, every key
+    lands once with its count, and K1 routes (K2 on the reduce side)."""
+    import json
+    import os
+    import sys
+
+    from bigslice_tpu_torch.tools import multihost_smoke as ms
+
+    res = ms.launch(4, [sys.executable, "-c", _HIER_RANKS, str(tmp_path)],
+                    deadline_s=300, env={"BIGSLICE_MESH_SHAPE": "2x2"})
+    assert res.rc == 0, res.stderr
+    total = 0
+    for r in range(4):
+        with open(os.path.join(tmp_path, f"rank{r}.json")) as fh:
+            rep = json.load(fh)
+        assert rep["is_hier"] and rep["rows_ok"], rep
+        assert rep["shuffle_on_card"] == "cuda"
+        assert rep["shuffle_overflow"] == 0
+        total += rep["shuffle_rows"]
+        assert rep["launches"]["hash_partition"] > 0
+        assert rep["launches"]["hash_aggregate"] > 0
+        assert rep["collectives"]["all_to_all_ici"] > 0
+        assert rep["collectives"]["all_to_all_dcn"] > 0
+    assert total == 4 * 1024
+
+
+def test_aotcheck_builds_every_source_on_the_card(dev, tmp_path):
+    """The sm_90a build check compiles every ``csrc/*.cu`` and reports
+    each kernel's registers and shared memory."""
+    from bigslice_tpu_torch.tools import aotcheck
+
+    report = aotcheck.check(str(tmp_path / "aot.json"))
+    assert set(report["sources"]) == {p.name for p in aotcheck.sources()}
+    kernels = [k for e in report["sources"].values()
+               for k in e["kernels"].values()]
+    assert kernels and all(k["registers"] > 0 for k in kernels)

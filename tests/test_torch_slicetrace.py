@@ -21,8 +21,7 @@ from bigslice_tpu.tools import slicetrace as ref_slicetrace  # noqa: E402
 
 import bigslice_tpu_torch as bs  # noqa: E402
 from bigslice_tpu_torch.exec.meshexec import MeshExecutor  # noqa: E402
-from bigslice_tpu_torch.exec.session import (ObservabilityNotPorted,  # noqa: E402,E501
-                                             Session)
+from bigslice_tpu_torch.exec.session import Session  # noqa: E402
 from bigslice_tpu_torch.tools import obsdump, slicetrace  # noqa: E402
 
 
@@ -134,16 +133,35 @@ def test_obsdump_writes_trace_and_summary(tmp_path):
 
 
 def test_obsdump_fleet_refuses_by_name(tmp_path):
-    """The JAX package merges every rank's snapshot from a store
-    (tests/test_fleettelemetry.py:171); the fleet plane is not ported,
-    so ``--fleet`` raises by name and writes nothing."""
-    out = tmp_path / "fleet-summary.json"
-    with pytest.raises(ObservabilityNotPorted, match="fleet"):
-        obsdump.main(["--fleet", str(tmp_path), "--summary", str(out)])
-    assert not out.exists()
+    """tests/test_fleettelemetry.py:171: ``--fleet`` reads every rank's
+    exported snapshot from a store and writes their merge, which equals
+    the JAX package's ``obsdump.fleet_merge`` of the same files; the
+    session's own fleet summary has the JAX package's keys."""
+    from bigslice_tpu.tools import obsdump as ref_obsdump
+    from bigslice_tpu_torch.utils import fleettelemetry
+
     sess = _mesh_session()
-    with pytest.raises(ObservabilityNotPorted, match="fleet"):
-        sess.telemetry_summary(scope="fleet")
+    keys = np.arange(4096, dtype=np.int32) % 97
+    sess.run(bs.Reduce(bs.Const(4, keys, np.ones(4096, np.int32)),
+                       lambda a, b: a + b))
+    for rank in (0, 1):
+        fleettelemetry.FleetExporter(sess.telemetry, str(tmp_path),
+                                     rank=rank, nranks=2).export()
+    out = tmp_path / "fleet-summary.json"
+    assert obsdump.main(["--fleet", str(tmp_path), "--summary",
+                         str(out)]) == 0
+    got = json.loads(out.read_text())
+    want = json.loads(json.dumps(ref_obsdump.fleet_merge(str(tmp_path)),
+                                 sort_keys=True))
+    for doc in (got, want):
+        for r in doc["per_rank"].values():
+            r.pop("ts")
+    assert got == want
+    assert got["ranks"] == [0, 1] and got["merged_from"] == 2
+    with pytest.raises(SystemExit, match="no telemetry-rank"):
+        obsdump.fleet_merge(str(tmp_path / "empty"))
+    fleet = sess.telemetry_summary(scope="fleet")
+    assert set(fleet) == set(RefSession().telemetry_summary(scope="fleet"))
 
 
 def test_slicetrace_renders_compile_and_device_sections(tmp_path):

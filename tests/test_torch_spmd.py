@@ -32,7 +32,7 @@ import torch_spmd_scenarios as scen  # noqa: E402
 RTOL, ATOL = 1e-5, 1e-4
 #: The deadline of a world's launch: no test can hang the suite.
 DEADLINE_S = 150.0
-NAMES = sorted(scen.SCENARIOS) + ["attend", "reuse"]
+NAMES = sorted(scen.SCENARIOS) + sorted(scen.ATTEND) + ["reuse"]
 #: The issue's core scenarios, which ``test_torch_spmd4.py`` repeats at
 #: 4 ranks (the rest mirror the JAX package's own multi-device cases of
 #: tests/test_meshexec.py, at 2).
@@ -78,8 +78,8 @@ def reference_rows(n: int, name: str):
     try:
         if name == "reuse":
             res = scen.reuse(ref_bs, jnp, n, sess.run)
-        elif name == "attend":
-            res = sess.run(scen.attend(ref_bs, n))
+        elif name in scen.ATTEND:
+            res = sess.run(scen.ATTEND[name](ref_bs, n))
         else:
             res = sess.run(scen.SCENARIOS[name](ref_bs, jnp, n))
         return bst.result_shard_rows(res)
@@ -101,25 +101,16 @@ def assert_same_shards(got, want, float_tol=(RTOL, ATOL)):
                 np.testing.assert_array_equal(gc, wc)
 
 
-def _union(shards):
-    """All shards' rows as one sorted shard."""
-    from bigslice_tpu_torch.frame.frame import sorted_rows
-
-    return [sorted_rows([np.concatenate(c) for c in zip(*shards)])]
-
-
 def check_parity(world: dict, name: str) -> None:
     """Every rank's rows equal the JAX package's at n devices. The
-    attend stage runs on the host tier over ranks (its multi-slot stage
-    is not ported), whose broadcast reader puts the whole sequence on
-    shard 0: its rows are compared as one set, within the reference
-    tests' 3e-4."""
+    attend stage runs on the device over the ranks (the ring's K/V
+    rotation, or Ulysses' two all_to_alls): each shard's rows within the
+    reference tests' 3e-4."""
     ranks, want = world["ranks"], world["want"][name]
     assert not ranks[0]["errors"], ranks[0]["errors"]
     for r in ranks:
-        if name == "attend":
-            assert_same_shards(_union(r["rows"][name]), _union(want),
-                               (3e-4, 3e-4))
+        if name in scen.ATTEND:
+            assert_same_shards(r["rows"][name], want, (3e-4, 3e-4))
         else:
             assert_same_shards(r["rows"][name], want)
 
@@ -138,8 +129,9 @@ def test_ranks_agree_and_stay_free_of_jax(world):
     """Every rank saw the same overflow verdicts (the hash-overflow
     scenario's table overflowed on one slot only, and both ranks put
     the site on the sort path), built the same Cogroup width, ran
-    collectives over gloo, imported neither JAX package, and sent the
-    attend stage to the host tier (``attend_methods`` empty)."""
+    collectives over gloo, imported neither JAX package, and ran the
+    attend stage on the device both ways (the ring's rotation counted
+    as ``ppermute``)."""
     r0, r1 = world["ranks"]
     assert r0["hash_off"] == r1["hash_off"]
     assert r0["hash_off"]["hash-overflow"]
@@ -150,7 +142,8 @@ def test_ranks_agree_and_stay_free_of_jax(world):
         assert r["modules"] == []
         assert r["backend"] == "gloo" and r["nmesh"] == 2
         assert r["collectives"]["all_to_all"] > 0
-        assert r["attend_methods"] == {}
+        assert r["collectives"]["ppermute"] > 0
+        assert set(r["attend_methods"].values()) == {"ring", "ulysses"}
 
 
 def test_one_slot_issues_no_collective():

@@ -139,9 +139,11 @@ class _TwoSlots(meshutil.Mesh):
 
 
 def test_selfattend_over_the_slots_runs_on_the_host_tier_by_name():
-    """Over ranks the attend stage is not ported: a SelfAttend over 1 <
-    S <= N shards is ineligible for the device path (the host tier's
-    broadcast reader runs it), while at one slot S = 1 is eligible."""
+    """A SelfAttend over S <= N shards runs on the device over the ranks
+    (the ring's rotation or Ulysses' all_to_alls), as on the JAX
+    package's N-device mesh; S > N stays on the host tier by the JAX
+    package's own rule (one program spans the whole sequence), at one
+    slot as over two."""
     from bigslice_tpu_torch.exec import compile as compile_mod
 
     rng = np.random.RandomState(0)
@@ -154,7 +156,8 @@ def test_selfattend_over_the_slots_runs_on_the_host_tier_by_name():
 
     two = bst.MeshExecutor(mesh=_TwoSlots())
     assert two.multiprocess and two.ordered_dispatch
-    assert not two._eligible(attend_task(2))
+    assert two._eligible(attend_task(2)) and two._eligible(attend_task(1))
+    assert not two._eligible(attend_task(3))
     one = bst.MeshExecutor(device="cpu")
     assert one._eligible(attend_task(1))
     assert not one._eligible(attend_task(2))
@@ -183,18 +186,27 @@ def test_mesh_shape_knob_one_axis(monkeypatch, spec):
     """A 1-D shape (or none) passes the check: the mesh is every
     rank's."""
     monkeypatch.setenv("BIGSLICE_MESH_SHAPE", spec)
-    assert meshutil.check_mesh_shape() is None
+    shape = meshutil.mesh_shape_from_env()
+    assert shape is None or 1 in shape
 
 
 def test_mesh_shape_knob_refuses_two_axes_and_typos(monkeypatch):
+    """A 2-D shape parses as the JAX package's parser reads it and
+    builds the grid over the ranks (``tests/test_torch_hier.py``); one
+    that does not cover them (2x4 over this one process) and a typo
+    raise ``ValueError``."""
+    from bigslice_tpu.parallel import meshutil as ref_meshutil
     from bigslice_tpu_torch.utils import distributed
 
     monkeypatch.setenv("BIGSLICE_MESH_SHAPE", "2x4")
-    with pytest.raises(meshutil.MeshShapeNotPorted, match="hier.py"):
+    assert meshutil.mesh_shape_from_env() == \
+        ref_meshutil.mesh_shape_from_env() == (2, 4)
+    monkeypatch.setattr(distributed, "_mesh", None)
+    with pytest.raises(ValueError, match="does not cover 1 rank"):
         distributed.global_mesh()
     monkeypatch.setenv("BIGSLICE_MESH_SHAPE", "2by4")
     with pytest.raises(ValueError, match="expected DxI"):
-        meshutil.check_mesh_shape()
+        meshutil.mesh_shape_from_env()
 
 
 def test_sliceconfig_builds_the_configured_executor(monkeypatch, tmp_path):

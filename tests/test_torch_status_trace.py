@@ -18,7 +18,6 @@ from bigslice_tpu.exec.session import Session as RefSession  # noqa: E402
 from bigslice_tpu.utils.status import Status as RefStatus  # noqa: E402
 
 import bigslice_tpu_torch as bs  # noqa: E402
-from bigslice_tpu_torch.exec.session import ObservabilityNotPorted  # noqa: E402,E501
 from bigslice_tpu_torch.utils import status as status_mod  # noqa: E402
 from bigslice_tpu_torch.utils.status import Status, StatusPrinter  # noqa: E402
 from bigslice_tpu_torch.utils.trace import Tracer  # noqa: E402
@@ -230,9 +229,9 @@ def test_eventer_hears_the_session_and_corr_rides_the_result():
 def test_debug_port_and_fleet_scope_raise_by_name():
     """``debug_port`` starts the debug server as the JAX package's does
     (``session.debug`` on a free port, the same routes answering, closed
-    at shutdown); what still raises by name is the fleet merge: the
-    summary's fleet scope and, on the server, ``/debug/fleet`` (501)."""
-    import urllib.error
+    at shutdown), ``/debug/fleet`` included; the summary's fleet scope
+    (a fleet of one without an exporter) has the JAX package's keys,
+    and an unknown scope still raises by name."""
     import urllib.request
 
     def get(s, path):
@@ -245,18 +244,19 @@ def test_debug_port_and_fleet_scope_raise_by_name():
     try:
         for s in (port, ref):
             assert s.debug.port > 0
-            assert [get(s, p) for p in ("/debug", "/debug/status")] == [
-                200, 200]
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            get(port, "/debug/fleet")
-        assert ei.value.code == 501
+            assert [get(s, p) for p in ("/debug", "/debug/status",
+                                        "/debug/fleet")] == [200, 200, 200]
     finally:
         port.shutdown()
         ref.shutdown()
     sess = _local()
     assert sess.debug is None
-    with pytest.raises(ObservabilityNotPorted, match="fleet"):
-        sess.telemetry_summary(scope="fleet")
+    got = sess.telemetry_summary(scope="fleet")
+    want = RefSession().telemetry_summary(scope="fleet")
+    assert set(got) == set(want)
+    assert (got["scope"], got["nranks"], got["ranks"]) == ("fleet", 1, [0])
+    with pytest.raises(ValueError, match="unknown scope"):
+        sess.telemetry_summary(scope="galaxy")
 
 
 def test_profiler_trace_run_around_an_evaluation(tmp_path):

@@ -311,7 +311,8 @@ def test_raising_phase_monitor_does_not_break_waved_run():
 def test_summary_keys_match_the_jax_package():
     """The summary's key set equals the JAX package's on the same run,
     less the keys that wait for later slices (none on a plain run: the
-    deadline stats and the fleet merge raise or stay absent)."""
+    deadline stats stay absent; the fleet merge is a scope of its
+    own)."""
     keys = _hot_keys()
     ones = np.ones(N, np.int32)
     sess = bs.Session(executor=bs.LocalExecutor(device="cpu"))
