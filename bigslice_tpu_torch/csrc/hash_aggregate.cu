@@ -68,6 +68,19 @@
 // against the table's own bound of 184 MB (every input read once, every
 // output written once): the payload's round trip is the price of taking
 // the random traffic off device memory.
+//
+// Value lanes: a value lane is one 32-bit word a row. A scalar column is
+// one lane; a row-major [n, G] vector column is G lanes, lane l read at
+// word i * G + l of the column and written at word g * G + l of its
+// [T, G] table (vstride = G), so no lane is copied out first. The wrapper
+// (cuda_kernels.hash_aggregate) hands the kernel at most BS_MAX_COLS
+// lanes. Past that (a wide vector column, such as k-means' d = 128 point
+// sums) the kernel places the rows on the keys alone and writes `placed`,
+// each row's slot (-1 for a row it did not place), which passes B and C
+// write through a row-index lane carried in the payload; the wrapper then
+// scatters the wide rows whole into their slots, the counterpart of the
+// JAX package's claim-then-scatter table build (parallel/hashagg.py
+// hash_aggregate). Wide rows never pass through the payload.
 #include "common.cuh"
 
 // Probe bound per row in a bucket (AGG_PROBE_MAX of the JAX package).
@@ -197,10 +210,12 @@ struct AggArgs {
   ColSet keys;                         // input key columns
   ColSet out_keys;                     // [T] key columns, to read
   void* out_key[BS_MAX_COLS];          // the same columns, to write
-  const uint32_t* val[BS_MAX_COLS];    // input value columns (raw bits)
-  uint32_t* out_val[BS_MAX_COLS];      // [T] value tables
+  const uint32_t* val[BS_MAX_COLS];    // input value lanes (raw bits)
+  uint32_t* out_val[BS_MAX_COLS];      // value tables, one lane each
   int kind[BS_MAX_COLS];
-  int nvals;
+  int vstride[BS_MAX_COLS];            // words between a lane's rows
+  int nvals;                           // value lanes, 0..BS_MAX_COLS
+  int32_t* placed;    // [n] each row's slot or -1; null: not wanted
   const bool* valid;
   const int32_t* part;
   long long n;
@@ -209,7 +224,8 @@ struct AggArgs {
   int bshift;                          // log2 of the bucket's slots
   int nbuckets;
   uint32_t seed32;
-  uint32_t* pay;      // (nkeys + nvals) lanes of n words, lane-major
+  uint32_t* pay;      // (nkeys + nvals [+ 1 row index]) lanes of n
+                      // words, lane-major
   int32_t* spill;     // 2 words per spilled row: payload index, bucket
   int32_t* claim;     // [T] claim words for pass C
   int32_t* counts;    // [nbuckets] selected rows per bucket
@@ -220,6 +236,17 @@ struct AggArgs {
   int32_t* overflow;
   bool* present;
 };
+
+// Value lane j of row i, as raw bits.
+__device__ __forceinline__ uint32_t val_bits(const AggArgs& a, int j,
+                                             long long i) {
+  return a.val[j][i * a.vstride[j]];
+}
+
+// The payload lane that carries each row's index when `placed` is wanted.
+__device__ __forceinline__ long long row_lane(const AggArgs& a, int nkeys) {
+  return static_cast<long long>(nkeys + a.nvals) * a.n;
+}
 
 // A row's home bucket, -1 when the row is not selected.
 __device__ __forceinline__ int row_bucket(const AggArgs& a, long long i) {
@@ -286,7 +313,7 @@ __device__ __forceinline__ void tile_buckets(const AggArgs& a,
     p[k] = v[k] ? a.part[i] : -1;
     if constexpr (kNarrow) {
       key[k] = v[k] ? key_bits(a.keys, 0, i) : 0u;
-      if constexpr (kVal) val[k] = v[k] ? a.val[0][i] : 0u;
+      if constexpr (kVal) val[k] = v[k] ? val_bits(a, 0, i) : 0u;
     }
   }
 #pragma unroll
@@ -356,10 +383,18 @@ __global__ void __launch_bounds__(kTileThreads, 2)
   }
 }
 
-// A lane of row i: its key hash lane or its value's raw bits.
+// A payload lane of row i: its key hash lane, its value's raw bits, or
+// (the last lane, with `placed`) the row's index.
 __device__ __forceinline__ uint32_t lane_of(const AggArgs& a, int nkeys,
                                             int l, long long i) {
-  return l < nkeys ? key_bits(a.keys, l, i) : a.val[l - nkeys][i];
+  if (l < nkeys) return key_bits(a.keys, l, i);
+  if (l < nkeys + a.nvals) return val_bits(a, l - nkeys, i);
+  return static_cast<uint32_t>(i);
+}
+
+// The payload lanes a row carries.
+__device__ __forceinline__ int pay_lanes(const AggArgs& a, int nkeys) {
+  return nkeys + a.nvals + (a.placed != nullptr ? 1 : 0);
 }
 
 // One tile of kTileRows rows per block: rank each selected row within its
@@ -440,7 +475,7 @@ __global__ void __launch_bounds__(kTileThreads)
     }
   } else {
     __syncthreads();
-    const int lanes = nkeys + a.nvals;
+    const int lanes = pay_lanes(a, nkeys);
     for (int l = 0; l < lanes; ++l) {
       uint32_t x[kTileItems];
 #pragma unroll
@@ -463,7 +498,7 @@ __global__ void __launch_bounds__(kTileThreads)
 // per row.
 __global__ void agg_scatter_direct_kernel(AggArgs a, int nkeys) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const int lanes = nkeys + a.nvals;
+  const int lanes = pay_lanes(a, nkeys);
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < a.n; i += stride) {
@@ -538,6 +573,8 @@ __device__ __forceinline__ void place_row(const AggArgs& a, int nkeys,
     a.spill[2 * j + 1] = b;
     return;
   }
+  if (a.placed != nullptr)
+    a.placed[a.pay[row_lane(a, nkeys) + idx]] = (b << a.bshift) + placed;
 #pragma unroll
   for (int j = 0; j < VL; ++j)
     if (j < a.nvals) combine_at(svals + j * B + placed, a.kind[j], v[j]);
@@ -614,7 +651,9 @@ __global__ void __launch_bounds__(kAggThreads, 2)
         store_key(a.out_key[l], a.keys.code[l], g, key);
       }
     }
-    for (int j = 0; j < a.nvals; ++j) a.out_val[j][g] = svals[j * B + s];
+#pragma unroll
+    for (int j = 0; j < VL; ++j)
+      if (j < a.nvals) a.out_val[j][g * a.vstride[j]] = svals[j * B + s];
   }
 }
 
@@ -685,9 +724,13 @@ __global__ void agg_spill_kernel(AggArgs a, int nkeys) {
       atomicAdd(a.overflow, 1);
       continue;
     }
-    for (int v = 0; v < a.nvals; ++v)
-      combine_at(a.out_val[v] + placed, a.kind[v],
-                 a.pay[static_cast<long long>(nkeys + v) * a.n + idx]);
+    if (a.placed != nullptr)
+      a.placed[a.pay[row_lane(a, nkeys) + idx]] = static_cast<int32_t>(placed);
+#pragma unroll
+    for (int v = 0; v < BS_MAX_COLS; ++v)
+      if (v < a.nvals)
+        combine_at(a.out_val[v] + placed * a.vstride[v], a.kind[v],
+                   a.pay[static_cast<long long>(nkeys + v) * a.n + idx]);
   }
 }
 
@@ -697,15 +740,18 @@ __global__ void agg_spill_kernel(AggArgs a, int nkeys) {
 // pass C; the main path runs all three (7), a timing may run one at a time
 // after the earlier ones. meta holds counts, starts and cursors (nbuckets
 // words each), then the spill count, the count pass's finished blocks and
-// the overflow count.
+// the overflow count. val_ptrs and out_val_ptrs name nvals value lanes
+// (0..BS_MAX_COLS), vstrides their strides in words; placed, when not
+// null, gets each placed row's slot (the caller fills it with -1, and
+// pay holds one more lane of n words).
 extern "C" int bs_hash_aggregate(
     const void* const* key_ptrs, const int* key_codes, int nkeys,
-    const void* const* val_ptrs, const int* kinds, int nvals,
-    const bool* valid, const int32_t* part, long long n, int nparts,
-    long long R, unsigned int slot_seed32, int bucket_log2, int nbuckets,
-    void* pay, int32_t* spill, int32_t* claim, int32_t* meta, bool* present,
-    void* const* out_key_ptrs, void* const* out_val_ptrs, int passes,
-    cudaStream_t stream) {
+    const void* const* val_ptrs, const int* kinds, const int* vstrides,
+    int nvals, const bool* valid, const int32_t* part, long long n,
+    int nparts, long long R, unsigned int slot_seed32, int bucket_log2,
+    int nbuckets, void* pay, int32_t* spill, int32_t* claim, int32_t* meta,
+    bool* present, void* const* out_key_ptrs, void* const* out_val_ptrs,
+    int32_t* placed, int passes, cudaStream_t stream) {
   static bool smem_attr_set = false;
   if (!smem_attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -729,7 +775,7 @@ extern "C" int bs_hash_aggregate(
   const size_t sub_bytes =
       (static_cast<size_t>(1) << bucket_log2) * (1 + nkeys + nvals) * 4;
   if (sub_bytes > static_cast<size_t>(kSmemMax) || nkeys < 1 ||
-      nkeys > BS_MAX_COLS || nvals < 1 || nvals > BS_MAX_COLS)
+      nkeys > BS_MAX_COLS || nvals < 0 || nvals > BS_MAX_COLS)
     return static_cast<int>(cudaErrorInvalidValue);
 
   AggArgs a;
@@ -740,9 +786,11 @@ extern "C" int bs_hash_aggregate(
     a.out_val[j] = j < nvals ? static_cast<uint32_t*>(out_val_ptrs[j])
                              : nullptr;
     a.kind[j] = j < nvals ? kinds[j] : 0;
+    a.vstride[j] = j < nvals ? vstrides[j] : 1;
     a.out_key[j] = j < nkeys ? out_key_ptrs[j] : nullptr;
   }
   a.nvals = nvals;
+  a.placed = placed;
   a.valid = valid;
   a.part = part;
   a.n = n;
@@ -782,7 +830,9 @@ extern "C" int bs_hash_aggregate(
       agg_count_kernel<false><<<count_grid, kTileThreads, count_smem,
                                 stream>>>(a, smem_bins);
     if (nbuckets <= kStagedBins) {
-      const bool narrow = nkeys == 1 && nvals == 1;
+      // One key lane and one value lane (a scalar column, or a [n, 1]
+      // one: stride 1) with no row lane.
+      const bool narrow = nkeys == 1 && nvals == 1 && placed == nullptr;
       const size_t smem = (2 * static_cast<size_t>(nbuckets) +
                            (narrow ? 3 : 2) * static_cast<size_t>(kTileRows)) *
                           sizeof(int32_t);

@@ -32,7 +32,17 @@ keepalive also uses):
   the next; ``release_run`` deletes every non-root task's namespace once
   every rank has finished the run (a barrier first: a peer may still be
   fetching); ``close`` deletes everything this rank published and
-  leaves a tombstone, so that peers still waiting on it resolve.
+  leaves a tombstone, so that peers still waiting on it resolve. Every
+  exchange publishes its generation (its ordinal among its process's
+  exchanges, counted in the store) and its tombstone holds it. The
+  ranks of one program build their sessions in the same order, so a
+  peer waiting on an owner compares generations and checks that rule:
+  a tombstone of its own generation is this session's close; an owner
+  at a lower one is still in a previous session, whose tombstone must
+  not fail a task of this one (its next exchange deletes it), and a task
+  waits for it at most ``STATE_TIMEOUT_SECS``, beat or not; an owner at
+  a higher one has left this session. The last two end the task by name
+  (``_owner_verdict``) rather than wait on a close that never comes.
   ``abort_run`` publishes an abort epoch for every owned task of a dead
   run, so that waiting peers resolve to ERR; a later attempt ignores
   those (the epoch floor of ``submit``).
@@ -83,6 +93,11 @@ RELEASE_BARRIER_MS = 15_000
 
 PREFIX = "bigslice/hostdist"
 CLOSED_PREFIX = "bigslice/hostdist_closed"
+GEN_PREFIX = "bigslice/hostdist_gen"
+
+# Serialises a process's generation counts (its own key only: no other
+# process writes it).
+_GEN_LOCK = threading.Lock()
 
 
 def _base_key(name: TaskName) -> str:
@@ -117,6 +132,8 @@ class HostTaskExchange:
         self.owned_tasks: List[str] = []
         self.remote_tasks: List[str] = []
         self.fetched: List[tuple] = []
+        # (task, partition) -> why its last fetch found no data.
+        self.miss_reason: Dict[tuple, str] = {}
         self._lock = threading.Lock()
         self._pending: Dict[str, tuple] = {}  # key -> (task, owner, t0, floor)
         self._poller: Optional[threading.Thread] = None
@@ -127,10 +144,18 @@ class HostTaskExchange:
         self._keys: Dict[str, Set[str]] = {}  # namespace -> its keys
         self._barrier_seq: Dict[str, int] = {}
         self._closed = False
-        # Peers' tombstones (sticky) and the per-owner check throttle.
-        self._closed_owners: Set[int] = set()
+        # Owners that will never resolve a task here (why, sticky), the
+        # per-owner check throttle, and since when an owner has been at
+        # an earlier exchange than this one.
+        self._owner_done: Dict[int, str] = {}
         self._closed_checked: Dict[int, float] = {}
+        self._behind_since: Dict[int, float] = {}
+        self.gen = 0
         if self.active:
+            with _GEN_LOCK:
+                prev = self._raw_try_get(f"{GEN_PREFIX}/{self.pid}")
+                self.gen = (int(prev) if prev is not None else 0) + 1
+                self.client.set(f"{GEN_PREFIX}/{self.pid}", str(self.gen))
             # A previous exchange of this process left its tombstone:
             # peers of this one would resolve every task it owns to ERR.
             self._raw_delete(f"{CLOSED_PREFIX}/{self.pid}")
@@ -299,14 +324,12 @@ class HostTaskExchange:
                         task.set_state(TaskState.ERR, RuntimeError(
                             f"remote host task failed on process {owner}: "
                             f"{state[4:]}"))
-                elif self._owner_closed(owner):
-                    # The owner shut its session down: it will never
-                    # publish again.
+                elif (verdict := self._owner_verdict(owner)) is not None:
+                    # The owner will never publish this session's state.
                     with self._lock:
                         self._pending.pop(key, None)
                     task.set_state(TaskState.ERR, RuntimeError(
-                        f"host task {task.name} unresolvable: owner "
-                        f"process {owner} closed its session"))
+                        f"host task {task.name} unresolvable: {verdict}"))
                 elif owner in lost:
                     with self._lock:
                         self._pending.pop(key, None)
@@ -334,9 +357,12 @@ class HostTaskExchange:
     def fetch(self, name: TaskName, partition: int,
               timeout: float = 30.0) -> Optional[List]:
         """A remote task's partition frames, or None if the task is not
-        published (not a distributed host task) or failed. By the time
-        a consumer reads, the owner has published (the pointer follows
-        the data), so one pass normally does."""
+        published (not a distributed host task) or failed; why is in
+        ``miss_reason[(str(name), partition)]``. By the time a consumer
+        reads, the owner has published (the pointer follows the data),
+        so one pass normally does. A state that cannot be read (being
+        replaced, or a store read that failed) is read again until
+        ``timeout``: only a published failure ends the wait early."""
         if not self.active:
             return None
         from bigslice_tpu_torch.frame import codec
@@ -344,15 +370,21 @@ class HostTaskExchange:
         base = _base_key(name)
         deadline = time.monotonic() + timeout
         blob = None
+        why = "no epoch pointer"
         while True:
             e = self._try_get(f"{base}/e")
             if e is not None:
                 ns = f"{base}/a{int(e)}"
-                if self._try_get(f"{ns}/state") != "ok":
+                state = self._try_get(f"{ns}/state")
+                if state is not None and state != "ok":
                     if self._try_get(f"{base}/e") != e:
                         continue  # republished between the two reads
+                    self.miss_reason[(str(name), partition)] = (
+                        f"epoch {e} {state[:200]}")
                     return None   # failed remotely: no data coming
-                n = self._try_get(f"{ns}/p{partition}/n")
+                why = f"epoch {e}: no state"
+                n = None if state is None else self._try_get(
+                    f"{ns}/p{partition}/n")
                 chunks = [] if n is None else [
                     self._try_get_bytes(f"{ns}/p{partition}/c{i}")
                     for i in range(int(n))]
@@ -362,7 +394,11 @@ class HostTaskExchange:
                         and self._try_get(f"{base}/e") == e):
                     blob = b"".join(chunks)
                     break
+                if state is not None:
+                    why = f"epoch {e}: partition {partition} incomplete"
             if time.monotonic() > deadline:
+                self.miss_reason[(str(name), partition)] = (
+                    f"{why} after {timeout}s")
                 return None
             time.sleep(POLL_SECS)
         frames = []
@@ -443,19 +479,42 @@ class HostTaskExchange:
         except Exception:  # noqa: BLE001 — the store is going away
             return False
 
-    def _owner_closed(self, owner: int) -> bool:
-        """The owner's tombstone, sticky, checked at most once every 2 s
-        an owner."""
-        if owner in self._closed_owners:
-            return True
+    def _owner_verdict(self, owner: int) -> Optional[str]:
+        """Why the owner will never resolve a task of this exchange, or
+        None while it still may (module docstring): it closed this
+        session (its tombstone holds this generation), it is at a later
+        exchange than this one, or it has stayed at an earlier one for
+        ``STATE_TIMEOUT_SECS``. Sticky; read at most once every 2 s an
+        owner."""
+        if owner in self._owner_done:
+            return self._owner_done[owner]
         now = time.monotonic()
         if now - self._closed_checked.get(owner, 0.0) < 2.0:
-            return False
+            return None
         self._closed_checked[owner] = now
-        closed = self._raw_try_get(f"{CLOSED_PREFIX}/{owner}") is not None
-        if closed:
-            self._closed_owners.add(owner)
-        return closed
+        tomb = self._raw_try_get(f"{CLOSED_PREFIX}/{owner}")
+        gen = self._raw_try_get(f"{GEN_PREFIX}/{owner}")
+        gen = int(gen) if gen is not None else 0
+        verdict = None
+        if tomb is not None and int(tomb) == self.gen:
+            verdict = f"owner process {owner} closed its session"
+        elif gen > self.gen or (tomb is not None and int(tomb) > self.gen):
+            verdict = (f"owner process {owner} is at host-task exchange "
+                       f"{gen}, process {self.pid} at {self.gen}: the owner "
+                       f"left this session, or the ranks built their "
+                       f"sessions in different orders")
+        elif gen < self.gen:
+            since = self._behind_since.setdefault(owner, now)
+            if now - since >= STATE_TIMEOUT_SECS:
+                verdict = (f"owner process {owner} still at host-task "
+                           f"exchange {gen} after {STATE_TIMEOUT_SECS}s, "
+                           f"process {self.pid} at {self.gen}: the ranks "
+                           f"built their sessions in different orders")
+        else:
+            self._behind_since.pop(owner, None)
+        if verdict is not None:
+            self._owner_done[owner] = verdict
+        return verdict
 
     def close(self) -> None:
         """Delete everything this rank published (session teardown) and
@@ -470,7 +529,7 @@ class HostTaskExchange:
             self._published.clear()
             self._epoch.clear()
         try:
-            self.client.set(f"{CLOSED_PREFIX}/{self.pid}", "1")
+            self.client.set(f"{CLOSED_PREFIX}/{self.pid}", str(self.gen))
         except Exception:  # noqa: BLE001 — the store is going away
             pass
         for base in doomed:

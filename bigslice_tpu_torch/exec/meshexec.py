@@ -385,6 +385,17 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _wide_row_bytes(values) -> int:
+    """Bytes a row of the value columns (``ColType``s) that K2's wide
+    route scatters after the kernel (``cuda_kernels.aggregate_routes``);
+    0 when the kernel holds them all."""
+    shapes = [tuple(ct.shape) for ct in values]
+    _, wide = cuda_kernels.aggregate_routes(
+        shapes, [torch_dtype(ct.dtype) for ct in values])
+    return sum(np.dtype(values[i].dtype).itemsize
+               * cuda_kernels.value_lanes(shapes[i]) for i in wide)
+
+
 def _output_bytes(out) -> int:
     """Device bytes a group output holds (tensor metadata, no sync)."""
     if isinstance(out, WavedGroupOutput):
@@ -614,6 +625,11 @@ class _BridgedStore(store_mod.MemoryStore):
                     if fetched is not None:
                         super().put(name, partition, fetched)
                         return super().read(name, partition)
+                    why = hd.miss_reason.get((str(name), partition))
+                    if why is not None:
+                        raise store_mod.Missing(
+                            f"{name} p{partition}: fetched from its owner: "
+                            f"{why}")
                 raise
             return iter(frames)
 
@@ -2409,6 +2425,7 @@ class MeshExecutor:
                        for i in inputs for c in i.cols) or 4
         fanout = 1
         hash_table = False
+        wide_bytes = 0
         for kind, s in self._stages_for(task0):
             if kind == "flatmap":
                 fanout *= s.fanout
@@ -2419,13 +2436,15 @@ class MeshExecutor:
                               and self._hash_combine_ops(
                                   _op_base(task0.name.op), fc,
                                   decide=False) is not None)
+                if hash_table:
+                    wide_bytes = _wide_row_bytes(fc.schema.values)
         return self.wave_bytes_model(rows, rowbytes, fanout, hash_table,
-                                     self._wave_slack(task0))
+                                     self._wave_slack(task0), wide_bytes)
 
     @staticmethod
     def wave_bytes_model(rows: int, rowbytes: int, fanout: int = 1,
                          hash_table: bool = False,
-                         slack: float = 2.0) -> int:
+                         slack: float = 2.0, wide_bytes: int = 0) -> int:
         """Bytes one wave of ``rows`` staged rows of ``rowbytes`` holds on
         the device: the staged rows; the combine + route working set of
         its ``rows * fanout`` rows and, in a split wave, of the running
@@ -2433,14 +2452,19 @@ class MeshExecutor:
         the hash combine (``hash_table``), the partition ids and a table
         of one slot a row holding the keys and values, a presence byte
         and a claim word, plus the kernel's bucketed copy of the rows
-        and its spill list; else the sort's operands and scratch and the
-        ``slack``-scaled receive buffer; the rows concatenated with the
-        running merge; and the output, at most one row a row, with its
-        subid and the compaction's row ids."""
+        and its spill list (K2's wide route, ``wide_bytes`` of vector
+        values a row scattered after the kernel: those bytes stay out of
+        the bucketed copy, which carries a row index instead, beside each
+        row's slot and the scatter's int64 index); else the sort's
+        operands and scratch and the ``slack``-scaled receive buffer;
+        the rows concatenated with the running merge; and the output, at
+        most one row a row, with its subid and the compaction's row
+        ids."""
         n = rows * fanout
         m = 2 * n  # the rows and the running merge
         if hash_table:
-            work = m * (4 + 1 + rowbytes + 4 + rowbytes + 8)
+            copy = rowbytes - wide_bytes + (16 if wide_bytes else 0)
+            work = m * (4 + 1 + rowbytes + 4 + copy + 8)
         else:
             work = int(m * rowbytes * (2 + slack))
         out = n * (rowbytes + 4 + 8)
@@ -3280,7 +3304,13 @@ class MeshExecutor:
         slices') into one: this slot's valid rows of every output in
         order, front-packed into ``bucket_size`` of the largest slot's
         total; consumers treat the merged rows as multiple producer
-        contributions and re-combine them."""
+        contributions and re-combine them.
+
+        Machine-combined producers (a ``combine_key`` with a device
+        combiner, scalar columns) also re-combine across the outputs
+        here, as the JAX package's merge does (reference
+        exec/meshexec.py:2897-2933): the merged partition holds at most
+        one row per (subid, key) before any consumer reads it."""
         if len(outs) == 1:
             return outs[0]
         counts = [int(o.counts[0]) for o in outs]
@@ -3296,6 +3326,22 @@ class MeshExecutor:
                 buf[pos : pos + n] = o.cols[j][:n]
                 pos += n
             packed.append(buf)
+        fc = task0.partitioner.combiner
+        if (task0.partitioner.combine_key and fc is not None
+                and getattr(fc, "device", False)
+                and all(ct.shape == () for ct in task0.schema)):
+            # The subid, when present, leads as one more key: rows of
+            # different wave partitions never merge.
+            nk = fc.nkeys + (1 if outs[0].subid else 0)
+            core = segment.make_segmented_reduce_masked(
+                nk, fc.nvals, segment.canonical_combine(fc.fn, fc.nvals))
+            mask = torch.arange(cap, device=packed[0].device) < total
+            mask, keys, vals = core(mask, tuple(packed[:nk]),
+                                    tuple(packed[nk:]))
+            n, packed = segment.compact_by_mask(mask,
+                                                list(keys) + list(vals))
+            packed = list(packed)
+            total = int(n)
         merged = DeviceGroupOutput(
             packed, torch.tensor([total], dtype=torch.int32,
                                  device=self.device),

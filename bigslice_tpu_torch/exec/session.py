@@ -242,9 +242,11 @@ class Session:
       (``MeshExecutor.resize``: outputs salvaged to the host, device-only
       ones LOST) and evaluates again; completed tasks keep their
       results. With none given, ``utils.distributed.
-      default_mesh_provider()``: the one-slot mesh of this process's
-      device in one process; over ranks it gives None and the loss
-      re-raises (a mesh chosen by one rank alone would wedge the group).
+      default_mesh_provider(device=executor.device)``: the one-slot mesh
+      of the executor's device in one process, None when that device
+      does not answer (a CPU mesh is never offered to an executor on
+      ``cuda``); over ranks it gives None and the loss re-raises (a
+      mesh chosen by one rank alone would wedge the group).
     - ``mesh_provider``: a callable with no arguments returning the
       mesh of the next elastic attempt, or None.
     - ``fleet_dir`` (or ``BIGSLICE_FLEET_DIR``): a directory or fsspec
@@ -298,7 +300,8 @@ class Session:
             from bigslice_tpu_torch.utils.distributed import (
                 default_mesh_provider)
 
-            mesh_provider = default_mesh_provider()
+            mesh_provider = default_mesh_provider(
+                device=getattr(executor, "device", None))
         self.mesh_provider = mesh_provider
         self.eventer = eventer
         self.trace_path = trace_path

@@ -194,20 +194,20 @@ class FrameCombiner:
         """The per-column add/max/min ops the hash-aggregate lowering
         runs this combiner with, or None where the JAX package sends it
         to the sort lowering: float or non-scalar keys, or a combine fn
-        that does not classify. Vector value columns go there too: the
-        JAX package aggregates them in its hash tables, which this
-        package's table kernel does not hold. (The executor also sends
-        an op whose table overflowed there.)"""
+        that does not classify per column (a vector value column
+        classifies over one row's [G] vectors, as in the JAX package's
+        ``_hash_combine_ops``, and its rows combine whole in the table).
+        (The executor also sends an op whose table overflowed there.)"""
         from bigslice_tpu_torch.parallel import dense, keyutil
 
         if not self.device or not keyutil.hash_keys_eligible(
-                self.schema.key) or any(ct.shape != ()
-                                        for ct in self.schema.values):
+                self.schema.key):
             return None
         try:
             return dense.classified_ops_cached(
                 self.fn, self.nvals,
                 tuple(ct.dtype for ct in self.schema.values),
+                tuple(tuple(ct.shape) for ct in self.schema.values),
             )
         except TypeError:  # unhashable fn: lru_cache key fails
             return None

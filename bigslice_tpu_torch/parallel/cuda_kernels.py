@@ -46,6 +46,7 @@ import contextvars
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -135,10 +136,12 @@ def cost(name: str, **shape) -> dict:
       the key columns, the mask's bytes and the int32 ids of n rows,
       plus the int32 histogram; the murmur fmix32 chain of each key (8
       operations) and the modulus.
-    - ``hash_aggregate(n, key_itemsizes, val_itemsizes, nparts, R)``:
-      the mask, keys, values and int32 partition ids of n rows in; the
+    - ``hash_aggregate(n, key_itemsizes, val_itemsizes, nparts, R,
+      val_lanes)``: the mask, keys, values (a vector column's itemsize
+      is its row's bytes) and int32 partition ids of n rows in; the
       presence byte, keys and values of ``nparts * R`` slots out; the
-      slot hash of each key and one op a value lane a row.
+      slot hash of each key and one op a value lane a row
+      (``val_lanes``, default one a column).
     - ``probe_add1(numel)``: an int32 array read and written, one add
       an element.
     """
@@ -156,7 +159,8 @@ def cost(name: str, **shape) -> dict:
         T = int(shape["nparts"]) * int(shape["R"])
         nbytes = n * (1 + kb + vb + 4) + T * (1 + kb + vb)
         flops = n * (8 * len(shape["key_itemsizes"]) + 2
-                     + len(shape["val_itemsizes"]))
+                     + int(shape.get("val_lanes",
+                                     len(shape["val_itemsizes"]))))
     elif name == "probe_add1":
         numel = int(shape["numel"])
         nbytes, flops = 8 * numel, numel
@@ -245,8 +249,8 @@ def build():
         lib.bs_hash_partition.argtypes = [
             vp, vp, ci, vp, vp, vp, cll, ci, cu, vp]
         lib.bs_hash_aggregate.argtypes = [
-            vp, vp, ci, vp, vp, ci, vp, vp, cll, ci, cll, cu, ci, ci, vp,
-            vp, vp, vp, vp, vp, vp, ci, vp]
+            vp, vp, ci, vp, vp, vp, ci, vp, vp, cll, ci, cll, cu, ci, ci,
+            vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
         lib.bs_load_kernels.argtypes = []
         for fn in (lib.bs_probe_add1, lib.bs_hash_partition,
                    lib.bs_hash_aggregate, lib.bs_load_kernels):
@@ -322,13 +326,17 @@ def kernels_available() -> bool:
 
 
 def _check_cols(name: str, cols: Sequence[torch.Tensor], n: int,
-                device) -> None:
+                device, rows_only: bool = False) -> None:
+    """Columns on ``device``, contiguous, of ``n`` rows: 1-D, or with
+    ``rows_only`` of any per-row shape."""
     for c in cols:
         if c.device != device:
             raise ValueError(f"{name}: columns on {c.device} and {device}")
-        if c.dim() != 1 or c.shape[0] != n:
-            raise ValueError(f"{name}: expected 1-D columns of {n} rows, "
-                             f"got shape {tuple(c.shape)}")
+        if (c.dim() < 1 or c.shape[0] != n
+                or (c.dim() != 1 and not rows_only)):
+            raise ValueError(f"{name}: expected {'' if rows_only else '1-D '}"
+                             f"columns of {n} rows, got shape "
+                             f"{tuple(c.shape)}")
         if not c.is_contiguous():
             raise ValueError(f"{name}: columns must be contiguous")
 
@@ -426,31 +434,61 @@ class AggregatePlan(NamedTuple):
     bucket_log2: int    # log2 of B, the consecutive slots of one bucket
     nbuckets: int       # T / B
     smem_bytes: int     # pass B's sub-table: B * (1 + nkeys + nvals) words
-    payload_words: int  # pass A's bucketed rows: (nkeys + nvals) * n
+    payload_words: int  # pass A's bucketed rows: (nkeys + nvals) * n, and
+                        # n more with the row lane
     spill_words: int    # pass B's spill list: 2 * n
     meta_words: int     # counts, starts, cursors and three counters
 
 
 def aggregate_plan(nkeys: int, nvals: int, nparts: int, R: int,
-                   n: int) -> AggregatePlan:
-    """The bucket size for ``nkeys`` key and ``nvals`` value lanes: the
-    largest power of two B <= R whose sub-table (a claim word, the key
-    lanes and the value lanes, 4 bytes each per slot) fits
-    ``AGG_SMEM_BUDGET``."""
+                   n: int, row_lane: bool = False) -> AggregatePlan:
+    """The bucket size for ``nkeys`` key and ``nvals`` value lanes (a
+    [n, G] column is G lanes): the largest power of two B <= R whose
+    sub-table (a claim word, the key lanes and the value lanes, 4 bytes
+    each per slot) fits ``AGG_SMEM_BUDGET``. ``row_lane``: the payload
+    also carries each row's index (the wide route's ``placed``)."""
     lanes = 1 + nkeys + nvals
     fit = AGG_SMEM_BUDGET // (4 * lanes)
     B = min(R, 1 << (fit.bit_length() - 1))
     nbuckets = nparts * R // B
     return AggregatePlan(
         bucket_log2=B.bit_length() - 1, nbuckets=nbuckets,
-        smem_bytes=4 * lanes * B, payload_words=(nkeys + nvals) * n,
+        smem_bytes=4 * lanes * B,
+        payload_words=(nkeys + nvals + int(row_lane)) * n,
         spill_words=2 * n, meta_words=3 * nbuckets + 3)
 
 
+def value_lanes(shape) -> int:
+    """The 32-bit lanes a row of a value column of per-row ``shape``
+    takes in K2: one for a scalar, G for [G] (the product of a larger
+    shape)."""
+    return math.prod(tuple(shape))
+
+
+def aggregate_routes(val_shapes: Sequence,
+                     val_dtypes: Optional[Sequence] = None
+                     ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """K2's two routes over value columns of per-row ``val_shapes``
+    (and ``val_dtypes``, default all the kernel's): ``(held, wide)``,
+    the columns whose lanes the kernel holds and those scattered whole
+    into their rows' slots after it. Narrow (every column of a dtype the
+    kernel combines, every lane within ``MAX_COLS``): the kernel holds
+    them all. Wide: it holds the first ``MAX_COLS`` scalar columns of
+    its dtypes and places the rows; the rest are scattered."""
+    shapes = [tuple(s) for s in val_shapes]
+    kernel = [True] * len(shapes) if val_dtypes is None else [
+        d in _VAL_DTYPE_CODES for d in val_dtypes]
+    if all(kernel) and sum(value_lanes(s) for s in shapes) <= MAX_COLS:
+        return tuple(range(len(shapes))), ()
+    held = tuple(i for i, s in enumerate(shapes)
+                 if not s and kernel[i])[:MAX_COLS]
+    return held, tuple(i for i in range(len(shapes)) if i not in held)
+
+
 class AggregateBuffers(NamedTuple):
-    """``hash_aggregate``'s outputs and scratch, all ``torch.empty``:
-    the kernel writes every slot of the outputs and resets what it
-    counts in."""
+    """``hash_aggregate``'s outputs and scratch, all ``torch.empty`` but
+    ``placed``: the kernel writes every slot of the outputs and resets
+    what it counts in."""
 
     present: torch.Tensor
     out_keys: List[torch.Tensor]
@@ -459,6 +497,7 @@ class AggregateBuffers(NamedTuple):
     spill: torch.Tensor
     claim: torch.Tensor
     meta: torch.Tensor
+    placed: Optional[torch.Tensor] = None  # [n] int32, -1 filled
 
     @property
     def overflow(self) -> torch.Tensor:
@@ -466,41 +505,54 @@ class AggregateBuffers(NamedTuple):
 
 
 def aggregate_buffers(plan: AggregatePlan, key_cols, val_cols, T: int,
-                      device) -> AggregateBuffers:
+                      device, placed: bool = False) -> AggregateBuffers:
+    """Buffers for ``val_cols``, the columns the kernel holds: a [T]
+    table for a scalar column, [T, *shape] for a vector one. ``placed``:
+    also the wide route's [n] slot of each row, filled with -1."""
     def empty(size, dtype):
         return torch.empty(size, dtype=dtype, device=device)
 
+    n = key_cols[0].shape[0]
     return AggregateBuffers(
         present=empty(T, torch.bool),
         out_keys=[empty(T, k.dtype) for k in key_cols],
-        tables=[empty(T, v.dtype) for v in val_cols],
+        tables=[empty((T,) + tuple(v.shape[1:]), v.dtype) for v in val_cols],
         pay=empty(plan.payload_words, torch.int32),
         spill=empty(plan.spill_words, torch.int32),
         claim=empty(T, torch.int32),
         meta=empty(plan.meta_words, torch.int32),
+        placed=(torch.full((n,), -1, dtype=torch.int32, device=device)
+                if placed else None),
     )
 
 
 def aggregate_supported(key_dtypes: Sequence, val_dtypes: Sequence,
-                        nparts: int, R: int, n: int = 0) -> bool:
-    """Can the ``hash_aggregate`` kernel build this table? Regions are
-    powers of two; keys are integer or bool columns (float keys never
-    reach a hash lowering, parallel/keyutil.py); values are int32,
-    uint32 or float32; the table lives in device memory, so its size is
-    bounded by int32 row ids and bucket counts and 64-bit slot
-    arithmetic."""
+                        nparts: int, R: int, n: int = 0,
+                        val_shapes: Optional[Sequence] = None) -> bool:
+    """Can ``hash_aggregate`` build this table on the card? Regions are
+    powers of two; keys are at most ``MAX_COLS`` integer or bool columns
+    (float keys never reach a hash lowering, parallel/keyutil.py);
+    values are at least one column, scalar or of any per-row shape
+    (``val_shapes``, default scalar), the kernel's own (int32, uint32,
+    float32) or scattered after it (``aggregate_routes``); the table
+    lives in device memory, so its size is bounded by int32 row ids,
+    slots of rows the kernel places for the wide route, and bucket
+    counts and 64-bit slot arithmetic."""
     if R < 1 or R & (R - 1):
         return False
-    if not (1 <= len(key_dtypes) <= MAX_COLS
-            and 1 <= len(val_dtypes) <= MAX_COLS):
+    if not (1 <= len(key_dtypes) <= MAX_COLS and len(val_dtypes) >= 1):
         return False
     if any(d not in _KEY_CODES or d.is_floating_point for d in key_dtypes):
         return False
-    if any(d not in _VAL_DTYPE_CODES for d in val_dtypes):
-        return False
     if not (n < 2**31 and nparts * R < 2**40):
         return False
-    plan = aggregate_plan(len(key_dtypes), len(val_dtypes), nparts, R, n)
+    if val_shapes is None:
+        val_shapes = [() for _ in val_dtypes]
+    held, wide = aggregate_routes(val_shapes, val_dtypes)
+    if wide and nparts * R >= 2**31:
+        return False
+    lanes = sum(value_lanes(val_shapes[i]) for i in held)
+    plan = aggregate_plan(len(key_dtypes), lanes, nparts, R, n)
     return plan.meta_words < 2**31
 
 
@@ -511,7 +563,18 @@ def hash_aggregate(valid: torch.Tensor, key_cols: Sequence[torch.Tensor],
     ``T = nparts * R`` slot table, region p holding only partition-p
     keys. Returns ``(present bool[T], out_keys, out_vals, overflow
     int32 0-d)``; keys of empty slots repeat the last row's key, and
-    value tables hold the op's identity there.
+    value tables ([T], or [T, *shape] for a vector column) hold the
+    op's identity there in every lane.
+
+    Value columns take one of two routes (``aggregate_routes``): when
+    their lanes fit the kernel's eight, the kernel combines them all,
+    reading lane l of a [n, G] column at stride G; otherwise the kernel
+    combines the scalar columns of its dtypes, writes each row's slot
+    (``placed``), and the other columns (vector, or of a dtype it does
+    not combine) are scattered whole into identity-filled tables by
+    ``dense._scatter_tables`` (torch ops, the counterpart of the XLA
+    scatter of the JAX package's table build, which also takes what its
+    Pallas kernel cannot).
 
     The kernel's slot assignment (first claimer in a bucket wins)
     differs from the plain version's batched cascade: compare occupied
@@ -525,31 +588,69 @@ def hash_aggregate(valid: torch.Tensor, key_cols: Sequence[torch.Tensor],
     if device.type == "cpu":
         return hash_aggregate_plain(valid, key_cols, val_cols, ops, part,
                                     nparts, R, seed)
-    _check_cols("hash_aggregate", key_cols + val_cols + [valid, part], n,
-                device)
+    _check_cols("hash_aggregate", key_cols + [valid, part], n, device)
+    _check_cols("hash_aggregate", val_cols, n, device, rows_only=True)
     if valid.dtype != torch.bool or part.dtype != torch.int32:
         raise ValueError("hash_aggregate: valid must be bool, part int32")
     if len(ops) != len(val_cols) or any(op not in _OP_CODES for op in ops):
         raise ValueError(f"hash_aggregate: bad ops {ops}")
+    shapes = [tuple(v.shape[1:]) for v in val_cols]
     if not aggregate_supported([k.dtype for k in key_cols],
-                               [v.dtype for v in val_cols], nparts, R, n):
+                               [v.dtype for v in val_cols], nparts, R, n,
+                               shapes):
         raise ValueError(
             f"hash_aggregate: unsupported table (keys "
             f"{[k.dtype for k in key_cols]}, values "
-            f"{[v.dtype for v in val_cols]}, nparts {nparts}, R {R})")
+            f"{[v.dtype for v in val_cols]} of shapes {shapes}, nparts "
+            f"{nparts}, R {R})")
     T = nparts * R
     if n == 0:
         return _empty_table(key_cols, val_cols, ops, T, device)
-    plan = aggregate_plan(len(key_cols), len(val_cols), nparts, R, n)
-    buf = aggregate_buffers(plan, key_cols, val_cols, T, device)
+    held, wide = aggregate_routes(shapes, [v.dtype for v in val_cols])
+    hvals = [val_cols[i] for i in held]
+    hops = [ops[i] for i in held]
+    plan = aggregate_plan(len(key_cols),
+                          sum(value_lanes(shapes[i]) for i in held),
+                          nparts, R, n, row_lane=bool(wide))
+    buf = aggregate_buffers(plan, key_cols, hvals, T, device,
+                            placed=bool(wide))
     rc = build().bs_hash_aggregate(*aggregate_args(
-        valid, key_cols, val_cols, ops, part, nparts, R, seed, plan, buf))
+        valid, key_cols, hvals, hops, part, nparts, R, seed, plan, buf))
     _check(rc, "hash_aggregate")
     _count("hash_aggregate", n=n,
            key_itemsizes=tuple(k.element_size() for k in key_cols),
-           val_itemsizes=tuple(v.element_size() for v in val_cols),
-           nparts=nparts, R=R)
-    return buf.present, buf.out_keys, buf.tables, buf.overflow
+           val_itemsizes=tuple(v.element_size() * value_lanes(sh)
+                               for v, sh in zip(val_cols, shapes)),
+           nparts=nparts, R=R,
+           val_lanes=sum(value_lanes(sh) for sh in shapes))
+    tables = [None] * len(val_cols)
+    for i, t in zip(held, buf.tables):
+        tables[i] = t
+    if wide:
+        from bigslice_tpu_torch.parallel.dense import _scatter_tables
+
+        # Rows the kernel did not place (not selected, or overflow) land
+        # in the drop slot T.
+        idx = torch.where(buf.placed >= 0, buf.placed, T)
+        _, wtables = _scatter_tables(idx, [val_cols[i] for i in wide],
+                                     [ops[i] for i in wide], T + 1)
+        for i, t in zip(wide, wtables):
+            tables[i] = t[:T]
+    return buf.present, buf.out_keys, tables, buf.overflow
+
+
+def _value_lane_args(val_cols, tables):
+    """Per value lane: its input's address, its table's, and its stride
+    in words (G for each lane of a row-major [n, G] column)."""
+    src, dst, strides = [], [], []
+    for v, t in zip(val_cols, tables):
+        G = value_lanes(v.shape[1:])
+        step = v.element_size()
+        for lane in range(G):
+            src.append(v.data_ptr() + lane * step)
+            dst.append(t.data_ptr() + lane * step)
+            strides.append(G)
+    return src, dst, strides
 
 
 def aggregate_args(valid, key_cols, val_cols, ops, part, nparts, R, seed,
@@ -557,18 +658,23 @@ def aggregate_args(valid, key_cols, val_cols, ops, part, nparts, R, seed,
                    passes: int = 7) -> tuple:
     """``bs_hash_aggregate``'s arguments over checked tensors and the
     buffers of ``aggregate_buffers`` (also what a bare-kernel timing
-    passes). ``passes`` picks the kernel's passes (bit 0: bucket, bit 1:
-    aggregate, bit 2: spill); the wrapper runs all three."""
+    passes); ``val_cols`` are the columns the kernel holds, at most
+    ``MAX_COLS`` lanes. ``passes`` picks the kernel's passes (bit 0:
+    bucket, bit 1: aggregate, bit 2: spill); the wrapper runs all
+    three."""
+    src, dst, strides = _value_lane_args(val_cols, buf.tables)
     kinds = tuple(_VAL_DTYPE_CODES[v.dtype] * 3 + _OP_CODES[op]
-                  for v, op in zip(val_cols, ops))
+                  for v, op in zip(val_cols, ops)
+                  for _ in range(value_lanes(v.shape[1:])))
     return (
         _ptrs(key_cols), _key_codes(tuple(k.dtype for k in key_cols)),
-        len(key_cols), _ptrs(val_cols), _codes(kinds), len(val_cols),
-        valid.data_ptr(), part.data_ptr(), key_cols[0].shape[0], nparts, R,
-        _seed32_cached(seed ^ SLOT_SEED_XOR), plan.bucket_log2,
+        len(key_cols), _PtrArray(*src), _codes(kinds), _codes(tuple(strides)),
+        len(src), valid.data_ptr(), part.data_ptr(), key_cols[0].shape[0],
+        nparts, R, _seed32_cached(seed ^ SLOT_SEED_XOR), plan.bucket_log2,
         plan.nbuckets, buf.pay.data_ptr(), buf.spill.data_ptr(),
         buf.claim.data_ptr(), buf.meta.data_ptr(), buf.present.data_ptr(),
-        _ptrs(buf.out_keys), _ptrs(buf.tables), passes,
+        _ptrs(buf.out_keys), _PtrArray(*dst),
+        buf.placed.data_ptr() if buf.placed is not None else None, passes,
         _stream(valid.device),
     )
 
@@ -578,7 +684,7 @@ def _empty_table(key_cols, val_cols, ops, T: int, device):
     present = torch.zeros(T, dtype=torch.bool, device=device)
     out_keys = [torch.zeros(T, dtype=k.dtype, device=device)
                 for k in key_cols]
-    out_vals = [identity_table(op, v.dtype, T, device)
+    out_vals = [identity_table(op, v.dtype, T, device, tuple(v.shape[1:]))
                 for v, op in zip(val_cols, ops)]
     return present, out_keys, out_vals, torch.zeros(
         (), dtype=torch.int32, device=device)
@@ -587,8 +693,8 @@ def _empty_table(key_cols, val_cols, ops, T: int, device):
 def hash_aggregate_plain(valid, key_cols, val_cols, ops, part,
                          nparts: int, R: int, seed: int = 0):
     """The plain version of ``hash_aggregate``: ``hashagg.claim_cascade``
-    plus the identity-initialized scatter-accumulate — the JAX
-    package's XLA lowering, slot for slot."""
+    plus the identity-initialized scatter-accumulate, whole rows for a
+    vector column — the JAX package's XLA lowering, slot for slot."""
     from bigslice_tpu_torch.parallel.dense import _scatter_tables
     from bigslice_tpu_torch.parallel.hashagg import claim_cascade
     from bigslice_tpu_torch.parallel.segment import take

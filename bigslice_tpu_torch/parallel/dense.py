@@ -178,22 +178,31 @@ def _scatter_tables(idx, vals, ops, size: int):
     for v, op in zip(vals, ops):
         tail = tuple(v.shape[1:])
         if tail:
-            # A vector column: G scalar lanes a slot, row-major.
+            # A vector column scatters whole rows into a [size, G] table:
+            # one row index a row, broadcast over its G lanes, so no
+            # [n * G] index is built.
             G = int(np.prod(tail))
-            lanes = torch.arange(G, dtype=torch.int64, device=device)
-            t = _scatter_column((idx[:, None] * G + lanes).reshape(-1),
-                                v.reshape(-1), op, size * G)
+            t = _scatter_column(idx, v.reshape(-1, G), op, size)
             tables.append(t.reshape((size,) + tail))
         else:
             tables.append(_scatter_column(idx, v, op, size))
     return present, tables
 
 
+def _lane_index(idx, v):
+    """The row index ``idx`` broadcast over a 2-D ``v``'s lanes (a
+    view): scatter_reduce takes one index an element."""
+    return idx if v.dim() == 1 else idx[:, None].expand(v.shape)
+
+
 def _scatter_column(idx, v, op: str, size: int):
-    """One scalar column's identity-initialized [size] table."""
-    t = identity_table(op, v.dtype, size, idx.device)
+    """One column's identity-initialized [size] table, or [size, G] for
+    [n, G] rows (each lane combines on its own, as the scalar columns
+    do)."""
+    t = identity_table(op, v.dtype, size, idx.device, tuple(v.shape[1:]))
     if v.dtype == torch.float32 and op != "add":
         return _scatter_extreme_f32(t, idx, v, op)
+    red = "amax" if op == "max" else "amin"
     if v.dtype == torch.uint32:
         # uint32 lanes ride int32 bits: add wraps identically; the sign
         # flip makes signed max/min order unsigned values.
@@ -204,12 +213,11 @@ def _scatter_column(idx, v, op: str, size: int):
         else:
             flip = -(2 ** 31)
             ti = (ti ^ flip).scatter_reduce(
-                0, idx, vi ^ flip, "amax" if op == "max" else "amin"
-            ) ^ flip
+                0, _lane_index(idx, vi), vi ^ flip, red) ^ flip
         return ti.view(torch.uint32)
     if op == "add":
         return t.index_add(0, idx, v)
-    return t.scatter_reduce(0, idx, v, "amax" if op == "max" else "amin")
+    return t.scatter_reduce(0, _lane_index(idx, v), v, red)
 
 
 def _pair_extreme(a, b, op: str):
@@ -232,16 +240,30 @@ def _scatter_extreme_f32(t, idx, v, op):
     nan = torch.isnan(v)
     tk = _f32_order_key(t.view(torch.int32))
     red = "amax" if op == "max" else "amin"
-    ok = ~nan
-    tk = tk.scatter_reduce(0, idx[ok], _f32_order_key(bits[ok]), red)
+    if v.dim() == 1:
+        ok = ~nan
+        tk = tk.scatter_reduce(0, idx[ok], _f32_order_key(bits[ok]), red)
+    else:
+        # A NaN lane scatters the identity's key, which moves nothing.
+        src = torch.where(nan, tk[:1].expand(v.shape), _f32_order_key(bits))
+        tk = tk.scatter_reduce(0, _lane_index(idx, v), src, red)
     out = _f32_order_key(tk)
     if bool(nan.any()):
-        rows = torch.nonzero(nan).flatten()
-        last = torch.full_like(out, -1, dtype=torch.int64).scatter_reduce(
-            0, idx[rows], rows, "amax"
-        )
-        hit = last >= 0
-        out = torch.where(hit, bits[last.clamp(min=0)], out)
+        rows = torch.arange(v.shape[0], device=v.device)
+        if v.dim() == 1:
+            rows = rows[nan]
+            last = torch.full_like(out, -1, dtype=torch.int64).scatter_reduce(
+                0, idx[rows], rows, "amax"
+            )
+            hit = last >= 0
+            out = torch.where(hit, bits[last.clamp(min=0)], out)
+        else:
+            rows = torch.where(nan, rows[:, None], -1)
+            last = torch.full_like(out, -1, dtype=torch.int64).scatter_reduce(
+                0, _lane_index(idx, v), rows, "amax")
+            hit = last >= 0
+            out = torch.where(hit, torch.gather(bits, 0, last.clamp(min=0)),
+                              out)
     return out.view(torch.float32)
 
 

@@ -300,13 +300,16 @@ def check_injected_peer_loss() -> None:
             raise faultinject.injected_error(f)
 
 
-def default_mesh_provider(probe_timeout: float = 5.0):
+def default_mesh_provider(probe_timeout: float = 5.0, device=None):
     """The elastic session's built-in mesh discovery (reference
-    utils/distributed.py:252): each call probes this process's device
-    with a tiny copy and add, bounded by ``probe_timeout`` in a worker
-    thread (a wedged card must not hang recovery), and returns the
-    one-slot mesh of the device when it answers, else None (the session
-    then re-raises the gang loss).
+    utils/distributed.py:252): each call probes ``device`` (the
+    session's executor's; by default this process's card) with a tiny
+    copy and add, bounded by ``probe_timeout`` in a worker thread (a
+    wedged card must not hang recovery), and returns the one-slot mesh
+    of that device when it answers, else None (the session then
+    re-raises the gang loss). It never offers another device than the
+    executor's: a CPU mesh only to an executor on the CPU, and None to
+    one on ``cuda`` when no card is left.
 
     One process only: over ranks the device health can differ by rank,
     and a mesh chosen by one rank alone would wedge the group, so the
@@ -319,8 +322,10 @@ def default_mesh_provider(probe_timeout: float = 5.0):
 
         if process_count() > 1:
             return None
-        dev = _device or local_device(
-            None if torch.cuda.is_available() else "cpu")
+        dev = torch.device(device) if device is not None else (
+            _device or torch.device("cuda"))
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            return None
         ok = []
 
         def probe():

@@ -298,6 +298,20 @@ the ranks' own snapshots; (e) an elastic session recovering from an
 injected ``peer.lost``; (f) the sm_90a build check of every source
 (``tools/aotcheck.py``).
 
+Phase 34 drives an undeclared ``Reduce`` over vector value columns
+through K2 (``auto_dense=False``, no ``dense_keys``), each once counted
+and three times warm like phases 4-7: (a) the wide route, phase 27e's
+k-means point sums (2**20 float32 points of d = 128, keys in [0, 1024),
+S = 4), every key's [128] sum against a float64 numpy oracle within
+1e-4 of its summands' absolute sum; (b) the narrow route, reduce-wave's
+widths with a vector payload (2**23 rows over 2**20 keys, int32 [n, 8]
+values, S = 4), every row exact against numpy. Each prints its warm
+wall, K1 and K2 launches (both above 0), that no op went to the sort
+path (``hash_off`` empty), its peak device memory and the phase's
+seconds. Phase 2 holds K2 against its plain version at G = 4, 8
+(narrow) and 9, 128 (wide), add, max and min on int32 and float32, the
+spill case included.
+
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a GPU the script exits
@@ -439,8 +453,19 @@ def bare_aggregate_ms(valid, keys, vals, ops, part, nparts, R,
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
 
     n, T, device = valid.shape[0], nparts * R, valid.device
-    plan = ck.aggregate_plan(len(keys), len(vals), nparts, R, n)
-    buf = ck.aggregate_buffers(plan, keys, vals, T, device)
+    # The kernel's share of K2's two routes: the value columns whose
+    # lanes it holds (all of them when they fit, else the scalar ones,
+    # the rows' slots written for the wide columns' scatter, which is
+    # not in this time).
+    shapes = [tuple(v.shape[1:]) for v in vals]
+    held, wide = ck.aggregate_routes(shapes, [v.dtype for v in vals])
+    vals = [vals[i] for i in held]
+    ops = [ops[i] for i in held]
+    plan = ck.aggregate_plan(len(keys), sum(ck.value_lanes(shapes[i])
+                                            for i in held),
+                             nparts, R, n, row_lane=bool(wide))
+    buf = ck.aggregate_buffers(plan, keys, vals, T, device,
+                               placed=bool(wide))
     lib = ck.build()
 
     def run(passes):
@@ -513,6 +538,16 @@ def phase2_kernels(device) -> dict:
     from bigslice_tpu_torch.parallel import hashagg
 
     results = {}
+    # Each section's seconds, logged at the end: where phase 2's time
+    # goes.
+    secs, t_mark = {}, [time.perf_counter()]
+
+    def mark(what):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs[what] = round(now - t_mark[0], 2)
+        t_mark[0] = now
+
     g = torch.Generator(device="cpu").manual_seed(0)
     # -- K1 at the main path's shape: one map wave routes its shard's
     # 2**23 rows (one int32 key, the validity mask, 4 partitions, no
@@ -656,6 +691,7 @@ def phase2_kernels(device) -> dict:
         log(f"phase 2: hash_partition n={len(k)} int32 key nparts=4 masked "
             f"({what} map wave 0): bit-equal")
 
+    mark("K1")
     # -- K2 at the map side's shape (n = 2**23, 4 parts, R = 2**21, keys
     # uniform over 2**20, int32 add).
     n = 1 << 23
@@ -766,11 +802,15 @@ def phase2_kernels(device) -> dict:
         f"bucket's home range, nparts={nparts} R={R}: kernel {sms:.4f} ms, "
         f"rows equal")
 
-    # Load factor 1/4: 2**19 distinct keys in one 2**21-slot region.
+    # Load factor 1/4: 2**19 distinct keys in one 2**21-slot region. The
+    # keys come from a Generator: RandomState's choice without
+    # replacement permutes the whole 2**30 range first (8 GiB, about a
+    # minute).
     rng = np.random.RandomState(8)
+    distinct = np.random.default_rng(8).choice(1 << 30, 1 << 19,
+                                               replace=False)
     qkey = torch.from_numpy(rng.permutation(np.repeat(
-        rng.choice(1 << 30, 1 << 19, replace=False).astype(np.int32),
-        2))).to(device)
+        distinct.astype(np.int32), 2))).to(device)
     qval = torch.from_numpy(
         rng.randint(0, 50, qkey.shape[0]).astype(np.int32)).to(device)
     qvalid = torch.ones(qkey.shape[0], dtype=torch.bool, device=device)
@@ -823,6 +863,14 @@ def phase2_kernels(device) -> dict:
         max_abs_err=err2, spill_case_ms=sms, spill_case_pass_ms=spasses,
         load_quarter_ms=qms)
 
+    mark("K2 scalar")
+    # -- K2 over vector value columns (phase 34's shapes).
+    vec = _phase2_vector(device)
+    mark("K2 vector")
+    results["hash_aggregate"]["vector"] = vec
+    results["hash_aggregate"]["max_abs_err"] = max(
+        results["hash_aggregate"]["max_abs_err"], vec["max_abs_err"])
+
     # -- K1 and K2 at the join paths' map waves (phases 8 and 9): wave 0
     # of each side routes and combines 2**21 rows of keys uniform over
     # 2**19 into 4 regions of R = 2**19 (side B of join-sort only
@@ -854,9 +902,274 @@ def phase2_kernels(device) -> dict:
             f"hash_aggregate kernel {jms[side]:.4f} ms, {jkeys} keys, rows "
             f"equal")
     results["hash_aggregate"]["join_map_wave_ms"] = jms
+    mark("join map waves")
 
     results["probe_add1"] = _probe_timing(device)
+    mark("K3")
+    log(f"phase 2: sections s {secs}, vector cases s {vec['section_s']}")
+    results["section_s"] = secs
     return results
+
+
+#: Phase 2's vector-value cases of K2: (label, G, rows, nparts, R, key
+#: span). G = 4 and 8 take the narrow route (every lane in the kernel,
+#: read at stride G), 9 and 128 the wide one (the kernel places the rows,
+#: the [n, G] rows are scattered after it). The G = 8 and G = 128 cases
+#: are phase 34's map waves: 34b's 2**21 rows into 4 regions of 2**19,
+#: 34a's 2**18 k-means points into 4 regions of 2**16.
+VECTOR_CASES = (
+    ("G=4", 4, 1 << 18, 4, 1 << 16, 1 << 16),
+    ("G=8 (34b map wave)", 8, 1 << 21, 4, 1 << 19, 1 << 20),
+    ("G=9", 9, 1 << 18, 4, 1 << 16, 1 << 16),
+    ("G=128 (34a map wave)", 128, 1 << 18, 4, 1 << 16, 1 << 10),
+)
+
+
+def _vector_values(gen, n, G, dtype, op, device):
+    """[n, G] values of ``dtype`` for ``op``, drawn on the card from
+    ``gen``: int32 small for add and over the whole range for max/min;
+    float32 normal with -0.0, +0.0 and a sparse NaN (one bit pattern,
+    so that either side's NaN is the other's)."""
+    if dtype == torch.int32:
+        lo, hi = (-1000, 1000) if op == "add" else (-(2**31), 2**31 - 1)
+        return torch.randint(lo, hi, (n, G), generator=gen, device=device,
+                             dtype=torch.int32)
+    v = torch.randn((n, G), generator=gen, device=device)
+    v[::41, 0] = -0.0
+    v[::43, G - 1] = 0.0
+    v[::4099, G // 2] = float("nan")
+    return v
+
+
+def _vector_rows_err(got, want, what, float_add=False) -> float:
+    """K2's table against its plain version's, key by key on occupied
+    slots (the slot layouts differ): the same keys, each once; int and
+    float max/min bits equal; a float add within 1e-4 relative (the
+    kernel's atomics add in arrival order). Returns the largest
+    absolute difference."""
+    if int(got[3]) != 0 or int(want[3]) != 0:
+        raise AssertionError(f"hash_aggregate overflow ({what})")
+    rows = []
+    for present, keys, vals in (got[:3], want[:3]):
+        idx = torch.nonzero(present).squeeze(1)
+        k = keys[0][idx]
+        order = torch.argsort(k)
+        rows.append((k[order], [v[idx][order] for v in vals]))
+    (gk, gv), (wk, wv) = rows
+    if not torch.equal(gk, wk) or torch.unique(gk).shape[0] != gk.shape[0]:
+        raise AssertionError(f"hash_aggregate keys differ ({what})")
+    err = 0.0
+    for a, b in zip(gv, wv):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"hash_aggregate table shapes differ "
+                                 f"({what}): {a.shape}, {b.shape}")
+        if a.dtype == torch.float32 and float_add:
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-4,
+                                  equal_nan=True):
+                raise AssertionError(f"hash_aggregate float sums differ "
+                                     f"({what})")
+            ok = ~(torch.isnan(a) | torch.isnan(b))
+            if bool(ok.any()):
+                err = max(err, float((a[ok] - b[ok]).abs().max()))
+        elif not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"hash_aggregate rows differ ({what})")
+    return err
+
+
+def _phase2_vector(device) -> dict:
+    """K2 over [n, G] value columns against its plain version: for each
+    ``VECTOR_CASES`` shape, int32 and float32, add, max and min each on
+    one column, then a scalar int32 add beside a float32 [n, G] max (a
+    wide case's scalar column stays in the kernel). Then the spill case
+    at G = 8 and G = 128 (keys homed in one bucket's range, as phase 2's
+    scalar spill case), and the bare kernel, the wrapper and the plain
+    version timed at phase 34's two map waves (float32 add at G = 128,
+    int32 add at G = 8)."""
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+
+    gen = torch.Generator(device=device).manual_seed(34)
+    err, out = 0.0, {"cases": [], "times": {}, "section_s": {}}
+    t_case = time.perf_counter()
+
+    def mark(what):
+        nonlocal t_case
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["section_s"][what] = round(now - t_case, 2)
+        t_case = now
+
+    for label, G, n, nparts, R, span in VECTOR_CASES:
+        key = torch.randint(0, span, (n,), generator=gen, device=device,
+                            dtype=torch.int32)
+        valid = torch.rand(n, generator=gen, device=device) < 0.95
+        part, _ = ck.hash_partition([key], nparts, 0, with_counts=False)
+        held, wide = ck.aggregate_routes([(G,)])
+        route = "wide" if wide else "narrow"
+        for dtype in (torch.int32, torch.float32):
+            for op in ("add", "max", "min"):
+                v = _vector_values(gen, n, G, dtype, op, device)
+                args = (valid, [key], [v], [op], part, nparts, R)
+                err = max(err, _vector_rows_err(
+                    ck.hash_aggregate(*args), ck.hash_aggregate_plain(*args),
+                    f"{label} {dtype} {op}", float_add=op == "add"))
+        s = torch.randint(-50, 50, (n,), generator=gen, device=device,
+                          dtype=torch.int32)
+        v = _vector_values(gen, n, G, torch.float32, "max", device)
+        args = (valid, [key], [s, v], ["add", "max"], part, nparts, R)
+        err = max(err, _vector_rows_err(
+            ck.hash_aggregate(*args), ck.hash_aggregate_plain(*args),
+            f"{label} scalar int32 add + float32 max"))
+        torch.cuda.synchronize()
+        log(f"phase 2: hash_aggregate {label} ({route} route), n={n} "
+            f"nparts={nparts} R={R} keys over {span}: int32 and float32 "
+            f"add/max/min, and a scalar add beside a [n, {G}] max, rows "
+            f"equal per key (float add within 1e-4)")
+        out["cases"].append(dict(label=label, G=G, n=n, nparts=nparts, R=R,
+                                 route=route))
+        mark(label)
+    # The spill case with vector values: pass C places the rows, and for
+    # the wide route writes their slots.
+    nparts, R = 4, 1 << 16
+    skey = _spill_keys(nparts, R)
+    srng = np.random.RandomState(7)
+    skeys = torch.from_numpy(srng.permutation(np.repeat(skey, 3))).to(device)
+    svalid = torch.ones(skeys.shape[0], dtype=torch.bool, device=device)
+    spart, _ = ck.hash_partition([skeys], nparts, 0, with_counts=False)
+    for G in (8, 128):
+        sv = torch.randint(-100, 100, (skeys.shape[0], G), generator=gen,
+                           device=device, dtype=torch.int32)
+        args = (svalid, [skeys], [sv], ["add"], spart, nparts, R)
+        got = ck.hash_aggregate(*args)
+        err = max(err, _vector_rows_err(got, ck.hash_aggregate_plain(*args),
+                                        f"spill case G={G}"))
+        if int(got[0].sum()) != len(skey):
+            raise AssertionError(f"spill case G={G}: {int(got[0].sum())} "
+                                 f"keys placed, not {len(skey)}")
+        log(f"phase 2: hash_aggregate spill case at G={G}, {len(skey)} keys "
+            f"in one bucket's home range: rows equal per key")
+    mark("spill")
+    # Timings at phase 34's map waves.
+    for label, G, dtype, n, R, span in (
+            ("34a", 128, torch.float32, 1 << 18, 1 << 16, 1 << 10),
+            ("34b", 8, torch.int32, 1 << 21, 1 << 19, 1 << 20)):
+        key = torch.randint(0, span, (n,), generator=gen, device=device,
+                            dtype=torch.int32)
+        v = (torch.randn((n, G), generator=gen, device=device)
+             if dtype == torch.float32 else
+             _vector_values(gen, n, G, dtype, "add", device))
+        valid = torch.ones(n, dtype=torch.bool, device=device)
+        part, _ = ck.hash_partition([key], 4, 0, with_counts=False)
+        args = (valid, [key], [v], ["add"], part, 4, R)
+        got = ck.hash_aggregate(*args)
+        nkeys = int(got[0].sum())
+        ms = bare_aggregate_ms(valid, [key], [v], ["add"], part, 4, R, nkeys)
+        wrapper = time_ms(lambda: ck.hash_aggregate(*args))
+        plain = time_ms(lambda: ck.hash_aggregate_plain(*args), reps=3,
+                        warmup=1)
+        bound_bytes = ck.cost("hash_aggregate", n=n, key_itemsizes=(4,),
+                              val_itemsizes=(4 * G,), nparts=4, R=R,
+                              val_lanes=G)["bytes"]
+        if bound_bytes != nbytes(valid, key, v, part, got[0], *got[1],
+                                 *got[2]):
+            raise AssertionError("hash_aggregate's declared bytes differ "
+                                 "from its tensors' (vector values)")
+        bound = bound_bytes / HBM_BYTES_PER_S * 1e3
+        route = "wide" if ck.aggregate_routes([(G,)])[1] else "narrow"
+        log(f"phase 2: hash_aggregate {label} map wave, n={n} [n, {G}] "
+            f"{str(dtype)[6:]} add, nparts=4 R={R} ({route} route): "
+            f"kernel {ms:.4f} ms, wrapper {wrapper:.4f} ms (plain {plain:.4f}"
+            f" ms, bound {bound:.4f} ms, {bound_bytes} declared bytes), "
+            f"{nkeys} keys")
+        out["times"][label] = dict(G=G, n=n, R=R, route=route, ms=ms,
+                                   wrapper_ms=wrapper, plain_ms=plain,
+                                   bound_ms=bound, bound_bytes=bound_bytes,
+                                   keys=nkeys)
+    mark("map-wave times")
+    out["routes"] = {}
+    for label, G, n, R, span in (("G=8 (34b map wave)", 8, 1 << 21, 1 << 19,
+                                  1 << 20),
+                                 ("G=4", 4, 1 << 18, 1 << 16, 1 << 16)):
+        rp = _route_pairs(device, gen, G, n, R, span)
+        err = max(err, rp.pop("max_abs_err"))
+        out["routes"][label] = rp
+        log(f"phase 2: hash_aggregate routes at {label}, n={n} [n, {G}] "
+            f"int32 add, nparts=4 R={R}, {ROUTE_ROUNDS} rounds in "
+            f"alternating order, medians of the rounds' medians: the "
+            f"wrapper on the [n, {G}] column {rp['vector']:.4f} ms, on {G} "
+            f"contiguous scalar columns {rp['lanes']:.4f} ms, the rows "
+            f"placed on the keys alone and scattered whole "
+            f"{rp['wide']:.4f} ms; the [n, {G}] column faster than the "
+            f"scatter in {rp['vector_beats_wide']} of {ROUTE_ROUNDS} "
+            f"rounds, the scalar columns in {rp['lanes_beat_wide']}; rows "
+            f"equal per key")
+    mark("routes")
+    out["max_abs_err"] = err
+    return out
+
+
+#: Rounds of ``_route_pairs``.
+ROUTE_ROUNDS = 10
+
+
+def _route_pairs(device, gen, G, n, R, span) -> dict:
+    """K2 at one [n, G] int32 add shape, computed three ways and timed
+    in ``ROUTE_ROUNDS`` rounds whose order alternates (each round's times
+    the median of 5 runs between CUDA events): ``vector``, the wrapper on
+    the [n, G] column; ``lanes``, the wrapper on G contiguous scalar
+    columns of the same values (the kernel holds all G lanes; the copy
+    into them is not timed); ``wide``, the kernel placing the rows on
+    the keys alone, then the whole rows scattered into their slots
+    (``dense._scatter_tables``). The three tables are checked equal per
+    key."""
+    from bigslice_tpu_torch.parallel import cuda_kernels as ck
+    from bigslice_tpu_torch.parallel.dense import _scatter_tables
+
+    nparts, T = 4, 4 * R
+    key = torch.randint(0, span, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    v = _vector_values(gen, n, G, torch.int32, "add", device)
+    lanes = [v[:, j].contiguous() for j in range(G)]
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    part, _ = ck.hash_partition([key], nparts, 0, with_counts=False)
+    plan = ck.aggregate_plan(1, 0, nparts, R, n, row_lane=True)
+    lib = ck.build()
+
+    def vector():
+        return ck.hash_aggregate(valid, [key], [v], ["add"], part, nparts,
+                                 R)
+
+    def by_lanes():
+        p, k, t, o = ck.hash_aggregate(valid, [key], lanes, ["add"] * G,
+                                       part, nparts, R)
+        return p, k, [torch.stack(t, 1)], o
+
+    def wide():
+        buf = ck.aggregate_buffers(plan, [key], [], T, device, placed=True)
+        rc = lib.bs_hash_aggregate(*ck.aggregate_args(
+            valid, [key], [], [], part, nparts, R, 0, plan, buf))
+        if rc:
+            raise RuntimeError(f"hash_aggregate: CUDA error {rc}")
+        idx = torch.where(buf.placed >= 0, buf.placed, T)
+        _, t = _scatter_tables(idx, [v], ["add"], T + 1)
+        return buf.present, buf.out_keys, [t[0][:T]], buf.overflow
+
+    want = vector()
+    err = max(_vector_rows_err(by_lanes(), want, f"G={G} lanes"),
+              _vector_rows_err(wide(), want, f"G={G} wide"))
+    fns = {"vector": vector, "lanes": by_lanes, "wide": wide}
+    rounds = {k: [] for k in fns}
+    for r in range(ROUTE_ROUNDS):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            rounds[k].append(time_ms(fns[k], reps=5, warmup=1))
+    out = {k: statistics.median(t) for k, t in rounds.items()}
+    out.update(
+        rounds=rounds, max_abs_err=err,
+        vector_beats_wide=sum(a < b for a, b in zip(rounds["vector"],
+                                                    rounds["wide"])),
+        lanes_beat_wide=sum(a < b for a, b in zip(rounds["lanes"],
+                                                  rounds["wide"])))
+    return out
+
 
 
 def _spill_keys(nparts, R) -> np.ndarray:
@@ -6717,6 +7030,107 @@ def phase33_plane(card: str) -> dict:
         aot=report["sources"], seconds=secs)}
 
 
+#: Phase 34's narrow route: reduce-wave's widths with a vector payload.
+VECTOR_NARROW_ROWS, VECTOR_NARROW_SPAN, VECTOR_NARROW_G = 1 << 23, 1 << 20, 8
+#: Phase 34a's tolerance: a key's float32 sum against float64, as a share
+#: of the absolute sum of its summands (the map side's atomics and the
+#: reduce side add in arrival order).
+VECTOR_RTOL = 1e-4
+
+
+def _vector_sums(keys, vals):
+    """Per-key sums of [n, G] rows on the host: ``(present keys, sums,
+    absolute sums)``, sums in float64 for float rows and int64 else."""
+    order = np.argsort(keys, kind="stable")
+    k = keys[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    acc = np.float64 if vals.dtype.kind == "f" else np.int64
+    v = vals[order].astype(acc)
+    sums = np.add.reduceat(v, starts, axis=0)
+    abs_sums = np.add.reduceat(np.abs(v), starts, axis=0)
+    return k[starts], sums, abs_sums
+
+
+def _vector_check(label, keys, vals, exact):
+    """A check for ``drive``: the result's rows against ``_vector_sums``
+    (exact, or within ``VECTOR_RTOL`` of the absolute sums), each row in
+    the shard K1 names, and no op on the sort path."""
+    import bigslice_tpu_torch as bs
+
+    want_k, want_v, want_abs = _vector_sums(keys, vals)
+
+    def check(sess, res):
+        off = sess.executor.hash_off
+        if off:
+            raise AssertionError(f"{label}: ops on the sort path: {off}")
+        shards = bs.result_shard_rows(res)
+        k = np.concatenate([s[0] for s in shards])
+        v = np.concatenate([s[1] for s in shards])
+        o = np.argsort(k)
+        if not np.array_equal(k[o], want_k) or v.shape != want_v.shape:
+            raise AssertionError(f"{label}: keys or shapes differ")
+        if exact:
+            if not np.array_equal(v[o].astype(np.int64), want_v):
+                raise AssertionError(f"{label}: sums differ from numpy")
+            note = ", rows exact"
+        else:
+            err = np.abs(v[o].astype(np.float64) - want_v)
+            if not np.all(err <= VECTOR_RTOL * want_abs):
+                raise AssertionError(
+                    f"{label}: sums off by {(err / want_abs).max():.3e} of "
+                    f"their absolute sums (limit {VECTOR_RTOL})")
+            note = (f", largest error {(err / want_abs).max():.3e} of the "
+                    f"absolute sums")
+        _shard_keys_routed(shards, len(shards))
+        return f"{note}, hash_off empty"
+
+    return check
+
+
+def phase34_vector_reduce(card: str) -> dict:
+    """34: an undeclared vector-value ``Reduce`` on K2 at full width.
+    (a) the wide route: the k-means point sums of phase 27e's points
+    (2**20 x 128 float32, 512 MiB) over keys in [0, 1024) from
+    default_rng(34), S = 4; (b) the narrow route: 2**23 rows over 2**20
+    keys (RandomState(42), reduce-wave's widths) with int32 [n, 8]
+    values in [-1000, 1000) from RandomState(34), about 300 MB, S = 4.
+    Both ``MeshExecutor(auto_dense=False)``, every row checked."""
+    import bigslice_tpu_torch as bs
+
+    t0 = time.perf_counter()
+    S = 4
+    pts = _kmeans_points()
+    n = len(pts)
+    kkeys = np.random.default_rng(34).integers(0, 1024, n).astype(np.int32)
+
+    def add(a, b):
+        return a + b
+
+    out = {}
+    out["vector-wide"] = drive(
+        "34a", "vector-wide (k-means point sums, [n, 128] float32)",
+        lambda: bs.Reduce(bs.Const(S, kkeys, pts), add),
+        _vector_check("34a", kkeys, pts, exact=False),
+        ("hash_partition", "hash_aggregate"), n, card, auto_dense=False)
+    del pts, kkeys
+    gc.collect()
+    nkeys, _ = _reduce_wave_input(VECTOR_NARROW_ROWS, VECTOR_NARROW_SPAN)
+    vals = np.random.RandomState(34).randint(
+        -1000, 1000, (VECTOR_NARROW_ROWS, VECTOR_NARROW_G)).astype(np.int32)
+    out["vector-narrow"] = drive(
+        "34b", "vector-narrow (reduce-wave widths, [n, 8] int32)",
+        lambda: bs.Reduce(bs.Const(S, nkeys, vals), add),
+        _vector_check("34b", nkeys, vals, exact=True),
+        ("hash_partition", "hash_aggregate"), VECTOR_NARROW_ROWS, card,
+        auto_dense=False)
+    del nkeys, vals
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 34: vector-value Reduce on K2 in "
+        f"{time.perf_counter() - t0:.2f} s on {card}")
+    return out
+
+
 def nbytes_of(*arrays) -> int:
     return int(sum(a.nbytes for a in arrays))
 
@@ -6789,6 +7203,7 @@ def main() -> int:
     paths.update(timed("31", phase31_attention, card))
     paths.update(timed("32", phase32_spmd, card))
     paths.update(timed("33", phase33_plane, card))
+    paths.update(timed("34", phase34_vector_reduce, card))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
@@ -6805,7 +7220,7 @@ def main() -> int:
         for name in PATH_KERNELS
     ]}
     log(f"chip_smoke: phase walls s {walls}")
-    log(f"chip_smoke: phases 0-33 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 0-34 in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,13 +59,21 @@ def test_every_lane_count_fits_two_blocks_an_sm(nkeys):
 
 
 def test_aggregate_supported_domain():
+    """Keys of the kernel's types only; values of any dtype and count,
+    the ones the kernel does not combine (an int64 column, a ninth
+    column) scattered after it (``aggregate_routes``)."""
     i32 = torch.int32
     assert ck.aggregate_supported([i32], [i32], 4, 1 << 21, 1 << 23)
     assert ck.aggregate_supported([torch.bool] * 8, [torch.float32] * 8,
                                   1, 8, 10)
     assert not ck.aggregate_supported([i32], [i32], 4, 3 << 20, 10)
     assert not ck.aggregate_supported([torch.float32], [i32], 4, 64, 10)
-    assert not ck.aggregate_supported([i32], [torch.int64], 4, 64, 10)
+    assert ck.aggregate_supported([i32], [torch.int64], 4, 64, 10)
+    assert ck.aggregate_routes([()], [torch.int64]) == ((), (0,))
+    assert ck.aggregate_supported([i32], [i32] * 9, 4, 64, 10)
+    assert ck.aggregate_routes([()] * 9, [i32] * 9) == (tuple(range(8)),
+                                                       (8,))
+    assert not ck.aggregate_supported([i32], [], 4, 64, 10)
     assert not ck.aggregate_supported([i32] * 9, [i32], 4, 64, 10)
     assert not ck.aggregate_supported([i32], [i32], 4, 64, 2**31)
     assert not ck.aggregate_supported([i32], [i32], 2**20, 2**20, 10)

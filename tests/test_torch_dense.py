@@ -12,7 +12,8 @@ Beside them: the routing and rank tables bit-equal to the JAX package's,
 the dense functions held one by one against the JAX package's (the
 exchanging ones under its one-device ``shard_map``), the standalone
 classes against the counterparts tests/test_shuffle.py, test_join.py and
-test_wave_pipeline.py use, and C3.4's float32 vector-value Reduce.
+test_wave_pipeline.py use, and a float32 vector-value Reduce on the hash
+lowering (formerly C3.4's pinned divergence).
 """
 
 import numpy as np
@@ -628,11 +629,23 @@ def test_out_of_range_fails_even_when_heuristic_reverts(mesh1):
 
 
 @pytest.mark.parametrize("declared", [False, True])
-def test_float_vector_value_reduce_within_rounding(mesh1, declared):
-    """C3.4: a float32 vector-value Reduce (G = 4). Undeclared and with
-    discovery off, the port takes the sort path where the JAX package
-    hashes the vectors: the sums come out in another order, within
-    rounding. Declared, both take the dense table."""
+def test_float_vector_value_reduce_within_rounding(mesh1, declared,
+                                                   monkeypatch):
+    """A float32 vector-value Reduce (G = 4), formerly C3.4's pin.
+    Undeclared and with discovery off, both packages take the hash
+    lowering, whose table scatters the [4] rows whole: the port's K2
+    wrapper carries them and no op goes to the sort path; the sums agree
+    within rounding. Declared, both take the dense table."""
+    from bigslice_tpu_torch.parallel import cuda_kernels
+
+    calls = []
+    real = cuda_kernels.hash_aggregate
+
+    def counted(valid, key_cols, val_cols, *args):
+        calls.append(tuple(tuple(v.shape[1:]) for v in val_cols))
+        return real(valid, key_cols, val_cols, *args)
+
+    monkeypatch.setattr(cuda_kernels, "hash_aggregate", counted)
     rng = np.random.RandomState(15)
     K = 50
     keys = rng.randint(0, K, 3000).astype(np.int32)
@@ -645,13 +658,21 @@ def test_float_vector_value_reduce_within_rounding(mesh1, declared):
     ref = Session(executor=MeshExecutor(mesh1, hash_aggregate=True, **kw))
     want = bst.result_shard_rows(ref.run(ref_bs.Reduce(
         ref_bs.Const(4, keys, vecs), add, **extra)))
-    got = bst.result_shard_rows(_port_session(**kw).run(bst.Reduce(
-        bst.Const(4, keys, vecs), add, **extra)))
+    port = _port_session(**kw)
+    r = bst.Reduce(bst.Const(4, keys, vecs), add, **extra)
+    got = bst.result_shard_rows(port.run(r))
     assert_same_shards(got, want)
     for sh in got:
         for k, v in zip(*sh):
             np.testing.assert_allclose(v, vecs[keys == k].sum(0),
                                        rtol=RTOL, atol=1e-4)
+    if declared:
+        assert r.frame_combiner.dense_ops == ("add",)
+        assert calls == []
+    else:
+        assert r.frame_combiner.hash_ops() == ("add",)
+        assert ((4,),) in calls
+        assert port.executor.hash_off == frozenset()
 
 
 # ------------------------------------------------- the standalone classes

@@ -194,6 +194,39 @@ def test_elastic_default_mesh_provider_recovers(monkeypatch):
     assert ex.mesh.device == torch.device("cpu")
 
 
+class _CudaExecutor:
+    """An executor on ``cuda`` with nothing to run: what the session
+    hands its default provider."""
+
+    device = torch.device("cuda")
+    name = "cuda-stub"
+
+    def resize(self, mesh):
+        raise AssertionError("no mesh may be offered here")
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+def test_default_provider_never_offers_a_cuda_executor_the_cpu(
+        monkeypatch, device):
+    """The default provider probes the executor's own device: for an
+    executor on ``cuda`` with no card it gives None (the session then
+    re-raises the loss), never a CPU mesh; an executor on the CPU still
+    gets its CPU mesh."""
+    from bigslice_tpu_torch.utils import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert distributed.default_mesh_provider(device=device)() is None
+    cpu = distributed.default_mesh_provider(device="cpu")()
+    assert cpu is not None and cpu.device == torch.device("cpu")
+    ex = _CudaExecutor()
+    ex.device = torch.device(device)
+    sess = Session(executor=ex, elastic=1)
+    assert sess.mesh_provider() is None
+    # With no device given, the provider's default is the card, not the
+    # CPU.
+    assert distributed.default_mesh_provider()() is None
+
+
 def test_injected_peer_lost_recovers_elastically(monkeypatch):
     """tests/test_chaos.py::test_mesh_injected_host_loss_elastic with the
     keepalive's site: ``peer.lost`` fires its ``PeerLostError`` before a

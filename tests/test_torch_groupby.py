@@ -233,8 +233,8 @@ def test_map_after_groupby(ref_session):
 
 def test_reduce_after_groupby_takes_vector_values(ref_session):
     """Vector columns through a shuffle and a combiner: regroup by
-    k % 3 and add the [G] vectors elementwise (the sort path: the port's
-    table kernel holds no vector values)."""
+    k % 3 and add the [G] vectors elementwise (the hash lowering, whose
+    table scatters the [G] rows whole, in both packages)."""
     rng = np.random.RandomState(7)
     keys = rng.randint(0, 30, 300).astype(np.int32)
     vals = rng.randint(0, 50, 300).astype(np.int32)

@@ -172,6 +172,34 @@ def test_fetch_returns_none_for_unpublished_and_err():
     assert ex.fetch(t.name, 0, timeout=0.05) is None
 
 
+def test_fetch_waits_out_an_unreadable_state_and_says_why(monkeypatch):
+    """A pointer whose state cannot be read (a store read that failed,
+    or an epoch being replaced) is no published failure: the fetch reads
+    again until its timeout and then records why, instead of giving up
+    at once (each give-up loses the producer for every consumer that
+    read it). A published error still ends the wait at once, by name."""
+    monkeypatch.setattr(hd_mod, "POLL_SECS", 0.01)
+    t = make_task(shard=0)
+    frames = FakeFrames({(t.name, 0): [int_frame([4, 5])]})
+    ex = make_exchange(pid=0, frames=frames)
+    ex._publish_epoch(t, "ok")
+    state_key = f"{P}{_base_key(t.name)}/a0/state"
+    saved = ex.client.kv.pop(state_key)
+    timer = threading.Timer(0.1, ex.client.set, (state_key, saved))
+    timer.start()
+    got = ex.fetch(t.name, 0, timeout=5.0)
+    timer.join()
+    assert got is not None and _col(got[0]) == [4, 5]
+    del ex.client.kv[state_key]
+    t0 = time.monotonic()
+    assert ex.fetch(t.name, 0, timeout=0.2) is None
+    assert time.monotonic() - t0 >= 0.2
+    assert ex.miss_reason[(str(t.name), 0)] == "epoch 0: no state after 0.2s"
+    ex._publish_epoch(t, "err:boom")
+    assert ex.fetch(t.name, 0, timeout=5.0) is None
+    assert ex.miss_reason[(str(t.name), 0)] == "epoch 1 err:boom"
+
+
 def test_slow_owner_with_beating_keepalive_extends_deadline(monkeypatch):
     """The absolute deadline must not fire while the owner's beat
     advances; once it stops, the task is judged lost."""
@@ -367,3 +395,72 @@ def test_each_host_task_runs_on_exactly_one_rank(world, name):
         assert {t for t, _ in r["fetched"][name]} <= set(r["remote"][name])
         assert r["fetched"][name]  # a result scan read remote shards
         assert r["modules"] == []
+
+
+def test_a_previous_sessions_tombstone_fails_no_task_of_the_next():
+    """Two sessions in a row on two ranks: rank 0 closes its first
+    exchange (its tombstone) and rank 1 opens its second and waits on a
+    task rank 0 owns before rank 0 has opened its second. The old
+    tombstone is a previous session's (generation 1 against rank 1's
+    2) and must not fail the task; rank 0's second exchange deletes it,
+    and its own close is heeded."""
+    store = FakeStore()
+    old0 = make_exchange(pid=0, store=store)
+    make_exchange(pid=1, store=store)
+    old0.close()
+    assert store.kv["bigslice/hostdist_closed/0"] == b"1"
+    peer = make_exchange(pid=1, store=store)
+    assert peer.gen == 2
+    assert peer._owner_verdict(0) is None
+    new0 = make_exchange(pid=0, store=store)
+    assert new0.gen == 2 and "bigslice/hostdist_closed/0" not in store.kv
+    new0.close()
+    peer._closed_checked.clear()  # past the check's 2 s throttle
+    assert "closed its session" in peer._owner_verdict(0)
+
+
+def _wait_settled(task, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while task.state == TaskState.RUNNING:
+        assert time.monotonic() < deadline, "task never settled"
+        time.sleep(0.02)
+
+
+def test_an_owner_at_a_later_exchange_fails_the_task_by_name():
+    """The ranks built their exchanges in different orders (rank 0 one
+    more, a retried session): rank 1's task owned by rank 0 ends in an
+    error that names the generations, instead of waiting on a close of
+    this session that never comes."""
+    store = FakeStore()
+    make_exchange(pid=0, store=store)
+    peer = make_exchange(pid=1, store=store)
+    make_exchange(pid=0, store=store)  # rank 0's second exchange
+    t = make_task(shard=0)
+    t.set_state(TaskState.WAITING)
+    assert peer.submit(t)
+    _wait_settled(t)
+    assert t.state == TaskState.ERR
+    msg = str(t.error)
+    assert "exchange 2, process 1 at 1" in msg
+    assert "different orders" in msg
+
+
+def test_an_owner_left_at_an_earlier_exchange_fails_the_task_by_name(
+        monkeypatch):
+    """Rank 1 built one exchange more than rank 0: rank 0's tombstone of
+    its earlier exchange is ignored while it may still open the next,
+    but only for the state timeout, beat or not; then the task ends by
+    name."""
+    store = FakeStore()
+    old0 = make_exchange(pid=0, store=store)
+    make_exchange(pid=1, store=store)
+    ka = FakeKeepalive()
+    peer = make_exchange(pid=1, store=store, keepalive=ka)
+    old0.close()
+    ka._age[0] = 0.0  # the owner beats throughout
+    assert peer._owner_verdict(0) is None
+    monkeypatch.setattr(hd_mod, "STATE_TIMEOUT_SECS", 0.0)
+    peer._closed_checked.clear()
+    msg = peer._owner_verdict(0)
+    assert "still at host-task exchange 1" in msg
+    assert "process 1 at 2" in msg

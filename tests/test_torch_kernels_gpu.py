@@ -1879,3 +1879,205 @@ def test_aotcheck_builds_every_source_on_the_card(dev, tmp_path):
     kernels = [k for e in report["sources"].values()
                for k in e["kernels"].values()]
     assert kernels and all(k["registers"] > 0 for k in kernels)
+
+
+# -- K2 over vector value columns (chip_smoke.py phase 2's shapes, cut) --
+
+
+def _vector_table_rows(got):
+    """Occupied slots key by key: (sorted keys, each table's rows)."""
+    present, keys, vals = got[:3]
+    idx = torch.nonzero(present).squeeze(1)
+    k = keys[0][idx]
+    order = torch.argsort(k)
+    return k[order], [v[idx][order] for v in vals]
+
+
+def _check_vector_aggregate(dev, G, dtype, ops, n=1 << 16, nparts=4,
+                            R=1 << 14, span=1 << 14, seed=0, keys=None):
+    """K2 against its plain version over ``len(ops)`` [n, G] columns of
+    ``dtype``: the same keys, int and float max/min bits equal, a float
+    add within 1e-4 (the kernel adds in the atomics' order)."""
+    rng = np.random.RandomState(seed)
+    if keys is None:
+        keys = rng.randint(0, span, n).astype(np.int32)
+    n = len(keys)
+    vals = []
+    for op in ops:
+        if dtype == np.int32:
+            v = (rng.randint(-1000, 1000, (n, G)) if op == "add" else
+                 rng.randint(-(2**31), 2**31 - 1, (n, G))).astype(np.int32)
+        else:
+            v = rng.randn(n, G).astype(np.float32)
+            v[::41, 0] = -0.0
+            v[::4099, G // 2] = np.nan
+        vals.append(torch.from_numpy(v).to(dev))
+    key = torch.from_numpy(keys).to(dev)
+    valid = torch.from_numpy(rng.rand(n) < 0.95).to(dev)
+    part, _ = cuda_kernels.hash_partition([key], nparts, 0,
+                                          with_counts=False)
+    before = cuda_kernels.LAUNCHES["hash_aggregate"]
+    got = cuda_kernels.hash_aggregate(valid, [key], vals, list(ops), part,
+                                      nparts, R)
+    assert cuda_kernels.LAUNCHES["hash_aggregate"] == before + 1
+    want = cuda_kernels.hash_aggregate_plain(valid, [key], vals, list(ops),
+                                             part, nparts, R)
+    torch.cuda.synchronize()
+    assert int(got[3]) == int(want[3]) == 0
+    (gk, gv), (wk, wv) = _vector_table_rows(got), _vector_table_rows(want)
+    assert torch.equal(gk, wk)
+    assert torch.unique(gk).shape[0] == gk.shape[0]
+    for a, b, op in zip(gv, wv, ops):
+        assert a.shape == b.shape == (gk.shape[0], G)
+        if a.dtype == torch.float32 and op == "add":
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                       equal_nan=True)
+        else:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    # Empty slots hold the op's identity in every lane.
+    from bigslice_tpu_torch.parallel.dense import identity_table
+
+    empty = ~got[0]
+    for t, op, v in zip(got[2], ops, vals):
+        ident = identity_table(op, v.dtype, 1, dev, (G,))
+        assert torch.equal(t[empty].view(torch.int32),
+                           ident.expand(int(empty.sum()), G)
+                           .view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32],
+                         ids=["int32", "float32"])
+@pytest.mark.parametrize("G", [4, 8, 9, 128])
+def test_hash_aggregate_vector_values(dev, G, dtype, op):
+    """G = 4 and 8 take the narrow route (every lane in the kernel, read
+    at stride G), 9 and 128 the wide one (the kernel places the rows on
+    the keys, the rows are scattered whole after it)."""
+    held, wide = cuda_kernels.aggregate_routes([(G,)])
+    assert bool(wide) is (G > cuda_kernels.MAX_COLS)
+    _check_vector_aggregate(dev, G, dtype, [op], seed=G)
+
+
+@pytest.mark.parametrize("G", [4, 9, 128])
+def test_hash_aggregate_scalar_beside_vector(dev, G):
+    """A scalar add column beside a vector max column: narrow at G = 4
+    (five lanes, two strides), wide past it (the scalar in the kernel)."""
+    rng = np.random.RandomState(G)
+    n, nparts, R = 1 << 16, 4, 1 << 14
+    keys = rng.randint(0, R, n).astype(np.int32)
+    s = torch.from_numpy(rng.randint(-50, 50, n).astype(np.int32)).to(dev)
+    v = torch.from_numpy(rng.randn(n, G).astype(np.float32)).to(dev)
+    key = torch.from_numpy(keys).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    part, _ = cuda_kernels.hash_partition([key], nparts, 0,
+                                          with_counts=False)
+    args = (valid, [key], [s, v], ["add", "max"], part, nparts, R)
+    got = cuda_kernels.hash_aggregate(*args)
+    want = cuda_kernels.hash_aggregate_plain(*args)
+    (gk, gv), (wk, wv) = _vector_table_rows(got), _vector_table_rows(want)
+    assert torch.equal(gk, wk)
+    assert torch.equal(gv[0], wv[0])
+    assert torch.equal(gv[1].view(torch.int32), wv[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("G", [8, 128])
+def test_hash_aggregate_vector_spill(dev, G):
+    """The scalar spill case's keys (homed in one bucket of region 1)
+    with [n, G] values: pass C places the rows the bucket cannot, and on
+    the wide route writes their slots."""
+    from bigslice_tpu_torch.parallel import hashagg
+
+    nparts, R = 4, 1 << 16
+    plan = cuda_kernels.aggregate_plan(1, 1, nparts, R, 0)
+    B = 1 << plan.bucket_log2
+    cand = torch.arange(1 << 22, dtype=torch.int32)
+    part, _ = cuda_kernels.hash_partition_plain([cand], nparts, 0,
+                                                with_counts=False)
+    home = (hashagg._slot_hash([cand], 0) & (R - 1)) >> plan.bucket_log2
+    chosen = cand[(part == 1) & (home == 3)][:B + B // 2].numpy()
+    keys = np.random.RandomState(G).permutation(np.repeat(chosen, 3))
+    got = _check_vector_aggregate(dev, G, np.int32, ["add"], nparts=nparts,
+                                  R=R, seed=G, keys=keys)
+    assert int(got[0].sum()) <= len(chosen)
+
+
+@pytest.mark.parametrize("G", [8, 128])
+def test_vector_value_reduce_on_the_card(dev, G):
+    """An undeclared Reduce over [n, G] values through Session() on the
+    card (phase 34's two routes, cut): K1 and K2 launched, no op on the
+    sort path, rows equal to the CPU run's (int32 exact)."""
+    import bigslice_tpu_torch as bs
+
+    rng = np.random.RandomState(G)
+    n = 1 << 16
+    keys = rng.randint(0, 1 << 12, n).astype(np.int32)
+    vals = rng.randint(-1000, 1000, (n, G)).astype(np.int32)
+
+    def run(device):
+        ex = bs.MeshExecutor(device=device, auto_dense=False)
+        res = bs.Session(executor=ex).run(
+            bs.Reduce(bs.Const(4, keys, vals), lambda a, b: a + b))
+        assert ex.hash_off == frozenset()
+        return bs.result_shard_rows(res)
+
+    cuda_kernels.reset_launches()
+    got = run("cuda")
+    assert cuda_kernels.LAUNCHES["hash_partition"] > 0
+    assert cuda_kernels.LAUNCHES["hash_aggregate"] > 0
+    want = run("cpu")
+    for g, w in zip(got, want):
+        for gc, wc in zip(g, w):
+            np.testing.assert_array_equal(gc, wc)
+
+
+def test_declared_hash_aggregate_cost_counts_vector_rows(dev):
+    """A [n, G] column's declared bytes are its rows' and its [T, G]
+    table's; its flops one op a lane."""
+    n, nparts, R, G = 1 << 16, 4, 1 << 14, 128
+    key = torch.arange(n, dtype=torch.int32, device=dev) % 4096
+    val = torch.ones((n, G), dtype=torch.float32, device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    part, _ = cuda_kernels.hash_partition([key], nparts, 0,
+                                          with_counts=False)
+    heard = []
+    with cuda_kernels.launch_sink(lambda name, cost: heard.append(
+            (name, cost))):
+        present, okeys, ovals, _ = cuda_kernels.hash_aggregate(
+            valid, [key], [val], ["add"], part, nparts, R)
+    torch.cuda.synchronize()
+    want = (valid.nbytes + key.nbytes + val.nbytes + part.nbytes
+            + present.nbytes + okeys[0].nbytes + ovals[0].nbytes)
+    assert heard == [("hash_aggregate", {"bytes": want,
+                                         "flops": n * (10 + G)})]
+
+
+@pytest.mark.parametrize("case", ["int16", "float16", "nine-columns"])
+def test_hash_aggregate_scatters_what_the_kernel_does_not_combine(dev,
+                                                                  case):
+    """Value columns of a dtype the kernel does not combine, or past its
+    eight lanes, are scattered after it into their rows' slots: the
+    occupied rows equal the plain version's key by key."""
+    rng = np.random.RandomState(len(case))
+    n, nparts, R = 1 << 16, 4, 1 << 14
+    key = torch.from_numpy(rng.randint(0, R, n).astype(np.int32)).to(dev)
+    if case == "nine-columns":
+        vals = [torch.from_numpy(rng.randint(-50, 50, n).astype(np.int32))
+                .to(dev) for _ in range(9)]
+        ops = ["add", "max", "min"] * 3
+    else:
+        dt = np.int16 if case == "int16" else np.float16
+        vals = [torch.from_numpy(rng.randint(-50, 50, n).astype(dt)).to(dev),
+                torch.from_numpy(rng.randint(-50, 50, n).astype(np.int32))
+                .to(dev)]
+        ops = ["max", "add"]
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    part, _ = cuda_kernels.hash_partition([key], nparts, 0,
+                                          with_counts=False)
+    args = (valid, [key], vals, ops, part, nparts, R)
+    got = cuda_kernels.hash_aggregate(*args)
+    want = cuda_kernels.hash_aggregate_plain(*args)
+    (gk, gv), (wk, wv) = _vector_table_rows(got), _vector_table_rows(want)
+    assert torch.equal(gk, wk)
+    for a, b in zip(gv, wv):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -195,8 +195,9 @@ def test_arena_on_off_equal_and_equal_to_the_jax_package(ref_session):
 
 
 def test_arena_on_off_bit_identical_float_vectors():
-    """Float32 vector values take the sort path; the arena changes no
-    program, layout or padding, so the sums are bit-identical."""
+    """Float32 vector values (the hash lowering's row scatter); the
+    arena changes no program, layout or padding, so the sums are
+    bit-identical."""
     rng = np.random.RandomState(31)
     keys = rng.randint(0, 61, 16 * 96).astype(np.int32)
     vals = rng.rand(16 * 96, 4).astype(np.float32)

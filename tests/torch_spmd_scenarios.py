@@ -181,11 +181,22 @@ def wave_chain(bs, mod, n):
                      lambda a, b: b > 0)
 
 
+def reduce_vector(bs, mod, n):
+    """[n, 4] int32 rows through the hash lowering and the exchange of
+    table regions over the ranks: 300 sparse keys (so that discovery
+    declares no dense bound)."""
+    rng = np.random.RandomState(24)
+    k = rng.randint(0, 1 << 24, 300).astype(np.int32)[
+        rng.randint(0, 300, ROWS)]
+    v = rng.randint(-1000, 1000, (ROWS, 4)).astype(np.int32)
+    return bs.Reduce(bs.Const(4 * n, k, v), lambda a, b: a + b)
+
+
 SCENARIOS = {f.__name__.replace("_", "-"): f for f in (
     reduce_k2, reduce_sort, reduce_float, reduce_padded, reduce_dense,
     reshuffle, repartition, join, groupby, fold, cogroup, host_to_mesh,
     mesh_to_host, hash_overflow, const_map, filter_map_chain, head,
-    map_args, flatmap, reshard_down, prefixed, wave_chain)}
+    map_args, flatmap, reshard_down, prefixed, wave_chain, reduce_vector)}
 
 
 def reuse(bs, mod, n, run):
