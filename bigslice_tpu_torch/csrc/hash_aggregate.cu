@@ -16,15 +16,17 @@
 //
 // Design: the T slots are cut into buckets of B = 2^bshift consecutive slots
 // inside one region, B chosen by the wrapper (cuda_kernels.aggregate_plan)
-// so that a bucket's sub-table (claim word, key lanes, value lanes: 4 bytes
-// each per slot) fits one block's shared memory. A row's home bucket is
+// so that a bucket's sub-table (claim word, key lanes, scalar value lanes
+// and the vector columns' row words: 4 bytes each per slot) fits one
+// block's shared memory. A row's home bucket is
 // (p * R + (h & (R - 1))) >> bshift, with h the slot hash of
 // hashagg._slot_hash (seed ^ SLOT_SEED_XOR). Three passes run on the stream:
 //
 //   A  bucket: count the selected rows per bucket (a shared histogram per
 //      block; the last block to finish scans the counts), then scatter
-//      each row's payload (its key lanes as 32-bit hash lanes and its value
-//      lanes as raw bits) into bucket order. A block sorts its tile of rows
+//      each row's payload (its key lanes as 32-bit hash lanes, its scalar
+//      value lanes as raw bits and, with vector columns or `placed`, its
+//      row index) into bucket order. A block sorts its tile of rows
 //      by bucket in shared memory and writes each lane out in runs; past
 //      kStagedBins buckets rows scatter one by one. Invalid rows and rows
 //      of no partition are dropped here and cost nothing later.
@@ -69,18 +71,38 @@
 // output written once): the payload's round trip is the price of taking
 // the random traffic off device memory.
 //
-// Value lanes: a value lane is one 32-bit word a row. A scalar column is
-// one lane; a row-major [n, G] vector column is G lanes, lane l read at
-// word i * G + l of the column and written at word g * G + l of its
-// [T, G] table (vstride = G), so no lane is copied out first. The wrapper
-// (cuda_kernels.hash_aggregate) hands the kernel at most BS_MAX_COLS
-// lanes. Past that (a wide vector column, such as k-means' d = 128 point
-// sums) the kernel places the rows on the keys alone and writes `placed`,
-// each row's slot (-1 for a row it did not place), which passes B and C
-// write through a row-index lane carried in the payload; the wrapper then
-// scatters the wide rows whole into their slots, the counterpart of the
+// Value columns: a scalar column of int32, uint32 or float32 is one value
+// lane, a 32-bit word a row, carried through pass A's payload beside the
+// keys (at most BS_MAX_COLS lanes). A row-major [n, G] column (G > 1, such
+// as k-means' d = 128 point sums) is one value row of G words: pass A
+// carries only each row's index (one payload lane for all such columns),
+// and pass B gathers each row whole from the column by that index, a group
+// of lanes sized to G a row (16-byte loads where G is a multiple of 4 and
+// the column 16-byte aligned), and combines it into a row-major [B, W]
+// part of the bucket's sub-table (W the words of every vector column's
+// row) with shared atomics. The bucket's B consecutive slots are then one
+// contiguous [B, G] block of the column's [T, G] table, written with
+// 16-byte stores. Pass C combines a spilled row's G words into its slot's
+// row of the table from the row's own thread, with global atomics: only
+// rows that met 16 other keys in their bucket get there. The wrapper
+// (cuda_kernels.aggregate_plan) sizes B from the slot's words, 1 + key
+// lanes + scalar lanes + W.
+//
+// What bounds the vector rows: bytes. Every row is read once by the
+// gather and every [T, G] table written once; the keys' payload round
+// trip adds 8 bytes a row to pass A, the row index 4 more. At the k-means
+// map wave (n = 2^18 rows of 128 float32, T = 2^18) that is 128 MiB of
+// rows read and 128 MiB of table written; the design keeps the random
+// traffic (the combines) in shared memory and every global access of the
+// rows and the table coalesced.
+//
+// Columns the kernel does not combine (int16, int8, float16, ...), and
+// vector rows past what a sub-table of 32 slots can hold, are placed on
+// the keys alone: the kernel writes `placed`, each row's slot (-1 for a
+// row it did not place), through the same row-index lane, and the wrapper
+// scatters those columns whole into their slots, the counterpart of the
 // JAX package's claim-then-scatter table build (parallel/hashagg.py
-// hash_aggregate). Wide rows never pass through the payload.
+// hash_aggregate).
 #include "common.cuh"
 
 // Probe bound per row in a bucket (AGG_PROBE_MAX of the JAX package).
@@ -100,6 +122,8 @@ static constexpr int32_t kSlotEmpty = -1;
 static constexpr int32_t kSlotFilled = -2;
 // Seeds pass C's strides from the slot hash.
 static constexpr uint32_t kSpillSeed = 0x2545F491u;
+// Seeds the vector rows' kernel's in-bucket probe step.
+static constexpr uint32_t kStepSeed = 0x68E31DA4u;
 
 static constexpr int kTileThreads = 1024;
 static constexpr int kTileItems = 8;
@@ -210,11 +234,20 @@ struct AggArgs {
   ColSet keys;                         // input key columns
   ColSet out_keys;                     // [T] key columns, to read
   void* out_key[BS_MAX_COLS];          // the same columns, to write
-  const uint32_t* val[BS_MAX_COLS];    // input value lanes (raw bits)
-  uint32_t* out_val[BS_MAX_COLS];      // value tables, one lane each
+  const uint32_t* val[BS_MAX_COLS];    // input scalar value lanes (raw bits)
+  uint32_t* out_val[BS_MAX_COLS];      // their [T] tables
   int kind[BS_MAX_COLS];
-  int vstride[BS_MAX_COLS];            // words between a lane's rows
-  int nvals;                           // value lanes, 0..BS_MAX_COLS
+  int nvals;                           // scalar value lanes, 0..BS_MAX_COLS
+  // Vector value columns: row-major [n, G] words, gathered whole by row.
+  const uint32_t* row_val[BS_MAX_COLS];
+  uint32_t* row_out[BS_MAX_COLS];      // their [T, G] tables
+  int row_kind[BS_MAX_COLS];
+  int row_g[BS_MAX_COLS];              // G, the words of a row
+  int row_off[BS_MAX_COLS];            // its first word in a slot's row
+  bool row_vec4[BS_MAX_COLS];          // G % 4 == 0, 16-byte aligned
+  int nrows;                           // vector columns, 0..BS_MAX_COLS
+  int row_words;                       // W: every vector column's words
+  bool row_lane;                       // the payload carries row indices
   int32_t* placed;    // [n] each row's slot or -1; null: not wanted
   const bool* valid;
   const int32_t* part;
@@ -240,10 +273,11 @@ struct AggArgs {
 // Value lane j of row i, as raw bits.
 __device__ __forceinline__ uint32_t val_bits(const AggArgs& a, int j,
                                              long long i) {
-  return a.val[j][i * a.vstride[j]];
+  return a.val[j][i];
 }
 
-// The payload lane that carries each row's index when `placed` is wanted.
+// The payload lane that carries each row's index (with vector columns or
+// `placed`).
 __device__ __forceinline__ long long row_lane(const AggArgs& a, int nkeys) {
   return static_cast<long long>(nkeys + a.nvals) * a.n;
 }
@@ -289,14 +323,18 @@ __device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
 
 // -- pass A -----------------------------------------------------------------
 
+// The second payload lane of a narrow scatter: none (the count pass), the
+// one scalar value lane, or the row index.
+enum SecondLane : int { kLaneNone = 0, kLaneValue = 1, kLaneRow = 2 };
+
 // The home buckets of this thread's kTileItems rows of the tile at tile0,
 // a block-width apart (-1 for a row not selected). With kNarrow (one key
-// lane) also the rows' key lanes and, with kVal, their value lanes, kept in
-// registers for the scatter. The validity flags load first; then every
+// lane) also the rows' key lanes and their kLane lane, kept in registers
+// for the scatter. The validity flags load first; then every
 // other load of the selected rows is issued before any is used, so that a
 // tile costs two memory latencies and its invalid rows (the padding of a
 // reduce wave's buffer) cost only their flags.
-template <bool kNarrow, bool kVal>
+template <bool kNarrow, int kLane>
 __device__ __forceinline__ void tile_buckets(const AggArgs& a,
                                              long long tile0, int* bk,
                                              uint32_t* key, uint32_t* val) {
@@ -313,7 +351,10 @@ __device__ __forceinline__ void tile_buckets(const AggArgs& a,
     p[k] = v[k] ? a.part[i] : -1;
     if constexpr (kNarrow) {
       key[k] = v[k] ? key_bits(a.keys, 0, i) : 0u;
-      if constexpr (kVal) val[k] = v[k] ? val_bits(a, 0, i) : 0u;
+      if constexpr (kLane == kLaneValue)
+        val[k] = v[k] ? val_bits(a, 0, i) : 0u;
+      else if constexpr (kLane == kLaneRow)
+        val[k] = static_cast<uint32_t>(i);
     }
   }
 #pragma unroll
@@ -352,7 +393,7 @@ __global__ void __launch_bounds__(kTileThreads, 2)
   for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
     int bk[kTileItems];
     uint32_t key[kNarrow ? kTileItems : 1];
-    tile_buckets<kNarrow, false>(a, t * kTileRows, bk, key, nullptr);
+    tile_buckets<kNarrow, kLaneNone>(a, t * kTileRows, bk, key, nullptr);
 #pragma unroll
     for (int k = 0; k < kTileItems; ++k)
       if (bk[k] >= 0) atomicAdd(&hist[bk[k]], 1);
@@ -394,18 +435,20 @@ __device__ __forceinline__ uint32_t lane_of(const AggArgs& a, int nkeys,
 
 // The payload lanes a row carries.
 __device__ __forceinline__ int pay_lanes(const AggArgs& a, int nkeys) {
-  return nkeys + a.nvals + (a.placed != nullptr ? 1 : 0);
+  return nkeys + a.nvals + (a.row_lane ? 1 : 0);
 }
 
 // One tile of kTileRows rows per block: rank each selected row within its
 // bucket in the tile, reserve each bucket's run of the payload with one
 // global atomic, sort the tile by bucket in shared memory and write the
-// lanes out in runs. kNarrow (one key lane, one value lane: the main path)
-// keeps the rows' lanes in registers from the first load and stages both
-// at once; otherwise each lane is read again when it is staged.
-template <bool kNarrow>
+// lanes out in runs. A narrow kLane (one key lane and one more: a scalar
+// value lane on the main path, or the row index of a vector column) keeps
+// the rows' lanes in registers from the first load and stages both at
+// once; otherwise (kLaneNone) each lane is read again when it is staged.
+template <int kLane>
 __global__ void __launch_bounds__(kTileThreads)
     agg_scatter_staged_kernel(AggArgs a, int nkeys) {
+  constexpr bool kNarrow = kLane != kLaneNone;
   extern __shared__ int32_t smem[];
   int32_t* bins = smem;                  // tile counts, then dest - lstart
   int32_t* lstart = bins + a.nbuckets;   // the tile's bucket starts
@@ -422,7 +465,7 @@ __global__ void __launch_bounds__(kTileThreads)
   uint32_t rec[kTileItems];
   int bk[kTileItems];
   uint32_t key[kNarrow ? kTileItems : 1], val[kNarrow ? kTileItems : 1];
-  tile_buckets<kNarrow, true>(a, tile0, bk, key, val);
+  tile_buckets<kNarrow, kLane>(a, tile0, bk, key, val);
 #pragma unroll
   for (int k = 0; k < kTileItems; ++k)
     rec[k] = bk[k] < 0 ? kNoRow
@@ -513,10 +556,11 @@ __global__ void agg_scatter_direct_kernel(AggArgs a, int nkeys) {
 // -- pass B -----------------------------------------------------------------
 
 // One row of pass B: claims or finds its key's slot in the sub-table and
-// combines its values there, or goes to the spill list. k and v hold
-// KL >= nkeys key lanes and VL >= nvals value lanes.
-template <int KL, int VL>
-__device__ __forceinline__ void place_row(const AggArgs& a, int nkeys,
+// combines its scalar values there, or goes to the spill list. k and v
+// hold KL >= nkeys key lanes and VL >= nvals value lanes. Returns the slot
+// in the bucket, -1 for a spilled row.
+template <int KL, int VL, bool kMixedStep = false>
+__device__ __forceinline__ int place_row(const AggArgs& a, int nkeys,
                                           uint32_t* sub, int b, int idx,
                                           const uint32_t* k,
                                           const uint32_t* v) {
@@ -528,7 +572,11 @@ __device__ __forceinline__ void place_row(const AggArgs& a, int nkeys,
   uint32_t* svals = sub + (1 + nkeys) * B;
   const uint32_t h = hash_lanes<KL>(k, nkeys, a.seed32);
   uint32_t off = h & bmask;
-  const uint32_t step = ((h >> 9) | 1u) & bmask;
+  // The step's bits from h >> 9 overlap the bits that chose the bucket,
+  // which its keys share, so a bucket's keys have few distinct steps.
+  // kMixedStep (the vector rows' kernel) takes them from a remix of h.
+  const uint32_t step =
+      ((kMixedStep ? fmix32(h ^ kStepSeed) : (h >> 9)) | 1u) & bmask;
   int placed = -1;
   if (nkeys == 1) {
     const unsigned long long mine = (1ull << 32) | k[0];
@@ -571,13 +619,14 @@ __device__ __forceinline__ void place_row(const AggArgs& a, int nkeys,
     const int j = atomicAdd(a.nspill, 1);
     a.spill[2 * j] = idx;
     a.spill[2 * j + 1] = b;
-    return;
+    return -1;
   }
   if (a.placed != nullptr)
     a.placed[a.pay[row_lane(a, nkeys) + idx]] = (b << a.bshift) + placed;
 #pragma unroll
   for (int j = 0; j < VL; ++j)
     if (j < a.nvals) combine_at(svals + j * B + placed, a.kind[j], v[j]);
+  return placed;
 }
 
 // One block per bucket. U rows a thread per step, a block-width apart,
@@ -653,12 +702,237 @@ __global__ void __launch_bounds__(kAggThreads, 2)
     }
 #pragma unroll
     for (int j = 0; j < VL; ++j)
-      if (j < a.nvals) a.out_val[j][g * a.vstride[j]] = svals[j * B + s];
+      if (j < a.nvals) a.out_val[j][g] = svals[j * B + s];
+  }
+}
+
+// -- pass B with vector rows ----------------------------------------------
+
+static constexpr unsigned kFullMask = 0xFFFFFFFFu;
+// Steps of a warp's row gathers a lane keeps in flight (4 is faster at
+// G = 128 but spills at 64 registers).
+static constexpr int kRowsUnroll = 2;
+
+// VEC words of a row at p: one 16-byte streaming load, or one word.
+template <int VEC>
+struct RowWords {
+  uint32_t w[VEC];
+};
+
+template <int VEC>
+__device__ __forceinline__ RowWords<VEC> load_words(const uint32_t* p) {
+  RowWords<VEC> r;
+  if constexpr (VEC == 4) {
+    const uint4 x = __ldcs(reinterpret_cast<const uint4*>(p));
+    r.w[0] = x.x;
+    r.w[1] = x.y;
+    r.w[2] = x.z;
+    r.w[3] = x.w;
+  } else {
+    r.w[0] = __ldcs(p);
+  }
+  return r;
+}
+
+// The warp's 32 rows of one vector column into their slots' rows in the
+// sub-table: lane l holds row l's slot (-1 for none) and payload row index.
+// A row of G words is U = G / VEC units; lpr lanes (the least power of two
+// >= U, at most 32) take a row, so 32 / lpr rows go at once, and
+// kRowsUnroll such steps are loaded before any is combined. dst is the
+// column's first word of slot 0's row, W words a slot. A lane combines
+// its unit's VEC words starting at the (lane / 8)-th, so that the lanes
+// of one row, 4 words apart, meet distinct shared-memory banks. Every
+// lane of the warp must call it.
+template <int VEC>
+__device__ __forceinline__ void combine_warp_rows(
+    const uint32_t* src, int G, int kind, uint32_t* dst, int W, int slot,
+    uint32_t ridx, int lane) {
+  const int U = G / VEC;
+  int lpr = 1;
+  while (lpr < U && lpr < 32) lpr <<= 1;
+  const int rps = 32 / lpr;
+  const int mine = lane / lpr, part = lane & (lpr - 1);
+  const int turn = lane >> 3;
+  for (int base = 0; base < 32; base += rps * kRowsUnroll) {
+    int s[kRowsUnroll];
+    uint32_t ri[kRowsUnroll];
+#pragma unroll
+    for (int q = 0; q < kRowsUnroll; ++q) {
+      const int row = base + q * rps + mine;
+      s[q] = __shfl_sync(kFullMask, slot, row & 31);
+      ri[q] = __shfl_sync(kFullMask, ridx, row & 31);
+      if (row >= 32) s[q] = -1;
+    }
+    for (int u = part; u < U; u += lpr) {
+      RowWords<VEC> x[kRowsUnroll];
+#pragma unroll
+      for (int q = 0; q < kRowsUnroll; ++q)
+        if (s[q] >= 0)
+          x[q] = load_words<VEC>(src + static_cast<long long>(ri[q]) * G +
+                                 u * VEC);
+#pragma unroll
+      for (int q = 0; q < kRowsUnroll; ++q)
+        if (s[q] >= 0) {
+          uint32_t* d = dst + s[q] * W + u * VEC;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const int f = (e + turn) & (VEC - 1);
+            uint32_t w = x[q].w[0];
+#pragma unroll
+            for (int g = 1; g < VEC; ++g)
+              if (f == g) w = x[q].w[g];
+            combine_at(d + f, kind, w);
+          }
+        }
+    }
+  }
+}
+
+// Every vector column's rows of the warp into the sub-table's [B, W]
+// part at srows (combine_warp_rows per column, RC >= nrows columns
+// unrolled, so that the descriptor is indexed by constants only).
+template <int RC>
+__device__ __forceinline__ void combine_rows(const AggArgs& a,
+                                             uint32_t* srows, int W,
+                                             int slot, uint32_t ridx,
+                                             int lane) {
+#pragma unroll
+  for (int c = 0; c < RC; ++c) {
+    if (c < a.nrows) {
+      uint32_t* d = srows + a.row_off[c];
+      if (a.row_vec4[c])
+        combine_warp_rows<4>(a.row_val[c], a.row_g[c],
+                                          a.row_kind[c], d, W, slot, ridx,
+                                          lane);
+      else
+        combine_warp_rows<1>(a.row_val[c], a.row_g[c],
+                                          a.row_kind[c], d, W, slot, ridx,
+                                          lane);
+    }
+  }
+}
+
+// One block per bucket, as agg_bucket_kernel, with RC >= nrows vector
+// columns: the sub-table's scalar lanes are followed by a row-major
+// [B, W] part, W = row_words. Each warp takes 32 consecutive rows of the
+// bucket a step (one a lane): a lane claims its row's slot and combines
+// its scalar lanes, then the warp gathers the rows of every vector column
+// by their payload row index and combines them into the slots' rows. The
+// write-out adds each column's [B, G] block of its [T, G] table,
+// contiguous in device memory, with 16-byte stores where it can.
+template <int KL, int VL, int RC>
+__global__ void __launch_bounds__(kAggThreads, 2)
+    agg_bucket_rows_kernel(AggArgs a, int nkeys) {
+  extern __shared__ __align__(16) uint32_t sub[];
+  const int B = 1 << a.bshift;
+  unsigned long long* word = reinterpret_cast<unsigned long long*>(sub);
+  int* claim = reinterpret_cast<int*>(sub);
+  uint32_t* skeys = sub + B;
+  uint32_t* svals = sub + (1 + nkeys) * B;
+  uint32_t* srows = sub + (1 + nkeys + a.nvals) * B;  // [B, W]
+  const int W = a.row_words;
+  const int b = blockIdx.x;
+  for (int s = threadIdx.x; s < B; s += kAggThreads) {
+    if (nkeys == 1)
+      word[s] = 0ull;
+    else
+      claim[s] = 0;
+    for (int j = 0; j < a.nvals; ++j)
+      svals[j * B + s] = identity_bits(a.kind[j]);
+  }
+  if constexpr (RC == 1) {
+    const uint32_t id = identity_bits(a.row_kind[0]);
+    for (int f = threadIdx.x; f < B * W; f += kAggThreads) srows[f] = id;
+  } else {
+    for (int f = threadIdx.x; f < B * W; f += kAggThreads) {
+      const int w = f % W;
+      uint32_t id = 0u;
+#pragma unroll
+      for (int c = 0; c < RC; ++c)
+        if (c < a.nrows && w >= a.row_off[c])
+          id = identity_bits(a.row_kind[c]);
+      srows[f] = id;
+    }
+  }
+  __syncthreads();
+
+  const int start = a.starts[b], cnt = a.counts[b];
+  const int lane = threadIdx.x & 31;
+  const long long rl = row_lane(a, nkeys);
+  for (int w0 = threadIdx.x & ~31; w0 < cnt; w0 += kAggThreads) {
+    const bool in = w0 + lane < cnt;
+    const int idx = start + w0 + lane;
+    uint32_t k[KL], v[VL];
+#pragma unroll
+    for (int l = 0; l < KL; ++l)
+      k[l] = in && l < nkeys ? a.pay[static_cast<long long>(l) * a.n + idx]
+                             : 0u;
+#pragma unroll
+    for (int j = 0; j < VL; ++j)
+      v[j] = in && j < a.nvals
+                 ? a.pay[static_cast<long long>(nkeys + j) * a.n + idx]
+                 : 0u;
+    const uint32_t ridx = in ? a.pay[rl + idx] : 0u;
+    const int slot =
+        in ? place_row<KL, VL, true>(a, nkeys, sub, b, idx, k, v) : -1;
+    combine_rows<RC>(a, srows, W, slot, ridx, lane);
+  }
+  __syncthreads();
+
+  uint32_t last[KL];
+#pragma unroll
+  for (int l = 0; l < KL; ++l)
+    last[l] = l < nkeys ? key_bits(a.keys, l, a.n - 1) : 0u;
+  const long long g0 = static_cast<long long>(b) << a.bshift;
+  for (int s = threadIdx.x; s < B; s += kAggThreads) {
+    const bool full = nkeys == 1 ? word[s] != 0ull : claim[s] != 0;
+    const long long g = g0 + s;
+    a.present[g] = full;
+    a.claim[g] = full ? kSlotFilled : kSlotEmpty;
+#pragma unroll
+    for (int l = 0; l < KL; ++l) {
+      if (l < nkeys) {
+        uint32_t key = last[l];
+        if (full)
+          key = nkeys == 1 ? static_cast<uint32_t>(word[s]) : skeys[l * B + s];
+        store_key(a.out_key[l], a.keys.code[l], g, key);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < VL; ++j)
+      if (j < a.nvals) a.out_val[j][g] = svals[j * B + s];
+  }
+  // Each column's B rows: one contiguous [B, G] block of its table.
+#pragma unroll
+  for (int c = 0; c < RC; ++c) {
+    if (c < a.nrows) {
+      const int G = a.row_g[c];
+      uint32_t* out = a.row_out[c] + g0 * G;
+      const int words = B * G;
+      if (W == G && words % 4 == 0 &&
+          (reinterpret_cast<uintptr_t>(out) & 15) == 0 &&
+          (reinterpret_cast<uintptr_t>(srows) & 15) == 0) {
+        const uint4* from = reinterpret_cast<const uint4*>(srows);
+        uint4* to = reinterpret_cast<uint4*>(out);
+        for (int f = threadIdx.x; f < words / 4; f += kAggThreads)
+          to[f] = from[f];
+      } else {
+        const int off = a.row_off[c];
+        for (int f = threadIdx.x; f < words; f += kAggThreads) {
+          const int s = f / G;
+          out[f] = srows[s * W + off + (f - s * G)];
+        }
+      }
+    }
   }
 }
 
 // -- pass C -----------------------------------------------------------------
 
+// One spilled row a thread: it places the row over its region and
+// combines its scalar lanes and its vector rows' words into the slot
+// with global atomics (spilled rows are the few that met 16 other keys in
+// their bucket).
 __global__ void agg_spill_kernel(AggArgs a, int nkeys) {
   const long long nspill = *a.nspill;
   const uint32_t bmask = (1u << a.bshift) - 1u;
@@ -724,13 +998,22 @@ __global__ void agg_spill_kernel(AggArgs a, int nkeys) {
       atomicAdd(a.overflow, 1);
       continue;
     }
+    const uint32_t ridx = a.row_lane ? a.pay[row_lane(a, nkeys) + idx] : 0u;
     if (a.placed != nullptr)
-      a.placed[a.pay[row_lane(a, nkeys) + idx]] = static_cast<int32_t>(placed);
+      a.placed[ridx] = static_cast<int32_t>(placed);
 #pragma unroll
     for (int v = 0; v < BS_MAX_COLS; ++v)
       if (v < a.nvals)
-        combine_at(a.out_val[v] + placed * a.vstride[v], a.kind[v],
+        combine_at(a.out_val[v] + placed, a.kind[v],
                    a.pay[static_cast<long long>(nkeys + v) * a.n + idx]);
+#pragma unroll
+    for (int c = 0; c < BS_MAX_COLS; ++c)
+      if (c < a.nrows) {
+        const int G = a.row_g[c];
+        const uint32_t* src = a.row_val[c] + static_cast<long long>(ridx) * G;
+        uint32_t* dst = a.row_out[c] + placed * G;
+        for (int w = 0; w < G; ++w) combine_at(dst + w, a.row_kind[c], src[w]);
+      }
   }
 }
 
@@ -740,56 +1023,85 @@ __global__ void agg_spill_kernel(AggArgs a, int nkeys) {
 // pass C; the main path runs all three (7), a timing may run one at a time
 // after the earlier ones. meta holds counts, starts and cursors (nbuckets
 // words each), then the spill count, the count pass's finished blocks and
-// the overflow count. val_ptrs and out_val_ptrs name nvals value lanes
-// (0..BS_MAX_COLS), vstrides their strides in words; placed, when not
-// null, gets each placed row's slot (the caller fills it with -1, and
-// pay holds one more lane of n words).
+// the overflow count. val_ptrs and out_val_ptrs name nvals scalar value
+// lanes (0..BS_MAX_COLS); row_ptrs and out_row_ptrs name nrows row-major
+// [n, G] vector columns and their [T, G] tables (0..BS_MAX_COLS), G in
+// row_gs. placed, when not null, gets each placed row's slot (the caller
+// fills it with -1). With vector columns or placed, pay holds one more
+// lane of n words, the row indices.
 extern "C" int bs_hash_aggregate(
     const void* const* key_ptrs, const int* key_codes, int nkeys,
-    const void* const* val_ptrs, const int* kinds, const int* vstrides,
-    int nvals, const bool* valid, const int32_t* part, long long n,
+    const void* const* val_ptrs, const int* kinds, int nvals,
+    const void* const* row_ptrs, const int* row_kinds, const int* row_gs,
+    int nrows, const bool* valid, const int32_t* part, long long n,
     int nparts, long long R, unsigned int slot_seed32, int bucket_log2,
     int nbuckets, void* pay, int32_t* spill, int32_t* claim, int32_t* meta,
     bool* present, void* const* out_key_ptrs, void* const* out_val_ptrs,
-    int32_t* placed, int passes, cudaStream_t stream) {
+    void* const* out_row_ptrs, int32_t* placed, int passes,
+    cudaStream_t stream) {
   static bool smem_attr_set = false;
   if (!smem_attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        agg_bucket_kernel<4, 1, 2>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(
-          agg_bucket_kernel<1, BS_MAX_COLS, BS_MAX_COLS>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(agg_scatter_staged_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kStagedSmem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(agg_scatter_staged_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kStagedSmem);
+    const void* big[] = {
+        reinterpret_cast<const void*>(agg_bucket_kernel<4, 1, 2>),
+        reinterpret_cast<const void*>(
+            agg_bucket_kernel<1, BS_MAX_COLS, BS_MAX_COLS>),
+        reinterpret_cast<const void*>(agg_bucket_rows_kernel<1, 2, 1>),
+        reinterpret_cast<const void*>(
+            agg_bucket_rows_kernel<BS_MAX_COLS, BS_MAX_COLS, BS_MAX_COLS>),
+    };
+    const void* staged[] = {
+        reinterpret_cast<const void*>(agg_scatter_staged_kernel<kLaneNone>),
+        reinterpret_cast<const void*>(agg_scatter_staged_kernel<kLaneValue>),
+        reinterpret_cast<const void*>(agg_scatter_staged_kernel<kLaneRow>),
+    };
+    cudaError_t e = cudaSuccess;
+    for (const void* fn : big)
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    for (const void* fn : staged)
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kStagedSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_attr_set = true;
   }
-  const size_t sub_bytes =
-      (static_cast<size_t>(1) << bucket_log2) * (1 + nkeys + nvals) * 4;
+  int row_words = 0;
+  for (int c = 0; c < nrows && c < BS_MAX_COLS; ++c) {
+    if (row_gs[c] < 2) return static_cast<int>(cudaErrorInvalidValue);
+    row_words += row_gs[c];
+  }
+  const size_t sub_bytes = (static_cast<size_t>(1) << bucket_log2) *
+                           (1 + nkeys + nvals + row_words) * 4;
   if (sub_bytes > static_cast<size_t>(kSmemMax) || nkeys < 1 ||
-      nkeys > BS_MAX_COLS || nvals < 0 || nvals > BS_MAX_COLS)
+      nkeys > BS_MAX_COLS || nvals < 0 || nvals > BS_MAX_COLS ||
+      nrows < 0 || nrows > BS_MAX_COLS)
     return static_cast<int>(cudaErrorInvalidValue);
 
   AggArgs a;
   a.keys = make_colset(key_ptrs, key_codes, nkeys);
   a.out_keys = make_colset(out_key_ptrs, key_codes, nkeys);
+  int off = 0;
   for (int j = 0; j < BS_MAX_COLS; ++j) {
     a.val[j] = j < nvals ? static_cast<const uint32_t*>(val_ptrs[j]) : nullptr;
     a.out_val[j] = j < nvals ? static_cast<uint32_t*>(out_val_ptrs[j])
                              : nullptr;
     a.kind[j] = j < nvals ? kinds[j] : 0;
-    a.vstride[j] = j < nvals ? vstrides[j] : 1;
     a.out_key[j] = j < nkeys ? out_key_ptrs[j] : nullptr;
+    const bool r = j < nrows;
+    a.row_val[j] = r ? static_cast<const uint32_t*>(row_ptrs[j]) : nullptr;
+    a.row_out[j] = r ? static_cast<uint32_t*>(out_row_ptrs[j]) : nullptr;
+    a.row_kind[j] = r ? row_kinds[j] : 0;
+    a.row_g[j] = r ? row_gs[j] : 0;
+    a.row_off[j] = off;
+    a.row_vec4[j] = r && row_gs[j] % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(row_ptrs[j]) & 15) == 0;
+    if (r) off += row_gs[j];
   }
   a.nvals = nvals;
+  a.nrows = nrows;
+  a.row_words = row_words;
+  a.row_lane = nrows > 0 || placed != nullptr;
   a.placed = placed;
   a.valid = valid;
   a.part = part;
@@ -830,20 +1142,26 @@ extern "C" int bs_hash_aggregate(
       agg_count_kernel<false><<<count_grid, kTileThreads, count_smem,
                                 stream>>>(a, smem_bins);
     if (nbuckets <= kStagedBins) {
-      // One key lane and one value lane (a scalar column, or a [n, 1]
-      // one: stride 1) with no row lane.
-      const bool narrow = nkeys == 1 && nvals == 1 && placed == nullptr;
-      const size_t smem = (2 * static_cast<size_t>(nbuckets) +
-                           (narrow ? 3 : 2) * static_cast<size_t>(kTileRows)) *
-                          sizeof(int32_t);
-      if (narrow)
-        agg_scatter_staged_kernel<true><<<static_cast<unsigned>(tiles),
-                                          kTileThreads, smem, stream>>>(a,
-                                                                        nkeys);
+      // One key lane and one more payload lane: a scalar value (the main
+      // path) or the row index.
+      const int lanes = nkeys + nvals + (a.row_lane ? 1 : 0);
+      const int second = nkeys != 1 || lanes != 2
+                             ? kLaneNone
+                             : (nvals == 1 ? kLaneValue : kLaneRow);
+      const size_t smem =
+          (2 * static_cast<size_t>(nbuckets) +
+           (second != kLaneNone ? 3 : 2) * static_cast<size_t>(kTileRows)) *
+          sizeof(int32_t);
+      const unsigned grid = static_cast<unsigned>(tiles);
+      if (second == kLaneValue)
+        agg_scatter_staged_kernel<kLaneValue>
+            <<<grid, kTileThreads, smem, stream>>>(a, nkeys);
+      else if (second == kLaneRow)
+        agg_scatter_staged_kernel<kLaneRow>
+            <<<grid, kTileThreads, smem, stream>>>(a, nkeys);
       else
-        agg_scatter_staged_kernel<false><<<static_cast<unsigned>(tiles),
-                                           kTileThreads, smem, stream>>>(
-            a, nkeys);
+        agg_scatter_staged_kernel<kLaneNone>
+            <<<grid, kTileThreads, smem, stream>>>(a, nkeys);
     } else {
       agg_scatter_direct_kernel<<<grid_for(n, 256), 256, 0, stream>>>(a,
                                                                      nkeys);
@@ -852,13 +1170,19 @@ extern "C" int bs_hash_aggregate(
     if (le != cudaSuccess) return static_cast<int>(le);
   }
   if (passes & 2) {
-    if (nkeys == 1 && nvals <= 2)
-      agg_bucket_kernel<4, 1, 2><<<static_cast<unsigned>(nbuckets),
-                                   kAggThreads, sub_bytes, stream>>>(a, nkeys);
-    else
+    const unsigned grid = static_cast<unsigned>(nbuckets);
+    if (nrows == 0 && nkeys == 1 && nvals <= 2)
+      agg_bucket_kernel<4, 1, 2><<<grid, kAggThreads, sub_bytes, stream>>>(
+          a, nkeys);
+    else if (nrows == 0)
       agg_bucket_kernel<1, BS_MAX_COLS, BS_MAX_COLS>
-          <<<static_cast<unsigned>(nbuckets), kAggThreads, sub_bytes,
-             stream>>>(a, nkeys);
+          <<<grid, kAggThreads, sub_bytes, stream>>>(a, nkeys);
+    else if (nrows == 1 && nkeys == 1 && nvals <= 2)
+      agg_bucket_rows_kernel<1, 2, 1>
+          <<<grid, kAggThreads, sub_bytes, stream>>>(a, nkeys);
+    else
+      agg_bucket_rows_kernel<BS_MAX_COLS, BS_MAX_COLS, BS_MAX_COLS>
+          <<<grid, kAggThreads, sub_bytes, stream>>>(a, nkeys);
     const cudaError_t le = cudaGetLastError();
     if (le != cudaSuccess) return static_cast<int>(le);
   }
@@ -874,12 +1198,16 @@ extern "C" int bs_load_hash_aggregate() {
   const void* fns[] = {
       reinterpret_cast<const void*>(agg_count_kernel<true>),
       reinterpret_cast<const void*>(agg_count_kernel<false>),
-      reinterpret_cast<const void*>(agg_scatter_staged_kernel<true>),
-      reinterpret_cast<const void*>(agg_scatter_staged_kernel<false>),
+      reinterpret_cast<const void*>(agg_scatter_staged_kernel<kLaneNone>),
+      reinterpret_cast<const void*>(agg_scatter_staged_kernel<kLaneValue>),
+      reinterpret_cast<const void*>(agg_scatter_staged_kernel<kLaneRow>),
       reinterpret_cast<const void*>(agg_scatter_direct_kernel),
       reinterpret_cast<const void*>(agg_bucket_kernel<4, 1, 2>),
       reinterpret_cast<const void*>(
           agg_bucket_kernel<1, BS_MAX_COLS, BS_MAX_COLS>),
+      reinterpret_cast<const void*>(agg_bucket_rows_kernel<1, 2, 1>),
+      reinterpret_cast<const void*>(
+          agg_bucket_rows_kernel<BS_MAX_COLS, BS_MAX_COLS, BS_MAX_COLS>),
       reinterpret_cast<const void*>(agg_spill_kernel),
   };
   for (const void* fn : fns) {

@@ -337,11 +337,13 @@ class _Evaluation:
         if not self._wanted(task):
             return False
         if task.consecutive_lost >= MAX_CONSECUTIVE_LOST:
+            # The last loss's cause goes with the verdict: it is what a
+            # failing run can say about why.
             task.set_state(
                 TaskState.ERR,
                 RuntimeError(
                     f"task {task.name} lost {task.consecutive_lost} "
-                    f"consecutive times"
+                    f"consecutive times; the last: {task.error!r}"
                 ),
             )
             return False

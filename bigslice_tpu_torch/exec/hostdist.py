@@ -48,13 +48,14 @@ keepalive also uses):
   those (the epoch floor of ``submit``).
 
 The c10d store differs from the JAX package's coordination KV in three
-ways, handled here: its ``get`` blocks until a key exists (every read
-``check``s first); it has no directory get or delete (each namespace's
-keys are indexed as they are written, and deleted one by one); and the
-release barrier is one over the store too (a counter each rank adds to,
-polled with the reference's timeout), not one over the control group,
-whose collectives the executor's dispatcher thread may be issuing at
-the same time.
+ways, handled here: its ``get`` blocks until a key exists, holding the
+process's store client meanwhile (every read is a ``compare_set`` that
+answers at once, ``distributed.store_try_get``); it has no directory
+get or delete (each namespace's keys are indexed as they are written,
+and deleted one by one); and the release barrier is one over the store
+too (a counter each rank adds to, polled with the reference's timeout),
+not one over the control group, whose collectives the executor's
+dispatcher thread may be issuing at the same time.
 
 Machine-combined groups (``Session(machine_combiners=True)``) are
 excluded: their per-process combiner buffers need every producer's
@@ -562,13 +563,15 @@ class HostTaskExchange:
             pass
 
     def _raw_try_get(self, key: str) -> Optional[bytes]:
-        """``get`` without its wait: ``check`` first (the store's ``get``
-        blocks until a key exists)."""
+        """The key's value, or None, never waiting
+        (``distributed.store_try_get``: a ``get`` of a key a peer deletes
+        would hold this process's store client, and its keepalive beat,
+        until the store's timeout)."""
+        from bigslice_tpu_torch.utils.distributed import store_try_get
+
         try:
-            if not self.client.check([key]):
-                return None
-            return self.client.get(key)
-        except Exception:  # noqa: BLE001 — deleted in between, or gone
+            return store_try_get(self.client, key)
+        except Exception:  # noqa: BLE001 — the store is going away
             return None
 
     def _try_get_bytes(self, key: str) -> Optional[bytes]:

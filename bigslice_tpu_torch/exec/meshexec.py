@@ -385,15 +385,18 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _wide_row_bytes(values) -> int:
-    """Bytes a row of the value columns (``ColType``s) that K2's wide
-    route scatters after the kernel (``cuda_kernels.aggregate_routes``);
-    0 when the kernel holds them all."""
+def _wide_row_bytes(values, nkeys: int = 1) -> int:
+    """Bytes a row of the value columns (``ColType``s) that K2's
+    bucketed copy of the rows does not carry
+    (``cuda_kernels.aggregate_routes``): the vector rows the kernel
+    gathers whole by row index, and the columns scattered after it; 0
+    when every column is a scalar value lane."""
     shapes = [tuple(ct.shape) for ct in values]
-    _, wide = cuda_kernels.aggregate_routes(
-        shapes, [torch_dtype(ct.dtype) for ct in values])
-    return sum(np.dtype(values[i].dtype).itemsize
-               * cuda_kernels.value_lanes(shapes[i]) for i in wide)
+    routes = cuda_kernels.aggregate_routes(
+        shapes, [torch_dtype(ct.dtype) for ct in values], nkeys)
+    return sum(np.dtype(ct.dtype).itemsize * cuda_kernels.value_lanes(sh)
+               for ct, sh, r in zip(values, shapes, routes)
+               if r == "scatter" or cuda_kernels.value_lanes(sh) > 1)
 
 
 def _output_bytes(out) -> int:
@@ -2437,7 +2440,8 @@ class MeshExecutor:
                                   _op_base(task0.name.op), fc,
                                   decide=False) is not None)
                 if hash_table:
-                    wide_bytes = _wide_row_bytes(fc.schema.values)
+                    wide_bytes = _wide_row_bytes(fc.schema.values,
+                                                 fc.schema.prefix)
         return self.wave_bytes_model(rows, rowbytes, fanout, hash_table,
                                      self._wave_slack(task0), wide_bytes)
 
@@ -2452,10 +2456,11 @@ class MeshExecutor:
         the hash combine (``hash_table``), the partition ids and a table
         of one slot a row holding the keys and values, a presence byte
         and a claim word, plus the kernel's bucketed copy of the rows
-        and its spill list (K2's wide route, ``wide_bytes`` of vector
-        values a row scattered after the kernel: those bytes stay out of
-        the bucketed copy, which carries a row index instead, beside each
-        row's slot and the scatter's int64 index); else the sort's
+        and its spill list (``wide_bytes`` of value columns a row that
+        stay out of the bucketed copy, which carries a row index
+        instead: K2's vector rows, gathered whole by that index, and the
+        columns scattered after it, counted with each row's slot and the
+        scatter's int64 index); else the sort's
         operands and scratch and the ``slack``-scaled receive buffer;
         the rows concatenated with the running merge; and the output, at
         most one row a row, with its subid and the compaction's row

@@ -249,8 +249,8 @@ def build():
         lib.bs_hash_partition.argtypes = [
             vp, vp, ci, vp, vp, vp, cll, ci, cu, vp]
         lib.bs_hash_aggregate.argtypes = [
-            vp, vp, ci, vp, vp, vp, ci, vp, vp, cll, ci, cll, cu, ci, ci,
-            vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
+            vp, vp, ci, vp, vp, ci, vp, vp, vp, ci, vp, vp, cll, ci, cll,
+            cu, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
         lib.bs_load_kernels.argtypes = []
         for fn in (lib.bs_probe_add1, lib.bs_hash_partition,
                    lib.bs_hash_aggregate, lib.bs_load_kernels):
@@ -427,62 +427,98 @@ def hash_partition_plain(keys: Sequence[torch.Tensor], nparts: int,
 #: sub-table: two such blocks fit one H100 SM's 227 KiB.
 AGG_SMEM_BUDGET = 96 * 1024
 
+#: The most shared memory one H100 block can have, which a sub-table
+#: takes when ``AGG_SMEM_BUDGET`` would hold fewer than
+#: ``AGG_MIN_SLOTS`` slots of its words (one block an SM).
+AGG_SMEM_MAX = 232448
+
+#: The fewest slots a bucket of the kernel's vector rows may have: a
+#: value row whose slot would not fit this many within ``AGG_SMEM_MAX``
+#: is scattered after the kernel (``aggregate_routes``).
+AGG_MIN_SLOTS = 32
+
 
 class AggregatePlan(NamedTuple):
     """How ``hash_aggregate`` cuts its table, and its scratch sizes."""
 
     bucket_log2: int    # log2 of B, the consecutive slots of one bucket
     nbuckets: int       # T / B
-    smem_bytes: int     # pass B's sub-table: B * (1 + nkeys + nvals) words
+    smem_bytes: int     # pass B's sub-table: B * (1 + nkeys + nvals + W)
+                        # words, W the vector columns' row words
     payload_words: int  # pass A's bucketed rows: (nkeys + nvals) * n, and
                         # n more with the row lane
     spill_words: int    # pass B's spill list: 2 * n
     meta_words: int     # counts, starts, cursors and three counters
 
 
+def _pow2_floor(x: int) -> int:
+    return 1 << (x.bit_length() - 1) if x > 0 else 0
+
+
 def aggregate_plan(nkeys: int, nvals: int, nparts: int, R: int,
-                   n: int, row_lane: bool = False) -> AggregatePlan:
-    """The bucket size for ``nkeys`` key and ``nvals`` value lanes (a
-    [n, G] column is G lanes): the largest power of two B <= R whose
-    sub-table (a claim word, the key lanes and the value lanes, 4 bytes
-    each per slot) fits ``AGG_SMEM_BUDGET``. ``row_lane``: the payload
-    also carries each row's index (the wide route's ``placed``)."""
-    lanes = 1 + nkeys + nvals
-    fit = AGG_SMEM_BUDGET // (4 * lanes)
-    B = min(R, 1 << (fit.bit_length() - 1))
+                   n: int, row_lane: bool = False,
+                   row_words: int = 0) -> AggregatePlan:
+    """The bucket size for ``nkeys`` key lanes, ``nvals`` scalar value
+    lanes and ``row_words`` words of vector rows a slot (a [n, G] column
+    is G of them): the largest power of two B <= R whose sub-table (a
+    claim word, the key lanes, the scalar lanes and the row words, 4
+    bytes each per slot) fits ``AGG_SMEM_BUDGET``, two blocks an SM; or,
+    when that would be fewer than ``AGG_MIN_SLOTS`` slots (a row of more
+    than 766 words at one key lane), fits ``AGG_SMEM_MAX``, one block an
+    SM. ``row_lane``: the payload also carries each row's index (vector
+    rows, or the scattered columns' ``placed``)."""
+    words = 1 + nkeys + nvals + row_words
+    B = min(R, _pow2_floor(AGG_SMEM_BUDGET // (4 * words)))
+    if B < min(R, AGG_MIN_SLOTS):
+        B = min(R, _pow2_floor(AGG_SMEM_MAX // (4 * words)))
+    if B < 1:
+        raise ValueError(f"aggregate_plan: a slot of {words} words does "
+                         f"not fit one block's shared memory")
     nbuckets = nparts * R // B
     return AggregatePlan(
         bucket_log2=B.bit_length() - 1, nbuckets=nbuckets,
-        smem_bytes=4 * lanes * B,
-        payload_words=(nkeys + nvals + int(row_lane)) * n,
+        smem_bytes=4 * words * B,
+        payload_words=(nkeys + nvals + int(row_lane or row_words > 0)) * n,
         spill_words=2 * n, meta_words=3 * nbuckets + 3)
 
 
 def value_lanes(shape) -> int:
-    """The 32-bit lanes a row of a value column of per-row ``shape``
+    """The 32-bit words a row of a value column of per-row ``shape``
     takes in K2: one for a scalar, G for [G] (the product of a larger
     shape)."""
     return math.prod(tuple(shape))
 
 
 def aggregate_routes(val_shapes: Sequence,
-                     val_dtypes: Optional[Sequence] = None
-                     ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
-    """K2's two routes over value columns of per-row ``val_shapes``
-    (and ``val_dtypes``, default all the kernel's): ``(held, wide)``,
-    the columns whose lanes the kernel holds and those scattered whole
-    into their rows' slots after it. Narrow (every column of a dtype the
-    kernel combines, every lane within ``MAX_COLS``): the kernel holds
-    them all. Wide: it holds the first ``MAX_COLS`` scalar columns of
-    its dtypes and places the rows; the rest are scattered."""
-    shapes = [tuple(s) for s in val_shapes]
-    kernel = [True] * len(shapes) if val_dtypes is None else [
-        d in _VAL_DTYPE_CODES for d in val_dtypes]
-    if all(kernel) and sum(value_lanes(s) for s in shapes) <= MAX_COLS:
-        return tuple(range(len(shapes))), ()
-    held = tuple(i for i, s in enumerate(shapes)
-                 if not s and kernel[i])[:MAX_COLS]
-    return held, tuple(i for i in range(len(shapes)) if i not in held)
+                     val_dtypes: Optional[Sequence] = None,
+                     nkeys: int = 1) -> Tuple[str, ...]:
+    """K2's route for each value column of per-row ``val_shapes`` (and
+    ``val_dtypes``, default all the kernel's), in order: ``"kernel"``,
+    combined by the kernel (a scalar, or a [n, 1] column, as a value
+    lane, at most ``MAX_COLS`` of them; a wider one as a value row
+    gathered whole, at most ``MAX_COLS`` of them), or ``"scatter"``,
+    scattered whole into the rows' slots after it by
+    ``dense._scatter_tables``: a dtype the kernel does not combine, a
+    column past those counts, or value rows past what a sub-table of
+    ``AGG_MIN_SLOTS`` slots holds within ``AGG_SMEM_MAX`` beside
+    ``nkeys`` key lanes (1814 words at one key lane), the columns taken
+    in order."""
+    room = AGG_SMEM_MAX // (4 * AGG_MIN_SLOTS) - 1 - nkeys
+    routes = []
+    lanes = rows = words = 0
+    for i, shape in enumerate(val_shapes):
+        G = value_lanes(shape)
+        ok = val_dtypes is None or val_dtypes[i] in _VAL_DTYPE_CODES
+        if ok and G == 1:
+            ok = lanes < MAX_COLS and words + 1 <= room
+            lanes += ok
+        elif ok and G > 1:
+            ok = rows < MAX_COLS and words + G <= room
+            rows += ok
+        if ok:
+            words += G
+        routes.append("kernel" if ok else "scatter")
+    return tuple(routes)
 
 
 class AggregateBuffers(NamedTuple):
@@ -506,9 +542,10 @@ class AggregateBuffers(NamedTuple):
 
 def aggregate_buffers(plan: AggregatePlan, key_cols, val_cols, T: int,
                       device, placed: bool = False) -> AggregateBuffers:
-    """Buffers for ``val_cols``, the columns the kernel holds: a [T]
+    """Buffers for ``val_cols``, the columns the kernel combines: a [T]
     table for a scalar column, [T, *shape] for a vector one. ``placed``:
-    also the wide route's [n] slot of each row, filled with -1."""
+    also the [n] slot of each row that the scattered columns need,
+    filled with -1."""
     def empty(size, dtype):
         return torch.empty(size, dtype=dtype, device=device)
 
@@ -536,8 +573,8 @@ def aggregate_supported(key_dtypes: Sequence, val_dtypes: Sequence,
     (``val_shapes``, default scalar), the kernel's own (int32, uint32,
     float32) or scattered after it (``aggregate_routes``); the table
     lives in device memory, so its size is bounded by int32 row ids,
-    slots of rows the kernel places for the wide route, and bucket
-    counts and 64-bit slot arithmetic."""
+    the int32 slots of rows the kernel places for scattered columns,
+    and bucket counts and 64-bit slot arithmetic."""
     if R < 1 or R & (R - 1):
         return False
     if not (1 <= len(key_dtypes) <= MAX_COLS and len(val_dtypes) >= 1):
@@ -548,12 +585,22 @@ def aggregate_supported(key_dtypes: Sequence, val_dtypes: Sequence,
         return False
     if val_shapes is None:
         val_shapes = [() for _ in val_dtypes]
-    held, wide = aggregate_routes(val_shapes, val_dtypes)
-    if wide and nparts * R >= 2**31:
+    routes = aggregate_routes(val_shapes, val_dtypes, len(key_dtypes))
+    if "scatter" in routes and nparts * R >= 2**31:
         return False
-    lanes = sum(value_lanes(val_shapes[i]) for i in held)
-    plan = aggregate_plan(len(key_dtypes), lanes, nparts, R, n)
+    nvals, words = kernel_words(val_shapes, routes)
+    plan = aggregate_plan(len(key_dtypes), nvals, nparts, R, n,
+                          row_words=words)
     return plan.meta_words < 2**31
+
+
+def kernel_words(val_shapes, routes) -> Tuple[int, int]:
+    """The kernel's scalar value lanes and vector row words over the
+    columns ``routes`` send to it."""
+    sizes = [value_lanes(s) for s, r in zip(val_shapes, routes)
+             if r == "kernel"]
+    return (sum(1 for g in sizes if g == 1),
+            sum(g for g in sizes if g > 1))
 
 
 def hash_aggregate(valid: torch.Tensor, key_cols: Sequence[torch.Tensor],
@@ -566,15 +613,16 @@ def hash_aggregate(valid: torch.Tensor, key_cols: Sequence[torch.Tensor],
     value tables ([T], or [T, *shape] for a vector column) hold the
     op's identity there in every lane.
 
-    Value columns take one of two routes (``aggregate_routes``): when
-    their lanes fit the kernel's eight, the kernel combines them all,
-    reading lane l of a [n, G] column at stride G; otherwise the kernel
-    combines the scalar columns of its dtypes, writes each row's slot
-    (``placed``), and the other columns (vector, or of a dtype it does
-    not combine) are scattered whole into identity-filled tables by
-    ``dense._scatter_tables`` (torch ops, the counterpart of the XLA
-    scatter of the JAX package's table build, which also takes what its
-    Pallas kernel cannot).
+    Each value column takes one route (``aggregate_routes``): the
+    kernel combines the columns of its dtypes, a scalar one as a value
+    lane and a [n, G] one as a value row, which pass B gathers whole by
+    the row's index into a [B, G] shared sub-table; the other columns
+    (a dtype it does not combine, or past its sub-table's room) are
+    scattered whole into identity-filled tables by
+    ``dense._scatter_tables`` after it (torch ops, the counterpart of
+    the XLA scatter of the JAX package's table build, which also takes
+    what its Pallas kernel cannot), through each row's slot, which the
+    kernel then writes (``placed``).
 
     The kernel's slot assignment (first claimer in a bucket wins)
     differs from the plain version's batched cascade: compare occupied
@@ -606,12 +654,15 @@ def hash_aggregate(valid: torch.Tensor, key_cols: Sequence[torch.Tensor],
     T = nparts * R
     if n == 0:
         return _empty_table(key_cols, val_cols, ops, T, device)
-    held, wide = aggregate_routes(shapes, [v.dtype for v in val_cols])
+    routes = aggregate_routes(shapes, [v.dtype for v in val_cols],
+                              len(key_cols))
+    held = [i for i, r in enumerate(routes) if r == "kernel"]
+    wide = [i for i, r in enumerate(routes) if r == "scatter"]
     hvals = [val_cols[i] for i in held]
     hops = [ops[i] for i in held]
-    plan = aggregate_plan(len(key_cols),
-                          sum(value_lanes(shapes[i]) for i in held),
-                          nparts, R, n, row_lane=bool(wide))
+    nvals, words = kernel_words(shapes, routes)
+    plan = aggregate_plan(len(key_cols), nvals, nparts, R, n,
+                          row_lane=bool(wide), row_words=words)
     buf = aggregate_buffers(plan, key_cols, hvals, T, device,
                             placed=bool(wide))
     rc = build().bs_hash_aggregate(*aggregate_args(
@@ -639,18 +690,22 @@ def hash_aggregate(valid: torch.Tensor, key_cols: Sequence[torch.Tensor],
     return buf.present, buf.out_keys, tables, buf.overflow
 
 
-def _value_lane_args(val_cols, tables):
-    """Per value lane: its input's address, its table's, and its stride
-    in words (G for each lane of a row-major [n, G] column)."""
-    src, dst, strides = [], [], []
-    for v, t in zip(val_cols, tables):
+def _value_args(val_cols, ops, tables):
+    """The kernel's value columns as its C interface takes them: the
+    scalar lanes (a scalar or [n, 1] column: its input's address, its
+    table's, its kind) and the vector rows (a [n, G] column, G > 1: the
+    same and G); a [n, 0] column has nothing to combine."""
+    lanes, rows = ([], [], []), ([], [], [], [])
+    for v, op, t in zip(val_cols, ops, tables):
         G = value_lanes(v.shape[1:])
-        step = v.element_size()
-        for lane in range(G):
-            src.append(v.data_ptr() + lane * step)
-            dst.append(t.data_ptr() + lane * step)
-            strides.append(G)
-    return src, dst, strides
+        kind = _VAL_DTYPE_CODES[v.dtype] * 3 + _OP_CODES[op]
+        if G == 1:
+            for dst, x in zip(lanes, (v.data_ptr(), t.data_ptr(), kind)):
+                dst.append(x)
+        elif G > 1:
+            for dst, x in zip(rows, (v.data_ptr(), t.data_ptr(), kind, G)):
+                dst.append(x)
+    return lanes, rows
 
 
 def aggregate_args(valid, key_cols, val_cols, ops, part, nparts, R, seed,
@@ -658,22 +713,21 @@ def aggregate_args(valid, key_cols, val_cols, ops, part, nparts, R, seed,
                    passes: int = 7) -> tuple:
     """``bs_hash_aggregate``'s arguments over checked tensors and the
     buffers of ``aggregate_buffers`` (also what a bare-kernel timing
-    passes); ``val_cols`` are the columns the kernel holds, at most
-    ``MAX_COLS`` lanes. ``passes`` picks the kernel's passes (bit 0:
+    passes); ``val_cols`` are the columns the kernel combines
+    (``aggregate_routes``). ``passes`` picks the kernel's passes (bit 0:
     bucket, bit 1: aggregate, bit 2: spill); the wrapper runs all
     three."""
-    src, dst, strides = _value_lane_args(val_cols, buf.tables)
-    kinds = tuple(_VAL_DTYPE_CODES[v.dtype] * 3 + _OP_CODES[op]
-                  for v, op in zip(val_cols, ops)
-                  for _ in range(value_lanes(v.shape[1:])))
+    (src, dst, kinds), (rsrc, rdst, rkinds, rgs) = _value_args(
+        val_cols, ops, buf.tables)
     return (
         _ptrs(key_cols), _key_codes(tuple(k.dtype for k in key_cols)),
-        len(key_cols), _PtrArray(*src), _codes(kinds), _codes(tuple(strides)),
-        len(src), valid.data_ptr(), part.data_ptr(), key_cols[0].shape[0],
+        len(key_cols), _PtrArray(*src), _codes(tuple(kinds)), len(src),
+        _PtrArray(*rsrc), _codes(tuple(rkinds)), _codes(tuple(rgs)),
+        len(rsrc), valid.data_ptr(), part.data_ptr(), key_cols[0].shape[0],
         nparts, R, _seed32_cached(seed ^ SLOT_SEED_XOR), plan.bucket_log2,
         plan.nbuckets, buf.pay.data_ptr(), buf.spill.data_ptr(),
         buf.claim.data_ptr(), buf.meta.data_ptr(), buf.present.data_ptr(),
-        _ptrs(buf.out_keys), _PtrArray(*dst),
+        _ptrs(buf.out_keys), _PtrArray(*dst), _PtrArray(*rdst),
         buf.placed.data_ptr() if buf.placed is not None else None, passes,
         _stream(valid.device),
     )

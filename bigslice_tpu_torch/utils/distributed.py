@@ -22,6 +22,9 @@ one GPU).
   (c10d ``TCPStore``); a peer whose beat has not advanced for
   ``timeout`` seconds of local time is lost, and ``check()`` raises
   ``PeerLostError`` (the executor calls it before every group).
+- ``store_try_get``: a read of the group's store that never waits (the
+  store's own ``get`` waits for an absent key, and the process's other
+  store calls with it).
 - ``default_mesh_provider``: the elastic session's mesh discovery, in
   one process.
 """
@@ -39,7 +42,7 @@ import torch
 __all__ = ["Keepalive", "PeerLostError", "check_injected_peer_loss",
            "default_mesh_provider", "get_keepalive", "global_mesh",
            "initialize", "is_coordinator", "local_device", "process_count",
-           "process_index", "shutdown"]
+           "process_index", "shutdown", "store_try_get"]
 
 _lock = threading.Lock()
 _device: Optional[torch.device] = None
@@ -175,6 +178,23 @@ class PeerLostError(RuntimeError):
     """A peer process stopped beating: wedged or dead."""
 
 
+#: ``store_try_get``'s expected value, which no key of the port holds.
+_ABSENT = "\x00bigslice-absent\x00"
+
+
+def store_try_get(store, key: str) -> Optional[bytes]:
+    """``key``'s value in a c10d store, or None when it is absent,
+    without waiting (a store that fails raises). The store's ``get``
+    waits until the key exists and holds the process's client while it
+    waits, so every other thread's store call waits too, the keepalive's
+    beat among them: a ``check`` then ``get`` that loses the race with a
+    peer's delete of the key stalls this process's beat until the
+    store's timeout, and its peers judge it lost. ``compare_set``
+    against a value no key holds answers at once and creates nothing."""
+    v = bytes(store.compare_set(key, _ABSENT, _ABSENT))
+    return None if v == _ABSENT.encode() else v
+
+
 class Keepalive:
     """Liveness of the peers over the process group's store (reference
     utils/distributed.py:63-219, there over the jax coordination KV). A
@@ -247,11 +267,11 @@ class Keepalive:
             if pid == self._pid:
                 continue
             try:
-                key = self._key(pid)
-                if not self._store.check([key]):
+                raw = store_try_get(self._store, self._key(pid))
+                if raw is None:
                     self._seen.pop(pid, None)
                     continue
-                beat = int(self._store.get(key))
+                beat = int(raw)
             except Exception:  # noqa: BLE001 — indeterminate: not aged
                 continue
             prev = self._seen.get(pid)

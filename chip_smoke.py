@@ -300,17 +300,20 @@ injected ``peer.lost``; (f) the sm_90a build check of every source
 
 Phase 34 drives an undeclared ``Reduce`` over vector value columns
 through K2 (``auto_dense=False``, no ``dense_keys``), each once counted
-and three times warm like phases 4-7: (a) the wide route, phase 27e's
+and three times warm like phases 4-7, both on K2's vector route (each
+row gathered whole into the bucket's shared sub-table): (a) phase 27e's
 k-means point sums (2**20 float32 points of d = 128, keys in [0, 1024),
 S = 4), every key's [128] sum against a float64 numpy oracle within
-1e-4 of its summands' absolute sum; (b) the narrow route, reduce-wave's
-widths with a vector payload (2**23 rows over 2**20 keys, int32 [n, 8]
-values, S = 4), every row exact against numpy. Each prints its warm
-wall, K1 and K2 launches (both above 0), that no op went to the sort
-path (``hash_off`` empty), its peak device memory and the phase's
-seconds. Phase 2 holds K2 against its plain version at G = 4, 8
-(narrow) and 9, 128 (wide), add, max and min on int32 and float32, the
-spill case included.
+1e-4 of its summands' absolute sum; (b) reduce-wave's widths with a
+vector payload (2**23 rows over 2**20 keys, int32 [n, 8] values, S =
+4), every row exact against numpy. Each prints its warm wall, K1 and
+K2 launches (both above 0), that no op went to the sort path
+(``hash_off`` empty), its peak device memory and the phase's seconds.
+Phase 2 holds K2 against its plain version at G = 4, 8, 9, 128 and
+1814 (the boundary) on the vector route and at 1815 past it
+(scattered), add, max and min on int32 and float32, the spill case
+included, and times the route against the placement-and-scatter
+yardstick and G scalar columns (``_route_pairs``).
 
 Every check raises, so any failed phase exits non-zero. The line before
 the last is ``{"kernels": [...]}``; the last is
@@ -453,19 +456,18 @@ def bare_aggregate_ms(valid, keys, vals, ops, part, nparts, R,
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
 
     n, T, device = valid.shape[0], nparts * R, valid.device
-    # The kernel's share of K2's two routes: the value columns whose
-    # lanes it holds (all of them when they fit, else the scalar ones,
-    # the rows' slots written for the wide columns' scatter, which is
+    # The kernel's share of K2: the value columns it combines (the
+    # rows' slots written for the scattered columns, whose scatter is
     # not in this time).
     shapes = [tuple(v.shape[1:]) for v in vals]
-    held, wide = ck.aggregate_routes(shapes, [v.dtype for v in vals])
-    vals = [vals[i] for i in held]
-    ops = [ops[i] for i in held]
-    plan = ck.aggregate_plan(len(keys), sum(ck.value_lanes(shapes[i])
-                                            for i in held),
-                             nparts, R, n, row_lane=bool(wide))
-    buf = ck.aggregate_buffers(plan, keys, vals, T, device,
-                               placed=bool(wide))
+    routes = ck.aggregate_routes(shapes, [v.dtype for v in vals], len(keys))
+    wide = "scatter" in routes
+    vals = [v for v, r in zip(vals, routes) if r == "kernel"]
+    ops = [op for op, r in zip(ops, routes) if r == "kernel"]
+    nvals, words = ck.kernel_words(shapes, routes)
+    plan = ck.aggregate_plan(len(keys), nvals, nparts, R, n,
+                             row_lane=wide, row_words=words)
+    buf = ck.aggregate_buffers(plan, keys, vals, T, device, placed=wide)
     lib = ck.build()
 
     def run(passes):
@@ -912,17 +914,24 @@ def phase2_kernels(device) -> dict:
 
 
 #: Phase 2's vector-value cases of K2: (label, G, rows, nparts, R, key
-#: span). G = 4 and 8 take the narrow route (every lane in the kernel,
-#: read at stride G), 9 and 128 the wide one (the kernel places the rows,
-#: the [n, G] rows are scattered after it). The G = 8 and G = 128 cases
-#: are phase 34's map waves: 34b's 2**21 rows into 4 regions of 2**19,
-#: 34a's 2**18 k-means points into 4 regions of 2**16.
+#: span). Every G up to the boundary takes the kernel's one vector route
+#: (each [n, G] row gathered whole into the bucket's [B, G] shared
+#: sub-table): 4, 8 and 128 (16-byte loads), 9 (one word a load), and
+#: 1814, the most words a 32-slot sub-table holds beside one key lane
+#: (one block an SM); 1815 is past it and scattered after the kernel.
+#: The G = 8 and G = 128 cases are phase 34's map waves: 34b's 2**21
+#: rows into 4 regions of 2**19, 34a's 2**18 k-means points into 4
+#: regions of 2**16.
 VECTOR_CASES = (
     ("G=4", 4, 1 << 18, 4, 1 << 16, 1 << 16),
     ("G=8 (34b map wave)", 8, 1 << 21, 4, 1 << 19, 1 << 20),
     ("G=9", 9, 1 << 18, 4, 1 << 16, 1 << 16),
     ("G=128 (34a map wave)", 128, 1 << 18, 4, 1 << 16, 1 << 10),
+    ("G=1814 (the boundary)", 1814, 1 << 14, 4, 1 << 12, 1 << 12),
 )
+
+#: The first G past the boundary: scattered after the kernel.
+PAST_BOUNDARY_G = 1815
 
 
 def _vector_values(gen, n, G, dtype, op, device):
@@ -980,11 +989,13 @@ def _phase2_vector(device) -> dict:
     """K2 over [n, G] value columns against its plain version: for each
     ``VECTOR_CASES`` shape, int32 and float32, add, max and min each on
     one column, then a scalar int32 add beside a float32 [n, G] max (a
-    wide case's scalar column stays in the kernel). Then the spill case
-    at G = 8 and G = 128 (keys homed in one bucket's range, as phase 2's
-    scalar spill case), and the bare kernel, the wrapper and the plain
-    version timed at phase 34's two map waves (float32 add at G = 128,
-    int32 add at G = 8)."""
+    value lane beside a value row); one int32 add past the boundary
+    (``PAST_BOUNDARY_G``, scattered). Then the spill case at G = 8 and
+    G = 128 (keys homed in one bucket's range, as phase 2's scalar spill
+    case: pass C combines the spilled rows), the bare kernel, the
+    wrapper and the plain version timed at phase 34's two map waves
+    (float32 add at G = 128, int32 add at G = 8) and at G = 4, and the
+    route against its yardsticks (``_route_pairs``)."""
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
 
     gen = torch.Generator(device=device).manual_seed(34)
@@ -1003,8 +1014,9 @@ def _phase2_vector(device) -> dict:
                             dtype=torch.int32)
         valid = torch.rand(n, generator=gen, device=device) < 0.95
         part, _ = ck.hash_partition([key], nparts, 0, with_counts=False)
-        held, wide = ck.aggregate_routes([(G,)])
-        route = "wide" if wide else "narrow"
+        route = ck.aggregate_routes([(G,)])[0]
+        if route != "kernel":
+            raise AssertionError(f"{label}: routed to {route}")
         for dtype in (torch.int32, torch.float32):
             for op in ("add", "max", "min"):
                 v = _vector_values(gen, n, G, dtype, op, device)
@@ -1027,15 +1039,36 @@ def _phase2_vector(device) -> dict:
         out["cases"].append(dict(label=label, G=G, n=n, nparts=nparts, R=R,
                                  route=route))
         mark(label)
-    # The spill case with vector values: pass C places the rows, and for
-    # the wide route writes their slots.
+    # Past the boundary: the kernel places the rows, the rows are
+    # scattered whole after it.
+    G, n, nparts, R, span = PAST_BOUNDARY_G, 1 << 14, 4, 1 << 12, 1 << 12
+    key = torch.randint(0, span, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    part, _ = ck.hash_partition([key], nparts, 0, with_counts=False)
+    v = _vector_values(gen, n, G, torch.int32, "add", device)
+    args = (valid, [key], [v], ["add"], part, nparts, R)
+    route = ck.aggregate_routes([(G,)])[0]
+    if route != "scatter":
+        raise AssertionError(f"G={G}: routed to {route}")
+    err = max(err, _vector_rows_err(
+        ck.hash_aggregate(*args), ck.hash_aggregate_plain(*args),
+        f"G={G} int32 add"))
+    log(f"phase 2: hash_aggregate G={G} (past the boundary: {route}), "
+        f"n={n} nparts={nparts} R={R}: int32 add rows equal per key")
+    out["cases"].append(dict(label=f"G={G}", G=G, n=n, nparts=nparts, R=R,
+                             route=route))
+    mark(f"G={G}")
+    # The spill case with vector values: pass C places the spilled rows
+    # and combines their words into the table with global atomics.
     nparts, R = 4, 1 << 16
-    skey = _spill_keys(nparts, R)
-    srng = np.random.RandomState(7)
-    skeys = torch.from_numpy(srng.permutation(np.repeat(skey, 3))).to(device)
-    svalid = torch.ones(skeys.shape[0], dtype=torch.bool, device=device)
-    spart, _ = ck.hash_partition([skeys], nparts, 0, with_counts=False)
     for G in (8, 128):
+        skey = _spill_keys(nparts, R, G)
+        srng = np.random.RandomState(7)
+        skeys = torch.from_numpy(srng.permutation(np.repeat(skey, 3))).to(
+            device)
+        svalid = torch.ones(skeys.shape[0], dtype=torch.bool, device=device)
+        spart, _ = ck.hash_partition([skeys], nparts, 0, with_counts=False)
         sv = torch.randint(-100, 100, (skeys.shape[0], G), generator=gen,
                            device=device, dtype=torch.int32)
         args = (svalid, [skeys], [sv], ["add"], spart, nparts, R)
@@ -1046,12 +1079,11 @@ def _phase2_vector(device) -> dict:
             raise AssertionError(f"spill case G={G}: {int(got[0].sum())} "
                                  f"keys placed, not {len(skey)}")
         log(f"phase 2: hash_aggregate spill case at G={G}, {len(skey)} keys "
-            f"in one bucket's home range: rows equal per key")
+            f"in one {G}-word bucket's home range: rows equal per key")
     mark("spill")
-    # Timings at phase 34's map waves.
-    for label, G, dtype, n, R, span in (
-            ("34a", 128, torch.float32, 1 << 18, 1 << 16, 1 << 10),
-            ("34b", 8, torch.int32, 1 << 21, 1 << 19, 1 << 20)):
+    # Timings at phase 34's map waves and at G = 4.
+    for label, G, dtype, n, R, span in VECTOR_TIMED:
+        dtype = getattr(torch, dtype)
         key = torch.randint(0, span, (n,), generator=gen, device=device,
                             dtype=torch.int32)
         v = (torch.randn((n, G), generator=gen, device=device)
@@ -1062,7 +1094,8 @@ def _phase2_vector(device) -> dict:
         args = (valid, [key], [v], ["add"], part, 4, R)
         got = ck.hash_aggregate(*args)
         nkeys = int(got[0].sum())
-        ms = bare_aggregate_ms(valid, [key], [v], ["add"], part, 4, R, nkeys)
+        ms, passes = bare_aggregate_ms(valid, [key], [v], ["add"], part, 4,
+                                       R, nkeys, by_pass=True)
         wrapper = time_ms(lambda: ck.hash_aggregate(*args))
         plain = time_ms(lambda: ck.hash_aggregate_plain(*args), reps=3,
                         warmup=1)
@@ -1074,34 +1107,36 @@ def _phase2_vector(device) -> dict:
             raise AssertionError("hash_aggregate's declared bytes differ "
                                  "from its tensors' (vector values)")
         bound = bound_bytes / HBM_BYTES_PER_S * 1e3
-        route = "wide" if ck.aggregate_routes([(G,)])[1] else "narrow"
-        log(f"phase 2: hash_aggregate {label} map wave, n={n} [n, {G}] "
+        route = ck.aggregate_routes([(G,)])[0]
+        log(f"phase 2: hash_aggregate {label}, n={n} [n, {G}] "
             f"{str(dtype)[6:]} add, nparts=4 R={R} ({route} route): "
             f"kernel {ms:.4f} ms, wrapper {wrapper:.4f} ms (plain {plain:.4f}"
-            f" ms, bound {bound:.4f} ms, {bound_bytes} declared bytes), "
-            f"{nkeys} keys")
+            f" ms, bound {bound:.4f} ms, {bound_bytes} declared bytes, "
+            f"{bound / ms:.1%} of it), {nkeys} keys; queued passes ms "
+            f"{ {k: round(x, 4) for k, x in passes.items()} }")
         out["times"][label] = dict(G=G, n=n, R=R, route=route, ms=ms,
                                    wrapper_ms=wrapper, plain_ms=plain,
                                    bound_ms=bound, bound_bytes=bound_bytes,
-                                   keys=nkeys)
+                                   keys=nkeys, pass_ms=passes)
     mark("map-wave times")
     out["routes"] = {}
-    for label, G, n, R, span in (("G=8 (34b map wave)", 8, 1 << 21, 1 << 19,
-                                  1 << 20),
-                                 ("G=4", 4, 1 << 18, 1 << 16, 1 << 16)):
-        rp = _route_pairs(device, gen, G, n, R, span)
+    for label, G, dtype, n, R, span in VECTOR_TIMED:
+        dtype = getattr(torch, dtype)
+        rp = _route_pairs(device, gen, G, dtype, n, R, span)
         err = max(err, rp.pop("max_abs_err"))
         out["routes"][label] = rp
-        log(f"phase 2: hash_aggregate routes at {label}, n={n} [n, {G}] "
-            f"int32 add, nparts=4 R={R}, {ROUTE_ROUNDS} rounds in "
+        lanes = (f"on {G} contiguous scalar columns {rp['lanes']:.4f} ms "
+                 f"(faster than the [n, {G}] column in "
+                 f"{rp['lanes_beat_vector']} of {ROUTE_ROUNDS} rounds), "
+                 if "lanes" in rp else "")
+        log(f"phase 2: hash_aggregate route at {label}, n={n} [n, {G}] "
+            f"{str(dtype)[6:]} add, nparts=4 R={R}, {ROUTE_ROUNDS} rounds in "
             f"alternating order, medians of the rounds' medians: the "
-            f"wrapper on the [n, {G}] column {rp['vector']:.4f} ms, on {G} "
-            f"contiguous scalar columns {rp['lanes']:.4f} ms, the rows "
-            f"placed on the keys alone and scattered whole "
+            f"wrapper on the [n, {G}] column {rp['vector']:.4f} ms, {lanes}"
+            f"the rows placed on the keys alone and scattered whole "
             f"{rp['wide']:.4f} ms; the [n, {G}] column faster than the "
             f"scatter in {rp['vector_beats_wide']} of {ROUTE_ROUNDS} "
-            f"rounds, the scalar columns in {rp['lanes_beat_wide']}; rows "
-            f"equal per key")
+            f"rounds; rows equal per key")
     mark("routes")
     out["max_abs_err"] = err
     return out
@@ -1111,24 +1146,39 @@ def _phase2_vector(device) -> dict:
 ROUTE_ROUNDS = 10
 
 
-def _route_pairs(device, gen, G, n, R, span) -> dict:
-    """K2 at one [n, G] int32 add shape, computed three ways and timed
+#: Phase 2's timed vector shapes: (label, G, dtype name, rows, R, key
+#: span), 4 regions each; 34a and 34b are phase 34's map waves. (Names,
+#: not torch dtypes: a parse-pool worker imports this script without
+#: torch.)
+VECTOR_TIMED = (
+    ("34a", 128, "float32", 1 << 18, 1 << 16, 1 << 10),
+    ("34b", 8, "int32", 1 << 21, 1 << 19, 1 << 20),
+    ("G=4", 4, "int32", 1 << 18, 1 << 16, 1 << 16),
+)
+
+
+def _route_pairs(device, gen, G, dtype, n, R, span) -> dict:
+    """K2 at one [n, G] add shape, computed up to three ways and timed
     in ``ROUTE_ROUNDS`` rounds whose order alternates (each round's times
     the median of 5 runs between CUDA events): ``vector``, the wrapper on
-    the [n, G] column; ``lanes``, the wrapper on G contiguous scalar
-    columns of the same values (the kernel holds all G lanes; the copy
-    into them is not timed); ``wide``, the kernel placing the rows on
-    the keys alone, then the whole rows scattered into their slots
-    (``dense._scatter_tables``). The three tables are checked equal per
-    key."""
+    the [n, G] column (the kernel's vector route); ``wide``, the kernel
+    placing the rows on the keys alone, then the whole rows scattered
+    into their slots (``dense._scatter_tables``, the route of the columns
+    the kernel does not combine); and at G <= 8 ``lanes``, the wrapper
+    on G contiguous scalar columns of the same values (the kernel holds
+    G value lanes; the copy into them is not timed). The tables are
+    checked equal per key (float sums within 1e-4: atomics add in
+    arrival order)."""
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
     from bigslice_tpu_torch.parallel.dense import _scatter_tables
 
     nparts, T = 4, 4 * R
     key = torch.randint(0, span, (n,), generator=gen, device=device,
                         dtype=torch.int32)
-    v = _vector_values(gen, n, G, torch.int32, "add", device)
-    lanes = [v[:, j].contiguous() for j in range(G)]
+    v = (torch.randn((n, G), generator=gen, device=device)
+         if dtype == torch.float32 else
+         _vector_values(gen, n, G, dtype, "add", device))
+    float_add = dtype == torch.float32
     valid = torch.ones(n, dtype=torch.bool, device=device)
     part, _ = ck.hash_partition([key], nparts, 0, with_counts=False)
     plan = ck.aggregate_plan(1, 0, nparts, R, n, row_lane=True)
@@ -1137,11 +1187,6 @@ def _route_pairs(device, gen, G, n, R, span) -> dict:
     def vector():
         return ck.hash_aggregate(valid, [key], [v], ["add"], part, nparts,
                                  R)
-
-    def by_lanes():
-        p, k, t, o = ck.hash_aggregate(valid, [key], lanes, ["add"] * G,
-                                       part, nparts, R)
-        return p, k, [torch.stack(t, 1)], o
 
     def wide():
         buf = ck.aggregate_buffers(plan, [key], [], T, device, placed=True)
@@ -1153,10 +1198,20 @@ def _route_pairs(device, gen, G, n, R, span) -> dict:
         _, t = _scatter_tables(idx, [v], ["add"], T + 1)
         return buf.present, buf.out_keys, [t[0][:T]], buf.overflow
 
+    fns = {"vector": vector, "wide": wide}
     want = vector()
-    err = max(_vector_rows_err(by_lanes(), want, f"G={G} lanes"),
-              _vector_rows_err(wide(), want, f"G={G} wide"))
-    fns = {"vector": vector, "lanes": by_lanes, "wide": wide}
+    err = _vector_rows_err(wide(), want, f"G={G} wide", float_add)
+    if G <= ck.MAX_COLS:
+        lanes = [v[:, j].contiguous() for j in range(G)]
+
+        def by_lanes():
+            p, k, t, o = ck.hash_aggregate(valid, [key], lanes, ["add"] * G,
+                                           part, nparts, R)
+            return p, k, [torch.stack(t, 1)], o
+
+        fns["lanes"] = by_lanes
+        err = max(err, _vector_rows_err(by_lanes(), want, f"G={G} lanes",
+                                        float_add))
     rounds = {k: [] for k in fns}
     for r in range(ROUTE_ROUNDS):
         for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
@@ -1165,21 +1220,22 @@ def _route_pairs(device, gen, G, n, R, span) -> dict:
     out.update(
         rounds=rounds, max_abs_err=err,
         vector_beats_wide=sum(a < b for a, b in zip(rounds["vector"],
-                                                    rounds["wide"])),
-        lanes_beat_wide=sum(a < b for a, b in zip(rounds["lanes"],
-                                                  rounds["wide"])))
+                                                    rounds["wide"])))
+    if "lanes" in rounds:
+        out["lanes_beat_vector"] = sum(
+            a < b for a, b in zip(rounds["lanes"], rounds["vector"]))
     return out
 
 
-
-def _spill_keys(nparts, R) -> np.ndarray:
-    """Half as many keys again as one bucket of a one-key, one-value
-    table has slots, all of partition 1 with their home slots in bucket 3
-    of its region."""
+def _spill_keys(nparts, R, G: int = 1) -> np.ndarray:
+    """Half as many keys again as one bucket of a one-key table with one
+    value lane (``G`` = 1), or one [n, G] value row, has slots, all of
+    partition 1 with their home slots in bucket 3 of its region."""
     from bigslice_tpu_torch.parallel import cuda_kernels as ck
     from bigslice_tpu_torch.parallel import hashagg
 
-    plan = ck.aggregate_plan(1, 1, nparts, R, 0)
+    plan = (ck.aggregate_plan(1, 1, nparts, R, 0) if G == 1 else
+            ck.aggregate_plan(1, 0, nparts, R, 0, row_words=G))
     B = 1 << plan.bucket_log2
     cand = torch.arange(1 << 22, dtype=torch.int32)
     part, _ = ck.hash_partition_plain([cand], nparts, 0, with_counts=False)
@@ -7030,7 +7086,7 @@ def phase33_plane(card: str) -> dict:
         aot=report["sources"], seconds=secs)}
 
 
-#: Phase 34's narrow route: reduce-wave's widths with a vector payload.
+#: Phase 34b: reduce-wave's widths with a vector payload.
 VECTOR_NARROW_ROWS, VECTOR_NARROW_SPAN, VECTOR_NARROW_G = 1 << 23, 1 << 20, 8
 #: Phase 34a's tolerance: a key's float32 sum against float64, as a share
 #: of the absolute sum of its summands (the map side's atomics and the
@@ -7089,10 +7145,10 @@ def _vector_check(label, keys, vals, exact):
 
 def phase34_vector_reduce(card: str) -> dict:
     """34: an undeclared vector-value ``Reduce`` on K2 at full width.
-    (a) the wide route: the k-means point sums of phase 27e's points
-    (2**20 x 128 float32, 512 MiB) over keys in [0, 1024) from
-    default_rng(34), S = 4; (b) the narrow route: 2**23 rows over 2**20
-    keys (RandomState(42), reduce-wave's widths) with int32 [n, 8]
+    (a) the k-means point sums of phase 27e's points (2**20 x 128
+    float32, 512 MiB) over keys in [0, 1024) from default_rng(34), S =
+    4; (b) 2**23 rows over 2**20 keys (RandomState(42), reduce-wave's
+    widths) with int32 [n, 8]
     values in [-1000, 1000) from RandomState(34), about 300 MB, S = 4.
     Both ``MeshExecutor(auto_dense=False)``, every row checked."""
     import bigslice_tpu_torch as bs

@@ -69,14 +69,35 @@ def test_aggregate_supported_domain():
     assert not ck.aggregate_supported([i32], [i32], 4, 3 << 20, 10)
     assert not ck.aggregate_supported([torch.float32], [i32], 4, 64, 10)
     assert ck.aggregate_supported([i32], [torch.int64], 4, 64, 10)
-    assert ck.aggregate_routes([()], [torch.int64]) == ((), (0,))
+    assert ck.aggregate_routes([()], [torch.int64]) == ("scatter",)
     assert ck.aggregate_supported([i32], [i32] * 9, 4, 64, 10)
-    assert ck.aggregate_routes([()] * 9, [i32] * 9) == (tuple(range(8)),
-                                                       (8,))
+    assert ck.aggregate_routes([()] * 9, [i32] * 9) == (
+        ("kernel",) * 8 + ("scatter",))
     assert not ck.aggregate_supported([i32], [], 4, 64, 10)
     assert not ck.aggregate_supported([i32] * 9, [i32], 4, 64, 10)
     assert not ck.aggregate_supported([i32], [i32], 4, 64, 2**31)
     assert not ck.aggregate_supported([i32], [i32], 2**20, 2**20, 10)
+
+
+@pytest.mark.parametrize("G,log2,smem", [
+    (8, 11, 10 * 4 << 11),
+    (128, 7, 130 * 4 << 7),
+    (766, 5, 768 * 4 << 5),
+    (767, 6, 769 * 4 << 6),
+    (1814, 5, SMEM_PER_BLOCK),
+])
+def test_bucket_size_for_vector_rows(G, log2, smem):
+    """One key lane and a [n, G] column (G words a slot beside the 64-bit
+    claim word): B within the two-blocks-an-SM budget while it keeps 32
+    slots (2048 at G = 8, 128 at 34a's G = 128, 32 at G = 766), then
+    within one block's whole shared memory (64 slots at G = 767), down
+    to the 32 slots of the largest G the kernel takes (1814: exactly
+    232448 bytes)."""
+    plan = ck.aggregate_plan(1, 0, 4, 1 << 16, 1 << 18, row_words=G)
+    assert plan.bucket_log2 == log2
+    assert plan.smem_bytes == smem <= SMEM_PER_BLOCK
+    assert plan.payload_words == 2 << 18
+    assert ck.aggregate_routes([(G,)]) == ("kernel",)
 
 
 def test_aggregate_buffers():

@@ -508,6 +508,19 @@ def test_parse_workers_import_no_torch():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_chip_smoke_loads_as_a_parse_worker():
+    """``chip_smoke.py``'s phase 23 spawns parse workers, which import the
+    script as ``__mp_main__``, where it loads no torch: nothing at its
+    top level may name torch, or every worker dies at import and the pool
+    waits on them for good."""
+    import runpy
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    names = runpy.run_path(os.path.join(repo, "chip_smoke.py"),
+                           run_name="__mp_main__")
+    assert "torch" not in names and "main" in names
+
+
 def test_robustness_plane_runs_without_jax():
     """The robustness plane's modules (utils/faultinject, exec/adaptive,
     exec/codedplan, tools/chaosslice) and runs under a chaos plan, a

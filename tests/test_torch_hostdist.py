@@ -78,6 +78,23 @@ class FakeStore:
             self.log.append(("add", key))
             return v
 
+    def compare_set(self, key, expected, desired):
+        """c10d's: set ``desired`` where the key holds ``expected`` (or is
+        absent and ``expected`` is empty); the value after, and for an
+        absent key with another ``expected``, that ``expected``."""
+        expected = expected.encode() if isinstance(expected, str) \
+            else bytes(expected)
+        desired = desired.encode() if isinstance(desired, str) \
+            else bytes(desired)
+        with self.lock:
+            if key not in self.kv:
+                if expected:
+                    return expected
+                self.kv[key] = desired
+            elif self.kv[key] == expected:
+                self.kv[key] = desired
+            return self.kv[key]
+
 
 class FakeFrames:
     def __init__(self, frames=None):
@@ -464,3 +481,70 @@ def test_an_owner_left_at_an_earlier_exchange_fails_the_task_by_name(
     msg = peer._owner_verdict(0)
     assert "still at host-task exchange 1" in msg
     assert "process 1 at 2" in msg
+
+
+class _DeletedInTheWindow:
+    """A real c10d store whose ``check`` answers, then deletes the key:
+    a peer's delete landing between a reader's ``check`` and its
+    ``get``."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def check(self, keys):
+        found = self.store.check(keys)
+        for k in keys:
+            self.store.delete_key(k)
+        return found
+
+    def __getattr__(self, name):
+        return getattr(self.store, name)
+
+
+def test_a_key_deleted_under_a_read_stalls_no_store_call():
+    """ROADMAP C1.6: rank 0 opens its next exchange and deletes its
+    tombstone while rank 1, a step ahead, reads it. The c10d store's
+    ``get`` of a key that no longer exists waits for it, holding the
+    process's store client, so every other store call of rank 1 waited
+    too, its keepalive's beat among them: past the keepalive's timeout
+    rank 0 judged rank 1 lost and marked rank 1's host task lost at
+    every poll, five times, and the task went fatal. The read answers
+    at once (no tombstone, so no verdict) and a beat published meanwhile
+    is not held up."""
+    import datetime
+
+    import torch.distributed as dist
+
+    wait = datetime.timedelta(seconds=4)
+    server = dist.TCPStore("127.0.0.1", 0, 1, True, timeout=wait)
+    client = dist.TCPStore("127.0.0.1", server.port, 1, False, timeout=wait)
+    store = dist.PrefixStore("c16", client)
+    first = [make_exchange(pid=r, store=store) for r in (0, 1)]
+    for ex in first:
+        ex.close()                              # rank 0's tombstone
+    peer = make_exchange(pid=1, store=store)    # rank 1's next exchange
+    assert peer.gen == 2
+    assert store.check(["bigslice/hostdist_closed/0"])
+    peer.client = _DeletedInTheWindow(store)
+    beats, stop = [], threading.Event()
+
+    def beat():
+        while not stop.is_set():
+            t0 = time.monotonic()
+            store.set("bigslice/keepalive/1", str(len(beats)))
+            beats.append(time.monotonic() - t0)
+            time.sleep(0.02)
+
+    beater = threading.Thread(target=beat)
+    beater.start()
+    try:
+        time.sleep(0.1)
+        t0 = time.monotonic()
+        assert peer._owner_verdict(0) is None
+        read_s = time.monotonic() - t0
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        beater.join()
+    assert read_s < 1.0, f"the read waited {read_s:.2f} s"
+    assert max(beats) < 1.0, f"a beat waited {max(beats):.2f} s"

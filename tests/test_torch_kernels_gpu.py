@@ -1885,19 +1885,24 @@ def test_aotcheck_builds_every_source_on_the_card(dev, tmp_path):
 
 
 def _vector_table_rows(got):
-    """Occupied slots key by key: (sorted keys, each table's rows)."""
+    """Occupied slots key by key: (sorted keys, each table's rows; a
+    uint32 table's as its int32 bits, which CUDA can gather)."""
     present, keys, vals = got[:3]
     idx = torch.nonzero(present).squeeze(1)
     k = keys[0][idx]
     order = torch.argsort(k)
-    return k[order], [v[idx][order] for v in vals]
+    return k[order], [(v.view(torch.int32) if v.dtype == torch.uint32
+                       else v)[idx][order] for v in vals]
 
 
 def _check_vector_aggregate(dev, G, dtype, ops, n=1 << 16, nparts=4,
                             R=1 << 14, span=1 << 14, seed=0, keys=None):
     """K2 against its plain version over ``len(ops)`` [n, G] columns of
-    ``dtype``: the same keys, int and float max/min bits equal, a float
-    add within 1e-4 (the kernel adds in the atomics' order)."""
+    ``dtype``: the same keys, int and float max/min bits equal (-0.0,
+    +0.0 and NaN among the floats), a float add within 1e-4 relative
+    and absolute (the kernel adds in the atomics' order of arrival, the
+    plain version in row order: the sums of a few hundred normal values
+    differ in their last bits)."""
     rng = np.random.RandomState(seed)
     if keys is None:
         keys = rng.randint(0, span, n).astype(np.int32)
@@ -1907,9 +1912,13 @@ def _check_vector_aggregate(dev, G, dtype, ops, n=1 << 16, nparts=4,
         if dtype == np.int32:
             v = (rng.randint(-1000, 1000, (n, G)) if op == "add" else
                  rng.randint(-(2**31), 2**31 - 1, (n, G))).astype(np.int32)
+        elif dtype == np.uint32:
+            v = rng.randint(0, 2**32, (n, G), dtype=np.int64).astype(
+                np.uint32)
         else:
             v = rng.randn(n, G).astype(np.float32)
             v[::41, 0] = -0.0
+            v[::43, G - 1] = 0.0
             v[::4099, G // 2] = np.nan
         vals.append(torch.from_numpy(v).to(dev))
     key = torch.from_numpy(keys).to(dev)
@@ -1940,29 +1949,43 @@ def _check_vector_aggregate(dev, G, dtype, ops, n=1 << 16, nparts=4,
     empty = ~got[0]
     for t, op, v in zip(got[2], ops, vals):
         ident = identity_table(op, v.dtype, 1, dev, (G,))
-        assert torch.equal(t[empty].view(torch.int32),
-                           ident.expand(int(empty.sum()), G)
-                           .view(torch.int32))
+        assert torch.equal(t.view(torch.int32)[empty],
+                           ident.view(torch.int32).expand(
+                               int(empty.sum()), G))
     return got
 
 
+#: The most words a row of one vector column may have on K2's vector
+#: route beside one key lane (a 32-slot sub-table in 232448 bytes).
+BOUNDARY_G = 1814
+
+
 @pytest.mark.parametrize("op", ["add", "max", "min"])
-@pytest.mark.parametrize("dtype", [np.int32, np.float32],
-                         ids=["int32", "float32"])
-@pytest.mark.parametrize("G", [4, 8, 9, 128])
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.float32],
+                         ids=["int32", "uint32", "float32"])
+@pytest.mark.parametrize("G", [1, 3, 4, 8, 9, 128, BOUNDARY_G])
 def test_hash_aggregate_vector_values(dev, G, dtype, op):
-    """G = 4 and 8 take the narrow route (every lane in the kernel, read
-    at stride G), 9 and 128 the wide one (the kernel places the rows on
-    the keys, the rows are scattered whole after it)."""
-    held, wide = cuda_kernels.aggregate_routes([(G,)])
-    assert bool(wide) is (G > cuda_kernels.MAX_COLS)
-    _check_vector_aggregate(dev, G, dtype, [op], seed=G)
+    """Every G takes the kernel: [n, 1] as a value lane, every wider
+    column as a value row gathered whole into the bucket's shared
+    sub-table (16-byte loads at G = 4, 8 and 128, word by word at 3 and
+    9), up to the boundary, where a bucket holds 32 slots."""
+    assert cuda_kernels.aggregate_routes([(G,)]) == ("kernel",)
+    n = 1 << 12 if G == BOUNDARY_G else 1 << 16
+    _check_vector_aggregate(dev, G, dtype, [op], n=n, seed=G)
+
+
+def test_hash_aggregate_past_the_boundary_scatters(dev):
+    """One word past the boundary, the rows are placed on the keys and
+    scattered whole after the kernel: rows equal all the same."""
+    G = BOUNDARY_G + 1
+    assert cuda_kernels.aggregate_routes([(G,)]) == ("scatter",)
+    _check_vector_aggregate(dev, G, np.int32, ["add"], n=1 << 12, seed=G)
 
 
 @pytest.mark.parametrize("G", [4, 9, 128])
 def test_hash_aggregate_scalar_beside_vector(dev, G):
-    """A scalar add column beside a vector max column: narrow at G = 4
-    (five lanes, two strides), wide past it (the scalar in the kernel)."""
+    """A scalar add column beside a vector max column: a value lane and
+    a value row in one sub-table."""
     rng = np.random.RandomState(G)
     n, nparts, R = 1 << 16, 4, 1 << 14
     keys = rng.randint(0, R, n).astype(np.int32)
@@ -1983,13 +2006,13 @@ def test_hash_aggregate_scalar_beside_vector(dev, G):
 
 @pytest.mark.parametrize("G", [8, 128])
 def test_hash_aggregate_vector_spill(dev, G):
-    """The scalar spill case's keys (homed in one bucket of region 1)
-    with [n, G] values: pass C places the rows the bucket cannot, and on
-    the wide route writes their slots."""
+    """Keys homed in one bucket of region 1, half as many again as its
+    slots, with [n, G] values: pass C places the keys the bucket cannot
+    hold and combines their rows into the table, each key once."""
     from bigslice_tpu_torch.parallel import hashagg
 
     nparts, R = 4, 1 << 16
-    plan = cuda_kernels.aggregate_plan(1, 1, nparts, R, 0)
+    plan = cuda_kernels.aggregate_plan(1, 0, nparts, R, 0, row_words=G)
     B = 1 << plan.bucket_log2
     cand = torch.arange(1 << 22, dtype=torch.int32)
     part, _ = cuda_kernels.hash_partition_plain([cand], nparts, 0,
@@ -2000,12 +2023,17 @@ def test_hash_aggregate_vector_spill(dev, G):
     got = _check_vector_aggregate(dev, G, np.int32, ["add"], nparts=nparts,
                                   R=R, seed=G, keys=keys)
     assert int(got[0].sum()) <= len(chosen)
+    # Some keys left the bucket: their slots lie outside its range.
+    slots = torch.nonzero(got[0]).squeeze(1)
+    B = 1 << plan.bucket_log2
+    home = (slots - R) // B
+    assert bool((home != 3).any())
 
 
 @pytest.mark.parametrize("G", [8, 128])
 def test_vector_value_reduce_on_the_card(dev, G):
     """An undeclared Reduce over [n, G] values through Session() on the
-    card (phase 34's two routes, cut): K1 and K2 launched, no op on the
+    card (phase 34's two shapes, cut): K1 and K2 launched, no op on the
     sort path, rows equal to the CPU run's (int32 exact)."""
     import bigslice_tpu_torch as bs
 

@@ -6,8 +6,9 @@ exec/meshexec.py ``_hash_combine_ops``) and its table build claims a
 slot per key, then scatters whole rows (parallel/hashagg.py
 ``hash_aggregate``). The port does the same: ``FrameCombiner.hash_ops``
 classifies with the columns' shapes, and ``cuda_kernels.hash_aggregate``
-holds the rows' lanes in the kernel (narrow route) or places the rows
-and scatters them after it (wide route); on the CPU its plain version,
+gathers each row whole into the kernel's shared sub-table (a value
+row), or places the rows and scatters them after it (a column it does
+not combine); on the CPU its plain version,
 the claim cascade and the row scatter, is the JAX package's XLA
 lowering slot for slot.
 
@@ -174,34 +175,46 @@ def test_empty_vector_table_holds_identities():
     assert bool((tables[1] == np.iinfo(np.int32).max).all())
 
 
-@pytest.mark.parametrize("shapes,held,wide", [
-    ([()], (0,), ()),
-    ([(8,)], (0,), ()),
-    ([(4,), ()], (0, 1), ()),
-    ([(2, 4)], (0,), ()),
-    ([(9,)], (), (0,)),
-    ([(), (128,)], (0,), (1,)),
-    ([(4,), (4,), ()], (2,), (0, 1)),
-    ([()] * 8, tuple(range(8)), ()),
-])
-def test_aggregate_routes(shapes, held, wide):
-    """Narrow when every lane fits the kernel's eight; else the kernel
-    holds the scalar columns and the vector ones are scattered."""
-    assert cuda_kernels.aggregate_routes(shapes) == (held, wide)
+K, S = "kernel", "scatter"
 
 
-@pytest.mark.parametrize("dtypes,held,wide", [
-    ([torch.int32, torch.float32], (0, 1), ()),
-    ([torch.int16, torch.int32], (1,), (0,)),
-    ([torch.float16], (), (0,)),
-    ([torch.int32] * 9, tuple(range(8)), (8,)),
+@pytest.mark.parametrize("shapes,routes", [
+    ([()], (K,)),
+    ([(8,)], (K,)),
+    ([(4,), ()], (K, K)),
+    ([(2, 4)], (K,)),
+    ([(9,)], (K,)),
+    ([(), (128,)], (K, K)),
+    ([(4,), (4,), ()], (K, K, K)),
+    ([()] * 8, (K,) * 8),
+    ([(1814,)], (K,)),
+    ([(1815,)], (S,)),
+    ([(), (1814,)], (K, S)),
+    ([(1000,), (1000,)], (K, S)),
+    ([()] * 9, (K,) * 8 + (S,)),
+    ([(2,)] * 9, (K,) * 8 + (S,)),
 ])
-def test_aggregate_routes_by_dtype(dtypes, held, wide):
+def test_aggregate_routes(shapes, routes):
+    """One route for the kernel's dtypes: every scalar column (up to
+    eight) is a value lane and every [n, G] column (up to eight) a value
+    row gathered whole, until the rows' words pass what a 32-slot
+    sub-table holds in one block's shared memory (1814 words beside one
+    key lane); a column past that is scattered."""
+    assert cuda_kernels.aggregate_routes(shapes) == routes
+
+
+@pytest.mark.parametrize("dtypes,routes", [
+    ([torch.int32, torch.float32], (K, K)),
+    ([torch.int16, torch.int32], (S, K)),
+    ([torch.float16], (S,)),
+    ([torch.int32] * 9, (K,) * 8 + (S,)),
+])
+def test_aggregate_routes_by_dtype(dtypes, routes):
     """Scalar columns of a dtype the kernel does not combine (int16,
     float16), and a ninth column, are scattered after it, as the JAX
     package's XLA table takes what its Pallas kernel cannot."""
     shapes = [()] * len(dtypes)
-    assert cuda_kernels.aggregate_routes(shapes, dtypes) == (held, wide)
+    assert cuda_kernels.aggregate_routes(shapes, dtypes) == routes
 
 
 @pytest.mark.parametrize("dtype", [np.int16, np.float16],
@@ -231,10 +244,12 @@ def test_aggregate_supported_takes_vector_shapes():
                                             1 << 18, [(128,)])
     assert cuda_kernels.aggregate_supported([i32], [i32, f32], 4, 64, 10,
                                             [(), (9,)])
-    # The wide route's slots are int32: a table of 2**31 slots or more
-    # cannot take it.
-    assert not cuda_kernels.aggregate_supported([i32], [f32], 2**11,
-                                                2**20, 10, [(128,)])
+    # The scattered columns' slots are int32: a table of 2**31 slots or
+    # more cannot take them; the kernel's own rows it can.
+    assert not cuda_kernels.aggregate_supported([i32], [torch.float16],
+                                                2**11, 2**20, 10, [(128,)])
+    assert cuda_kernels.aggregate_supported([i32], [f32], 2**11, 2**20,
+                                            10, [(128,)])
     assert cuda_kernels.aggregate_supported([i32], [f32], 2**11, 2**20,
                                             10, [(8,)])
 
@@ -258,9 +273,10 @@ def test_declared_cost_counts_vector_rows():
 
 
 def test_wave_model_counts_the_wide_route():
-    """The wide route keeps the scattered rows out of the kernel's
-    bucketed copy, which carries a row index, beside each row's slot and
-    the scatter's int64 index."""
+    """Value bytes a row that K2's bucketed copy does not carry (vector
+    rows, gathered whole by the row index it carries instead, and
+    scattered columns) stay out of the model's copy, which counts the
+    row index, each row's slot and the scatter's int64 index."""
     base = MeshExecutor.wave_bytes_model(1000, 4 + 512, hash_table=True)
     wide = MeshExecutor.wave_bytes_model(1000, 4 + 512, hash_table=True,
                                          wide_bytes=512)
